@@ -1,0 +1,54 @@
+"""Carry weights across from the JAX package into the port.
+
+``load_llama_decode_weights(model, arrays)`` takes the structure the
+reference's ``LlamaForCausalLM.decode_weights()`` returns, as numpy
+arrays::
+
+    (embed, final_norm, lm_head | None,
+     [(in_norm, q, k, v, o, post_norm, gate, up, down), ...])
+
+and copies it into the port's modules.  Dense weights are ``(out, in)``
+in both packages (``x @ w.T``), so every array copies as it is; dtype
+conversion happens in the copy.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .base import MXNetError
+
+__all__ = ["load_llama_decode_weights"]
+
+_LAYER_NAMES = ("in_norm", "q", "k", "v", "o", "post_norm", "gate", "up",
+                "down")
+
+
+def _copy(dst, src, name):
+    arr = np.asarray(src)
+    if tuple(arr.shape) != tuple(dst.shape):
+        raise MXNetError(f"{name}: shape {tuple(arr.shape)} does not match "
+                         f"the port's {tuple(dst.shape)}")
+    dst.copy_(torch.from_numpy(np.array(arr, dtype=np.float32)))
+
+
+@torch.no_grad()
+def load_llama_decode_weights(model, arrays):
+    """Copy the reference's decode-weight structure ``arrays`` into
+    ``model`` (a port ``LlamaForCausalLM``) in place; returns ``model``."""
+    embed, norm, head, layers = arrays
+    dst_embed, dst_norm, dst_head, dst_layers = model.decode_weights()
+    if (head is None) != (dst_head is None):
+        raise MXNetError("lm_head: tie_embeddings differs between the "
+                         "source weights and the port's config")
+    if len(layers) != len(dst_layers):
+        raise MXNetError(f"{len(layers)} source layers vs the port's "
+                         f"{len(dst_layers)}")
+    _copy(dst_embed, embed, "embed")
+    _copy(dst_norm, norm, "final_norm")
+    if head is not None:
+        _copy(dst_head, head, "lm_head")
+    for i, (src, dst) in enumerate(zip(layers, dst_layers)):
+        for name, s, d in zip(_LAYER_NAMES, src, dst):
+            _copy(d, s, f"layer {i} {name}")
+    return model

@@ -1,0 +1,285 @@
+"""The port's kernel modules against the JAX package, on the CPU.
+
+Each case feeds the same numpy inputs (made from a seed) to the JAX
+function and to its counterpart in ``mxnet_tpu_torch``.  On CPU tensors
+the port's ops run their plain PyTorch versions, which are what the CUDA
+kernels are held against on the card (``chip_smoke.py``,
+``tests/test_torch_port_cuda.py``).
+
+Tolerances: float32 cases 2e-5 (rtol and atol; the same algorithm, only
+the summation order differs between XLA and PyTorch); a bf16 pool holds
+the same bf16 codes in both packages and is widened to f32 before the
+math, so it keeps 2e-5; a bf16 query rounds the output to bf16, so that
+case allows one bf16 ulp of the output's magnitude (8e-3 relative).
+"""
+import ast
+import json
+import os
+import pathlib
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+
+import jax.numpy as jnp
+import torch
+
+from mxnet_tpu.ops import paged_decode_attention as jax_paged
+from mxnet_tpu.ops.paged_attention import _fallback as jax_paged_fallback
+
+import mxnet_tpu_torch as mt
+from mxnet_tpu_torch.ops import _build
+from mxnet_tpu_torch.ops.flash_attention import (flash_attention,
+                                                 flash_attention_fwd,
+                                                 flash_attention_plain)
+from mxnet_tpu_torch.ops.paged_attention import paged_decode_attention
+from mxnet_tpu_torch.ops.quant_kv import resolve_kv_dtype
+
+REPO = pathlib.Path(__file__).resolve().parents[1]
+TOL = dict(rtol=2e-5, atol=2e-5)
+FLASH_CASES = [(causal, L, D) for causal in (False, True)
+               for L in (16, 128) for D in (16, 64, 128)]
+
+
+def _jax_flash_module():
+    # ``mxnet_tpu.ops`` re-exports the function under the module's name
+    import mxnet_tpu.ops  # noqa: F401
+    return sys.modules["mxnet_tpu.ops.flash_attention"]
+
+
+def _qkv(seed, shape):
+    rng = np.random.RandomState(seed)
+    return [rng.randn(*shape).astype(np.float32) for _ in range(3)]
+
+
+# ----------------------------------------------------------------------
+# flash attention (K3)
+# ----------------------------------------------------------------------
+
+@pytest.mark.parametrize("causal,L,D", FLASH_CASES)
+def test_flash_matches_jax_scan_forward(causal, L, D):
+    """(out, lse) of the port's op vs the reference's ``_flash_fwd``,
+    which on the CPU is the blockwise ``_scan_forward``."""
+    mod = _jax_flash_module()
+    q, k, v = _qkv(L + D, (3, L, D))
+    scale = 1.0 / np.sqrt(D)
+    ref_out, res = mod._flash_fwd(jnp.asarray(q), jnp.asarray(k),
+                                  jnp.asarray(v), causal, scale)
+    out, lse = flash_attention_fwd(torch.from_numpy(q), torch.from_numpy(k),
+                                   torch.from_numpy(v), causal)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref_out), **TOL)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(res[4]), **TOL)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_public_layout_matches_jax(causal):
+    """The (B, H, L, D) public op, cross-attention lengths included."""
+    from mxnet_tpu.ops import flash_attention as jax_flash
+    rng = np.random.RandomState(11)
+    q = rng.randn(2, 3, 48, 64).astype(np.float32)
+    k = rng.randn(2, 3, 48, 64).astype(np.float32)
+    v = rng.randn(2, 3, 48, 64).astype(np.float32)
+    ref = jax_flash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                    causal=causal)
+    out = flash_attention(torch.from_numpy(q), torch.from_numpy(k),
+                          torch.from_numpy(v), causal=causal)
+    assert out.shape == (2, 3, 48, 64)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), **TOL)
+
+
+def test_flash_bf16_rounds_p_like_the_reference():
+    """bf16 inputs: p is rounded to bf16 before the PV product in both
+    packages (``_scan_forward`` casts ``p.astype(v.dtype)``)."""
+    mod = _jax_flash_module()
+    q, k, v = _qkv(5, (2, 128, 64))
+    qb, kb, vb = (jnp.asarray(a, jnp.bfloat16) for a in (q, k, v))
+    ref, _ = mod._scan_forward(qb, kb, vb, True, 0.125, 128)
+    out, _ = flash_attention_plain(
+        *(torch.from_numpy(a).to(torch.bfloat16) for a in (q, k, v)),
+        True, 0.125, 128)
+    ref32 = np.asarray(ref.astype(jnp.float32))
+    np.testing.assert_allclose(out.float().numpy(), ref32, rtol=8e-3,
+                               atol=8e-3)
+
+
+_PALLAS_SCRIPT = r"""
+import functools, json, sys
+import numpy as np
+from unittest import mock
+import jax.numpy as jnp
+from jax.experimental import pallas as pl
+import mxnet_tpu.ops
+mod = sys.modules["mxnet_tpu.ops.flash_attention"]
+cases, out_path = json.loads(sys.argv[1]), sys.argv[2]
+res = {}
+interp = functools.partial(pl.pallas_call, interpret=True)
+for causal, L, D in cases:
+    rng = np.random.RandomState(L + D)
+    q, k, v = (jnp.asarray(rng.randn(3, L, D).astype(np.float32))
+               for _ in range(3))
+    with mock.patch.object(pl, "pallas_call", interp):
+        o, lse = mod._pallas_forward(q, k, v, causal, 1.0 / np.sqrt(D), L, L)
+    res[f"{int(causal)}_{L}_{D}_out"] = np.asarray(o)
+    res[f"{int(causal)}_{L}_{D}_lse"] = np.asarray(lse)
+np.savez(out_path, **res)
+"""
+
+
+@pytest.fixture(scope="module")
+def pallas_interpret_results(tmp_path_factory):
+    """The reference's Pallas kernel run in interpret mode, in a child
+    process: this test process pins JAX to the CPU backend, where the
+    Pallas TPU lowering rules cannot register."""
+    out = tmp_path_factory.mktemp("pallas") / "flash.npz"
+    env = dict(os.environ, JAX_PLATFORMS="cpu", PYTHONPATH=str(REPO))
+    proc = subprocess.run(
+        [sys.executable, "-W", "ignore", "-c", _PALLAS_SCRIPT,
+         json.dumps(FLASH_CASES), str(out)],
+        env=env, cwd=str(REPO), capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    return dict(np.load(out))
+
+
+@pytest.mark.parametrize("causal,L,D", FLASH_CASES)
+def test_flash_matches_pallas_kernel_interpret(pallas_interpret_results,
+                                               causal, L, D):
+    q, k, v = _qkv(L + D, (3, L, D))
+    out, lse = flash_attention_fwd(torch.from_numpy(q), torch.from_numpy(k),
+                                   torch.from_numpy(v), causal)
+    key = f"{int(causal)}_{L}_{D}"
+    np.testing.assert_allclose(out.numpy(),
+                               pallas_interpret_results[key + "_out"], **TOL)
+    np.testing.assert_allclose(lse.numpy(),
+                               pallas_interpret_results[key + "_lse"], **TOL)
+
+
+# ----------------------------------------------------------------------
+# paged decode attention (K5)
+# ----------------------------------------------------------------------
+
+def _paged_inputs(seed, B=4, h=4, kvh=2, d=16, num_blocks=16, bs=4, nbl=3):
+    """Pools, scattered block tables (out-of-order physical blocks, 0 as
+    null padding) and mixed positions, as numpy; GQA rep = h / kvh."""
+    rng = np.random.RandomState(seed)
+    q = rng.randn(B, h, d).astype(np.float32)
+    kp = rng.randn(num_blocks, bs, kvh, d).astype(np.float32)
+    vp = rng.randn(num_blocks, bs, kvh, d).astype(np.float32)
+    tables = np.zeros((B, nbl), np.int32)
+    perm = rng.permutation(np.arange(1, num_blocks))
+    tables[0] = perm[:nbl]                      # full context
+    tables[1, :2] = perm[nbl:nbl + 2]           # 2 blocks + null pad
+    tables[2, :1] = perm[nbl + 2:nbl + 3]       # mid-first-block
+    pos = np.array([nbl * bs - 1, bs + 1, 1, 0], np.int32)  # row 3 idle
+    return q, kp, vp, tables, pos, 1.0 / np.sqrt(d)
+
+
+@pytest.mark.parametrize("q_dtype,pool_dtype", [
+    ("float32", "float32"), ("float32", "bfloat16"),
+    ("bfloat16", "bfloat16")])
+def test_paged_matches_jax(q_dtype, pool_dtype):
+    q, kp, vp, tables, pos, scale = _paged_inputs(0)
+    jq = jnp.asarray(q, getattr(jnp, q_dtype))
+    jk, jv = (jnp.asarray(a, getattr(jnp, pool_dtype)) for a in (kp, vp))
+    ref = jax_paged(jq, jk, jv, jnp.asarray(tables), jnp.asarray(pos), scale)
+    ref_fb = jax_paged_fallback(jq, jk, jv, jnp.asarray(tables),
+                                jnp.asarray(pos), scale)
+    assert np.array_equal(np.asarray(ref), np.asarray(ref_fb))
+    tq = torch.from_numpy(q).to(getattr(torch, q_dtype))
+    tk, tv = (torch.from_numpy(a).to(getattr(torch, pool_dtype))
+              for a in (kp, vp))
+    out = paged_decode_attention(tq, tk, tv, torch.from_numpy(tables),
+                                 torch.from_numpy(pos), scale)
+    assert out.shape == (4, 4 * 16) and out.dtype == tq.dtype
+    tol = TOL if q_dtype == "float32" else dict(rtol=8e-3, atol=8e-3)
+    np.testing.assert_allclose(out.float().numpy(),
+                               np.asarray(ref.astype(jnp.float32)), **tol)
+
+
+def test_paged_masks_write_ahead_garbage():
+    """Positions past ``pos`` (write-ahead rows, null padding) contribute
+    nothing: poisoning them leaves the output bitwise unchanged."""
+    q, kp, vp, tables, pos, scale = _paged_inputs(2)
+    args = (torch.from_numpy(tables), torch.from_numpy(pos), scale)
+    out = paged_decode_attention(torch.from_numpy(q), torch.from_numpy(kp),
+                                 torch.from_numpy(vp), *args)
+    kp2, vp2 = kp.copy(), vp.copy()
+    kp2[tables[1, 2]] = 1e6                      # row 1's null pad block
+    vp2[tables[1, 2]] = -1e6
+    kp2[tables[2, 0], 2:] = 1e6                  # row 2 sees 0..1 only
+    vp2[tables[2, 0], 2:] = -1e6
+    out2 = paged_decode_attention(torch.from_numpy(q), torch.from_numpy(kp2),
+                                  torch.from_numpy(vp2), *args)
+    assert torch.equal(out2[1], out[1]) and torch.equal(out2[2], out[2])
+
+
+# ----------------------------------------------------------------------
+# routing, storage modes, build
+# ----------------------------------------------------------------------
+
+def test_ops_refuse_devices_they_do_not_serve():
+    q = torch.empty(2, 16, 64, device="meta")
+    with pytest.raises(mt.MXNetError):
+        flash_attention_fwd(q, q, q)
+    with pytest.raises(mt.MXNetError):
+        paged_decode_attention(torch.empty(2, 4, 64, device="meta"),
+                               torch.empty(3, 4, 2, 64, device="meta"),
+                               torch.empty(3, 4, 2, 64, device="meta"),
+                               torch.zeros(2, 1, dtype=torch.int32),
+                               torch.zeros(2, dtype=torch.int32), 0.125)
+
+
+def test_kv_dtype_subset():
+    assert resolve_kv_dtype(None) is None
+    assert resolve_kv_dtype("fp32") is None
+    assert resolve_kv_dtype("bfloat16") == "bf16"
+    with pytest.raises(mt.NotSupportedError):
+        resolve_kv_dtype("fp8")
+    with pytest.raises(mt.MXNetError):
+        resolve_kv_dtype("int4")
+
+
+def test_build_raises_without_nvcc(monkeypatch, tmp_path):
+    """A missing compiler is an error, never a silent fallback."""
+    real_exists = os.path.exists
+    monkeypatch.setattr(_build.shutil, "which", lambda name: None)
+    monkeypatch.setattr(_build.os.path, "exists", lambda p: (
+        False if p.endswith(("nvcc", ".so")) else real_exists(p)))
+    monkeypatch.setattr(_build, "BUILD_DIR", str(tmp_path))
+    with pytest.raises(mt.MXNetError, match="nvcc"):
+        _build.build(["flash_attention"])
+
+
+def test_build_target_tracks_source_bytes():
+    """The library name carries a hash of the kernel's source and the
+    shared header, so each kernel has its own, stable target."""
+    a = _build._target("flash_attention")
+    assert a == _build._target("flash_attention")
+    assert a != _build._target("paged_attention")
+    assert a.startswith(_build.BUILD_DIR) and a.endswith(".so")
+
+
+# ----------------------------------------------------------------------
+# isolation: the port never imports JAX or the JAX package
+# ----------------------------------------------------------------------
+
+def _imports(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module or ""
+
+
+def test_port_imports_neither_jax_nor_the_jax_package():
+    files = sorted((REPO / "mxnet_tpu_torch").rglob("*.py"))
+    files.append(REPO / "chip_smoke.py")
+    bad = []
+    for path in files:
+        for name in _imports(path):
+            root = name.split(".")[0]
+            if root in ("jax", "jaxlib", "mxnet_tpu"):
+                bad.append(f"{path.relative_to(REPO)}: {name}")
+    assert len(files) > 10 and not bad, bad
