@@ -12,12 +12,16 @@ without a card they raise.  The port imports neither JAX nor
 
 Ported so far: the single-card serving path (Llama model, paged KV
 cache, engine, continuous batching) with the flash-attention forward and
-paged decode-attention kernels.
+paged decode-attention kernels, and the single-card training path
+(``gluon.Trainer`` with SGD/NAG/Adam/AdamW, ``gluon.loss``) with the
+flash-attention backward and the flat-bucket optimizer kernels.
 """
 from .base import MXNetError, NotSupportedError
 from .context import cpu, gpu, num_gpus, resolve_device
 from . import ops
+from . import optimizer
+from . import gluon
 from . import serving
 
 __all__ = ["MXNetError", "NotSupportedError", "cpu", "gpu", "num_gpus",
-           "resolve_device", "ops", "serving"]
+           "resolve_device", "ops", "optimizer", "gluon", "serving"]

@@ -9,7 +9,9 @@ arrays::
 
 and copies it into the port's modules.  Dense weights are ``(out, in)``
 in both packages (``x @ w.T``), so every array copies as it is; dtype
-conversion happens in the copy.
+conversion happens in the copy.  ``llama_decode_weights_to_numpy(model)``
+is the inverse: the port's parameters in that structure, as float32
+numpy arrays, for comparing against the reference after training.
 """
 from __future__ import annotations
 
@@ -18,7 +20,7 @@ import torch
 
 from .base import MXNetError
 
-__all__ = ["load_llama_decode_weights"]
+__all__ = ["load_llama_decode_weights", "llama_decode_weights_to_numpy"]
 
 _LAYER_NAMES = ("in_norm", "q", "k", "v", "o", "post_norm", "gate", "up",
                 "down")
@@ -52,3 +54,14 @@ def load_llama_decode_weights(model, arrays):
         for name, s, d in zip(_LAYER_NAMES, src, dst):
             _copy(d, s, f"layer {i} {name}")
     return model
+
+
+@torch.no_grad()
+def llama_decode_weights_to_numpy(model):
+    """The port ``LlamaForCausalLM``'s parameters in the reference's
+    decode-weight structure, as float32 numpy arrays (host copies)."""
+    def arr(t):
+        return t.detach().float().cpu().numpy()
+    embed, norm, head, layers = model.decode_weights()
+    return (arr(embed), arr(norm), None if head is None else arr(head),
+            [tuple(arr(w) for w in layer) for layer in layers])

@@ -1,0 +1,77 @@
+"""Gluon losses as ``nn.Module``s.
+
+Counterpart of ``mxnet_tpu/gluon/loss.py``: ``Loss`` (weight and
+batch_axis), ``L2Loss`` and ``SoftmaxCrossEntropyLoss``.  Each returns
+one loss per sample: the mean over every axis but ``batch_axis``.  The
+other losses of the reference arrive with the training-surface slice.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+__all__ = ["Loss", "L2Loss", "SoftmaxCrossEntropyLoss", "SoftmaxCELoss"]
+
+
+def _apply_weighting(loss, weight=None, sample_weight=None):
+    if sample_weight is not None:
+        loss = loss * sample_weight
+    if weight is not None:
+        loss = loss * weight
+    return loss
+
+
+class Loss(nn.Module):
+    def __init__(self, weight, batch_axis):
+        super().__init__()
+        self._weight = weight
+        self._batch_axis = batch_axis
+
+    def extra_repr(self):
+        return f"batch_axis={self._batch_axis}, w={self._weight}"
+
+    def _batch_mean(self, loss):
+        axes = tuple(i for i in range(loss.dim()) if i != self._batch_axis)
+        return loss.mean(dim=axes) if axes else loss
+
+
+class L2Loss(Loss):
+    r"""``0.5 * weight * (pred - label)^2``, mean over non-batch axes."""
+
+    def __init__(self, weight=1.0, batch_axis=0):
+        super().__init__(weight, batch_axis)
+
+    def forward(self, pred, label, sample_weight=None):
+        loss = torch.square(label.reshape(pred.shape) - pred)
+        loss = _apply_weighting(loss, self._weight / 2, sample_weight)
+        return self._batch_mean(loss)
+
+
+class SoftmaxCrossEntropyLoss(Loss):
+    """Softmax cross entropy.  Reference: gluon.loss.SoftmaxCrossEntropyLoss
+    (sparse labels by default, ``axis=-1``; ``from_logits`` takes
+    log-probabilities)."""
+
+    def __init__(self, axis=-1, sparse_label=True, from_logits=False,
+                 weight=None, batch_axis=0):
+        super().__init__(weight, batch_axis)
+        self._axis = axis
+        self._sparse_label = sparse_label
+        self._from_logits = from_logits
+
+    def forward(self, pred, label, sample_weight=None):
+        axis = self._axis
+        logp = pred if self._from_logits else F.log_softmax(pred, dim=axis)
+        if self._sparse_label:
+            idx = label.long()
+            if idx.dim() == logp.dim():
+                idx = idx.squeeze(axis)
+            loss = -torch.gather(logp, axis, idx.unsqueeze(axis)).squeeze(axis)
+        else:
+            loss = -torch.sum(logp * label, dim=axis)
+        loss = _apply_weighting(loss, self._weight, sample_weight)
+        return self._batch_mean(loss)
+
+
+SoftmaxCELoss = SoftmaxCrossEntropyLoss
