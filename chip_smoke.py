@@ -7,14 +7,18 @@ Phases, in order; any failure exits non-zero and nothing is caught and
 continued:
 
 1. device: require CUDA; print the card's name and power limit;
-2. build: compile every kernel of the serving and training paths from
-   ``mxnet_tpu_torch/ops/csrc`` (one ``nvcc`` per source, in parallel);
+2. build: compile every kernel of the serving, training and LayerNorm
+   paths from ``mxnet_tpu_torch/ops/csrc`` (one ``nvcc`` per source, in
+   parallel);
 3. kernels: hold each kernel against its plain PyTorch version on the
    card at the shapes its path gives it; time the kernel, the plain
    version and, where one PyTorch call computes the same function (or,
    marked "near", nearly the same), that call (``library_ms``):
-   flash forward (float32, bfloat16), flash backward (BH=64, L=1024,
-   D=128 causal, float32 and bfloat16, and ragged L=200 with D=64), K1
+   flash forward (float32, bfloat16), paged decode (f32 and bf16 pools;
+   an fp8 pool with a bf16 and an f32 query), flash backward (BH=64,
+   L=1024, D=128 causal, float32 and bfloat16, and ragged L=200 with
+   D=64), fused LayerNorm forward and backward (4096 x 1024 with
+   residual, float32 and bfloat16; two backward runs bitwise equal), K1
    (momentum, NAG) and K2 (Adam, AdamW with clip) on the training
    phase's 1.92 G-element bucket and an unaligned one of 5000;
 4. serving: Llama-3-8B at full width and depth in bfloat16, random
@@ -26,19 +30,32 @@ continued:
    (kernels) and on the host (plain versions), one 40-token prompt with
    prefill and 8 greedy decode steps: logits within 2e-3, identical
    tokens;
-6. training: Llama-3-8B width at 4 layers in float32 (1.92 G
+6. card vs CPU, fp8 KV: the same nets and prompt with ``kv_dtype="fp8"``
+   on both, the CPU teacher-forced with the card's tokens: logits within
+   2e-2, a drift against the f32 pool above 0, and on the rows computed
+   from fresh inputs codes identical in 99.9% of elements and scales
+   within 1e-5 relative;
+7. fp8 KV serving: Llama-3-8B bf16 at full depth with
+   ``kv_dtype="fp8", max_batch=16, max_context=4096`` (4097 blocks), 32
+   greedy requests with prompts of 256-3800 tokens and 32 new tokens,
+   then one request's drift against a bf16 pool (printed);
+8. training: Llama-3-8B width at 4 layers in float32 (1.92 G
    parameters), batch 2 x 1024 tokens, ``SoftmaxCrossEntropyLoss`` and
    ``gluon.Trainer(..., "adamw", lr 1e-3, wd 0.1)``, 5 steps on one
    batch: the loss must be finite and fall from step 1 to step 5, with
    one K2 launch per step and one flash forward and backward per layer
    per step;
-7. card vs CPU, training: one layer at the full geometry (vocabulary cut
+9. card vs CPU, training: one layer at the full geometry (vocabulary cut
    to 32000 to keep host memory modest), two SGD-momentum steps (K1 on
    the card, the plain rule on the host) on 64 tokens from the same
-   weights: losses within 1e-4 relative, parameters within 1e-5.
+   weights: losses within 1e-4 relative, parameters within 1e-5;
+10. LayerNorm op: BERT-large's 48 post-sublayer LayerNorms at 4096 x 1024
+    in bfloat16 (f32 gamma/beta) through ``ops.fused_layer_norm``,
+    forward and backward: gradients finite and within phase 3's
+    tolerances of the plain backward.
 
-Before each of phases 4, 6 and 7 the kernels' launch counters are set
-to 0; each phase reads them just after and fails unless its kernels
+Before each of phases 4, 7, 8, 9 and 10 the kernels' launch counters are
+set to 0; each phase reads them just after and fails unless its kernels
 ran the expected number of times.  The second-to-last line is the
 card's name and power limit, the line before it the kernels' JSON
 record; the last line is ``{"ok": true, "device": {...}}``.
@@ -59,6 +76,13 @@ FLASH_TOL = {"float32": (5e-5, 1e-4), "bfloat16": (1e-2, 1.6e-2)}
 # the backward's dp - delta cancels: f32 noise is relative to the terms
 FLASH_BWD_TOL = {"float32": (1e-4, 1e-4), "bfloat16": (1e-2, 1.6e-2)}
 PAGED_TOL = {"float32": (5e-5, 1e-4), "bfloat16": (1e-2, 1.6e-2)}
+# K4: y and dx in their dtype; dgamma/dbeta are f32 sums over 4096 rows
+# taken in another order than the plain version's
+LN_TOL = {"float32": (5e-5, 1e-4), "bfloat16": (1e-2, 1.6e-2)}
+LN_PARAM_TOL = (1e-3, 1e-4)
+FP8_LOGIT_ATOL = 2e-2
+FP8_CODES_SAME = 0.999
+FP8_SCALE_RTOL = 1e-5
 # nvcc contracts a*b + c into one FMA; the plain rule rounds twice
 UPDATE_TOL = (1e-7, 1e-6)
 LOGIT_ATOL = 2e-3
@@ -83,11 +107,12 @@ def card_line():
     return out.stdout.strip().splitlines()[0]
 
 
-def time_ms(fn, iters, flush):
+def time_ms(fn, iters, flush, cover=200_000):
     """Median device time of ``fn`` in ms from CUDA events, each launch
     timed alone with the L2 cache flushed before it (the serving path
     finds K/V cold); the median keeps one slow call (an allocation, a
-    clock change) out of the number."""
+    clock change) out of the number.  ``cover``: cycles the card sleeps
+    ahead of each timed call while the host enqueues it."""
     import torch
     fn()
     torch.cuda.synchronize()
@@ -96,7 +121,7 @@ def time_ms(fn, iters, flush):
         flush.zero_()
         # keep the card busy while the host enqueues the launch, so the
         # events time the kernel and not the Python wrapper
-        torch.cuda._sleep(200_000)
+        torch.cuda._sleep(cover)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -126,7 +151,7 @@ def read_launches(phase, want):
     fails unless the kernels in ``want`` ran exactly that often (at
     least once) and every other kernel not at all."""
     from mxnet_tpu_torch import ops
-    got = {name: fn.launches for name, fn in ops.KERNELS.items()}
+    got = ops.launch_counts()
     full = {name: want.get(name, 0) for name in got}
     if got != full or min(want.values()) < 1:
         fail(f"{phase}: kernel launches {got}, expected {full}")
@@ -194,12 +219,17 @@ def check_flash(dev, flush):
     return main
 
 
-def check_paged(dev, flush):
+PAGED_SHAPE = dict(B=8, H=32, KVH=8, D=128, bs=16, nbl=64)
+
+
+def paged_tables(dev):
+    """K5's check inputs at ``PAGED_SHAPE``, from seed 0: tables of
+    scattered blocks (row 0 full, row 1 idle on the null block) and
+    positions.  Returns (pos as numpy, tables and pos as int32 on
+    ``dev``)."""
     import numpy as np
     import torch
-    from mxnet_tpu_torch.ops.paged_attention import (paged_decode_attention,
-                                                     paged_decode_plain)
-    B, H, KVH, D, bs, nbl = 8, 32, 8, 128, 16, 64
+    B, bs, nbl = PAGED_SHAPE["B"], PAGED_SHAPE["bs"], PAGED_SHAPE["nbl"]
     nb = 1 + B * nbl
     rng = np.random.RandomState(0)
     pos = rng.randint(0, nbl * bs, B).astype(np.int32)
@@ -209,8 +239,18 @@ def check_paged(dev, flush):
     for i in range(B):
         n = int(pos[i]) // bs + 1 if i != 1 else 0    # idle: null table
         tables[i, :n], perm = perm[:n], perm[n:]
-    tab = torch.from_numpy(tables).to(dev)
-    ps = torch.from_numpy(pos).to(dev)
+    return (pos, torch.from_numpy(tables).to(dev),
+            torch.from_numpy(pos).to(dev))
+
+
+def check_paged(dev, flush):
+    import numpy as np
+    import torch
+    from mxnet_tpu_torch.ops.paged_attention import (paged_decode_attention,
+                                                     paged_decode_plain)
+    B, H, KVH, D, bs, nbl = PAGED_SHAPE.values()
+    nb = 1 + B * nbl
+    pos, tab, ps = paged_tables(dev)
     main = None
     worst = 0.0
     for name in ("float32", "bfloat16"):
@@ -250,12 +290,153 @@ def check_paged(dev, flush):
     return main
 
 
+def check_paged_fp8(dev, flush):
+    """K5's fp8 path at ``check_paged``'s shapes: pools quantized on the
+    card by ``kv_quantize_fp8``, a bf16 and an f32 query, against the
+    plain fp8 version on the same codes and scales."""
+    import numpy as np
+    import torch
+    from mxnet_tpu_torch.ops.paged_attention import (paged_decode_attention,
+                                                     paged_decode_plain)
+    from mxnet_tpu_torch.ops.quant_kv import kv_quantize_fp8
+    B, H, KVH, D, bs, nbl = PAGED_SHAPE.values()
+    nb = 1 + B * nbl
+    pos, tab, ps = paged_tables(dev)
+    g = torch.Generator(device=dev).manual_seed(2)
+    (kp, ks), (vp, vs) = (kv_quantize_fp8(
+        torch.randn(nb, bs, KVH, D, device=dev, generator=g))
+        for _ in range(2))
+    main = None
+    worst = 0.0
+    for name in ("bfloat16", "float32"):
+        q = torch.randn(B, H, D, device=dev, generator=g).to(
+            getattr(torch, name))
+
+        def kernel():
+            return paged_decode_attention(q, kp, vp, tab, ps, D ** -0.5,
+                                          k_scale=ks, v_scale=vs)
+
+        def plain():
+            return paged_decode_plain(q, kp, vp, tab, ps, D ** -0.5, ks, vs)
+
+        out, ref = kernel(), plain()
+        torch.cuda.synchronize()
+        err, ok = max_err(out, ref, PAGED_TOL[name])
+        if not ok or not bool(torch.isfinite(out).all()):
+            fail(f"paged fp8 kernel vs plain, {name} query: max abs err "
+                 f"{err}")
+        worst = max(worst, err)
+        ms = time_ms(kernel, 50, flush)
+        plain_ms = time_ms(plain, 5, flush)
+        rows = int((pos.astype(np.int64) + 1).sum())
+        elem = q.element_size()
+        nbytes = (2 * rows * KVH * D + 2 * rows * 4 + 2 * B * H * D * elem
+                  + sum(int(p) // bs + 1 for p in pos) * 4 + B * 4)
+        bound_ms, by = bound(nbytes, 4.0 * rows * H * D, name)
+        print(f"paged_decode_attention fp8 pool, {name} query, B={B} pos<= "
+              f"{int(pos.max())}: max_abs_err {err:.3e} kernel {ms:.4f} ms "
+              f"plain {plain_ms:.4f} ms bound {bound_ms:.4f} ms ({by})",
+              flush=True)
+        if name == "bfloat16":                 # the fp8 serving phase's
+            main = dict(ms=ms, plain_ms=plain_ms, library_ms=None,
+                        bound_ms=bound_ms, bound_by=by)
+    main["max_abs_err"] = worst
+    return main
+
+
+def check_layernorm(dev, flush):
+    """K4 forward and backward against the plain versions at BERT-large's
+    post-sublayer shape (8 x 512 tokens = 4096 rows, D = 1024, residual,
+    eps 1e-12), f32 and bf16 activations with f32 gamma/beta; library
+    (near: the residual add is a separate pass): ``F.layer_norm(x + res)``
+    forward, and its backward alone through a retained graph.  Two
+    backward runs must be bitwise equal."""
+    import torch
+    import torch.nn.functional as F
+    from mxnet_tpu_torch.ops.fused_layernorm import (fused_layer_norm_bwd,
+                                                     fused_layer_norm_fwd,
+                                                     layer_norm_bwd_plain,
+                                                     layer_norm_plain)
+    rows, D, eps = 4096, 1024, 1e-12
+    res_fwd, res_bwd = {}, {}
+    for name in ("float32", "bfloat16"):
+        dtype = getattr(torch, name)
+        g = torch.Generator(device=dev).manual_seed(3)
+        x, res, dy = (torch.randn(rows, D, device=dev, generator=g)
+                      .to(dtype) for _ in range(3))
+        gamma, beta = (torch.randn(D, device=dev, generator=g)
+                       for _ in range(2))
+        y = fused_layer_norm_fwd(x, res, gamma, beta, eps)
+        got = fused_layer_norm_bwd(x, res, gamma, dy, eps)
+        again = fused_layer_norm_bwd(x, res, gamma, dy, eps)
+        want_y = layer_norm_plain(x, res, gamma, beta, eps)
+        want = layer_norm_bwd_plain(x, res, gamma, dy, eps)
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            fail(f"fused_layer_norm_bwd {name}: two runs differ")
+        err_f, ok = max_err(y, want_y, LN_TOL[name])
+        if not ok or not bool(torch.isfinite(y).all()):
+            fail(f"fused_layer_norm_fwd vs plain {name}: max abs err {err_f}")
+        err_b = 0.0
+        for a, b, what, tol in zip(got, want, ("dx", "dgamma", "dbeta"),
+                                   (LN_TOL[name], LN_PARAM_TOL,
+                                    LN_PARAM_TOL)):
+            e, ok = max_err(a, b, tol)
+            if not ok or not bool(torch.isfinite(a).all()):
+                fail(f"fused_layer_norm_bwd vs plain {name}: max |{what}| "
+                     f"err {e}")
+            err_b = max(err_b, e)
+        elem = x.element_size()
+        # the library yardstick, weights in the activations' type: the
+        # forward without a graph, the backward alone through a retained
+        # graph, with the card kept busy while autograd enqueues it
+        lx, lres, lg, lb = (t.detach().to(dtype).requires_grad_()
+                            for t in (x, res, gamma, beta))
+        lib_out = F.layer_norm(lx + lres, (D,), lg, lb, eps)
+
+        def lib_fwd():
+            with torch.no_grad():
+                return F.layer_norm(x + res, (D,), lg, lb, eps)
+
+        def lib_bwd():
+            return torch.autograd.grad(lib_out, (lx, lres, lg, lb), dy,
+                                       retain_graph=True)
+
+        for what, kernel, plain, library, nbytes in (
+                ("fwd", lambda: fused_layer_norm_fwd(x, res, gamma, beta,
+                                                     eps),
+                 lambda: layer_norm_plain(x, res, gamma, beta, eps), lib_fwd,
+                 3 * rows * D * elem + 2 * D * 4),
+                ("bwd", lambda: fused_layer_norm_bwd(x, res, gamma, dy, eps),
+                 lambda: layer_norm_bwd_plain(x, res, gamma, dy, eps),
+                 lib_bwd, 4 * rows * D * elem + 3 * D * 4)):
+            ms = time_ms(kernel, 20, flush)
+            plain_ms = time_ms(plain, 10, flush)
+            lib_ms = time_ms(library, 20, flush, cover=2_000_000)
+            bound_ms, by = bound(nbytes, 10.0 * rows * D, "float32")
+            print(f"fused_layer_norm_{what} {rows}x{D} {name}, residual: "
+                  f"max_abs_err {err_f if what == 'fwd' else err_b:.3e} "
+                  f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms library "
+                  f"(near) {lib_ms:.4f} ms bound {bound_ms:.4f} ms ({by})",
+                  flush=True)
+            out = res_fwd if what == "fwd" else res_bwd
+            out.setdefault("max_abs_err", 0.0)
+            out["max_abs_err"] = max(out["max_abs_err"],
+                                     err_f if what == "fwd" else err_b)
+            if name == "bfloat16":            # the K4 path phase's type
+                out.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                           bound_ms=bound_ms, bound_by=by)
+        del x, res, dy, y, got, again, want_y, want, lx, lres, lib_out
+    torch.cuda.empty_cache()
+    return {"fused_layer_norm_fwd": res_fwd, "fused_layer_norm_bwd": res_bwd}
+
+
 def check_flash_bwd(dev, flush):
     """The backward kernel against the plain backward at the training
     phase's shape (B=2 x H=32 heads, L=1024, D=128, causal) and a ragged
     one (L=200, D=64); library: the backward of
-    ``scaled_dot_product_attention`` (forward + backward minus
-    forward)."""
+    ``scaled_dot_product_attention`` alone, through a retained graph,
+    with the card kept busy while autograd enqueues it."""
     import torch
     import torch.nn.functional as F
     from mxnet_tpu_torch.ops.flash_attention import (
@@ -290,14 +471,11 @@ def check_flash_bwd(dev, flush):
                           for t in (q, k, v))
             gs = do.view(B, H, L, D)
 
-            def sdpa_fwd():
-                return F.scaled_dot_product_attention(qs, ks, vs,
+            sdpa_out = F.scaled_dot_product_attention(qs, ks, vs,
                                                       is_causal=True)
-
-            fwd_ms = time_ms(sdpa_fwd, 10, flush)
-            both_ms = time_ms(lambda: torch.autograd.grad(
-                sdpa_fwd(), (qs, ks, vs), gs), 10, flush)
-            lib_ms = both_ms - fwd_ms
+            lib_ms = time_ms(lambda: torch.autograd.grad(
+                sdpa_out, (qs, ks, vs), gs, retain_graph=True), 10, flush,
+                cover=2_000_000)
             elem = q.element_size()
             nbytes = 8 * B * H * L * D * elem + 4 * B * H * L  # 5 in, 3 out
             flops = 10.0 * B * H * D * (L * (L + 1) / 2)      # 5 products
@@ -309,7 +487,7 @@ def check_flash_bwd(dev, flush):
             if L == 1024 and name == "float32":   # the training phase's
                 main = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                             bound_ms=bound_ms, bound_by=by)
-            del q, k, v, do, out, lse, got, want, qs, ks, vs, gs
+            del q, k, v, do, out, lse, got, want, qs, ks, vs, gs, sdpa_out
     main["max_abs_err"] = worst
     return main
 
@@ -489,7 +667,143 @@ def serve_llama3_8b(dev, card):
 
 
 # ----------------------------------------------------------------------
-# phase 5: card against CPU on the full-width geometry
+# phase 7: fp8 KV serving at full width and a long context
+# ----------------------------------------------------------------------
+
+def _greedy(eng, slot, prompt, n):
+    """Prefill and ``n`` greedy decode steps: (fed tokens, logits)."""
+    tok, last = eng.prefill(slot, prompt)
+    fed, logits = list(prompt) + [tok], [last.float()]
+    for _ in range(n):
+        pos = len(fed) - 1
+        if not eng.reserve(slot, pos):
+            fail("KV pool exhausted")
+        nxt, lg = eng.decode([(slot, fed[-1], pos)])
+        fed.append(int(nxt[0]))
+        logits.append(lg[0].float())
+    return fed, logits
+
+
+def _replay(eng, slot, prompt, fed, n):
+    """Teacher-force ``fed`` through ``eng``: its logits at the same
+    positions."""
+    _, last = eng.prefill(slot, prompt)
+    logits = [last.float()]
+    for j in range(n):
+        pos = len(prompt) + j
+        if not eng.reserve(slot, pos):
+            fail("KV pool exhausted")
+        _, lg = eng.decode([(slot, fed[pos], pos)])
+        logits.append(lg[0].float())
+    return logits
+
+
+def serve_llama3_8b_fp8(dev, card):
+    """Llama-3-8B bf16, 32 layers, ``kv_dtype="fp8"``, max_batch 16,
+    max_context 4096 (4097 blocks); a ``ContinuousBatcher`` serves 32
+    greedy requests with prompts of 256-3800 tokens and 32 new tokens
+    each.  Afterwards, outside the counted window, one request's fp8
+    decode logits against a bf16-pool engine on the same net
+    (teacher-forced; printed, not a limit)."""
+    import numpy as np
+    import torch
+    from mxnet_tpu_torch import ops
+    from mxnet_tpu_torch.gluon.model_zoo.nlp.llama import llama3_8b
+    from mxnet_tpu_torch.ops.quant_kv import kv_block_bytes
+    from mxnet_tpu_torch.serving import (ContinuousBatcher, InferenceEngine,
+                                         Request)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    net = llama3_8b(device=dev, dtype=torch.bfloat16, seed=0)
+    cfg = net.cfg
+    eng = InferenceEngine(net, kv_dtype="fp8", max_batch=16, block_size=16,
+                          max_context=4096, device=dev)
+    eng.warmup()
+    setup_s = time.perf_counter() - t0
+    c = eng.cache
+    pool_bytes = sum(t.numel() * t.element_size()
+                     for t in (c.k_pool, c.v_pool, c.k_scale, c.v_scale))
+    if pool_bytes != c.num_blocks * c.block_nbytes:
+        fail(f"fp8 pool holds {pool_bytes} bytes, block_nbytes says "
+             f"{c.num_blocks * c.block_nbytes}")
+    bf16_bytes = c.num_blocks * kv_block_bytes(
+        cfg.num_layers, cfg.num_kv_heads, cfg.head_dim, c.block_size, "bf16")
+    finite, step_s = [], []
+    prefill, decode = eng.prefill, eng.decode
+
+    def prefill_checked(slot, tokens):
+        out = prefill(slot, tokens)
+        if out is not None:
+            finite.append(torch.isfinite(out[1]).all())
+        return out
+
+    def decode_checked(entries):
+        t = time.perf_counter()
+        nxt, logits = decode(entries)      # returns after a host sync
+        step_s.append(time.perf_counter() - t)
+        finite.append(torch.isfinite(logits).all())
+        return nxt, logits
+
+    eng.prefill, eng.decode = prefill_checked, decode_checked
+    rng = np.random.RandomState(0)
+    lengths = rng.randint(256, 3801, 32)
+    prompts = [rng.randint(0, cfg.vocab_size, n) for n in lengths]
+    batcher = ContinuousBatcher(eng)
+    ops.reset_launches()
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    for p in prompts:
+        batcher.submit(Request(p, 32))
+    stats = batcher.run()
+    torch.cuda.synchronize(dev)
+    wall = time.perf_counter() - t0
+    launches = read_launches("fp8 serving", {
+        "flash_attention_fwd": cfg.num_layers * eng.stats["prefill_calls"],
+        "paged_decode_attention_fp8":
+            cfg.num_layers * eng.stats["decode_calls"]})
+    if len(batcher.finished) != 32 or any(
+            len(r.generated) != 32 for r in batcher.finished):
+        fail("fp8 serving: not every request finished with 32 tokens")
+    if not bool(torch.stack(finite).all()):
+        fail("non-finite logits on the fp8 serving path")
+    eng.prefill, eng.decode = prefill, decode
+    ttft = sorted(r.ttft() for r in batcher.finished)
+    tokens = stats["tokens_generated"]
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    print(f"serving llama3_8b bf16, fp8 KV cache, max_context 4096, on "
+          f"{card}: {len(lengths)} requests, prompts {int(lengths.min())}-"
+          f"{int(lengths.max())} tokens, {tokens} tokens in {wall:.3f} s = "
+          f"{tokens / wall:.1f} tokens/s; TTFT p50 "
+          f"{ttft[len(ttft) // 2] * 1e3:.1f} ms; decode step median "
+          f"{sorted(step_s)[len(step_s) // 2] * 1e3:.2f} ms over "
+          f"{len(step_s)} steps; peak memory {peak_gb:.2f} GB; pool "
+          f"{c.num_blocks} blocks, {pool_bytes} bytes fp8 with scales "
+          f"against {bf16_bytes} bf16; set-up {setup_s:.1f} s; launches "
+          f"{launches}", flush=True)
+    # drift of one request's fp8 decode logits against a bf16 pool
+    ref = InferenceEngine(net, kv_dtype="bf16", max_batch=2, block_size=16,
+                          max_context=1024, device=dev)
+    prompt = prompts[0][:900].tolist()
+    fed, lg8 = _greedy(eng, "drift", prompt, 16)
+    lg16 = _replay(ref, "drift", prompt, fed, 16)
+    drift = max(float((a - b).abs().max()) for a, b in zip(lg8[1:],
+                                                            lg16[1:]))
+    top = max(float(a.abs().max()) for a in lg16[1:])
+    print(f"fp8 vs bf16 KV pool, {len(prompt)}-token prompt, 16 "
+          f"teacher-forced decode steps: max |logit| drift {drift:.4e} "
+          f"(largest |logit| {top:.4e}); prefill logits equal: "
+          f"{bool(torch.equal(lg8[0], lg16[0]))}", flush=True)
+    del eng, ref, net, batcher, prefill, decode, prefill_checked, \
+        decode_checked
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+# ----------------------------------------------------------------------
+# phases 5 and 6: card against CPU on the full-width geometry, with
+# f32 and with fp8 KV pools
 # ----------------------------------------------------------------------
 
 def card_vs_cpu(dev):
@@ -524,10 +838,73 @@ def card_vs_cpu(dev):
           f"{t_cpu}", flush=True)
     if t_card != t_cpu or not err <= LOGIT_ATOL:
         fail("card and CPU disagree")
+    card_vs_cpu_fp8(dev, on_card, on_cpu, prompt)
+
+
+def card_vs_cpu_fp8(dev, on_card, on_cpu, prompt):
+    """fp8 KV pools on phase 5's nets: prefill the 40-token prompt and
+    run 8 decode steps on the card, and teacher-force the card's tokens
+    through the CPU engine.  Limits: decode logits within 2e-2, the card's
+    fp8-vs-f32-pool drift above 0, and, on the rows whose inputs no pool
+    read has touched (layer 0 at every position, later layers at the
+    prompt's, which prefill computes from the fresh K/V), codes identical
+    in 99.9% of elements and scales within 1e-5 relative.  Later layers'
+    decode rows are computed from attention over fp8 rows, so one code
+    that rounds the other way upstream moves them further (printed)."""
+    import torch
+    from mxnet_tpu_torch.serving import InferenceEngine
+    kw = dict(max_batch=2, block_size=16, max_context=64)
+    e_card = InferenceEngine(on_card, kv_dtype="fp8", device=dev, **kw)
+    e_cpu = InferenceEngine(on_cpu, kv_dtype="fp8", device="cpu", **kw)
+    fed, l_card = _greedy(e_card, 0, prompt, 8)
+    l_cpu = _replay(e_cpu, 0, prompt, fed, 8)
+    l_f32 = _replay(InferenceEngine(on_card, device=dev, **kw), 0, prompt,
+                    fed, 8)
+    err = max(float((a.cpu() - b).abs().max()) for a, b in zip(l_card,
+                                                               l_cpu))
+    drift = max(float((a - b).abs().max()) for a, b in zip(l_card, l_f32))
+    n = len(prompt) + 8                  # positions written by both
+    table = e_card.cache.table(0)
+    if table != e_cpu.cache.table(0):
+        fail(f"fp8 card vs cpu: block tables {table} vs "
+             f"{e_cpu.cache.table(0)}")
+    layers = e_card.cache.num_layers
+    fresh = torch.zeros(layers, n, dtype=torch.bool)
+    fresh[0] = True
+    fresh[:, :len(prompt)] = True
+
+    def rows(a):                         # (layers, n, ...) of slot 0
+        return a[:, table].flatten(1, 2)[:, :n].cpu()
+
+    same, total, scale_err = [0, 0], [0, 0], [0.0, 0.0]
+    for a, b in ((e_card.cache.k_pool, e_cpu.cache.k_pool),
+                 (e_card.cache.v_pool, e_cpu.cache.v_pool)):
+        eq = rows(a.view(torch.uint8)) == rows(b.view(torch.uint8))
+        for i, sel in enumerate((fresh, torch.ones_like(fresh))):
+            same[i] += int(eq[sel].sum())
+            total[i] += eq[sel].numel()
+    for a, b in ((e_card.cache.k_scale, e_cpu.cache.k_scale),
+                 (e_card.cache.v_scale, e_cpu.cache.v_scale)):
+        rel = (rows(a) - rows(b)).abs() / rows(b)
+        for i, sel in enumerate((fresh, torch.ones_like(fresh))):
+            scale_err[i] = max(scale_err[i], float(rel[sel].max()))
+    frac = [a / b for a, b in zip(same, total)]
+    print(f"card vs cpu, fp8 KV (2 layers, full width, fp32, 8 "
+          f"teacher-forced decode steps): max |logit| diff {err:.3e} "
+          f"(limit {FP8_LOGIT_ATOL}); card fp8-vs-f32 drift {drift:.3e} "
+          f"(must be > 0); rows from fresh inputs: codes identical "
+          f"{same[0]}/{total[0]} = {frac[0]:.6f} (limit {FP8_CODES_SAME}), "
+          f"max scale rel diff {scale_err[0]:.3e} (limit {FP8_SCALE_RTOL}); "
+          f"all written rows: codes identical {same[1]}/{total[1]} = "
+          f"{frac[1]:.6f}, max scale rel diff {scale_err[1]:.3e}",
+          flush=True)
+    if not (err <= FP8_LOGIT_ATOL and frac[0] >= FP8_CODES_SAME
+            and scale_err[0] <= FP8_SCALE_RTOL and drift > 0):
+        fail("fp8 KV on the card and on the CPU disagree")
 
 
 # ----------------------------------------------------------------------
-# phase 6: training at full width
+# phase 8: training at full width
 # ----------------------------------------------------------------------
 
 def train_param_count():
@@ -601,7 +978,7 @@ def train_llama3_8b(dev, card):
 
 
 # ----------------------------------------------------------------------
-# phase 7: training, card against CPU on the full-width geometry
+# phase 9: training, card against CPU on the full-width geometry
 # ----------------------------------------------------------------------
 
 def train_card_vs_cpu(dev):
@@ -655,6 +1032,74 @@ def train_card_vs_cpu(dev):
     return launches
 
 
+# ----------------------------------------------------------------------
+# phase 10: the fused LayerNorm op path (K4)
+# ----------------------------------------------------------------------
+
+def layernorm_path(dev, card):
+    """BERT-large's 24 layers x 2 post-sublayer LayerNorms
+    (``bert_24_1024_16``: batch 8 x 512 tokens = 4096 rows, D = 1024),
+    each ``fused_layer_norm(x_i, gamma_i, beta_i, residual=h_i, eps=1e-12)``
+    on bf16 activations with f32 parameters, then one backward through
+    autograd, twice; the second pass is counted and timed: 48 forward and
+    48 backward launches, every gradient finite and within phase 3's
+    tolerances of the plain backward."""
+    import torch
+    from mxnet_tpu_torch import ops
+    from mxnet_tpu_torch.ops import fused_layer_norm
+    from mxnet_tpu_torch.ops.fused_layernorm import layer_norm_bwd_plain
+    n, rows, D, eps = 48, 4096, 1024, 1e-12
+    g = torch.Generator(device=dev).manual_seed(10)
+    sets = []
+    for _ in range(n):
+        x, h, dy = (torch.randn(rows, D, device=dev, generator=g)
+                    .to(torch.bfloat16) for _ in range(3))
+        gamma = 1.0 + 0.1 * torch.randn(D, device=dev, generator=g)
+        beta = 0.1 * torch.randn(D, device=dev, generator=g)
+        sets.append([t.requires_grad_() for t in (x, h, gamma, beta)] + [dy])
+
+    def run():
+        """Forward and backward of the 48 norms: (fwd s, fwd + bwd s)."""
+        for t in (t for st in sets for t in st[:4]):
+            t.grad = None
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        outs = [fused_layer_norm(x, gamma, beta, residual=h, eps=eps)
+                for x, h, gamma, beta, _ in sets]
+        torch.cuda.synchronize(dev)
+        fwd_s = time.perf_counter() - t0
+        torch.autograd.backward(outs, [st[4] for st in sets])
+        torch.cuda.synchronize(dev)
+        return fwd_s, time.perf_counter() - t0
+
+    run()                       # warm: the allocator's blocks exist after
+    ops.reset_launches()
+    fwd_s, both_s = run()
+    launches = read_launches("layernorm op", {"fused_layer_norm_fwd": n,
+                                              "fused_layer_norm_bwd": n})
+    worst = {"dx": 0.0, "dgamma": 0.0, "dbeta": 0.0}
+    for x, h, gamma, beta, dy in sets:
+        want = layer_norm_bwd_plain(x.detach(), h.detach(), gamma.detach(),
+                                    dy, eps)
+        if not torch.equal(h.grad, x.grad):
+            fail("layernorm op: dres differs from dx")
+        for got, w, what, tol in zip((x.grad, gamma.grad, beta.grad), want,
+                                     worst, (LN_TOL["bfloat16"],
+                                             LN_PARAM_TOL, LN_PARAM_TOL)):
+            e, ok = max_err(got, w, tol)
+            if not ok or not bool(torch.isfinite(got).all()):
+                fail(f"layernorm op: {what} vs plain, max abs err {e}")
+            worst[what] = max(worst[what], e)
+    print(f"layernorm op, bert_24_1024_16 post-sublayer shape, {n} x "
+          f"fused_layer_norm({rows}x{D} bf16, f32 gamma/beta, residual) on "
+          f"{card}: forward {fwd_s * 1e3:.2f} ms, forward + backward "
+          f"{both_s * 1e3:.2f} ms (host clock, second pass); max err vs "
+          f"plain {worst}; launches {launches}", flush=True)
+    del sets
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main():
     try:
         import torch
@@ -678,7 +1123,7 @@ def main():
     # phase 2: build every kernel of the paths
     t0 = time.perf_counter()
     _build.build(["flash_attention", "flash_attention_bwd",
-                  "paged_attention", "fused_update"])
+                  "paged_attention", "fused_update", "fused_layernorm"])
     print(f"build: {time.perf_counter() - t0:.1f} s into {_build.BUILD_DIR}",
           flush=True)
 
@@ -686,16 +1131,20 @@ def main():
     flush = torch.empty(128 * 2 ** 20, dtype=torch.uint8, device=dev)
     checks = {"flash_attention_fwd": check_flash(dev, flush),
               "paged_decode_attention": check_paged(dev, flush),
+              "paged_decode_attention_fp8": check_paged_fp8(dev, flush),
               "flash_attention_bwd": check_flash_bwd(dev, flush)}
+    checks.update(check_layernorm(dev, flush))
     checks.update(check_updates(dev, flush, train_param_count()))
     del flush
     torch.cuda.empty_cache()
 
-    # phases 4-7: each path from zeroed launch counters
+    # phases 4-10: each path from zeroed launch counters
     by_path = {"serving": serve_llama3_8b(dev, card)}
     card_vs_cpu(dev)
+    by_path["serving_fp8"] = serve_llama3_8b_fp8(dev, card)
     by_path["training"] = train_llama3_8b(dev, card)
     by_path["training_card_vs_cpu"] = train_card_vs_cpu(dev)
+    by_path["layernorm_op"] = layernorm_path(dev, card)
 
     kernels = []
     for name, src, tpu in (
@@ -705,10 +1154,16 @@ def main():
              "mxnet_tpu/ops/flash_attention.py:174"),
             ("paged_decode_attention", "paged_attention.cu",
              "mxnet_tpu/ops/paged_attention.py:89"),
+            ("paged_decode_attention_fp8", "paged_attention.cu",
+             "mxnet_tpu/ops/paged_attention.py:89"),
             ("fused_sgd_update", "fused_update.cu",
              "mxnet_tpu/ops/fused_update.py:95"),
             ("fused_adam_update", "fused_update.cu",
-             "mxnet_tpu/ops/fused_update.py:118")):
+             "mxnet_tpu/ops/fused_update.py:118"),
+            ("fused_layer_norm_fwd", "fused_layernorm.cu",
+             "mxnet_tpu/ops/fused_layernorm.py:79"),
+            ("fused_layer_norm_bwd", "fused_layernorm.cu",
+             "mxnet_tpu/ops/fused_layernorm.py:97")):
         res = checks[name]
         paths = {path: got[name] for path, got in by_path.items()
                  if got[name]}

@@ -11,10 +11,12 @@ without a card they raise.  The port imports neither JAX nor
 ``mxnet_tpu``.
 
 Ported so far: the single-card serving path (Llama model, paged KV
-cache, engine, continuous batching) with the flash-attention forward and
-paged decode-attention kernels, and the single-card training path
-(``gluon.Trainer`` with SGD/NAG/Adam/AdamW, ``gluon.loss``) with the
-flash-attention backward and the flat-bucket optimizer kernels.
+cache in f32, bf16 or fp8, engine, continuous batching) with the
+flash-attention forward and paged decode-attention kernels, the
+single-card training path (``gluon.Trainer`` with SGD/NAG/Adam/AdamW,
+``gluon.loss``) with the flash-attention backward and the flat-bucket
+optimizer kernels, and the fused LayerNorm op
+(``ops.fused_layer_norm``) with its forward and backward kernels.
 """
 from .base import MXNetError, NotSupportedError
 from .context import cpu, gpu, num_gpus, resolve_device

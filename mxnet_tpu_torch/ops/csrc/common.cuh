@@ -1,8 +1,10 @@
-// Shared helpers of the port's kernels: f32/bf16 element conversion and
-// the error-string entry every library exports for its Python wrapper.
+// Shared helpers of the port's kernels: f32/bf16/fp8 element conversion
+// and the error-string entry every library exports for its Python
+// wrapper.
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp8.h>
 #include <cuda_runtime.h>
 
 namespace mxt {
@@ -10,12 +12,16 @@ namespace mxt {
 // dtype codes passed by the Python wrappers
 constexpr int kF32 = 0;
 constexpr int kBF16 = 1;
+constexpr int kFP8 = 2;  // float8_e4m3fn, storage only (read, never written)
 
 constexpr float kNegInf = -1e30f;  // the reference's mask constant
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
   return __bfloat162float(x);
+}
+__device__ __forceinline__ float to_f32(__nv_fp8_e4m3 x) {
+  return static_cast<float>(x);
 }
 
 template <typename T>

@@ -10,14 +10,19 @@ online softmax ``llama._cache_attention``.  In the JAX engine the
 default inline decode attention is that same fallback, so the port's
 engine uses this op as its only decode path.
 
-Routing is by device: a CPU tensor runs the plain version, a CUDA tensor
-launches the kernel or raises.  This slice takes f32 and bf16 pools; the
-fp8 path with per-row scales comes with the fp8 KV slice.
+Pools are f32, bf16 or fp8 (``float8_e4m3fn`` codes with one f32 scale
+per token row, ``k_scale``/``v_scale`` of shape ``(num_blocks,
+block_size)``); the scale rows are gathered through the same block table
+and multiplied in after the gather.  Routing is by device: a CPU tensor
+runs the plain version, a CUDA tensor launches the kernel or raises.
+The kernel counts f32/bf16 launches in ``paged_decode_attention.launches``
+and fp8 launches in ``paged_decode_attention.launches_fp8``.
 
 Kernel note: replaces ``_pallas_paged`` (``paged_attention.py:89``).
 Memory-bound on the H100: per layer a step reads about
-``2 * B * ctx * KVH * D * sizeof(pool)`` bytes of K/V against
-``4 * H * D`` FLOPs per position.
+``2 * B * ctx * KVH * D * sizeof(pool)`` bytes of K/V (plus ``8 * ctx``
+bytes of scales per sequence for fp8) against ``4 * H * D`` FLOPs per
+position.
 """
 from __future__ import annotations
 
@@ -32,19 +37,22 @@ from .quant_kv import kv_dequantize
 __all__ = ["paged_decode_attention", "paged_decode_plain"]
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_POOL_DTYPES = {**_DTYPES, torch.float8_e4m3fn: 2}
 _HEAD_DIMS = (64, 128)
 _REPS = (1, 2, 4, 8)
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_SIGNATURES = {"paged_decode_attention": [_P, _P, _P, _P, _P, _P, _I, _I, _I,
-                                          _I, _I, _I, _I, _I, ctypes.c_float,
-                                          _I, _P]}
+_SIGNATURES = {"paged_decode_attention": [_P, _P, _P, _P, _P, _P, _P, _P,
+                                          _I, _I, _I, _I, _I, _I, _I, _I,
+                                          ctypes.c_float, _I, _P]}
 
 
-def paged_decode_plain(q, k_pool, v_pool, block_tables, pos, scale):
+def paged_decode_plain(q, k_pool, v_pool, block_tables, pos, scale,
+                       k_scale=None, v_scale=None):
     """Plain PyTorch version (the reference's ``_fallback``): gather the
-    sequences' blocks into a dense ``(B, L, KVH, D)`` view, widen a bf16
-    pool to f32, mask positions past ``pos`` and attend."""
+    sequences' blocks into a dense ``(B, L, KVH, D)`` view, dequantize a
+    low-precision pool to f32 (fp8 codes times their row scales, gathered
+    through the same table), mask positions past ``pos`` and attend."""
     from ..gluon.model_zoo.nlp.llama import _cache_attention
     B = q.shape[0]
     nbl = block_tables.shape[1]
@@ -53,7 +61,10 @@ def paged_decode_plain(q, k_pool, v_pool, block_tables, pos, scale):
     tables = block_tables.long()
     ck = k_pool[tables].reshape(B, L, kvh, d)
     cv = v_pool[tables].reshape(B, L, kvh, d)
-    if k_pool.dtype != torch.float32:
+    if k_scale is not None:
+        ck = kv_dequantize(ck, k_scale[tables].reshape(B, L))
+        cv = kv_dequantize(cv, v_scale[tables].reshape(B, L))
+    elif k_pool.dtype != torch.float32:
         ck = kv_dequantize(ck)
         cv = kv_dequantize(cv)
     ck = ck.transpose(1, 2)
@@ -62,7 +73,30 @@ def paged_decode_plain(q, k_pool, v_pool, block_tables, pos, scale):
     return _cache_attention(q, ck, cv, valid, scale)
 
 
-def _kernel(q, k_pool, v_pool, block_tables, pos, scale):
+def _check_scales(k_pool, k_scale, v_scale):
+    """An fp8 pool needs both scale planes, contiguous f32 of shape
+    ``(num_blocks, block_size)``; another pool takes none."""
+    fp8 = k_pool.dtype == torch.float8_e4m3fn
+    if (k_scale is None) != (v_scale is None):
+        raise NotSupportedError("paged attention: k_scale and v_scale come "
+                                "together")
+    if fp8 and k_scale is None:
+        raise NotSupportedError("paged attention: an fp8 pool needs its "
+                                "k_scale/v_scale planes")
+    if not fp8 and k_scale is not None:
+        raise NotSupportedError(f"paged attention: scales with a "
+                                f"{k_pool.dtype} pool (fp8 only)")
+    if fp8:
+        for t in (k_scale, v_scale):
+            if t.dtype != torch.float32 or t.shape != k_pool.shape[:2] \
+                    or not t.is_contiguous():
+                raise NotSupportedError(
+                    "paged attention: scales must be contiguous f32 of "
+                    f"shape {tuple(k_pool.shape[:2])}, got {t.dtype} "
+                    f"{tuple(t.shape)}")
+
+
+def _kernel(q, k_pool, v_pool, block_tables, pos, scale, k_scale, v_scale):
     if q.dim() != 3 or k_pool.dim() != 4 or v_pool.shape != k_pool.shape:
         raise MXNetError(f"paged kernel: q {tuple(q.shape)}, pools "
                          f"{tuple(k_pool.shape)}, {tuple(v_pool.shape)}")
@@ -75,17 +109,21 @@ def _kernel(q, k_pool, v_pool, block_tables, pos, scale):
     if H % kvh or H // kvh not in _REPS:
         raise NotSupportedError(f"paged kernel: {H} heads over {kvh} kv "
                                 f"heads (rep in {_REPS})")
-    if q.dtype not in _DTYPES or k_pool.dtype not in _DTYPES \
+    if q.dtype not in _DTYPES or k_pool.dtype not in _POOL_DTYPES \
             or v_pool.dtype != k_pool.dtype:
         raise NotSupportedError(f"paged kernel: q {q.dtype}, pools "
-                                f"{k_pool.dtype}/{v_pool.dtype} (f32, bf16)")
-    if q.dtype == torch.bfloat16 and k_pool.dtype != torch.bfloat16:
-        raise NotSupportedError("paged kernel: a bf16 query needs a bf16 pool")
+                                f"{k_pool.dtype}/{v_pool.dtype} (f32, bf16, "
+                                "fp8)")
+    if q.dtype == torch.bfloat16 and k_pool.dtype == torch.float32:
+        raise NotSupportedError("paged kernel: a bf16 query needs a bf16 or "
+                                "fp8 pool")
+    _check_scales(k_pool, k_scale, v_scale)
+    scales = () if k_scale is None else (k_scale, v_scale)
     if block_tables.shape != (B, nbl) or pos.shape != (B,) \
             or block_tables.dtype != torch.int32 or pos.dtype != torch.int32:
         raise MXNetError("paged kernel: block_tables (B, nbl) and pos (B,) "
                          "must be int32")
-    for t in (k_pool, v_pool, block_tables, pos):
+    for t in (k_pool, v_pool, block_tables, pos, *scales):
         if t.device != q.device:
             raise MXNetError("paged kernel: all inputs on one device")
     for t in (q, k_pool, v_pool, block_tables, pos):
@@ -96,37 +134,50 @@ def _kernel(q, k_pool, v_pool, block_tables, pos, scale):
         return out
     lib = _build.load("paged_attention", _SIGNATURES)
     stream = torch.cuda.current_stream(q.device).cuda_stream
+    ks_ptr, vs_ptr = [t.data_ptr() for t in scales] if scales else [None] * 2
     err = lib.paged_decode_attention(
-        q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+        q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), ks_ptr, vs_ptr,
         block_tables.data_ptr(), pos.data_ptr(), out.data_ptr(), B, H, kvh,
-        D, bs, nbl, _DTYPES[q.dtype], _DTYPES[k_pool.dtype], float(scale),
-        q.device.index, stream)
+        D, bs, nbl, _DTYPES[q.dtype], _POOL_DTYPES[k_pool.dtype],
+        float(scale), q.device.index, stream)
     _build.check(lib, err, "paged_decode_attention")
-    paged_decode_attention.launches += 1
+    if scales:
+        paged_decode_attention.launches_fp8 += 1
+    else:
+        paged_decode_attention.launches += 1
     return out
 
 
-def paged_decode_attention(q, k_pool, v_pool, block_tables, pos, scale):
+def paged_decode_attention(q, k_pool, v_pool, block_tables, pos, scale,
+                           k_scale=None, v_scale=None):
     """One decode step of attention against a paged KV cache.
 
-    q : (B, H, D) current-position queries, already rotated.
+    q : (B, H, D) current-position queries, already rotated (f32 or
+        bf16).
     k_pool / v_pool : (num_blocks, block_size, KVH, D) -- one layer's
-        slice of the engine's pool, f32 or bf16.
+        slice of the engine's pool: f32, bf16 or float8_e4m3fn codes.
     block_tables : (B, n_blocks) int32 physical block ids per sequence
         (null-block padded); every id must be < num_blocks.
     pos : (B,) int32 position written this step; cache positions
         ``<= pos`` participate, later ones (write-ahead rows, padding)
         are masked.
     scale : softmax scale (1/sqrt(D)).
+    k_scale / v_scale : (num_blocks, block_size) f32 per-token-row
+        scales of an fp8 pool (one layer's plane), None otherwise.
 
     Returns (B, H*D) in q's dtype.  CUDA tensors launch the kernel and
-    count one launch in ``paged_decode_attention.launches``.
+    count one launch in ``paged_decode_attention.launches`` (f32/bf16
+    pools) or ``paged_decode_attention.launches_fp8`` (fp8 pools).
     """
     if q.device.type == "cpu":
-        return paged_decode_plain(q, k_pool, v_pool, block_tables, pos, scale)
+        _check_scales(k_pool, k_scale, v_scale)
+        return paged_decode_plain(q, k_pool, v_pool, block_tables, pos, scale,
+                                  k_scale, v_scale)
     if q.device.type == "cuda":
-        return _kernel(q, k_pool, v_pool, block_tables, pos, scale)
+        return _kernel(q, k_pool, v_pool, block_tables, pos, scale, k_scale,
+                       v_scale)
     raise MXNetError(f"paged_decode_attention: unsupported device {q.device}")
 
 
 paged_decode_attention.launches = 0
+paged_decode_attention.launches_fp8 = 0

@@ -15,6 +15,12 @@ two bodies are plain methods:
   reference's inline gather + ``_cache_attention``.  It is the only
   decode path: no routing knob.
 
+With ``kv_dtype="fp8"`` both bodies quantize each written K/V row to
+e4m3 codes and one f32 amax scale (``ops.quant_kv.kv_quantize_fp8``),
+and the decode attention dequantizes inside the kernel.  Prefill's own
+attention reads the fresh K/V, so the first generated token never
+drifts; decode reads the pool.
+
 The KV pools are updated IN PLACE by index assignment; that replaces the
 reference's donated-argument round trip (``pool_args``/``update_pools``).
 Weights are the model's own parameters, never copied.  The big
@@ -30,8 +36,8 @@ graphs.
 
 Not in this slice (each raises ``NotSupportedError``): int8 weights
 (``quantize``), tensor parallelism (``mesh``), chunked prefill
-(``prefill_chunk``), the prefix cache, speculative decoding, fp8 KV
-storage and sharing one ``kv_cache`` between engines.
+(``prefill_chunk``), the prefix cache, speculative decoding and sharing
+one ``kv_cache`` between engines.
 """
 from __future__ import annotations
 
@@ -47,7 +53,8 @@ from ..gluon.model_zoo.nlp.llama import (_rms, _rope_cos_sin,
                                          _rot_interleaved)
 from ..ops.flash_attention import flash_attention
 from ..ops.paged_attention import paged_decode_attention
-from ..ops.quant_kv import kv_cast, resolve_kv_dtype
+from ..ops.quant_kv import (kv_cast, kv_has_scales, kv_quantize_fp8,
+                            resolve_kv_dtype)
 from .kv_cache import PagedKVCache
 
 __all__ = ["InferenceEngine", "next_bucket"]
@@ -83,7 +90,8 @@ class InferenceEngine:
     temperature / top_k / seed : sampling (greedy at temperature 0,
         else top-k categorical when ``top_k > 0``, full categorical when
         0), from a ``torch.Generator`` seeded with ``seed``.
-    kv_dtype : pool storage, ``None`` (the model's dtype) or ``"bf16"``.
+    kv_dtype : pool storage: ``None`` (the model's dtype), ``"bf16"``,
+        or ``"fp8"`` (e4m3 codes with per-row f32 scales).
     device : ``cuda`` by default; raises without a card unless
         ``device="cpu"`` (the kernels' plain versions then run).
     """
@@ -126,6 +134,7 @@ class InferenceEngine:
         if num_blocks is None:
             num_blocks = 1 + self.max_batch * (mc // bs)
         self.kv_dtype = resolve_kv_dtype(kv_dtype)
+        self._kv_fp8 = kv_has_scales(self.kv_dtype)
         self.params = self._extract_weights(net)
         self.cache = PagedKVCache(
             cfg.num_layers, cfg.num_kv_heads, cfg.head_dim,
@@ -163,6 +172,19 @@ class InferenceEngine:
 
     # -- the two bodies --------------------------------------------------
 
+    def _write_kv(self, li, idx, k, v):
+        """Store K/V rows ``k``/``v`` (..., kvh, d) of layer ``li`` at the
+        pool index ``idx`` (a tuple of index tensors): fp8 codes and
+        their row scales, or a plain storage cast."""
+        c = self.cache
+        if not self._kv_fp8:
+            c.k_pool[(li, *idx)] = kv_cast(k, c.k_pool.dtype)
+            c.v_pool[(li, *idx)] = kv_cast(v, c.v_pool.dtype)
+            return
+        for pool, plane, x in ((c.k_pool, c.k_scale, k),
+                               (c.v_pool, c.v_scale, v)):
+            pool[(li, *idx)], plane[(li, *idx)] = kv_quantize_fp8(x)
+
     def _mlp(self, lp, x):
         y = _rms(x, lp["post_norm"], self.cfg.rms_eps)
         return x + torch.matmul(F.silu(torch.matmul(y, lp["gate"].T)) *
@@ -180,7 +202,6 @@ class InferenceEngine:
         bs = self.block_size
         L = toks.shape[1]
         nb = L // bs
-        kp, vp = self.cache.k_pool, self.cache.v_pool
         x = self.params["embed"][toks]                       # (1, L, hid)
         cos, sin = _rope_cos_sin(torch.arange(L, device=self.device), d,
                                  cfg.rope_theta)
@@ -194,11 +215,10 @@ class InferenceEngine:
             q = _rot_interleaved(q, cos, sin)
             k = _rot_interleaved(k, cos, sin)
             # unrepeated K/V rows into the pool blocks, then attention
-            # over the repeated heads
-            kp[li, bt] = kv_cast(k[0].transpose(0, 1).reshape(nb, bs, kvh, d),
-                                 kp.dtype)
-            vp[li, bt] = kv_cast(v[0].transpose(0, 1).reshape(nb, bs, kvh, d),
-                                 vp.dtype)
+            # over the fresh repeated heads
+            self._write_kv(li, (bt,),
+                           k[0].transpose(0, 1).reshape(nb, bs, kvh, d),
+                           v[0].transpose(0, 1).reshape(nb, bs, kvh, d))
             o = flash_attention(q, k.repeat_interleave(rep, dim=1),
                                 v.repeat_interleave(rep, dim=1), causal=True)
             o = o.transpose(1, 2).reshape(1, L, h * d)
@@ -219,7 +239,7 @@ class InferenceEngine:
         eps = cfg.rms_eps
         B = self.max_batch
         scale = 1.0 / math.sqrt(d)
-        kp, vp = self.cache.k_pool, self.cache.v_pool
+        c = self.cache
         x = self.params["embed"][toks.long()]                # (B, hid)
         cos, sin = _rope_cos_sin(pos, d, cfg.rope_theta)     # (B, d/2)
         cos, sin = cos[:, None, :], sin[:, None, :]
@@ -232,9 +252,11 @@ class InferenceEngine:
             v = torch.matmul(hh, lp["v"].T).reshape(B, kvh, d)
             q = _rot_interleaved(q, cos, sin)
             k = _rot_interleaved(k, cos, sin)
-            kp[li, blk, off] = kv_cast(k, kp.dtype)
-            vp[li, blk, off] = kv_cast(v, vp.dtype)
-            o = paged_decode_attention(q, kp[li], vp[li], bts, pos, scale)
+            self._write_kv(li, (blk, off), k, v)
+            ks, vs = (None, None) if c.k_scale is None else \
+                (c.k_scale[li], c.v_scale[li])
+            o = paged_decode_attention(q, c.k_pool[li], c.v_pool[li], bts,
+                                       pos, scale, k_scale=ks, v_scale=vs)
             x = x + torch.matmul(o, lp["o"].T)
             x = self._mlp(lp, x)
         return self._head_logits(_rms(x, self.params["norm"], eps))
@@ -327,17 +349,21 @@ class InferenceEngine:
     def reserve(self, slot, pos, n=1):
         """Grow ``slot``'s block table to cover positions
         ``[pos, pos + n)`` before a decode step, copy-on-write-forking
-        any written block another holder still shares.  False when the
+        any written block another holder still shares (with its fp8 scale
+        rows, so the fork dequantizes as its source).  False when the
         pool is exhausted."""
-        if not self.cache.ensure(slot, pos + n - 1):
+        c = self.cache
+        if not c.ensure(slot, pos + n - 1):
             return False
-        copies = self.cache.prepare_write(slot, pos, pos + n)
+        copies = c.prepare_write(slot, pos, pos + n)
         if copies is None:
             return False
-        kp, vp = self.cache.k_pool, self.cache.v_pool
+        planes = [c.k_pool, c.v_pool]
+        if self._kv_fp8:
+            planes += [c.k_scale, c.v_scale]
         for src, dst in copies:
-            kp[:, dst] = kp[:, src]
-            vp[:, dst] = vp[:, src]
+            for plane in planes:
+                plane[:, dst] = plane[:, src]
         return True
 
     @torch.no_grad()

@@ -11,7 +11,9 @@ attention masks it out by position.
 
 Device side the pools are two torch tensors of shape
 ``(layers, num_blocks, block_size, kv_heads, head_dim)`` on the engine's
-device.  The engine writes them IN PLACE (index assignment), which
+device; an fp8 cache adds two f32 scale planes ``(layers, num_blocks,
+block_size)``, one amax scale per written token row, indexed like the
+pools.  The engine writes them IN PLACE (index assignment), which
 replaces the reference's donated-argument round trip
 (``pool_args``/``update_pools``); the donation sentinel that guarded
 that round trip has nothing left to guard and is not ported.
@@ -29,7 +31,7 @@ import torch
 
 from ..base import MXNetError
 from ..context import resolve_device
-from ..ops.quant_kv import kv_pool_dtype, resolve_kv_dtype
+from ..ops.quant_kv import kv_has_scales, kv_pool_dtype, resolve_kv_dtype
 
 __all__ = ["PagedKVCache", "DoubleFreeError"]
 
@@ -49,8 +51,9 @@ class PagedKVCache:
     block_size : tokens per block (power of two).
     max_batch : decode slots (sequences resident at once).
     dtype : pool dtype when ``kv_dtype`` is unset (the model's dtype).
-    kv_dtype : ``"bf16"`` stores bfloat16; ``None``/``"fp32"`` keeps
-        ``dtype``; ``"fp8"`` raises ``NotSupportedError``.
+    kv_dtype : ``"bf16"`` stores bfloat16; ``"fp8"`` stores
+        float8_e4m3fn codes with the ``k_scale``/``v_scale`` planes;
+        ``None``/``"fp32"`` keeps ``dtype``.
     device : where the pools live (``cuda`` by default; raises without
         a card unless ``device="cpu"``).
     """
@@ -76,6 +79,13 @@ class PagedKVCache:
         shape = (num_layers, num_blocks, block_size, num_kv_heads, head_dim)
         self.k_pool = torch.zeros(shape, dtype=self.dtype, device=self.device)
         self.v_pool = torch.zeros(shape, dtype=self.dtype, device=self.device)
+        self.k_scale = self.v_scale = None
+        if kv_has_scales(self.kv_dtype):
+            sshape = (num_layers, num_blocks, block_size)
+            self.k_scale = torch.zeros(sshape, dtype=torch.float32,
+                                       device=self.device)
+            self.v_scale = torch.zeros(sshape, dtype=torch.float32,
+                                       device=self.device)
         # LIFO free list: freshly freed blocks are reused first (warm)
         self._free = list(range(num_blocks - 1, 0, -1))
         self._tables = {}        # slot -> [physical block ids]
@@ -129,9 +139,14 @@ class PagedKVCache:
 
     @property
     def block_nbytes(self):
-        """Bytes ONE block pins across both pools and all layers."""
-        return (2 * self.num_layers * self.block_size * self.num_kv_heads
-                * self.head_dim * self.k_pool.element_size())
+        """Bytes ONE block pins across both pools and all layers,
+        including the fp8 scale rows."""
+        n = (2 * self.num_layers * self.block_size * self.num_kv_heads
+             * self.head_dim * self.k_pool.element_size())
+        if self.k_scale is not None:
+            n += 2 * self.num_layers * self.block_size * \
+                self.k_scale.element_size()
+        return n
 
     def blocks_for(self, n_tokens):
         """Blocks needed to hold ``n_tokens`` positions."""

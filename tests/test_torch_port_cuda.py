@@ -14,7 +14,12 @@ in float32 is held to 1e-4 absolute + 1e-4 relative (its ``dp - delta``
 cancels, so summation-order noise is relative to the terms, not the
 result).  The update kernels K1/K2 are held to 1e-6 relative + 1e-7
 absolute, not bitwise: nvcc contracts ``a*b + c`` into one FMA where
-the plain PyTorch rule rounds twice.
+the plain PyTorch rule rounds twice.  K5's fp8 path takes the
+tolerance of its query's dtype, against the plain version on the same
+codes and scales (the kernel folds each row's scale into the score and
+into p, the plain version into the dequantized row: f32 rounding only).
+K4's y and dx take the tolerance of their dtype; dgamma and dbeta, f32
+sums over all rows in another order, 1e-3 absolute + 1e-4 relative.
 """
 import numpy as np
 import pytest
@@ -33,8 +38,14 @@ from mxnet_tpu_torch.ops.fused_update import (fused_adam_update,
                                               fused_bucket_rule,
                                               fused_sgd_update)
 from mxnet_tpu_torch.optimizer import fused_rule
+from mxnet_tpu_torch.ops.fused_layernorm import (fused_layer_norm,
+                                                 fused_layer_norm_bwd,
+                                                 fused_layer_norm_fwd,
+                                                 layer_norm_bwd_plain,
+                                                 layer_norm_plain)
 from mxnet_tpu_torch.ops.paged_attention import (paged_decode_attention,
                                                  paged_decode_plain)
+from mxnet_tpu_torch.ops.quant_kv import kv_quantize_fp8
 
 pytestmark = pytest.mark.cuda
 
@@ -74,6 +85,8 @@ def test_flash_kernel_matches_plain(card, dtype, D, causal, lq, lk):
 
 
 def _paged_case(card, B, H, KVH, D, bs, nbl, q_dtype, kv_dtype, seed):
+    """q, pools, tables and positions on the card; an fp8 pool is
+    quantized there and followed by its (k_scale, v_scale)."""
     rng = np.random.RandomState(seed)
     nb = 1 + B * nbl
     q = torch.from_numpy(rng.randn(B, H, D).astype(np.float32))
@@ -87,6 +100,11 @@ def _paged_case(card, B, H, KVH, D, bs, nbl, q_dtype, kv_dtype, seed):
     for i in range(1, B):                        # row 0: all null
         n = int(pos[i]) // bs + 1
         tables[i, :n], perm = perm[:n], perm[n:]
+    if kv_dtype == torch.float8_e4m3fn:
+        (kc, ks), (vc, vs) = (kv_quantize_fp8(t.to(card)) for t in (kp, vp))
+        return [q.to(q_dtype).to(card), kc, vc,
+                torch.from_numpy(tables).to(card),
+                torch.from_numpy(pos).to(card), ks, vs]
     args = [q.to(q_dtype), kp.to(kv_dtype), vp.to(kv_dtype),
             torch.from_numpy(tables), torch.from_numpy(pos)]
     return [a.to(card) for a in args]
@@ -124,6 +142,71 @@ def test_paged_kernel_ignores_rows_past_pos(card):
     torch.testing.assert_close(out2[1:], out[1:], atol=0, rtol=0)
 
 
+@pytest.mark.parametrize("q_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("H,KVH,D", [(32, 8, 128), (8, 8, 128), (16, 2, 128),
+                                      (32, 8, 64), (8, 8, 64), (16, 2, 64)])
+def test_paged_fp8_kernel_matches_plain(card, q_dtype, H, KVH, D):
+    q, kp, vp, tables, pos, ks, vs = _paged_case(
+        card, 5, H, KVH, D, 16, 6, q_dtype, torch.float8_e4m3fn, seed=H + D)
+    before = (paged_decode_attention.launches,
+              paged_decode_attention.launches_fp8)
+    out = paged_decode_attention(q, kp, vp, tables, pos, D ** -0.5,
+                                 k_scale=ks, v_scale=vs)
+    torch.cuda.synchronize()
+    assert (paged_decode_attention.launches,
+            paged_decode_attention.launches_fp8) == (before[0], before[1] + 1)
+    ref = paged_decode_plain(q, kp, vp, tables, pos, D ** -0.5, ks, vs)
+    assert out.dtype == q_dtype and torch.isfinite(out).all()
+    _close(out, ref, q_dtype)
+
+
+@pytest.mark.parametrize("q_dtype", [torch.float32, torch.bfloat16])
+def test_paged_fp8_kernel_at_context_4096(card, q_dtype):
+    """The fp8 serving phase's longest context: 256 blocks of 16."""
+    q, kp, vp, tables, pos, ks, vs = _paged_case(
+        card, 3, 32, 8, 128, 16, 256, q_dtype, torch.float8_e4m3fn, seed=11)
+    out = paged_decode_attention(q, kp, vp, tables, pos, 128 ** -0.5,
+                                 k_scale=ks, v_scale=vs)
+    ref = paged_decode_plain(q, kp, vp, tables, pos, 128 ** -0.5, ks, vs)
+    torch.cuda.synchronize()
+    assert int(pos[-1]) == 4095
+    _close(out, ref, q_dtype)
+
+
+def test_paged_fp8_kernel_ignores_rows_past_pos(card):
+    """NaN codes and scales past ``pos`` are never read."""
+    q, kp, vp, tables, pos, ks, vs = _paged_case(
+        card, 4, 8, 4, 128, 16, 4, torch.float32, torch.float8_e4m3fn, 3)
+    out = paged_decode_attention(q, kp, vp, tables, pos, 0.1, k_scale=ks,
+                                 v_scale=vs)
+    kb, vb = kp.view(torch.uint8).clone(), vp.view(torch.uint8).clone()
+    ks2, vs2 = ks.clone(), vs.clone()
+    for i in range(4):
+        p = int(pos[i])
+        blk = int(tables[i, p // 16])
+        kb[blk, p % 16 + 1:] = 0x7F                 # e4m3 NaN
+        vb[blk, p % 16 + 1:] = 0x7F
+        ks2[blk, p % 16 + 1:] = float("nan")
+        vs2[blk, p % 16 + 1:] = float("nan")
+    out2 = paged_decode_attention(q, kb.view(torch.float8_e4m3fn),
+                                  vb.view(torch.float8_e4m3fn), tables, pos,
+                                  0.1, k_scale=ks2, v_scale=vs2)
+    torch.testing.assert_close(out2[1:], out[1:], atol=0, rtol=0)
+
+
+def test_flash_kernel_matches_plain_at_4096(card):
+    """K3 forward at the fp8 serving phase's longest prompt bucket."""
+    for dtype in (torch.float32, torch.bfloat16):
+        g = torch.Generator(device=card).manual_seed(4096)
+        q, k, v = (torch.randn(4, 4096, 128, device=card, generator=g)
+                   .to(dtype) for _ in range(3))
+        out, lse = flash_attention_fwd(q, k, v, True)
+        ref, ref_lse = flash_attention_plain(q, k, v, True, 128 ** -0.5)
+        torch.cuda.synchronize()
+        _close(out, ref, dtype)
+        torch.testing.assert_close(lse, ref_lse, atol=1e-4, rtol=1e-4)
+
+
 def test_kernels_refuse_what_they_do_not_take(card):
     from mxnet_tpu_torch import NotSupportedError
     x = torch.zeros(2, 16, 32, device=card)
@@ -135,6 +218,26 @@ def test_kernels_refuse_what_they_do_not_take(card):
     p = torch.zeros(2, dtype=torch.int32, device=card)
     with pytest.raises(NotSupportedError):
         paged_decode_attention(q, kp, kp, t, p, 0.1)   # bf16 q, f32 pool
+    k8 = kp.to(torch.float8_e4m3fn)
+    s = torch.ones(3, 16, device=card)
+    for pools, scales in (((k8, k8), {}),              # fp8 without scales
+                          ((kp, kp), dict(k_scale=s, v_scale=s)),
+                          ((k8, k8), dict(k_scale=s[:, :8], v_scale=s)),
+                          ((k8, k8), dict(k_scale=s.double(), v_scale=s)),
+                          ((k8, k8), dict(k_scale=s.t().contiguous().t(),
+                                          v_scale=s))):
+        with pytest.raises(NotSupportedError):
+            paged_decode_attention(q.float(), *pools, t, p, 0.1, **scales)
+    x = torch.zeros(4, 8193, device=card)
+    w = torch.ones(8193, device=card)
+    with pytest.raises(NotSupportedError):
+        fused_layer_norm_fwd(x, None, w, w, 1e-5)      # D above 8192
+    h = torch.zeros(4, 64, device=card, dtype=torch.float16)
+    w = torch.ones(64, device=card)
+    with pytest.raises(NotSupportedError):
+        fused_layer_norm_fwd(h, None, w, w, 1e-5)      # float16
+    with pytest.raises(NotSupportedError):             # residual dtype
+        fused_layer_norm_fwd(h.float(), h, w, w, 1e-5)
 
 
 # ----------------------------------------------------------------------
@@ -294,3 +397,87 @@ def test_trainer_flat_bucket_after_a_stale_step_still_launches_k1(card):
             tr.step(2)
         assert fused_sgd_update.launches == launches + 1
     assert not torch.equal(params["model.norm.weight"], before)
+
+
+# ----------------------------------------------------------------------
+# fused LayerNorm (K4)
+# ----------------------------------------------------------------------
+
+LN_PARAM_TOL = dict(atol=1e-3, rtol=1e-4)
+
+
+def _ln_case(card, rows, D, dtype, residual, seed, g_dtype=torch.float32):
+    g = torch.Generator(device=card).manual_seed(seed)
+    x = (torch.randn(rows, D, device=card, generator=g) * 2 + 0.5).to(dtype)
+    res = torch.randn(rows, D, device=card, generator=g).to(dtype) \
+        if residual else None
+    gamma = torch.randn(D, device=card, generator=g).to(g_dtype)
+    beta = torch.randn(D, device=card, generator=g).to(g_dtype)
+    dy = torch.randn(rows, D, device=card, generator=g).to(dtype)
+    return x, res, gamma, beta, dy
+
+
+@pytest.mark.parametrize("residual", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [64, 768, 1024, 4096])
+@pytest.mark.parametrize("rows", [1, 7, 4096])
+def test_layernorm_kernels_match_plain(card, rows, D, dtype, residual):
+    x, res, gamma, beta, dy = _ln_case(card, rows, D, dtype, residual,
+                                       rows + D)
+    before = (fused_layer_norm_fwd.launches, fused_layer_norm_bwd.launches)
+    y = fused_layer_norm_fwd(x, res, gamma, beta, 1e-5)
+    dx, dg, db = fused_layer_norm_bwd(x, res, gamma, dy, 1e-5)
+    torch.cuda.synchronize()
+    assert (fused_layer_norm_fwd.launches,
+            fused_layer_norm_bwd.launches) == (before[0] + 1, before[1] + 1)
+    assert y.dtype == dx.dtype == dtype and dg.dtype == torch.float32
+    _close(y, layer_norm_plain(x, res, gamma, beta, 1e-5), dtype)
+    rdx, rdg, rdb = layer_norm_bwd_plain(x, res, gamma, dy, 1e-5)
+    _close(dx, rdx, dtype)
+    torch.testing.assert_close(dg, rdg, **LN_PARAM_TOL)
+    torch.testing.assert_close(db, rdb, **LN_PARAM_TOL)
+
+
+def test_layernorm_bf16_params_and_widest_row(card):
+    """bf16 gamma/beta, and D = 8192 (the backward's 128 KB of shared
+    memory per CTA)."""
+    for D, g_dtype in ((1024, torch.bfloat16), (8192, torch.float32)):
+        x, res, gamma, beta, dy = _ln_case(card, 33, D, torch.bfloat16, True,
+                                           D, g_dtype)
+        y = fused_layer_norm_fwd(x, res, gamma, beta, 1e-12)
+        dx, dg, db = fused_layer_norm_bwd(x, res, gamma, dy, 1e-12)
+        _close(y, layer_norm_plain(x, res, gamma, beta, 1e-12),
+               torch.bfloat16)
+        rdx, rdg, rdb = layer_norm_bwd_plain(x, res, gamma, dy, 1e-12)
+        _close(dx, rdx, torch.bfloat16)
+        torch.testing.assert_close(dg, rdg, **LN_PARAM_TOL)
+        torch.testing.assert_close(db, rdb, **LN_PARAM_TOL)
+
+
+def test_layernorm_backward_is_bitwise_repeatable(card):
+    x, res, gamma, _, dy = _ln_case(card, 4096, 1024, torch.float32, True, 5)
+    first = fused_layer_norm_bwd(x, res, gamma, dy, 1e-12)
+    for _ in range(3):
+        again = fused_layer_norm_bwd(x, res, gamma, dy, 1e-12)
+        for a, b in zip(first, again):
+            assert torch.equal(a, b)
+
+
+def test_layernorm_op_on_card_is_differentiable(card):
+    """The public op through ``_FusedLN``: one forward and one backward
+    launch, gradients equal to the plain backward's, dres == dx."""
+    x, res, gamma, beta, dy = _ln_case(card, 96, 768, torch.float32, True, 8)
+    leaves = [t.clone().requires_grad_() for t in (x, res, gamma, beta)]
+    before = (fused_layer_norm_fwd.launches, fused_layer_norm_bwd.launches)
+    out = fused_layer_norm(leaves[0], leaves[2], leaves[3],
+                           residual=leaves[1], eps=1e-12)
+    assert out.grad_fn is not None
+    out.backward(dy)
+    torch.cuda.synchronize()
+    assert (fused_layer_norm_fwd.launches,
+            fused_layer_norm_bwd.launches) == (before[0] + 1, before[1] + 1)
+    rdx, rdg, rdb = layer_norm_bwd_plain(x, res, gamma, dy, 1e-12)
+    _close(leaves[0].grad, rdx, torch.float32)
+    assert torch.equal(leaves[1].grad, leaves[0].grad)
+    torch.testing.assert_close(leaves[2].grad, rdg, **LN_PARAM_TOL)
+    torch.testing.assert_close(leaves[3].grad, rdb, **LN_PARAM_TOL)

@@ -233,8 +233,7 @@ def test_kv_dtype_subset():
     assert resolve_kv_dtype(None) is None
     assert resolve_kv_dtype("fp32") is None
     assert resolve_kv_dtype("bfloat16") == "bf16"
-    with pytest.raises(mt.NotSupportedError):
-        resolve_kv_dtype("fp8")
+    assert resolve_kv_dtype("fp8") == "fp8"
     with pytest.raises(mt.MXNetError):
         resolve_kv_dtype("int4")
 

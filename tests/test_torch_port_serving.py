@@ -279,8 +279,7 @@ def test_entry_points_refuse_without_a_card():
 
 @pytest.mark.parametrize("kwargs", [
     {"quantize": "int8"}, {"mesh": "tp=2"}, {"prefill_chunk": 8},
-    {"prefix_cache": True}, {"spec_decode": True}, {"kv_dtype": "fp8"},
-    {"kv_cache": object()}], ids=lambda kw: next(iter(kw)))
+    {"prefix_cache": True}, {"spec_decode": True}, {"kv_cache": object()}], ids=lambda kw: next(iter(kw)))
 def test_engine_refuses_later_slices(kwargs):
     net = LlamaForCausalLM(LlamaConfig(**GEOM), device="cpu")
     with pytest.raises(mt.NotSupportedError):

@@ -3,7 +3,8 @@
 
 Builds Llama-3-8B (random weights from ``--seed``, bfloat16, full width;
 ``--layers`` cuts depth) with ``mxnet_tpu_torch``'s ``InferenceEngine``
-(max_batch 8, block_size 16, max_context 1024), fills the batch with
+(block_size 16; ``--max-batch`` 8, ``--max-context`` 1024 and the KV
+storage ``--kv-dtype`` by default the model's), fills the batch with
 prompts of ``--prompt`` tokens, then profiles with ``torch.profiler``:
 
 - one prefill of a ``--prompt``-token prompt;
@@ -58,6 +59,9 @@ def main():
     ap.add_argument("--steps", type=int, default=8)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--trace-dir", default=None)
+    ap.add_argument("--max-batch", type=int, default=8)
+    ap.add_argument("--max-context", type=int, default=1024)
+    ap.add_argument("--kv-dtype", default=None, help="bf16 or fp8")
     args = ap.parse_args()
     import numpy as np
     import torch
@@ -75,8 +79,9 @@ def main():
     dev = torch.device("cuda", 0)
     net = llama3_8b(device=dev, dtype=torch.bfloat16, seed=args.seed,
                     num_layers=args.layers)
-    eng = InferenceEngine(net, max_batch=8, block_size=16, max_context=1024,
-                          device=dev).warmup()
+    eng = InferenceEngine(net, max_batch=args.max_batch, block_size=16,
+                          max_context=args.max_context,
+                          kv_dtype=args.kv_dtype, device=dev).warmup()
     rng = np.random.RandomState(args.seed)
     prompts = [rng.randint(0, net.cfg.vocab_size, args.prompt).tolist()
                for _ in range(eng.max_batch)]
@@ -105,7 +110,8 @@ def main():
               f"launches", flush=True)
     print(card)
     print(json.dumps({"card": card, "layers": args.layers,
-                      "prompt": args.prompt, "windows": results}))
+                      "prompt": args.prompt, "max_batch": eng.max_batch,
+                      "kv_dtype": eng.kv_dtype, "windows": results}))
 
 
 if __name__ == "__main__":

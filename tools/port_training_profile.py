@@ -93,8 +93,7 @@ def main():
     print(card)
     print(json.dumps({"card": card, "layers": args.layers,
                       "tokens": args.batch * args.seq,
-                      "port_launches": {name: fn.launches for name, fn
-                                        in ops.KERNELS.items()},
+                      "port_launches": ops.launch_counts(),
                       "windows": results}))
 
 
