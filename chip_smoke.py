@@ -9,11 +9,14 @@ continued:
 1. device: require CUDA; print the card's name and power limit;
 2. build: compile every kernel of the serving, training and LayerNorm
    paths from ``mxnet_tpu_torch/ops/csrc`` (one ``nvcc`` per source, in
-   parallel);
+   parallel); print each flash kernel's registers, spill bytes (ptxas),
+   dynamic shared memory and ``HGMMA`` count (``cuobjdump -sass``), and
+   fail if a bf16 flash kernel spills or issues no wgmma;
 3. kernels: hold each kernel against its plain PyTorch version on the
    card at the shapes its path gives it; time the kernel, the plain
    version and, where one PyTorch call computes the same function (or,
-   marked "near", nearly the same), that call (``library_ms``):
+   marked "near", nearly the same), that call (``library_ms``), the
+   flash lines with their factor against SDPA and share of the bound:
    flash forward (float32, bfloat16), paged decode (f32 and bf16 pools;
    an fp8 pool with a bf16 and an f32 query), flash backward (BH=64,
    L=1024, D=128 causal, float32 and bfloat16, and ragged L=200 with
@@ -58,7 +61,9 @@ Before each of phases 4, 7, 8, 9 and 10 the kernels' launch counters are
 set to 0; each phase reads them just after and fails unless its kernels
 ran the expected number of times.  The second-to-last line is the
 card's name and power limit, the line before it the kernels' JSON
-record; the last line is ``{"ok": true, "device": {...}}``.
+record, and the line before that every timed row of phase 3 as
+``{"kernel_rows": [...]}``; the last line is ``{"ok": true, "device":
+{...}}``.
 """
 import gc
 import json
@@ -158,12 +163,78 @@ def read_launches(phase, want):
     return got
 
 
+ROWS = []        # every timed (kernel, dtype, shape) of phase 3
+
+
+def record(kernel, dtype, shape, ms, plain_ms, library_ms, bound_ms, by):
+    """Keep one timed row of phase 3 for the ``kernel_rows`` line."""
+    ROWS.append({"kernel": kernel, "dtype": dtype, "shape": shape, "ms": ms,
+                 "plain_ms": plain_ms, "library_ms": library_ms,
+                 "bound_ms": bound_ms, "bound_by": by})
+
+
 def bound(nbytes, flops, dtype_name):
     """(bound_ms, bound_by): the larger of bytes over the HBM rate and
     operations over the peak rate of their type."""
     t_bytes = nbytes / H100_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FLOPS[dtype_name] * 1e3
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+# ----------------------------------------------------------------------
+# phase 2: what ptxas and the SASS say about the flash kernels
+# ----------------------------------------------------------------------
+
+def flash_kernel_report():
+    """For every kernel of the two flash libraries: registers and spill
+    bytes (ptxas, from the build log), the dynamic shared memory its
+    launch asks for, and its ``HGMMA`` (wgmma) instructions in the SASS.
+    Fails if a bf16 kernel spills or issues no HGMMA."""
+    import ctypes
+    import re
+    from mxnet_tpu_torch.ops import _build
+    cuobjdump = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    for lib_name, smem_fn in (("flash_attention", "flash_attention_fwd_smem"),
+                              ("flash_attention_bwd",
+                               "flash_attention_bwd_smem")):
+        with open(_build.log_path(lib_name)) as f:
+            log = f.read()
+        path = _build.build([lib_name])[lib_name]
+        sass = subprocess.run([cuobjdump, "-sass", path], capture_output=True,
+                              text=True, timeout=300)
+        if sass.returncode != 0:
+            fail(f"cuobjdump -sass {path}: {sass.stderr.strip()}")
+        hgmma = {m[1]: m[2].count("HGMMA") for m in re.finditer(
+            r"Function : (\S+)\n(.*?)(?=\n\s*Function : |\Z)", sass.stdout,
+            re.S)}
+        lib = ctypes.CDLL(path)         # its own handle: the ops' argtypes
+        smem = getattr(lib, smem_fn)                      # stay untouched
+        smem.restype = ctypes.c_int
+        for entry in log.split("Compiling entry function '")[1:]:
+            mangled = entry.split("'")[0]
+            m = re.search(r"((?:flash_fwd|flash_bwd|delta)\w*?kernel)I(\w*?)"
+                          r"Li(\d+)E", mangled)
+            regs = re.search(r"Used (\d+) registers", entry)
+            spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                              r"loads", entry)
+            if not (m and regs and spill):
+                fail(f"{lib_name}: unreadable ptxas entry {mangled}")
+            name, d = m[1], int(m[3])
+            bf16 = "bfloat16" in m[2] or "bf16" in name
+            if name == "delta_kernel":
+                nbytes = 0
+            elif lib_name == "flash_attention":
+                nbytes = smem(int(bf16), d)
+            else:
+                nbytes = smem(int(bf16), d, int("_dq_" in name))
+            tag = f"{name}<{'bf16' if bf16 else 'f32'}, D={d}>"
+            print(f"ptxas {tag}: {regs[1]} registers, {spill[1]} bytes spill "
+                  f"stores, {spill[2]} bytes spill loads, {nbytes} bytes "
+                  f"shared memory; {hgmma.get(mangled, 0)} HGMMA in SASS",
+                  flush=True)
+            if "_bf16_" in name and (hgmma.get(mangled, 0) == 0
+                                     or int(spill[1]) > 0):
+                fail(f"{tag}: no wgmma in its SASS, or it spills")
 
 
 # ----------------------------------------------------------------------
@@ -204,17 +275,17 @@ def check_flash(dev, flush):
             elem = q.element_size()
             nbytes = 4 * H * L * D * elem + 4 * H * L     # q,k,v,o + lse
             flops = 4.0 * H * D * (L * (L + 1) / 2)      # causal pairs
-            t_bytes = nbytes / H100_BYTES_PER_S * 1e3
-            t_ops = flops / PEAK_FLOPS[name] * 1e3
+            bound_ms, by = bound(nbytes, flops, name)
             print(f"flash_attention_fwd L={L} {name}: max_abs_err {err:.3e} "
                   f"lse_err {lerr:.3e} kernel {ms:.4f} ms plain "
-                  f"{plain_ms:.4f} ms sdpa {lib_ms:.4f} ms bound "
-                  f"{max(t_bytes, t_ops):.4f} ms", flush=True)
+                  f"{plain_ms:.4f} ms sdpa {lib_ms:.4f} ms "
+                  f"({ms / lib_ms:.2f}x sdpa) bound {bound_ms:.4f} ms "
+                  f"({by}; {bound_ms / ms:.1%} of it)", flush=True)
+            record("flash_attention_fwd", name, [H, L, D], ms, plain_ms,
+                   lib_ms, bound_ms, by)
             if L == 1024 and name == "bfloat16":
                 main = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                            bound_ms=max(t_bytes, t_ops),
-                            bound_by="bytes" if t_bytes >= t_ops
-                            else "operations")
+                            bound_ms=bound_ms, bound_by=by)
     main["max_abs_err"] = worst
     return main
 
@@ -274,18 +345,15 @@ def check_paged(dev, flush):
         rows = int((pos.astype(np.int64) + 1).sum())
         nbytes = (2 * rows * KVH * D * elem + 2 * B * H * D * elem
                   + sum(int(p) // bs + 1 for p in pos) * 4 + B * 4)
-        flops = 4.0 * rows * H * D
-        t_bytes = nbytes / H100_BYTES_PER_S * 1e3
-        t_ops = flops / PEAK_FLOPS[name] * 1e3
+        bound_ms, by = bound(nbytes, 4.0 * rows * H * D, name)
         print(f"paged_decode_attention B={B} pos<= {int(pos.max())} {name}: "
               f"max_abs_err {err:.3e} kernel {ms:.4f} ms plain "
-              f"{plain_ms:.4f} ms bound {max(t_bytes, t_ops):.4f} ms",
-              flush=True)
+              f"{plain_ms:.4f} ms bound {bound_ms:.4f} ms", flush=True)
+        record("paged_decode_attention", name, [B, H, KVH, D, int(pos.max())],
+               ms, plain_ms, None, bound_ms, by)
         if name == "bfloat16":
             main = dict(ms=ms, plain_ms=plain_ms, library_ms=None,
-                        bound_ms=max(t_bytes, t_ops),
-                        bound_by="bytes" if t_bytes >= t_ops
-                        else "operations")
+                        bound_ms=bound_ms, bound_by=by)
     main["max_abs_err"] = worst
     return main
 
@@ -337,6 +405,9 @@ def check_paged_fp8(dev, flush):
               f"{int(pos.max())}: max_abs_err {err:.3e} kernel {ms:.4f} ms "
               f"plain {plain_ms:.4f} ms bound {bound_ms:.4f} ms ({by})",
               flush=True)
+        record("paged_decode_attention_fp8", name,
+               [B, H, KVH, D, int(pos.max())], ms, plain_ms, None, bound_ms,
+               by)
         if name == "bfloat16":                 # the fp8 serving phase's
             main = dict(ms=ms, plain_ms=plain_ms, library_ms=None,
                         bound_ms=bound_ms, bound_by=by)
@@ -419,6 +490,8 @@ def check_layernorm(dev, flush):
                   f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms library "
                   f"(near) {lib_ms:.4f} ms bound {bound_ms:.4f} ms ({by})",
                   flush=True)
+            record(f"fused_layer_norm_{what}", name, [rows, D], ms, plain_ms,
+                   lib_ms, bound_ms, by)
             out = res_fwd if what == "fwd" else res_bwd
             out.setdefault("max_abs_err", 0.0)
             out["max_abs_err"] = max(out["max_abs_err"],
@@ -482,8 +555,11 @@ def check_flash_bwd(dev, flush):
             bound_ms, by = bound(nbytes, flops, name)
             print(f"flash_attention_bwd BH={B * H} L={L} D={D} {name}: "
                   f"max_abs_err {err:.3e} kernel {ms:.4f} ms plain "
-                  f"{plain_ms:.4f} ms sdpa-bwd {lib_ms:.4f} ms bound "
-                  f"{bound_ms:.4f} ms ({by})", flush=True)
+                  f"{plain_ms:.4f} ms sdpa-bwd {lib_ms:.4f} ms "
+                  f"({ms / lib_ms:.2f}x sdpa) bound {bound_ms:.4f} ms "
+                  f"({by}; {bound_ms / ms:.1%} of it)", flush=True)
+            record("flash_attention_bwd", name, [B * H, L, D], ms, plain_ms,
+                   lib_ms, bound_ms, by)
             if L == 1024 and name == "float32":   # the training phase's
                 main = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                             bound_ms=bound_ms, bound_by=by)
@@ -580,6 +656,8 @@ def check_updates(dev, flush, n_big):
                   f"{err:.3e} kernel {ms:.4f} ms plain {plain_ms:.4f} ms "
                   f"library (near) {lib_ms:.4f} ms bound {bound_ms:.4f} ms "
                   f"({by})", flush=True)
+            record(kernel_name, f"float32 {rule}", [n], ms, plain_ms, lib_ms,
+                   bound_ms, by)
             res = results.setdefault(kernel_name, {"max_abs_err": 0.0})
             res["max_abs_err"] = max(res["max_abs_err"], err)
             # the training phases' rules at the training bucket
@@ -1126,6 +1204,7 @@ def main():
                   "paged_attention", "fused_update", "fused_layernorm"])
     print(f"build: {time.perf_counter() - t0:.1f} s into {_build.BUILD_DIR}",
           flush=True)
+    flash_kernel_report()
 
     # phase 3: kernels against plain versions
     flush = torch.empty(128 * 2 ** 20, dtype=torch.uint8, device=dev)
@@ -1180,6 +1259,7 @@ def main():
                         "bound_ms": res["bound_ms"],
                         "bound_by": res["bound_by"],
                         "library_ms": res["library_ms"]})
+    print(json.dumps({"kernel_rows": ROWS}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -4,12 +4,16 @@ Each ``csrc/<name>.cu`` exposes a plain C interface.  At first use it is
 compiled for Hopper::
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
-         -Xcompiler -fPIC -o build/mxnet_tpu_torch/lib<name>-<hash>.so
+         -Xcompiler -fPIC -Xptxas -v \\
+         -o build/mxnet_tpu_torch/lib<name>-<hash>.so
 
 into ``build/mxnet_tpu_torch/`` at the root of the checkout (git-ignored)
-and loaded with ``ctypes``.  The file name carries a hash of the sources,
-so an edited kernel is never served from a stale library.  Pointers and
-the stream (``torch.cuda.current_stream().cuda_stream``) are passed as
+and loaded with ``ctypes``; nvcc's output, with ptxas's registers, stack
+and spill bytes for every kernel, is kept beside it as
+``lib<name>-<hash>.log`` (:func:`log_path`).  The file name carries a
+hash of the sources, so an edited kernel is never served from a stale
+library.  Pointers and the stream
+(``torch.cuda.current_stream().cuda_stream``) are passed as
 ``c_void_p``; every C entry returns ``cudaGetLastError()`` after its
 launch and :func:`check` raises on a non-zero code.  A failed build
 raises.  No fallback exists: a CUDA tensor either runs the kernel or
@@ -26,14 +30,14 @@ import threading
 
 from ..base import MXNetError
 
-__all__ = ["BUILD_DIR", "NVCC_FLAGS", "build", "load", "check"]
+__all__ = ["BUILD_DIR", "NVCC_FLAGS", "build", "load", "check", "log_path"]
 
 _CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.join(
     os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(
         __file__)))), "build", "mxnet_tpu_torch")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _lock = threading.Lock()
 _libs = {}            # name -> ctypes.CDLL with argtypes set
@@ -61,6 +65,11 @@ def _target(name):
     return os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:16]}.so")
 
 
+def log_path(name):
+    """nvcc's output (ptxas's per-kernel lines) for the built ``name``."""
+    return _target(name)[:-len(".so")] + ".log"
+
+
 def build(names):
     """Compile every library in ``names`` that is not built yet, with one
     ``nvcc`` per source, all started together.  Returns the paths."""
@@ -83,6 +92,8 @@ def build(names):
     failed = []
     for name, target, tmp, proc in procs:
         out, _ = proc.communicate()
+        with open(log_path(name), "w") as f:
+            f.write(out)
         if proc.returncode != 0:
             failed.append(f"{name}: nvcc exited {proc.returncode}\n{out}")
             if os.path.exists(tmp):

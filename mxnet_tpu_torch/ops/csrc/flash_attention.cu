@@ -7,7 +7,30 @@
 // dtype before the PV product, output in the input dtype and the
 // logsumexp in f32.
 //
-// Design (correct and simple first):
+// Bound on the H100 at the serving shapes (H=32, L=1024, D=128, causal):
+// the 33 MB it must move take 0.0100 ms at 3.35 TB/s, just above its 8.6
+// GFLOP of score and PV products at 989 TFLOP/s bf16 (0.0087 ms), so
+// only a kernel on the tensor cores (wgmma) gets near the bound.
+//
+// bf16: flash_fwd_bf16_kernel, on the tensor cores.
+//  - one CTA of two warpgroups per (b*h, 128-row query tile), each
+//    warpgroup owning 64 rows (wgmma's M); query tiles are scheduled
+//    last-first, so the longest causal rows start first;
+//  - Q is staged once; K and V tiles of 128 rows go through a two-stage
+//    ring of bf16 tiles in the 128-byte swizzle (hopper.cuh), loaded with
+//    16-byte cp.async, the next tile's copy in flight while this one
+//    computes;
+//  - S = Q K^T is a wgmma with both operands in shared memory; the
+//    online softmax runs on the accumulator fragments (a row's max and
+//    sum across the four threads that share it), in base 2 with the
+//    scale folded in; only the diagonal and the ragged last tile mask;
+//  - p is rounded to bf16 in registers (the reference's p.astype(v.dtype))
+//    and fed back as the register operand of O += P V, V read MN-major
+//    through the transpose bit;
+//  - rows past Lq are not stored, columns past Lk are masked, and rows of
+//    K/V past Lk are zero-filled by the copy, so any L works.
+//
+// f32: flash_fwd_kernel, on CUDA cores (tensor cores take no f32 here):
 //  - one CTA of 256 threads per (b*h, 64-row query tile); the sequential
 //    KV grid axis of the TPU kernel becomes a loop over 64-column K/V
 //    tiles staged in shared memory as f32;
@@ -15,14 +38,10 @@
 //    columns tx+16j (i, j < 4), so row reductions are 16-lane shuffles
 //    and the padded row stride (D+1) keeps column reads conflict-free;
 //  - causal: tiles wholly past the query tile are never loaded;
-//  - ragged tails are masked (query rows >= Lq are computed but not
-//    stored, key columns >= Lk are masked), so any L works, unlike the
-//    TPU kernel's 128-alignment gate.
-// Bound on the H100 at the serving shapes (H=32, D=128, L<=1024): the
-// score and PV products run on CUDA cores here, so this first version
-// is bound by shared-memory traffic and FMA issue rather than by the
-// ~32 MB per layer it must move; tensor-core tiles are later work.
+//  - ragged tails are masked as above, unlike the TPU kernel's
+//    128-alignment gate.
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -188,10 +207,196 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   return cudaGetLastError();
 }
 
+
+// ------------------------------------------------------------------ bf16
+
+namespace tc {
+
+using bf16 = __nv_bfloat16;
+namespace hw = mxt::hopper;
+
+constexpr int BM = 128;  // query rows per CTA: two warpgroups of 64
+constexpr int BN = 128;  // key rows per K/V tile
+constexpr int NT = 256;
+constexpr float kLog2e = 1.4426950408889634f;
+
+// shared memory: the Q tile, then two stages of a K and a V tile, and
+// room to align the start to 1024 bytes
+template <int D>
+struct Smem {
+  static constexpr int kTile = BN * D * 2;  // one K or V tile, bytes
+  static constexpr int kKV = BM * D * 2;    // stage s: K, then V
+  static constexpr int kAlloc = kKV + 4 * kTile + 1024;
+};
+
+template <int D>
+__global__ void __launch_bounds__(NT, 1)
+    flash_fwd_bf16_kernel(const bf16* __restrict__ q,
+                          const bf16* __restrict__ k,
+                          const bf16* __restrict__ v, bf16* __restrict__ o,
+                          float* __restrict__ lse, int Lq, int Lk, int causal,
+                          float scale) {
+  constexpr int P = D / 64;  // 64-column panels of the output
+  using S = Smem<D>;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (hw::smem_u32(smem_raw) + 1023) & ~1023u;
+  const uint32_t sQ = base;
+
+  const int tid = threadIdx.x;
+  const int wg = tid / 128, warp = (tid % 128) / 32, lane = tid % 32;
+  const size_t bh = blockIdx.x;
+  const int m0 = (gridDim.y - 1 - blockIdx.y) * BM;  // longest rows first
+  const bf16* qb = q + bh * Lq * D;
+  const bf16* kb = k + bh * Lk * D;
+  const bf16* vb = v + bh * Lk * D;
+
+  const int n_end = causal ? min(Lk, m0 + BM) : Lk;
+  const int n_tiles = (n_end + BN - 1) / BN;
+
+  hw::load_tile<BM, D, NT>(sQ, qb, m0, Lq, tid);
+  hw::load_tile<BN, D, NT>(base + S::kKV, kb, 0, Lk, tid);
+  hw::load_tile<BN, D, NT>(base + S::kKV + S::kTile, vb, 0, Lk, tid);
+  hw::cp_async_commit();
+
+  // this thread's rows: r[0] and r[0] + 8 of its warpgroup's 64
+  const int row0 = m0 + 64 * wg + 16 * warp + lane / 4;
+  const int wg_first = m0 + 64 * wg;
+  const float sl2 = scale * kLog2e;  // scores in base-2 units
+  float m_r[2] = {mxt::kNegInf, mxt::kNegInf};
+  float l_r[2] = {0.f, 0.f};  // this thread's share of the row sums
+  float acc[P][32];
+#pragma unroll
+  for (int p = 0; p < P; ++p)
+#pragma unroll
+    for (int j = 0; j < 32; ++j) acc[p][j] = 0.f;
+  float s[64];
+
+  for (int t = 0; t < n_tiles; ++t) {
+    // tile t has landed and every warp is done with tile t - 1, whose
+    // stage the next copy overwrites
+    hw::cp_async_wait<0>();
+    hw::fence_proxy_async();
+    __syncthreads();
+    if (t + 1 < n_tiles) {
+      const uint32_t nxt = base + S::kKV + ((t + 1) & 1) * 2 * S::kTile;
+      hw::load_tile<BN, D, NT>(nxt, kb, (t + 1) * BN, Lk, tid);
+      hw::load_tile<BN, D, NT>(nxt + S::kTile, vb, (t + 1) * BN, Lk, tid);
+      hw::cp_async_commit();
+    }
+    const uint32_t sK = base + S::kKV + (t & 1) * 2 * S::kTile;
+    const uint32_t sV = sK + S::kTile;
+    const int n0 = t * BN;
+
+    // S = Q K^T
+    hw::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      hw::wgmma_ss_n128(s, hw::desc_kmajor<BM>(sQ, 64 * wg, kk),
+                        hw::desc_kmajor<BN>(sK, 0, kk), kk > 0);
+    hw::wgmma_commit();
+    hw::wgmma_wait<0>();
+    hw::fence_regs(s);
+
+    // online softmax on the fragments: s[4 c + e] is row row0 + 8 (e / 2),
+    // column n0 + 8 c + 2 (lane % 4) + e % 2
+    const bool mask = n0 + BN > Lk || (causal && n0 + BN - 1 > wg_first);
+    float mx[2] = {m_r[0], m_r[1]};
+#pragma unroll
+    for (int j = 0; j < 64; ++j) {
+      float x = s[j] * sl2;
+      if (mask) {
+        const int col = n0 + 8 * (j / 4) + 2 * (lane % 4) + (j % 2);
+        const int row = row0 + 8 * ((j / 2) % 2);
+        if (col >= Lk || (causal && col > row)) x = mxt::kNegInf;
+      }
+      s[j] = x;
+      mx[(j / 2) % 2] = fmaxf(mx[(j / 2) % 2], x);
+    }
+    float alpha[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+      alpha[i] = exp2f(m_r[i] - mx[i]);
+      m_r[i] = mx[i];
+      l_r[i] *= alpha[i];
+    }
+#pragma unroll
+    for (int j = 0; j < 64; ++j) {
+      const int i = (j / 2) % 2;
+      // select, not multiply: a masked column contributes exactly 0
+      const float p =
+          mask && s[j] == mxt::kNegInf ? 0.f : exp2f(s[j] - mx[i]);
+      l_r[i] += p;
+      s[j] = p;
+    }
+#pragma unroll
+    for (int p = 0; p < P; ++p)
+#pragma unroll
+      for (int j = 0; j < 32; ++j) acc[p][j] *= alpha[(j / 2) % 2];
+
+    // O += P V, p rounded to bf16 as the register operand
+    hw::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BN / 16; ++kk) {
+      uint32_t a[4];
+      hw::acc_to_a(s, kk, a);
+#pragma unroll
+      for (int p = 0; p < P; ++p)
+        hw::wgmma_rs_n64(acc[p], a, hw::desc_mnmajor<BN>(sV, p, kk));
+    }
+    hw::wgmma_commit();
+    hw::wgmma_wait<0>();
+#pragma unroll
+    for (int p = 0; p < P; ++p) hw::fence_regs(acc[p]);
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    l_r[i] += __shfl_xor_sync(0xffffffffu, l_r[i], 1);
+    l_r[i] += __shfl_xor_sync(0xffffffffu, l_r[i], 2);
+    const int row = row0 + 8 * i;
+    if (row >= Lq) continue;
+    const float denom = fmaxf(l_r[i], 1e-30f);
+    const float inv = 1.f / denom;
+    bf16* orow = o + (bh * Lq + row) * D + 2 * (lane % 4);
+#pragma unroll
+    for (int p = 0; p < P; ++p)
+#pragma unroll
+      for (int c = 0; c < 8; ++c) {
+        const __nv_bfloat162 pair = __floats2bfloat162_rn(
+            acc[p][4 * c + 2 * i] * inv, acc[p][4 * c + 2 * i + 1] * inv);
+        *reinterpret_cast<__nv_bfloat162*>(orow + 64 * p + 8 * c) = pair;
+      }
+    if (lane % 4 == 0)
+      lse[bh * Lq + row] = m_r[i] * 0.6931471805599453f + logf(denom);
+  }
+}
+
+template <int D>
+cudaError_t launch(const void* q, const void* k, const void* v, void* o,
+                   void* lse, int bh, int lq, int lk, int causal, float scale,
+                   cudaStream_t stream) {
+  constexpr int smem = Smem<D>::kAlloc;
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_fwd_bf16_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (err != cudaSuccess) return err;
+  dim3 grid(bh, (lq + BM - 1) / BM);
+  flash_fwd_bf16_kernel<D><<<grid, NT, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<bf16*>(o),
+      static_cast<float*>(lse), lq, lk, causal, scale);
+  return cudaGetLastError();
+}
+
+}  // namespace tc
+
 }  // namespace
 
-// q, k, v, o: (bh, L, d) contiguous in dtype (0 = f32, 1 = bf16);
-// lse: (bh, lq) f32.  d must be 64 or 128.  Returns a cudaError_t code.
+// q, k, v, o: (bh, L, d) contiguous in dtype (0 = f32, 1 = bf16), bf16
+// base pointers 16-byte aligned; lse: (bh, lq) f32.  d must be 64 or
+// 128.  Returns a cudaError_t code.
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
                                    void* o, void* lse, int bh, int lq, int lk,
                                    int d, int dtype, int causal, float scale,
@@ -204,10 +409,18 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
   if (dtype == mxt::kF32 && d == 128)
     return launch<float, 128>(q, k, v, o, lse, bh, lq, lk, causal, scale, s);
   if (dtype == mxt::kBF16 && d == 64)
-    return launch<__nv_bfloat16, 64>(q, k, v, o, lse, bh, lq, lk, causal,
-                                     scale, s);
+    return tc::launch<64>(q, k, v, o, lse, bh, lq, lk, causal, scale, s);
   if (dtype == mxt::kBF16 && d == 128)
-    return launch<__nv_bfloat16, 128>(q, k, v, o, lse, bh, lq, lk, causal,
-                                      scale, s);
+    return tc::launch<128>(q, k, v, o, lse, bh, lq, lk, causal, scale, s);
   return cudaErrorInvalidValue;
+}
+
+// Dynamic shared memory, in bytes, that the forward's launch asks for at
+// (dtype, d); 0 for a pair it does not take.
+extern "C" int flash_attention_fwd_smem(int dtype, int d) {
+  if (dtype == mxt::kF32 && d == 64) return int(smem_bytes<64>());
+  if (dtype == mxt::kF32 && d == 128) return int(smem_bytes<128>());
+  if (dtype == mxt::kBF16 && d == 64) return tc::Smem<64>::kAlloc;
+  if (dtype == mxt::kBF16 && d == 128) return tc::Smem<128>::kAlloc;
+  return 0;
 }

@@ -20,8 +20,12 @@ Kernel notes: the forward replaces ``_pallas_forward``
 to 1024, causal) a layer moves about 32 MB against about 8.6 GFLOP of
 score and PV products.  The backward replaces ``_scan_backward``
 (``:174``) and does five such products (two recomputed, three for the
-gradients) against q, k, v, out, g, lse in and dq, dk, dv out.  Both run
-their products on CUDA cores out of shared memory; see the sources.
+gradients) against q, k, v, out, g, lse in and dq, dk, dv out.  In bf16
+both run their products on the tensor cores (``wgmma``, with bf16 tiles
+in shared memory and the sums in registers); the backward rounds ``p``
+and ``ds`` to bf16 for its three gradient products, where the plain
+version keeps them in f32.  In f32 they run on CUDA cores.  See the
+sources.
 """
 from __future__ import annotations
 
@@ -134,8 +138,8 @@ def flash_attention_bwd_plain(q, k, v, out, lse, g, causal, sm_scale,
 
 def _check(what, tensors):
     """Refuse what the kernels do not take: tensors[:3] are q, k, v of
-    shapes ``(BH, Lq, D)``, ``(BH, Lk, D)``; every tensor contiguous and
-    on one device."""
+    shapes ``(BH, Lq, D)``, ``(BH, Lk, D)``; every tensor contiguous, on
+    one device and 16-byte aligned."""
     q, k, v = tensors[:3]
     if q.dtype not in _DTYPES:
         raise NotSupportedError(f"{what}: dtype {q.dtype} (f32, bf16)")
@@ -152,6 +156,8 @@ def _check(what, tensors):
         raise NotSupportedError(f"{what}: head_dim {d} (64, 128)")
     if not all(t.is_contiguous() for t in tensors):
         raise MXNetError(f"{what}: inputs must be contiguous")
+    if any(t.data_ptr() % 16 for t in tensors):  # the kernels' 16-byte copies
+        raise MXNetError(f"{what}: base pointers must be 16-byte aligned")
 
 
 def _kernel(q, k, v, causal, sm_scale):
@@ -233,7 +239,7 @@ class _Flash(torch.autograd.Function):
     def backward(ctx, g, _g_lse):
         q, k, v, out, lse = ctx.saved_tensors
         # g arrives strided from the caller's transpose; the kernel reads
-        # it row-major, and a bf16 g is widened to f32 inside it
+        # it row-major
         dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, g.contiguous(),
                                          ctx.causal, ctx.scale)
         return dq, dk, dv, None, None

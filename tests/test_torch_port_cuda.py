@@ -68,7 +68,10 @@ def _close(got, want, dtype):
 @pytest.mark.parametrize("D", [64, 128])
 @pytest.mark.parametrize("causal,lq,lk", [
     (True, 1, 1), (True, 16, 16), (True, 65, 65), (True, 200, 200),
-    (False, 48, 96), (False, 130, 70)])
+    (False, 48, 96), (False, 130, 70),
+    # the edges of the bf16 kernel's 128-row tiles
+    (True, 127, 127), (True, 129, 129), (True, 1000, 1000), (False, 1, 300),
+    (False, 300, 64)])
 def test_flash_kernel_matches_plain(card, dtype, D, causal, lq, lk):
     g = torch.Generator(device=card).manual_seed(lq * 7 + lk + D)
     q = torch.randn(6, lq, D, device=card, generator=g).to(dtype)
@@ -253,13 +256,12 @@ UPDATE_TOL = dict(rtol=1e-6, atol=1e-7)
 @pytest.mark.parametrize("D", [64, 128])
 @pytest.mark.parametrize("causal,lq,lk", [
     (True, 1, 1), (True, 16, 16), (True, 65, 65), (True, 200, 200),
-    (True, 256, 256), (False, 48, 96), (False, 130, 70)])
+    (True, 256, 256), (False, 48, 96), (False, 130, 70),
+    # the edges of the bf16 kernels' 128- and 64-row tiles
+    (True, 127, 127), (True, 129, 129), (True, 1000, 1000), (False, 1, 300),
+    (False, 300, 64)])
 def test_flash_bwd_kernel_matches_plain(card, dtype, D, causal, lq, lk):
-    g = torch.Generator(device=card).manual_seed(lq * 5 + lk + D)
-    q = torch.randn(4, lq, D, device=card, generator=g).to(dtype)
-    k = torch.randn(4, lk, D, device=card, generator=g).to(dtype)
-    v = torch.randn(4, lk, D, device=card, generator=g).to(dtype)
-    do = torch.randn(4, lq, D, device=card, generator=g).to(dtype)
+    q, k, v, do = _bwd_inputs(card, 4, lq, lk, D, dtype, lq * 5 + lk + D)
     out, lse = flash_attention_fwd(q, k, v, causal)
     before = flash_attention_bwd.launches
     got = flash_attention_bwd(q, k, v, out, lse, do, causal)
@@ -269,6 +271,55 @@ def test_flash_bwd_kernel_matches_plain(card, dtype, D, causal, lq, lk):
     for a, b in zip(got, want):
         assert a.dtype == dtype and torch.isfinite(a).all()
         torch.testing.assert_close(a.float(), b.float(), **BWD_TOL[dtype])
+
+
+def _bwd_inputs(card, bh, lq, lk, D, dtype, seed):
+    """q, k, v, do on the card from a seeded generator."""
+    g = torch.Generator(device=card).manual_seed(seed)
+    q = torch.randn(bh, lq, D, device=card, generator=g).to(dtype)
+    k = torch.randn(bh, lk, D, device=card, generator=g).to(dtype)
+    v = torch.randn(bh, lk, D, device=card, generator=g).to(dtype)
+    do = torch.randn(bh, lq, D, device=card, generator=g).to(dtype)
+    return q, k, v, do
+
+
+def test_flash_bwd_kernel_matches_plain_at_4096(card):
+    """The bf16 backward at a long causal sequence: 64 Q tiles reach the
+    first KV tile, with p and ds rounded to bf16 in every product."""
+    q, k, v, do = _bwd_inputs(card, 2, 4096, 4096, 128, torch.bfloat16, 4096)
+    out, lse = flash_attention_fwd(q, k, v, True)
+    got = flash_attention_bwd(q, k, v, out, lse, do, True)
+    want = flash_attention_bwd_plain(q, k, v, out, lse, do, True, 128 ** -0.5)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert torch.isfinite(a).all()
+        torch.testing.assert_close(a.float(), b.float(),
+                                   **BWD_TOL[torch.bfloat16])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_bwd_is_bitwise_repeatable(card, dtype):
+    """No float atomics: two backward runs give the same bits."""
+    q, k, v, do = _bwd_inputs(card, 4, 333, 333, 128, dtype, 7)
+    out, lse = flash_attention_fwd(q, k, v, True)
+    first = flash_attention_bwd(q, k, v, out, lse, do, True)
+    again = flash_attention_bwd(q, k, v, out, lse, do, True)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+def test_flash_kernels_refuse_unaligned_base_pointers(card):
+    """The kernels copy 16 bytes at a time: a tensor whose storage starts
+    one element into an allocation is refused, not read misaligned."""
+    buf = torch.zeros(4 * 64 * 64 + 1, device=card, dtype=torch.bfloat16)
+    bad = buf[1:].view(4, 64, 64)
+    good = torch.zeros(4, 64, 64, device=card, dtype=torch.bfloat16)
+    assert bad.is_contiguous() and bad.data_ptr() % 16
+    with pytest.raises(MXNetError, match="aligned"):
+        flash_attention_fwd(bad, good, good, True)
+    out, lse = flash_attention_fwd(good, good, good, True)
+    with pytest.raises(MXNetError, match="aligned"):
+        flash_attention_bwd(good, good, good, out, lse, bad, True)
 
 
 def test_flash_on_card_is_differentiable(card):
