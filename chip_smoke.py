@@ -10,8 +10,9 @@ continued:
 2. build: compile every kernel of the serving, training and LayerNorm
    paths from ``mxnet_tpu_torch/ops/csrc`` (one ``nvcc`` per source, in
    parallel); print each flash kernel's registers, spill bytes (ptxas),
-   dynamic shared memory and ``HGMMA`` count (``cuobjdump -sass``), and
-   fail if a bf16 flash kernel spills or issues no wgmma;
+   dynamic shared memory and ``HGMMA`` (wgmma), ``HMMA`` (mma.sync) and
+   instruction counts (``cuobjdump -sass``), and fail if a flash kernel
+   spills, a bf16 one issues no wgmma or an f32 one no mma.sync;
 3. kernels: hold each kernel against its plain PyTorch version on the
    card at the shapes its path gives it; time the kernel, the plain
    version and, where one PyTorch call computes the same function (or,
@@ -75,8 +76,10 @@ import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 H100_BYTES_PER_S = 3.35e12            # HBM3, H100 SXM data sheet
-PEAK_FLOPS = {"float32": 67e12,       # CUDA cores (no tensor cores here)
-              "bfloat16": 989e12}     # dense tensor-core peak
+# dense tensor-core peaks; f32-accurate products run as 3xTF32 (three
+# TF32 products each), so f32 gets 495 TF/s TF32 / 3
+PEAK_FLOPS = {"float32": 495e12 / 3,
+              "bfloat16": 989e12}
 FLASH_TOL = {"float32": (5e-5, 1e-4), "bfloat16": (1e-2, 1.6e-2)}
 # the backward's dp - delta cancels: f32 noise is relative to the terms
 FLASH_BWD_TOL = {"float32": (1e-4, 1e-4), "bfloat16": (1e-2, 1.6e-2)}
@@ -188,8 +191,9 @@ def bound(nbytes, flops, dtype_name):
 def flash_kernel_report():
     """For every kernel of the two flash libraries: registers and spill
     bytes (ptxas, from the build log), the dynamic shared memory its
-    launch asks for, and its ``HGMMA`` (wgmma) instructions in the SASS.
-    Fails if a bf16 kernel spills or issues no HGMMA."""
+    launch asks for, and its ``HGMMA`` (wgmma) and ``HMMA`` (mma.sync)
+    instructions in the SASS.  Fails if a flash kernel spills, a bf16 one
+    issues no HGMMA or an f32 one (3xTF32) no HMMA."""
     import ctypes
     import re
     from mxnet_tpu_torch.ops import _build
@@ -204,7 +208,7 @@ def flash_kernel_report():
                               text=True, timeout=300)
         if sass.returncode != 0:
             fail(f"cuobjdump -sass {path}: {sass.stderr.strip()}")
-        hgmma = {m[1]: m[2].count("HGMMA") for m in re.finditer(
+        funcs = {m[1]: m[2] for m in re.finditer(
             r"Function : (\S+)\n(.*?)(?=\n\s*Function : |\Z)", sass.stdout,
             re.S)}
         lib = ctypes.CDLL(path)         # its own handle: the ops' argtypes
@@ -228,13 +232,18 @@ def flash_kernel_report():
             else:
                 nbytes = smem(int(bf16), d, int("_dq_" in name))
             tag = f"{name}<{'bf16' if bf16 else 'f32'}, D={d}>"
+            body = funcs.get(mangled, "")
+            hgmma, hmma = body.count("HGMMA"), body.count("HMMA")
+            n_sass = len(re.findall(r"/\*[0-9a-f]{4,}\*/ +[@A-Z]", body))
             print(f"ptxas {tag}: {regs[1]} registers, {spill[1]} bytes spill "
                   f"stores, {spill[2]} bytes spill loads, {nbytes} bytes "
-                  f"shared memory; {hgmma.get(mangled, 0)} HGMMA in SASS",
-                  flush=True)
-            if "_bf16_" in name and (hgmma.get(mangled, 0) == 0
-                                     or int(spill[1]) > 0):
-                fail(f"{tag}: no wgmma in its SASS, or it spills")
+                  f"shared memory; {hgmma} HGMMA, {hmma} HMMA of {n_sass} "
+                  f"instructions in SASS", flush=True)
+            if name == "delta_kernel":
+                continue
+            if int(spill[1]) > 0 or (hgmma if bf16 else hmma) == 0:
+                fail(f"{tag}: no {'wgmma' if bf16 else 'mma.sync'} in its "
+                     f"SASS, or it spills")
 
 
 # ----------------------------------------------------------------------

@@ -26,6 +26,13 @@ stale parameters (``ignore_stale_grad``), the fresh subset's state views
 are gathered into a bucket and written back.  Parameters and gradients
 are always gathered into the bucket and the parameters written back;
 the gathered gradients are freed before the write-back.
+
+One known difference from the reference: gradients of two backward
+passes before one ``step`` add up here (torch accumulates into
+``.grad``), where the reference's default ``grad_req="write"`` keeps only
+the last.  One backward per step, as in every training loop of the
+repo, gives the reference's result.  ``grad_req`` arrives with
+``gluon/parameter.py`` (ROADMAP §1 item 3).
 """
 from __future__ import annotations
 
@@ -43,7 +50,8 @@ _KVSTORES = (None, "device", "local")
 
 class Trainer:
     def __init__(self, params, optimizer, optimizer_params=None,
-                 kvstore="device"):
+                 kvstore="device", compression_params=None,
+                 update_on_kvstore=None):
         if isinstance(params, dict):
             names = sorted(params)
             params = [params[k] for k in names]
@@ -56,11 +64,15 @@ class Trainer:
             if not isinstance(p, nn.Parameter):
                 raise MXNetError("First argument must be a list or dict of "
                                  f"Parameters, got list of {type(p)}.")
-        if kvstore not in _KVSTORES:
-            raise NotSupportedError(
-                f"kvstore {kvstore!r}: the port trains on one card so far; "
-                "multi-device kvstores arrive with the multi-device slice "
-                "(ROADMAP §1 item 10)")
+        refused = {"kvstore": kvstore not in _KVSTORES,
+                   "compression_params": compression_params is not None,
+                   "update_on_kvstore": update_on_kvstore is not None}
+        for what, bad in refused.items():
+            if bad:
+                raise NotSupportedError(
+                    f"{what}: the port trains on one card so far; kvstores, "
+                    "gradient compression and updates on the kvstore arrive "
+                    "with the multi-device slice (ROADMAP §1 item 10)")
         self._params = list(params)
         self._names = names
         optimizer_params = dict(optimizer_params or {})

@@ -33,12 +33,6 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
   return __float2bfloat16_rn(x);
 }
 
-// x rounded to T and widened back: the reference's ``p.astype(v.dtype)``
-template <typename T>
-__device__ __forceinline__ float round_to(float x) {
-  return to_f32(from_f32<T>(x));
-}
-
 // N consecutive elements as one aligned vector load
 template <typename T, int N>
 struct alignas(sizeof(T) * N) Vec {

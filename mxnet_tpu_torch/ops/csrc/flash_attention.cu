@@ -8,9 +8,11 @@
 // logsumexp in f32.
 //
 // Bound on the H100 at the serving shapes (H=32, L=1024, D=128, causal):
-// the 33 MB it must move take 0.0100 ms at 3.35 TB/s, just above its 8.6
-// GFLOP of score and PV products at 989 TFLOP/s bf16 (0.0087 ms), so
-// only a kernel on the tensor cores (wgmma) gets near the bound.
+// in bf16 the 33 MB it must move take 0.0100 ms at 3.35 TB/s, just above
+// its 8.6 GFLOP of score and PV products at 989 TFLOP/s (0.0087 ms); in
+// f32 those products take 0.052 ms at 165 TFLOP/s (TF32's 495 over the
+// three products of 3xTF32), above the 67 MB's 0.020 ms.  Either way
+// only a kernel on the tensor cores gets near the bound.
 //
 // bf16: flash_fwd_bf16_kernel, on the tensor cores.
 //  - one CTA of two warpgroups per (b*h, 128-row query tile), each
@@ -30,180 +32,184 @@
 //  - rows past Lq are not stored, columns past Lk are masked, and rows of
 //    K/V past Lk are zero-filled by the copy, so any L works.
 //
-// f32: flash_fwd_kernel, on CUDA cores (tensor cores take no f32 here):
-//  - one CTA of 256 threads per (b*h, 64-row query tile); the sequential
-//    KV grid axis of the TPU kernel becomes a loop over 64-column K/V
-//    tiles staged in shared memory as f32;
-//  - thread (ty, tx) of a 16x16 layout owns score rows ty+16i and
-//    columns tx+16j (i, j < 4), so row reductions are 16-lane shuffles
-//    and the padded row stride (D+1) keeps column reads conflict-free;
-//  - causal: tiles wholly past the query tile are never loaded;
-//  - ragged tails are masked as above, unlike the TPU kernel's
-//    128-alignment gate.
+// f32: flash_fwd_kernel, on the tensor cores as 3xTF32 mma.sync
+// (tf32x3.cuh; wgmma takes TF32 operands only K-major, so V would need a
+// transpose in shared memory):
+//  - one CTA of four warps per (b*h, 64-row query tile), 16 rows a warp;
+//    the sequential KV grid axis of the TPU kernel becomes a loop over
+//    64-row K/V tiles staged in shared memory as f32 (row stride D + 4,
+//    so every fragment load is free of bank conflicts); query tiles are
+//    scheduled last-first, as in bf16;
+//  - S = Q K^T is m16n8k8 products with each operand split into a big
+//    and a small TF32 part as it is loaded (three products each, about
+//    f32 accuracy); the online softmax runs on the accumulator fragments
+//    in natural base, as the reference's;
+//  - p stays in registers: its fragment is the A operand of O += P V,
+//    with V's rows read in the matching permuted order;
+//  - causal: tiles wholly past the query tile are never loaded; only the
+//    diagonal and the ragged last tile mask; rows past Lq are not stored.
 #include "common.cuh"
 #include "hopper.cuh"
+#include "tf32x3.cuh"
 
 namespace {
 
-constexpr int BM = 64;   // query rows per CTA
-constexpr int BN = 64;   // key columns per tile
-constexpr int TX = 16;
-constexpr int TY = 16;
-constexpr int NT = TX * TY;
-constexpr int RI = BM / TY;  // rows per thread
-constexpr int CJ = BN / TX;  // score columns per thread
+namespace x3 = mxt::tf32x3;
+
+constexpr int BM = 64;   // query rows per CTA, 16 per warp
+constexpr int BN = 64;   // key rows per K/V tile
+constexpr int NT = 128;
 
 template <int D>
 constexpr size_t smem_bytes() {
-  return sizeof(float) * (size_t(BM) * (D + 1) + 2 * size_t(BN) * (D + 1) +
-                          size_t(BM) * (BN + 1));
+  return sizeof(float) * size_t(BM + 2 * BN) * x3::kStride<D>;
 }
 
-template <typename T, int D>
-__global__ void __launch_bounds__(NT)
-    flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, T* __restrict__ o,
+template <int D>
+__global__ void __launch_bounds__(NT, 2)
+    flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v, float* __restrict__ o,
                      float* __restrict__ lse, int Lq, int Lk, int causal,
                      float scale) {
-  constexpr int SD = D + 1;
-  constexpr int SP = BN + 1;
-  constexpr int DJ = D / TX;  // output columns per thread
+  constexpr int SD = x3::kStride<D>;
+  constexpr int ND = D / 8;  // 8-column blocks of the output
   extern __shared__ float smem[];
   float* sQ = smem;
   float* sK = sQ + BM * SD;
   float* sV = sK + BN * SD;
-  float* sP = sV + BN * SD;
 
-  const int tid = threadIdx.x;
-  const int tx = tid % TX;
-  const int ty = tid / TX;
-  const size_t bh = blockIdx.y;
-  const int m0 = blockIdx.x * BM;
-  const T* qb = q + bh * Lq * D;
-  const T* kb = k + bh * Lk * D;
-  const T* vb = v + bh * Lk * D;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int tig = lane % 4;
+  const size_t bh = blockIdx.x;
+  const int m0 = (gridDim.y - 1 - blockIdx.y) * BM;  // longest rows first
+  const float* kb = k + bh * Lk * D;
+  const float* vb = v + bh * Lk * D;
 
-  for (int idx = tid; idx < BM * D; idx += NT) {
-    const int r = idx / D, c = idx % D, row = m0 + r;
-    sQ[r * SD + c] = row < Lq ? mxt::to_f32(qb[size_t(row) * D + c]) : 0.f;
-  }
+  x3::stage<BM, D, NT>(sQ, q + bh * Lq * D, m0, Lq);
 
-  float m_i[RI], l_i[RI], acc[RI][DJ];
+  // this lane's rows: row0 and row0 + 8 of its warp's 16
+  const int r0 = 16 * warp;
+  const int row0 = m0 + r0 + lane / 4;
+  float m_r[2] = {mxt::kNegInf, mxt::kNegInf};
+  float l_r[2] = {0.f, 0.f};  // this lane's share of the row sums
+  float acc[ND][4];
 #pragma unroll
-  for (int i = 0; i < RI; ++i) {
-    m_i[i] = mxt::kNegInf;
-    l_i[i] = 0.f;
+  for (int nd = 0; nd < ND; ++nd)
 #pragma unroll
-    for (int jj = 0; jj < DJ; ++jj) acc[i][jj] = 0.f;
-  }
+    for (int e = 0; e < 4; ++e) acc[nd][e] = 0.f;
 
-  // causal: key columns past the tile's last row are masked for every
+  // causal: key rows past the tile's last query row are masked for every
   // row of the tile, so those tiles are skipped outright
   const int n_end = causal ? min(Lk, m0 + BM) : Lk;
   for (int n0 = 0; n0 < n_end; n0 += BN) {
-    __syncthreads();  // the previous tile's reads of sK/sV/sP are done
-    for (int idx = tid; idx < BN * D; idx += NT) {
-      const int r = idx / D, c = idx % D, col = n0 + r;
-      const bool in = col < Lk;
-      sK[r * SD + c] = in ? mxt::to_f32(kb[size_t(col) * D + c]) : 0.f;
-      sV[r * SD + c] = in ? mxt::to_f32(vb[size_t(col) * D + c]) : 0.f;
-    }
+    __syncthreads();  // every warp is done with the previous K/V tile
+    x3::stage<BN, D, NT>(sK, kb, n0, Lk);
+    x3::stage<BN, D, NT>(sV, vb, n0, Lk);
     __syncthreads();
 
-    float s[RI][CJ];
+    // S = Q K^T: s[j][e] is row row0 + 8 (e / 2), key n0 + 8 j + 2 tig
+    // + e % 2
+    float s[BN / 8][4];
 #pragma unroll
-    for (int i = 0; i < RI; ++i)
+    for (int j = 0; j < BN / 8; ++j)
 #pragma unroll
-      for (int j = 0; j < CJ; ++j) s[i][j] = 0.f;
-#pragma unroll 4
-    for (int c = 0; c < D; ++c) {
-      float qv[RI], kv[CJ];
+      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+#pragma unroll 2
+    for (int kk = 0; kk < D; kk += 8) {
+      x3::FragA a;
+      x3::load_a<SD>(a, sQ, r0, kk, lane);
 #pragma unroll
-      for (int i = 0; i < RI; ++i) qv[i] = sQ[(ty + TY * i) * SD + c];
-#pragma unroll
-      for (int j = 0; j < CJ; ++j) kv[j] = sK[(tx + TX * j) * SD + c];
-#pragma unroll
-      for (int i = 0; i < RI; ++i)
-#pragma unroll
-        for (int j = 0; j < CJ; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
+      for (int j = 0; j < BN / 8; ++j) {
+        x3::FragB b;
+        x3::load_b_nk<SD>(b, sK, 8 * j, kk, lane);
+        x3::mma3(s[j], a, b);
+      }
     }
 
+    const bool mask = n0 + BN > Lk || (causal && n0 + BN - 1 > m0 + r0);
+    float mx[2] = {m_r[0], m_r[1]};
 #pragma unroll
-    for (int i = 0; i < RI; ++i) {
-      const int row = m0 + ty + TY * i;
-      bool ok[CJ];
-      float mx = mxt::kNegInf;
+    for (int j = 0; j < BN / 8; ++j)
 #pragma unroll
-      for (int j = 0; j < CJ; ++j) {
-        const int col = n0 + tx + TX * j;
-        ok[j] = col < Lk && (!causal || col <= row);
-        s[i][j] = ok[j] ? s[i][j] * scale : mxt::kNegInf;
-        mx = fmaxf(mx, s[i][j]);
+      for (int e = 0; e < 4; ++e) {
+        float x = s[j][e] * scale;
+        if (mask) {
+          const int col = n0 + 8 * j + 2 * tig + e % 2;
+          const int row = row0 + 8 * (e / 2);
+          if (col >= Lk || (causal && col > row)) x = mxt::kNegInf;
+        }
+        s[j][e] = x;
+        mx[e / 2] = fmaxf(mx[e / 2], x);
       }
+    float alpha[2];
 #pragma unroll
-      for (int off = TX / 2; off > 0; off >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_new = fmaxf(m_i[i], mx);
-      const float alpha = expf(m_i[i] - m_new);
-      float ps = 0.f;
+    for (int i = 0; i < 2; ++i) {
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+      alpha[i] = expf(m_r[i] - mx[i]);
+      m_r[i] = mx[i];
+      l_r[i] *= alpha[i];
+    }
 #pragma unroll
-      for (int j = 0; j < CJ; ++j) {
+    for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
         // select, not multiply: a masked column contributes exactly 0
-        const float p = ok[j] ? expf(s[i][j] - m_new) : 0.f;
-        ps += p;
-        sP[(ty + TY * i) * SP + tx + TX * j] = mxt::round_to<T>(p);
+        const float p = mask && s[j][e] == mxt::kNegInf
+                            ? 0.f
+                            : expf(s[j][e] - mx[e / 2]);
+        l_r[e / 2] += p;
+        s[j][e] = p;
       }
 #pragma unroll
-      for (int off = TX / 2; off > 0; off >>= 1)
-        ps += __shfl_xor_sync(0xffffffffu, ps, off);
-      l_i[i] = l_i[i] * alpha + ps;
-      m_i[i] = m_new;
+    for (int nd = 0; nd < ND; ++nd)
 #pragma unroll
-      for (int jj = 0; jj < DJ; ++jj) acc[i][jj] *= alpha;
-    }
-    __syncthreads();
+      for (int e = 0; e < 4; ++e) acc[nd][e] *= alpha[e / 2];
 
-#pragma unroll 4
-    for (int kk = 0; kk < BN; ++kk) {
-      float pv[RI];
+    // O += P V, p from registers, V's rows in the permuted k order
 #pragma unroll
-      for (int i = 0; i < RI; ++i) pv[i] = sP[(ty + TY * i) * SP + kk];
+    for (int j = 0; j < BN / 8; ++j) {
+      x3::FragA a;
+      x3::acc_to_a(a, s[j]);
 #pragma unroll
-      for (int jj = 0; jj < DJ; ++jj) {
-        const float vv = sV[kk * SD + tx + TX * jj];
-#pragma unroll
-        for (int i = 0; i < RI; ++i) acc[i][jj] = fmaf(pv[i], vv, acc[i][jj]);
+      for (int nd = 0; nd < ND; ++nd) {
+        x3::FragB b;
+        x3::load_b_kn<SD>(b, sV, 8 * j, 8 * nd, lane);
+        x3::mma3(acc[nd], a, b);
       }
     }
   }
 
 #pragma unroll
-  for (int i = 0; i < RI; ++i) {
-    const int row = m0 + ty + TY * i;
+  for (int i = 0; i < 2; ++i) {
+    l_r[i] += __shfl_xor_sync(0xffffffffu, l_r[i], 1);
+    l_r[i] += __shfl_xor_sync(0xffffffffu, l_r[i], 2);
+    const int row = row0 + 8 * i;
     if (row >= Lq) continue;
-    const float denom = fmaxf(l_i[i], 1e-30f);
-    T* orow = o + (bh * Lq + row) * D;
+    const float denom = fmaxf(l_r[i], 1e-30f);
+    float* orow = o + (bh * Lq + row) * D + 2 * tig;
 #pragma unroll
-    for (int jj = 0; jj < DJ; ++jj)
-      orow[tx + TX * jj] = mxt::from_f32<T>(acc[i][jj] / denom);
-    if (tx == 0) lse[bh * Lq + row] = m_i[i] + logf(denom);
+    for (int nd = 0; nd < ND; ++nd)
+      *reinterpret_cast<float2*>(orow + 8 * nd) = make_float2(
+          acc[nd][2 * i] / denom, acc[nd][2 * i + 1] / denom);
+    if (tig == 0) lse[bh * Lq + row] = m_r[i] + logf(denom);
   }
 }
 
-template <typename T, int D>
+template <int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                    void* lse, int bh, int lq, int lk, int causal, float scale,
                    cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<D>();
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       int(smem));
   if (err != cudaSuccess) return err;
-  dim3 grid((lq + BM - 1) / BM, bh);
-  flash_fwd_kernel<T, D><<<grid, NT, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), static_cast<float*>(lse),
-      lq, lk, causal, scale);
+  dim3 grid(bh, (lq + BM - 1) / BM);
+  flash_fwd_kernel<D><<<grid, NT, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o),
+      static_cast<float*>(lse), lq, lk, causal, scale);
   return cudaGetLastError();
 }
 
@@ -405,9 +411,9 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
   const cudaError_t dev_err = cudaSetDevice(device);
   if (dev_err != cudaSuccess) return dev_err;
   if (dtype == mxt::kF32 && d == 64)
-    return launch<float, 64>(q, k, v, o, lse, bh, lq, lk, causal, scale, s);
+    return launch<64>(q, k, v, o, lse, bh, lq, lk, causal, scale, s);
   if (dtype == mxt::kF32 && d == 128)
-    return launch<float, 128>(q, k, v, o, lse, bh, lq, lk, causal, scale, s);
+    return launch<128>(q, k, v, o, lse, bh, lq, lk, causal, scale, s);
   if (dtype == mxt::kBF16 && d == 64)
     return tc::launch<64>(q, k, v, o, lse, bh, lq, lk, causal, scale, s);
   if (dtype == mxt::kBF16 && d == 128)

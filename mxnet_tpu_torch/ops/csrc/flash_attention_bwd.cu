@@ -18,9 +18,10 @@
 //
 // Bound on the H100 at the training shapes (BH=64, L=1024, D=128,
 // causal): five products per score tile (counting only causal pairs),
-// 43 GFLOP, against about 100 MB moved: bound by operations, 0.044 ms
-// at 989 TFLOP/s bf16.  The kernels recompute S and dP in both passes
-// (seven products), the price of having no atomics.
+// 43 GFLOP, against about 100 MB moved in bf16 (200 MB in f32): bound by
+// operations, 0.044 ms at 989 TFLOP/s bf16 and 0.26 ms at the 165
+// TFLOP/s of 3xTF32 in f32.  The kernels recompute S and dP in both
+// passes (seven products), the price of having no atomics.
 //
 // bf16: flash_bwd_dkdv_bf16_kernel and flash_bwd_dq_bf16_kernel, on the
 // tensor cores (hopper.cuh):
@@ -36,24 +37,31 @@
 //    the three gradient products (the reference keeps them in f32), as
 //    FlashAttention-2/3 do; S, dP and every sum stay f32.
 //
-// f32: flash_bwd_dkdv_kernel and flash_bwd_dq_kernel, on CUDA cores:
-// one CTA of 256 threads per 64-row tile, K, V, Q, G tiles staged in
-// shared memory as f32; thread (ty, tx) of a 16x16 layout owns score
-// rows ty+16i and columns tx+16j, as in the forward, and the padded row
-// stride (D+1) keeps column reads conflict-free.
+// f32: flash_bwd_dkdv_kernel and flash_bwd_dq_kernel, on the tensor
+// cores as 3xTF32 mma.sync (tf32x3.cuh): every operand is split into a
+// big and a small TF32 part as it is loaded, three products each.
+//  - a CTA of four warps owns 64 rows (16 a warp) of K/V (dK/dV) or of
+//    Q/dO (dQ), staged once as f32 with row stride D + 4, and loops over
+//    32-row tiles of the other side; 32 rows keep the dK/dV warp's dK,
+//    dV (2 x 64 f32 a lane at D = 128) and its S^T, dP^T fragments in
+//    registers, and the 101 KB of tiles let two CTAs share an SM;
+//  - dK/dV: S^T = K Q^T and dP^T = V dO^T, then p^T and ds^T in
+//    registers feed dV += P^T dO and dK += dS^T Q as the A operand, dO and
+//    Q read in the permuted row order of load_b_kn;
+//  - dQ: S = Q K^T, dP = dO V^T, then dQ += dS K the same way;
+//  - p and ds stay f32 (split like any operand), as in the reference.
 #include "common.cuh"
 #include "hopper.cuh"
+#include "tf32x3.cuh"
 
 namespace {
 
-constexpr int BM = 64;   // query rows per tile
-constexpr int BN = 64;   // key rows per tile
-constexpr int TX = 16;
-constexpr int TY = 16;
-constexpr int NT = TX * TY;
-constexpr int RI = BM / TY;  // score rows per thread
-constexpr int CJ = BN / TX;  // score columns per thread
-constexpr int SP = BN + 1;   // padded stride of a score tile
+namespace x3 = mxt::tf32x3;
+
+constexpr int NT = 128;     // four warps
+constexpr int OWN = 64;     // rows a CTA owns, 16 per warp
+constexpr int STEP = 32;    // rows of the tiles it loops over
+constexpr int NJ = STEP / 8;
 
 template <typename T, int D>
 __global__ void delta_kernel(const T* __restrict__ o, const T* __restrict__ g,
@@ -71,56 +79,6 @@ __global__ void delta_kernel(const T* __restrict__ o, const T* __restrict__ g,
   if (lane == 0) delta[row] = acc;
 }
 
-// rows [r0, r0 + 64) of a (L, D) matrix into a (64, D+1) f32 tile, zero
-// past L
-template <typename T, int D>
-__device__ __forceinline__ void load_tile(float* __restrict__ dst,
-                                          const T* __restrict__ src, int r0,
-                                          int L) {
-  constexpr int SD = D + 1;
-  for (int idx = threadIdx.x; idx < 64 * D; idx += NT) {
-    const int r = idx / D, c = idx % D, row = r0 + r;
-    dst[r * SD + c] = row < L ? mxt::to_f32(src[size_t(row) * D + c]) : 0.f;
-  }
-}
-
-// s = Q K^T and dp = G V^T for the thread's (RI x CJ) entries of the
-// 64x64 tile: rows ty+16i of sQ/sG, rows tx+16j of sK/sV
-template <int D>
-__device__ __forceinline__ void score_tiles(const float* __restrict__ sQ,
-                                            const float* __restrict__ sG,
-                                            const float* __restrict__ sK,
-                                            const float* __restrict__ sV,
-                                            int ty, int tx, float (&s)[RI][CJ],
-                                            float (&dp)[RI][CJ]) {
-  constexpr int SD = D + 1;
-#pragma unroll
-  for (int i = 0; i < RI; ++i)
-#pragma unroll
-    for (int j = 0; j < CJ; ++j) s[i][j] = dp[i][j] = 0.f;
-#pragma unroll 4
-  for (int c = 0; c < D; ++c) {
-    float qv[RI], gv[RI], kv[CJ], vv[CJ];
-#pragma unroll
-    for (int i = 0; i < RI; ++i) {
-      qv[i] = sQ[(ty + TY * i) * SD + c];
-      gv[i] = sG[(ty + TY * i) * SD + c];
-    }
-#pragma unroll
-    for (int j = 0; j < CJ; ++j) {
-      kv[j] = sK[(tx + TX * j) * SD + c];
-      vv[j] = sV[(tx + TX * j) * SD + c];
-    }
-#pragma unroll
-    for (int i = 0; i < RI; ++i)
-#pragma unroll
-      for (int j = 0; j < CJ; ++j) {
-        s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
-        dp[i][j] = fmaf(gv[i], vv[j], dp[i][j]);
-      }
-  }
-}
-
 // p and ds of one score entry; ok is false for masked or ragged entries
 __device__ __forceinline__ void p_ds(float s, float dp, float lse, float del,
                                      bool ok, float scale, float& p,
@@ -131,252 +89,298 @@ __device__ __forceinline__ void p_ds(float s, float dp, float lse, float del,
   ds = p * (dp - del) * scale;
 }
 
+// both f32 kernels: two OWN-row tiles, two STEP-row tiles, and (dK/dV)
+// STEP lse and STEP delta values
 template <int D>
-constexpr size_t dkdv_smem() {
-  return sizeof(float) * (4 * size_t(64) * (D + 1) + 2 * size_t(BM) * SP +
-                          2 * BM);
+constexpr size_t smem_f32() {
+  return sizeof(float) *
+         (size_t(2 * OWN + 2 * STEP) * x3::kStride<D> + 2 * STEP);
 }
 
-template <typename T, int D>
-__global__ void __launch_bounds__(NT)
-    flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                          const T* __restrict__ v, const T* __restrict__ g,
+// acc[nd] += a B over the 8-row group k0 of a STEP- or OWN-row tile, B
+// read in load_b_kn's order
+template <int D>
+__device__ __forceinline__ void mma_rows(float (&acc)[D / 8][4],
+                                         const x3::FragA& a,
+                                         const float* tile, int k0,
+                                         int lane) {
+#pragma unroll
+  for (int nd = 0; nd < D / 8; ++nd) {
+    x3::FragB b;
+    x3::load_b_kn<x3::kStride<D>>(b, tile, k0, 8 * nd, lane);
+    x3::mma3(acc[nd], a, b);
+  }
+}
+
+// s = A B^T and dp = A2 B2^T for a warp's 16 rows (r0 of sA, sA2) and
+// the STEP rows of sB, sB2 (the score and dp tiles of either kernel)
+template <int D>
+__device__ __forceinline__ void scores(const float* sA, const float* sB,
+                                       const float* sA2, const float* sB2,
+                                       int r0, int lane, float (&s)[NJ][4],
+                                       float (&dp)[NJ][4]) {
+  constexpr int SD = x3::kStride<D>;
+#pragma unroll
+  for (int j = 0; j < NJ; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+#pragma unroll 2
+  for (int kk = 0; kk < D; kk += 8) {
+    x3::FragA a;
+    x3::load_a<SD>(a, sA, r0, kk, lane);
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      x3::FragB b;
+      x3::load_b_nk<SD>(b, sB, 8 * j, kk, lane);
+      x3::mma3(s[j], a, b);
+    }
+    x3::load_a<SD>(a, sA2, r0, kk, lane);
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      x3::FragB b;
+      x3::load_b_nk<SD>(b, sB2, 8 * j, kk, lane);
+      x3::mma3(dp[j], a, b);
+    }
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(NT, 2)
+    flash_bwd_dkdv_kernel(const float* __restrict__ q,
+                          const float* __restrict__ k,
+                          const float* __restrict__ v,
+                          const float* __restrict__ g,
                           const float* __restrict__ lse,
-                          const float* __restrict__ delta, T* __restrict__ dk,
-                          T* __restrict__ dv, int Lq, int Lk, int causal,
-                          float scale) {
-  constexpr int SD = D + 1;
-  constexpr int DJ = D / TX;  // output columns per thread
+                          const float* __restrict__ delta,
+                          float* __restrict__ dk, float* __restrict__ dv,
+                          int Lq, int Lk, int causal, float scale) {
+  constexpr int SD = x3::kStride<D>;
+  constexpr int ND = D / 8;
   extern __shared__ float smem[];
   float* sK = smem;
-  float* sV = sK + BN * SD;
-  float* sQ = sV + BN * SD;
-  float* sG = sQ + BM * SD;
-  float* sP = sG + BM * SD;
-  float* sS = sP + BM * SP;
-  float* sL = sS + BM * SP;
-  float* sD = sL + BM;
+  float* sV = sK + OWN * SD;
+  float* sQ = sV + OWN * SD;
+  float* sG = sQ + STEP * SD;
+  float* sL = sG + STEP * SD;
+  float* sD = sL + STEP;
 
   const int tid = threadIdx.x;
-  const int tx = tid % TX;
-  const int ty = tid / TX;
-  const size_t bh = blockIdx.y;
-  const int n0 = blockIdx.x * BN;
-  const T* qb = q + bh * Lq * D;
-  const T* gb = g + bh * Lq * D;
+  const int warp = tid / 32, lane = tid % 32, tig = lane % 4;
+  const size_t bh = blockIdx.x;
+  const int n0 = blockIdx.y * OWN;  // the first tiles see the most rows
+  const float* qb = q + bh * Lq * D;
+  const float* gb = g + bh * Lq * D;
 
-  load_tile<T, D>(sK, k + bh * Lk * D, n0, Lk);
-  load_tile<T, D>(sV, v + bh * Lk * D, n0, Lk);
+  x3::stage<OWN, D, NT>(sK, k + bh * Lk * D, n0, Lk);
+  x3::stage<OWN, D, NT>(sV, v + bh * Lk * D, n0, Lk);
 
-  // thread owns key rows ty+16i and head columns tx+16jj of dk, dv
-  float acc_k[RI][DJ], acc_v[RI][DJ];
+  // this lane's key rows: key0 and key0 + 8 of its warp's 16
+  const int r0 = 16 * warp;
+  const int key0 = n0 + r0 + lane / 4;
+  float acc_k[ND][4], acc_v[ND][4];
 #pragma unroll
-  for (int i = 0; i < RI; ++i)
+  for (int nd = 0; nd < ND; ++nd)
 #pragma unroll
-    for (int jj = 0; jj < DJ; ++jj) acc_k[i][jj] = acc_v[i][jj] = 0.f;
+    for (int e = 0; e < 4; ++e) acc_k[nd][e] = acc_v[nd][e] = 0.f;
 
   // causal: query rows before the KV tile see none of its keys
-  const int m_begin = causal ? (n0 / BM) * BM : 0;
-  for (int m0 = m_begin; m0 < Lq; m0 += BM) {
-    __syncthreads();  // the previous tile's reads of sQ/sG/sP/sS are done
-    load_tile<T, D>(sQ, qb, m0, Lq);
-    load_tile<T, D>(sG, gb, m0, Lq);
-    for (int r = tid; r < BM; r += NT) {
-      const int row = m0 + r;
-      sL[r] = row < Lq ? lse[bh * Lq + row] : 0.f;
-      sD[r] = row < Lq ? delta[bh * Lq + row] : 0.f;
+  const int m_begin = causal ? n0 : 0;
+  for (int m0 = m_begin; m0 < Lq; m0 += STEP) {
+    __syncthreads();  // every warp is done with the previous Q/dO tile
+    x3::stage<STEP, D, NT>(sQ, qb, m0, Lq);
+    x3::stage<STEP, D, NT>(sG, gb, m0, Lq);
+    if (tid < STEP) {
+      const int row = m0 + tid;
+      sL[tid] = row < Lq ? lse[bh * Lq + row] : 0.f;
+      sD[tid] = row < Lq ? delta[bh * Lq + row] : 0.f;
     }
     __syncthreads();
+    // causal: every query row of the tile precedes every key of this
+    // warp, so all its p are 0
+    if (causal && m0 + STEP - 1 < n0 + r0) continue;
 
-    float s[RI][CJ], dp[RI][CJ];
-    score_tiles<D>(sQ, sG, sK, sV, ty, tx, s, dp);
+    // S^T = K Q^T and dP^T = V dO^T: rows are keys, columns queries;
+    // sT[j][e] is key key0 + 8 (e / 2), query m0 + 8 j + 2 tig + e % 2
+    float sT[NJ][4], dpT[NJ][4];
+    scores<D>(sK, sQ, sV, sG, r0, lane, sT, dpT);
+
+    const bool mask = m0 + STEP > Lq || n0 + r0 + 16 > Lk ||
+                      (causal && n0 + r0 + 15 > m0);
 #pragma unroll
-    for (int i = 0; i < RI; ++i) {
-      const int r = ty + TY * i, row = m0 + r;
+    for (int j = 0; j < NJ; ++j)
 #pragma unroll
-      for (int j = 0; j < CJ; ++j) {
-        const int c = tx + TX * j, col = n0 + c;
-        const bool ok = row < Lq && col < Lk && (!causal || col <= row);
+      for (int e = 0; e < 4; ++e) {
+        const int c = 8 * j + 2 * tig + e % 2;  // query in the tile
+        const int key = key0 + 8 * (e / 2);
+        const bool ok = !mask || (m0 + c < Lq && key < Lk &&
+                                  (!causal || key <= m0 + c));
         float p, ds;
-        p_ds(s[i][j], dp[i][j], sL[r], sD[r], ok, scale, p, ds);
-        sP[r * SP + c] = p;
-        sS[r * SP + c] = ds;
+        p_ds(sT[j][e], dpT[j][e], sL[c], sD[c], ok, scale, p, ds);
+        sT[j][e] = p;
+        dpT[j][e] = ds;
       }
-    }
-    __syncthreads();
 
-    // dv += p^T g, dk += ds^T q over the tile's query rows
-#pragma unroll 4
-    for (int qq = 0; qq < BM; ++qq) {
-      float pv[RI], dsv[RI];
+    // dV += P^T dO, dK += dS^T Q: k runs over the tile's queries
 #pragma unroll
-      for (int i = 0; i < RI; ++i) {
-        pv[i] = sP[qq * SP + ty + TY * i];
-        dsv[i] = sS[qq * SP + ty + TY * i];
-      }
-#pragma unroll
-      for (int jj = 0; jj < DJ; ++jj) {
-        const float gv = sG[qq * SD + tx + TX * jj];
-        const float qv = sQ[qq * SD + tx + TX * jj];
-#pragma unroll
-        for (int i = 0; i < RI; ++i) {
-          acc_v[i][jj] = fmaf(pv[i], gv, acc_v[i][jj]);
-          acc_k[i][jj] = fmaf(dsv[i], qv, acc_k[i][jj]);
-        }
-      }
+    for (int j = 0; j < NJ; ++j) {
+      x3::FragA a;
+      x3::acc_to_a(a, sT[j]);
+      mma_rows<D>(acc_v, a, sG, 8 * j, lane);
+      x3::acc_to_a(a, dpT[j]);
+      mma_rows<D>(acc_k, a, sQ, 8 * j, lane);
     }
   }
 
 #pragma unroll
-  for (int i = 0; i < RI; ++i) {
-    const int row = n0 + ty + TY * i;
+  for (int i = 0; i < 2; ++i) {
+    const int row = key0 + 8 * i;
     if (row >= Lk) continue;
-    T* krow = dk + (bh * Lk + row) * D;
-    T* vrow = dv + (bh * Lk + row) * D;
+    const size_t off = (bh * Lk + row) * D + 2 * tig;
 #pragma unroll
-    for (int jj = 0; jj < DJ; ++jj) {
-      krow[tx + TX * jj] = mxt::from_f32<T>(acc_k[i][jj]);
-      vrow[tx + TX * jj] = mxt::from_f32<T>(acc_v[i][jj]);
+    for (int nd = 0; nd < ND; ++nd) {
+      *reinterpret_cast<float2*>(dk + off + 8 * nd) =
+          make_float2(acc_k[nd][2 * i], acc_k[nd][2 * i + 1]);
+      *reinterpret_cast<float2*>(dv + off + 8 * nd) =
+          make_float2(acc_v[nd][2 * i], acc_v[nd][2 * i + 1]);
     }
   }
 }
 
 template <int D>
-constexpr size_t dq_smem() {
-  return sizeof(float) * (4 * size_t(64) * (D + 1) + size_t(BM) * SP +
-                          2 * BM);
-}
-
-template <typename T, int D>
-__global__ void __launch_bounds__(NT)
-    flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                        const T* __restrict__ v, const T* __restrict__ g,
+__global__ void __launch_bounds__(NT, 2)
+    flash_bwd_dq_kernel(const float* __restrict__ q,
+                        const float* __restrict__ k,
+                        const float* __restrict__ v,
+                        const float* __restrict__ g,
                         const float* __restrict__ lse,
-                        const float* __restrict__ delta, T* __restrict__ dq,
-                        int Lq, int Lk, int causal, float scale) {
-  constexpr int SD = D + 1;
-  constexpr int DJ = D / TX;
+                        const float* __restrict__ delta,
+                        float* __restrict__ dq, int Lq, int Lk, int causal,
+                        float scale) {
+  constexpr int SD = x3::kStride<D>;
+  constexpr int ND = D / 8;
   extern __shared__ float smem[];
   float* sQ = smem;
-  float* sG = sQ + BM * SD;
-  float* sK = sG + BM * SD;
-  float* sV = sK + BN * SD;
-  float* sS = sV + BN * SD;
-  float* sL = sS + BM * SP;
-  float* sD = sL + BM;
+  float* sG = sQ + OWN * SD;
+  float* sK = sG + OWN * SD;
+  float* sV = sK + STEP * SD;
 
-  const int tid = threadIdx.x;
-  const int tx = tid % TX;
-  const int ty = tid / TX;
-  const size_t bh = blockIdx.y;
-  const int m0 = blockIdx.x * BM;
-  const T* kb = k + bh * Lk * D;
-  const T* vb = v + bh * Lk * D;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int tig = lane % 4;
+  const size_t bh = blockIdx.x;
+  const int m0 = (gridDim.y - 1 - blockIdx.y) * OWN;  // longest rows first
+  const float* kb = k + bh * Lk * D;
+  const float* vb = v + bh * Lk * D;
 
-  load_tile<T, D>(sQ, q + bh * Lq * D, m0, Lq);
-  load_tile<T, D>(sG, g + bh * Lq * D, m0, Lq);
-  for (int r = tid; r < BM; r += NT) {
-    const int row = m0 + r;
-    sL[r] = row < Lq ? lse[bh * Lq + row] : 0.f;
-    sD[r] = row < Lq ? delta[bh * Lq + row] : 0.f;
+  x3::stage<OWN, D, NT>(sQ, q + bh * Lq * D, m0, Lq);
+  x3::stage<OWN, D, NT>(sG, g + bh * Lq * D, m0, Lq);
+
+  // this lane's rows: row0 and row0 + 8 of its warp's 16
+  const int r0 = 16 * warp;
+  const int row0 = m0 + r0 + lane / 4;
+  float lse_r[2], del_r[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = row0 + 8 * i;
+    lse_r[i] = row < Lq ? lse[bh * Lq + row] : 0.f;
+    del_r[i] = row < Lq ? delta[bh * Lq + row] : 0.f;
   }
-
-  float acc[RI][DJ];
+  float acc[ND][4];
 #pragma unroll
-  for (int i = 0; i < RI; ++i)
+  for (int nd = 0; nd < ND; ++nd)
 #pragma unroll
-    for (int jj = 0; jj < DJ; ++jj) acc[i][jj] = 0.f;
+    for (int e = 0; e < 4; ++e) acc[nd][e] = 0.f;
 
-  // causal: key columns past the tile's last row are masked for every
+  // causal: key rows past the tile's last query row are masked for every
   // row of the tile, so those tiles are skipped outright
-  const int n_end = causal ? min(Lk, m0 + BM) : Lk;
-  for (int n0 = 0; n0 < n_end; n0 += BN) {
-    __syncthreads();  // the previous tile's reads of sK/sV/sS are done
-    load_tile<T, D>(sK, kb, n0, Lk);
-    load_tile<T, D>(sV, vb, n0, Lk);
+  const int n_end = causal ? min(Lk, m0 + OWN) : Lk;
+  for (int n0 = 0; n0 < n_end; n0 += STEP) {
+    __syncthreads();  // every warp is done with the previous K/V tile
+    x3::stage<STEP, D, NT>(sK, kb, n0, Lk);
+    x3::stage<STEP, D, NT>(sV, vb, n0, Lk);
     __syncthreads();
+    // causal: every key of the tile follows every row of this warp
+    if (causal && n0 > m0 + r0 + 15) continue;
 
-    float s[RI][CJ], dp[RI][CJ];
-    score_tiles<D>(sQ, sG, sK, sV, ty, tx, s, dp);
+    // S = Q K^T and dP = dO V^T: s[j][e] is row row0 + 8 (e / 2), key
+    // n0 + 8 j + 2 tig + e % 2
+    float s[NJ][4], dp[NJ][4];
+    scores<D>(sQ, sK, sG, sV, r0, lane, s, dp);
+
+    const bool mask = m0 + r0 + 16 > Lq || n0 + STEP > Lk ||
+                      (causal && n0 + STEP - 1 > m0 + r0);
 #pragma unroll
-    for (int i = 0; i < RI; ++i) {
-      const int r = ty + TY * i, row = m0 + r;
+    for (int j = 0; j < NJ; ++j)
 #pragma unroll
-      for (int j = 0; j < CJ; ++j) {
-        const int c = tx + TX * j, col = n0 + c;
-        const bool ok = row < Lq && col < Lk && (!causal || col <= row);
+      for (int e = 0; e < 4; ++e) {
+        const int row = row0 + 8 * (e / 2);
+        const int col = n0 + 8 * j + 2 * tig + e % 2;
+        const bool ok =
+            !mask || (row < Lq && col < Lk && (!causal || col <= row));
         float p, ds;
-        p_ds(s[i][j], dp[i][j], sL[r], sD[r], ok, scale, p, ds);
-        sS[r * SP + c] = ds;
+        p_ds(s[j][e], dp[j][e], lse_r[e / 2], del_r[e / 2], ok, scale, p,
+             ds);
+        dp[j][e] = ds;
       }
-    }
-    __syncthreads();
 
-    // dq += ds k over the tile's key rows
-#pragma unroll 4
-    for (int kk = 0; kk < BN; ++kk) {
-      float dsv[RI];
+    // dQ += dS K: k runs over the tile's keys
 #pragma unroll
-      for (int i = 0; i < RI; ++i) dsv[i] = sS[(ty + TY * i) * SP + kk];
-#pragma unroll
-      for (int jj = 0; jj < DJ; ++jj) {
-        const float kv = sK[kk * SD + tx + TX * jj];
-#pragma unroll
-        for (int i = 0; i < RI; ++i) acc[i][jj] = fmaf(dsv[i], kv, acc[i][jj]);
-      }
+    for (int j = 0; j < NJ; ++j) {
+      x3::FragA a;
+      x3::acc_to_a(a, dp[j]);
+      mma_rows<D>(acc, a, sK, 8 * j, lane);
     }
   }
 
 #pragma unroll
-  for (int i = 0; i < RI; ++i) {
-    const int row = m0 + ty + TY * i;
+  for (int i = 0; i < 2; ++i) {
+    const int row = row0 + 8 * i;
     if (row >= Lq) continue;
-    T* qrow = dq + (bh * Lq + row) * D;
+    float* qrow = dq + (bh * Lq + row) * D + 2 * tig;
 #pragma unroll
-    for (int jj = 0; jj < DJ; ++jj)
-      qrow[tx + TX * jj] = mxt::from_f32<T>(acc[i][jj]);
+    for (int nd = 0; nd < ND; ++nd)
+      *reinterpret_cast<float2*>(qrow + 8 * nd) =
+          make_float2(acc[nd][2 * i], acc[nd][2 * i + 1]);
   }
 }
 
-template <typename T, int D>
+template <int D>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const void* o, const void* lse, const void* g, void* dq,
                    void* dk, void* dv, void* delta, int bh, int lq, int lk,
                    int causal, float scale, cudaStream_t stream) {
-  const T* q_ = static_cast<const T*>(q);
-  const T* k_ = static_cast<const T*>(k);
-  const T* v_ = static_cast<const T*>(v);
-  const T* g_ = static_cast<const T*>(g);
+  const float* q_ = static_cast<const float*>(q);
+  const float* k_ = static_cast<const float*>(k);
+  const float* v_ = static_cast<const float*>(v);
+  const float* g_ = static_cast<const float*>(g);
   const float* lse_ = static_cast<const float*>(lse);
   float* delta_ = static_cast<float*>(delta);
 
   const size_t rows = size_t(bh) * lq;
   const size_t delta_blocks = (rows * 32 + NT - 1) / NT;
-  delta_kernel<T, D><<<unsigned(delta_blocks), NT, 0, stream>>>(
-      static_cast<const T*>(o), g_, delta_, rows);
+  delta_kernel<float, D><<<unsigned(delta_blocks), NT, 0, stream>>>(
+      static_cast<const float*>(o), g_, delta_, rows);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 
-  constexpr size_t smem_kv = dkdv_smem<D>();
-  err = cudaFuncSetAttribute(flash_bwd_dkdv_kernel<T, D>,
+  constexpr size_t smem = smem_f32<D>();
+  err = cudaFuncSetAttribute(flash_bwd_dkdv_kernel<D>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             int(smem_kv));
+                             int(smem));
   if (err != cudaSuccess) return err;
-  dim3 grid_kv((lk + BN - 1) / BN, bh);
-  flash_bwd_dkdv_kernel<T, D><<<grid_kv, NT, smem_kv, stream>>>(
-      q_, k_, v_, g_, lse_, delta_, static_cast<T*>(dk), static_cast<T*>(dv),
-      lq, lk, causal, scale);
+  dim3 grid_kv(bh, (lk + OWN - 1) / OWN);
+  flash_bwd_dkdv_kernel<D><<<grid_kv, NT, smem, stream>>>(
+      q_, k_, v_, g_, lse_, delta_, static_cast<float*>(dk),
+      static_cast<float*>(dv), lq, lk, causal, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 
-  constexpr size_t smem_q = dq_smem<D>();
-  err = cudaFuncSetAttribute(flash_bwd_dq_kernel<T, D>,
+  err = cudaFuncSetAttribute(flash_bwd_dq_kernel<D>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             int(smem_q));
+                             int(smem));
   if (err != cudaSuccess) return err;
-  dim3 grid_q((lq + BM - 1) / BM, bh);
-  flash_bwd_dq_kernel<T, D><<<grid_q, NT, smem_q, stream>>>(
-      q_, k_, v_, g_, lse_, delta_, static_cast<T*>(dq), lq, lk, causal,
+  dim3 grid_q(bh, (lq + OWN - 1) / OWN);
+  flash_bwd_dq_kernel<D><<<grid_q, NT, smem, stream>>>(
+      q_, k_, v_, g_, lse_, delta_, static_cast<float*>(dq), lq, lk, causal,
       scale);
   return cudaGetLastError();
 }
@@ -761,11 +765,11 @@ extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v,
   const cudaError_t dev_err = cudaSetDevice(device);
   if (dev_err != cudaSuccess) return dev_err;
   if (dtype == mxt::kF32 && d == 64)
-    return launch<float, 64>(q, k, v, o, lse, g, dq, dk, dv, delta, bh, lq,
-                             lk, causal, scale, s);
+    return launch<64>(q, k, v, o, lse, g, dq, dk, dv, delta, bh, lq, lk,
+                      causal, scale, s);
   if (dtype == mxt::kF32 && d == 128)
-    return launch<float, 128>(q, k, v, o, lse, g, dq, dk, dv, delta, bh, lq,
-                              lk, causal, scale, s);
+    return launch<128>(q, k, v, o, lse, g, dq, dk, dv, delta, bh, lq, lk,
+                       causal, scale, s);
   if (dtype == mxt::kBF16 && d == 64)
     return tc::launch<64>(q, k, v, o, lse, g, dq, dk, dv, delta, bh, lq, lk,
                           causal, scale, s);
@@ -779,10 +783,8 @@ extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v,
 // dQ (pass 1) launch asks for at (dtype, d); 0 for a pair it does not
 // take.  The delta pre-pass takes none.
 extern "C" int flash_attention_bwd_smem(int dtype, int d, int pass) {
-  if (dtype == mxt::kF32 && d == 64)
-    return int(pass ? dq_smem<64>() : dkdv_smem<64>());
-  if (dtype == mxt::kF32 && d == 128)
-    return int(pass ? dq_smem<128>() : dkdv_smem<128>());
+  if (dtype == mxt::kF32 && d == 64) return int(smem_f32<64>());
+  if (dtype == mxt::kF32 && d == 128) return int(smem_f32<128>());
   if (dtype == mxt::kBF16 && d == 64) return tc::Smem<64>::kAlloc;
   if (dtype == mxt::kBF16 && d == 128) return tc::Smem<128>::kAlloc;
   return 0;

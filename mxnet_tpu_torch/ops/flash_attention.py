@@ -20,12 +20,14 @@ Kernel notes: the forward replaces ``_pallas_forward``
 to 1024, causal) a layer moves about 32 MB against about 8.6 GFLOP of
 score and PV products.  The backward replaces ``_scan_backward``
 (``:174``) and does five such products (two recomputed, three for the
-gradients) against q, k, v, out, g, lse in and dq, dk, dv out.  In bf16
-both run their products on the tensor cores (``wgmma``, with bf16 tiles
-in shared memory and the sums in registers); the backward rounds ``p``
-and ``ds`` to bf16 for its three gradient products, where the plain
-version keeps them in f32.  In f32 they run on CUDA cores.  See the
-sources.
+gradients) against q, k, v, out, g, lse in and dq, dk, dv out.  Both
+run their products on the tensor cores.  In bf16 through ``wgmma``, with
+bf16 tiles in shared memory and the sums in registers; the backward
+rounds ``p`` and ``ds`` to bf16 for its three gradient products, where
+the plain version keeps them in f32.  In f32 through warp-level
+``mma.sync`` as 3xTF32: each f32 operand is split into a big and a small
+TF32 part and three products give about f32 accuracy (``p`` and ``ds``
+included).  See the sources.
 """
 from __future__ import annotations
 

@@ -36,12 +36,16 @@ FP8_MAX = 448.0
 
 _CANON = {"fp8": "fp8", "float8": "fp8", "float8_e4m3fn": "fp8",
           "bf16": "bf16", "bfloat16": "bf16",
-          "fp32": None, "float32": None, "": None, "none": None}
+          "fp32": None, "float32": None, "": None, "none": None, "0": None,
+          "off": None}
 
 
 def resolve_kv_dtype(value=None):
     """Canonical storage mode: ``"fp8"``, ``"bf16"`` or ``None`` (the
-    pool keeps the model's dtype).  Unknown names raise."""
+    pool keeps the model's dtype; also for ``""``, ``"0"``, ``"off"``,
+    ``"none"``, as in the reference).  Unknown names raise.  Unlike the
+    reference, ``None`` does not read ``MXTPU_KV_DTYPE``: the port reads
+    no environment knob."""
     v = "" if value is None else str(value).strip().lower()
     if v not in _CANON:
         raise MXNetError(f"kv_dtype={value!r}: expected fp8|bf16|fp32")

@@ -13,8 +13,11 @@ Scalar math follows the reference's float32: ``lr`` and ``wd`` enter as
 0-dim float32 tensors on the host (they mix with CUDA tensors as
 scalars), and Adam's ``beta ** t`` and ``lr_t`` are float32.
 
-Ported: SGD (with momentum), NAG, Adam, AdamW.  The other optimizers,
-``lr_scheduler`` and ``multi_precision`` raise ``NotSupportedError``.
+Ported: SGD (with momentum), NAG, Adam, AdamW, and ``lazy_update``
+(dense gradients only, so either value updates densely, as the
+reference does for a dense gradient).  The other optimizers,
+``lr_scheduler``, ``multi_precision``, and ``param_idx2name``, ``sym``
+or ``param_dict`` other than None (or empty) raise ``NotSupportedError``.
 """
 from __future__ import annotations
 
@@ -25,7 +28,7 @@ from ..base import MXNetError, NotSupportedError
 __all__ = ["Optimizer", "SGD", "NAG", "Adam", "AdamW", "register", "create",
            "fused_rule"]
 
-_LATER = "arrives with the training-surface slice (ROADMAP §1 item 2)"
+_LATER = "arrives with the training-surface slice (ROADMAP §1 item 3)"
 
 
 def _f32(x):
@@ -136,15 +139,19 @@ class Optimizer:
 
     rule = None
 
-    def __init__(self, rescale_grad=1.0, wd=0.0, clip_gradient=None,
-                 learning_rate=0.01, lr_scheduler=None, begin_num_update=0,
-                 multi_precision=False):
-        if lr_scheduler is not None:
-            raise NotSupportedError(f"lr_scheduler is not ported yet; it "
-                                    f"{_LATER}")
-        if multi_precision:
-            raise NotSupportedError(f"multi_precision is not ported yet; it "
-                                    f"{_LATER}")
+    def __init__(self, rescale_grad=1.0, param_idx2name=None, wd=0.0,
+                 clip_gradient=None, learning_rate=0.01, lr_scheduler=None,
+                 sym=None, begin_num_update=0, multi_precision=False,
+                 param_dict=None):
+        # the reference's argument order; what is not ported is taken
+        # only at its no-op default (None, False or an empty dict)
+        for name, value in (("lr_scheduler", lr_scheduler),
+                            ("multi_precision", multi_precision),
+                            ("param_idx2name", param_idx2name),
+                            ("sym", sym), ("param_dict", param_dict)):
+            if value not in (None, False) and value != {}:
+                raise NotSupportedError(f"{name} is not ported yet; it "
+                                        f"{_LATER}")
         self.rescale_grad = rescale_grad
         self.lr = learning_rate
         self.wd = wd
@@ -215,9 +222,12 @@ class SGD(Optimizer):
 
     rule = "sgd"
 
-    def __init__(self, momentum=0.0, **kwargs):
+    def __init__(self, momentum=0.0, lazy_update=True, **kwargs):
         super().__init__(**kwargs)
         self.momentum = momentum
+        # gradients are dense here, and the reference runs a lazy update
+        # of a dense gradient densely: either value updates every row
+        self.lazy_update = lazy_update
 
     def _hyper(self):
         return {"momentum": self.momentum}
@@ -238,11 +248,12 @@ class Adam(Optimizer):
     rule = "adam"
 
     def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
-                 epsilon=1e-8, **kwargs):
+                 epsilon=1e-8, lazy_update=True, **kwargs):
         super().__init__(learning_rate=learning_rate, **kwargs)
         self.beta1 = beta1
         self.beta2 = beta2
         self.epsilon = epsilon
+        self.lazy_update = lazy_update  # dense gradients: as SGD's
 
     def _hyper(self):
         return {"beta1": self.beta1, "beta2": self.beta2,

@@ -71,7 +71,9 @@ def _close(got, want, dtype):
     (False, 48, 96), (False, 130, 70),
     # the edges of the bf16 kernel's 128-row tiles
     (True, 127, 127), (True, 129, 129), (True, 1000, 1000), (False, 1, 300),
-    (False, 300, 64)])
+    (False, 300, 64),
+    # causal cross-attention lengths (top-left mask), one at the 64-row edge
+    (True, 48, 96), (True, 130, 70), (True, 64, 129)])
 def test_flash_kernel_matches_plain(card, dtype, D, causal, lq, lk):
     g = torch.Generator(device=card).manual_seed(lq * 7 + lk + D)
     q = torch.randn(6, lq, D, device=card, generator=g).to(dtype)
@@ -259,7 +261,9 @@ UPDATE_TOL = dict(rtol=1e-6, atol=1e-7)
     (True, 256, 256), (False, 48, 96), (False, 130, 70),
     # the edges of the bf16 kernels' 128- and 64-row tiles
     (True, 127, 127), (True, 129, 129), (True, 1000, 1000), (False, 1, 300),
-    (False, 300, 64)])
+    (False, 300, 64),
+    # causal cross-attention lengths (top-left mask), one at the 64-row edge
+    (True, 48, 96), (True, 130, 70), (True, 64, 129)])
 def test_flash_bwd_kernel_matches_plain(card, dtype, D, causal, lq, lk):
     q, k, v, do = _bwd_inputs(card, 4, lq, lk, D, dtype, lq * 5 + lk + D)
     out, lse = flash_attention_fwd(q, k, v, causal)

@@ -72,19 +72,22 @@ def test_flash_matches_jax_scan_forward(causal, L, D):
     np.testing.assert_allclose(lse.numpy(), np.asarray(res[4]), **TOL)
 
 
-@pytest.mark.parametrize("causal", [False, True])
-def test_flash_public_layout_matches_jax(causal):
+@pytest.mark.parametrize("causal,lq,lk", [
+    (False, 48, 48), (True, 48, 48), (False, 48, 96),
+    # causal cross-attention lengths (top-left mask), one at a 64-row edge
+    (True, 48, 96), (True, 130, 70), (True, 64, 129)])
+def test_flash_public_layout_matches_jax(causal, lq, lk):
     """The (B, H, L, D) public op, cross-attention lengths included."""
     from mxnet_tpu.ops import flash_attention as jax_flash
     rng = np.random.RandomState(11)
-    q = rng.randn(2, 3, 48, 64).astype(np.float32)
-    k = rng.randn(2, 3, 48, 64).astype(np.float32)
-    v = rng.randn(2, 3, 48, 64).astype(np.float32)
+    q = rng.randn(2, 3, lq, 64).astype(np.float32)
+    k = rng.randn(2, 3, lk, 64).astype(np.float32)
+    v = rng.randn(2, 3, lk, 64).astype(np.float32)
     ref = jax_flash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
                     causal=causal)
     out = flash_attention(torch.from_numpy(q), torch.from_numpy(k),
                           torch.from_numpy(v), causal=causal)
-    assert out.shape == (2, 3, 48, 64)
+    assert out.shape == (2, 3, lq, 64)
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), **TOL)
 
 
@@ -236,6 +239,12 @@ def test_kv_dtype_subset():
     assert resolve_kv_dtype("fp8") == "fp8"
     with pytest.raises(mt.MXNetError):
         resolve_kv_dtype("int4")
+
+
+@pytest.mark.parametrize("value", ["0", "off", "OFF", " none ", ""])
+def test_kv_dtype_off_values_resolve_to_none(value):
+    """The reference's kill-switch spellings keep the model's dtype."""
+    assert resolve_kv_dtype(value) is None
 
 
 def test_build_raises_without_nvcc(monkeypatch, tmp_path):

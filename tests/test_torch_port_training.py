@@ -89,15 +89,18 @@ def _leaves(tree):
 # flash attention backward (K3 bwd)
 # ----------------------------------------------------------------------
 
-@pytest.mark.parametrize("causal", [False, True])
-@pytest.mark.parametrize("L", [16, 128, 200])
+@pytest.mark.parametrize("causal,lq,lk", [
+    (False, 16, 16), (True, 16, 16), (False, 128, 128), (True, 128, 128),
+    (False, 200, 200), (True, 200, 200),
+    # causal cross-attention lengths (top-left mask), one at a 64-row edge
+    (True, 48, 96), (True, 130, 70), (True, 64, 129)])
 @pytest.mark.parametrize("D", [64, 128])
-def test_flash_grads_match_jax_grad(causal, L, D):
+def test_flash_grads_match_jax_grad(causal, lq, lk, D):
     """dq, dk, dv by torch autograd through the port's Function (the
     plain backward on the CPU) against ``jax.grad`` of the JAX op."""
-    rng = np.random.RandomState(L + D + causal)
-    q, k, v, g = (rng.randn(2, 3, L, D).astype(np.float32)
-                  for _ in range(4))
+    rng = np.random.RandomState(lq + lk + D + causal)
+    q, g = (rng.randn(2, 3, lq, D).astype(np.float32) for _ in range(2))
+    k, v = (rng.randn(2, 3, lk, D).astype(np.float32) for _ in range(2))
     ref = jax.grad(lambda a, b, c: jnp.sum(
         jax_flash(a, b, c, causal=causal) * g), argnums=(0, 1, 2))(q, k, v)
     tq, tk, tv = (torch.from_numpy(x).requires_grad_() for x in (q, k, v))
@@ -429,3 +432,38 @@ def test_unported_optimizers_and_kvstores_raise():
     tr.set_learning_rate(0.25)
     assert tr.learning_rate == 0.25 and isinstance(tr.optimizer,
                                                    mt.optimizer.SGD)
+
+
+@pytest.mark.parametrize("trainer_kw,opt_kw,refused", [
+    ({"compression_params": None, "update_on_kvstore": None}, {}, None),
+    ({}, {"lazy_update": False}, None),
+    ({}, {"lazy_update": True, "param_idx2name": {}, "sym": None,
+          "param_dict": None}, None),
+    ({"compression_params": {"type": "2bit"}}, {}, "multi-device"),
+    ({"update_on_kvstore": False}, {}, "multi-device"),
+    ({}, {"param_idx2name": {0: "w"}}, "training-surface"),
+    ({}, {"sym": object()}, "training-surface"),
+    ({}, {"param_dict": {0: "w"}}, "training-surface")],
+    ids=["kvstore-defaults", "lazy-update", "optimizer-defaults",
+         "compression", "update-on-kvstore", "param-idx2name", "sym",
+         "param-dict"])
+@pytest.mark.parametrize("optname", ["sgd", "adam"])
+def test_reference_arguments_accepted_or_refused_by_name(
+        optname, trainer_kw, opt_kw, refused):
+    """The reference's Trainer and Optimizer arguments: the no-op defaults
+    (and ``lazy_update``, dense here as in the reference) update like the
+    plain call; anything else raises ``NotSupportedError`` naming its
+    ROADMAP item."""
+    def run(tkw, okw):
+        p = {"w": torch.nn.Parameter(torch.linspace(-1, 1, 6))}
+        tr = Trainer(p, optname, {"learning_rate": 0.1, **okw}, **tkw)
+        p["w"].grad = torch.linspace(0.5, -0.5, 6)
+        tr.step(2)
+        return p["w"].detach()
+
+    if refused:
+        with pytest.raises(NotSupportedError, match=refused) as err:
+            run(trainer_kw, opt_kw)
+        assert "ROADMAP §1 item" in str(err.value)
+    else:
+        assert torch.equal(run(trainer_kw, opt_kw), run({}, {}))
