@@ -12,17 +12,22 @@ continued:
    parallel); print each flash kernel's registers, spill bytes (ptxas),
    dynamic shared memory and ``HGMMA`` (wgmma), ``HMMA`` (mma.sync) and
    instruction counts (``cuobjdump -sass``), and fail if a flash kernel
-   spills, a bf16 one issues no wgmma or an f32 one no mma.sync;
+   spills, a bf16 one issues no wgmma or an f32 one no mma.sync; print
+   the registers, spills and shared memory of every paged-attention and
+   LayerNorm kernel, and fail if one spills;
 3. kernels: hold each kernel against its plain PyTorch version on the
    card at the shapes its path gives it; time the kernel, the plain
    version and, where one PyTorch call computes the same function (or,
    marked "near", nearly the same), that call (``library_ms``), the
    flash lines with their factor against SDPA and share of the bound:
    flash forward (float32, bfloat16), paged decode (f32 and bf16 pools;
-   an fp8 pool with a bf16 and an f32 query), flash backward (BH=64,
+   an fp8 pool with a bf16 and an f32 query; an fp8 pool at phase 7's
+   B = 16 and 4096-position bucket), flash backward (BH=64,
    L=1024, D=128 causal, float32 and bfloat16, and ragged L=200 with
    D=64), fused LayerNorm forward and backward (4096 x 1024 with
-   residual, float32 and bfloat16; two backward runs bitwise equal), K1
+   residual, float32 and bfloat16; two backward runs bitwise equal; the
+   paged decode and LayerNorm backward rows also print their device
+   time by kernel from ``torch.profiler``), K1
    (momentum, NAG) and K2 (Adam, AdamW with clip) on the training
    phase's 1.92 G-element bucket and an unaligned one of 5000;
 4. serving: Llama-3-8B at full width and depth in bfloat16, random
@@ -169,11 +174,45 @@ def read_launches(phase, want):
 ROWS = []        # every timed (kernel, dtype, shape) of phase 3
 
 
-def record(kernel, dtype, shape, ms, plain_ms, library_ms, bound_ms, by):
+def record(kernel, dtype, shape, ms, plain_ms, library_ms, bound_ms, by,
+           device_ms=None):
     """Keep one timed row of phase 3 for the ``kernel_rows`` line."""
-    ROWS.append({"kernel": kernel, "dtype": dtype, "shape": shape, "ms": ms,
-                 "plain_ms": plain_ms, "library_ms": library_ms,
-                 "bound_ms": bound_ms, "bound_by": by})
+    row = {"kernel": kernel, "dtype": dtype, "shape": shape, "ms": ms,
+           "plain_ms": plain_ms, "library_ms": library_ms,
+           "bound_ms": bound_ms, "bound_by": by}
+    if device_ms is not None:
+        row["device_ms"] = device_ms
+    ROWS.append(row)
+
+
+def device_ms(fn, iters, flush):
+    """{kernel: device ms a call} of ``fn`` from ``torch.profiler`` over
+    ``iters`` calls, the L2 cache flushed before each (the flush's own
+    kernel left out): no launch latency and no host time in it."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            flush.zero_()
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA and not any(
+                w in e.key.lower() for w in ("fill", "memset")):
+            name = e.key.replace("(anonymous namespace)::", "")
+            name = name.split("(")[0].split("<")[0].removeprefix("void ")
+            out[name] = out.get(name, 0.0) + \
+                e.self_device_time_total / 1e3 / iters
+    return out
+
+
+def by_kernel(times):
+    """``device_ms``'s result as printed text."""
+    return ", ".join(f"{k} {v:.4f} ms" for k, v in times.items()) or \
+        "not measured"
 
 
 def bound(nbytes, flops, dtype_name):
@@ -246,6 +285,56 @@ def flash_kernel_report():
                      f"SASS, or it spills")
 
 
+def ptxas_report(lib_names):
+    """For every kernel of the named libraries: registers, spill bytes,
+    stack and static shared memory as ptxas reports them (names demangled
+    where the toolkit has ``cu++filt``).  Fails if one spills.  The K4
+    backward's row kernel also takes (1 + 16 / WPR) * 4 * D bytes of
+    dynamic shared memory (68 KB at D = 1024); its resident CTAs a SM at
+    phase 3's D = 1024 are printed."""
+    import ctypes
+    import re
+    from mxnet_tpu_torch.ops import _build
+    filt = os.path.join(os.path.dirname(_build._nvcc()), "cu++filt")
+    spilled = []
+    for lib_name in lib_names:
+        with open(_build.log_path(lib_name)) as f:
+            entries = f.read().split("Compiling entry function '")[1:]
+        mangled = [e.split("'")[0] for e in entries]
+        names = mangled
+        if os.path.exists(filt):
+            out = subprocess.run([filt], input="\n".join(mangled),
+                                 capture_output=True, text=True, timeout=60)
+            if out.returncode == 0:
+                names = out.stdout.splitlines()
+        for name, entry in zip(names, entries):
+            regs = re.search(r"Used (\d+) registers", entry)
+            spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                              r"loads", entry)
+            smem = re.search(r"(\d+) bytes smem", entry)
+            stack = re.search(r"(\d+) bytes stack frame", entry)
+            if not (regs and spill):
+                fail(f"{lib_name}: unreadable ptxas entry {name}")
+            name = re.sub(r"^void |\(anonymous namespace\)::|<unnamed>::|"
+                          r"\(int\)|\([^()]*\)$", "", name)
+            print(f"ptxas {name}: {regs[1]} registers, {spill[1]} bytes spill "
+                  f"stores, {spill[2]} bytes spill loads, "
+                  f"{stack[1] if stack else 0} bytes stack, "
+                  f"{smem[1] if smem else 0} bytes static shared memory",
+                  flush=True)
+            if int(spill[1]) > 0 or int(spill[2]) > 0:
+                spilled.append(name)
+    if spilled:
+        fail(f"these kernels spill: {spilled}")
+    lib = ctypes.CDLL(_build.build(["fused_layernorm"])["fused_layernorm"])
+    resident = lib.fused_layer_norm_bwd_resident
+    resident.argtypes = [ctypes.c_int] * 5
+    for dtype, name in ((0, "f32"), (1, "bf16")):
+        print(f"ln_bwd_rows {name} at D=1024: "
+              f"{resident(1024, 1, dtype, 0, 0)} resident CTAs a SM of 8 "
+              f"warps", flush=True)
+
+
 # ----------------------------------------------------------------------
 # phase 3: kernels against their plain versions
 # ----------------------------------------------------------------------
@@ -300,16 +389,18 @@ def check_flash(dev, flush):
 
 
 PAGED_SHAPE = dict(B=8, H=32, KVH=8, D=128, bs=16, nbl=64)
+# phase 7's decode geometry: 16 sequences, a 4096-position bucket
+PAGED_LONG = dict(PAGED_SHAPE, B=16, nbl=256)
 
 
-def paged_tables(dev):
-    """K5's check inputs at ``PAGED_SHAPE``, from seed 0: tables of
-    scattered blocks (row 0 full, row 1 idle on the null block) and
-    positions.  Returns (pos as numpy, tables and pos as int32 on
+def paged_tables(dev, B=PAGED_SHAPE["B"], bs=PAGED_SHAPE["bs"],
+                 nbl=PAGED_SHAPE["nbl"]):
+    """K5's check inputs, from seed 0: tables of scattered blocks (row 0
+    full, row 1 idle on the null block) and positions drawn below
+    ``nbl * bs``.  Returns (pos as numpy, tables and pos as int32 on
     ``dev``)."""
     import numpy as np
     import torch
-    B, bs, nbl = PAGED_SHAPE["B"], PAGED_SHAPE["bs"], PAGED_SHAPE["nbl"]
     nb = 1 + B * nbl
     rng = np.random.RandomState(0)
     pos = rng.randint(0, nbl * bs, B).astype(np.int32)
@@ -348,6 +439,8 @@ def check_paged(dev, flush):
         worst = max(worst, err) if name == "bfloat16" else worst
         ms = time_ms(lambda: paged_decode_attention(q, kp, vp, tab, ps,
                                                     D ** -0.5), 50, flush)
+        dev_ms = device_ms(lambda: paged_decode_attention(
+            q, kp, vp, tab, ps, D ** -0.5), 20, flush)
         plain_ms = time_ms(lambda: paged_decode_plain(q, kp, vp, tab, ps,
                                                       D ** -0.5), 5, flush)
         elem = q.element_size()
@@ -357,9 +450,10 @@ def check_paged(dev, flush):
         bound_ms, by = bound(nbytes, 4.0 * rows * H * D, name)
         print(f"paged_decode_attention B={B} pos<= {int(pos.max())} {name}: "
               f"max_abs_err {err:.3e} kernel {ms:.4f} ms plain "
-              f"{plain_ms:.4f} ms bound {bound_ms:.4f} ms", flush=True)
+              f"{plain_ms:.4f} ms bound {bound_ms:.4f} ms; device "
+              f"{by_kernel(dev_ms)}", flush=True)
         record("paged_decode_attention", name, [B, H, KVH, D, int(pos.max())],
-               ms, plain_ms, None, bound_ms, by)
+               ms, plain_ms, None, bound_ms, by, dev_ms)
         if name == "bfloat16":
             main = dict(ms=ms, plain_ms=plain_ms, library_ms=None,
                         bound_ms=bound_ms, bound_by=by)
@@ -368,24 +462,27 @@ def check_paged(dev, flush):
 
 
 def check_paged_fp8(dev, flush):
-    """K5's fp8 path at ``check_paged``'s shapes: pools quantized on the
-    card by ``kv_quantize_fp8``, a bf16 and an f32 query, against the
-    plain fp8 version on the same codes and scales."""
+    """K5's fp8 path: pools quantized on the card by ``kv_quantize_fp8``,
+    against the plain fp8 version on the same codes and scales; at
+    ``check_paged``'s shapes with a bf16 and an f32 query, and at phase
+    7's decode geometry (``PAGED_LONG``: B = 16, positions from seed 0 up
+    to 4095) with a bf16 query."""
     import numpy as np
     import torch
     from mxnet_tpu_torch.ops.paged_attention import (paged_decode_attention,
                                                      paged_decode_plain)
     from mxnet_tpu_torch.ops.quant_kv import kv_quantize_fp8
-    B, H, KVH, D, bs, nbl = PAGED_SHAPE.values()
-    nb = 1 + B * nbl
-    pos, tab, ps = paged_tables(dev)
-    g = torch.Generator(device=dev).manual_seed(2)
-    (kp, ks), (vp, vs) = (kv_quantize_fp8(
-        torch.randn(nb, bs, KVH, D, device=dev, generator=g))
-        for _ in range(2))
     main = None
     worst = 0.0
-    for name in ("bfloat16", "float32"):
+    for shape, name in ((PAGED_SHAPE, "bfloat16"), (PAGED_SHAPE, "float32"),
+                        (PAGED_LONG, "bfloat16")):
+        B, H, KVH, D, bs, nbl = shape.values()
+        nb = 1 + B * nbl
+        pos, tab, ps = paged_tables(dev, B, bs, nbl)
+        g = torch.Generator(device=dev).manual_seed(2)
+        (kp, ks), (vp, vs) = (kv_quantize_fp8(
+            torch.randn(nb, bs, KVH, D, device=dev, generator=g))
+            for _ in range(2))
         q = torch.randn(B, H, D, device=dev, generator=g).to(
             getattr(torch, name))
 
@@ -404,6 +501,7 @@ def check_paged_fp8(dev, flush):
                  f"{err}")
         worst = max(worst, err)
         ms = time_ms(kernel, 50, flush)
+        dev_ms = device_ms(kernel, 20, flush)
         plain_ms = time_ms(plain, 5, flush)
         rows = int((pos.astype(np.int64) + 1).sum())
         elem = q.element_size()
@@ -412,14 +510,15 @@ def check_paged_fp8(dev, flush):
         bound_ms, by = bound(nbytes, 4.0 * rows * H * D, name)
         print(f"paged_decode_attention fp8 pool, {name} query, B={B} pos<= "
               f"{int(pos.max())}: max_abs_err {err:.3e} kernel {ms:.4f} ms "
-              f"plain {plain_ms:.4f} ms bound {bound_ms:.4f} ms ({by})",
-              flush=True)
+              f"plain {plain_ms:.4f} ms bound {bound_ms:.4f} ms ({by}); "
+              f"device {by_kernel(dev_ms)}", flush=True)
         record("paged_decode_attention_fp8", name,
                [B, H, KVH, D, int(pos.max())], ms, plain_ms, None, bound_ms,
-               by)
-        if name == "bfloat16":                 # the fp8 serving phase's
+               by, dev_ms)
+        if name == "bfloat16" and shape is PAGED_SHAPE:
             main = dict(ms=ms, plain_ms=plain_ms, library_ms=None,
                         bound_ms=bound_ms, bound_by=by)
+        del kp, vp, ks, vs
     main["max_abs_err"] = worst
     return main
 
@@ -491,16 +590,18 @@ def check_layernorm(dev, flush):
                  lambda: layer_norm_bwd_plain(x, res, gamma, dy, eps),
                  lib_bwd, 4 * rows * D * elem + 3 * D * 4)):
             ms = time_ms(kernel, 20, flush)
+            dev_ms = device_ms(kernel, 20, flush) if what == "bwd" else None
             plain_ms = time_ms(plain, 10, flush)
             lib_ms = time_ms(library, 20, flush, cover=2_000_000)
             bound_ms, by = bound(nbytes, 10.0 * rows * D, "float32")
             print(f"fused_layer_norm_{what} {rows}x{D} {name}, residual: "
                   f"max_abs_err {err_f if what == 'fwd' else err_b:.3e} "
                   f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms library "
-                  f"(near) {lib_ms:.4f} ms bound {bound_ms:.4f} ms ({by})",
-                  flush=True)
+                  f"(near) {lib_ms:.4f} ms bound {bound_ms:.4f} ms ({by})"
+                  + ("" if dev_ms is None else
+                     f"; device {by_kernel(dev_ms)}"), flush=True)
             record(f"fused_layer_norm_{what}", name, [rows, D], ms, plain_ms,
-                   lib_ms, bound_ms, by)
+                   lib_ms, bound_ms, by, dev_ms)
             out = res_fwd if what == "fwd" else res_bwd
             out.setdefault("max_abs_err", 0.0)
             out["max_abs_err"] = max(out["max_abs_err"],
@@ -1214,6 +1315,7 @@ def main():
     print(f"build: {time.perf_counter() - t0:.1f} s into {_build.BUILD_DIR}",
           flush=True)
     flash_kernel_report()
+    ptxas_report(["paged_attention", "fused_layernorm"])
 
     # phase 3: kernels against plain versions
     flush = torch.empty(128 * 2 ** 20, dtype=torch.uint8, device=dev)

@@ -27,12 +27,16 @@ are gathered into a bucket and written back.  Parameters and gradients
 are always gathered into the bucket and the parameters written back;
 the gathered gradients are freed before the write-back.
 
-One known difference from the reference: gradients of two backward
-passes before one ``step`` add up here (torch accumulates into
-``.grad``), where the reference's default ``grad_req="write"`` keeps only
-the last.  One backward per step, as in every training loop of the
-repo, gives the reference's result.  ``grad_req`` arrives with
-``gluon/parameter.py`` (ROADMAP §1 item 3).
+Gradients follow the reference's default ``grad_req="write"``: of two
+backward passes before one ``step`` only the last is kept.  The Trainer
+puts a pre-hook on each trainable parameter's ``AccumulateGrad`` node
+that sets ``.grad`` to ``None`` before the node writes, so within one
+backward the contributions of a tied parameter still sum, a second
+backward replaces the first, and ``torch.autograd.grad`` (which runs no
+``AccumulateGrad`` node) leaves ``.grad`` alone.  The nodes are held
+weakly by their tensors, so the Trainer keeps them, with their hooks'
+handles.  ``grad_req="add"`` arrives with ``gluon/parameter.py``
+(ROADMAP §1 item 3).
 """
 from __future__ import annotations
 
@@ -46,6 +50,20 @@ from ..ops.fused_update import fused_bucket_rule
 __all__ = ["Trainer"]
 
 _KVSTORES = (None, "device", "local")
+
+
+def _write_grad_on_backward(p):
+    """``grad_req="write"`` for ``p``: a pre-hook on its
+    ``AccumulateGrad`` node drops the gradient of an earlier backward
+    before this one's is written.  Returns (node, handle): the caller
+    keeps both, since the tensor holds its node only weakly."""
+    with torch.enable_grad():
+        node = p.view_as(p).grad_fn.next_functions[0][0]
+
+    def drop(grad_outputs):
+        p.grad = None
+
+    return node, node.register_prehook(drop)
 
 
 class Trainer:
@@ -87,6 +105,8 @@ class Trainer:
         self._states = None       # index -> {leaf: tensor}, built lazily
         self._flat_state = None   # leaf -> flat f32 buffer, or None
         self._bucket_apply = None
+        self._grad_writes = [_write_grad_on_backward(p)
+                             for p in self._params if p.requires_grad]
 
     @property
     def learning_rate(self):

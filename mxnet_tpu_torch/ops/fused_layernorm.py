@@ -26,8 +26,11 @@ Kernel notes: the forward replaces ``_forward_kernel``
 (``fused_layernorm.py:79``), the backward ``_backward_kernel`` (``:97``).
 Both are memory-bound on the H100: the forward moves x, res and y, the
 backward x, res, dy and dx, at about 10 FLOPs per element.  The
-backward's dgamma/dbeta go through per-CTA partial sums and a second
-pass in a fixed order (no float atomics), so it is bitwise repeatable.
+backward gives a row to a group of ``ceil(D / 1024)`` warps (rounded up
+to a power of two) that hold it in registers, over a persistent grid of
+as many CTAs as are resident on the card (:func:`bwd_plan`); each CTA
+writes one row of partial dgamma/dbeta sums, and a second grid adds the
+rows in a fixed order (no float atomics), so it is bitwise repeatable.
 """
 from __future__ import annotations
 
@@ -39,20 +42,42 @@ from ..base import MXNetError, NotSupportedError
 from . import _build
 
 __all__ = ["fused_layer_norm", "fused_layer_norm_fwd", "fused_layer_norm_bwd",
-           "layer_norm_plain", "layer_norm_bwd_plain", "MAX_D"]
+           "layer_norm_plain", "layer_norm_bwd_plain", "bwd_plan", "MAX_D"]
 
-#: longest normalized axis the kernels take (four f32 rows of shared
-#: memory per CTA in the backward)
+#: longest normalized axis the kernels take (the backward's 8 warps a
+#: CTA, 32 columns a lane)
 MAX_D = 8192
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_CTAS_PER_SM = 4         # backward grid: rows are strided over these CTAs
+_BWD_WARPS = 8           # warps a CTA of the backward's row kernel
+_WARP_COLS = 1024        # columns a warp holds in registers
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "fused_layer_norm_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I,
                              ctypes.c_float, _I, _P],
     "fused_layer_norm_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                             _I, ctypes.c_float, _I, _P]}
+                             _I, _I, ctypes.c_float, _I, _P],
+    "fused_layer_norm_bwd_resident": [_I, _I, _I, _I, _I]}
+_resident = {}           # (D, WPR, dtype, g_dtype, device) -> CTAs a SM
+
+
+def bwd_plan(rows, d, sms, resident):
+    """``(warps a row, CTAs)`` of the backward's row kernel: a row of
+    ``d`` columns goes to the fewest warps, a power of two, whose lanes
+    hold 32 columns each; the grid is persistent, ``sms * resident``
+    CTAs of 8 warps, or fewer where the rows do not fill them.  The
+    kernel takes both from here (its C entry refuses warps that cannot
+    hold the row)."""
+    wpr = _warps_per_row(d)
+    groups = _BWD_WARPS // wpr
+    return wpr, max(1, min(sms * resident, -(-rows // groups)))
+
+
+def _warps_per_row(d):
+    wpr = 1
+    while wpr * _WARP_COLS < d:
+        wpr *= 2
+    return wpr
 
 
 def _stats(x, res, eps):
@@ -137,20 +162,30 @@ def _bwd_kernel(x, res, gamma, dy, eps):
         raise NotSupportedError("fused_layer_norm_bwd: dy must match x's "
                                 "shape and dtype")
     dx = torch.empty_like(x)
-    dgamma = torch.zeros(d, dtype=torch.float32, device=x.device)
-    dbeta = torch.zeros(d, dtype=torch.float32, device=x.device)
     if rows == 0:
-        return dx, dgamma, dbeta
-    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-    ctas = min(rows, _CTAS_PER_SM * sms)
-    ws = torch.empty(2, ctas, d, dtype=torch.float32, device=x.device)
+        zeros = torch.zeros(d, dtype=torch.float32, device=x.device)
+        return dx, zeros, zeros.clone()
+    dgamma = torch.empty(d, dtype=torch.float32, device=x.device)
+    dbeta = torch.empty(d, dtype=torch.float32, device=x.device)
     lib = _build.load("fused_layernorm", _SIGNATURES)
+    wpr = _warps_per_row(d)
+    key = (d, wpr, _DTYPES[x.dtype], _DTYPES[gamma.dtype], x.device.index)
+    if key not in _resident:
+        got = lib.fused_layer_norm_bwd_resident(*key)
+        _build.check(lib, max(0, -got), "fused_layer_norm_bwd_resident")
+        if got < 1:
+            raise MXNetError(f"fused_layer_norm_bwd: no CTA of the row kernel "
+                             f"fits a SM at D={d}")
+        _resident[key] = got
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    _, ctas = bwd_plan(rows, d, sms, _resident[key])
+    ws = torch.empty(2, ctas, d, dtype=torch.float32, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     err = lib.fused_layer_norm_bwd(
         x.data_ptr(), _ptr(res), gamma.data_ptr(), dy.data_ptr(),
         dx.data_ptr(), ws.data_ptr(), dgamma.data_ptr(), dbeta.data_ptr(),
-        rows, d, ctas, _DTYPES[x.dtype], _DTYPES[gamma.dtype], float(eps),
-        x.device.index, stream)
+        rows, d, wpr, ctas, _DTYPES[x.dtype], _DTYPES[gamma.dtype],
+        float(eps), x.device.index, stream)
     _build.check(lib, err, "fused_layer_norm_bwd")
     fused_layer_norm_bwd.launches += 1
     return dx, dgamma, dbeta
@@ -179,8 +214,9 @@ fused_layer_norm_fwd.launches = 0
 def fused_layer_norm_bwd(x, res, gamma, dy, eps):
     """``(dx, dgamma, dbeta)`` of the forward at ``(x, res, gamma)`` for
     the output gradient ``dy``; dgamma and dbeta in f32.  CPU tensors run
-    :func:`layer_norm_bwd_plain`; CUDA tensors launch the kernel (two
-    grids) and count one launch in ``fused_layer_norm_bwd.launches``."""
+    :func:`layer_norm_bwd_plain`; CUDA tensors launch the kernel (a row
+    grid and a column grid) and count one launch in
+    ``fused_layer_norm_bwd.launches``."""
     return _route(x, layer_norm_bwd_plain, _bwd_kernel, x, res, gamma, dy,
                   eps)
 

@@ -22,7 +22,16 @@ Kernel note: replaces ``_pallas_paged`` (``paged_attention.py:89``).
 Memory-bound on the H100: per layer a step reads about
 ``2 * B * ctx * KVH * D * sizeof(pool)`` bytes of K/V (plus ``8 * ctx``
 bytes of scales per sequence for fp8) against ``4 * H * D`` FLOPs per
-position.
+position.  To fill the card at decode batch sizes the kernel splits the
+context: its grid is (B, KVH, S), S splits of C positions
+(:func:`split_plan`, from the table's width, never from ``pos``, so the
+launch needs no host synchronisation).  Each split writes its
+unnormalised softmax state (max, sum of p, p.V) to an f32 workspace
+(``torch.empty`` per call) and draws a ticket from an int32 counter per
+(sequence, kv head); the last split merges all of them in split order
+and resets the counter.  The counters are one zeroed buffer per device,
+kept by this module and grown on demand; K5 runs on one stream.  One
+launch per call, no float atomics: two runs give the same bits.
 """
 from __future__ import annotations
 
@@ -34,17 +43,39 @@ from ..base import MXNetError, NotSupportedError
 from . import _build
 from .quant_kv import kv_dequantize
 
-__all__ = ["paged_decode_attention", "paged_decode_plain"]
+__all__ = ["paged_decode_attention", "paged_decode_plain", "split_plan"]
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _POOL_DTYPES = {**_DTYPES, torch.float8_e4m3fn: 2}
 _HEAD_DIMS = (64, 128)
 _REPS = (1, 2, 4, 8)
+_SPLIT = 128                # positions of the context a CTA takes
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {"paged_decode_attention": [_P, _P, _P, _P, _P, _P, _P, _P,
-                                          _I, _I, _I, _I, _I, _I, _I, _I,
-                                          ctypes.c_float, _I, _P]}
+                                          _P, _P, _I, _I, _I, _I, _I, _I,
+                                          _I, _I, _I, _I, ctypes.c_float,
+                                          _I, _P]}
+_counters = {}              # device index -> zeroed int32 ticket counters
+
+
+def split_plan(nbl, bs):
+    """``(C, S)``: the kernel cuts a table of ``nbl`` blocks of ``bs``
+    positions into ``S`` splits of ``C`` positions, ``C`` the largest
+    multiple of ``bs`` within 128, at least ``bs``.  The C entry refuses
+    a plan whose split does not fit a CTA's shared memory."""
+    c = bs * max(1, _SPLIT // bs)
+    return c, max(1, -(-nbl * bs // c))
+
+
+def _ticket_counters(device, n):
+    """At least ``n`` zeroed int32 counters on ``device``; every launch
+    leaves them zeroed."""
+    buf = _counters.get(device.index)
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
+        _counters[device.index] = buf
+    return buf
 
 
 def paged_decode_plain(q, k_pool, v_pool, block_tables, pos, scale,
@@ -129,16 +160,27 @@ def _kernel(q, k_pool, v_pool, block_tables, pos, scale, k_scale, v_scale):
     for t in (q, k_pool, v_pool, block_tables, pos):
         if not t.is_contiguous():
             raise MXNetError("paged kernel: inputs must be contiguous")
+    if k_pool.data_ptr() % 16 or v_pool.data_ptr() % 16:
+        raise MXNetError("paged kernel: pools must be 16-byte aligned (the "
+                         "kernel loads 16 bytes a lane)")
     out = torch.empty(B, H * D, dtype=q.dtype, device=q.device)
     if B == 0:
         return out
+    chunk, splits = split_plan(nbl, bs)
+    ws = counters = None
+    if splits > 1:
+        ws = torch.empty(B * kvh * splits * (H // kvh) * (D + 2),
+                         dtype=torch.float32, device=q.device)
+        counters = _ticket_counters(q.device, B * kvh)
     lib = _build.load("paged_attention", _SIGNATURES)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     ks_ptr, vs_ptr = [t.data_ptr() for t in scales] if scales else [None] * 2
     err = lib.paged_decode_attention(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), ks_ptr, vs_ptr,
-        block_tables.data_ptr(), pos.data_ptr(), out.data_ptr(), B, H, kvh,
-        D, bs, nbl, _DTYPES[q.dtype], _POOL_DTYPES[k_pool.dtype],
+        block_tables.data_ptr(), pos.data_ptr(), out.data_ptr(),
+        None if ws is None else ws.data_ptr(),
+        None if counters is None else counters.data_ptr(), B, H, kvh, D, bs,
+        nbl, chunk, splits, _DTYPES[q.dtype], _POOL_DTYPES[k_pool.dtype],
         float(scale), q.device.index, stream)
     _build.check(lib, err, "paged_decode_attention")
     if scales:

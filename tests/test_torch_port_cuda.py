@@ -44,7 +44,8 @@ from mxnet_tpu_torch.ops.fused_layernorm import (fused_layer_norm,
                                                  layer_norm_bwd_plain,
                                                  layer_norm_plain)
 from mxnet_tpu_torch.ops.paged_attention import (paged_decode_attention,
-                                                 paged_decode_plain)
+                                                 paged_decode_plain,
+                                                 split_plan)
 from mxnet_tpu_torch.ops.quant_kv import kv_quantize_fp8
 
 pytestmark = pytest.mark.cuda
@@ -197,6 +198,92 @@ def test_paged_fp8_kernel_ignores_rows_past_pos(card):
                                   vb.view(torch.float8_e4m3fn), tables, pos,
                                   0.1, k_scale=ks2, v_scale=vs2)
     torch.testing.assert_close(out2[1:], out[1:], atol=0, rtol=0)
+
+
+def _split_case(card, positions, rep, kv_dtype, nbl, seed, KVH=2, D=128,
+                bs=16):
+    """K5 inputs with the given positions: a bf16 query for bf16 and fp8
+    pools, f32 for f32; each sequence's blocks scattered over the pool
+    (null padding past its position)."""
+    B = len(positions)
+    rng = np.random.RandomState(seed)
+    nb = 1 + B * nbl
+    pos = np.asarray(positions, np.int32)
+    tables = np.zeros((B, nbl), np.int32)
+    perm = rng.permutation(np.arange(1, nb))
+    for i, p in enumerate(pos):
+        n = int(p) // bs + 1
+        tables[i, :n], perm = perm[:n], perm[n:]
+    q_dtype = torch.float32 if kv_dtype == torch.float32 else torch.bfloat16
+    q = torch.from_numpy(rng.randn(B, KVH * rep, D).astype(np.float32))
+    k, v = (torch.from_numpy(rng.randn(nb, bs, KVH, D).astype(np.float32))
+            .to(card) for _ in range(2))
+    tail = [torch.from_numpy(tables).to(card), torch.from_numpy(pos).to(card)]
+    if kv_dtype == torch.float8_e4m3fn:
+        (kc, ks), (vc, vs) = kv_quantize_fp8(k), kv_quantize_fp8(v)
+        return [q.to(q_dtype).to(card), kc, vc, *tail], dict(k_scale=ks,
+                                                            v_scale=vs)
+    return [q.to(q_dtype).to(card), k.to(kv_dtype), v.to(kv_dtype),
+            *tail], {}
+
+
+def _paged_against_plain(args, scales):
+    out = paged_decode_attention(*args, args[0].shape[-1] ** -0.5, **scales)
+    ref = paged_decode_plain(*args, args[0].shape[-1] ** -0.5,
+                             scales.get("k_scale"), scales.get("v_scale"))
+    torch.cuda.synchronize()
+    assert out.dtype == args[0].dtype and torch.isfinite(out).all()
+    _close(out, ref, args[0].dtype)
+    return out
+
+
+_C = split_plan(32, 16)[0]       # positions a split at the default plan
+
+
+@pytest.mark.parametrize("kv_dtype", [torch.float32, torch.bfloat16,
+                                      torch.float8_e4m3fn],
+                         ids=["f32", "bf16", "fp8"])
+@pytest.mark.parametrize("rep", [1, 2, 4, 8])
+@pytest.mark.parametrize("positions", [
+    [0], [_C - 1], [_C], [_C + 1], [2 * _C], [32 * 16 - 1],
+    [0, _C - 1, _C, _C + 1, 2 * _C, 511, 3, 200, 77, 511, 0, 300, 129, 255,
+     256, 257]], ids=["0", "C-1", "C", "C+1", "2C", "bucket-1", "B16"])
+def test_paged_kernel_split_edges(card, kv_dtype, rep, positions):
+    """K5 at the edges of its context splits (a 512-position bucket, C
+    positions a split), one sequence and sixteen, every pool type."""
+    args, scales = _split_case(card, positions, rep, kv_dtype, 32,
+                               seed=rep + len(positions))
+    assert split_plan(32, 16)[1] == 4
+    _paged_against_plain(args, scales)
+
+
+@pytest.mark.parametrize("kv_dtype", [torch.bfloat16, torch.float8_e4m3fn],
+                         ids=["bf16", "fp8"])
+def test_paged_kernel_is_bitwise_repeatable(card, kv_dtype):
+    """The ordered combine: two runs at the fp8 serving phase's geometry
+    (B = 16, 256 blocks of 16) give the same bits."""
+    positions = np.random.RandomState(0).randint(0, 4096, 16)
+    positions[0] = 4095
+    args, scales = _split_case(card, positions, 4, kv_dtype, 256, seed=1,
+                               KVH=8)
+    first = _paged_against_plain(args, scales)
+    for _ in range(2):
+        again = paged_decode_attention(*args, 128 ** -0.5, **scales)
+        torch.cuda.synchronize()
+        assert torch.equal(first, again)
+
+
+def test_paged_kernel_calls_in_a_row_with_other_splits(card):
+    """Three calls with other B and S in a row, each against the plain
+    version: a ticket counter left unreset would merge too early."""
+    for positions, nbl, kv_dtype in (
+            ([1023, 5, 700, 1000, 64], 64, torch.bfloat16),
+            (list(range(0, 4096, 256)), 256, torch.float8_e4m3fn),
+            ([300, 1023, 17], 64, torch.float32),
+            ([1023, 5, 700, 1000, 64], 64, torch.bfloat16)):
+        args, scales = _split_case(card, positions, 4, kv_dtype, nbl,
+                                   seed=nbl + len(positions), KVH=8)
+        _paged_against_plain(args, scales)
 
 
 def test_flash_kernel_matches_plain_at_4096(card):
@@ -474,8 +561,8 @@ def _ln_case(card, rows, D, dtype, residual, seed, g_dtype=torch.float32):
 
 @pytest.mark.parametrize("residual", [True, False])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("D", [64, 768, 1024, 4096])
-@pytest.mark.parametrize("rows", [1, 7, 4096])
+@pytest.mark.parametrize("D", [64, 100, 768, 1000, 1024, 2048, 4096])
+@pytest.mark.parametrize("rows", [1, 7, 4096, 4097])
 def test_layernorm_kernels_match_plain(card, rows, D, dtype, residual):
     x, res, gamma, beta, dy = _ln_case(card, rows, D, dtype, residual,
                                        rows + D)
@@ -494,8 +581,8 @@ def test_layernorm_kernels_match_plain(card, rows, D, dtype, residual):
 
 
 def test_layernorm_bf16_params_and_widest_row(card):
-    """bf16 gamma/beta, and D = 8192 (the backward's 128 KB of shared
-    memory per CTA)."""
+    """bf16 gamma/beta, and D = 8192 (the backward's row held by all 8
+    warps of a CTA, 96 KB of shared memory)."""
     for D, g_dtype in ((1024, torch.bfloat16), (8192, torch.float32)):
         x, res, gamma, beta, dy = _ln_case(card, 33, D, torch.bfloat16, True,
                                            D, g_dtype)

@@ -33,7 +33,9 @@ from mxnet_tpu_torch.ops import _build
 from mxnet_tpu_torch.ops.flash_attention import (flash_attention,
                                                  flash_attention_fwd,
                                                  flash_attention_plain)
-from mxnet_tpu_torch.ops.paged_attention import paged_decode_attention
+from mxnet_tpu_torch.ops.fused_layernorm import bwd_plan
+from mxnet_tpu_torch.ops.paged_attention import (paged_decode_attention,
+                                                 split_plan)
 from mxnet_tpu_torch.ops.quant_kv import resolve_kv_dtype
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
@@ -214,6 +216,42 @@ def test_paged_masks_write_ahead_garbage():
     out2 = paged_decode_attention(torch.from_numpy(q), torch.from_numpy(kp2),
                                   torch.from_numpy(vp2), *args)
     assert torch.equal(out2[1], out[1]) and torch.equal(out2[2], out[2])
+
+
+@pytest.mark.parametrize("nbl,bs,want", [
+    (64, 16, (128, 8)),           # phase 3's table: 1024 positions
+    (256, 16, (128, 32)),         # the fp8 serving phase's 4096
+    (4, 16, (128, 1)),            # a short bucket: one split
+    (1, 16, (128, 1)),
+    (65, 16, (128, 9)),           # a ragged last split
+    (32, 32, (128, 8)),
+    (64, 8, (128, 4)),
+    (8, 48, (96, 4)),             # C rounds down to whole blocks
+    (3, 256, (256, 3)),           # at least one block a split
+    (600, 1, (128, 5)),
+    (4096, 16, (128, 512))])      # the most splits the kernel merges
+def test_paged_split_plan(nbl, bs, want):
+    """K5's grid (B, KVH, S): S splits of C positions cover the table's
+    nbl * bs positions, C a multiple of bs."""
+    c, s = split_plan(nbl, bs)
+    assert (c, s) == want
+    assert c % bs == 0 and s * c >= nbl * bs > (s - 1) * c
+
+
+@pytest.mark.parametrize("rows,d,want", [
+    (4096, 1024, (1, 264)),       # BERT-large: a warp a row, 2 CTAs a SM
+    (4096, 768, (1, 264)),
+    (4096, 100, (1, 264)),
+    (7, 64, (1, 1)),              # 8 row groups a CTA: one CTA
+    (33, 1025, (2, 9)),           # 4 groups of 2 warps a CTA
+    (4097, 2048, (2, 264)),
+    (33, 4096, (4, 17)),
+    (33, 8192, (8, 33)),          # one row a CTA
+    (1, 8192, (8, 1))])
+def test_layernorm_bwd_plan(rows, d, want):
+    """K4 backward: warps a row and the persistent grid at 132 SMs with 2
+    resident CTAs each."""
+    assert bwd_plan(rows, d, 132, 2) == want
 
 
 # ----------------------------------------------------------------------

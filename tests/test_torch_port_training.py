@@ -311,6 +311,89 @@ def test_llama_training_took_the_flat_bucket(trained):
     assert set(tr._optimizer._index_update_count.values()) == {4}
 
 
+# ----------------------------------------------------------------------
+# grad_req="write": two backward passes before one step keep the last
+# ----------------------------------------------------------------------
+
+def _second_batch():
+    tokens = np.random.RandomState(2).randint(0, VOCAB, (BATCH, SEQ))
+    labels = np.random.RandomState(3).randint(0, VOCAB, (BATCH * SEQ,))
+    return tokens, labels
+
+
+def _port_loss(net, tokens, labels):
+    logits = net(torch.from_numpy(tokens))
+    return SoftmaxCrossEntropyLoss()(logits.reshape(-1, VOCAB),
+                                     torch.from_numpy(labels)).mean()
+
+
+@pytest.mark.parametrize("optname", sorted(TRAIN_CASES))
+def test_two_backward_passes_then_step_match_jax(optname):
+    """Backward on two batches, then one ``step``: the reference's default
+    ``grad_req="write"`` keeps the second gradient; so does the port."""
+    _, args, atol = TRAIN_CASES[optname]
+    jnet = jax_llama_tiny(num_layers=1)
+    jnet.initialize()
+    batches = [_batch(), _second_batch()]
+    jnet(nd.array(batches[0][0]))
+    pnet = load_llama_decode_weights(
+        llama_tiny(num_layers=1, device="cpu", seed=None),
+        _tree_to_numpy(jnet.decode_weights()))
+    jtr = jgluon.Trainer(jnet.collect_params(), optname, dict(args))
+    ptr = Trainer(dict(pnet.named_parameters()), optname, dict(args))
+    jloss_fn = jgluon.loss.SoftmaxCrossEntropyLoss()
+    for tokens, labels in batches:
+        with autograd.record():
+            out = jnet(nd.array(tokens))
+            loss = jloss_fn(out.reshape((-1, VOCAB)),
+                            nd.array(labels)).mean()
+        loss.backward()
+        _port_loss(pnet, tokens, labels).backward()
+    jtr.step(BATCH)
+    ptr.step(BATCH)
+    for got, want in zip(_leaves(llama_decode_weights_to_numpy(pnet)),
+                         _leaves(_tree_to_numpy(jnet.decode_weights()))):
+        np.testing.assert_allclose(got, want, rtol=0, atol=atol)
+
+
+def test_two_backward_passes_equal_the_last_alone_bitwise():
+    """The port alone: backward on the first and the second batch, then
+    a step, gives the bits of one backward on the second batch."""
+    nets = [llama_tiny(num_layers=1, device="cpu", seed=7) for _ in range(2)]
+    trainers = [Trainer(dict(n.named_parameters()), "sgd",
+                        {"learning_rate": 0.1, "momentum": 0.9})
+                for n in nets]
+    _port_loss(nets[0], *_batch()).backward()
+    for net, tr in zip(nets, trainers):
+        _port_loss(net, *_second_batch()).backward()
+        tr.step(BATCH)
+    for (name, a), (_, b) in zip(nets[0].named_parameters(),
+                                 nets[1].named_parameters()):
+        assert torch.equal(a, b), name
+
+
+def test_tied_use_within_one_backward_still_sums():
+    w = torch.nn.Parameter(torch.tensor([1.0, -2.0]))
+    tr = Trainer([w], "sgd", {"learning_rate": 0.1})
+    (2 * w + 3 * w).sum().backward()
+    torch.testing.assert_close(w.grad, torch.tensor([5.0, 5.0]))
+    (7 * w).sum().backward()
+    torch.testing.assert_close(w.grad, torch.tensor([7.0, 7.0]))
+    tr.step(1)
+    assert w.grad is None
+
+
+def test_autograd_grad_leaves_dot_grad_alone():
+    w = torch.nn.Parameter(torch.tensor([1.0, -2.0]))
+    tr = Trainer([w], "sgd", {"learning_rate": 0.1})
+    (3 * w).sum().backward()
+    (g,) = torch.autograd.grad((11 * w).sum(), w)
+    torch.testing.assert_close(g, torch.tensor([11.0, 11.0]))
+    torch.testing.assert_close(w.grad, torch.tensor([3.0, 3.0]))
+    tr.step(1)
+    torch.testing.assert_close(w.detach(), torch.tensor([0.7, -2.3]))
+
+
 @pytest.mark.parametrize("optname,args", [
     ("sgd", {"learning_rate": 0.05, "momentum": 0.9, "wd": 1e-4,
              "clip_gradient": 0.01}),
