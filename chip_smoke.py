@@ -13,8 +13,8 @@ continued:
    dynamic shared memory and ``HGMMA`` (wgmma), ``HMMA`` (mma.sync) and
    instruction counts (``cuobjdump -sass``), and fail if a flash kernel
    spills, a bf16 one issues no wgmma or an f32 one no mma.sync; print
-   the registers, spills and shared memory of every paged-attention and
-   LayerNorm kernel, and fail if one spills;
+   the registers, spills and shared memory of every paged-attention,
+   LayerNorm and update (K1/K2) kernel, and fail if one spills;
 3. kernels: hold each kernel against its plain PyTorch version on the
    card at the shapes its path gives it; time the kernel, the plain
    version and, where one PyTorch call computes the same function (or,
@@ -29,7 +29,11 @@ continued:
    paged decode and LayerNorm backward rows also print their device
    time by kernel from ``torch.profiler``), K1
    (momentum, NAG) and K2 (Adam, AdamW with clip) on the training
-   phase's 1.92 G-element bucket and an unaligned one of 5000;
+   phase's 1.92 G-element bucket, on buckets of 5000 and 5003 elements
+   and on views one element into their allocations; at the training
+   bucket each is timed against its library call in 20 interleaved
+   pairs (medians, the ratio's median and range, TB/s, share of the
+   bound);
 4. serving: Llama-3-8B at full width and depth in bfloat16, random
    weights from a seed, ``InferenceEngine(max_batch=8, block_size=16,
    max_context=1024)`` and a ``ContinuousBatcher`` serving 16 greedy
@@ -102,6 +106,7 @@ LOGIT_ATOL = 2e-3
 TRAIN_LOSS_RTOL = 1e-4
 TRAIN_PARAM_ATOL = 1e-5
 CHUNK = 1 << 26                       # plain update rule, per chunk
+UPDATE_PAIRS = 20                     # K1/K2 against the library, in turns
 TRAIN_LAYERS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 2, 1024, 5
 
 
@@ -121,28 +126,41 @@ def card_line():
 
 
 def time_ms(fn, iters, flush, cover=200_000):
-    """Median device time of ``fn`` in ms from CUDA events, each launch
-    timed alone with the L2 cache flushed before it (the serving path
-    finds K/V cold); the median keeps one slow call (an allocation, a
-    clock change) out of the number.  ``cover``: cycles the card sleeps
-    ahead of each timed call while the host enqueues it."""
+    """Median device time of ``fn`` in ms over ``iters`` calls, each timed
+    alone as ``interleaved_ms`` times it (the L2 cache flushed before it:
+    the serving path finds K/V cold); the median keeps one slow call (an
+    allocation, a clock change) out of the number."""
+    return statistics.median(
+        interleaved_ms({"fn": fn}, iters, flush, cover)["fn"])
+
+
+def interleaved_ms(fns, rounds, flush, cover=200_000):
+    """{name: [device ms of each call]} of the callables in ``fns``, one
+    call of each a round, in the given order on even rounds and reversed
+    on odd ones (kernel, library, library, kernel, ...), each call timed
+    alone by CUDA events with the L2 cache flushed before it.  ``cover``:
+    cycles the card sleeps ahead of each timed call while the host
+    enqueues it, so the events time the kernel and not the Python
+    wrapper."""
     import torch
-    fn()
+    names = list(fns)
+    for name in names:
+        fns[name]()
     torch.cuda.synchronize()
-    events = []
-    for _ in range(iters):
-        flush.zero_()
-        # keep the card busy while the host enqueues the launch, so the
-        # events time the kernel and not the Python wrapper
-        torch.cuda._sleep(cover)
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        events.append((start, end))
+    events = {name: [] for name in names}
+    for r in range(rounds):
+        for name in (names if r % 2 == 0 else names[::-1]):
+            flush.zero_()
+            torch.cuda._sleep(cover)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fns[name]()
+            end.record()
+            events[name].append((start, end))
     torch.cuda.synchronize()
-    return statistics.median(s.elapsed_time(e) for s, e in events)
+    return {name: [s.elapsed_time(e) for s, e in ev]
+            for name, ev in events.items()}
 
 
 def max_err(got, want, tol):
@@ -291,7 +309,9 @@ def ptxas_report(lib_names):
     where the toolkit has ``cu++filt``).  Fails if one spills.  The K4
     backward's row kernel also takes (1 + 16 / WPR) * 4 * D bytes of
     dynamic shared memory (68 KB at D = 1024); its resident CTAs a SM at
-    phase 3's D = 1024 are printed."""
+    phase 3's D = 1024 are printed, and those of K1/K2's
+    ``update_kernel<rule, clip, U>`` (rule 0 SGD, 1 momentum,
+    2 NAG, 3 Adam, 4 AdamW), which size their persistent grid."""
     import ctypes
     import re
     from mxnet_tpu_torch.ops import _build
@@ -315,8 +335,9 @@ def ptxas_report(lib_names):
             stack = re.search(r"(\d+) bytes stack frame", entry)
             if not (regs and spill):
                 fail(f"{lib_name}: unreadable ptxas entry {name}")
-            name = re.sub(r"^void |\(anonymous namespace\)::|<unnamed>::|"
-                          r"\(int\)|\([^()]*\)$", "", name)
+            name = re.sub(r"\(anonymous namespace\)::|<unnamed>::", "",
+                          name)
+            name = re.sub(r"^void |\(int\)|\([^()]*\)$", "", name)
             print(f"ptxas {name}: {regs[1]} registers, {spill[1]} bytes spill "
                   f"stores, {spill[2]} bytes spill loads, "
                   f"{stack[1] if stack else 0} bytes stack, "
@@ -333,6 +354,13 @@ def ptxas_report(lib_names):
         print(f"ln_bwd_rows {name} at D=1024: "
               f"{resident(1024, 1, dtype, 0, 0)} resident CTAs a SM of 8 "
               f"warps", flush=True)
+    lib = ctypes.CDLL(_build.build(["fused_update"])["fused_update"])
+    resident = lib.fused_update_resident
+    resident.argtypes = [ctypes.c_int] * 3
+    print("update_kernel resident CTAs a SM of 256 threads, by rule 0-4 "
+          "without / with the clip: " + ", ".join(
+              f"{r}: {resident(r, 0, 0)}/{resident(r, 1, 0)}"
+              for r in range(5)), flush=True)
 
 
 # ----------------------------------------------------------------------
@@ -699,12 +727,52 @@ def _library_update(rule, hyper, p, g, s, lr, wd, step):
                           is_first_step=False)
 
 
+def pair_summary(kernel_ms, library_ms, nbytes, bound_ms):
+    """(text, kernel median, library median) of interleaved pairs: both
+    medians, the median and range of kernel / library by pair, the
+    kernel's achieved TB/s and its share of the bound."""
+    ratios = [k / l for k, l in zip(kernel_ms, library_ms)]
+    ms = statistics.median(kernel_ms)
+    lib_ms = statistics.median(library_ms)
+    text = (f"{len(ratios)} pairs: kernel median {ms:.4f} ms, library "
+            f"{lib_ms:.4f} ms, kernel/library median "
+            f"{statistics.median(ratios):.4f} "
+            f"(range {min(ratios):.4f}-{max(ratios):.4f}, kernel ahead in "
+            f"{sum(r < 1 for r in ratios)}), {nbytes / ms / 1e9:.3f} TB/s, "
+            f"{bound_ms / ms:.1%} of the bound")
+    return text, ms, lib_ms
+
+
+def update_case(rule, n, dev):
+    """p, the gradient and the rule's state of ``n`` elements from a
+    seeded generator."""
+    import torch
+    g_ = torch.Generator(device=dev).manual_seed(n % 1009)
+    p = torch.randn(n, device=dev, generator=g_)
+    grad = torch.randn(n, device=dev, generator=g_)
+    if rule.startswith("adam"):
+        return p, grad, {"m": torch.randn(n, device=dev, generator=g_) * 0.1,
+                         "v": torch.rand(n, device=dev, generator=g_) * 0.01,
+                         "t": 3}
+    return p, grad, {"mom": torch.randn(n, device=dev, generator=g_) * 0.1}
+
+
+def copy_at(t, offset):
+    """A copy of the flat ``t`` that starts ``offset`` elements into its
+    own allocation."""
+    import torch
+    return torch.empty(t.numel() + offset, dtype=t.dtype,
+                       device=t.device)[offset:].copy_(t)
+
+
 def check_updates(dev, flush, n_big):
     """K1 (momentum, NAG) and K2 (Adam, AdamW, with clip) against the
-    plain rule on the training phase's bucket of ``n_big`` elements and
-    an unaligned one of 5000.  The kernel updates copies of p and the
-    state in place; the plain rule, elementwise, runs on chunks of the
-    same inputs."""
+    plain rule on the training phase's bucket of ``n_big`` elements, on
+    buckets of 5000 and 5003 (a scalar tail) and on views one element
+    into their allocations (a scalar head).  The kernel updates copies of
+    p and the state in place; the plain rule, elementwise, runs on chunks
+    of the same inputs.  At ``n_big`` the kernel and its library call
+    are timed in ``UPDATE_PAIRS`` interleaved pairs."""
     import torch
     from mxnet_tpu_torch.ops.fused_update import fused_bucket_rule
     from mxnet_tpu_torch.optimizer import fused_rule
@@ -716,22 +784,18 @@ def check_updates(dev, flush, n_big):
     for rule, hyper in cases:
         kernel_name = "fused_adam_update" if rule.startswith("adam") \
             else "fused_sgd_update"
-        for n in (n_big, 5000):
-            g_ = torch.Generator(device=dev).manual_seed(n % 1009)
-            p = torch.randn(n, device=dev, generator=g_)
-            grad = torch.randn(n, device=dev, generator=g_)
-            if kernel_name == "fused_adam_update":
-                s = {"m": torch.randn(n, device=dev, generator=g_) * 0.1,
-                     "v": torch.rand(n, device=dev, generator=g_) * 0.01,
-                     "t": 3}
-            else:
-                s = {"mom": torch.randn(n, device=dev, generator=g_) * 0.1}
+        for n, offset in ((n_big, 0), (5000, 0), (5003, 0), (5000, 1),
+                          (5003, 1)):
+            p, grad, s = update_case(rule, n, dev)
             _, apply = fused_bucket_rule(rule, clip_gradient=clip, **hyper)
             _, plain = fused_rule(rule, clip_gradient=clip, **hyper)
-            kp = p.clone()
-            ks = {k: v.clone() if torch.is_tensor(v) else v
+            # the kernel's copies of p and the state, every stream (the
+            # gradient too) ``offset`` elements into its allocation
+            kp = copy_at(p, offset)
+            ks = {k: copy_at(v, offset) if torch.is_tensor(v) else v
                   for k, v in s.items()}
-            kp, ks = apply(kp, grad, ks, lr, wd, rescale)   # in place
+            kp, ks = apply(kp, copy_at(grad, offset) if offset else grad, ks,
+                           lr, wd, rescale)                 # in place
             err = 0.0
             for c in _chunks(n):
                 want_p, want_s = plain(
@@ -743,33 +807,53 @@ def check_updates(dev, flush, n_big):
                 for got, want in pairs:
                     e, ok = max_err(got, want, UPDATE_TOL)
                     if not ok:
-                        fail(f"{kernel_name} ({rule}) vs plain at n={n}: "
-                             f"max abs err {e}")
+                        fail(f"{kernel_name} ({rule}) vs plain at n={n}, "
+                             f"offset {offset}: max abs err {e}")
                     err = max(err, e)
             del want_p, want_s, pairs
-            ms = time_ms(lambda: apply(kp, grad, ks, lr, wd, rescale), 10,
-                         flush)
+            res = results.setdefault(kernel_name, {"max_abs_err": 0.0})
+            res["max_abs_err"] = max(res["max_abs_err"], err)
+            if offset or n == 5003:
+                print(f"{kernel_name} ({rule}, clip) n={n} offset {offset}: "
+                      f"max_abs_err {err:.3e}", flush=True)
+                continue
+
             def plain_pass():
                 for c in _chunks(n):    # each chunk's result is dropped
                     plain(p[c], grad[c], {
                         k: v[c] if torch.is_tensor(v) else v
                         for k, v in s.items()}, lr, wd, rescale)
 
-            plain_ms = time_ms(plain_pass, 3, flush)
+            def kernel():
+                apply(kp, grad, ks, lr, wd, rescale)
+
             step = torch.tensor(3.0, device=dev)
-            lib_ms = time_ms(lambda: _library_update(
-                rule, hyper, kp, grad, ks, lr, wd, step), 10, flush)
+
+            def library():
+                _library_update(rule, hyper, kp, grad, ks, lr, wd, step)
+
             per_elem = 28 if kernel_name == "fused_adam_update" else 20
             flops = (20.0 if kernel_name == "fused_adam_update" else 8.0) * n
             bound_ms, by = bound(per_elem * n, flops, "float32")
+            plain_ms = time_ms(plain_pass, 3, flush)
+            pairs_text = ""
+            if n == n_big:
+                times = interleaved_ms({"kernel": kernel,
+                                        "library": library}, UPDATE_PAIRS,
+                                       flush)
+                pairs_text, ms, lib_ms = pair_summary(
+                    times["kernel"], times["library"], per_elem * n,
+                    bound_ms)
+                pairs_text = "; " + pairs_text
+            else:
+                ms = time_ms(kernel, 10, flush)
+                lib_ms = time_ms(library, 10, flush)
             print(f"{kernel_name} ({rule}, clip) n={n}: max_abs_err "
                   f"{err:.3e} kernel {ms:.4f} ms plain {plain_ms:.4f} ms "
                   f"library (near) {lib_ms:.4f} ms bound {bound_ms:.4f} ms "
-                  f"({by})", flush=True)
+                  f"({by}){pairs_text}", flush=True)
             record(kernel_name, f"float32 {rule}", [n], ms, plain_ms, lib_ms,
                    bound_ms, by)
-            res = results.setdefault(kernel_name, {"max_abs_err": 0.0})
-            res["max_abs_err"] = max(res["max_abs_err"], err)
             # the training phases' rules at the training bucket
             if n == n_big and rule in ("adamw", "sgd"):
                 res.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
@@ -1315,7 +1399,7 @@ def main():
     print(f"build: {time.perf_counter() - t0:.1f} s into {_build.BUILD_DIR}",
           flush=True)
     flash_kernel_report()
-    ptxas_report(["paged_attention", "fused_layernorm"])
+    ptxas_report(["paged_attention", "fused_layernorm", "fused_update"])
 
     # phase 3: kernels against plain versions
     flush = torch.empty(128 * 2 ** 20, dtype=torch.uint8, device=dev)

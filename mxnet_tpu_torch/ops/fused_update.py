@@ -4,10 +4,14 @@ Counterpart of ``mxnet_tpu/ops/fused_update.py``.  The gluon ``Trainer``
 folds a uniform all-f32 parameter group into one flat bucket and updates
 it with one launch instead of one update chain per parameter.  The TPU
 kernels ``_sgd_kernel`` (K1, SGD / momentum / NAG) and ``_adam_kernel``
-(K2, Adam / AdamW) become the two ``__global__`` functions of
-``csrc/fused_update.cu``: one grid-stride pass over the flat bucket with
-no padding (the tail is the bounds check, not the TPU's ``(rows, 128)``
-grid), updating ``p`` and the state in place, as the reference donates
+(K2, Adam / AdamW) become one streaming body in ``csrc/fused_update.cu``,
+templated on the rule and the clip: 16-byte vector loads and stores,
+several vectors of every stream in flight per thread, a persistent grid
+whose CTAs draw chunks of the bucket in order from a counter (two int32
+per device and stream, left zero by every launch), and no padding (the
+TPU's ``(rows, 128)`` grid becomes the plan of :func:`update_plan`: a
+scalar head up to 16-byte alignment, the vectors, a scalar tail).
+``p`` and the state are updated in place, as the reference donates
 them.  The gradient rescale is folded into the pass, in the reference's
 order (``g * rescale``, then the clip inside the rule).
 
@@ -21,11 +25,15 @@ Entry points:
     the two kernel wrappers with the same ``apply`` contract, each
     counting its launches in ``.launches``.  For CPU tensors a wrapper
     runs the plain ``fused_rule`` apply (so the result is bitwise the
-    same); for a CUDA flat f32 bucket it launches its kernel; anything
-    else on CUDA raises.
+    same); for a CUDA flat f32 bucket it launches its kernel once;
+    anything else on CUDA raises.
+``update_plan(ptrs, n, sms, ctas_per_sm)``
+    the launch's head, vectors, tail and persistent grid (pure,
+    CPU-testable).
 
 There is no switch that turns the kernels off and no fallback: a CUDA
-bucket runs its kernel or raises.
+bucket runs its kernel or raises.  A bucket whose streams cannot be read
+as aligned vectors runs the same kernel's scalar loop.
 
 Kernel note: replaces ``_sgd_kernel`` (``fused_update.py:95``) and
 ``_adam_kernel`` (``:118``).  Memory-bound on the H100: K2 reads p, g,
@@ -41,15 +49,43 @@ from ..base import MXNetError
 from ..optimizer.optimizer import fused_rule
 from . import _build
 
-__all__ = ["fused_bucket_rule", "fused_sgd_update", "fused_adam_update"]
+__all__ = ["fused_bucket_rule", "fused_sgd_update", "fused_adam_update",
+           "update_plan"]
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, \
+    ctypes.c_int64
 _SIGNATURES = {
-    "fused_sgd_update": [_P, _P, _P, ctypes.c_int64, _F, _F, _F, _F, _I, _I,
-                         _F, _I, _P],
-    "fused_adam_update": [_P, _P, _P, _P, ctypes.c_int64, _F, _F, _F, _I, _F,
-                          _F, _F, _F, _F, _I, _I, _F, _I, _P],
-}
+    "fused_update": [_I, _I, _P, _P, _P, _P, _L, _L, _L, _L, _I, _P, _F, _F,
+                     _F, _F, _F, _I, _F, _F, _F, _F, _F, _I, _P],
+    "fused_update_resident": [_I, _I, _I]}
+# the kernel's CTA width and float4s of each stream a thread takes a chunk
+# (csrc/fused_update.cu kThreads, kUnroll): they size the grid of a small
+# bucket, never the result
+_THREADS, _UNROLL = 256, 4
+# rule codes of the C entries
+_SGD, _MOMENTUM, _NAG, _ADAM, _ADAMW = range(5)
+_resident = {}           # (rule, clip, device) -> CTAs a SM
+_counters = {}           # (device, stream) -> the kernel's chunk counters
+
+
+def update_plan(ptrs, n, sms, ctas_per_sm):
+    """``(head, nvec, tail, grid)`` of one launch over ``n`` f32 elements
+    of the streams at byte addresses ``ptrs``.  When every stream has the
+    same offset modulo 16 bytes, ``head`` < 4 scalar elements align them
+    all, then come ``nvec`` float4s and a scalar ``tail`` < 4; otherwise
+    the plan is all scalar (``head = n``, ``nvec = 0``).  The grid is
+    persistent, ``sms * ctas_per_sm`` CTAs, or fewer where the work does
+    not fill them.  The C entry refuses a plan that does not cover ``n``
+    or leaves a vector misaligned."""
+    if len({p % 16 for p in ptrs}) == 1:
+        head = min(n, (16 - ptrs[0] % 16) % 16 // 4)
+        nvec = (n - head) // 4
+        units = -(-nvec // _UNROLL)
+    else:
+        head, nvec, units = n, 0, n
+    tail = n - head - 4 * nvec
+    grid = max(1, min(sms * ctas_per_sm, -(-units // _THREADS)))
+    return head, nvec, tail, grid
 
 
 def _check_bucket(what, p, tensors):
@@ -62,17 +98,49 @@ def _check_bucket(what, p, tensors):
                 f"tensors of one size on one device, got {tuple(t.shape)} "
                 f"{t.dtype} on {t.device} beside p {tuple(p.shape)} "
                 f"{p.dtype} on {p.device}")
+    # the kernel reads each stream once and writes p and the state in
+    # place through restrict pointers: no two streams may share bytes
+    spans = sorted((t.data_ptr(), t.data_ptr() + 4 * t.numel())
+                   for t in (p, *tensors))
+    if any(a[1] > b[0] for a, b in zip(spans, spans[1:])):
+        raise MXNetError(f"{what}: p, the gradient and the state must not "
+                         f"overlap in memory")
 
 
-def _clip_args(clip_gradient):
-    return (0, 0.0) if clip_gradient is None else (1, float(clip_gradient))
-
-
-def _launch(fn_name, p, args):
+def _launch(rule, clip_gradient, streams, lr, wd, rescale, momentum=0.0,
+            t=0, beta1=0.0, beta2=0.0, epsilon=0.0):
+    """One launch of the kernel for ``rule`` over ``streams`` (p, g, then
+    the rule's state) on the persistent grid of its instance."""
+    p = streams[0]
+    has_clip, clip = (0, 0.0) if clip_gradient is None else \
+        (1, float(clip_gradient))
     lib = _build.load("fused_update", _SIGNATURES)
+    key = (rule, has_clip, p.device.index)
+    if key not in _resident:
+        got = lib.fused_update_resident(*key)
+        _build.check(lib, max(0, -got), "fused_update_resident")
+        if got < 1:
+            raise MXNetError("fused_update: no CTA of the kernel fits a SM")
+        _resident[key] = got
+    sms = torch.cuda.get_device_properties(p.device).multi_processor_count
+    ptrs = [x.data_ptr() for x in streams]
+    plan = update_plan(ptrs, p.numel(), sms, _resident[key])
+    state = ptrs[2:] + [None] * (4 - len(ptrs))
     stream = torch.cuda.current_stream(p.device).cuda_stream
-    err = getattr(lib, fn_name)(*args, p.device.index, stream)
-    _build.check(lib, err, fn_name)
+    # the CTAs draw chunks from two counters that the kernel leaves zero;
+    # launches on one stream run in turn, so a stream's pair is its own
+    counters = _counters.get((p.device.index, stream))
+    if counters is None:
+        counters = torch.zeros(2, dtype=torch.int32, device=p.device)
+        _counters[(p.device.index, stream)] = counters
+    # (1 - beta) is taken in double and rounded to f32, as a Python
+    # scalar multiplying an f32 tensor is in the plain rule
+    err = lib.fused_update(
+        rule, has_clip, ptrs[0], ptrs[1], *state, p.numel(), *plan,
+        counters.data_ptr(), float(lr), float(wd), float(rescale), clip,
+        float(momentum), t, float(beta1), float(beta2), float(1 - beta1),
+        float(1 - beta2), float(epsilon), p.device.index, stream)
+    _build.check(lib, err, "fused_update")
 
 
 def fused_sgd_update(p, g, s, lr, wd=0.0, rescale=1.0, momentum=0.0,
@@ -87,13 +155,11 @@ def fused_sgd_update(p, g, s, lr, wd=0.0, rescale=1.0, momentum=0.0,
     if p.device.type != "cuda":
         raise MXNetError(f"fused_sgd_update: unsupported device {p.device}")
     mom = s["mom"] if momentum else None
-    _check_bucket("fused_sgd_update", p, (g,) if mom is None else (g, mom))
+    streams = (p, g) if mom is None else (p, g, mom)
+    _check_bucket("fused_sgd_update", p, streams[1:])
     if p.numel():
-        _launch("fused_sgd_update", p, (
-            p.data_ptr(), g.data_ptr(), None if mom is None else
-            mom.data_ptr(), p.numel(), float(lr), float(wd), float(rescale),
-            float(momentum), int(bool(nesterov)),
-            *_clip_args(clip_gradient)))
+        _launch(_SGD if mom is None else _NAG if nesterov else _MOMENTUM,
+                clip_gradient, streams, lr, wd, rescale, momentum=momentum)
         fused_sgd_update.launches += 1
     return p, ({"mom": mom} if momentum else dict(s))
 
@@ -120,14 +186,9 @@ def fused_adam_update(p, g, s, lr, wd=0.0, rescale=1.0, beta1=0.9,
     m, v = s["m"], s["v"]
     _check_bucket("fused_adam_update", p, (g, m, v))
     if p.numel():
-        # (1 - beta) is taken in double and rounded to f32, as a Python
-        # scalar multiplying an f32 tensor is in the plain rule
-        _launch("fused_adam_update", p, (
-            p.data_ptr(), g.data_ptr(), m.data_ptr(), v.data_ptr(),
-            p.numel(), float(lr), float(wd), float(rescale), t,
-            float(beta1), float(beta2), float(1 - beta1), float(1 - beta2),
-            float(epsilon), int(bool(decoupled_wd)),
-            *_clip_args(clip_gradient)))
+        _launch(_ADAMW if decoupled_wd else _ADAM, clip_gradient,
+                (p, g, m, v), lr, wd, rescale, t=t, beta1=beta1, beta2=beta2,
+                epsilon=epsilon)
         fused_adam_update.launches += 1
     return p, {"m": m, "v": v, "t": t}
 

@@ -468,6 +468,61 @@ def test_update_kernels_match_plain(card, name, hyper, n):
             assert ks[leaf] == val
 
 
+def _copy_at(x, offset):
+    """A copy of the flat ``x`` ``offset`` elements into its allocation."""
+    return torch.empty(x.numel() + offset, device=x.device)[offset:].copy_(x)
+
+
+@pytest.mark.parametrize("n", [1, 3, 4099, 5003, (1 << 20) + 3])
+@pytest.mark.parametrize("offsets", [(1, 1, 1, 1), (2, 2, 2, 2), (3, 3, 3, 3),
+                                     (1, 2, 0, 3)],
+                         ids=["offset1", "offset2", "offset3", "mixed"])
+@pytest.mark.parametrize("clip", [None, 0.5], ids=["noclip", "clip"])
+@pytest.mark.parametrize("name,hyper", _UPDATE_RULES,
+                         ids=["sgd", "momentum", "nag", "adam", "adamw"])
+def test_update_kernels_heads_tails_and_offsets(card, name, hyper, clip,
+                                                offsets, n):
+    """K1/K2 on buckets with a scalar head (p, g and the state views 1-3
+    elements into their allocations), a scalar tail, and streams at
+    different offsets (the all-scalar plan): one launch a call, within
+    UPDATE_TOL of the plain rule, and two runs bitwise equal."""
+    rng = np.random.RandomState(n % 89 + sum(offsets))
+    init, apply = fused_bucket_rule(name, clip_gradient=clip, **hyper)
+    _, plain = fused_rule(name, clip_gradient=clip, **hyper)
+    p = torch.from_numpy(rng.randn(n).astype(np.float32)).to(card)
+    g = torch.from_numpy(rng.randn(n).astype(np.float32)).to(card)
+    s = init(p)
+    for leaf in s:
+        if torch.is_tensor(s[leaf]):
+            s[leaf] = torch.from_numpy(np.abs(
+                rng.randn(n)).astype(np.float32) * 0.1).to(card)
+    if "t" in s:
+        s["t"] = 2
+    wrapper = fused_sgd_update if name in ("sgd", "nag") else \
+        fused_adam_update
+    want_p, want_s = plain(p, g, s, 0.01, 1e-3, 0.5)
+    runs = []
+    for _ in range(2):
+        kp = _copy_at(p, offsets[0])
+        ks = {leaf: _copy_at(val, offsets[2 + i]) if torch.is_tensor(val)
+              else val for i, (leaf, val) in enumerate(s.items())}
+        before = wrapper.launches
+        kp, ks = apply(kp, _copy_at(g, offsets[1]), ks, 0.01, 1e-3, 0.5)
+        assert wrapper.launches == before + 1
+        runs.append((kp, ks))
+    torch.cuda.synchronize()
+    for kp, ks in runs:
+        torch.testing.assert_close(kp, want_p, **UPDATE_TOL)
+        for leaf, val in want_s.items():
+            if torch.is_tensor(val):
+                torch.testing.assert_close(ks[leaf], val, **UPDATE_TOL)
+            else:
+                assert ks[leaf] == val
+    (p1, s1), (p2, s2) = runs
+    assert torch.equal(p1, p2)
+    assert all(torch.equal(s1[k], s2[k]) for k in s1 if torch.is_tensor(s1[k]))
+
+
 def test_update_kernels_refuse_what_they_do_not_take(card):
     _, apply = fused_bucket_rule("adam")
     p = torch.zeros(4, 4, device=card)
@@ -478,6 +533,14 @@ def test_update_kernels_refuse_what_they_do_not_take(card):
     sb = {"m": torch.zeros_like(pb), "v": torch.zeros_like(pb), "t": 0}
     with pytest.raises(MXNetError):
         apply(pb, pb, sb, 0.1)                     # not f32
+    flat = torch.zeros(16, device=card)
+    with pytest.raises(MXNetError, match="overlap"):
+        apply(flat, flat, {"m": torch.zeros_like(flat),     # p is g
+                           "v": torch.zeros_like(flat), "t": 0}, 0.1)
+    with pytest.raises(MXNetError, match="overlap"):
+        apply(flat[:8], flat[4:12], {"m": torch.zeros(8, device=card),
+                                     "v": torch.zeros(8, device=card),
+                                     "t": 0}, 0.1)
 
 
 def test_llama_training_step_card_equals_cpu(card):

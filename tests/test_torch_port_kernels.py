@@ -34,6 +34,7 @@ from mxnet_tpu_torch.ops.flash_attention import (flash_attention,
                                                  flash_attention_fwd,
                                                  flash_attention_plain)
 from mxnet_tpu_torch.ops.fused_layernorm import bwd_plan
+from mxnet_tpu_torch.ops.fused_update import update_plan
 from mxnet_tpu_torch.ops.paged_attention import (paged_decode_attention,
                                                  split_plan)
 from mxnet_tpu_torch.ops.quant_kv import resolve_kv_dtype
@@ -252,6 +253,33 @@ def test_layernorm_bwd_plan(rows, d, want):
     """K4 backward: warps a row and the persistent grid at 132 SMs with 2
     resident CTAs each."""
     assert bwd_plan(rows, d, 132, 2) == want
+
+
+@pytest.mark.parametrize("ctas", [1, 2])
+@pytest.mark.parametrize("n", [0, 1, 3, 4, 5, 4099, 1 << 20])
+@pytest.mark.parametrize("offsets", [
+    (0, 0, 0, 0), (1, 1, 1, 1), (2, 2, 2), (3, 3),   # equal: a vector plan
+    (0, 1, 0, 0), (2, 0), (3, 3, 1)],                # mixed: all scalar
+    ids=["equal0", "equal1", "equal2", "equal3", "mixed01", "mixed20",
+         "mixed31"])
+def test_update_vector_plan(offsets, n, ctas):
+    """K1/K2's launch plan: a scalar head that aligns every stream to 16
+    bytes, float4s, a scalar tail, on a persistent grid of 132 SMs; a
+    bucket whose streams sit at different offsets is all scalar."""
+    ptrs = [(k + 1) * (1 << 36) + 4 * off for k, off in enumerate(offsets)]
+    head, nvec, tail, grid = update_plan(ptrs, n, 132, ctas)
+    assert head + 4 * nvec + tail == n
+    assert min(head, nvec, tail) >= 0 and 1 <= grid <= 132 * ctas
+    if len(set(offsets)) == 1:
+        assert head < 4 and tail < 4
+        assert head == min(n, (4 - offsets[0]) % 4)
+        assert all((p + 4 * head) % 16 == 0 for p in ptrs) or nvec == 0
+        # 256 threads of 4 float4s each: the fewest CTAs that cover it
+        need = -(-nvec // 1024)
+    else:
+        assert (head, nvec, tail) == (n, 0, 0)
+        need = -(-n // 256)
+    assert grid == max(1, min(132 * ctas, need))
 
 
 # ----------------------------------------------------------------------
