@@ -14,7 +14,8 @@ continued:
    instruction counts (``cuobjdump -sass``), and fail if a flash kernel
    spills, a bf16 one issues no wgmma or an f32 one no mma.sync; print
    the registers, spills and shared memory of every paged-attention,
-   LayerNorm and update (K1/K2) kernel, and fail if one spills;
+   LayerNorm and update (K1/K2) kernel, and fail if one spills, and the
+   resident CTAs of K4's two row kernels and K1/K2's;
 3. kernels: hold each kernel against its plain PyTorch version on the
    card at the shapes its path gives it; time the kernel, the plain
    version and, where one PyTorch call computes the same function (or,
@@ -25,9 +26,10 @@ continued:
    B = 16 and 4096-position bucket), flash backward (BH=64,
    L=1024, D=128 causal, float32 and bfloat16, and ragged L=200 with
    D=64), fused LayerNorm forward and backward (4096 x 1024 with
-   residual, float32 and bfloat16; two backward runs bitwise equal; the
-   paged decode and LayerNorm backward rows also print their device
-   time by kernel from ``torch.profiler``), K1
+   residual, float32 and bfloat16; two runs of each bitwise equal; the
+   forward timed against its library call and ``torch.add(x, res)`` in
+   20 interleaved pairs; the paged decode and LayerNorm rows also print
+   their device time by kernel from ``torch.profiler``), K1
    (momentum, NAG) and K2 (Adam, AdamW with clip) on the training
    phase's 1.92 G-element bucket, on buckets of 5000 and 5003 elements
    and on views one element into their allocations; at the training
@@ -65,7 +67,8 @@ continued:
 10. LayerNorm op: BERT-large's 48 post-sublayer LayerNorms at 4096 x 1024
     in bfloat16 (f32 gamma/beta) through ``ops.fused_layer_norm``,
     forward and backward: gradients finite and within phase 3's
-    tolerances of the plain backward.
+    tolerances of the plain backward; the device time of a pass by
+    kernel (``torch.profiler``) beside the host clock.
 
 Before each of phases 4, 7, 8, 9 and 10 the kernels' launch counters are
 set to 0; each phase reads them just after and fails unless its kernels
@@ -107,6 +110,7 @@ TRAIN_LOSS_RTOL = 1e-4
 TRAIN_PARAM_ATOL = 1e-5
 CHUNK = 1 << 26                       # plain update rule, per chunk
 UPDATE_PAIRS = 20                     # K1/K2 against the library, in turns
+LN_PAIRS = 20                         # K4 forward, its library call, x + res
 TRAIN_LAYERS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 2, 1024, 5
 
 
@@ -193,27 +197,31 @@ ROWS = []        # every timed (kernel, dtype, shape) of phase 3
 
 
 def record(kernel, dtype, shape, ms, plain_ms, library_ms, bound_ms, by,
-           device_ms=None):
+           device_ms=None, add_ms=None):
     """Keep one timed row of phase 3 for the ``kernel_rows`` line."""
     row = {"kernel": kernel, "dtype": dtype, "shape": shape, "ms": ms,
            "plain_ms": plain_ms, "library_ms": library_ms,
            "bound_ms": bound_ms, "bound_by": by}
     if device_ms is not None:
         row["device_ms"] = device_ms
+    if add_ms is not None:
+        row["add_ms"] = add_ms
     ROWS.append(row)
 
 
-def device_ms(fn, iters, flush):
+def device_ms(fn, iters, flush=None):
     """{kernel: device ms a call} of ``fn`` from ``torch.profiler`` over
-    ``iters`` calls, the L2 cache flushed before each (the flush's own
-    kernel left out): no launch latency and no host time in it."""
+    ``iters`` calls, the L2 cache flushed before each where ``flush`` is
+    given (the flush's own kernel left out): no launch latency and no
+    host time in it."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(iters):
-            flush.zero_()
+            if flush is not None:
+                flush.zero_()
             fn()
         torch.cuda.synchronize()
     out = {}
@@ -306,10 +314,11 @@ def flash_kernel_report():
 def ptxas_report(lib_names):
     """For every kernel of the named libraries: registers, spill bytes,
     stack and static shared memory as ptxas reports them (names demangled
-    where the toolkit has ``cu++filt``).  Fails if one spills.  The K4
-    backward's row kernel also takes (1 + 16 / WPR) * 4 * D bytes of
-    dynamic shared memory (68 KB at D = 1024); its resident CTAs a SM at
-    phase 3's D = 1024 are printed, and those of K1/K2's
+    where the toolkit has ``cu++filt``).  Fails if one spills.  K4's row
+    kernels also take dynamic shared memory: the forward 2 * 4 * D bytes
+    (gamma and beta in f32; 8 KB at D = 1024), the backward (1 + 16 /
+    WPR) * 4 * D bytes (68 KB); their resident CTAs a SM at phase 3's
+    D = 1024 are printed, and those of K1/K2's
     ``update_kernel<rule, clip, U>`` (rule 0 SGD, 1 momentum,
     2 NAG, 3 Adam, 4 AdamW), which size their persistent grid."""
     import ctypes
@@ -348,12 +357,15 @@ def ptxas_report(lib_names):
     if spilled:
         fail(f"these kernels spill: {spilled}")
     lib = ctypes.CDLL(_build.build(["fused_layernorm"])["fused_layernorm"])
-    resident = lib.fused_layer_norm_bwd_resident
-    resident.argtypes = [ctypes.c_int] * 5
-    for dtype, name in ((0, "f32"), (1, "bf16")):
-        print(f"ln_bwd_rows {name} at D=1024: "
-              f"{resident(1024, 1, dtype, 0, 0)} resident CTAs a SM of 8 "
-              f"warps", flush=True)
+    resident = lib.fused_layer_norm_resident
+    resident.argtypes = [ctypes.c_int] * 7
+    for backward, kernel in ((0, "ln_fwd_rows"), (1, "ln_bwd_rows")):
+        for dtype, name in ((0, "f32"), (1, "bf16")):
+            print(f"{kernel} {name} at D=1024: "
+                  f"{resident(backward, 1, 1024, 1, dtype, 0, 0)} / "
+                  f"{resident(backward, 0, 1024, 1, dtype, 0, 0)} resident "
+                  f"CTAs a SM of 8 warps (16-byte / scalar loads)",
+                  flush=True)
     lib = ctypes.CDLL(_build.build(["fused_update"])["fused_update"])
     resident = lib.fused_update_resident
     resident.argtypes = [ctypes.c_int] * 3
@@ -556,8 +568,10 @@ def check_layernorm(dev, flush):
     post-sublayer shape (8 x 512 tokens = 4096 rows, D = 1024, residual,
     eps 1e-12), f32 and bf16 activations with f32 gamma/beta; library
     (near: the residual add is a separate pass): ``F.layer_norm(x + res)``
-    forward, and its backward alone through a retained graph.  Two
-    backward runs must be bitwise equal."""
+    forward, and its backward alone through a retained graph; the
+    forward also against ``torch.add(x, res)``, which moves its bytes,
+    the three timed in ``LN_PAIRS`` interleaved pairs.  Two runs of each
+    kernel must be bitwise equal."""
     import torch
     import torch.nn.functional as F
     from mxnet_tpu_torch.ops.fused_layernorm import (fused_layer_norm_bwd,
@@ -574,6 +588,7 @@ def check_layernorm(dev, flush):
         gamma, beta = (torch.randn(D, device=dev, generator=g)
                        for _ in range(2))
         y = fused_layer_norm_fwd(x, res, gamma, beta, eps)
+        y_again = fused_layer_norm_fwd(x, res, gamma, beta, eps)
         got = fused_layer_norm_bwd(x, res, gamma, dy, eps)
         again = fused_layer_norm_bwd(x, res, gamma, dy, eps)
         want_y = layer_norm_plain(x, res, gamma, beta, eps)
@@ -581,6 +596,8 @@ def check_layernorm(dev, flush):
         torch.cuda.synchronize()
         if not all(torch.equal(a, b) for a, b in zip(got, again)):
             fail(f"fused_layer_norm_bwd {name}: two runs differ")
+        if not torch.equal(y, y_again):
+            fail(f"fused_layer_norm_fwd {name}: two runs differ")
         err_f, ok = max_err(y, want_y, LN_TOL[name])
         if not ok or not bool(torch.isfinite(y).all()):
             fail(f"fused_layer_norm_fwd vs plain {name}: max abs err {err_f}")
@@ -609,6 +626,11 @@ def check_layernorm(dev, flush):
             return torch.autograd.grad(lib_out, (lx, lres, lg, lb), dy,
                                        retain_graph=True)
 
+        y_add = torch.empty_like(x)
+
+        def add():
+            return torch.add(x, res, out=y_add)
+
         for what, kernel, plain, library, nbytes in (
                 ("fwd", lambda: fused_layer_norm_fwd(x, res, gamma, beta,
                                                      eps),
@@ -617,19 +639,33 @@ def check_layernorm(dev, flush):
                 ("bwd", lambda: fused_layer_norm_bwd(x, res, gamma, dy, eps),
                  lambda: layer_norm_bwd_plain(x, res, gamma, dy, eps),
                  lib_bwd, 4 * rows * D * elem + 3 * D * 4)):
-            ms = time_ms(kernel, 20, flush)
-            dev_ms = device_ms(kernel, 20, flush) if what == "bwd" else None
+            dev_ms = device_ms(kernel, 20, flush)
             plain_ms = time_ms(plain, 10, flush)
-            lib_ms = time_ms(library, 20, flush, cover=2_000_000)
             bound_ms, by = bound(nbytes, 10.0 * rows * D, "float32")
+            add_ms, pairs = None, ""
+            if what == "fwd":
+                # the kernel, its library call and x + res (the forward's
+                # bytes: read two rows, write one) in turns
+                times = interleaved_ms({"kernel": kernel, "library": library,
+                                        "add": add}, LN_PAIRS, flush,
+                                       cover=1_000_000)
+                ms, lib_ms, add_ms = (statistics.median(times[k])
+                                      for k in ("kernel", "library", "add"))
+                pairs = "; " + "; ".join(
+                    ratio_text(times["kernel"], times[k], k)
+                    for k in ("library", "add"))
+            else:
+                ms = time_ms(kernel, 20, flush, cover=1_000_000)
+                lib_ms = time_ms(library, 20, flush, cover=2_000_000)
             print(f"fused_layer_norm_{what} {rows}x{D} {name}, residual: "
                   f"max_abs_err {err_f if what == 'fwd' else err_b:.3e} "
                   f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms library "
-                  f"(near) {lib_ms:.4f} ms bound {bound_ms:.4f} ms ({by})"
-                  + ("" if dev_ms is None else
-                     f"; device {by_kernel(dev_ms)}"), flush=True)
+                  f"(near) {lib_ms:.4f} ms"
+                  + ("" if add_ms is None else f" torch.add {add_ms:.4f} ms")
+                  + f" bound {bound_ms:.4f} ms ({by}; {bound_ms / ms:.1%} of "
+                  f"it); device {by_kernel(dev_ms)}{pairs}", flush=True)
             record(f"fused_layer_norm_{what}", name, [rows, D], ms, plain_ms,
-                   lib_ms, bound_ms, by, dev_ms)
+                   lib_ms, bound_ms, by, device_ms=dev_ms, add_ms=add_ms)
             out = res_fwd if what == "fwd" else res_bwd
             out.setdefault("max_abs_err", 0.0)
             out["max_abs_err"] = max(out["max_abs_err"],
@@ -637,7 +673,8 @@ def check_layernorm(dev, flush):
             if name == "bfloat16":            # the K4 path phase's type
                 out.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                            bound_ms=bound_ms, bound_by=by)
-        del x, res, dy, y, got, again, want_y, want, lx, lres, lib_out
+        del x, res, dy, y, y_again, got, again, want_y, want, lx, lres, \
+            lib_out, y_add
     torch.cuda.empty_cache()
     return {"fused_layer_norm_fwd": res_fwd, "fused_layer_norm_bwd": res_bwd}
 
@@ -725,6 +762,15 @@ def _library_update(rule, hyper, p, g, s, lr, wd, step):
                           momentum=hyper["momentum"], lr=lr, dampening=0.0,
                           nesterov=rule == "nag", maximize=False,
                           is_first_step=False)
+
+
+def ratio_text(kernel_ms, other_ms, other):
+    """The median and range of kernel / ``other`` by pair, and in how
+    many pairs the kernel was ahead."""
+    ratios = [k / o for k, o in zip(kernel_ms, other_ms)]
+    return (f"kernel/{other} median {statistics.median(ratios):.4f} (range "
+            f"{min(ratios):.4f}-{max(ratios):.4f}, kernel ahead in "
+            f"{sum(r < 1 for r in ratios)} of {len(ratios)} pairs)")
 
 
 def pair_summary(kernel_ms, library_ms, nbytes, bound_ms):
@@ -1315,7 +1361,9 @@ def layernorm_path(dev, card):
     on bf16 activations with f32 parameters, then one backward through
     autograd, twice; the second pass is counted and timed: 48 forward and
     48 backward launches, every gradient finite and within phase 3's
-    tolerances of the plain backward."""
+    tolerances of the plain backward.  A further pass under
+    ``torch.profiler`` gives the device time by kernel, printed beside
+    the host clock."""
     import torch
     from mxnet_tpu_torch import ops
     from mxnet_tpu_torch.ops import fused_layer_norm
@@ -1362,11 +1410,14 @@ def layernorm_path(dev, card):
             if not ok or not bool(torch.isfinite(got).all()):
                 fail(f"layernorm op: {what} vs plain, max abs err {e}")
             worst[what] = max(worst[what], e)
+    busy = device_ms(run, 1)
     print(f"layernorm op, bert_24_1024_16 post-sublayer shape, {n} x "
           f"fused_layer_norm({rows}x{D} bf16, f32 gamma/beta, residual) on "
           f"{card}: forward {fwd_s * 1e3:.2f} ms, forward + backward "
-          f"{both_s * 1e3:.2f} ms (host clock, second pass); max err vs "
-          f"plain {worst}; launches {launches}", flush=True)
+          f"{both_s * 1e3:.2f} ms (host clock, second pass); device time "
+          f"of a pass by kernel (profiler) {by_kernel(busy)}, "
+          f"{sum(busy.values()):.4f} ms in all; max err vs plain {worst}; "
+          f"launches {launches}", flush=True)
     del sets
     torch.cuda.empty_cache()
     return launches

@@ -12,107 +12,66 @@
 // x, res, dy and dx (4 rows).  Each row is read from memory once; the
 // statistics never leave the SM.
 //
-// Forward: one CTA of 256 threads per row; the row (x + res, widened to
-// f32) goes to shared memory, block reductions give the mean and the
-// centered variance, then y is written once.
+// Both directions give a row to a group of WPR warps (the caller's plan,
+// ops.fused_layernorm.fwd_plan / bwd_plan: one warp up to D = 1024, all 8
+// warps of the CTA at D = 8192), held in registers: each lane loads its
+// columns of x and res (and dy) as 16-byte vectors (8 bf16 or 4 f32,
+// neighbouring lanes on neighbouring addresses; scalar loads in the same
+// layout where a row is not a multiple of 16 bytes or a pointer is not
+// aligned to 16: the caller's `vector`).  The mean and the centred sum of
+// squares are warp butterflies, plus for WPR > 1 one exchange through
+// shared memory in warp order behind a named barrier of the group: no
+// __syncthreads per row and no copy of the row in shared memory.
+//
+// Forward (ln_fwd_rows).  A CTA of 256 threads a row, with 2-byte loads,
+// the row copied through shared memory, two CTA-wide reductions behind
+// four __syncthreads and gamma and beta read from L2 for every row, runs
+// at about a third of the bound.  Instead:
+//  - a row to a warp in registers, as above; bf16 stays packed two to a
+//    register from the 16-byte load to the F2FP that packs y (Raw, widen,
+//    pack), and columns past D load as zeros, so the widening is branch
+//    free: 80 registers a thread at D <= 1024 in bf16 (bounded to 3 CTAs
+//    a SM without a spill), 128 in f32;
+//  - each CTA widens gamma and beta to f32 in shared memory once (8 KB at
+//    D = 1024), its lanes read them as float4 (lds), and a group's first
+//    row is in flight before the CTA fetches them;
+//  - a plain grid, a CTA per 8 / WPR rows.  tools/layernorm_sweep.cu
+//    builds this kernel's other layouts from the same pieces, and
+//    tools/port_layernorm_pairs.py --variants times them on the H100
+//    (PERF.md): a persistent grid of fixed strides, a persistent grid
+//    whose groups draw rows in order from a counter, gamma and beta in
+//    registers (about 170 registers, one CTA a SM), the next row's loads
+//    before the current row's reductions, other register bounds.  None
+//    ran faster.
 //
 // Backward, two grids, because CTAs run in no order on Hopper (the TPU
 // kernel carried dgamma/dbeta across its sequential grid steps):
-//  1. ln_bwd_rows: a row belongs to a group of WPR warps (the caller's
-//     plan: one warp up to D = 1024), held in registers: each lane
-//     loads its columns of x, res and dy as 16-byte vectors (8 bf16 or
-//     4 f32, neighbouring lanes on neighbouring addresses; scalar loads
-//     in the same layout where a row is not a multiple of 16 bytes).
-//     The mean, the variance and c1/c2 are warp butterflies, plus for
-//     WPR > 1 one exchange through shared memory in warp order behind a
-//     named barrier of the group: no __syncthreads per row.  The grid is
-//     persistent (as many CTAs as are resident on the card: two a SM);
-//     each thread sums dy * xhat and dy for its columns over its rows in
-//     its group's row of shared memory (held in registers, the sums took
-//     168 registers a thread and one CTA a SM, and ran no faster), and a
-//     CTA writes one partial row of an f32 workspace (2, G, D).  gamma
-//     (in f32) and those sums are read and written in shared memory as
-//     float4: scalar accesses at the lanes' 16- or 32-byte stride meet
-//     4- to 8-way bank conflicts, which cost a third of the time;
+//  1. ln_bwd_rows: the row layout above; mean, variance and c1/c2 from
+//     the registers.  The grid is persistent (as many CTAs as are
+//     resident on the card: two a SM); each thread sums dy * xhat and dy
+//     for its columns over its rows in its group's row of shared memory
+//     (held in registers, the sums took 168 registers a thread and one
+//     CTA a SM, and ran no faster), and a CTA writes one partial row of
+//     an f32 workspace (2, G, D).  gamma (in f32) and those sums are read
+//     and written in shared memory as float4: scalar accesses at the
+//     lanes' 16- or 32-byte stride meet 4- to 8-way bank conflicts,
+//     which cost a third of the time;
 //  2. ln_bwd_cols: a CTA per 32 columns, a lane per column (128-byte
 //     rows); each warp sums a fixed slice of the G partial rows in order,
 //     then the warps' sums add in warp order.
-// No float atomics: the backward is bitwise the same from run to run.
+// No float atomics: both directions are bitwise the same from run to run
+// (a row's sums run in one order whichever group takes it).
 
 #include <cstdint>
+#include <initializer_list>
+#include <type_traits>
 
 #include "common.cuh"
 
 namespace {
 
-constexpr int THREADS = 256;
-constexpr int NW = THREADS / 32;
-
-// the CTA-wide sum of v, the same value in every thread (each thread
-// adds the warps' sums in the same order); red holds NW floats
-__device__ __forceinline__ float block_sum(float v, float* red) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    v += __shfl_xor_sync(0xffffffffu, v, off);
-  __syncthreads();  // red may still be read by the previous call
-  if (threadIdx.x % 32 == 0) red[threadIdx.x / 32] = v;
-  __syncthreads();
-  float t = 0.f;
-#pragma unroll
-  for (int w = 0; w < NW; ++w) t += red[w];
-  return t;
-}
-
-template <typename T>
-__device__ __forceinline__ float load_h(const T* x, const T* res, size_t i) {
-  float v = mxt::to_f32(x[i]);
-  if (res != nullptr) v += mxt::to_f32(res[i]);
-  return v;
-}
-
-// mean and 1/sqrt(var + eps) of the row h (already in shared memory
-// columns owned by this thread)
-__device__ __forceinline__ void row_stats(const float* h, float s, int D,
-                                          float eps, float* red, float& mean,
-                                          float& rstd) {
-  mean = block_sum(s, red) / D;
-  float sq = 0.f;
-  for (int c = threadIdx.x; c < D; c += THREADS) {
-    const float d = h[c] - mean;
-    sq = fmaf(d, d, sq);
-  }
-  rstd = 1.f / sqrtf(block_sum(sq, red) / D + eps);
-}
-
-template <typename T, typename TG>
-__global__ void __launch_bounds__(THREADS)
-    ln_fwd(const T* __restrict__ x, const T* __restrict__ res,
-           const TG* __restrict__ gamma, const TG* __restrict__ beta,
-           T* __restrict__ y, int D, float eps) {
-  extern __shared__ float h[];  // the row in f32
-  __shared__ float red[NW];
-  const size_t base = size_t(blockIdx.x) * D;
-  float s = 0.f;
-  for (int c = threadIdx.x; c < D; c += THREADS) {
-    const float v = load_h(x, res, base + c);
-    h[c] = v;
-    s += v;
-  }
-  float mean, rstd;
-  row_stats(h, s, D, eps, red, mean, rstd);
-  for (int c = threadIdx.x; c < D; c += THREADS) {
-    const float xhat = (h[c] - mean) * rstd;
-    y[base + c] = mxt::from_f32<T>(xhat * mxt::to_f32(gamma[c]) +
-                                   mxt::to_f32(beta[c]));
-  }
-}
-
-// ---------------------------------------------------------------------
-// backward
-// ---------------------------------------------------------------------
-
-constexpr int BWD_THREADS = 256;
-constexpr int BWD_WARPS = BWD_THREADS / 32;
+constexpr int ROW_THREADS = 256;  // both row kernels: 8 warps a CTA
+constexpr int ROW_WARPS = ROW_THREADS / 32;
 constexpr int LANE_COLS = 32;  // columns a lane holds: a warp takes D <= 1024
 
 // the WPR warps of row group rg meet (named barrier rg + 1; 0 is
@@ -181,22 +140,223 @@ __device__ __forceinline__ void sts(float* p, const float (&v)[V]) {
   }
 }
 
+// ---------------------------------------------------------------------
+// forward
+// ---------------------------------------------------------------------
+
+// What a thread loads of a row at once: V elements of T, as one 16-byte
+// word (uint4) where V fills 16 bytes, else one T.  Packed bf16 stays two
+// to a register; widen() and pack() convert with shifts and one F2FP a
+// pair, where an array of __nv_bfloat16 would take a register each.
+template <typename T, int V>
+using Raw = std::conditional_t<V * sizeof(T) == 16, uint4, T>;
+
+template <typename T, int V>
+__device__ __forceinline__ void widen(const Raw<T, V>& r, float (&f)[V]) {
+  if constexpr (V == 1) {
+    f[0] = mxt::to_f32(r);
+  } else {
+    const uint32_t w[4] = {r.x, r.y, r.z, r.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      if constexpr (std::is_same_v<T, float>) {
+        f[i] = __uint_as_float(w[i]);
+      } else {  // bf16: element 2i in the low half of word i
+        f[2 * i] = __uint_as_float(w[i] << 16);
+        f[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+      }
+    }
+  }
+}
+
+template <typename T, int V>
+__device__ __forceinline__ Raw<T, V> pack(const float (&f)[V]) {
+  if constexpr (V == 1) {
+    return mxt::from_f32<T>(f[0]);
+  } else {
+    uint32_t w[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      if constexpr (std::is_same_v<T, float>) {
+        w[i] = __float_as_uint(f[i]);
+      } else {
+        const __nv_bfloat162 b = __floats2bfloat162_rn(f[2 * i], f[2 * i + 1]);
+        w[i] = *reinterpret_cast<const uint32_t*>(&b);
+      }
+    }
+    return make_uint4(w[0], w[1], w[2], w[3]);
+  }
+}
+
+// the row's columns of x and res that thread t of its group owns: its
+// loads sit k * TPR loads apart, at immediate offsets from one address;
+// columns past D, and res where there is none, read as zeros
+template <typename T, int V, int NV, int TPR>
+__device__ __forceinline__ void load_row(const T* __restrict__ x,
+                                         const T* __restrict__ res,
+                                         size_t base, int t, int D,
+                                         Raw<T, V> (&xv)[NV],
+                                         Raw<T, V> (&rv)[NV]) {
+  using RT = Raw<T, V>;
+  const RT* px = reinterpret_cast<const RT*>(x + base) + t;
+  const RT* pr =
+      res == nullptr ? nullptr : reinterpret_cast<const RT*>(res + base) + t;
+#pragma unroll
+  for (int k = 0; k < NV; ++k) {
+    const bool in = (t + k * TPR) * V < D;
+    xv[k] = in ? px[k * TPR] : RT{};
+    rv[k] = in && pr != nullptr ? pr[k * TPR] : RT{};
+  }
+}
+
+// gamma and beta widened to f32 in shared memory (sp[0, D) and sp[D,
+// 2D)), four columns of each a thread in flight together
+template <typename TG>
+__device__ __forceinline__ void stage_params(const TG* __restrict__ gamma,
+                                             const TG* __restrict__ beta,
+                                             float* sp, int D) {
+  constexpr int U = 4;
+  for (int c0 = threadIdx.x; c0 < D; c0 += U * ROW_THREADS) {
+    float g[U], b[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int c = c0 + u * ROW_THREADS;
+      g[u] = c < D ? mxt::to_f32(gamma[c]) : 0.f;
+      b[u] = c < D ? mxt::to_f32(beta[c]) : 0.f;
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int c = c0 + u * ROW_THREADS;
+      if (c < D) {
+        sp[c] = g[u];
+        sp[D + c] = b[u];
+      }
+    }
+  }
+}
+
+// h = x + res in f32 from thread t's loads of a row
+template <typename T, int V, int NV>
+__device__ __forceinline__ void widen_row(const Raw<T, V> (&xv)[NV],
+                                          const Raw<T, V> (&rv)[NV],
+                                          float (&h)[NV * V]) {
+#pragma unroll
+  for (int j = 0; j < NV; ++j) {
+    float a[V], b[V];
+    widen<T, V>(xv[j], a);
+    widen<T, V>(rv[j], b);
+#pragma unroll
+    for (int e = 0; e < V; ++e) h[j * V + e] = a[e] + b[e];
+  }
+}
+
+// y's row (yrow) from h: the mean, then the centred sum of squares (four
+// partial sums a lane, the group's through group_sum; red holds 2 * WPR
+// floats of the group's), then (h - mean) * rstd * gamma + beta, stored
+// in the layout of the loads; params(j, c, gm, bt) gives gamma and beta
+// at the thread's vector j, column c
+template <typename T, int WPR, int V, int NV, typename P>
+__device__ __forceinline__ void finish_row(const float (&h)[NV * V],
+                                           T* __restrict__ yrow, float* red,
+                                           int rg, int t, int D, float eps,
+                                           P params) {
+  constexpr int TPR = 32 * WPR;
+  float p[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+  for (int i = 0; i < NV * V; ++i) p[i % 4] += h[i];
+  float sum[1] = {(p[0] + p[1]) + (p[2] + p[3])};
+  group_sum<WPR>(sum, red, rg);
+  const float mean = sum[0] / D;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) p[i] = 0.f;
+#pragma unroll
+  for (int j = 0; j < NV; ++j) {
+    const bool in = (t + j * TPR) * V < D;
+#pragma unroll
+    for (int e = 0; e < V; ++e) {
+      const float d = in ? h[j * V + e] - mean : 0.f;
+      p[(j * V + e) % 4] = fmaf(d, d, p[(j * V + e) % 4]);
+    }
+  }
+  float sq[1] = {(p[0] + p[1]) + (p[2] + p[3])};
+  group_sum<WPR>(sq, red + WPR, rg);
+  const float rstd = 1.f / sqrtf(sq[0] / D + eps);
+  Raw<T, V>* py = reinterpret_cast<Raw<T, V>*>(yrow) + t;
+#pragma unroll
+  for (int j = 0; j < NV; ++j) {
+    const int c = (t + j * TPR) * V;
+    if (c < D) {
+      float gm[V], bt[V], o[V];
+      params(j, c, gm, bt);
+#pragma unroll
+      for (int e = 0; e < V; ++e)
+        o[e] = (h[j * V + e] - mean) * rstd * gm[e] + bt[e];
+      py[j * TPR] = pack<T, V>(o);
+    }
+  }
+}
+
 // Rows: a row to a group of WPR warps (8 / WPR groups a CTA), held in
 // registers.  Thread t of a group owns the V-element vectors t, t + 32 *
 // WPR, ... of the row (V = 16 bytes of T, or 1 where a row is not a
 // multiple of 16 bytes or a pointer is not aligned to 16), at most 32
-// columns.  CTA i's group r takes rows (i * RG + r) + k * G * RG in
+// columns.  CTA i's group r takes rows i * RG + r + k * G * RG (one row
+// over the plain grid of fwd_plan); its first row is in flight before the
+// CTA fetches gamma and beta.  ptxas leaves room for 3 CTAs a SM where a
+// warp holds a bf16 row in 16-byte loads (80 registers, no spill; at 4 it
+// spills); elsewhere it is not bounded (an f32 row takes 64 registers in
+// flight and spills at 3 CTAs, a group of several warps a few bytes).
+template <typename T, typename TG, int WPR, int V>
+__global__ void __launch_bounds__(ROW_THREADS,
+                                  sizeof(T) == 2 && WPR == 1 && V > 1 ? 3
+                                                                      : 1)
+    ln_fwd_rows(const T* __restrict__ x, const T* __restrict__ res,
+                const TG* __restrict__ gamma, const TG* __restrict__ beta,
+                T* __restrict__ y, int rows, int D, float eps) {
+  constexpr int RG = ROW_WARPS / WPR;  // row groups a CTA
+  constexpr int TPR = 32 * WPR;        // threads a row
+  constexpr int NV = LANE_COLS / V;    // vectors a thread
+  extern __shared__ __align__(16) float smem[];  // gamma, beta in f32
+  __shared__ float red[RG][2 * WPR];             // mean, sum of squares
+  const int rg = threadIdx.x / TPR, t = threadIdx.x % TPR;
+  int row = blockIdx.x * RG + rg;
+  Raw<T, V> xv[NV], rv[NV];
+  if (row < rows)
+    load_row<T, V, NV, TPR>(x, res, size_t(row) * D, t, D, xv, rv);
+  stage_params(gamma, beta, smem, D);
+  __syncthreads();
+  const auto params = [&](int, int c, float(&gm)[V], float(&bt)[V]) {
+    lds(smem + c, gm);
+    lds(smem + D + c, bt);
+  };
+  while (row < rows) {
+    float h[LANE_COLS];
+    widen_row<T, V, NV>(xv, rv, h);
+    finish_row<T, WPR, V, NV>(h, y + size_t(row) * D, red[rg], rg, t, D,
+                              eps, params);
+    row += gridDim.x * RG;
+    if (row < rows)
+      load_row<T, V, NV, TPR>(x, res, size_t(row) * D, t, D, xv, rv);
+  }
+}
+
+// ---------------------------------------------------------------------
+// backward
+// ---------------------------------------------------------------------
+
+// Rows: the forward's row layout, over a persistent grid of fixed
+// strides: CTA i's group r takes rows (i * RG + r) + k * G * RG in
 // order; each thread sums dy * xhat and dy over its rows for its columns
 // in its group's row of shared memory (no other thread touches those
 // columns of that row), and at the end the CTA adds its groups' sums in
 // group order and writes them as row i of the workspace (2, G, D).
 template <typename T, typename TG, int WPR, int V>
-__global__ void __launch_bounds__(BWD_THREADS, 2)
+__global__ void __launch_bounds__(ROW_THREADS, 2)
     ln_bwd_rows(const T* __restrict__ x, const T* __restrict__ res,
                 const TG* __restrict__ gamma, const T* __restrict__ dy,
                 T* __restrict__ dx, float* __restrict__ ws, int rows, int D,
                 float eps) {
-  constexpr int RG = BWD_WARPS / WPR;  // row groups a CTA
+  constexpr int RG = ROW_WARPS / WPR;  // row groups a CTA
   constexpr int TPR = 32 * WPR;        // threads a row
   constexpr int NV = LANE_COLS / V;    // vectors a thread
   using VT = mxt::Vec<T, V>;
@@ -205,7 +365,7 @@ __global__ void __launch_bounds__(BWD_THREADS, 2)
   float* sp = smem + D + size_t(threadIdx.x / TPR) * 2 * D;
   __shared__ float red[RG][4 * WPR];  // mean, variance, (c1, c2)
   const int rg = threadIdx.x / TPR, t = threadIdx.x % TPR;
-  for (int c = threadIdx.x; c < D; c += BWD_THREADS)
+  for (int c = threadIdx.x; c < D; c += ROW_THREADS)
     sg[c] = mxt::to_f32(gamma[c]);
   __syncthreads();
 
@@ -312,7 +472,7 @@ __global__ void __launch_bounds__(BWD_THREADS, 2)
   const float* s0 = smem + D;
   float* wg = ws + size_t(blockIdx.x) * D;
   float* wb = ws + size_t(gridDim.x + blockIdx.x) * D;
-  for (int c = threadIdx.x; c < D; c += BWD_THREADS) {
+  for (int c = threadIdx.x; c < D; c += ROW_THREADS) {
     float a = 0.f, b = 0.f;
 #pragma unroll
     for (int r = 0; r < RG; ++r) {
@@ -361,196 +521,210 @@ __global__ void __launch_bounds__(COL_WARPS * 32)
   }
 }
 
-template <typename T, typename TG>
-cudaError_t fwd(const void* x, const void* res, const void* gamma,
-                const void* beta, void* y, int rows, int D, float eps,
-                cudaStream_t s) {
-  ln_fwd<T, TG><<<rows, THREADS, D * sizeof(float), s>>>(
-      static_cast<const T*>(x), static_cast<const T*>(res),
-      static_cast<const TG*>(gamma), static_cast<const TG*>(beta),
-      static_cast<T*>(y), D, eps);
-  return cudaGetLastError();
-}
+// ---------------------------------------------------------------------
+// host side
+// ---------------------------------------------------------------------
+
+// the forward's gamma and beta in f32
+int fwd_smem(int D) { return 2 * D * int(sizeof(float)); }
 
 // gamma in f32 and a (dgamma, dbeta) row for each of the CTA's row groups
-constexpr int bwd_smem(int D, int WPR) {
-  return (1 + 2 * BWD_WARPS / WPR) * D * int(sizeof(float));
+int bwd_smem(int D, int WPR) {
+  return (1 + 2 * ROW_WARPS / WPR) * D * int(sizeof(float));
 }
 
-template <typename T, typename TG, int WPR, int V>
-cudaError_t bwd_rows(const void* x, const void* res, const void* gamma,
-                     const void* dy, void* dx, float* ws, int rows, int D,
-                     int G, float eps, cudaStream_t s) {
-  auto* kernel = ln_bwd_rows<T, TG, WPR, V>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bwd_smem(D, WPR));
-  if (err != cudaSuccess) return err;
-  kernel<<<G, BWD_THREADS, bwd_smem(D, WPR), s>>>(
-      static_cast<const T*>(x), static_cast<const T*>(res),
-      static_cast<const TG*>(gamma), static_cast<const T*>(dy),
-      static_cast<T*>(dx), ws, rows, D, eps);
-  return cudaGetLastError();
+// sets the kernel's dynamic shared memory limit to `smem` bytes where it
+// is above the 48 KB a launch may take without it
+cudaError_t allow_smem(const void* kernel, int smem) {
+  if (smem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
 }
 
-// resident CTAs a SM of ln_bwd_rows<T, TG, WPR, V> at D
-template <typename T, typename TG, int WPR, int V>
-int bwd_resident(int D) {
-  auto* kernel = ln_bwd_rows<T, TG, WPR, V>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bwd_smem(D, WPR));
+// resident CTAs a SM of `kernel` with `smem` bytes of dynamic shared
+// memory, or minus a CUDA error
+int occupancy(const void* kernel, int smem) {
+  cudaError_t err = allow_smem(kernel, smem);
   int n = 0;
   if (err == cudaSuccess)
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel,
-                                                        BWD_THREADS,
-                                                        bwd_smem(D, WPR));
+                                                        ROW_THREADS, smem);
   return err == cudaSuccess ? n : -int(err);
-}
-
-template <typename T, typename TG, int WPR>
-int resident_wpr(int D) {
-  const int a = bwd_resident<T, TG, WPR, 16 / sizeof(T)>(D);
-  const int b = bwd_resident<T, TG, WPR, 1>(D);
-  return a < 0 ? a : b < 0 ? b : a < b ? a : b;
-}
-
-template <typename T, typename TG>
-int resident(int D, int wpr) {
-  switch (wpr) {
-    case 1:
-      return resident_wpr<T, TG, 1>(D);
-    case 2:
-      return resident_wpr<T, TG, 2>(D);
-    case 4:
-      return resident_wpr<T, TG, 4>(D);
-    default:
-      return resident_wpr<T, TG, 8>(D);
-  }
 }
 
 bool aligned16(const void* p) {
   return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 }
 
-template <typename T, typename TG, int WPR>
-cudaError_t bwd_wpr(const void* x, const void* res, const void* gamma,
-                    const void* dy, void* dx, float* ws, int rows, int D,
-                    int G, float eps, cudaStream_t s) {
-  const bool vec = D * sizeof(T) % 16 == 0 && aligned16(x) &&
-                   aligned16(res) && aligned16(dy) && aligned16(dx);
-  if (vec)
-    return bwd_rows<T, TG, WPR, 16 / sizeof(T)>(x, res, gamma, dy, dx, ws,
-                                                 rows, D, G, eps, s);
-  return bwd_rows<T, TG, WPR, 1>(x, res, gamma, dy, dx, ws, rows, D, G, eps,
-                                 s);
+// whether a row of D elements of T is 16-byte vectors at every pointer
+template <typename T>
+bool vectors(int D, std::initializer_list<const void*> ptrs) {
+  if (D * sizeof(T) % 16 != 0) return false;
+  for (const void* p : ptrs)
+    if (!aligned16(p)) return false;
+  return true;
 }
 
-template <typename T, typename TG>
-cudaError_t bwd(const void* x, const void* res, const void* gamma,
-                const void* dy, void* dx, float* ws, float* dgamma,
-                float* dbeta, int rows, int D, int wpr, int G, float eps,
-                cudaStream_t s) {
-  cudaError_t err;
-  switch (wpr) {
-    case 1:
-      err = bwd_wpr<T, TG, 1>(x, res, gamma, dy, dx, ws, rows, D, G, eps, s);
-      break;
-    case 2:
-      err = bwd_wpr<T, TG, 2>(x, res, gamma, dy, dx, ws, rows, D, G, eps, s);
-      break;
-    case 4:
-      err = bwd_wpr<T, TG, 4>(x, res, gamma, dy, dx, ws, rows, D, G, eps, s);
-      break;
-    default:
-      err = bwd_wpr<T, TG, 8>(x, res, gamma, dy, dx, ws, rows, D, G, eps, s);
-  }
+template <typename T, typename TG, int WPR, int V>
+int fwd_rows(const void* x, const void* res, const void* gamma,
+             const void* beta, void* y, int rows, int D, int G, float eps,
+             cudaStream_t s) {
+  const cudaError_t err = allow_smem(
+      reinterpret_cast<const void*>(ln_fwd_rows<T, TG, WPR, V>),
+      fwd_smem(D));
   if (err != cudaSuccess) return err;
+  ln_fwd_rows<T, TG, WPR, V><<<G, ROW_THREADS, fwd_smem(D), s>>>(
+      static_cast<const T*>(x), static_cast<const T*>(res),
+      static_cast<const TG*>(gamma), static_cast<const TG*>(beta),
+      static_cast<T*>(y), rows, D, eps);
+  return cudaGetLastError();
+}
+
+template <typename T, typename TG, int WPR, int V>
+int bwd_rows(const void* x, const void* res, const void* gamma, const void* dy,
+             void* dx, float* ws, float* dgamma, float* dbeta, int rows, int D,
+             int G, float eps, cudaStream_t s) {
+  const cudaError_t err = allow_smem(
+      reinterpret_cast<const void*>(ln_bwd_rows<T, TG, WPR, V>),
+      bwd_smem(D, WPR));
+  if (err != cudaSuccess) return err;
+  ln_bwd_rows<T, TG, WPR, V><<<G, ROW_THREADS, bwd_smem(D, WPR), s>>>(
+      static_cast<const T*>(x), static_cast<const T*>(res),
+      static_cast<const TG*>(gamma), static_cast<const T*>(dy),
+      static_cast<T*>(dx), ws, rows, D, eps);
+  const cudaError_t launched = cudaGetLastError();
+  if (launched != cudaSuccess) return launched;
   ln_bwd_cols<<<(D + 31) / 32, COL_WARPS * 32, 0, s>>>(ws, dgamma, dbeta, G,
                                                        D);
   return cudaGetLastError();
 }
 
-// whether wpr warps a row (1, 2, 4 or 8) hold a row of D columns
-bool wpr_holds(int wpr, int D) {
+template <typename T>
+struct Type {
+  using type = T;
+};
+template <int N>
+using Int = std::integral_constant<int, N>;
+
+// f(Type<T>, Type<TG>, Int<WPR>, Int<V>) for the dtype codes, the warps a
+// row (1, 2, 4 or 8; callers check them first) and the 16-byte (vector)
+// or scalar loads
+template <typename F>
+int dispatch(int dtype, int g_dtype, int wpr, bool vector, F&& f) {
+  auto by_v = [&](auto t, auto tg, auto w) {
+    using T = typename decltype(t)::type;
+    return vector ? f(t, tg, w, Int<16 / sizeof(T)>{}) : f(t, tg, w, Int<1>{});
+  };
+  auto by_wpr = [&](auto t, auto tg) {
+    switch (wpr) {
+      case 1:
+        return by_v(t, tg, Int<1>{});
+      case 2:
+        return by_v(t, tg, Int<2>{});
+      case 4:
+        return by_v(t, tg, Int<4>{});
+      default:
+        return by_v(t, tg, Int<8>{});
+    }
+  };
+  auto by_g = [&](auto t) {
+    return g_dtype == mxt::kF32 ? by_wpr(t, Type<float>{})
+                                : by_wpr(t, Type<__nv_bfloat16>{});
+  };
+  return dtype == mxt::kF32 ? by_g(Type<float>{}) : by_g(Type<__nv_bfloat16>{});
+}
+
+// whether the plan and the dtype codes are ones the kernels take: wpr
+// warps a row (1, 2, 4 or 8) hold a row of D columns
+bool takes(int wpr, int D, int dtype, int g_dtype) {
+  auto known = [](int d) { return d == mxt::kF32 || d == mxt::kBF16; };
   return (wpr == 1 || wpr == 2 || wpr == 4 || wpr == 8) && D >= 1 &&
-         D <= wpr * 32 * LANE_COLS;
+         D <= wpr * 32 * LANE_COLS && known(dtype) && known(g_dtype);
 }
 
 }  // namespace
 
+// Resident CTAs a SM of a direction's row kernel (backward 0: the
+// forward's) at D with wpr warps a row, in its 16-byte (vector 1) or
+// scalar instantiation, or minus a CUDA error: the backward's wrapper
+// sizes its persistent grid G from it (ops.fused_layernorm.bwd_plan).
+extern "C" int fused_layer_norm_resident(int backward, int vector, int D,
+                                         int wpr, int dtype, int g_dtype,
+                                         int device) {
+  const cudaError_t dev_err = cudaSetDevice(device);
+  if (dev_err != cudaSuccess) return -int(dev_err);
+  if (!takes(wpr, D, dtype, g_dtype)) return -int(cudaErrorInvalidValue);
+  return dispatch(dtype, g_dtype, wpr, vector,
+                  [&](auto t, auto tg, auto w, auto v) {
+                    using T = typename decltype(t)::type;
+                    using TG = typename decltype(tg)::type;
+                    constexpr int W = decltype(w)::value;
+                    constexpr int V = decltype(v)::value;
+                    return backward
+                               ? occupancy(reinterpret_cast<const void*>(
+                                               ln_bwd_rows<T, TG, W, V>),
+                                           bwd_smem(D, W))
+                               : occupancy(reinterpret_cast<const void*>(
+                                               ln_fwd_rows<T, TG, W, V>),
+                                           fwd_smem(D));
+                  });
+}
 
 // x, res (nullable), y: (rows, D) in dtype (0 = f32, 1 = bf16); gamma,
-// beta: (D,) in g_dtype.  1 <= D <= 8192.
+// beta: (D,) in g_dtype.  Rows go to groups of wpr warps (1, 2, 4 or 8,
+// 1024 * wpr >= D), 8 / wpr groups a CTA, over a grid of G CTAs, with
+// 16-byte loads and stores where vector is 1 (refused unless D * the
+// element size is a multiple of 16 and x, res and y are aligned to 16):
+// ops.fused_layernorm.fwd_plan.
 extern "C" int fused_layer_norm_fwd(const void* x, const void* res,
                                     const void* gamma, const void* beta,
-                                    void* y, int rows, int D, int dtype,
-                                    int g_dtype, float eps, int device,
-                                    void* stream) {
+                                    void* y, int rows, int D, int wpr, int G,
+                                    int vector, int dtype, int g_dtype,
+                                    float eps, int device, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const cudaError_t dev_err = cudaSetDevice(device);
   if (dev_err != cudaSuccess) return dev_err;
-  if (rows < 1 || D < 1 || D > 8192) return cudaErrorInvalidValue;
-  if (dtype == mxt::kF32 && g_dtype == mxt::kF32)
-    return fwd<float, float>(x, res, gamma, beta, y, rows, D, eps, s);
-  if (dtype == mxt::kF32 && g_dtype == mxt::kBF16)
-    return fwd<float, __nv_bfloat16>(x, res, gamma, beta, y, rows, D, eps,
-                                     s);
-  if (dtype == mxt::kBF16 && g_dtype == mxt::kF32)
-    return fwd<__nv_bfloat16, float>(x, res, gamma, beta, y, rows, D, eps,
-                                     s);
-  if (dtype == mxt::kBF16 && g_dtype == mxt::kBF16)
-    return fwd<__nv_bfloat16, __nv_bfloat16>(x, res, gamma, beta, y, rows, D,
-                                             eps, s);
-  return cudaErrorInvalidValue;
-}
-
-// Resident CTAs a SM of the backward's row kernel at D with wpr warps a
-// row (the fewer of its 16-byte and scalar instantiations), or minus a
-// CUDA error: the wrapper sizes the persistent grid G from it.
-extern "C" int fused_layer_norm_bwd_resident(int D, int wpr, int dtype,
-                                             int g_dtype, int device) {
-  const cudaError_t dev_err = cudaSetDevice(device);
-  if (dev_err != cudaSuccess) return -int(dev_err);
-  if (!wpr_holds(wpr, D)) return -int(cudaErrorInvalidValue);
-  if (dtype == mxt::kF32 && g_dtype == mxt::kF32)
-    return resident<float, float>(D, wpr);
-  if (dtype == mxt::kF32 && g_dtype == mxt::kBF16)
-    return resident<float, __nv_bfloat16>(D, wpr);
-  if (dtype == mxt::kBF16 && g_dtype == mxt::kF32)
-    return resident<__nv_bfloat16, float>(D, wpr);
-  if (dtype == mxt::kBF16 && g_dtype == mxt::kBF16)
-    return resident<__nv_bfloat16, __nv_bfloat16>(D, wpr);
-  return -int(cudaErrorInvalidValue);
+  if (rows < 1 || !takes(wpr, D, dtype, g_dtype) || G < 1 ||
+      G > (rows + ROW_WARPS / wpr - 1) / (ROW_WARPS / wpr))
+    return cudaErrorInvalidValue;
+  return dispatch(dtype, g_dtype, wpr, vector,
+                  [&](auto t, auto tg, auto w, auto v) {
+                    using T = typename decltype(t)::type;
+                    using TG = typename decltype(tg)::type;
+                    constexpr int V = decltype(v)::value;
+                    if (V > 1 && !vectors<T>(D, {x, res, y}))
+                      return int(cudaErrorInvalidValue);
+                    return fwd_rows<T, TG, decltype(w)::value, V>(
+                        x, res, gamma, beta, y, rows, D, G, eps, s);
+                  });
 }
 
 // x, res (nullable), dy, dx: (rows, D) in dtype; gamma: (D,) in g_dtype;
 // ws: f32 workspace of 2 * G * D; dgamma, dbeta: (D,) f32.  1 <= G <=
-// rows, 1 <= D <= 8192.  Rows go to groups of wpr warps (1, 2, 4 or 8,
-// 1024 * wpr >= D), 8 / wpr groups a CTA, over a grid of G CTAs.
+// rows, 1 <= D <= 8192.  Rows go to groups of wpr warps as in the
+// forward, over a grid of G CTAs; vector as in the forward, for x, res,
+// dy and dx.
 extern "C" int fused_layer_norm_bwd(const void* x, const void* res,
                                     const void* gamma, const void* dy,
                                     void* dx, void* ws, void* dgamma,
                                     void* dbeta, int rows, int D, int wpr,
-                                    int G, int dtype, int g_dtype, float eps,
-                                    int device, void* stream) {
+                                    int G, int vector, int dtype, int g_dtype,
+                                    float eps, int device, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const cudaError_t dev_err = cudaSetDevice(device);
   if (dev_err != cudaSuccess) return dev_err;
-  if (rows < 1 || !wpr_holds(wpr, D) || G < 1 || G > rows)
+  if (rows < 1 || !takes(wpr, D, dtype, g_dtype) || G < 1 || G > rows)
     return cudaErrorInvalidValue;
-  float* w = static_cast<float*>(ws);
-  float* dg = static_cast<float*>(dgamma);
-  float* db = static_cast<float*>(dbeta);
-  if (dtype == mxt::kF32 && g_dtype == mxt::kF32)
-    return bwd<float, float>(x, res, gamma, dy, dx, w, dg, db, rows, D, wpr,
-                             G, eps, s);
-  if (dtype == mxt::kF32 && g_dtype == mxt::kBF16)
-    return bwd<float, __nv_bfloat16>(x, res, gamma, dy, dx, w, dg, db, rows,
-                                     D, wpr, G, eps, s);
-  if (dtype == mxt::kBF16 && g_dtype == mxt::kF32)
-    return bwd<__nv_bfloat16, float>(x, res, gamma, dy, dx, w, dg, db, rows,
-                                     D, wpr, G, eps, s);
-  if (dtype == mxt::kBF16 && g_dtype == mxt::kBF16)
-    return bwd<__nv_bfloat16, __nv_bfloat16>(x, res, gamma, dy, dx, w, dg,
-                                             db, rows, D, wpr, G, eps, s);
-  return cudaErrorInvalidValue;
+  return dispatch(dtype, g_dtype, wpr, vector,
+                  [&](auto t, auto tg, auto w, auto v) {
+                    using T = typename decltype(t)::type;
+                    using TG = typename decltype(tg)::type;
+                    constexpr int V = decltype(v)::value;
+                    if (V > 1 && !vectors<T>(D, {x, res, dy, dx}))
+                      return int(cudaErrorInvalidValue);
+                    return bwd_rows<T, TG, decltype(w)::value, V>(
+                        x, res, gamma, dy, dx, static_cast<float*>(ws),
+                        static_cast<float*>(dgamma),
+                        static_cast<float*>(dbeta), rows, D, G, eps, s);
+                  });
 }

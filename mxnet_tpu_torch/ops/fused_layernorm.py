@@ -25,12 +25,14 @@ no MXNet autograd tape in the port, ``training=None`` means
 Kernel notes: the forward replaces ``_forward_kernel``
 (``fused_layernorm.py:79``), the backward ``_backward_kernel`` (``:97``).
 Both are memory-bound on the H100: the forward moves x, res and y, the
-backward x, res, dy and dx, at about 10 FLOPs per element.  The
-backward gives a row to a group of ``ceil(D / 1024)`` warps (rounded up
-to a power of two) that hold it in registers, over a persistent grid of
-as many CTAs as are resident on the card (:func:`bwd_plan`); each CTA
-writes one row of partial dgamma/dbeta sums, and a second grid adds the
-rows in a fixed order (no float atomics), so it is bitwise repeatable.
+backward x, res, dy and dx, at about 10 FLOPs per element.  Both give a
+row to a group of ``ceil(D / 1024)`` warps (rounded up to a power of
+two) that hold it in registers.  The forward runs a plain grid, a CTA
+per ``8 / warps`` rows (:func:`fwd_plan`), each CTA reading gamma and
+beta once; the backward a persistent grid of as many CTAs as are
+resident on the card (:func:`bwd_plan`), each writing one row of partial
+dgamma/dbeta sums, which a second grid adds in a fixed order (no float
+atomics).  Both are bitwise repeatable.
 """
 from __future__ import annotations
 
@@ -42,35 +44,46 @@ from ..base import MXNetError, NotSupportedError
 from . import _build
 
 __all__ = ["fused_layer_norm", "fused_layer_norm_fwd", "fused_layer_norm_bwd",
-           "layer_norm_plain", "layer_norm_bwd_plain", "bwd_plan", "MAX_D"]
+           "layer_norm_plain", "layer_norm_bwd_plain", "fwd_plan", "bwd_plan",
+           "MAX_D"]
 
-#: longest normalized axis the kernels take (the backward's 8 warps a
-#: CTA, 32 columns a lane)
+#: longest normalized axis the kernels take (8 warps a CTA, 32 columns a
+#: lane)
 MAX_D = 8192
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_BWD_WARPS = 8           # warps a CTA of the backward's row kernel
+_ROW_WARPS = 8           # warps a CTA of either row kernel
 _WARP_COLS = 1024        # columns a warp holds in registers
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
-    "fused_layer_norm_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I,
+    "fused_layer_norm_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                              ctypes.c_float, _I, _P],
     "fused_layer_norm_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                             _I, _I, ctypes.c_float, _I, _P],
-    "fused_layer_norm_bwd_resident": [_I, _I, _I, _I, _I]}
-_resident = {}           # (D, WPR, dtype, g_dtype, device) -> CTAs a SM
+                             _I, _I, _I, ctypes.c_float, _I, _P],
+    "fused_layer_norm_resident": [_I, _I, _I, _I, _I, _I, _I]}
+# (backward, vector, D, WPR, dtype, g_dtype, device) -> CTAs a SM of the
+# backward's row kernel
+_resident = {}
+
+
+def fwd_plan(rows, d):
+    """``(warps a row, CTAs)`` of the forward's row kernel: a row of
+    ``d`` columns goes to the fewest warps, a power of two, whose lanes
+    hold 32 columns each; the grid is plain, one CTA of 8 warps for
+    every ``8 / warps`` rows.  The kernel takes both from here (its C
+    entry refuses warps that cannot hold the row)."""
+    wpr = _warps_per_row(d)
+    return wpr, -(-rows // (_ROW_WARPS // wpr))
 
 
 def bwd_plan(rows, d, sms, resident):
-    """``(warps a row, CTAs)`` of the backward's row kernel: a row of
-    ``d`` columns goes to the fewest warps, a power of two, whose lanes
-    hold 32 columns each; the grid is persistent, ``sms * resident``
+    """``(warps a row, CTAs)`` of the backward's row kernel: the
+    forward's warps a row; the grid is persistent, ``sms * resident``
     CTAs of 8 warps, or fewer where the rows do not fill them.  The
     kernel takes both from here (its C entry refuses warps that cannot
     hold the row)."""
-    wpr = _warps_per_row(d)
-    groups = _BWD_WARPS // wpr
-    return wpr, max(1, min(sms * resident, -(-rows // groups)))
+    wpr, ctas = fwd_plan(rows, d)
+    return wpr, max(1, min(sms * resident, ctas))
 
 
 def _warps_per_row(d):
@@ -137,6 +150,14 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
+def _vector(d, tensors):
+    """1 where the row kernels take 16-byte loads and stores: a row is a
+    multiple of 16 bytes and every tensor starts on a 16-byte boundary
+    (else 0: their scalar instantiations)."""
+    return int(d * tensors[0].element_size() % 16 == 0 and all(
+        t.data_ptr() % 16 == 0 for t in tensors if t is not None))
+
+
 def _fwd_kernel(x, res, gamma, beta, eps):
     rows, d = _check("fused_layer_norm_fwd", x, res, gamma, (beta,))
     if beta.shape != gamma.shape or beta.dtype != gamma.dtype:
@@ -146,11 +167,13 @@ def _fwd_kernel(x, res, gamma, beta, eps):
     if rows == 0:
         return y
     lib = _build.load("fused_layernorm", _SIGNATURES)
+    wpr, ctas = fwd_plan(rows, d)
+    vector = _vector(d, (x, res, y))
     stream = torch.cuda.current_stream(x.device).cuda_stream
     err = lib.fused_layer_norm_fwd(
         x.data_ptr(), _ptr(res), gamma.data_ptr(), beta.data_ptr(),
-        y.data_ptr(), rows, d, _DTYPES[x.dtype], _DTYPES[gamma.dtype],
-        float(eps), x.device.index, stream)
+        y.data_ptr(), rows, d, wpr, ctas, vector, _DTYPES[x.dtype],
+        _DTYPES[gamma.dtype], float(eps), x.device.index, stream)
     _build.check(lib, err, "fused_layer_norm_fwd")
     fused_layer_norm_fwd.launches += 1
     return y
@@ -168,14 +191,16 @@ def _bwd_kernel(x, res, gamma, dy, eps):
     dgamma = torch.empty(d, dtype=torch.float32, device=x.device)
     dbeta = torch.empty(d, dtype=torch.float32, device=x.device)
     lib = _build.load("fused_layernorm", _SIGNATURES)
+    vector = _vector(d, (x, res, dy, dx))
     wpr = _warps_per_row(d)
-    key = (d, wpr, _DTYPES[x.dtype], _DTYPES[gamma.dtype], x.device.index)
+    key = (1, vector, d, wpr, _DTYPES[x.dtype], _DTYPES[gamma.dtype],
+           x.device.index)
     if key not in _resident:
-        got = lib.fused_layer_norm_bwd_resident(*key)
-        _build.check(lib, max(0, -got), "fused_layer_norm_bwd_resident")
+        got = lib.fused_layer_norm_resident(*key)
+        _build.check(lib, max(0, -got), "fused_layer_norm_resident")
         if got < 1:
-            raise MXNetError(f"fused_layer_norm_bwd: no CTA of the row kernel "
-                             f"fits a SM at D={d}")
+            raise MXNetError(f"fused_layer_norm_bwd: no CTA of the row "
+                             f"kernel fits a SM at D={d}")
         _resident[key] = got
     sms = torch.cuda.get_device_properties(x.device).multi_processor_count
     _, ctas = bwd_plan(rows, d, sms, _resident[key])
@@ -184,7 +209,7 @@ def _bwd_kernel(x, res, gamma, dy, eps):
     err = lib.fused_layer_norm_bwd(
         x.data_ptr(), _ptr(res), gamma.data_ptr(), dy.data_ptr(),
         dx.data_ptr(), ws.data_ptr(), dgamma.data_ptr(), dbeta.data_ptr(),
-        rows, d, wpr, ctas, _DTYPES[x.dtype], _DTYPES[gamma.dtype],
+        rows, d, wpr, ctas, vector, _DTYPES[x.dtype], _DTYPES[gamma.dtype],
         float(eps), x.device.index, stream)
     _build.check(lib, err, "fused_layer_norm_bwd")
     fused_layer_norm_bwd.launches += 1

@@ -624,7 +624,8 @@ def _ln_case(card, rows, D, dtype, residual, seed, g_dtype=torch.float32):
 
 @pytest.mark.parametrize("residual", [True, False])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("D", [64, 100, 768, 1000, 1024, 2048, 4096])
+@pytest.mark.parametrize("D", [1, 64, 100, 768, 1000, 1024, 2048, 4096,
+                               8192])
 @pytest.mark.parametrize("rows", [1, 7, 4096, 4097])
 def test_layernorm_kernels_match_plain(card, rows, D, dtype, residual):
     x, res, gamma, beta, dy = _ln_case(card, rows, D, dtype, residual,
@@ -659,13 +660,64 @@ def test_layernorm_bf16_params_and_widest_row(card):
         torch.testing.assert_close(db, rdb, **LN_PARAM_TOL)
 
 
-def test_layernorm_backward_is_bitwise_repeatable(card):
-    x, res, gamma, _, dy = _ln_case(card, 4096, 1024, torch.float32, True, 5)
-    first = fused_layer_norm_bwd(x, res, gamma, dy, 1e-12)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [768, 1024])
+def test_layernorm_kernels_take_misaligned_views(card, D, dtype):
+    """x, res and dy one element into their allocations: the kernels'
+    scalar instantiations (16-byte loads need aligned rows)."""
+    x, res, gamma, beta, dy = _ln_case(card, 33, D, dtype, True, D + 1)
+
+    def shifted(t):
+        return torch.empty(t.numel() + 1, dtype=t.dtype,
+                           device=t.device)[1:].view(t.shape).copy_(t)
+
+    sx, sres, sdy = shifted(x), shifted(res), shifted(dy)
+    assert sx.data_ptr() % 16 != 0 and sx.is_contiguous()
+    y = fused_layer_norm_fwd(sx, sres, gamma, beta, 1e-5)
+    dx, dg, db = fused_layer_norm_bwd(sx, sres, gamma, sdy, 1e-5)
+    _close(y, layer_norm_plain(x, res, gamma, beta, 1e-5), dtype)
+    rdx, rdg, rdb = layer_norm_bwd_plain(x, res, gamma, dy, 1e-5)
+    _close(dx, rdx, dtype)
+    torch.testing.assert_close(dg, rdg, **LN_PARAM_TOL)
+    torch.testing.assert_close(db, rdb, **LN_PARAM_TOL)
+
+
+@pytest.mark.parametrize("direction", ["fwd", "bwd"])
+def test_layernorm_kernels_are_bitwise_repeatable(card, direction):
+    x, res, gamma, beta, dy = _ln_case(card, 4096, 1024, torch.float32,
+                                       True, 5)
+    if direction == "fwd":
+        def run():
+            return (fused_layer_norm_fwd(x, res, gamma, beta, 1e-12),)
+    else:
+        def run():
+            return fused_layer_norm_bwd(x, res, gamma, dy, 1e-12)
+    first = run()
     for _ in range(3):
-        again = fused_layer_norm_bwd(x, res, gamma, dy, 1e-12)
-        for a, b in zip(first, again):
+        for a, b in zip(first, run()):
             assert torch.equal(a, b)
+
+
+def test_layernorm_kernels_replay_in_a_cuda_graph(card):
+    """One forward and one backward captured in a ``torch.cuda.graph``
+    and replayed: outputs bitwise equal to the eager launches (the C
+    entries' cudaSetDevice and cudaFuncSetAttribute calls are legal
+    under stream capture)."""
+    x, res, gamma, beta, dy = _ln_case(card, 4096, 1024, torch.bfloat16,
+                                       True, 6)
+    eager = (fused_layer_norm_fwd(x, res, gamma, beta, 1e-12),
+             *fused_layer_norm_bwd(x, res, gamma, dy, 1e-12))
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = (fused_layer_norm_fwd(x, res, gamma, beta, 1e-12),
+                    *fused_layer_norm_bwd(x, res, gamma, dy, 1e-12))
+    for t in captured:
+        t.zero_()
+    graph.replay()
+    torch.cuda.synchronize()
+    for a, b in zip(captured, eager):
+        assert torch.equal(a, b)
 
 
 def test_layernorm_op_on_card_is_differentiable(card):

@@ -33,7 +33,7 @@ from mxnet_tpu_torch.ops import _build
 from mxnet_tpu_torch.ops.flash_attention import (flash_attention,
                                                  flash_attention_fwd,
                                                  flash_attention_plain)
-from mxnet_tpu_torch.ops.fused_layernorm import bwd_plan
+from mxnet_tpu_torch.ops.fused_layernorm import bwd_plan, fwd_plan
 from mxnet_tpu_torch.ops.fused_update import update_plan
 from mxnet_tpu_torch.ops.paged_attention import (paged_decode_attention,
                                                  split_plan)
@@ -253,6 +253,24 @@ def test_layernorm_bwd_plan(rows, d, want):
     """K4 backward: warps a row and the persistent grid at 132 SMs with 2
     resident CTAs each."""
     assert bwd_plan(rows, d, 132, 2) == want
+
+
+@pytest.mark.parametrize("resident", [1, 2])
+@pytest.mark.parametrize("rows", [1, 7, 4096, 4097])
+@pytest.mark.parametrize("d", [1, 100, 1024, 1025, 2048, 8192])
+def test_layernorm_fwd_plan(d, rows, resident):
+    """K4 forward: the fewest warps a row (a power of two up to 8) whose
+    32 lanes of 32 columns hold the row, and a plain grid whose row
+    groups (8 / warps a CTA) cover the rows with less than a CTA to
+    spare; the backward takes the same warps a row, over at most the
+    resident CTAs at 132 SMs."""
+    wpr, ctas = fwd_plan(rows, d)
+    assert wpr in (1, 2, 4, 8)
+    assert wpr * 1024 >= d and (wpr == 1 or wpr * 512 < d)
+    groups = 8 // wpr
+    assert ctas * groups >= rows > (ctas - 1) * groups
+    assert bwd_plan(rows, d, 132, resident) == \
+        (wpr, min(ctas, 132 * resident))
 
 
 @pytest.mark.parametrize("ctas", [1, 2])
