@@ -39,10 +39,17 @@ continued:
 4. serving: Llama-3-8B at full width and depth in bfloat16, random
    weights from a seed, ``InferenceEngine(max_batch=8, block_size=16,
    max_context=1024)`` and a ``ContinuousBatcher`` serving 16 greedy
-   requests of 32 new tokens;
+   requests of 32 new tokens; ``warmup()`` captures every bucket's
+   prefill and decode as CUDA graphs and the phase fails unless the
+   traffic only replayed them (``compiles_after_warmup`` 0); it prints
+   the graphs, their capture time and the graph pool's bytes; then one
+   request is teacher-forced for 16 decode steps, each replay held
+   against ``_decode_body`` run eagerly on the same static inputs
+   (logits within 2e-2, bitwise printed, tokens identical);
 5. card vs CPU, serving: a 2-layer model at the full 4096/32/8/128/14336
    geometry and full vocabulary in float32, the same weights on the card
-   (kernels) and on the host (plain versions), one 40-token prompt with
+   (graphs captured at first use) and on the host (the same step
+   objects run directly, plain versions), one 40-token prompt with
    prefill and 8 greedy decode steps: logits within 2e-3, identical
    tokens;
 6. card vs CPU, fp8 KV: the same nets and prompt with ``kv_dtype="fp8"``
@@ -53,7 +60,8 @@ continued:
 7. fp8 KV serving: Llama-3-8B bf16 at full depth with
    ``kv_dtype="fp8", max_batch=16, max_context=4096`` (4097 blocks), 32
    greedy requests with prompts of 256-3800 tokens and 32 new tokens,
-   then one request's drift against a bf16 pool (printed);
+   on graphs as phase 4 (the same limit, fields and graph-vs-eager
+   check), then one request's drift against a bf16 pool (printed);
 8. training: Llama-3-8B width at 4 layers in float32 (1.92 G
    parameters), batch 2 x 1024 tokens, ``SoftmaxCrossEntropyLoss`` and
    ``gluon.Trainer(..., "adamw", lr 1e-3, wd 0.1)``, 5 steps on one
@@ -106,6 +114,10 @@ FP8_SCALE_RTOL = 1e-5
 # nvcc contracts a*b + c into one FMA; the plain rule rounds twice
 UPDATE_TOL = (1e-7, 1e-6)
 LOGIT_ATOL = 2e-3
+# graph replay against the eager decode body (bf16 logits): about one
+# bf16 ulp at |logit| 2-4; greedy tokens must be identical
+GRAPH_LOGIT_ATOL = 2e-2
+GRAPH_CHECK_STEPS = 16
 TRAIN_LOSS_RTOL = 1e-4
 TRAIN_PARAM_ATOL = 1e-5
 CHUNK = 1 << 26                       # plain update rule, per chunk
@@ -191,6 +203,54 @@ def read_launches(phase, want):
     if got != full or min(want.values()) < 1:
         fail(f"{phase}: kernel launches {got}, expected {full}")
     return got
+
+
+def graph_vs_eager(eng, prompt):
+    """Teacher-force one request through ``eng``'s graphs: after each of
+    ``GRAPH_CHECK_STEPS`` decode replays, run ``_decode_body`` eagerly on
+    the same static inputs (it writes the same K/V rows again) and
+    compare its logits with the replay's.  Fails unless the greedy
+    tokens agree and the logits are within ``GRAPH_LOGIT_ATOL``; returns
+    the text for the phase's line."""
+    import torch
+    from mxnet_tpu_torch.serving import next_bucket
+    slot = "graph-check"
+    tok, _ = eng.prefill(slot, prompt)
+    fed = list(prompt) + [tok]
+    worst, bitwise = 0.0, True
+    for _ in range(GRAPH_CHECK_STEPS):
+        pos = len(fed) - 1
+        if not eng.reserve(slot, pos):
+            fail("graph check: KV pool exhausted")
+        nxt, logits = eng.decode([(slot, fed[-1], pos)])
+        nbl = next_bucket(pos + 1, eng.buckets) // eng.block_size
+        want = eng._decode_body(*eng._steps["decode", nbl].args)[:1]
+        bitwise = bitwise and bool(torch.equal(logits, want))
+        worst = max(worst, float((logits.float() - want.float()).abs()
+                                 .max()))
+        if int(nxt[0]) != int(torch.argmax(want[0])):
+            fail(f"graph replay picked token {int(nxt[0])}, the eager "
+                 f"body {int(torch.argmax(want[0]))} at position {pos}")
+        fed.append(int(nxt[0]))
+    eng.release(slot)
+    if not worst <= GRAPH_LOGIT_ATOL:
+        fail(f"graph replay vs eager decode body: max |logit| diff "
+             f"{worst:.3e} > {GRAPH_LOGIT_ATOL}")
+    return (f"graph vs eager, {len(prompt)}-token prompt, "
+            f"{GRAPH_CHECK_STEPS} decode steps: bitwise {bitwise}, max "
+            f"|logit| diff {worst:.3e} (limit {GRAPH_LOGIT_ATOL}), tokens "
+            f"identical")
+
+
+def graph_text(eng):
+    """The phase line's graph fields; fails if traffic missed the cache."""
+    if eng.stats["compiles_after_warmup"]:
+        fail(f"{eng.stats['compiles_after_warmup']} graphs captured after "
+             "warmup: traffic must only replay")
+    return (f"{eng.graphs_captured()} CUDA graphs captured in "
+            f"{eng.capture_seconds:.2f} s, graph pool "
+            f"{eng.graph_pool_bytes()} bytes reserved, compiles after "
+            f"warmup 0")
 
 
 ROWS = []        # every timed (kernel, dtype, shape) of phase 3
@@ -913,22 +973,47 @@ def check_updates(dev, flush, n_big):
 # phase 4: the serving path at full width
 # ----------------------------------------------------------------------
 
-def serve_llama3_8b(dev, card):
-    import numpy as np
-    import torch
-    from mxnet_tpu_torch import ops
-    from mxnet_tpu_torch.gluon.model_zoo.nlp.llama import llama3_8b
-    from mxnet_tpu_torch.serving import (ContinuousBatcher, InferenceEngine,
-                                         Request)
-    torch.cuda.reset_peak_memory_stats(dev)
-    t0 = time.perf_counter()
-    net = llama3_8b(device=dev, dtype=torch.bfloat16, seed=0)
-    eng = InferenceEngine(net, max_batch=8, block_size=16,
-                          max_context=1024, device=dev)
+# The two serving cells, phase 4's and phase 7's, over Llama-3-8B in
+# bf16 with block_size 16; tools/port_serving_pairs.py serves the same
+# requests through two trees' engines.
+SERVING_CELLS = {
+    "bf16": dict(kv_dtype=None, max_batch=8, max_context=1024,
+                 requests=16, lengths=(16, 901)),
+    "fp8": dict(kv_dtype="fp8", max_batch=16, max_context=4096,
+                requests=32, lengths=(256, 3801))}
+NEW_TOKENS = 32
+
+
+def serving_engine(serving, net, cell, dev):
+    """``serving.InferenceEngine`` over ``net`` in the cell's geometry,
+    warmed up (``serving`` is a port's serving package)."""
+    eng = serving.InferenceEngine(
+        net, kv_dtype=cell["kv_dtype"], max_batch=cell["max_batch"],
+        block_size=16, max_context=cell["max_context"], device=dev)
     eng.warmup()
-    setup_s = time.perf_counter() - t0
-    finite = []
-    step_s = []
+    return eng
+
+
+def serving_prompts(cell, vocab):
+    """The cell's prompts, drawn from seed 0, and the generator after
+    them."""
+    import numpy as np
+    rng = np.random.RandomState(0)
+    lengths = rng.randint(*cell["lengths"], cell["requests"])
+    return [rng.randint(0, vocab, n) for n in lengths], rng
+
+
+def serve_requests(serving, eng, prompts, label):
+    """Serve ``prompts``, ``NEW_TOKENS`` greedy tokens each and all
+    submitted at t = 0, through ``serving.ContinuousBatcher`` on
+    ``eng``.  Fails unless every request finished with ``NEW_TOKENS``
+    tokens and every logit was finite.  Returns the finished requests,
+    the tokens generated, the wall seconds and the three metrics: the
+    decode step median (host clock around ``decode``, which returns
+    after a host read of the sampled tokens), tokens per second over the
+    run and TTFT p50."""
+    import torch
+    finite, step_s = [], []
     prefill, decode = eng.prefill, eng.decode
 
     def prefill_checked(slot, tokens):
@@ -945,40 +1030,62 @@ def serve_llama3_8b(dev, card):
         return nxt, logits
 
     eng.prefill, eng.decode = prefill_checked, decode_checked
-    rng = np.random.RandomState(0)
-    lengths = rng.randint(16, 901, 16)
-    batcher = ContinuousBatcher(eng)
-    ops.reset_launches()
-    torch.cuda.synchronize(dev)
+    try:
+        batcher = serving.ContinuousBatcher(eng)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i, p in enumerate(prompts):
+            batcher.submit(serving.Request(p, NEW_TOKENS, request_id=i))
+        stats = batcher.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        # drop the instance attributes: no cycle keeps the engine alive
+        del eng.prefill, eng.decode
+    done = batcher.finished
+    if len(done) != len(prompts) or any(len(r.generated) != NEW_TOKENS
+                                        for r in done):
+        fail(f"{label}: not every request finished with {NEW_TOKENS} "
+             "tokens")
+    if not bool(torch.stack(finite).all()):
+        fail(f"{label}: non-finite logits on the serving path")
+    tokens = stats["tokens_generated"]
+    return {"finished": done, "tokens": tokens, "wall_s": wall,
+            "steps": len(step_s),
+            "step_ms": statistics.median(step_s) * 1e3,
+            "tokens_per_s": tokens / wall,
+            "ttft_p50_ms": statistics.median(r.ttft() for r in done) * 1e3}
+
+
+def serve_llama3_8b(dev, card):
+    import torch
+    from mxnet_tpu_torch import ops, serving
+    from mxnet_tpu_torch.gluon.model_zoo.nlp.llama import llama3_8b
+    cell = SERVING_CELLS["bf16"]
+    torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
-    for n in lengths:
-        batcher.submit(Request(rng.randint(0, net.cfg.vocab_size, n), 32))
-    stats = batcher.run()
-    torch.cuda.synchronize(dev)
-    wall = time.perf_counter() - t0
+    net = llama3_8b(device=dev, dtype=torch.bfloat16, seed=0)
+    eng = serving_engine(serving, net, cell, dev)
+    setup_s = time.perf_counter() - t0
+    prompts, rng = serving_prompts(cell, net.cfg.vocab_size)
+    ops.reset_launches()
+    run = serve_requests(serving, eng, prompts, "serving")
     launches = read_launches("serving", {
         "flash_attention_fwd": net.cfg.num_layers * eng.stats["prefill_calls"],
         "paged_decode_attention":
             net.cfg.num_layers * eng.stats["decode_calls"]})
-    if len(batcher.finished) != 16 or any(
-            len(r.generated) != 32 for r in batcher.finished):
-        fail("not every request finished with 32 tokens")
-    if not bool(torch.stack(finite).all()):
-        fail("non-finite logits on the serving path")
-    ttft = sorted(r.ttft() for r in batcher.finished)
-    tokens = stats["tokens_generated"]
+    lengths = [len(p) for p in prompts]
     peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
-    print(f"serving llama3_8b bf16 on {card}: {len(lengths)} requests, "
-          f"prompts {int(lengths.min())}-{int(lengths.max())} tokens, "
-          f"{tokens} tokens in {wall:.3f} s = {tokens / wall:.1f} tokens/s; "
-          f"TTFT p50 {ttft[len(ttft) // 2] * 1e3:.1f} ms; decode step "
-          f"median {sorted(step_s)[len(step_s) // 2] * 1e3:.2f} ms over "
-          f"{len(step_s)} steps; peak memory {peak_gb:.2f} GB; set-up "
-          f"{setup_s:.1f} s; launches {launches}", flush=True)
-    # the checked prefill/decode wrappers and the engine reference each
-    # other: collect the cycle, or 17 GB of weights and cache outlive
-    # the phase
-    del eng, net, batcher, prefill, decode
+    print(f"serving llama3_8b bf16 on {card}: {len(prompts)} requests, "
+          f"prompts {min(lengths)}-{max(lengths)} tokens, {run['tokens']} "
+          f"tokens in {run['wall_s']:.3f} s = {run['tokens_per_s']:.1f} "
+          f"tokens/s; TTFT p50 {run['ttft_p50_ms']:.1f} ms; decode step "
+          f"median {run['step_ms']:.2f} ms over {run['steps']} steps; peak "
+          f"memory {peak_gb:.2f} GB; set-up {setup_s:.1f} s; "
+          f"{graph_text(eng)}; launches {launches}", flush=True)
+    print(graph_vs_eager(eng, rng.randint(0, net.cfg.vocab_size,
+                                          500).tolist()), flush=True)
+    del eng, net, run
     gc.collect()
     torch.cuda.empty_cache()
     return launches
@@ -1023,21 +1130,17 @@ def serve_llama3_8b_fp8(dev, card):
     each.  Afterwards, outside the counted window, one request's fp8
     decode logits against a bf16-pool engine on the same net
     (teacher-forced; printed, not a limit)."""
-    import numpy as np
     import torch
-    from mxnet_tpu_torch import ops
+    from mxnet_tpu_torch import ops, serving
     from mxnet_tpu_torch.gluon.model_zoo.nlp.llama import llama3_8b
     from mxnet_tpu_torch.ops.quant_kv import kv_block_bytes
-    from mxnet_tpu_torch.serving import (ContinuousBatcher, InferenceEngine,
-                                         Request)
+    cell = SERVING_CELLS["fp8"]
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
     net = llama3_8b(device=dev, dtype=torch.bfloat16, seed=0)
     cfg = net.cfg
-    eng = InferenceEngine(net, kv_dtype="fp8", max_batch=16, block_size=16,
-                          max_context=4096, device=dev)
-    eng.warmup()
+    eng = serving_engine(serving, net, cell, dev)
     setup_s = time.perf_counter() - t0
     c = eng.cache
     pool_bytes = sum(t.numel() * t.element_size()
@@ -1047,61 +1150,30 @@ def serve_llama3_8b_fp8(dev, card):
              f"{c.num_blocks * c.block_nbytes}")
     bf16_bytes = c.num_blocks * kv_block_bytes(
         cfg.num_layers, cfg.num_kv_heads, cfg.head_dim, c.block_size, "bf16")
-    finite, step_s = [], []
-    prefill, decode = eng.prefill, eng.decode
-
-    def prefill_checked(slot, tokens):
-        out = prefill(slot, tokens)
-        if out is not None:
-            finite.append(torch.isfinite(out[1]).all())
-        return out
-
-    def decode_checked(entries):
-        t = time.perf_counter()
-        nxt, logits = decode(entries)      # returns after a host sync
-        step_s.append(time.perf_counter() - t)
-        finite.append(torch.isfinite(logits).all())
-        return nxt, logits
-
-    eng.prefill, eng.decode = prefill_checked, decode_checked
-    rng = np.random.RandomState(0)
-    lengths = rng.randint(256, 3801, 32)
-    prompts = [rng.randint(0, cfg.vocab_size, n) for n in lengths]
-    batcher = ContinuousBatcher(eng)
+    prompts, _ = serving_prompts(cell, cfg.vocab_size)
     ops.reset_launches()
-    torch.cuda.synchronize(dev)
-    t0 = time.perf_counter()
-    for p in prompts:
-        batcher.submit(Request(p, 32))
-    stats = batcher.run()
-    torch.cuda.synchronize(dev)
-    wall = time.perf_counter() - t0
+    run = serve_requests(serving, eng, prompts, "fp8 serving")
     launches = read_launches("fp8 serving", {
         "flash_attention_fwd": cfg.num_layers * eng.stats["prefill_calls"],
         "paged_decode_attention_fp8":
             cfg.num_layers * eng.stats["decode_calls"]})
-    if len(batcher.finished) != 32 or any(
-            len(r.generated) != 32 for r in batcher.finished):
-        fail("fp8 serving: not every request finished with 32 tokens")
-    if not bool(torch.stack(finite).all()):
-        fail("non-finite logits on the fp8 serving path")
-    eng.prefill, eng.decode = prefill, decode
-    ttft = sorted(r.ttft() for r in batcher.finished)
-    tokens = stats["tokens_generated"]
+    lengths = [len(p) for p in prompts]
     peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
     print(f"serving llama3_8b bf16, fp8 KV cache, max_context 4096, on "
-          f"{card}: {len(lengths)} requests, prompts {int(lengths.min())}-"
-          f"{int(lengths.max())} tokens, {tokens} tokens in {wall:.3f} s = "
-          f"{tokens / wall:.1f} tokens/s; TTFT p50 "
-          f"{ttft[len(ttft) // 2] * 1e3:.1f} ms; decode step median "
-          f"{sorted(step_s)[len(step_s) // 2] * 1e3:.2f} ms over "
-          f"{len(step_s)} steps; peak memory {peak_gb:.2f} GB; pool "
-          f"{c.num_blocks} blocks, {pool_bytes} bytes fp8 with scales "
-          f"against {bf16_bytes} bf16; set-up {setup_s:.1f} s; launches "
-          f"{launches}", flush=True)
+          f"{card}: {len(prompts)} requests, prompts {min(lengths)}-"
+          f"{max(lengths)} tokens, {run['tokens']} tokens in "
+          f"{run['wall_s']:.3f} s = {run['tokens_per_s']:.1f} tokens/s; "
+          f"TTFT p50 {run['ttft_p50_ms']:.1f} ms; decode step median "
+          f"{run['step_ms']:.2f} ms over {run['steps']} steps; peak memory "
+          f"{peak_gb:.2f} GB; pool {c.num_blocks} blocks, {pool_bytes} "
+          f"bytes fp8 with scales against {bf16_bytes} bf16; set-up "
+          f"{setup_s:.1f} s; {graph_text(eng)}; launches {launches}",
+          flush=True)
+    print(graph_vs_eager(eng, prompts[1][:2000].tolist()), flush=True)
     # drift of one request's fp8 decode logits against a bf16 pool
-    ref = InferenceEngine(net, kv_dtype="bf16", max_batch=2, block_size=16,
-                          max_context=1024, device=dev)
+    ref = serving.InferenceEngine(net, kv_dtype="bf16", max_batch=2,
+                                  block_size=16, max_context=1024,
+                                  device=dev)
     prompt = prompts[0][:900].tolist()
     fed, lg8 = _greedy(eng, "drift", prompt, 16)
     lg16 = _replay(ref, "drift", prompt, fed, 16)
@@ -1112,8 +1184,7 @@ def serve_llama3_8b_fp8(dev, card):
           f"teacher-forced decode steps: max |logit| drift {drift:.4e} "
           f"(largest |logit| {top:.4e}); prefill logits equal: "
           f"{bool(torch.equal(lg8[0], lg16[0]))}", flush=True)
-    del eng, ref, net, batcher, prefill, decode, prefill_checked, \
-        decode_checked
+    del eng, ref, net, run
     gc.collect()
     torch.cuda.empty_cache()
     return launches

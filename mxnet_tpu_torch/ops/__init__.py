@@ -18,7 +18,7 @@ __all__ = ["flash_attention", "flash_attention_fwd", "flash_attention_bwd",
            "paged_decode_attention", "fused_bucket_rule", "fused_sgd_update",
            "fused_adam_update", "fused_layer_norm", "fused_layer_norm_fwd",
            "fused_layer_norm_bwd", "resolve_kv_dtype", "KERNELS",
-           "launch_counts", "reset_launches"]
+           "launch_counts", "reset_launches", "add_launches"]
 
 #: the kernel wrappers whose ``launches`` counts the main paths read
 KERNELS = {"flash_attention_fwd": flash_attention_fwd,
@@ -44,3 +44,14 @@ def reset_launches():
     for fn in KERNELS.values():
         fn.launches = 0
     paged_decode_attention.launches_fp8 = 0
+
+
+def add_launches(counts):
+    """Add ``counts`` (launches by name, as :func:`launch_counts` names
+    them) to the counters: a CUDA graph's replay launches the kernels it
+    captured without calling their wrappers."""
+    for name, n in counts.items():
+        if name == "paged_decode_attention_fp8":
+            paged_decode_attention.launches_fp8 += n
+        else:
+            KERNELS[name].launches += n

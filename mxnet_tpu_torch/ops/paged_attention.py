@@ -30,7 +30,9 @@ unnormalised softmax state (max, sum of p, p.V) to an f32 workspace
 (``torch.empty`` per call) and draws a ticket from an int32 counter per
 (sequence, kv head); the last split merges all of them in split order
 and resets the counter.  The counters are one zeroed buffer per device,
-kept by this module and grown on demand; K5 runs on one stream.  One
+kept by this module and grown on demand by a larger one; the smaller
+buffers stay alive, since a captured CUDA graph keeps launching on the
+buffer it was captured with.  K5 runs on one stream.  One
 launch per call, no float atomics: two runs give the same bits.
 """
 from __future__ import annotations
@@ -56,7 +58,7 @@ _SIGNATURES = {"paged_decode_attention": [_P, _P, _P, _P, _P, _P, _P, _P,
                                           _P, _P, _I, _I, _I, _I, _I, _I,
                                           _I, _I, _I, _I, ctypes.c_float,
                                           _I, _P]}
-_counters = {}              # device index -> zeroed int32 ticket counters
+_counters = {}              # device index -> [zeroed int32 ticket counters]
 
 
 def split_plan(nbl, bs):
@@ -70,12 +72,13 @@ def split_plan(nbl, bs):
 
 def _ticket_counters(device, n):
     """At least ``n`` zeroed int32 counters on ``device``; every launch
-    leaves them zeroed."""
-    buf = _counters.get(device.index)
-    if buf is None or buf.numel() < n:
-        buf = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
-        _counters[device.index] = buf
-    return buf
+    leaves them zeroed.  Growing keeps every earlier buffer: a graph
+    captured on one still uses it."""
+    bufs = _counters.setdefault(device.index, [])
+    if not bufs or bufs[-1].numel() < n:
+        bufs.append(torch.zeros(max(n, 1024), dtype=torch.int32,
+                                device=device))
+    return bufs[-1]
 
 
 def paged_decode_plain(q, k_pool, v_pool, block_tables, pos, scale,

@@ -1,13 +1,19 @@
 """Bucketed inference engine for Llama-family decoders, on one card.
 
-Counterpart of ``mxnet_tpu/serving/engine.py``.  The reference compiles
-two graph families ahead of time; here PyTorch runs eagerly and the same
-two bodies are plain methods:
+Counterpart of ``mxnet_tpu/serving/engine.py``, with its serving
+contract: nothing compiles under traffic.  The reference AOT-compiles
+one executable per (kind, bucket) in :meth:`warmup` and only looks them
+up afterwards; here each (kind, bucket) is one step object
+(:class:`_Step`) over static input and output buffers, and on the card
+:meth:`warmup` captures each step's body as a CUDA graph.  ``prefill``
+and ``decode`` then copy their inputs in, replay, and read the outputs
+out.  The two bodies:
 
 - ``_prefill_body``: a causal forward over a prompt padded to a
   power-of-two bucket through the flash kernel, writing the unrepeated
   GQA K/V into the sequence's pool blocks and sampling the first token
-  from the last VALID position's logits.
+  from the last VALID position's logits (the valid length is a device
+  tensor, so one graph serves every prompt length of its bucket).
 - ``_decode_body``: ONE token for the whole fixed-size batch (padded to
   ``max_batch``) against the paged KV cache: the current K/V is written
   into the pool first, then attention runs through the paged-decode
@@ -25,14 +31,42 @@ The KV pools are updated IN PLACE by index assignment; that replaces the
 reference's donated-argument round trip (``pool_args``/``update_pools``).
 Weights are the model's own parameters, never copied.  The big
 projections stay ``torch.matmul`` (the reference leaves them to XLA);
-RMSNorm, RoPE and SwiGLU are plain torch.  Sampling uses one
-``torch.Generator`` on the engine's device: greedy streams match the
-reference exactly, sampled streams draw other numbers than JAX's keys.
+RMSNorm, RoPE and SwiGLU are plain torch.
 
-``stats`` keeps the reference's keys.  ``compiles`` counts the first run
-of each (kind, bucket) shape and ``compiles_after_warmup`` those first
-seen after :meth:`warmup` -- the shapes a later slice captures as CUDA
-graphs.
+The graph cache (the reference's ``_sig``/``_get``): steps are keyed by
+``(kind, size)`` (``size`` is the prefill bucket or the decode's table
+width in blocks).  A miss builds one step and counts in
+``stats["compiles"]``, and after :meth:`warmup` also in
+``compiles_after_warmup``; a second :meth:`warmup` finds every step and
+builds nothing.  On CUDA a step's first run runs its body once on the
+engine's capture stream (kernels built and loaded, cuBLAS set up), then
+captures it into a ``torch.cuda.CUDAGraph``; every graph of an engine
+allocates from one memory pool, so they share their intermediates.  A
+failed capture or replay raises; there is no eager path on the card.
+With ``device="cpu"`` the same step objects run their bodies directly on
+the static buffers.  The reference's ``compile_cache=`` (one cache
+shared by Router replicas) has no counterpart: a graph bakes in this
+engine's pool, weight and buffer addresses, so it serves no other
+engine.
+
+Inputs reach a step through one staging buffer (pinned on the card) and
+one non-blocking copy a call; a call waits on an event for the last
+copy out of the buffer before refilling it (every serving call already
+ends in a host read of the sampled token, so the wait is free).  A
+replay overwrites the static outputs (and the shared pool may reuse an
+output of one graph as scratch in another), so ``prefill`` and
+``decode`` return clones.  Kernel launch counters (``ops.launch_counts``)
+count what ran: a capture's wrapper calls are taken back out, and each
+replay adds them again.
+
+Sampling runs inside the graph from one ``torch.Generator`` on the
+engine's device, registered with every graph: greedy at temperature 0,
+else (top-k) categorical.  The categorical draw is ``torch.multinomial``'s
+own one-sample algorithm written out (``argmax(p / q)``, ``q`` drawn
+from ``Exp(1)``): it draws the same numbers from the generator and picks
+the same token, without the host-side validity check that makes
+``multinomial`` itself uncapturable.  Greedy streams match the reference
+exactly; sampled streams draw other numbers than JAX's keys.
 
 Not in this slice (each raises ``NotSupportedError``): int8 weights
 (``quantize``), tensor parallelism (``mesh``), chunked prefill
@@ -42,6 +76,7 @@ one ``kv_cache`` between engines.
 from __future__ import annotations
 
 import math
+import time
 
 import numpy as _np
 import torch
@@ -51,6 +86,7 @@ from ..base import MXNetError, NotSupportedError
 from ..context import resolve_device
 from ..gluon.model_zoo.nlp.llama import (_rms, _rope_cos_sin,
                                          _rot_interleaved)
+from ..ops import add_launches, launch_counts
 from ..ops.flash_attention import flash_attention
 from ..ops.paged_attention import paged_decode_attention
 from ..ops.quant_kv import (kv_cast, kv_has_scales, kv_quantize_fp8,
@@ -66,6 +102,96 @@ def next_bucket(n, buckets):
         if n <= b:
             return b
     return None
+
+
+class _Step:
+    """One (kind, bucket) step over static buffers: the port's
+    counterpart of one executable in the reference's compile cache.
+
+    The inputs are int32 views of one flat buffer on the engine's
+    device: for ``"prefill"`` the padded tokens ``(1, L)``, the valid
+    length ``(1,)`` and the block table ``(L / block_size,)``; for
+    ``"decode"`` the tokens, positions and written block ids
+    ``(max_batch,)`` and the block tables ``(max_batch, size)``.  The
+    caller fills :meth:`stage`'s host views, then :meth:`run` copies
+    them in and, on CUDA, replays the step's graph (capturing it at the
+    first run) and returns the static outputs; on the CPU it runs the
+    body on the static inputs."""
+
+    def __init__(self, eng, kind, size):
+        self.eng = eng
+        B = eng.max_batch
+        if kind == "prefill":
+            parts = [size, 1, size // eng.block_size]
+            self.body = eng._prefill_body
+        else:
+            parts = [B, B, B, B * size]
+            self.body = eng._decode_and_sample
+        self._splits = _np.cumsum(parts)[:-1]
+        self.flat = torch.zeros(sum(parts), dtype=torch.int32,
+                                device=eng.device)
+        views = self.flat.split(parts)
+        if kind == "prefill":
+            toks, valid, table = views
+            self.args = (toks.view(1, size), valid, table)
+        else:
+            toks, pos, blk, tables = views
+            # the paged kernel takes contiguous (B, nbl) tables: a view
+            # of a contiguous piece, never a column slice
+            self.args = (toks, pos, tables.view(B, size), blk)
+        self.graph = None
+        self.outputs = None
+        self.launches = {}      # kernel -> launches a replay makes
+
+    def stage(self):
+        """Zeroed host views of the inputs, flat, in the order above (the
+        engine's staging buffer, pinned on CUDA; the last call's copy
+        out of it has finished)."""
+        eng = self.eng
+        if eng._staged is not None:
+            eng._staged.synchronize()
+        host = eng._stage_np[:self.flat.numel()]
+        host[:] = 0
+        return _np.split(host, self._splits)
+
+    def run(self):
+        """Copy the staged inputs in and run the step: ``(logits,
+        tokens)``, static tensors on CUDA."""
+        eng = self.eng
+        self.flat.copy_(eng._stage[:self.flat.numel()], non_blocking=True)
+        if eng.device.type == "cpu":
+            return self.body(*self.args)
+        eng._staged.record()
+        if self.graph is None:
+            self._capture()
+        self.graph.replay()
+        add_launches(self.launches)
+        return self.outputs
+
+    def _capture(self):
+        """Run the body once on the engine's capture stream (as
+        ``torch.cuda.graph`` asks: kernels loaded, cuBLAS workspaces set
+        up), then capture it into the engine's graph pool.  The capture's
+        wrapper calls launched nothing: their counts are taken back out
+        and kept as what each replay launches."""
+        eng = self.eng
+        t0 = time.perf_counter()
+        stream = eng._capture_stream
+        stream.wait_stream(torch.cuda.current_stream(eng.device))
+        with torch.cuda.stream(stream):
+            self.body(*self.args)
+        graph = torch.cuda.CUDAGraph()
+        if eng.temperature != 0.0:
+            graph.register_generator_state(eng._gen)
+        before = launch_counts()
+        with torch.cuda.graph(graph, pool=eng._graph_pool, stream=stream):
+            outputs = self.body(*self.args)
+        after = launch_counts()
+        self.launches = {k: after[k] - before[k] for k in after
+                         if after[k] != before[k]}
+        add_launches({k: -v for k, v in self.launches.items()})
+        self.graph, self.outputs = graph, outputs
+        eng.capture_seconds += time.perf_counter() - t0
 
 
 def _refuse(name, value, later):
@@ -144,8 +270,20 @@ class InferenceEngine:
         self.temperature = float(temperature)
         self.top_k = int(top_k)
         self._gen = torch.Generator(device=self.device).manual_seed(int(seed))
-        self._seen = set()
+        self._steps = {}             # (kind, size) -> _Step
         self._warmed = False
+        top = self.buckets[-1]
+        cuda = self.device.type == "cuda"
+        self._stage = torch.empty(
+            max(top + 1 + top // bs, self.max_batch * (3 + top // bs)),
+            dtype=torch.int32, pin_memory=cuda)
+        self._stage_np = self._stage.numpy()
+        self._staged = torch.cuda.Event() if cuda else None
+        self._graph_pool = torch.cuda.graph_pool_handle() if cuda else None
+        self._capture_stream = torch.cuda.Stream(self.device) if cuda \
+            else None
+        #: seconds spent capturing graphs (each with its warm-up run)
+        self.capture_seconds = 0.0
         self.stats = {"compiles": 0, "compiles_after_warmup": 0,
                       "prefill_calls": 0, "decode_calls": 0,
                       "chunk_prefill_calls": 0,
@@ -194,15 +332,17 @@ class InferenceEngine:
         """Prefill for one prompt padded to ``L = toks.shape[1]`` tokens:
         causal forward through the flash kernel, unrepeated K/V written
         into the blocks ``bt`` (covering the whole bucket), the first
-        token sampled from row ``valid - 1``.  Returns (logits (V,),
-        token (1,))."""
+        token sampled from row ``valid - 1`` (``valid`` a (1,) int
+        tensor on the engine's device).  Returns (logits (V,), token
+        (1,))."""
         cfg = self.cfg
         h, kvh, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
         rep, eps = h // kvh, cfg.rms_eps
         bs = self.block_size
         L = toks.shape[1]
         nb = L // bs
-        x = self.params["embed"][toks]                       # (1, L, hid)
+        bt = bt.long()
+        x = self.params["embed"][toks.long()]                # (1, L, hid)
         cos, sin = _rope_cos_sin(torch.arange(L, device=self.device), d,
                                  cfg.rope_theta)
         for li, lp in enumerate(self.params["layers"]):
@@ -225,7 +365,10 @@ class InferenceEngine:
             x = x + torch.matmul(o, lp["o"].T)
             x = self._mlp(lp, x)
         x = _rms(x, self.params["norm"], eps)
-        last = self._head_logits(x[0, valid - 1])            # (V,)
+        # the last valid row, picked on the device (a graph serves every
+        # prompt length of its bucket)
+        row = x[0].index_select(0, valid.long() - 1)[0]
+        last = self._head_logits(row)                        # (V,)
         return last, self._sample(last[None, :])
 
     def _decode_body(self, toks, pos, bts, blk):
@@ -261,56 +404,82 @@ class InferenceEngine:
             x = self._mlp(lp, x)
         return self._head_logits(_rms(x, self.params["norm"], eps))
 
+    def _decode_and_sample(self, toks, pos, bts, blk):
+        """The decode step's graph body: ``(logits (B, V), next tokens
+        (B,))``."""
+        logits = self._decode_body(toks, pos, bts, blk)
+        return logits, self._sample(logits)
+
     def _sample(self, logits):
         """Next-token sampling on the device: greedy at temperature 0,
-        else (top-k) categorical from the engine's generator."""
+        else (top-k) categorical from the engine's generator, drawn as
+        ``torch.multinomial(p, 1)`` draws it (see the module doc)."""
         if self.temperature == 0.0:
             return torch.argmax(logits, dim=-1).to(torch.int32)
         scaled = logits.float() / self.temperature
+        idx = None
         if self.top_k > 0:
-            vals, idx = torch.topk(scaled, self.top_k, dim=-1)
-            pick = torch.multinomial(torch.softmax(vals, dim=-1), 1,
-                                     generator=self._gen)
-            return torch.gather(idx, 1, pick)[:, 0].to(torch.int32)
-        return torch.multinomial(torch.softmax(scaled, dim=-1), 1,
-                                 generator=self._gen)[:, 0].to(torch.int32)
+            scaled, idx = torch.topk(scaled, self.top_k, dim=-1)
+        p = torch.softmax(scaled, dim=-1)
+        q = torch.empty_like(p).exponential_(1, generator=self._gen)
+        pick = torch.argmax(p / q, dim=-1, keepdim=True)
+        if idx is not None:
+            pick = torch.gather(idx, 1, pick)
+        return pick[:, 0].to(torch.int32)
 
-    def _note(self, kind, size):
-        """Count the first run of each (kind, bucket) shape."""
-        if (kind, size) in self._seen:
-            return
-        self._seen.add((kind, size))
-        self.stats["compiles"] += 1
-        if self._warmed:
-            self.stats["compiles_after_warmup"] += 1
+    def _get(self, kind, size):
+        """The step for ``(kind, size)``; a miss builds one (captured at
+        its first run on CUDA) and is counted, after :meth:`warmup` also
+        in ``compiles_after_warmup``: traffic must never miss."""
+        step = self._steps.get((kind, size))
+        if step is None:
+            step = self._steps[kind, size] = _Step(self, kind, size)
+            self.stats["compiles"] += 1
+            if self._warmed:
+                self.stats["compiles_after_warmup"] += 1
+        return step
 
-    def _tensor(self, arr):
-        return torch.from_numpy(_np.ascontiguousarray(arr)).to(self.device)
+    def graphs_captured(self):
+        """How many CUDA graphs this engine holds (0 on the CPU)."""
+        return sum(s.graph is not None for s in self._steps.values())
+
+    def graph_pool_bytes(self):
+        """Bytes the caching allocator reserves in this engine's graph
+        pool (0 on the CPU)."""
+        if self._graph_pool is None:
+            return 0
+        pool = tuple(self._graph_pool)
+        return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+                   if tuple(seg["segment_pool_id"]) == pool)
 
     # -- warmup ----------------------------------------------------------
 
     @torch.no_grad()
     def warmup(self):
-        """Run every bucket's prefill and decode once (the decode with
-        every row inactive, writing the null block), so the kernels are
-        built and loaded before traffic."""
+        """Build every bucket's prefill and decode step and run each once
+        (the decode with every row inactive, writing the null block): on
+        CUDA each is captured as a graph here, before traffic.  Buckets
+        whose steps exist already are skipped, as the reference skips
+        signatures its cache holds."""
+        B = self.max_batch
         for bucket in self.buckets:
             nb = bucket // self.block_size
+            if ("prefill", bucket) in self._steps and \
+                    ("decode", nb) in self._steps:
+                continue
             if not self.cache.alloc("__warmup__", bucket):
                 raise MXNetError("warmup: KV pool too small for bucket "
                                  f"{bucket}; raise num_blocks")
-            bt = self._tensor(_np.asarray(self.cache.table("__warmup__"),
-                                          _np.int64))
-            self._note("prefill", bucket)
-            self._prefill_body(
-                torch.zeros(1, bucket, dtype=torch.long, device=self.device),
-                1, bt)
-            bts = self._tensor(self.cache.table_array(
-                ["__warmup__"] + [None] * (self.max_batch - 1), nb))
-            zeros = torch.zeros(self.max_batch, dtype=torch.int32,
-                                device=self.device)
-            self._note("decode", nb)
-            self._decode_body(zeros, zeros, bts, zeros)
+            step = self._get("prefill", bucket)
+            _, valid, table = step.stage()
+            valid[0] = 1
+            table[:] = self.cache.table("__warmup__")
+            step.run()
+            step = self._get("decode", nb)
+            tables = step.stage()[3]
+            tables[:] = self.cache.table_array(
+                ["__warmup__"] + [None] * (B - 1), nb).ravel()
+            step.run()
             self.cache.free("__warmup__")
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
@@ -335,16 +504,17 @@ class InferenceEngine:
             return None
         if not self.cache.alloc(slot, bucket):
             return None
-        padded = _np.zeros((1, bucket), _np.int64)
-        padded[0, :t] = toks
-        bt = self._tensor(_np.asarray(self.cache.table(slot), _np.int64))
-        self._note("prefill", bucket)
-        last, tok = self._prefill_body(self._tensor(padded), t, bt)
+        step = self._get("prefill", bucket)
+        padded, valid, table = step.stage()
+        padded[:t], valid[0] = toks, t
+        table[:] = self.cache.table(slot)
+        last, tok = step.run()
+        first, last = int(tok[0]), last.clone()
         self.cache.trim(slot, t)
         self.cache.set_len(slot, t)
         self.stats["prefill_calls"] += 1
         self.stats["prompt_tokens_computed"] += t
-        return int(tok[0]), last
+        return first, last
 
     def reserve(self, slot, pos, n=1):
         """Grow ``slot``'s block table to cover positions
@@ -388,21 +558,19 @@ class InferenceEngine:
                              f"{self.max_context}")
         nbl = bucket // self.block_size
         slots = [s for s, _, _ in entries] + [None] * (self.max_batch - n)
-        # rows: token, position, block written (inactive rows: the
-        # null block at position 0)
-        host = _np.zeros((3, self.max_batch), _np.int32)
+        step = self._get("decode", nbl)
+        # inactive rows: token 0 at position 0 of the null block
+        toks, pos, blk, tables = step.stage()
         for i, (slot, tok, p) in enumerate(entries):
-            host[:2, i] = tok, p
+            toks[i], pos[i] = tok, p
             self.cache.set_len(slot, p + 1)
         table = self.cache.table_array(slots, nbl)
-        host[2, :n] = table[_np.arange(n), host[1, :n] // self.block_size]
-        dev = self._tensor(host)
-        bts = self._tensor(table)
-        self._note("decode", nbl)
-        logits = self._decode_body(dev[0], dev[1], bts, dev[2])
-        nxt = self._sample(logits)
+        blk[:n] = table[_np.arange(n), pos[:n] // self.block_size]
+        tables[:] = table.ravel()
+        logits, nxt = step.run()
+        logits = logits[:n].clone()
         self.stats["decode_calls"] += 1
-        return nxt[:n].cpu().numpy(), logits[:n]
+        return nxt[:n].cpu().numpy(), logits
 
     def release(self, slot):
         """Finished sequence: drop its hold on its blocks."""

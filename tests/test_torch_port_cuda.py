@@ -25,7 +25,7 @@ import numpy as np
 import pytest
 import torch
 
-from mxnet_tpu_torch import MXNetError
+from mxnet_tpu_torch import MXNetError, ops
 from mxnet_tpu_torch.gluon import Trainer
 from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
 from mxnet_tpu_torch.gluon.model_zoo.nlp.llama import llama_tiny
@@ -43,10 +43,12 @@ from mxnet_tpu_torch.ops.fused_layernorm import (fused_layer_norm,
                                                  fused_layer_norm_fwd,
                                                  layer_norm_bwd_plain,
                                                  layer_norm_plain)
+from mxnet_tpu_torch.ops import paged_attention as paged_mod
 from mxnet_tpu_torch.ops.paged_attention import (paged_decode_attention,
                                                  paged_decode_plain,
                                                  split_plan)
 from mxnet_tpu_torch.ops.quant_kv import kv_quantize_fp8
+from mxnet_tpu_torch.serving import InferenceEngine
 
 pytestmark = pytest.mark.cuda
 
@@ -738,3 +740,154 @@ def test_layernorm_op_on_card_is_differentiable(card):
     assert torch.equal(leaves[1].grad, leaves[0].grad)
     torch.testing.assert_close(leaves[2].grad, rdg, **LN_PARAM_TOL)
     torch.testing.assert_close(leaves[3].grad, rdb, **LN_PARAM_TOL)
+
+
+# ----------------------------------------------------------------------
+# the serving engine's CUDA graphs
+# ----------------------------------------------------------------------
+
+# a 2-layer Llama narrow enough for a test and wide enough for the
+# kernels (head_dim 64, GQA rep 2); buckets 16 and 32
+GRAPH_NET = dict(hidden_size=256, intermediate_size=512, num_heads=4,
+                 num_kv_heads=2, vocab_size=512, max_seq_len=64)
+GRAPH_ENGINE = dict(max_batch=2, block_size=16, max_context=32)
+GRAPH_POOLS = {"f32": (torch.float32, None), "bf16": (torch.bfloat16, None),
+               "fp8": (torch.bfloat16, "fp8")}
+
+
+def _graph_engine(card, pool="f32", **kw):
+    dtype, kv_dtype = GRAPH_POOLS[pool]
+    net = llama_tiny(device=card, dtype=dtype, seed=3, **GRAPH_NET)
+    return InferenceEngine(net, kv_dtype=kv_dtype, device=card,
+                           **dict(GRAPH_ENGINE, **kw))
+
+
+def _bucket(eng, pos):
+    return next(b for b in eng.buckets if pos < b) // eng.block_size
+
+
+@pytest.mark.parametrize("pool", sorted(GRAPH_POOLS))
+def test_engine_graphs_replay_the_eager_bodies(card, pool):
+    """Warmup captures one graph per (kind, bucket); a prefill and 8
+    decode steps across the 16 -> 32 bucket replay them, and every
+    replay's outputs are bitwise those of its body run eagerly on the
+    same static inputs (which writes the same K/V rows again).  The
+    returned logits are not views of the static outputs: later replays
+    leave them as they were."""
+    eng = _graph_engine(card, pool).warmup()
+    assert eng.graphs_captured() == eng.stats["compiles"] == 4
+    assert eng.graph_pool_bytes() > 0
+    prompt = np.random.RandomState(7).randint(0, 512, 12).tolist()
+    tok, last = eng.prefill(0, prompt)
+    step = eng._steps["prefill", 16]
+    want_last, want_tok = eng._prefill_body(*step.args)
+    assert torch.equal(last, want_last) and tok == int(want_tok[0])
+    fed, outs = prompt + [tok], [(last, want_last)]
+    for _ in range(8):
+        pos = len(fed) - 1
+        assert eng.reserve(0, pos)
+        nxt, logits = eng.decode([(0, fed[-1], pos)])
+        step = eng._steps["decode", _bucket(eng, pos)]
+        want = eng._decode_body(*step.args)[:1]
+        assert torch.equal(logits, want)
+        assert int(nxt[0]) == int(torch.argmax(want[0]))
+        fed.append(int(nxt[0]))
+        outs.append((logits, want))
+    assert eng.stats["compiles_after_warmup"] == 0
+    assert all(torch.equal(got, want) for got, want in outs)
+    assert eng.stats["decode_calls"] == 8
+
+
+def test_engine_launch_counters_count_replays_not_captures(card):
+    """Warmup runs each body once eagerly (counted), captures it (not
+    counted) and replays it once (counted); a second warmup does
+    nothing; traffic counts one launch a layer a replay."""
+    eng = _graph_engine(card)
+    layers, buckets = eng.cfg.num_layers, len(eng.buckets)
+    ops.reset_launches()
+    eng.warmup()
+    want = {"flash_attention_fwd": 2 * layers * buckets,
+            "paged_decode_attention": 2 * layers * buckets}
+    got = ops.launch_counts()
+    assert {k: got[k] for k in want} == want
+    assert sum(got.values()) == sum(want.values())
+    eng.warmup()
+    assert ops.launch_counts() == got
+    ops.reset_launches()
+    prompt = list(range(1, 20))
+    tok, _ = eng.prefill(0, prompt)
+    for j in range(3):
+        assert eng.reserve(0, len(prompt) + j)
+        tok = int(eng.decode([(0, tok, len(prompt) + j)])[0][0])
+    got = ops.launch_counts()
+    assert got["flash_attention_fwd"] == layers
+    assert got["paged_decode_attention"] == 3 * layers
+    assert sum(got.values()) == 4 * layers
+
+
+def test_engine_sampling_under_graphs_is_seeded_and_within_top_k(card):
+    """Top-k sampling runs inside the graphs from the engine's generator:
+    the same seed gives the same tokens, each among the top k of the
+    logits the step returned."""
+    prompt = np.random.RandomState(9).randint(0, 512, 10).tolist()
+    runs = []
+    for _ in range(2):
+        eng = _graph_engine(card, temperature=1.0, top_k=3,
+                            seed=5).warmup()
+        tok, last = eng.prefill(0, prompt)
+        assert tok in torch.topk(last, 3).indices.tolist()
+        toks = [tok]
+        for j in range(6):
+            pos = len(prompt) + j
+            assert eng.reserve(0, pos)
+            nxt, logits = eng.decode([(0, toks[-1], pos)])
+            assert int(nxt[0]) in torch.topk(logits[0], 3).indices.tolist()
+            toks.append(int(nxt[0]))
+        runs.append(toks)
+    assert runs[0] == runs[1]
+    assert eng.stats["compiles_after_warmup"] == 0
+
+
+def test_engine_copy_on_write_between_replays_is_seen(card):
+    """``reserve`` forks a shared block between two replays; the next
+    replay attends over the copy: the forked sequence's logits equal
+    the source's for the same token at the same position."""
+    eng = _graph_engine(card).warmup()
+    prompt = np.random.RandomState(11).randint(0, 512, 12).tolist()
+    tok, _ = eng.prefill("a", prompt)
+    eng.cache.adopt("b", eng.cache.table("a"), len(prompt))
+    assert eng.reserve("b", len(prompt))
+    assert eng.cache.cow_copies == 1
+    _, lb = eng.decode([("b", tok, len(prompt))])
+    assert eng.reserve("a", len(prompt))
+    _, la = eng.decode([("a", tok, len(prompt))])
+    assert eng.cache.table("a")[0] != eng.cache.table("b")[0]
+    assert torch.equal(la, lb)
+
+
+def test_paged_ticket_counters_grow_after_a_capture(card):
+    """A graph captured on the ticket counters keeps them: growing the
+    counters for a larger launch keeps the old buffer, and the graph's
+    replay still merges its splits right even when fresh allocations
+    are filled with garbage afterwards."""
+    positions = [255, 3, 130, 200]
+    args, scales = _split_case(card, positions, 2, torch.bfloat16, 16,
+                               seed=21, KVH=2)
+    want = _paged_against_plain(args, scales)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = paged_decode_attention(*args, 128 ** -0.5, **scales)
+    # the size only: a reference held here would keep the buffer alive
+    dev = args[0].device                 # with its index, as K5 keys it
+    held = paged_mod._ticket_counters(dev, 0).numel()
+    big, big_scales = _split_case(card, [255] * (held // 2 + 1), 2,
+                                  torch.bfloat16, 16, seed=22, KVH=2)
+    paged_decode_attention(*big, 128 ** -0.5, **big_scales)
+    assert paged_mod._ticket_counters(dev, 0).numel() > held
+    junk = [torch.full((held,), 7, dtype=torch.int32, device=dev)
+            for _ in range(8)]
+    out.zero_()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, want)
+    del junk

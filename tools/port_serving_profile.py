@@ -4,15 +4,25 @@
 Builds Llama-3-8B (random weights from ``--seed``, bfloat16, full width;
 ``--layers`` cuts depth) with ``mxnet_tpu_torch``'s ``InferenceEngine``
 (block_size 16; ``--max-batch`` 8, ``--max-context`` 1024 and the KV
-storage ``--kv-dtype`` by default the model's), fills the batch with
-prompts of ``--prompt`` tokens, then profiles with ``torch.profiler``:
+storage ``--kv-dtype`` by default the model's), whose ``warmup()``
+captures every bucket's prefill and decode as CUDA graphs, fills the
+batch with prompts of ``--prompt`` tokens, then profiles the graph
+replays with ``torch.profiler``:
 
 - one prefill of a ``--prompt``-token prompt;
 - ``--steps`` decode steps of the full batch.
 
-For each window it prints the wall time, the device time summed over
-kernels, the device's idle share (1 - busy / wall) and the kernels with
-the most device time, as one JSON line.  With ``--trace-dir`` the
+Each window runs twice: once on the host clock alone, then under the
+profiler.
+
+For each window it prints the traced run's wall time, its device time
+summed over kernels and its idle share (1 - busy / wall), the kernels
+that ran (inside the graphs, as the profiler records them) and the
+kernels with the most device time, as one JSON line.  CUPTI's tracing
+slows the graph replays, so it also prints the untraced run's wall and
+an idle-share estimate that divides the traced run's busy time by it:
+two runs mixed, which holds only as far as tracing leaves the kernels'
+own durations unchanged.  With ``--trace-dir`` the
 Chrome traces are written there too.
 
 Run from the root of a checkout:  ``python3 tools/port_serving_profile.py``
@@ -28,9 +38,16 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def window(name, fn, trace_dir):
+    """Run ``fn`` once on the host clock alone, then once under the
+    profiler: the traced run's idle share, and an estimate that takes
+    its busy time against the untraced run's wall."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -46,6 +63,8 @@ def window(name, fn, trace_dir):
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
     return {"window": name, "wall_ms": wall_ms, "device_busy_ms": busy_ms,
             "idle_share": 1.0 - busy_ms / wall_ms,
+            "unprofiled_wall_ms": plain_ms,
+            "idle_share_estimate": 1.0 - busy_ms / plain_ms,
             "kernel_launches": sum(e.count for e in kernels),
             "top": [{"kernel": e.key[:80], "count": e.count,
                      "device_ms": e.self_device_time_total / 1e3}
@@ -86,9 +105,14 @@ def main():
     prompts = [rng.randint(0, net.cfg.vocab_size, args.prompt).tolist()
                for _ in range(eng.max_batch)]
     toks = [eng.prefill(i, p)[0] for i, p in enumerate(prompts[1:], 1)]
-    results = [window("prefill", lambda: eng.prefill(0, prompts[0]),
-                      args.trace_dir)]
-    state = {"toks": [0] + toks, "pos": args.prompt}
+
+    def prefill_slot0():
+        eng.prefill(0, prompts[0])
+        eng.release(0)
+
+    results = [window("prefill", prefill_slot0, args.trace_dir)]
+    state = {"toks": [eng.prefill(0, prompts[0])[0]] + toks,
+             "pos": args.prompt}
 
     def decode_steps():
         for _ in range(args.steps):
@@ -107,7 +131,10 @@ def main():
         print(f"{r['window']}: wall {r['wall_ms']:.3f} ms, device busy "
               f"{r['device_busy_ms']:.3f} ms, idle share "
               f"{r['idle_share']:.3f}, {r['kernel_launches']} kernel "
-              f"launches", flush=True)
+              f"launches; unprofiled wall {r['unprofiled_wall_ms']:.3f} ms, "
+              f"idle share estimate (traced busy over it) "
+              f"{r['idle_share_estimate']:.3f}",
+              flush=True)
     print(card)
     print(json.dumps({"card": card, "layers": args.layers,
                       "prompt": args.prompt, "max_batch": eng.max_batch,
