@@ -63,11 +63,13 @@ continued:
    on graphs as phase 4 (the same limit, fields and graph-vs-eager
    check), then one request's drift against a bf16 pool (printed);
 8. training: Llama-3-8B width at 4 layers in float32 (1.92 G
-   parameters), batch 2 x 1024 tokens, ``SoftmaxCrossEntropyLoss`` and
-   ``gluon.Trainer(..., "adamw", lr 1e-3, wd 0.1)``, 5 steps on one
-   batch: the loss must be finite and fall from step 1 to step 5, with
-   one K2 launch per step and one flash forward and backward per layer
-   per step;
+   parameters, views of the Trainer's one flat f32 buffer, which K2
+   updates where it lies), batch 2 x 1024 tokens,
+   ``SoftmaxCrossEntropyLoss`` and ``gluon.Trainer(..., "adamw", lr
+   1e-3, wd 0.1)``, 5 steps on one batch: the loss must be finite and
+   fall from step 1 to step 5, with one K2 launch per step and one flash
+   forward and backward per layer per step; the step and peak memory
+   are printed beside the numbers before the flat parameter buffer;
 9. card vs CPU, training: one layer at the full geometry (vocabulary cut
    to 32000 to keep host memory modest), two SGD-momentum steps (K1 on
    the card, the plain rule on the host) on 64 tokens from the same
@@ -76,9 +78,21 @@ continued:
     in bfloat16 (f32 gamma/beta) through ``ops.fused_layer_norm``,
     forward and backward: gradients finite and within phase 3's
     tolerances of the plain backward; the device time of a pass by
-    kernel (``torch.profiler``) beside the host clock.
+    kernel (``torch.profiler``) beside the host clock;
+11. bf16 AMP training, last (``amp.init`` is process-wide): phase 8's
+    model, batch and AdamW under ``amp.init("bfloat16")``,
+    ``amp.init_trainer`` and ``amp.scale_loss``, 5 steps: the loss
+    finite and falling, its first value within 2e-2 relative of phase
+    8's, logits and loss bf16 and gradients f32, and exactly 20 flash
+    forward and 20 backward launches, every one on bf16 inputs, and 5 K2
+    launches.
 
-Before each of phases 4, 7, 8, 9 and 10 the kernels' launch counters are
+Phases 4 and 7 also print, from a pass after the timed run (so the
+run's steps are measured as they run without it) that replays each
+decode step on its own staged inputs, the replays' device time (CUDA
+events around ``graph.replay()``) and each step's host share beside
+it.  Before
+each of phases 4, 7, 8, 9, 10 and 11 the kernels' launch counters are
 set to 0; each phase reads them just after and fails unless its kernels
 ran the expected number of times.  The second-to-last line is the
 card's name and power limit, the line before it the kernels' JSON
@@ -124,6 +138,14 @@ CHUNK = 1 << 26                       # plain update rule, per chunk
 UPDATE_PAIRS = 20                     # K1/K2 against the library, in turns
 LN_PAIRS = 20                         # K4 forward, its library call, x + res
 TRAIN_LAYERS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 2, 1024, 5
+# phase 8 before the flat parameter buffer, with the gathered bucket
+# (PERF.md §6; NVIDIA H100 80GB HBM3 at 700 W)
+TRAIN_PREV = {"peak_gb": 46.42, "step_ms": "386.2-387.8"}
+# phase 11's first loss against phase 8's (same weights and batch): the
+# loss is rounded to bf16 (spacing 2**-4 = 0.0625 between 8 and 16, 0.5%
+# of a loss near 12.6) after bf16 matmuls and a bf16 log-softmax over
+# 128256 logits
+AMP_FIRST_LOSS_RTOL = 2e-2
 
 
 def fail(msg):
@@ -1011,9 +1033,11 @@ def serve_requests(serving, eng, prompts, label):
     the tokens generated, the wall seconds and the three metrics: the
     decode step median (host clock around ``decode``, which returns
     after a host read of the sampled tokens), tokens per second over the
-    run and TTFT p50."""
+    run and TTFT p50; and each decode step's wall, largest position and
+    staged inputs (a host copy of the engine's staging buffer), for
+    :func:`replay_device`."""
     import torch
-    finite, step_s = [], []
+    finite, step_s, step_pos, staged = [], [], [], []
     prefill, decode = eng.prefill, eng.decode
 
     def prefill_checked(slot, tokens):
@@ -1026,6 +1050,8 @@ def serve_requests(serving, eng, prompts, label):
         t = time.perf_counter()
         nxt, logits = decode(entries)      # returns after a host sync
         step_s.append(time.perf_counter() - t)
+        step_pos.append(max(p for _, _, p in entries))
+        staged.append(eng._stage_np.copy())
         finite.append(torch.isfinite(logits).all())
         return nxt, logits
 
@@ -1051,10 +1077,47 @@ def serve_requests(serving, eng, prompts, label):
         fail(f"{label}: non-finite logits on the serving path")
     tokens = stats["tokens_generated"]
     return {"finished": done, "tokens": tokens, "wall_s": wall,
-            "steps": len(step_s),
+            "steps": len(step_s), "step_s": step_s, "step_pos": step_pos,
+            "staged": staged,
             "step_ms": statistics.median(step_s) * 1e3,
             "tokens_per_s": tokens / wall,
             "ttft_p50_ms": statistics.median(r.ttft() for r in done) * 1e3}
+
+
+def replay_device(eng, run, label):
+    """The decode replays' device time, taken after the timed run so
+    that its steps run as they do without measurement: each decode step
+    of the run is staged again with its own inputs and its graph
+    replayed once, with CUDA events recorded on the stream around
+    ``graph.replay()``.  Each step's device time is set beside its wall
+    in the run: the host share ``1 - device / wall``.  Call it when the
+    engine's KV pool is no longer read (the replays write their K/V rows
+    again, into blocks that may since have been freed)."""
+    import torch
+    from mxnet_tpu_torch.serving.engine import next_bucket
+    device_s = []
+    for pos, staged in zip(run["step_pos"], run["staged"]):
+        nbl = next_bucket(pos + 1, eng.buckets) // eng.block_size
+        step = eng._steps[("decode", nbl)]
+        if step.graph is None:
+            fail(f"{label}: decode step {nbl} has no graph")
+        eng._stage_np[:] = staged
+        step.flat.copy_(eng._stage[:step.flat.numel()])
+        start, end = (torch.cuda.Event(enable_timing=True)
+                      for _ in range(2))
+        start.record()
+        step.graph.replay()
+        end.record()
+        end.synchronize()
+        device_s.append(start.elapsed_time(end) / 1e3)
+    share = [1 - d / w for d, w in zip(device_s, run["step_s"])]
+    return (f"{label}: decode replay device time, each of the run's "
+            f"{len(share)} steps replayed after it on its own inputs (CUDA "
+            f"events around graph.replay()): median "
+            f"{statistics.median(device_s) * 1e3:.3f} ms (range "
+            f"{min(device_s) * 1e3:.3f}-{max(device_s) * 1e3:.3f}); host "
+            f"share 1 - device/wall median {statistics.median(share):.4f} "
+            f"(range {min(share):.4f}-{max(share):.4f})")
 
 
 def serve_llama3_8b(dev, card):
@@ -1072,6 +1135,8 @@ def serve_llama3_8b(dev, card):
     run = serve_requests(serving, eng, prompts, "serving")
     launches = read_launches("serving", {
         "flash_attention_fwd": net.cfg.num_layers * eng.stats["prefill_calls"],
+        "flash_attention_fwd_bf16":
+            net.cfg.num_layers * eng.stats["prefill_calls"],
         "paged_decode_attention":
             net.cfg.num_layers * eng.stats["decode_calls"]})
     lengths = [len(p) for p in prompts]
@@ -1080,11 +1145,12 @@ def serve_llama3_8b(dev, card):
           f"prompts {min(lengths)}-{max(lengths)} tokens, {run['tokens']} "
           f"tokens in {run['wall_s']:.3f} s = {run['tokens_per_s']:.1f} "
           f"tokens/s; TTFT p50 {run['ttft_p50_ms']:.1f} ms; decode step "
-          f"median {run['step_ms']:.2f} ms over {run['steps']} steps; peak "
-          f"memory {peak_gb:.2f} GB; set-up {setup_s:.1f} s; "
+          f"median {run['step_ms']:.2f} ms over {run['steps']} steps; "
+          f"peak memory {peak_gb:.2f} GB; set-up {setup_s:.1f} s; "
           f"{graph_text(eng)}; launches {launches}", flush=True)
     print(graph_vs_eager(eng, rng.randint(0, net.cfg.vocab_size,
                                           500).tolist()), flush=True)
+    print(replay_device(eng, run, "serving"), flush=True)
     del eng, net, run
     gc.collect()
     torch.cuda.empty_cache()
@@ -1155,6 +1221,7 @@ def serve_llama3_8b_fp8(dev, card):
     run = serve_requests(serving, eng, prompts, "fp8 serving")
     launches = read_launches("fp8 serving", {
         "flash_attention_fwd": cfg.num_layers * eng.stats["prefill_calls"],
+        "flash_attention_fwd_bf16": cfg.num_layers * eng.stats["prefill_calls"],
         "paged_decode_attention_fp8":
             cfg.num_layers * eng.stats["decode_calls"]})
     lengths = [len(p) for p in prompts]
@@ -1164,8 +1231,8 @@ def serve_llama3_8b_fp8(dev, card):
           f"{max(lengths)} tokens, {run['tokens']} tokens in "
           f"{run['wall_s']:.3f} s = {run['tokens_per_s']:.1f} tokens/s; "
           f"TTFT p50 {run['ttft_p50_ms']:.1f} ms; decode step median "
-          f"{run['step_ms']:.2f} ms over {run['steps']} steps; peak memory "
-          f"{peak_gb:.2f} GB; pool {c.num_blocks} blocks, {pool_bytes} "
+          f"{run['step_ms']:.2f} ms over {run['steps']} steps; peak "
+          f"memory {peak_gb:.2f} GB; pool {c.num_blocks} blocks, {pool_bytes} "
           f"bytes fp8 with scales against {bf16_bytes} bf16; set-up "
           f"{setup_s:.1f} s; {graph_text(eng)}; launches {launches}",
           flush=True)
@@ -1184,6 +1251,7 @@ def serve_llama3_8b_fp8(dev, card):
           f"teacher-forced decode steps: max |logit| drift {drift:.4e} "
           f"(largest |logit| {top:.4e}); prefill logits equal: "
           f"{bool(torch.equal(lg8[0], lg16[0]))}", flush=True)
+    print(replay_device(eng, run, "fp8 serving"), flush=True)
     del eng, ref, net, run
     gc.collect()
     torch.cuda.empty_cache()
@@ -1309,14 +1377,18 @@ def train_param_count():
         cfg.vocab_size * cfg.hidden_size           # untied lm_head
 
 
-def train_llama3_8b(dev, card):
+def train_llama3_8b(dev, card, amp_dtype=None, f32_first_loss=None):
+    """Phase 8 (f32) or, with ``amp_dtype="bfloat16"``, phase 11 (the
+    same model, batch and AdamW under ``amp.init``, ``amp.init_trainer``
+    and ``amp.scale_loss``).  Returns the launches and the first loss."""
     import statistics
     import numpy as np
     import torch
-    from mxnet_tpu_torch import ops
+    from mxnet_tpu_torch import amp, ops
     from mxnet_tpu_torch.gluon import Trainer
     from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
     from mxnet_tpu_torch.gluon.model_zoo.nlp.llama import llama3_8b
+    phase = "training" if amp_dtype is None else f"{amp_dtype} amp training"
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
@@ -1324,46 +1396,91 @@ def train_llama3_8b(dev, card):
                     num_layers=TRAIN_LAYERS)
     trainer = Trainer(dict(net.named_parameters()), "adamw",
                       {"learning_rate": 1e-3, "wd": 0.1})
+    # every parameter is a view of the Trainer's flat buffer: the update
+    # runs K2 on it where it lies, with no gather and no write-back
+    buf = trainer._flat_param
+    if buf is None or any(
+            not buf.data_ptr() <= p.data_ptr() < buf.data_ptr() + 4 *
+            buf.numel() for p in net.parameters()):
+        fail(f"{phase}: the parameters are not views of the Trainer's "
+             "flat buffer")
     loss_fn = SoftmaxCrossEntropyLoss()
     rng = np.random.RandomState(0)
     vocab = net.cfg.vocab_size
     tokens, labels = (torch.from_numpy(rng.randint(
         0, vocab, (TRAIN_BATCH, TRAIN_SEQ))).to(dev) for _ in range(2))
     n_params = sum(p.numel() for p in net.parameters())
-    torch.cuda.synchronize(dev)
-    setup_s = time.perf_counter() - t0
-    ops.reset_launches()
-    losses, step_s = [], []
-    for _ in range(TRAIN_STEPS):
-        t = time.perf_counter()
-        loss = loss_fn(net(tokens), labels)          # (batch,)
-        loss.sum().backward()
-        trainer.step(TRAIN_BATCH)
-        losses.append(loss.detach().mean())
+    if amp_dtype is not None:
+        amp.init(amp_dtype)
+    try:
+        if amp_dtype is not None:
+            amp.init_trainer(trainer)
         torch.cuda.synchronize(dev)
-        step_s.append(time.perf_counter() - t)
-    launches = read_launches("training", {
-        "flash_attention_fwd": TRAIN_LAYERS * TRAIN_STEPS,
-        "flash_attention_bwd": TRAIN_LAYERS * TRAIN_STEPS,
-        "fused_adam_update": TRAIN_STEPS})
+        setup_s = time.perf_counter() - t0
+        ops.reset_launches()
+        losses, step_s, dtypes = [], [], set()
+        for _ in range(TRAIN_STEPS):
+            t = time.perf_counter()
+            logits = net(tokens)
+            loss = loss_fn(logits, labels)              # (batch,)
+            with amp.scale_loss(loss.sum(), trainer) as scaled:
+                scaled.backward()
+            dtypes.add((logits.dtype, loss.dtype, frozenset(
+                p.grad.dtype for p in net.parameters())))
+            del logits
+            trainer.step(TRAIN_BATCH)
+            losses.append(loss.detach().float().mean())
+            torch.cuda.synchronize(dev)
+            step_s.append(time.perf_counter() - t)
+    finally:
+        if amp_dtype is not None:
+            amp._deinit_for_tests()
+    want = {"flash_attention_fwd": TRAIN_LAYERS * TRAIN_STEPS,
+            "flash_attention_bwd": TRAIN_LAYERS * TRAIN_STEPS,
+            "fused_adam_update": TRAIN_STEPS}
+    if amp_dtype == "bfloat16":     # K3 took bf16 q, k, v (and g)
+        want.update(flash_attention_fwd_bf16=TRAIN_LAYERS * TRAIN_STEPS,
+                    flash_attention_bwd_bf16=TRAIN_LAYERS * TRAIN_STEPS)
+    launches = read_launches(phase, want)
     losses = [float(x) for x in losses]
     step_ms = statistics.median(step_s[1:]) * 1e3
     peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
-    print(f"training llama3_8b width, {TRAIN_LAYERS} layers, fp32, "
-          f"{n_params} params, adamw, batch {TRAIN_BATCH}x{TRAIN_SEQ} on "
-          f"{card}: losses {losses}; step median {step_ms:.1f} ms over steps "
-          f"2-{TRAIN_STEPS} (first {step_s[0] * 1e3:.1f} ms) = "
+    act = torch.float32 if amp_dtype is None else getattr(torch, amp_dtype)
+    want_dtypes = {(act, act, frozenset([torch.float32]))}
+    if dtypes != want_dtypes:
+        fail(f"{phase}: dtypes of the logits, the loss and the gradients "
+             f"{dtypes}, expected {want_dtypes}")
+    text = "fp32" if amp_dtype is None else \
+        f"{amp_dtype} amp (f32 parameters, gradients and AdamW state)"
+    before = "" if amp_dtype is not None else \
+        (f" (before the flat parameter buffer: step "
+         f"{TRAIN_PREV['step_ms']} ms, peak {TRAIN_PREV['peak_gb']} GB)")
+    print(f"training llama3_8b width, {TRAIN_LAYERS} layers, {text}, "
+          f"{n_params} params in the Trainer's flat buffer, adamw, batch "
+          f"{TRAIN_BATCH}x{TRAIN_SEQ} on {card}: losses {losses}; step "
+          f"median {step_ms:.1f} ms over steps 2-{TRAIN_STEPS} (first "
+          f"{step_s[0] * 1e3:.1f} ms) = "
           f"{TRAIN_BATCH * TRAIN_SEQ / step_ms * 1e3:.1f} tokens/s; peak "
-          f"memory {peak_gb:.2f} GB; set-up {setup_s:.1f} s; launches "
+          f"memory {peak_gb:.2f} GB; set-up {setup_s:.3f} s{before}; "
+          f"logits {act}, loss {act}, gradients torch.float32; launches "
           f"{launches}", flush=True)
     if not all(np.isfinite(losses)):
-        fail(f"non-finite training loss {losses}")
+        fail(f"{phase}: non-finite training loss {losses}")
     if not losses[-1] < losses[0]:
-        fail(f"training loss did not fall from step 1 to step "
+        fail(f"{phase}: loss did not fall from step 1 to step "
              f"{TRAIN_STEPS}: {losses}")
-    del net, trainer, loss
+    if f32_first_loss is not None:
+        err = abs(losses[0] - f32_first_loss) / abs(f32_first_loss)
+        print(f"{phase}: first loss {losses[0]} against the f32 phase's "
+              f"{f32_first_loss} (same weights and batch): relative "
+              f"difference {err:.3e} (limit {AMP_FIRST_LOSS_RTOL})",
+              flush=True)
+        if not err <= AMP_FIRST_LOSS_RTOL:
+            fail(f"{phase}: first loss too far from the f32 phase's")
+    del net, trainer, loss, buf
+    gc.collect()
     torch.cuda.empty_cache()
-    return launches
+    return launches, losses[0]
 
 
 # ----------------------------------------------------------------------
@@ -1504,6 +1621,7 @@ def main():
     if not os.path.isdir(os.path.join(REPO, "mxnet_tpu_torch")):
         fail("run from the root of a checkout (mxnet_tpu_torch/ missing)")
     sys.path.insert(0, REPO)
+    from mxnet_tpu_torch import ops
     from mxnet_tpu_torch.ops import _build
 
     # phase 1: device
@@ -1534,13 +1652,16 @@ def main():
     del flush
     torch.cuda.empty_cache()
 
-    # phases 4-10: each path from zeroed launch counters
+    # phases 4-11: each path from zeroed launch counters
     by_path = {"serving": serve_llama3_8b(dev, card)}
     card_vs_cpu(dev)
     by_path["serving_fp8"] = serve_llama3_8b_fp8(dev, card)
-    by_path["training"] = train_llama3_8b(dev, card)
+    by_path["training"], f32_first_loss = train_llama3_8b(dev, card)
     by_path["training_card_vs_cpu"] = train_card_vs_cpu(dev)
     by_path["layernorm_op"] = layernorm_path(dev, card)
+    # phase 11 last: amp.init() is process-wide
+    by_path["training_amp"], _ = train_llama3_8b(
+        dev, card, amp_dtype="bfloat16", f32_first_loss=f32_first_loss)
 
     kernels = []
     for name, src, tpu in (
@@ -1565,17 +1686,20 @@ def main():
                  if got[name]}
         if not paths:
             fail(f"{name} ran on no path")
-        kernels.append({"name": name, "route": "cuda",
-                        "source": f"mxnet_tpu_torch/ops/csrc/{src}",
-                        "replaces": tpu, "tpu_kernel": tpu,
-                        "launches": sum(paths.values()),
-                        "launches_by_path": paths,
-                        "max_abs_err": res["max_abs_err"],
-                        "max_err": res["max_abs_err"], "ms": res["ms"],
-                        "plain_ms": res["plain_ms"],
-                        "bound_ms": res["bound_ms"],
-                        "bound_by": res["bound_by"],
-                        "library_ms": res["library_ms"]})
+        entry = {"name": name, "route": "cuda",
+                 "source": f"mxnet_tpu_torch/ops/csrc/{src}",
+                 "replaces": tpu, "tpu_kernel": tpu,
+                 "launches": sum(paths.values()),
+                 "launches_by_path": paths}
+        if f"{name}_bf16" in ops.SUBCOUNTS:      # K3's bf16 launches apart
+            entry["launches_bf16_by_path"] = {
+                path: got[f"{name}_bf16"] for path, got in by_path.items()
+                if got[f"{name}_bf16"]}
+        kernels.append(dict(entry, **{
+            "max_abs_err": res["max_abs_err"],
+            "max_err": res["max_abs_err"], "ms": res["ms"],
+            "plain_ms": res["plain_ms"], "bound_ms": res["bound_ms"],
+            "bound_by": res["bound_by"], "library_ms": res["library_ms"]}))
     print(json.dumps({"kernel_rows": ROWS}))
     print(json.dumps({"kernels": kernels}))
     print(card)

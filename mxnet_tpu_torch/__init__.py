@@ -15,15 +15,18 @@ cache in f32, bf16 or fp8, engine, continuous batching) with the
 flash-attention forward and paged decode-attention kernels, the
 single-card training path (``gluon.Trainer`` with SGD/NAG/Adam/AdamW,
 ``gluon.loss``) with the flash-attention backward and the flat-bucket
-optimizer kernels, and the fused LayerNorm op
-(``ops.fused_layer_norm``) with its forward and backward kernels.
+optimizer kernels, the fused LayerNorm op (``ops.fused_layer_norm``)
+with its forward and backward kernels, and bf16 mixed-precision
+training (``amp``, ``optimizer.lr_scheduler``, ``multi_precision``),
+with the Trainer's parameters in one persistent flat buffer.
 """
 from .base import MXNetError, NotSupportedError
 from .context import cpu, gpu, num_gpus, resolve_device
 from . import ops
+from . import amp
 from . import optimizer
 from . import gluon
 from . import serving
 
 __all__ = ["MXNetError", "NotSupportedError", "cpu", "gpu", "num_gpus",
-           "resolve_device", "ops", "optimizer", "gluon", "serving"]
+           "resolve_device", "ops", "amp", "optimizer", "gluon", "serving"]

@@ -51,7 +51,14 @@ class L2Loss(Loss):
 class SoftmaxCrossEntropyLoss(Loss):
     """Softmax cross entropy.  Reference: gluon.loss.SoftmaxCrossEntropyLoss
     (sparse labels by default, ``axis=-1``; ``from_logits`` takes
-    log-probabilities)."""
+    log-probabilities).
+
+    It computes in the dtype of ``pred``: on the bf16 logits of a model
+    under ``amp.init("bfloat16")`` the log-softmax and the loss are bf16
+    on the CPU and on the card alike, as the reference's are (its loss
+    runs through an unlisted ``apply_nary``).  A model opens its autocast
+    region around its own forward only, so CUDA autocast's float32
+    ``log_softmax`` never applies here."""
 
     def __init__(self, axis=-1, sparse_label=True, from_logits=False,
                  weight=None, batch_axis=0):

@@ -13,6 +13,8 @@ repeated with ``repeat_interleave`` (``jnp.repeat``).  In bfloat16 the
 port keeps activations in bfloat16 (the rotation is computed in float32
 and rounded back), where JAX's type promotion would widen them to
 float32 after the rotation; parity with the reference is held in float32.
+Under ``amp.init("bfloat16")`` the same holds of q and k after RoPE
+(``amp`` module doc), and the forward body runs in one autocast region.
 
 Not in this slice: ``generate()``, tensor and context parallelism and
 ``fused_ce_loss``.
@@ -23,6 +25,7 @@ import torch
 from torch import nn
 import torch.nn.functional as F
 
+from .... import amp
 from ....base import MXNetError, NotSupportedError
 from ....context import resolve_device
 from ....ops.flash_attention import flash_attention
@@ -239,10 +242,15 @@ class LlamaForCausalLM(nn.Module):
                 p.normal_(0.0, _INIT_STD, generator=gen)
 
     def forward(self, tokens):
-        x = self.model(tokens)
-        if self.lm_head is not None:
-            return self.lm_head(x)
-        return x @ self.model.embed.weight.T
+        """Logits ``(B, T, vocab)``.  While ``amp.init()`` is in force the
+        body runs in one ``torch.autocast`` region (``amp.region``): the
+        projections and the LM head in the target dtype, so the logits
+        leave it in bf16; otherwise nothing changes."""
+        with amp.region(self.model.embed.weight.device.type):
+            x = self.model(tokens)
+            if self.lm_head is not None:
+                return self.lm_head(x)
+            return x @ self.model.embed.weight.T
 
     def decode_weights(self):
         """Decode-weight structure, as the reference's

@@ -15,17 +15,30 @@ gradients form a uniform group (one lr, one wd, one value of the
 optimizer's host scalars -- Adam's step count --, every parameter
 float32 on one device, two or more parameters), ONE flat-bucket update
 through ``ops.fused_update.fused_bucket_rule`` (K1 for sgd/nag, K2 for
-adam/adamw on the card), and otherwise the per-param ``fused_rule``
-path.  The two give bitwise-equal parameters on the CPU.
+adam/adamw on the card), and otherwise the per-param path
+(``Optimizer.update_multi_precision``: float16 weights keep an f32
+master copy under ``multi_precision``).  The two give bitwise-equal
+parameters on the CPU.
 
-The optimizer state of an all-f32 group lives in one persistent flat
-f32 buffer per state leaf; each parameter's state is a view into it, so
-when every parameter has a fresh gradient the bucket updates those
-buffers and nothing is concatenated for the state.  When a step skips
-stale parameters (``ignore_stale_grad``), the fresh subset's state views
-are gathered into a bucket and written back.  Parameters and gradients
-are always gathered into the bucket and the parameters written back;
-the gathered gradients are freed before the write-back.
+Persistent flat buffers.  When every trainable parameter is float32 on
+one device, the Trainer copies them, at construction and in its order,
+into one flat f32 buffer and rebinds each parameter's ``.data`` to its
+view of it; the optimizer state lives in flat buffers of the same
+layout, one per state leaf.  When every parameter has a fresh gradient,
+the bucket rule then updates the parameter and state buffers where they
+lie (in place on the card): only the gradients are concatenated, and
+nothing is written back.  When a step skips stale parameters
+(``ignore_stale_grad``), the fresh subset's parameter and state views
+are gathered into a bucket and written back.  Before every update the
+Trainer checks that each parameter still lies in the buffer and raises
+if one was moved off it (``p.data = ...``, ``net.to(...)``), rather
+than update a stale copy; in-place writes (``load_state_dict``,
+``reset_parameters``) keep the aliasing.  Building the buffer moves
+every parameter to new storage, so whatever held the old storage no
+longer sees the parameters: a ``serving.InferenceEngine`` built on the
+net before the Trainer raises at its next ``warmup`` or ``prefill``
+(build it after the Trainer, and it serves every update), and a tensor
+kept from ``decode_weights()`` keeps the old values.
 
 Gradients follow the reference's default ``grad_req="write"``: of two
 backward passes before one ``step`` only the last is kept.  The Trainer
@@ -37,6 +50,9 @@ backward replaces the first, and ``torch.autograd.grad`` (which runs no
 weakly by their tensors, so the Trainer keeps them, with their hooks'
 handles.  ``grad_req="add"`` arrives with ``gluon/parameter.py``
 (ROADMAP §1 item 3).
+
+``amp.init_trainer`` replaces ``step`` with its loss-scaled step, as in
+the reference.
 """
 from __future__ import annotations
 
@@ -105,6 +121,9 @@ class Trainer:
         self._states = None       # index -> {leaf: tensor}, built lazily
         self._flat_state = None   # leaf -> flat f32 buffer, or None
         self._bucket_apply = None
+        self._flat_param = None   # the flat f32 buffer of the parameters
+        self._in_buffer = []      # (index, view) of each parameter in it
+        self._build_param_buffer()
         self._grad_writes = [_write_grad_on_backward(p)
                              for p in self._params if p.requires_grad]
 
@@ -128,6 +147,45 @@ class Trainer:
         """Update only (the reference's step without the all-reduce)."""
         self._optimizer.rescale_grad = self._scale / batch_size
         self._update(ignore_stale_grad)
+
+    # -- flat buffers ----------------------------------------------------------
+    def _build_param_buffer(self):
+        """Copy the trainable parameters into one flat f32 buffer, in the
+        Trainer's order (the layout of the state's flat buffers), and
+        make each parameter's ``.data`` its view of it; nothing when they
+        are not all float32 on one device (or one appears twice)."""
+        live = [i for i, p in enumerate(self._params) if p.requires_grad]
+        ps = [self._params[i] for i in live]
+        if not ps or len({id(p) for p in ps}) != len(ps) or not all(
+                p.dtype == torch.float32 and p.device == ps[0].device
+                for p in ps):
+            return
+        buf = torch.empty(sum(p.numel() for p in ps), dtype=torch.float32,
+                          device=ps[0].device)
+        off = 0
+        with torch.no_grad():
+            for i, p in zip(live, ps):
+                n = p.numel()
+                view = buf[off:off + n].view(p.shape)
+                view.copy_(p)
+                p.data = view
+                self._in_buffer.append((i, view))
+                off += n
+        self._flat_param = buf
+
+    def _check_param_buffer(self):
+        """Raise if a parameter no longer lies in the flat buffer: an
+        update of the buffer would leave the parameter's own storage
+        stale."""
+        for i, view in self._in_buffer:
+            p = self._params[i]
+            if p.data_ptr() != view.data_ptr() or p.shape != view.shape:
+                raise MXNetError(
+                    f"Parameter `{self._names[i]}` no longer lies in the "
+                    "Trainer's flat parameter buffer (its .data was "
+                    "replaced, or the net moved with .to()); write into it "
+                    "in place (copy_, load_state_dict) or build a new "
+                    "Trainer")
 
     # -- state ---------------------------------------------------------------
     def _init_states(self):
@@ -156,11 +214,13 @@ class Trainer:
                 off += n
         else:
             for i, p in zip(live, ps):
-                self._states[i] = optimizer.create_state(i, p.detach())
+                self._states[i] = optimizer.create_state_multi_precision(
+                    i, p.detach())
 
     # -- update --------------------------------------------------------------
     def _update(self, ignore_stale_grad=False):
         optimizer = self._optimizer
+        self._check_param_buffer()
         if self._states is None:
             self._init_states()
         # phase 1: qualification only -- nothing is mutated, so a stale
@@ -197,15 +257,17 @@ class Trainer:
                 self._flat_update(idxs)
             else:
                 for i, p in zip(idxs, params):
-                    optimizer._apply_update(i, p, p.grad, self._states[i])
+                    optimizer._apply_update_multi_precision(
+                        i, p, p.grad, self._states[i])
         for p in params:
             p.grad = None
 
     def _flat_update(self, idxs):
-        """ONE update over the fresh parameters: params and grads
-        gathered into a flat bucket, the state's flat buffers (or, for a
-        subset of the group, its gathered views) updated by the bucket
-        rule (in place on the card), params and state written back."""
+        """ONE update over the fresh parameters.  When they are the whole
+        group, the bucket rule updates the flat parameter and state
+        buffers (in place on the card) and only the gradients are
+        gathered; for a subset of the group, their parameter and state
+        views are gathered into a bucket and written back."""
         optimizer = self._optimizer
         if self._bucket_apply is None:
             _, self._bucket_apply = fused_bucket_rule(
@@ -214,13 +276,16 @@ class Trainer:
         params = [self._params[i] for i in idxs]
         whole = self._flat_state is not None and \
             len(idxs) == len(self._states)
+        in_place = whole and self._flat_param is not None and \
+            idxs == [i for i, _ in self._in_buffer]
         if whole:
             state = dict(self._flat_state)
         else:
             state = {leaf: torch.cat([self._states[i][leaf].reshape(-1)
                                       for i in idxs])
                      for leaf in self._states[idxs[0]]}
-        flat_p = torch.cat([p.reshape(-1) for p in params])
+        flat_p = self._flat_param if in_place else \
+            torch.cat([p.reshape(-1) for p in params])
         flat_g = torch.cat([p.grad.reshape(-1) for p in params])
         for p in params:
             p.grad = None
@@ -229,14 +294,18 @@ class Trainer:
             optimizer._get_lr(idxs[0]), optimizer._get_wd(idxs[0]),
             optimizer.rescale_grad)
         del flat_g
-        off = 0
-        for i, p in zip(idxs, params):
-            n = p.numel()
-            p.copy_(new_p[off:off + n].view(p.shape))
-            if not whole:
-                for leaf, view in self._states[i].items():
-                    view.copy_(new_s[leaf][off:off + n].view(p.shape))
-            off += n
+        if in_place:
+            if new_p is not flat_p:
+                flat_p.copy_(new_p)
+        else:
+            off = 0
+            for i, p in zip(idxs, params):
+                n = p.numel()
+                p.copy_(new_p[off:off + n].view(p.shape))
+                if not whole:
+                    for leaf, view in self._states[i].items():
+                        view.copy_(new_s[leaf][off:off + n].view(p.shape))
+                off += n
         if whole:
             for leaf, buf in self._flat_state.items():
                 if new_s[leaf] is not buf:

@@ -18,7 +18,7 @@ __all__ = ["flash_attention", "flash_attention_fwd", "flash_attention_bwd",
            "paged_decode_attention", "fused_bucket_rule", "fused_sgd_update",
            "fused_adam_update", "fused_layer_norm", "fused_layer_norm_fwd",
            "fused_layer_norm_bwd", "resolve_kv_dtype", "KERNELS",
-           "launch_counts", "reset_launches", "add_launches"]
+           "SUBCOUNTS", "launch_counts", "reset_launches", "add_launches"]
 
 #: the kernel wrappers whose ``launches`` counts the main paths read
 KERNELS = {"flash_attention_fwd": flash_attention_fwd,
@@ -30,12 +30,21 @@ KERNELS = {"flash_attention_fwd": flash_attention_fwd,
            "fused_layer_norm_bwd": fused_layer_norm_bwd}
 
 
+#: counts kept apart within a kernel's launches: name -> (wrapper, attribute)
+SUBCOUNTS = {
+    "flash_attention_fwd_bf16": (flash_attention_fwd, "launches_bf16"),
+    "flash_attention_bwd_bf16": (flash_attention_bwd, "launches_bf16"),
+    "paged_decode_attention_fp8": (paged_decode_attention, "launches_fp8")}
+
+
 def launch_counts():
     """Every kernel's launches since the last :func:`reset_launches`, by
-    name; K5's fp8 instantiation counts apart as
-    ``paged_decode_attention_fp8``."""
+    name; with, apart, K3's bf16 launches (``flash_attention_fwd_bf16``,
+    ``flash_attention_bwd_bf16``, also counted in their kernel's total)
+    and K5's fp8 instantiation (``paged_decode_attention_fp8``)."""
     counts = {name: fn.launches for name, fn in KERNELS.items()}
-    counts["paged_decode_attention_fp8"] = paged_decode_attention.launches_fp8
+    counts.update((name, getattr(fn, attr))
+                  for name, (fn, attr) in SUBCOUNTS.items())
     return counts
 
 
@@ -43,7 +52,8 @@ def reset_launches():
     """Set every kernel's launch count to 0."""
     for fn in KERNELS.values():
         fn.launches = 0
-    paged_decode_attention.launches_fp8 = 0
+    for fn, attr in SUBCOUNTS.values():
+        setattr(fn, attr, 0)
 
 
 def add_launches(counts):
@@ -51,7 +61,8 @@ def add_launches(counts):
     them) to the counters: a CUDA graph's replay launches the kernels it
     captured without calling their wrappers."""
     for name, n in counts.items():
-        if name == "paged_decode_attention_fp8":
-            paged_decode_attention.launches_fp8 += n
+        if name in SUBCOUNTS:
+            fn, attr = SUBCOUNTS[name]
+            setattr(fn, attr, getattr(fn, attr) + n)
         else:
             KERNELS[name].launches += n

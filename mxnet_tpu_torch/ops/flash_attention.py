@@ -144,7 +144,9 @@ def _check(what, tensors):
     one device and 16-byte aligned."""
     q, k, v = tensors[:3]
     if q.dtype not in _DTYPES:
-        raise NotSupportedError(f"{what}: dtype {q.dtype} (f32, bf16)")
+        raise NotSupportedError(
+            f"{what}: dtype {q.dtype} (f32, bf16); float16 waits for an "
+            "fp16 instantiation of the tensor-core kernels (ROADMAP §2b)")
     if not (k.dtype == v.dtype == q.dtype):
         raise MXNetError(f"{what}: q, k, v must share one dtype")
     if any(t.device != q.device for t in tensors):
@@ -180,6 +182,8 @@ def _kernel(q, k, v, causal, sm_scale):
         float(sm_scale), q.device.index, stream)
     _build.check(lib, err, "flash_attention_fwd")
     flash_attention_fwd.launches += 1
+    if q.dtype == torch.bfloat16:
+        flash_attention_fwd.launches_bf16 += 1
     return out, lse
 
 
@@ -207,6 +211,8 @@ def _bwd_kernel(q, k, v, out, lse, g, causal, sm_scale):
         int(bool(causal)), float(sm_scale), q.device.index, stream)
     _build.check(lib, err, "flash_attention_bwd")
     flash_attention_bwd.launches += 1
+    if q.dtype == torch.bfloat16:
+        flash_attention_bwd.launches_bf16 += 1
     return dq, dk, dv
 
 
@@ -216,11 +222,13 @@ def _scale(q, sm_scale):
 
 
 def _route(q, plain, kernel, *args):
-    if q.device.type == "cpu":
-        return plain(*args)
-    if q.device.type == "cuda":
-        return kernel(*args)
-    raise MXNetError(f"flash_attention: unsupported device {q.device}")
+    """The plain version for CPU tensors, the kernel for CUDA ones; with
+    autocast off, so that inside an ``amp`` region the plain version's
+    f32 products stay f32 (the kernels take the dtype they are given)."""
+    if q.device.type not in ("cpu", "cuda"):
+        raise MXNetError(f"flash_attention: unsupported device {q.device}")
+    with torch.autocast(q.device.type, enabled=False):
+        return (plain if q.device.type == "cpu" else kernel)(*args)
 
 
 class _Flash(torch.autograd.Function):
@@ -251,11 +259,13 @@ def flash_attention_fwd(q, k, v, causal=False, sm_scale=None):
     """Attention forward on ``(BH, L, D)``: ``(out, lse)``, differentiable
     in q, k, v.  CPU tensors run :func:`flash_attention_plain`; CUDA
     tensors launch the kernel and count one launch in
-    ``flash_attention_fwd.launches``."""
+    ``flash_attention_fwd.launches`` (bf16 launches also in
+    ``.launches_bf16``)."""
     return _Flash.apply(q, k, v, bool(causal), _scale(q, sm_scale))
 
 
 flash_attention_fwd.launches = 0
+flash_attention_fwd.launches_bf16 = 0
 
 
 def flash_attention_bwd(q, k, v, out, lse, g, causal=False, sm_scale=None):
@@ -263,12 +273,14 @@ def flash_attention_bwd(q, k, v, out, lse, g, causal=False, sm_scale=None):
     and ``lse`` and the output gradient ``g``: ``(dq, dk, dv)``.  CPU
     tensors run :func:`flash_attention_bwd_plain`; CUDA tensors launch
     the kernel (a delta pre-pass, a dK/dV pass and a dQ pass) and count
-    one launch in ``flash_attention_bwd.launches``."""
+    one launch in ``flash_attention_bwd.launches`` (bf16 launches also in
+    ``.launches_bf16``)."""
     return _route(q, flash_attention_bwd_plain, _bwd_kernel, q, k, v, out,
                   lse, g, bool(causal), _scale(q, sm_scale))
 
 
 flash_attention_bwd.launches = 0
+flash_attention_bwd.launches_bf16 = 0
 
 
 def flash_attention(query, key, value, causal=False, sm_scale=None):

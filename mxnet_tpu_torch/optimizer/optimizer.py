@@ -15,9 +15,13 @@ scalars), and Adam's ``beta ** t`` and ``lr_t`` are float32.
 
 Ported: SGD (with momentum), NAG, Adam, AdamW, and ``lazy_update``
 (dense gradients only, so either value updates densely, as the
-reference does for a dense gradient).  The other optimizers,
-``lr_scheduler``, ``multi_precision``, and ``param_idx2name``, ``sym``
-or ``param_dict`` other than None (or empty) raise ``NotSupportedError``.
+reference does for a dense gradient); ``lr_scheduler`` (an
+``optimizer.lr_scheduler`` schedule read at ``num_update``, the
+reference's ``_get_lr``); and ``multi_precision``, which keeps an f32
+master copy of each float16 weight (``create_state_multi_precision`` /
+``update_multi_precision``; other dtypes update as they are, as in the
+reference).  The other optimizers, and ``param_idx2name``, ``sym`` or
+``param_dict`` other than None (or empty) raise ``NotSupportedError``.
 """
 from __future__ import annotations
 
@@ -145,15 +149,17 @@ class Optimizer:
                  param_dict=None):
         # the reference's argument order; what is not ported is taken
         # only at its no-op default (None, False or an empty dict)
-        for name, value in (("lr_scheduler", lr_scheduler),
-                            ("multi_precision", multi_precision),
-                            ("param_idx2name", param_idx2name),
+        for name, value in (("param_idx2name", param_idx2name),
                             ("sym", sym), ("param_dict", param_dict)):
             if value not in (None, False) and value != {}:
                 raise NotSupportedError(f"{name} is not ported yet; it "
                                         f"{_LATER}")
         self.rescale_grad = rescale_grad
         self.lr = learning_rate
+        self.lr_scheduler = lr_scheduler
+        if lr_scheduler is not None:
+            self.lr_scheduler.base_lr = learning_rate
+        self.multi_precision = multi_precision
         self.wd = wd
         self.clip_gradient = clip_gradient
         self.begin_num_update = begin_num_update
@@ -182,6 +188,32 @@ class Optimizer:
         self._update_count(index)
         self._apply_update(index, weight, grad, state)
 
+    def create_state_multi_precision(self, index, weight):
+        """:meth:`create_state`, or for a float16 weight under
+        ``multi_precision`` ``(state of its f32 master copy, master)``."""
+        if self.multi_precision and weight.dtype == torch.float16:
+            master = weight.detach().float()
+            return self.create_state(index, master), master
+        return self.create_state(index, weight)
+
+    @torch.no_grad()
+    def update_multi_precision(self, index, weight, grad, state):
+        """:meth:`update`, through the f32 master copy for a float16
+        weight under ``multi_precision``."""
+        self._update_count(index)
+        self._apply_update_multi_precision(index, weight, grad, state)
+
+    def _apply_update_multi_precision(self, index, weight, grad, state):
+        """:meth:`update_multi_precision` after the count: the master
+        copy takes the update with the gradient widened to f32, and the
+        weight becomes the master rounded to float16."""
+        if self.multi_precision and weight.dtype == torch.float16:
+            inner, master = state
+            self._apply_update(index, master, grad.float(), inner)
+            weight.copy_(master)
+        else:
+            self._apply_update(index, weight, grad, state)
+
     def _apply_update(self, index, weight, grad, state):
         """:meth:`update` after the count: the Trainer counts a step's
         updates before it chooses between the flat bucket and this."""
@@ -202,16 +234,22 @@ class Optimizer:
                               self.num_update)
 
     def _get_lr(self, index):
+        if self.lr_scheduler is not None:
+            return self.lr_scheduler(self.num_update)
         return self.lr
 
     def _get_wd(self, index):
         return self.wd
 
     def set_learning_rate(self, lr):
+        if self.lr_scheduler is not None:
+            raise MXNetError("lr_scheduler is set; cannot set lr directly")
         self.lr = lr
 
     @property
     def learning_rate(self):
+        if self.lr_scheduler is not None:
+            return self.lr_scheduler(self.num_update)
         return self.lr
 
 

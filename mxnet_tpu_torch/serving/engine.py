@@ -29,7 +29,12 @@ drifts; decode reads the pool.
 
 The KV pools are updated IN PLACE by index assignment; that replaces the
 reference's donated-argument round trip (``pool_args``/``update_pools``).
-Weights are the model's own parameters, never copied.  The big
+Weights are the model's own parameters, never copied, so in-place
+updates (an optimizer step) are served; an engine refuses to serve (at
+``warmup`` and ``prefill``) once a weight has been moved to new storage,
+as a ``gluon.Trainer`` built on the net after the engine moves it into
+its flat buffer.  (The reference's engine keeps the arrays it was built
+with, whatever the net does afterwards.)  The big
 projections stay ``torch.matmul`` (the reference leaves them to XLA);
 RMSNorm, RoPE and SwiGLU are plain torch.
 
@@ -194,6 +199,16 @@ class _Step:
         eng.capture_seconds += time.perf_counter() - t0
 
 
+_ITEM5 = "the serving features' slice (ROADMAP §1 item 5)"
+
+
+def _weight_leaves(tree):
+    """The tensors of a ``decode_weights()`` tree."""
+    embed, norm, head, layers = tree
+    return [embed, norm] + ([] if head is None else [head]) + \
+        [w for layer in layers for w in layer]
+
+
 def _refuse(name, value, later):
     if value:
         raise NotSupportedError(f"InferenceEngine({name}={value!r}) is not "
@@ -206,8 +221,10 @@ class InferenceEngine:
     Parameters
     ----------
     net : the model; its parameters must live on ``device``.
-    max_batch : decode slots (>= 2; the decode batch is padded to it).
-    block_size : KV-cache block size in tokens (power of two).
+    max_batch : decode slots (>= 2; the decode batch is padded to it);
+        None means 4, the reference's default without its environment.
+    block_size : KV-cache block size in tokens (power of two); None
+        means 16.
     num_blocks : pool size including the null block (default
         ``1 + max_batch * max_context / block_size``).
     max_context : longest sequence (rounded down to a multiple of
@@ -218,23 +235,45 @@ class InferenceEngine:
         0), from a ``torch.Generator`` seeded with ``seed``.
     kv_dtype : pool storage: ``None`` (the model's dtype), ``"bf16"``,
         or ``"fp8"`` (e4m3 codes with per-row f32 scales).
+    quantize, calib_data, num_calib_batches, mesh, prefill_chunk,
+    prefix_cache, compile_cache, spec_decode, spec_k, paged_attn,
+    kv_cache : the reference's arguments, in its order; each is taken at
+        a value that changes nothing (``None``, ``False``;
+        ``paged_attn=True``, the port's only decode path) and refused
+        with ``NotSupportedError`` otherwise.
     device : ``cuda`` by default; raises without a card unless
         ``device="cpu"`` (the kernels' plain versions then run).
     """
 
-    def __init__(self, net, max_batch=4, block_size=16, num_blocks=None,
+    def __init__(self, net, max_batch=None, block_size=None, num_blocks=None,
                  max_context=None, temperature=0.0, top_k=0, seed=0,
-                 quantize=None, mesh=None, prefill_chunk=None,
-                 prefix_cache=None, spec_decode=None, kv_cache=None,
-                 kv_dtype=None, device=None):
-        _refuse("quantize", quantize, "the int8 serving slice")
-        _refuse("mesh", mesh, "the tensor-parallel serving slice")
-        _refuse("prefill_chunk", prefill_chunk, "the chunked-prefill slice")
-        _refuse("prefix_cache", prefix_cache, "the prefix-cache slice")
-        _refuse("spec_decode", spec_decode,
-                "the speculative-decoding slice")
-        _refuse("kv_cache", kv_cache is not None,
-                "the disaggregated-serving slice")
+                 quantize=None, calib_data=None, num_calib_batches=10,
+                 mesh=None, prefill_chunk=None, prefix_cache=None,
+                 compile_cache=None, spec_decode=None, spec_k=None,
+                 paged_attn=None, kv_cache=None, kv_dtype=None, device=None):
+        # the reference's arguments in its order; what is not ported is
+        # taken only at a value that changes nothing
+        # (``num_calib_batches`` is read only with ``quantize``)
+        _refuse("quantize", quantize, _ITEM5)
+        _refuse("calib_data", calib_data is not None, _ITEM5)
+        _refuse("mesh", mesh, "the tensor-parallel serving slice "
+                "(ROADMAP §1 item 10)")
+        _refuse("prefill_chunk", prefill_chunk, _ITEM5)
+        _refuse("prefix_cache", prefix_cache, _ITEM5)
+        if compile_cache is not None:
+            raise NotSupportedError(
+                "InferenceEngine(compile_cache=...) has no counterpart in "
+                "the port: a CUDA graph bakes in its own engine's pool, "
+                "weight and buffer addresses, so no cache is shared "
+                "between engines (ROADMAP §3, standing differences)")
+        _refuse("spec_decode", spec_decode, _ITEM5)
+        _refuse("spec_k", spec_k is not None, _ITEM5)
+        if paged_attn not in (None, True):
+            raise NotSupportedError(
+                f"InferenceEngine(paged_attn={paged_attn!r}): the port has "
+                "one decode path, the paged-decode kernel (ROADMAP §3, "
+                "standing differences)")
+        _refuse("kv_cache", kv_cache is not None, _ITEM5)
         self.device = resolve_device(device)
         cfg = net.cfg
         net_dev = net.model.embed.weight.device
@@ -243,8 +282,8 @@ class InferenceEngine:
                              f"on {self.device}; build the net there")
         self.net = net
         self.cfg = cfg
-        self.max_batch = max(2, int(max_batch))
-        bs = int(block_size)
+        self.max_batch = max(2, 4 if max_batch is None else int(max_batch))
+        bs = 16 if block_size is None else int(block_size)
         mc = max_context if max_context is not None else \
             min(cfg.max_seq_len, 1024)
         mc = (mc // bs) * bs
@@ -262,6 +301,9 @@ class InferenceEngine:
         self.kv_dtype = resolve_kv_dtype(kv_dtype)
         self._kv_fp8 = kv_has_scales(self.kv_dtype)
         self.params = self._extract_weights(net)
+        # where each of the net's weights lay when the engine took it
+        self._weight_ptrs = [(w, w.data_ptr())
+                             for w in _weight_leaves(net.decode_weights())]
         self.cache = PagedKVCache(
             cfg.num_layers, cfg.num_kv_heads, cfg.head_dim,
             num_blocks=num_blocks, block_size=bs, max_batch=self.max_batch,
@@ -291,6 +333,21 @@ class InferenceEngine:
                       "verify_calls": 0, "draft_tokens_scored": 0}
 
     # -- weights ---------------------------------------------------------
+
+    def _check_weights(self):
+        """Raise if one of the net's weights no longer lies where the
+        engine took it: its steps (and their graphs) read the old storage
+        and would serve stale weights.  A ``gluon.Trainer`` built on the
+        net after the engine moves every f32 parameter into its flat
+        buffer; ``p.data = ...`` and ``net.to()`` move one too.  In-place
+        writes (``load_state_dict``, an optimizer step) keep it."""
+        for w, ptr in self._weight_ptrs:
+            if w.data_ptr() != ptr:
+                raise MXNetError(
+                    "the net's weights were moved since this "
+                    "InferenceEngine was built (a gluon.Trainer built on "
+                    "the net afterwards, p.data = ..., net.to()): build "
+                    "the engine after the Trainer, or a new one")
 
     @staticmethod
     def _extract_weights(net):
@@ -460,7 +517,9 @@ class InferenceEngine:
         (the decode with every row inactive, writing the null block): on
         CUDA each is captured as a graph here, before traffic.  Buckets
         whose steps exist already are skipped, as the reference skips
-        signatures its cache holds."""
+        signatures its cache holds.  Raises if the net's weights were
+        moved since the engine was built (:meth:`_check_weights`)."""
+        self._check_weights()
         B = self.max_batch
         for bucket in self.buckets:
             nb = bucket // self.block_size
@@ -494,7 +553,10 @@ class InferenceEngine:
         blocks, runs the bucketed prefill, samples the first generated
         token.  Returns ``(first_token, last_logits)`` or None when the
         prompt exceeds max_context or the pool is exhausted (the request
-        stays queued)."""
+        stays queued).  Raises if the net's weights were moved since the
+        engine was built (:meth:`_check_weights`; ``decode`` does not
+        check, to keep its step short)."""
+        self._check_weights()
         toks = _np.asarray(tokens, _np.int64).reshape(-1)
         t = toks.shape[0]
         if t == 0:
@@ -544,7 +606,11 @@ class InferenceEngine:
         (position = where this token goes, i.e. the current sequence
         length).  Pads to ``max_batch``, picks the context bucket from
         the largest position, builds the block tables and runs the step.
-        Returns (next_tokens (n,) np.int32, logits (n, V) tensor).
+        Returns (next_tokens (n,) np.int32, logits (n, V) tensor on the
+        engine's device).  The reference returns numpy logits; the port
+        keeps them on the card, since a host copy would move n x vocab
+        floats every step for callers (the batchers) that read only the
+        tokens.
         """
         if not entries:
             raise MXNetError("decode: empty batch")

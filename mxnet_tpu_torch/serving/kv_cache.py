@@ -29,7 +29,7 @@ from __future__ import annotations
 import numpy as _np
 import torch
 
-from ..base import MXNetError
+from ..base import MXNetError, NotSupportedError
 from ..context import resolve_device
 from ..ops.quant_kv import kv_has_scales, kv_pool_dtype, resolve_kv_dtype
 
@@ -51,6 +51,7 @@ class PagedKVCache:
     block_size : tokens per block (power of two).
     max_batch : decode slots (sequences resident at once).
     dtype : pool dtype when ``kv_dtype`` is unset (the model's dtype).
+    sharding : the reference's pool sharding; only None (one card).
     kv_dtype : ``"bf16"`` stores bfloat16; ``"fp8"`` stores
         float8_e4m3fn codes with the ``k_scale``/``v_scale`` planes;
         ``None``/``"fp32"`` keeps ``dtype``.
@@ -59,8 +60,13 @@ class PagedKVCache:
     """
 
     def __init__(self, num_layers, num_kv_heads, head_dim, num_blocks=64,
-                 block_size=16, max_batch=4, dtype=None, kv_dtype=None,
-                 device=None):
+                 block_size=16, max_batch=4, dtype=None, sharding=None,
+                 kv_dtype=None, device=None):
+        if sharding is not None:
+            raise NotSupportedError(
+                "PagedKVCache(sharding=...) is not ported yet: sharded "
+                "pools arrive with the multi-device slice (ROADMAP §1 "
+                "item 10)")
         if block_size < 1 or (block_size & (block_size - 1)):
             raise MXNetError("block_size must be a power of two, got "
                              f"{block_size}")

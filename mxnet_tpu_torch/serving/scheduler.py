@@ -10,7 +10,11 @@ engine.
 
 Everything here is host-side policy; per boundary the host reads back
 only the sampled tokens.  Not in this slice: chunked admission,
-speculative decoding and the disaggregated prefill/decode roles.
+speculative decoding and the disaggregated prefill/decode roles; their
+constructor arguments (``speculative``, ``spec_k``, ``slot_ns``,
+``role``) are taken at the values that change nothing and refused
+otherwise, and ``stats()`` reports the reference's ``verify_steps`` (0)
+and ``spec_accept_rate`` (None) of a run without speculation.
 """
 from __future__ import annotations
 
@@ -18,7 +22,7 @@ import itertools
 import time
 from collections import deque
 
-from ..base import MXNetError
+from ..base import MXNetError, NotSupportedError
 
 __all__ = ["Request", "ContinuousBatcher", "StaticBatcher"]
 
@@ -68,8 +72,20 @@ class Request:
             / (len(self.generated) - 1)
 
 
+def _refuse(what, value, item):
+    if value:
+        raise NotSupportedError(
+            f"{what}={value!r} is not ported yet: it arrives with ROADMAP "
+            f"§1 item {item}")
+
+
 class _BatcherBase:
-    def __init__(self, engine):
+    def __init__(self, engine, slot_ns=None, role="combined"):
+        # the reference's arguments: a slot namespace for engines that
+        # share one KV cache, and the disaggregated roles; the port takes
+        # each at the value that changes nothing
+        _refuse("slot_ns", slot_ns is not None, 5)
+        _refuse("role", role != "combined", 5)
         self.engine = engine
         self.queue = deque()
         self.finished = []
@@ -142,6 +158,9 @@ class _BatcherBase:
         return {"requests": len(self.finished),
                 "tokens_generated": self.tokens_generated,
                 "decode_steps": self.decode_steps,
+                # no speculative decoding in the port: the reference's
+                # values without it
+                "verify_steps": 0, "spec_accept_rate": None,
                 "tokens_per_dispatch": (
                     round(self.tokens_generated / self.decode_steps, 4)
                     if self.decode_steps else None),
@@ -155,8 +174,11 @@ class ContinuousBatcher(_BatcherBase):
     every decode step, evict finished sequences the moment EOS/length
     hits, never drain the batch to take new work."""
 
-    def __init__(self, engine, prefills_per_step=1):
-        super().__init__(engine)
+    def __init__(self, engine, prefills_per_step=1, speculative=None,
+                 spec_k=None, slot_ns=None, role="combined"):
+        _refuse("speculative", speculative, 5)
+        _refuse("spec_k", spec_k is not None, 5)
+        super().__init__(engine, slot_ns=slot_ns, role=role)
         self.prefills_per_step = int(prefills_per_step)
         self.active = {}          # slot -> Request
         self._free_slots = list(range(engine.max_batch - 1, -1, -1))

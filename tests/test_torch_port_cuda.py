@@ -25,7 +25,7 @@ import numpy as np
 import pytest
 import torch
 
-from mxnet_tpu_torch import MXNetError, ops
+from mxnet_tpu_torch import MXNetError, NotSupportedError, amp, ops
 from mxnet_tpu_torch.gluon import Trainer
 from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
 from mxnet_tpu_torch.gluon.model_zoo.nlp.llama import llama_tiny
@@ -604,6 +604,113 @@ def test_trainer_flat_bucket_after_a_stale_step_still_launches_k1(card):
             tr.step(2)
         assert fused_sgd_update.launches == launches + 1
     assert not torch.equal(params["model.norm.weight"], before)
+
+
+# ----------------------------------------------------------------------
+# bf16 mixed precision (amp) on the training path
+# ----------------------------------------------------------------------
+
+AMP_NET = dict(hidden_size=128, num_heads=2, num_kv_heads=1,
+               intermediate_size=256, num_layers=2)
+
+
+def test_amp_bf16_training_steps_on_the_card(card):
+    """Two AdamW steps of a small Llama under ``amp.init("bfloat16")``:
+    logits and loss bf16, f32 gradients, the parameters updated where
+    they lie (the flat buffer); the first loss within 2e-2 relative of
+    the CPU's from the same weights (bf16 matmuls in other orders, the
+    loss rounded to bf16), and the update ``p2 - p0`` of all parameters
+    together within 0.1 of the CPU's, relative to its norm: AdamW's step
+    is about ``lr`` whatever the gradient's size, so a near-zero
+    gradient element whose bf16 sign differs moves ``2 lr`` the other
+    way (``tests/test_torch_port_amp.py`` holds the same limit against
+    the reference, and shows that a wrong update misses it).  It is
+    held over all parameters, not leaf by leaf: in a 128-element norm
+    weight one such element alone is 0.18 of the norm."""
+    on_card = llama_tiny(device=card, seed=11, **AMP_NET)
+    on_cpu = llama_tiny(device="cpu", seed=None, **AMP_NET)
+    on_cpu.load_state_dict(on_card.state_dict())
+    w0 = {k: p.detach().clone() for k, p in on_cpu.named_parameters()}
+    rng = np.random.RandomState(11)
+    tokens = torch.from_numpy(rng.randint(0, 256, (2, 64)))
+    labels = torch.from_numpy(rng.randint(0, 256, (2, 64)))
+    amp.init("bfloat16")
+    try:
+        first, updates = [], []
+        for net in (on_card, on_cpu):
+            dev = next(net.parameters()).device
+            tr = Trainer(dict(net.named_parameters()), "adamw",
+                         {"learning_rate": 1e-3, "wd": 0.1})
+            amp.init_trainer(tr)
+            ptrs = [p.data_ptr() for p in net.parameters()]
+            for step in range(2):
+                logits = net(tokens.to(dev))
+                loss = SoftmaxCrossEntropyLoss()(logits, labels.to(dev))
+                with amp.scale_loss(loss.sum(), tr) as scaled:
+                    scaled.backward()
+                assert logits.dtype == loss.dtype == torch.bfloat16
+                assert all(p.grad.dtype == torch.float32
+                           for p in net.parameters())
+                tr.step(2)
+                if step == 0:
+                    first.append(float(loss.float().mean()))
+                assert bool(torch.isfinite(loss.float()).all())
+            assert [p.data_ptr() for p in net.parameters()] == ptrs
+            updates.append({k: p.detach().cpu() - w0[k]
+                            for k, p in net.named_parameters()})
+    finally:
+        amp._deinit_for_tests()
+    np.testing.assert_allclose(first[0], first[1], rtol=2e-2)
+    card, cpu = (torch.cat([u[k].reshape(-1) for k in sorted(u)])
+                 for u in updates)
+    err = float((card - cpu).norm() / cpu.norm())
+    assert err <= 0.1, err
+
+
+def test_amp_bf16_launch_counts_on_the_card(card):
+    """One AMP step runs K3's bf16 kernels forward and backward once a
+    layer and K2 once."""
+    net = llama_tiny(device=card, seed=12, **AMP_NET)
+    tr = Trainer(dict(net.named_parameters()), "adamw",
+                 {"learning_rate": 1e-3})
+    tokens = torch.from_numpy(
+        np.random.RandomState(12).randint(0, 256, (2, 64))).to(card)
+    amp.init("bfloat16")
+    try:
+        amp.init_trainer(tr)
+        ops.reset_launches()
+        SoftmaxCrossEntropyLoss()(net(tokens), tokens).sum().backward()
+        tr.step(2)
+    finally:
+        amp._deinit_for_tests()
+    layers = AMP_NET["num_layers"]
+    got = ops.launch_counts()
+    assert got["flash_attention_fwd"] == got["flash_attention_fwd_bf16"] \
+        == layers
+    assert got["flash_attention_bwd"] == got["flash_attention_bwd_bf16"] \
+        == layers
+    assert got["fused_adam_update"] == 1
+
+
+def test_amp_float16_is_refused_at_the_flash_kernel(card):
+    net = llama_tiny(device=card, seed=13, **AMP_NET)
+    amp.init("float16")
+    try:
+        with pytest.raises(NotSupportedError, match="float16"):
+            net(torch.zeros(1, 16, dtype=torch.int64, device=card))
+    finally:
+        amp._deinit_for_tests()
+
+
+@pytest.mark.parametrize("bad", [float("inf"), float("nan"), None])
+def test_loss_scaler_has_overflow_on_the_card(card, bad):
+    ps = [torch.nn.Parameter(torch.zeros(n, device=card))
+          for n in (5, 70000)]
+    for p in ps:
+        p.grad = torch.ones_like(p)
+    if bad is not None:
+        ps[1].grad[65537] = bad
+    assert amp.LossScaler().has_overflow(ps) == (bad is not None)
 
 
 # ----------------------------------------------------------------------

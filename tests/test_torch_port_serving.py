@@ -184,6 +184,10 @@ def test_batcher_streams_match_jax(nets, kind):
     assert streams == {r.id: r.generated for r in jb.finished}
     assert all(len(s) == 6 for s in streams.values())
     assert ps["decode_steps"] == js["decode_steps"]
+    # the reference's stats keys, speculation's at their values without it
+    assert set(ps) == set(js)
+    assert (ps["verify_steps"], ps["spec_accept_rate"]) == \
+        (js["verify_steps"], js["spec_accept_rate"]) == (0, None)
     assert ps["cache"]["blocks_in_use"] == 0
     pb.engine.cache.check_leaks()
 
@@ -279,11 +283,74 @@ def test_entry_points_refuse_without_a_card():
 
 @pytest.mark.parametrize("kwargs", [
     {"quantize": "int8"}, {"mesh": "tp=2"}, {"prefill_chunk": 8},
-    {"prefix_cache": True}, {"spec_decode": True}, {"kv_cache": object()}], ids=lambda kw: next(iter(kw)))
+    {"prefix_cache": True}, {"spec_decode": True}, {"kv_cache": object()},
+    {"calib_data": [np.zeros((1, 4), np.int32)]}, {"compile_cache": {}},
+    {"spec_k": 4}, {"paged_attn": False}],
+    ids=lambda kw: next(iter(kw)))
 def test_engine_refuses_later_slices(kwargs):
     net = LlamaForCausalLM(LlamaConfig(**GEOM), device="cpu")
-    with pytest.raises(mt.NotSupportedError):
+    with pytest.raises(mt.NotSupportedError, match="ROADMAP §"):
         InferenceEngine(net, device="cpu", **kwargs)
+
+
+@pytest.mark.parametrize("port_cls,jax_cls", [
+    (InferenceEngine, JaxEngine), (ContinuousBatcher, JaxContinuous),
+    (StaticBatcher, JaxStatic), (PagedKVCache, JaxCache)],
+    ids=["engine", "continuous", "static", "cache"])
+def test_constructors_take_the_reference_arguments(port_cls, jax_cls):
+    """Each constructor takes the reference's parameters, in its order and
+    with its defaults; the port's ``device=`` comes last."""
+    import inspect
+    port = list(inspect.signature(port_cls).parameters.values())
+    ref = list(inspect.signature(jax_cls).parameters.values())
+    if port_cls in (InferenceEngine, PagedKVCache):
+        assert port[-1].name == "device"
+        port = port[:-1]
+    assert [(p.name, p.default) for p in port] == \
+        [(p.name, p.default) for p in ref]
+
+
+def test_reference_defaults_and_no_op_values_are_taken():
+    """``max_batch=None`` / ``block_size=None`` mean 4 and 16 (the
+    reference's without its environment); the no-op values of the other
+    arguments change nothing."""
+    net = LlamaForCausalLM(LlamaConfig(**GEOM), device="cpu")
+    eng = InferenceEngine(net, None, None, None, 32, 0.0, 0, 0, None, None,
+                          3, None, None, None, None, None, None, True, None,
+                          None, device="cpu")
+    assert (eng.max_batch, eng.block_size, eng.max_context) == (4, 16, 32)
+    for cls in (ContinuousBatcher, StaticBatcher):
+        kw = dict(slot_ns=None, role="combined")
+        if cls is ContinuousBatcher:
+            kw.update(prefills_per_step=2, speculative=None, spec_k=None)
+        assert cls(eng, **kw).engine is eng
+        for bad in ({"slot_ns": "a"}, {"role": "decode"}):
+            with pytest.raises(mt.NotSupportedError, match="item 5"):
+                cls(eng, **bad)
+    for bad in ({"speculative": object()}, {"spec_k": 2}):
+        with pytest.raises(mt.NotSupportedError, match="item 5"):
+            ContinuousBatcher(eng, **bad)
+    cache = PagedKVCache(1, 2, 8, 4, 4, 2, None, None, "bf16", device="cpu")
+    assert cache.dtype == torch.bfloat16
+    with pytest.raises(mt.NotSupportedError, match="item 10"):
+        PagedKVCache(1, 2, 8, sharding=object(), device="cpu")
+
+
+def test_decode_returns_numpy_tokens_and_device_logits(nets):
+    """A standing difference: ``decode`` returns the tokens as numpy, as
+    the reference does, and the logits as a tensor on the engine's
+    device (the reference returns numpy), sparing a host copy of n x
+    vocab logits a step; ``prefill``'s logits are device values in
+    both."""
+    _, pnet = nets
+    eng = _port_engine(pnet)
+    tok, last = eng.prefill(0, [1, 2, 3])
+    assert isinstance(last, torch.Tensor)
+    assert eng.reserve(0, 3)
+    nxt, logits = eng.decode([(0, int(tok), 3)])
+    assert isinstance(nxt, np.ndarray) and nxt.dtype == np.int32
+    assert isinstance(logits, torch.Tensor)
+    assert logits.device == eng.device and logits.shape == (1, 64)
 
 
 def test_config_refuses_parallel_modes():

@@ -400,13 +400,21 @@ def test_autograd_grad_leaves_dot_grad_alone():
     ("nag", {"learning_rate": 0.05, "momentum": 0.9}),
     ("adam", {"learning_rate": 1e-3, "wd": 1e-4}),
     ("adamw", {"learning_rate": 1e-3, "wd": 0.1, "clip_gradient": 0.01})])
-def test_trainer_flat_bucket_equals_per_param_bitwise(optname, args):
+@pytest.mark.parametrize("buffer", [True, False], ids=["buffer", "gather"])
+def test_trainer_flat_bucket_equals_per_param_bitwise(monkeypatch, optname,
+                                                      args, buffer):
     """The Trainer's one flat-bucket update against the per-param path
-    (``Optimizer.update`` over each parameter with its own state)."""
+    (``Optimizer.update`` over each parameter with its own state): with
+    the parameters as views of the persistent flat buffer, updated where
+    they lie, and without it (the buffer's construction switched off),
+    gathered into a bucket and written back."""
+    if not buffer:
+        monkeypatch.setattr(Trainer, "_build_param_buffer", lambda self: None)
     tokens, labels = _batch()
     flat_net = llama_tiny(num_layers=1, device="cpu", seed=5)
     ref_net = llama_tiny(num_layers=1, device="cpu", seed=5)
     trainer = Trainer(dict(flat_net.named_parameters()), optname, dict(args))
+    assert (trainer._flat_param is not None) == buffer
     ref_opt = create(optname, **args)
     ref_params = [p for _, p in sorted(ref_net.named_parameters())]
     ref_states = {i: ref_opt.create_state(i, p.detach())
@@ -485,6 +493,106 @@ def test_trainer_flat_bucket_skips_stale_params(monkeypatch, optname, args,
         assert torch.equal(a, b), name
 
 
+def test_whole_group_update_runs_on_the_parameter_buffer(monkeypatch):
+    """Every trainable f32 parameter is a view of one flat buffer, in the
+    Trainer's order; a step over the whole group hands that buffer to
+    the bucket rule (no gather of the parameters) and the views see the
+    update."""
+    import mxnet_tpu_torch.gluon.trainer as trainer_mod
+    seen = []
+
+    def recording_rule(*a, **kw):
+        init, apply = fused_bucket_rule(*a, **kw)
+
+        def recorded(p, *rest):
+            seen.append(p)
+            return apply(p, *rest)
+        return init, recorded
+    monkeypatch.setattr(trainer_mod, "fused_bucket_rule", recording_rule)
+    net = llama_tiny(num_layers=1, device="cpu", seed=6)
+    params = dict(net.named_parameters())
+    trainer = Trainer(params, "adamw", {"learning_rate": 1e-3, "wd": 0.1})
+    buf = trainer._flat_param
+    off = 0
+    for name in sorted(params):
+        p = params[name]
+        assert p.data_ptr() == buf.data_ptr() + 4 * off, name
+        off += p.numel()
+    assert off == buf.numel()
+    before = buf.clone()
+    _port_step(net, trainer, *_batch())
+    assert len(seen) == 1 and seen[0] is buf
+    assert not torch.equal(before, buf)
+    torch.testing.assert_close(
+        torch.cat([params[k].detach().reshape(-1) for k in sorted(params)]),
+        buf, rtol=0, atol=0)
+
+
+def test_parameter_buffer_survives_load_state_dict():
+    """``load_state_dict`` copies into the parameters in place: they stay
+    views of the buffer, and the next step updates the loaded values
+    exactly as a Trainer built on them does."""
+    net = llama_tiny(num_layers=1, device="cpu", seed=7)
+    trainer = Trainer(dict(net.named_parameters()), "sgd",
+                      {"learning_rate": 0.1, "momentum": 0.9})
+    ptrs = [p.data_ptr() for _, p in sorted(net.named_parameters())]
+    loaded = llama_tiny(num_layers=1, device="cpu", seed=8)
+    net.load_state_dict(loaded.state_dict())
+    assert [p.data_ptr() for _, p in sorted(net.named_parameters())] == ptrs
+    fresh = Trainer(dict(loaded.named_parameters()), "sgd",
+                    {"learning_rate": 0.1, "momentum": 0.9})
+    for model, tr in ((net, trainer), (loaded, fresh)):
+        _port_step(model, tr, *_batch())
+    for (name, a), (_, b) in zip(sorted(net.named_parameters()),
+                                 sorted(loaded.named_parameters())):
+        assert torch.equal(a, b), name
+
+
+@pytest.mark.parametrize("move", ["rebind", "to-double"])
+def test_parameter_moved_off_the_buffer_is_detected(move):
+    """A parameter whose storage was replaced no longer lies in the
+    buffer: the next step raises, naming it, and updates nothing."""
+    net = llama_tiny(num_layers=1, device="cpu", seed=9)
+    params = dict(net.named_parameters())
+    trainer = Trainer(params, "sgd", {"learning_rate": 0.1})
+    buf = trainer._flat_param.clone()
+    if move == "rebind":
+        params["lm_head.weight"].data = params["lm_head.weight"].data.clone()
+        name = "lm_head.weight"
+    else:
+        net.to(torch.float64)
+        name = sorted(params)[0]
+    _port_loss(net, *_batch()).backward()
+    with pytest.raises(MXNetError, match=f"`{name}`.*flat parameter buffer"):
+        trainer.step(BATCH)
+    assert torch.equal(trainer._flat_param, buf)
+
+
+def test_engine_built_before_the_trainer_refuses_to_serve():
+    """A Trainer moves the net's parameters into its flat buffer, so an
+    InferenceEngine built on the net before it would read the old
+    storage: it raises at warmup and prefill instead of serving stale
+    weights.  An engine built after the Trainer reads the buffer itself
+    and serves each step's update."""
+    from mxnet_tpu_torch.serving import InferenceEngine
+    kw = dict(max_batch=2, block_size=16, max_context=32, device="cpu")
+    net = llama_tiny(num_layers=1, device="cpu", seed=10)
+    early = InferenceEngine(net, **kw)
+    early.prefill(0, [1, 2, 3])
+    trainer = Trainer(dict(net.named_parameters()), "sgd",
+                      {"learning_rate": 0.5})
+    for call in (early.warmup, lambda: early.prefill(1, [1, 2, 3])):
+        with pytest.raises(MXNetError, match="InferenceEngine was built"):
+            call()
+    late = InferenceEngine(net, **kw)
+    assert late.params["embed"].data_ptr() == \
+        net.model.embed.weight.data_ptr()
+    _, before = late.prefill(0, [1, 2, 3])
+    _port_step(net, trainer, *_batch())
+    _, after = late.prefill(1, [1, 2, 3])
+    assert not torch.equal(before, after)
+
+
 def test_stale_grad_step_raises_naming_the_parameter():
     net = llama_tiny(num_layers=1, device="cpu", seed=3)
     params = dict(net.named_parameters())
@@ -503,9 +611,13 @@ def test_unported_optimizers_and_kvstores_raise():
     for name in ("lamb", "rmsprop", "adagrad"):
         with pytest.raises(NotSupportedError, match="training-surface"):
             Trainer(p, name)
-    for kwargs in ({"lr_scheduler": object()}, {"multi_precision": True}):
-        with pytest.raises(NotSupportedError):
-            Trainer(p, "sgd", kwargs)
+    # lr_scheduler and multi_precision are ported now: taken as the
+    # reference takes them (test_torch_port_amp.py holds their numbers)
+    sched = mt.optimizer.lr_scheduler.FactorScheduler(step=2)
+    tr = Trainer(p, "sgd", {"lr_scheduler": sched, "multi_precision": True,
+                            "learning_rate": 0.3})
+    assert tr.optimizer.lr_scheduler is sched and sched.base_lr == 0.3
+    assert tr.optimizer.multi_precision
     for kv in ("dist_sync", "nccl", "tpu_sync"):
         with pytest.raises(NotSupportedError, match="multi-device"):
             Trainer(p, "sgd", kvstore=kv)

@@ -4,7 +4,10 @@
 Builds Llama-3-8B's geometry (random weights from ``--seed``, float32,
 full width; ``--layers`` cuts depth) and a ``gluon.Trainer`` with AdamW
 (lr 1e-3, wd 0.1), takes one warm-up step on a batch of ``--batch`` x
-``--seq`` tokens, then profiles with ``torch.profiler``:
+``--seq`` tokens, then profiles with ``torch.profiler``.  With ``--amp``
+the steps run under ``amp.init("bfloat16")``, ``amp.init_trainer`` and
+``amp.scale_loss`` (chip_smoke.py's phase 11); without it in float32
+(phase 8).  The windows:
 
 - the forward and loss, the backward and the update (``trainer.step``)
   of one step, each as a window of its own;
@@ -36,13 +39,15 @@ def main():
     ap.add_argument("--seq", type=int, default=1024)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--trace-dir", default=None)
+    ap.add_argument("--amp", action="store_true",
+                    help="bf16 mixed precision (amp.init('bfloat16'))")
     args = ap.parse_args()
     import numpy as np
     import torch
     if not torch.cuda.is_available():
         sys.exit("needs a CUDA device")
     sys.path.insert(0, REPO)
-    from mxnet_tpu_torch import ops
+    from mxnet_tpu_torch import amp, ops
     from mxnet_tpu_torch.gluon import Trainer
     from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
     from mxnet_tpu_torch.gluon.model_zoo.nlp.llama import llama3_8b
@@ -58,20 +63,31 @@ def main():
                     num_layers=args.layers)
     trainer = Trainer(dict(net.named_parameters()), "adamw",
                       {"learning_rate": 1e-3, "wd": 0.1})
+    if args.amp:
+        amp.init("bfloat16")
+        amp.init_trainer(trainer)
     loss_fn = SoftmaxCrossEntropyLoss()
     rng = np.random.RandomState(args.seed)
     tokens, labels = (torch.from_numpy(rng.randint(
         0, net.cfg.vocab_size, (args.batch, args.seq))).to(dev)
         for _ in range(2))
+    params = list(net.parameters())
     state = {}
 
+    # ``window`` runs each function twice (untraced, then traced), so each
+    # one can run again: the backward keeps its graph, and the update
+    # puts the backward's gradients back before each step
     def forward():
         state["loss"] = loss_fn(net(tokens), labels).sum()
 
     def backward():
-        state.pop("loss").backward()
+        with amp.scale_loss(state["loss"], trainer) as scaled:
+            scaled.backward(retain_graph=True)
+        state["grads"] = [p.grad for p in params]
 
     def update():
+        for p, g in zip(params, state["grads"]):
+            p.grad = g
         trainer.step(args.batch)
 
     def step():
@@ -92,6 +108,7 @@ def main():
               f"launches", flush=True)
     print(card)
     print(json.dumps({"card": card, "layers": args.layers,
+                      "amp": "bfloat16" if args.amp else None,
                       "tokens": args.batch * args.seq,
                       "port_launches": ops.launch_counts(),
                       "windows": results}))
