@@ -35,7 +35,9 @@ continued:
    and on views one element into their allocations; at the training
    bucket each is timed against its library call in 20 interleaved
    pairs (medians, the ratio's median and range, TB/s, share of the
-   bound);
+   bound); K3 forward and backward at BERT-base's attention geometry
+   (B*H = 768, L = 128, D = 64, non-causal), float32 and bfloat16, each
+   timed beside its plain version and SDPA;
 4. serving: Llama-3-8B at full width and depth in bfloat16, random
    weights from a seed, ``InferenceEngine(max_batch=8, block_size=16,
    max_context=1024)`` and a ``ContinuousBatcher`` serving 16 greedy
@@ -79,20 +81,39 @@ continued:
     forward and backward: gradients finite and within phase 3's
     tolerances of the plain backward; the device time of a pass by
     kernel (``torch.profiler``) beside the host clock;
-11. bf16 AMP training, last (``amp.init`` is process-wide): phase 8's
-    model, batch and AdamW under ``amp.init("bfloat16")``,
-    ``amp.init_trainer`` and ``amp.scale_loss``, 5 steps: the loss
-    finite and falling, its first value within 2e-2 relative of phase
-    8's, logits and loss bf16 and gradients f32, and exactly 20 flash
-    forward and 20 backward launches, every one on bf16 inputs, and 5 K2
-    launches.
+12. card vs CPU, BERT through the imperative core (NDArray, autograd,
+    Parameter, gluon.nn): ``get_bert_model(num_layers=2)`` at BERT-base
+    width (vocab 30522, max_length 128), dropout 0, ``use_flash=True``,
+    no decoder, f32, the same weights on both; two Adam steps (lr 1e-4)
+    on batch 2 x 128 through ``autograd.record`` and
+    ``Trainer(net.collect_params(), "adam")``: losses within 1e-4
+    relative, each parameter's update within 1e-3 relative (Adam maps a
+    noise-level gradient to a step of about lr, so parameters are not
+    held absolutely); on the card 2 K3 forward and 2 backward launches a
+    step (f32, non-causal, D = 64) and one K2;
+11. bf16 AMP training (``amp.init`` is process-wide, so phases 11 and
+    13 come last): phase 8's model, batch and AdamW under
+    ``amp.init("bfloat16")``, ``amp.init_trainer`` and
+    ``amp.scale_loss``, 5 steps: the loss finite and falling, its first
+    value within 2e-2 relative of phase 8's, logits and loss bf16 and
+    gradients f32, and exactly 20 flash forward and 20 backward
+    launches, every one on bf16 inputs, and 5 K2 launches;
+13. BERT-base training at ``bench.py``'s configuration
+    (``get_bert_model(vocab_size=30522, max_length=128, dropout=0.0,
+    use_flash=True, use_decoder=False)``, ``initialize()`` on the card,
+    ``hybridize()``, batch 64 x 128 from ``RandomState(0)``, bf16 AMP,
+    Adam lr 1e-4) through the MXNet loop: 3 warm-up and 10 timed steps;
+    the loss finite and falling, exactly 12 K3 forward and 12 backward
+    launches a step, all bf16, and one K2; it prints the step median,
+    samples/s, peak memory, and, from two profiled steps, the device
+    time by kernel and the step's host share.
 
 Phases 4 and 7 also print, from a pass after the timed run (so the
 run's steps are measured as they run without it) that replays each
 decode step on its own staged inputs, the replays' device time (CUDA
 events around ``graph.replay()``) and each step's host share beside
 it.  Before
-each of phases 4, 7, 8, 9, 10 and 11 the kernels' launch counters are
+each of phases 4, 7, 8, 9, 10, 11, 12 and 13 the kernels' launch counters are
 set to 0; each phase reads them just after and fails unless its kernels
 ran the expected number of times.  The second-to-last line is the
 card's name and power limit, the line before it the kernels' JSON
@@ -823,6 +844,80 @@ def check_flash_bwd(dev, flush):
             del q, k, v, do, out, lse, got, want, qs, ks, vs, gs, sdpa_out
     main["max_abs_err"] = worst
     return main
+
+
+BERT_ATTN = dict(B=64, H=12, L=128, D=64)     # phases 12-13's geometry
+
+
+def check_flash_bert(dev, flush):
+    """K3 forward and backward at BERT-base's attention geometry, batch
+    64 x 128 tokens: (B*H = 768, L = 128, D = 64), non-causal, scale
+    1/8, in float32 and bfloat16, each against its plain version, timed
+    beside the plain version and SDPA (forward, and its backward alone
+    through a retained graph), with its bound."""
+    import torch
+    import torch.nn.functional as F
+    from mxnet_tpu_torch.ops.flash_attention import (
+        flash_attention_bwd, flash_attention_bwd_plain, flash_attention_fwd,
+        flash_attention_plain)
+    B, H, L, D = (BERT_ATTN[k] for k in "BHLD")
+    for name in ("float32", "bfloat16"):
+        dtype = getattr(torch, name)
+        g = torch.Generator(device=dev).manual_seed(B * H)
+        q, k, v, do = (torch.randn(B * H, L, D, device=dev, generator=g)
+                       .to(dtype) for _ in range(4))
+        out, lse = flash_attention_fwd(q, k, v, False)
+        ref, ref_lse = flash_attention_plain(q, k, v, False, D ** -0.5)
+        got = flash_attention_bwd(q, k, v, out, lse, do, False)
+        want = flash_attention_bwd_plain(q, k, v, out, lse, do, False,
+                                         D ** -0.5)
+        torch.cuda.synchronize()
+        err, ok = max_err(out, ref, FLASH_TOL[name])
+        lerr, lok = max_err(lse, ref_lse, (1e-4, 1e-4))
+        if not (ok and lok):
+            fail(f"flash kernel vs plain at BERT's shape {name}: max |out| "
+                 f"err {err}, max |lse| err {lerr}")
+        berr = 0.0
+        for a, b, what in zip(got, want, ("dq", "dk", "dv")):
+            e, ok = max_err(a, b, FLASH_BWD_TOL[name])
+            if not ok or not bool(torch.isfinite(a).all()):
+                fail(f"flash backward kernel vs plain at BERT's shape "
+                     f"{name}: max |{what}| err {e}")
+            berr = max(berr, e)
+        qs, ks, vs = (t.view(B, H, L, D).detach().requires_grad_()
+                      for t in (q, k, v))
+        elem = q.element_size()
+        for kernel, e, fn, plain, lib, nbytes, flops, cover in (
+                ("flash_attention_fwd", err,
+                 lambda: flash_attention_fwd(q, k, v, False),
+                 lambda: flash_attention_plain(q, k, v, False, D ** -0.5),
+                 lambda: F.scaled_dot_product_attention(qs, ks, vs),
+                 4 * B * H * L * D * elem + 4 * B * H * L,
+                 4.0 * B * H * D * L * L, 200_000),
+                ("flash_attention_bwd", berr,
+                 lambda: flash_attention_bwd(q, k, v, out, lse, do, False),
+                 lambda: flash_attention_bwd_plain(q, k, v, out, lse, do,
+                                                   False, D ** -0.5),
+                 None, 8 * B * H * L * D * elem + 4 * B * H * L,
+                 10.0 * B * H * D * L * L, 2_000_000)):
+            if lib is None:              # SDPA's backward alone
+                sdpa_out = F.scaled_dot_product_attention(qs, ks, vs)
+                gs = do.view(B, H, L, D)
+                lib = (lambda o=sdpa_out, gg=gs: torch.autograd.grad(
+                    o, (qs, ks, vs), gg, retain_graph=True))
+            ms = time_ms(fn, 20, flush)
+            plain_ms = time_ms(plain, 5, flush)
+            lib_ms = time_ms(lib, 20, flush, cover=cover)
+            bound_ms, by = bound(nbytes, flops, name)
+            print(f"{kernel} BERT-base BH={B * H} L={L} D={D} non-causal "
+                  f"{name}: max_abs_err {e:.3e} kernel {ms:.4f} ms plain "
+                  f"{plain_ms:.4f} ms sdpa {lib_ms:.4f} ms "
+                  f"({ms / lib_ms:.2f}x sdpa) bound {bound_ms:.4f} ms "
+                  f"({by}; {bound_ms / ms:.1%} of it)", flush=True)
+            record(kernel, name, [B * H, L, D, "non-causal"], ms, plain_ms,
+                   lib_ms, bound_ms, by)
+        del q, k, v, do, out, lse, got, want, qs, ks, vs
+    torch.cuda.empty_cache()
 
 
 def _chunks(n):
@@ -1611,6 +1706,239 @@ def layernorm_path(dev, card):
     return launches
 
 
+# ----------------------------------------------------------------------
+# phases 12 and 13: BERT through the imperative core
+# ----------------------------------------------------------------------
+
+BERT_VOCAB, BERT_SEQ = 30522, 128
+BERT_BATCH, BERT_WARMUP, BERT_STEPS = 64, 3, 10
+# phase 12: each parameter's two-step Adam update, card against CPU, as
+# |du_card - du_cpu| / |du_cpu| (two CPU runs at 1 and 8 threads differ
+# by up to 1.0e-4, their parameters by up to 7.5e-6 absolute); the key
+# biases by two Adam steps of lr 1e-4 on either device
+BERT_UPDATE_RTOL = 1e-3
+# phase 13's device time by kernel class (first match by name)
+BUSY_CLASSES = (("flash (K3)", ("flash_",)),
+                ("update (K2)", ("update_kernel",)),
+                ("gemm", ("nvjet", "gemm", "cutlass", "Kernel2")),
+                ("layernorm", ("RowwiseMoments", "LayerNorm", "GammaBeta",
+                               "layer_norm")),
+                ("reduce", ("reduce_kernel",)),
+                ("cat/copy", ("CatArray", "copy")),
+                ("elementwise", ("elementwise",)))
+BERT_KEY_BIAS_ATOL = 4e-4
+
+
+def _bert_step(net, ce, trainer, amp, data, types, label, batch):
+    """One MXNet-style step: record, loss on the classifier, backward,
+    ``trainer.step``; returns the per-sample losses."""
+    from mxnet_tpu_torch import autograd
+    with autograd.record():
+        loss = ce(net(data, types)[-1], label)
+    with amp.scale_loss(loss, trainer) as scaled:
+        scaled.backward()
+    trainer.step(batch)
+    return loss
+
+
+def bert_card_vs_cpu(dev):
+    """Phase 12: ``get_bert_model(num_layers=2)`` at BERT-base width
+    (768 units, 12 heads, FFN 3072, vocab 30522, max_length 128), dropout
+    0, ``use_flash=True``, no decoder, f32; the same weights (initialized
+    on the card from a seed, carried by ``convert``) train two Adam steps
+    (lr 1e-4) on batch 2 x 128 through ``autograd.record`` and
+    ``Trainer(net.collect_params(), "adam")`` on the card and on the
+    host: losses within 1e-4 relative, each parameter's update within
+    1e-3 relative (``BERT_UPDATE_RTOL``; the key biases within Adam's
+    bound); on the card 2 K3 forward and 2 backward launches a step, all
+    f32, and one K2."""
+    import numpy as np
+    import torch
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import amp, gluon, ops
+    from mxnet_tpu_torch.convert import (block_weights_to_numpy,
+                                         load_block_weights)
+    from mxnet_tpu_torch.gluon.model_zoo.nlp import get_bert_model
+    kw = dict(num_layers=2, vocab_size=BERT_VOCAB, max_length=BERT_SEQ,
+              dropout=0.0, use_flash=True, use_decoder=False)
+    rng = np.random.RandomState(12)
+    host = {"data": rng.randint(0, BERT_VOCAB, (2, BERT_SEQ)),
+            "types": rng.randint(0, 2, (2, BERT_SEQ)),
+            "label": rng.randint(0, 2, (2,))}
+    weights, runs, launches = None, [], None
+    for ctx in (mx.gpu(dev.index or 0), mx.cpu()):
+        net = get_bert_model(**kw)
+        mx.random.seed(12)
+        net.initialize(ctx=ctx)
+        with ctx:
+            data, types, label = (mx.nd.array(host[k], dtype="int32")
+                                  for k in ("data", "types", "label"))
+        if weights is None:
+            net(data, types)            # the deferred shapes resolve
+            weights = block_weights_to_numpy(net)
+        load_block_weights(net, weights)
+        trainer = gluon.Trainer(net.collect_params(), "adam",
+                                {"learning_rate": 1e-4})
+        ce = gluon.loss.SoftmaxCrossEntropyLoss()
+        if ctx.device_type == "gpu":
+            torch.cuda.synchronize(dev)
+            ops.reset_launches()
+        losses = [float(_bert_step(net, ce, trainer, amp, data, types,
+                                   label, 2).mean().asscalar())
+                  for _ in range(2)]
+        if ctx.device_type == "gpu":
+            torch.cuda.synchronize(dev)
+            launches = read_launches("bert card vs cpu", {
+                "flash_attention_fwd": 4, "flash_attention_bwd": 4,
+                "fused_adam_update": 2})
+        runs.append((losses, block_weights_to_numpy(net)))
+        del net, trainer
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(runs[0][0],
+                                                      runs[1][0]))
+    # Adam maps each gradient element to a step of about lr whatever its
+    # size, so an element whose gradient is mostly rounding noise (a sum
+    # that cancels) moves by up to lr either way: the parameters are held
+    # by each one's update p2 - p0, card against CPU, as |du_card -
+    # du_cpu| / |du_cpu|; the key projections' bias, whose gradient is
+    # zero in exact arithmetic, by Adam's bound
+    w0 = weights
+    upd = {k: float(np.linalg.norm((runs[0][1][k] - w0[k]) -
+                                   (runs[1][1][k] - w0[k])) /
+                    np.linalg.norm(runs[1][1][k] - w0[k])) for k in w0}
+    diff = {k: float(np.abs(runs[0][1][k] - runs[1][1][k]).max())
+            for k in w0}
+    noise = [k for k in w0 if k.endswith("proj_key.bias")]
+    upd_err = max(v for k, v in upd.items() if k not in noise)
+    noise_err = max(diff[k] for k in noise)
+    worst = sorted(diff.items(), key=lambda kv: -kv[1])[:3]
+    print(f"bert card vs cpu (2 layers at BERT-base width, vocab "
+          f"{BERT_VOCAB}, f32, flash non-causal D=64, 2 adam steps on 2 x "
+          f"{BERT_SEQ} tokens): losses card {runs[0][0]} cpu {runs[1][0]}, "
+          f"max relative loss diff {loss_err:.3e} (limit {TRAIN_LOSS_RTOL}),"
+          f" worst relative update diff {upd_err:.3e} (limit "
+          f"{BERT_UPDATE_RTOL}) over every parameter but the key biases, "
+          f"which differ by {noise_err:.3e} (limit {BERT_KEY_BIAS_ATOL}); "
+          f"max |param| diffs {worst}; launches {launches}", flush=True)
+    if not (loss_err <= TRAIN_LOSS_RTOL and upd_err <= BERT_UPDATE_RTOL
+            and noise_err <= BERT_KEY_BIAS_ATOL):
+        fail("bert training on the card and on the CPU disagree")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def bert_training(dev, card):
+    """Phase 13: BERT-base training at the JAX package's own benchmark
+    configuration (``bench.py``'s ``_bench_bert``):
+    ``get_bert_model(vocab_size=30522, max_length=128, dropout=0.0,
+    use_flash=True, use_decoder=False)`` at full depth, ``initialize()``
+    on the card, ``hybridize()``, batch 64 x 128 from
+    ``RandomState(0)``, ``amp.init("bfloat16")`` and
+    ``amp.init_trainer``, Adam lr 1e-4: 3 warm-up steps, then 10 timed
+    steps (host clock around each, ending in a synchronize).  Fails
+    unless the loss is finite at every step and lower at the last than
+    at the first, and each timed step launched exactly 12 K3 forward and
+    12 backward (all on bf16 inputs) and one K2.  Then two more steps
+    under ``torch.profiler``: the device time by kernel, and the step's
+    host share ``1 - busy / wall`` against the untraced median."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import amp, gluon, ops
+    from mxnet_tpu_torch.gluon.model_zoo.nlp import get_bert_model
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    amp.init("bfloat16")
+    try:
+        t0 = time.perf_counter()
+        mx.random.seed(0)
+        net = get_bert_model(vocab_size=BERT_VOCAB, max_length=BERT_SEQ,
+                             dropout=0.0, use_flash=True, use_decoder=False)
+        net.initialize()
+        net.hybridize()
+        ce = gluon.loss.SoftmaxCrossEntropyLoss()
+        trainer = gluon.Trainer(net.collect_params(), "adam",
+                                {"learning_rate": 1e-4})
+        amp.init_trainer(trainer)
+        rng = np.random.RandomState(0)
+        data = mx.nd.array(rng.randint(0, BERT_VOCAB,
+                                       size=(BERT_BATCH, BERT_SEQ)),
+                           dtype="int32")
+        types = mx.nd.zeros((BERT_BATCH, BERT_SEQ), dtype="int32")
+        label = mx.nd.array(rng.randint(0, 2, size=(BERT_BATCH,)),
+                            dtype="int32")
+
+        def step():
+            return _bert_step(net, ce, trainer, amp, data, types, label,
+                              BERT_BATCH)
+
+        losses = [step().mean() for _ in range(BERT_WARMUP)]
+        torch.cuda.synchronize(dev)
+        setup_s = time.perf_counter() - t0
+        n_params = sum(p.data().size for p in
+                       net.collect_params().values())
+        ops.reset_launches()
+        step_s = []
+        for _ in range(BERT_STEPS):
+            t = time.perf_counter()
+            losses.append(step().mean())
+            torch.cuda.synchronize(dev)
+            step_s.append(time.perf_counter() - t)
+        want = {"flash_attention_fwd": 12 * BERT_STEPS,
+                "flash_attention_bwd": 12 * BERT_STEPS,
+                "flash_attention_fwd_bf16": 12 * BERT_STEPS,
+                "flash_attention_bwd_bf16": 12 * BERT_STEPS,
+                "fused_adam_update": BERT_STEPS}
+        launches = read_launches("bert training", want)
+        peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t = time.perf_counter()
+            for _ in range(2):
+                step()
+            torch.cuda.synchronize(dev)
+            traced_ms = (time.perf_counter() - t) / 2 * 1e3
+    finally:
+        amp._deinit_for_tests()
+    busy = {}
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            busy[e.key] = busy.get(e.key, 0.0) + \
+                e.self_device_time_total / 1e3 / 2
+    busy_ms = sum(busy.values())
+    top = sorted(busy.items(), key=lambda kv: -kv[1])[:8]
+    classes = {}
+    for name, ms in busy.items():
+        cls = next((c for c, keys in BUSY_CLASSES if any(
+            k in name for k in keys)), "other")
+        classes[cls] = classes.get(cls, 0.0) + ms
+    losses = [float(x.asscalar()) for x in losses]
+    step_ms = statistics.median(step_s) * 1e3
+    host_share = 1 - busy_ms / step_ms
+    print(f"bert training, BERT-base (12 x 768, 12 heads, FFN 3072, vocab "
+          f"{BERT_VOCAB}), {n_params} params in the Trainer's flat buffer, "
+          f"bf16 amp, adam lr 1e-4, batch {BERT_BATCH}x{BERT_SEQ} on "
+          f"{card}: losses {losses}; step median {step_ms:.2f} ms over "
+          f"{BERT_STEPS} steps after {BERT_WARMUP} warm-up (min "
+          f"{min(step_s) * 1e3:.2f}, max {max(step_s) * 1e3:.2f}) = "
+          f"{BERT_BATCH / step_ms * 1e3:.1f} samples/s; peak memory "
+          f"{peak_gb:.2f} GB; set-up and warm-up {setup_s:.2f} s; device "
+          f"busy {busy_ms:.3f} ms a step (profiler, 2 steps; traced wall "
+          f"{traced_ms:.2f} ms), host share {host_share:.4f} of the "
+          f"untraced step; device ms a step by class "
+          f"{ {k: round(v, 3) for k, v in classes.items()} }; top kernels "
+          f"{', '.join(f'{k[:60]} {v:.3f} ms' for k, v in top)}; launches "
+          f"{launches}", flush=True)
+    if not all(np.isfinite(losses)):
+        fail(f"bert training: non-finite loss {losses}")
+    if not losses[-1] < losses[0]:
+        fail(f"bert training: the loss did not fall: {losses}")
+    del net, trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main():
     try:
         import torch
@@ -1647,21 +1975,24 @@ def main():
               "paged_decode_attention": check_paged(dev, flush),
               "paged_decode_attention_fp8": check_paged_fp8(dev, flush),
               "flash_attention_bwd": check_flash_bwd(dev, flush)}
+    check_flash_bert(dev, flush)
     checks.update(check_layernorm(dev, flush))
     checks.update(check_updates(dev, flush, train_param_count()))
     del flush
     torch.cuda.empty_cache()
 
-    # phases 4-11: each path from zeroed launch counters
+    # phases 4-13: each path from zeroed launch counters
     by_path = {"serving": serve_llama3_8b(dev, card)}
     card_vs_cpu(dev)
     by_path["serving_fp8"] = serve_llama3_8b_fp8(dev, card)
     by_path["training"], f32_first_loss = train_llama3_8b(dev, card)
     by_path["training_card_vs_cpu"] = train_card_vs_cpu(dev)
     by_path["layernorm_op"] = layernorm_path(dev, card)
-    # phase 11 last: amp.init() is process-wide
+    by_path["bert_card_vs_cpu"] = bert_card_vs_cpu(dev)
+    # phases 11 and 13 last: amp.init() is process-wide
     by_path["training_amp"], _ = train_llama3_8b(
         dev, card, amp_dtype="bfloat16", f32_first_loss=f32_first_loss)
+    by_path["bert_training"] = bert_training(dev, card)
 
     kernels = []
     for name, src, tpu in (

@@ -12,8 +12,8 @@ The policy.  ``init()`` sets a process-wide policy, as the reference's
 does (it patches the JAX package's op registry; ``_deinit_for_tests``
 undoes either).  It switches on no global autocast: a model opens one
 ``torch.autocast`` region around its forward body while the policy is
-on (:func:`region`; ``LlamaForCausalLM.forward`` does, and
-``gluon/block.py`` will when it lands).  A region per forward is what
+on (:func:`region`; ``LlamaForCausalLM.forward`` does, and so does the
+outermost call of a gluon ``Block``).  A region per forward is what
 keeps autocast's cache of low-precision weight copies fresh: the cache
 lives until the outermost region exits, so under one global region the
 forward after an in-place optimizer update would read the last step's
@@ -21,8 +21,13 @@ bf16 weights.  Parameters, their gradients and the optimizer state stay
 float32; the matmuls' casts are differentiable, so the gradients arrive
 in float32.
 
-Where the port's casts differ from ``amp/lists.py``.  The port has no op
-registry yet (ROADMAP §1 item 3), so the casts are autocast's lists, not
+The gluon path (NDArray ops, ``gluon.nn``, BERT) casts as the
+reference does: the op registry of ``ndarray/ops.py`` casts each listed
+op's inputs by ``lists.py`` and runs the op with autocast off, so an op
+computes in the same dtype on the CPU and on the card.
+
+Where the Llama path's casts differ from ``amp/lists.py``.  Its torch
+modules call no registered op, so their casts are autocast's lists, not
 the reference's:
 
 - ``TARGET_DTYPE_OPS``: ``FullyConnected``, ``dot``/``batch_dot`` and
@@ -75,8 +80,9 @@ def init(target_dtype="bfloat16", target_precision_ops=None,
     """Switch the process-wide mixed-precision policy on (a second call
     changes nothing, as in the reference).  ``target_dtype``:
     ``"bfloat16"`` or ``"float16"``.  The op-list arguments extend the
-    reference's op registry patch; the port's casts are autocast's until
-    the op registry lands, so only None or empty lists are taken."""
+    reference's registry patch; the port's registry applies the
+    reference's own lists and takes no extensions yet, so only None or
+    empty lists are taken."""
     global _target_dtype
     if _target_dtype is not None:
         return
@@ -87,9 +93,8 @@ def init(target_dtype="bfloat16", target_precision_ops=None,
                       ("fp32_ops", fp32_ops)):
         if ops:
             raise NotSupportedError(
-                f"amp.init({name}=...): the port's casts are "
-                "torch.autocast's lists until the op registry lands "
-                "(ROADMAP §1 item 3)")
+                f"amp.init({name}=...): extending the op registry's "
+                "lists arrives with ROADMAP §1 item 12")
     _target_dtype = target_dtype
 
 
@@ -124,6 +129,7 @@ def init_trainer(trainer):
 
     def step(batch_size, ignore_stale_grad=False):
         scaler = trainer._amp_loss_scaler
+        trainer._refresh()
         trainer._optimizer.rescale_grad = \
             trainer._scale / batch_size / scaler.loss_scale
         overflow = scaler._dynamic and scaler.has_overflow(trainer._params)
@@ -158,19 +164,25 @@ def unscale(trainer):
     scaler = getattr(trainer, "_amp_loss_scaler", None)
     if scaler is None or scaler.loss_scale == 1.0:
         return
+    trainer._refresh()
     grads = [p.grad for p in trainer._params if p.grad is not None]
     if grads:
         torch._foreach_mul_(grads, 1.0 / scaler.loss_scale)
 
 
 def convert_hybrid_block(block, target_dtype="bfloat16"):
-    """Cast a module's floating-point parameters (and buffers) to the
-    target dtype in place and return it (the reference's
-    ``block.cast``).  A Trainer built on the module before loses its
-    flat parameter buffer's aliasing and says so at its next step."""
+    """Cast a block's parameters to the target dtype in place and return
+    it: a gluon ``HybridBlock`` through ``block.cast(target_dtype)``, as
+    the reference does, so each Parameter's dtype follows; a torch
+    module (the Llama path) through ``.to``, floating-point parameters
+    and buffers.  A Trainer built on the block before loses its flat
+    parameter buffer's aliasing and says so at its next step."""
     if target_dtype not in _DTYPES:
         raise MXNetError("target_dtype must be bfloat16 or float16")
-    return block.to(_DTYPES[target_dtype])
+    if isinstance(block, torch.nn.Module):
+        return block.to(_DTYPES[target_dtype])
+    block.cast(target_dtype)
+    return block
 
 
 def list_lp16_ops(target_dtype="bfloat16"):

@@ -1,7 +1,12 @@
-"""Gluon-style model code of the port (counterpart of ``mxnet_tpu.gluon``):
-the Llama model zoo entry, the losses and the ``Trainer`` of the
-single-card serving and training slices."""
-from . import loss, model_zoo
+"""Gluon (counterpart of ``mxnet_tpu.gluon``): ``Block``/``HybridBlock``,
+``Parameter``/``ParameterDict``, the layers of ``nn``, the losses, the
+model zoo (BERT and Llama) and the ``Trainer``."""
+from .parameter import (Constant, DeferredInitializationError, Parameter,
+                        ParameterDict)
+from .block import Block, HybridBlock, SymbolBlock
+from . import nn, loss, model_zoo
 from .trainer import Trainer
 
-__all__ = ["Trainer", "loss", "model_zoo"]
+__all__ = ["Block", "HybridBlock", "SymbolBlock", "Parameter",
+           "ParameterDict", "Constant", "DeferredInitializationError",
+           "Trainer", "nn", "loss", "model_zoo"]

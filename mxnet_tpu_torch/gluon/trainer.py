@@ -1,55 +1,65 @@
 """Gluon ``Trainer``: applies an Optimizer over a group of parameters.
 
-Counterpart of ``mxnet_tpu/gluon/trainer.py`` on one card.  ``params`` is
-a dict ``name -> nn.Parameter`` (for example
-``dict(net.named_parameters())``; keys are sorted, as in the reference)
-or a list of them.  ``step(batch_size)`` rescales the gradients by
-``rescale_grad / batch_size`` and updates every parameter whose
-gradient a backward pass has written since the last update; each
-updated parameter's ``.grad`` is then set to ``None``.
+Counterpart of ``mxnet_tpu/gluon/trainer.py`` on one card.  ``params``
+is, as in the reference, a ``ParameterDict`` (``net.collect_params()``)
+or a list of gluon ``Parameter``s; or, for the port's torch modules, a
+dict ``name -> nn.Parameter`` (``dict(net.named_parameters())``) or a
+list of them.  Dict keys are sorted, as in the reference.
+``step(batch_size)`` rescales the gradients by ``rescale_grad /
+batch_size`` and updates every parameter whose gradient a backward pass
+has written since the last update; each updated parameter's ``.grad``
+is then set to ``None``.
+
+Gluon parameters.  Each stands for its ``torch.nn.Parameter``
+(``Parameter._var``), read afresh at every update, so parameters whose
+initialization waits for the first forward (deferred shapes) join when
+they exist.  ``grad_req="null"`` parameters are left out; ``"add"``
+ones update from the sum of the backward passes since the last step,
+which the step then clears (the reference's ``zero_grad`` after the
+update); ``"write"`` is the Parameter's own hook.  The optimizer's
+``param_dict`` maps each index to its Parameter, so ``lr_mult`` and
+``wd_mult`` scale its learning rate and weight decay.
 
 The update mirrors the reference's ``_fused_jit_update``: qualification
 first, mutating nothing (a stale gradient raises before any parameter
 moves); then the update counts; then, when the parameters with fresh
-gradients form a uniform group (one lr, one wd, one value of the
-optimizer's host scalars -- Adam's step count --, every parameter
-float32 on one device, two or more parameters), ONE flat-bucket update
-through ``ops.fused_update.fused_bucket_rule`` (K1 for sgd/nag, K2 for
-adam/adamw on the card), and otherwise the per-param path
-(``Optimizer.update_multi_precision``: float16 weights keep an f32
+gradients form a uniform group (one lr, one wd -- so one multiplier --,
+one value of the optimizer's host scalars -- Adam's step count --, every
+parameter float32 on one device, two or more parameters), ONE
+flat-bucket update through ``ops.fused_update.fused_bucket_rule`` (K1
+for sgd/nag, K2 for adam/adamw on the card), and otherwise the per-param
+path (``Optimizer.update_multi_precision``: float16 weights keep an f32
 master copy under ``multi_precision``).  The two give bitwise-equal
 parameters on the CPU.
 
 Persistent flat buffers.  When every trainable parameter is float32 on
-one device, the Trainer copies them, at construction and in its order,
-into one flat f32 buffer and rebinds each parameter's ``.data`` to its
-view of it; the optimizer state lives in flat buffers of the same
-layout, one per state leaf.  When every parameter has a fresh gradient,
-the bucket rule then updates the parameter and state buffers where they
-lie (in place on the card): only the gradients are concatenated, and
-nothing is written back.  When a step skips stale parameters
-(``ignore_stale_grad``), the fresh subset's parameter and state views
-are gathered into a bucket and written back.  Before every update the
-Trainer checks that each parameter still lies in the buffer and raises
-if one was moved off it (``p.data = ...``, ``net.to(...)``), rather
-than update a stale copy; in-place writes (``load_state_dict``,
-``reset_parameters``) keep the aliasing.  Building the buffer moves
-every parameter to new storage, so whatever held the old storage no
-longer sees the parameters: a ``serving.InferenceEngine`` built on the
-net before the Trainer raises at its next ``warmup`` or ``prefill``
-(build it after the Trainer, and it serves every update), and a tensor
-kept from ``decode_weights()`` keeps the old values.
+one device, the Trainer copies them, in its order, into one flat f32
+buffer and rebinds each parameter's ``.data`` to its view of it (at
+construction, or for gluon parameters at the first update, when their
+shapes are known); the optimizer state lives in flat buffers of the
+same layout, one per state leaf.  When every parameter has a fresh
+gradient, the bucket rule then updates the parameter and state buffers
+where they lie (in place on the card): only the gradients are
+concatenated, and nothing is written back.  When a step skips stale
+parameters (``ignore_stale_grad``), the fresh subset's parameter and
+state views are gathered into a bucket and written back.  Before every
+update the Trainer checks that each parameter still lies in the buffer
+and raises if one was moved off it (``p.data = ...``, ``net.to(...)``,
+``Parameter.cast``), rather than update a stale copy; in-place writes
+(``load_state_dict``, ``set_data``, ``reset_parameters``) keep the
+aliasing.  Building the buffer moves every parameter to new storage, so
+whatever held the old storage no longer sees the parameters: a
+``serving.InferenceEngine`` built on the net before the Trainer raises
+at its next ``warmup`` or ``prefill`` (build it after the Trainer, and
+it serves every update), and a tensor kept from ``decode_weights()``
+keeps the old values.  A gluon Parameter's ``data()`` is an NDArray
+over the parameter object itself, so it follows the move.
 
-Gradients follow the reference's default ``grad_req="write"``: of two
-backward passes before one ``step`` only the last is kept.  The Trainer
-puts a pre-hook on each trainable parameter's ``AccumulateGrad`` node
-that sets ``.grad`` to ``None`` before the node writes, so within one
-backward the contributions of a tied parameter still sum, a second
-backward replaces the first, and ``torch.autograd.grad`` (which runs no
-``AccumulateGrad`` node) leaves ``.grad`` alone.  The nodes are held
-weakly by their tensors, so the Trainer keeps them, with their hooks'
-handles.  ``grad_req="add"`` arrives with ``gluon/parameter.py``
-(ROADMAP §1 item 3).
+Gradients of bare ``nn.Parameter``s follow the reference's default
+``grad_req="write"``: of two backward passes before one ``step`` only
+the last is kept, by the pre-hook of ``autograd.write_grad_on_backward``
+on each one's ``AccumulateGrad`` node, which the Trainer keeps (a gluon
+Parameter keeps its own, by its ``grad_req``).
 
 ``amp.init_trainer`` replaces ``step`` with its loss-scaled step, as in
 the reference.
@@ -59,45 +69,38 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from ..autograd import write_grad_on_backward
 from ..base import MXNetError, NotSupportedError
 from .. import optimizer as opt
 from ..ops.fused_update import fused_bucket_rule
+from .parameter import Parameter, ParameterDict
 
 __all__ = ["Trainer"]
 
 _KVSTORES = (None, "device", "local")
-
-
-def _write_grad_on_backward(p):
-    """``grad_req="write"`` for ``p``: a pre-hook on its
-    ``AccumulateGrad`` node drops the gradient of an earlier backward
-    before this one's is written.  Returns (node, handle): the caller
-    keeps both, since the tensor holds its node only weakly."""
-    with torch.enable_grad():
-        node = p.view_as(p).grad_fn.next_functions[0][0]
-
-    def drop(grad_outputs):
-        p.grad = None
-
-    return node, node.register_prehook(drop)
+_ABSENT = torch.empty(0)      # an uninitialized gluon Parameter's stand-in
 
 
 class Trainer:
     def __init__(self, params, optimizer, optimizer_params=None,
                  kvstore="device", compression_params=None,
                  update_on_kvstore=None):
-        if isinstance(params, dict):
-            names = sorted(params)
+        if isinstance(params, (dict, ParameterDict)):
+            names = sorted(params.keys())
             params = [params[k] for k in names]
         elif isinstance(params, (list, tuple)):
-            names = [f"#{i}" for i in range(len(params))]
+            names = [getattr(p, "name", f"#{i}")
+                     for i, p in enumerate(params)]
         else:
             raise MXNetError("First argument must be a list or dict of "
                              f"Parameters, got {type(params)}.")
+        gluon = all(isinstance(p, Parameter) for p in params)
         for p in params:
-            if not isinstance(p, nn.Parameter):
+            if not isinstance(p, (Parameter, nn.Parameter)) or \
+                    isinstance(p, Parameter) != gluon:
                 raise MXNetError("First argument must be a list or dict of "
-                                 f"Parameters, got list of {type(p)}.")
+                                 "Parameters (all gluon Parameters or all "
+                                 f"nn.Parameters), got list of {type(p)}.")
         refused = {"kvstore": kvstore not in _KVSTORES,
                    "compression_params": compression_params is not None,
                    "update_on_kvstore": update_on_kvstore is not None}
@@ -107,15 +110,22 @@ class Trainer:
                     f"{what}: the port trains on one card so far; kvstores, "
                     "gradient compression and updates on the kvstore arrive "
                     "with the multi-device slice (ROADMAP §1 item 10)")
-        self._params = list(params)
+        self._gluon = list(params) if gluon and params else None
+        self._params = [] if self._gluon else list(params)
         self._names = names
         optimizer_params = dict(optimizer_params or {})
         self._scale = float(optimizer_params.get("rescale_grad", 1.0))
+        param_dict = {i: p for i, p in enumerate(self._gluon or ())}
         if isinstance(optimizer, opt.Optimizer):
             if set(optimizer_params) - {"rescale_grad"}:
                 raise MXNetError("optimizer_params must be None if optimizer "
                                  "is an Optimizer instance")
             self._optimizer = optimizer
+            if param_dict:
+                optimizer.param_dict = param_dict
+        elif param_dict:
+            self._optimizer = opt.create(optimizer, param_dict=param_dict,
+                                         **optimizer_params)
         else:
             self._optimizer = opt.create(optimizer, **optimizer_params)
         self._states = None       # index -> {leaf: tensor}, built lazily
@@ -123,9 +133,11 @@ class Trainer:
         self._bucket_apply = None
         self._flat_param = None   # the flat f32 buffer of the parameters
         self._in_buffer = []      # (index, view) of each parameter in it
-        self._build_param_buffer()
-        self._grad_writes = [_write_grad_on_backward(p)
-                             for p in self._params if p.requires_grad]
+        self._grad_writes = []
+        if self._gluon is None:
+            self._build_param_buffer()
+            self._grad_writes = [write_grad_on_backward(p)
+                                 for p in self._params if p.requires_grad]
 
     @property
     def learning_rate(self):
@@ -147,6 +159,17 @@ class Trainer:
         """Update only (the reference's step without the all-reduce)."""
         self._optimizer.rescale_grad = self._scale / batch_size
         self._update(ignore_stale_grad)
+
+    def _refresh(self):
+        """Read the gluon Parameters' tensors afresh (an uninitialized one
+        stands in as a tensor that takes no gradient); at the first update
+        where they exist, build the flat parameter buffer."""
+        if self._gluon is None:
+            return
+        self._params = [_ABSENT if p._var is None else p._var
+                        for p in self._gluon]
+        if self._states is None and self._flat_param is None:
+            self._build_param_buffer()
 
     # -- flat buffers ----------------------------------------------------------
     def _build_param_buffer(self):
@@ -220,6 +243,7 @@ class Trainer:
     # -- update --------------------------------------------------------------
     def _update(self, ignore_stale_grad=False):
         optimizer = self._optimizer
+        self._refresh()
         self._check_param_buffer()
         if self._states is None:
             self._init_states()

@@ -17,11 +17,15 @@ Ported: SGD (with momentum), NAG, Adam, AdamW, and ``lazy_update``
 (dense gradients only, so either value updates densely, as the
 reference does for a dense gradient); ``lr_scheduler`` (an
 ``optimizer.lr_scheduler`` schedule read at ``num_update``, the
-reference's ``_get_lr``); and ``multi_precision``, which keeps an f32
+reference's ``_get_lr``); ``multi_precision``, which keeps an f32
 master copy of each float16 weight (``create_state_multi_precision`` /
 ``update_multi_precision``; other dtypes update as they are, as in the
-reference).  The other optimizers, and ``param_idx2name``, ``sym`` or
-``param_dict`` other than None (or empty) raise ``NotSupportedError``.
+reference); and the per-parameter multipliers of ``_get_lr``/``_get_wd``:
+``param_dict`` (index -> gluon ``Parameter``, whose ``lr_mult`` and
+``wd_mult`` apply; the gluon ``Trainer`` sets it) and
+``set_lr_mult``/``set_wd_mult`` (index -> multiplier).  The other
+optimizers, and ``param_idx2name`` or ``sym`` other than None (or
+empty) raise ``NotSupportedError``.
 """
 from __future__ import annotations
 
@@ -150,7 +154,7 @@ class Optimizer:
         # the reference's argument order; what is not ported is taken
         # only at its no-op default (None, False or an empty dict)
         for name, value in (("param_idx2name", param_idx2name),
-                            ("sym", sym), ("param_dict", param_dict)):
+                            ("sym", sym)):
             if value not in (None, False) and value != {}:
                 raise NotSupportedError(f"{name} is not ported yet; it "
                                         f"{_LATER}")
@@ -165,6 +169,9 @@ class Optimizer:
         self.begin_num_update = begin_num_update
         self.num_update = begin_num_update
         self._index_update_count = {}
+        self.param_dict = dict(param_dict) if param_dict else {}
+        self.lr_mult = {}
+        self.wd_mult = {}
 
     def _hyper(self):
         return {}
@@ -234,12 +241,29 @@ class Optimizer:
                               self.num_update)
 
     def _get_lr(self, index):
-        if self.lr_scheduler is not None:
-            return self.lr_scheduler(self.num_update)
-        return self.lr
+        lr = self.lr_scheduler(self.num_update) \
+            if self.lr_scheduler is not None else self.lr
+        if index in self.param_dict:
+            lr *= self.param_dict[index].lr_mult
+        elif index in self.lr_mult:
+            lr *= self.lr_mult[index]
+        return lr
 
     def _get_wd(self, index):
-        return self.wd
+        wd = self.wd
+        if index in self.param_dict:
+            wd *= self.param_dict[index].wd_mult
+        elif index in self.wd_mult:
+            wd *= self.wd_mult[index]
+        return wd
+
+    def set_lr_mult(self, args_lr_mult):
+        """Learning-rate multipliers by parameter index."""
+        self.lr_mult = dict(args_lr_mult)
+
+    def set_wd_mult(self, args_wd_mult):
+        """Weight-decay multipliers by parameter index."""
+        self.wd_mult = dict(args_wd_mult)
 
     def set_learning_rate(self, lr):
         if self.lr_scheduler is not None:

@@ -402,7 +402,7 @@ def test_amp_refusals_and_order():
         amp.init_trainer(tr)
     with pytest.raises(MXNetError):
         amp.init("int8")
-    with pytest.raises(NotSupportedError, match="item 3"):
+    with pytest.raises(NotSupportedError, match="item 12"):
         amp.init(fp32_ops=["dot"])
     with pytest.raises(MXNetError, match="amp.init"):
         amp.init_trainer(tr)          # the refused init left it off

@@ -998,3 +998,83 @@ def test_paged_ticket_counters_grow_after_a_capture(card):
     torch.cuda.synchronize()
     assert torch.equal(out, want)
     del junk
+
+
+# ----------------------------------------------------------------------
+# BERT's geometry: K3 non-causal at head_dim 64, and tiny BERT's steps
+# ----------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernels_at_bert_base_shape(card, dtype):
+    """BERT-base at batch 64 x 128 tokens: (B*H = 768, L = 128, D = 64),
+    non-causal, forward and backward against the plain versions."""
+    q, k, v, do = _bwd_inputs(card, 768, 128, 128, 64, dtype, 768)
+    out, lse = flash_attention_fwd(q, k, v, False)
+    ref, ref_lse = flash_attention_plain(q, k, v, False, 64 ** -0.5)
+    _close(out, ref, dtype)
+    torch.testing.assert_close(lse, ref_lse, atol=1e-4, rtol=1e-4)
+    got = flash_attention_bwd(q, k, v, out, lse, do, False)
+    want = flash_attention_bwd_plain(q, k, v, out, lse, do, False,
+                                     64 ** -0.5)
+    for a, b in zip(got, want):
+        assert a.dtype == dtype and torch.isfinite(a).all()
+        torch.testing.assert_close(a.float(), b.float(), **BWD_TOL[dtype])
+
+
+def test_tiny_bert_training_card_equals_cpu(card):
+    """Two Adam steps of a tiny BERT at head_dim 64 (the kernels'
+    smallest) through ``autograd.record`` and
+    ``Trainer(net.collect_params(), "adam")``, on the card and on the
+    host from the same weights: the card runs K3 (non-causal) forward
+    and backward in f32 and K2."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import autograd, gluon
+    from mxnet_tpu_torch.convert import (block_weights_to_numpy,
+                                         load_block_weights)
+    from mxnet_tpu_torch.gluon.model_zoo.nlp import get_bert_model
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        kw = dict(num_layers=2, units=128, hidden_size=256, num_heads=2,
+                  vocab_size=100, max_length=32, dropout=0.0,
+                  use_flash=True, use_decoder=False)
+        rng = np.random.RandomState(6)
+        data = {"tokens": rng.randint(0, 100, (2, 32)),
+                "types": rng.randint(0, 2, (2, 32)),
+                "labels": rng.randint(0, 2, (2,))}
+        weights, runs = None, []
+        for ctx in (mx.gpu(0), mx.cpu()):
+            net = get_bert_model(**kw)
+            mx.random.seed(6)
+            net.initialize(ctx=ctx)
+            with ctx:
+                x = mx.nd.array(data["tokens"], dtype="int32")
+                t = mx.nd.array(data["types"], dtype="int32")
+                y = mx.nd.array(data["labels"], dtype="int32")
+            if weights is None:
+                net(x, t)
+                weights = block_weights_to_numpy(net)
+            load_block_weights(net, weights)
+            tr = gluon.Trainer(net.collect_params(), "adam",
+                               {"learning_rate": 1e-3})
+            ce = gluon.loss.SoftmaxCrossEntropyLoss()
+            ops.reset_launches()
+            losses = []
+            for _ in range(2):
+                with autograd.record():
+                    loss = ce(net(x, t)[-1], y)
+                loss.backward()
+                tr.step(2)
+                losses.append(float(loss.mean().asscalar()))
+            if ctx == mx.gpu(0):
+                counts = ops.launch_counts()
+                assert counts["flash_attention_fwd"] == 4
+                assert counts["flash_attention_bwd"] == 4
+                assert counts["fused_adam_update"] == 2
+            runs.append((losses, block_weights_to_numpy(net)))
+        np.testing.assert_allclose(runs[0][0], runs[1][0], rtol=1e-4)
+        for k in runs[1][1]:
+            np.testing.assert_allclose(runs[0][1][k], runs[1][1][k],
+                                       rtol=0, atol=1e-5, err_msg=k)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev

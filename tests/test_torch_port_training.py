@@ -27,6 +27,7 @@ import os
 import pathlib
 import subprocess
 import sys
+import types
 
 import numpy as np
 import pytest
@@ -638,7 +639,8 @@ def test_unported_optimizers_and_kvstores_raise():
     ({"update_on_kvstore": False}, {}, "multi-device"),
     ({}, {"param_idx2name": {0: "w"}}, "training-surface"),
     ({}, {"sym": object()}, "training-surface"),
-    ({}, {"param_dict": {0: "w"}}, "training-surface")],
+    ({}, {"param_dict": {0: types.SimpleNamespace(lr_mult=1.0,
+                                                  wd_mult=1.0)}}, None)],
     ids=["kvstore-defaults", "lazy-update", "optimizer-defaults",
          "compression", "update-on-kvstore", "param-idx2name", "sym",
          "param-dict"])
