@@ -37,7 +37,11 @@ continued:
    pairs (medians, the ratio's median and range, TB/s, share of the
    bound); K3 forward and backward at BERT-base's attention geometry
    (B*H = 768, L = 128, D = 64, non-causal), float32 and bfloat16, each
-   timed beside its plain version and SDPA;
+   timed beside its plain version and SDPA; K1 at ResNet-50 v1's bucket
+   (n = 25,575,912, momentum 0.9, lr 0.1, wd 0, no clip: phase 15's
+   update) against its plain rule, timed against it and
+   ``torch._fused_sgd_`` in 20 interleaved pairs (the row the kernels
+   line reports for K1);
 4. serving: Llama-3-8B at full width and depth in bfloat16, random
    weights from a seed, ``InferenceEngine(max_batch=8, block_size=16,
    max_context=1024)`` and a ``ContinuousBatcher`` serving 16 greedy
@@ -91,8 +95,19 @@ continued:
     noise-level gradient to a step of about lr, so parameters are not
     held absolutely); on the card 2 K3 forward and 2 backward launches a
     step (f32, non-causal, D = 64) and one K2;
-11. bf16 AMP training (``amp.init`` is process-wide, so phases 11 and
-    13 come last): phase 8's model, batch and AdamW under
+14. card vs CPU, ResNet-50 v1 through the Gluon loop (convolutions,
+    pooling, BatchNorm's running statistics): ``resnet50_v1()`` at full
+    width in f32, the same weights (``Xavier(magnitude=2)``, seeded, each
+    bottleneck's last BatchNorm gamma zeroed) on both, two SGD-momentum
+    steps (lr 0.1, momentum 0.9) on 4 x 3 x 64 x
+    64: losses within 1e-4 relative, each parameter's two-step update
+    within 1e-3 relative (the body convs' biases, whose gradient is zero
+    in exact arithmetic, within 1e-3 absolute), running statistics and a
+    predict-mode forward after the steps within 1e-4; exactly 2 K1
+    launches; then ``SpaceToDepthStem`` against the stock stem on the
+    card from the same ``conv0_weight``, within 1e-4;
+11. bf16 AMP training (``amp.init`` is process-wide, so phases 11, 13
+    and 15 come last): phase 8's model, batch and AdamW under
     ``amp.init("bfloat16")``, ``amp.init_trainer`` and
     ``amp.scale_loss``, 5 steps: the loss finite and falling, its first
     value within 2e-2 relative of phase 8's, logits and loss bf16 and
@@ -106,15 +121,26 @@ continued:
     the loss finite and falling, exactly 12 K3 forward and 12 backward
     launches a step, all bf16, and one K2; it prints the step median,
     samples/s, peak memory, and, from two profiled steps, the device
-    time by kernel and the step's host share.
+    time by kernel and the step's host share;
+15. ResNet-50 v1 training at ``bench.py``'s configuration
+    (``resnet50_v1()`` with the stock stem, ``initialize()`` on the
+    card, ``hybridize()``, batch 128 x 3 x 224 x 224 from
+    ``nd.random.uniform`` seeded 0, labels zeros, bf16 AMP, SGD lr 0.1
+    momentum 0.9 on 25,575,912 trainable parameters) through the MXNet
+    loop: 3 warm-up and 10 timed steps; the loss finite and falling,
+    bf16 logits, the running statistics finite and moved, and exactly one
+    K1 launch a step; it prints the step median, images/s, peak memory,
+    and, from two profiled steps, the device time by kernel class
+    (convolutions forward and backward, cuDNN's layout transposes,
+    BatchNorm, casts, K1, the gradient gather) and the step's host
+    share.
 
 Phases 4 and 7 also print, from a pass after the timed run (so the
 run's steps are measured as they run without it) that replays each
 decode step on its own staged inputs, the replays' device time (CUDA
 events around ``graph.replay()``) and each step's host share beside
 it.  Before
-each of phases 4, 7, 8, 9, 10, 11, 12 and 13 the kernels' launch counters are
-set to 0; each phase reads them just after and fails unless its kernels
+each of phases 4 and 7-15 the kernels' launch counters are set to 0; each phase reads them just after and fails unless its kernels
 ran the expected number of times.  The second-to-last line is the
 card's name and power limit, the line before it the kernels' JSON
 record, and the line before that every timed row of phase 3 as
@@ -1939,6 +1965,384 @@ def bert_training(dev, card):
     return launches
 
 
+# ----------------------------------------------------------------------
+# phases 14-15: ResNet-50 v1 through the Gluon loop (convolutions,
+# pooling, BatchNorm's running statistics; K1 on the flat buffer)
+# ----------------------------------------------------------------------
+
+# bench.py's _bench_resnet: batch 128 x 3 x 224 x 224, SGD lr 0.1,
+# momentum 0.9 (no weight decay, no clip)
+RESNET_BATCH, RESNET_SIZE, RESNET_WARMUP, RESNET_STEPS = 128, 224, 3, 10
+RESNET_LR, RESNET_MOMENTUM = 0.1, 0.9
+RESNET_TRAINABLE = 25_575_912        # resnet50_v1()'s bucket (K1's n)
+# phase 14: card against CPU, f32, 4 x 3 x 64 x 64, two steps
+RESNET_CHECK_BATCH, RESNET_CHECK_SIZE = 4, 64
+# each parameter's two-step update, card against CPU, as |du_card -
+# du_cpu| / |du_cpu| (2.3e-4 seen); also printed for all of them together
+RESNET_UPDATE_RTOL = 1e-3
+RESNET_STAT_TOL = 1e-4        # x max(1, |value|): running statistics
+RESNET_LOGIT_TOL = 1e-4       # x max(1, max |logit|): predict forward
+RESNET_S2D_TOL = 1e-4         # x max(1, max |stem output|)
+# the body convs' biases feed a BatchNorm: zero gradient in exact
+# arithmetic, so their two-step updates are rounding noise, held
+# absolutely
+RESNET_NOISE_BIAS_ATOL = 1e-3
+# phase 15's device time by kernel class (first match by name)
+RESNET_CLASSES = (("update (K1)", ("update_kernel",)),
+                  ("layout transposes", ("nchwToNhwc", "nhwcToNchw")),
+                  ("conv backward (data)", ("dgrad",)),
+                  ("conv backward (weight)", ("wgrad",)),
+                  ("conv forward", ("fprop", "conv", "implicit")),
+                  ("batchnorm", ("batch_norm",)),
+                  ("pooling", ("pool",)),
+                  ("gemm", ("nvjet", "gemm", "cutlass", "Kernel2")),
+                  ("gradient gather", ("CatArray",)),
+                  ("casts/copies", ("copy",)),
+                  ("reduce", ("reduce_kernel",)),
+                  ("elementwise", ("elementwise",)))
+
+
+def check_resnet_update(dev, flush):
+    """K1 at ResNet-50 v1's bucket (n = 25,575,912, phase 15's main
+    path): momentum 0.9, lr 0.1, wd 0, rescale 1/128, no clip, against
+    the plain rule on the same inputs, then timed against the plain rule
+    and ``torch._fused_sgd_`` (``UPDATE_PAIRS`` interleaved pairs); the
+    row the kernels line reports for K1."""
+    import torch
+    from mxnet_tpu_torch.ops.fused_update import fused_bucket_rule
+    from mxnet_tpu_torch.optimizer import fused_rule
+    n, hyper = RESNET_TRAINABLE, {"momentum": RESNET_MOMENTUM}
+    lr, wd, rescale = RESNET_LR, 0.0, 1.0 / RESNET_BATCH
+    p, grad, s = update_case("sgd", n, dev)
+    _, apply = fused_bucket_rule("sgd", **hyper)
+    _, plain = fused_rule("sgd", **hyper)
+    kp, ks = apply(p.clone(), grad, {"mom": s["mom"].clone()}, lr, wd,
+                   rescale)                                    # in place
+    want_p, want_s = plain(p, grad, s, lr, wd, rescale)
+    err = 0.0
+    for got, want in ((kp, want_p), (ks["mom"], want_s["mom"])):
+        e, ok = max_err(got, want, UPDATE_TOL)
+        if not ok:
+            fail(f"fused_sgd_update at ResNet-50's bucket vs plain: max "
+                 f"abs err {e}")
+        err = max(err, e)
+    step = torch.tensor(1.0, device=dev)
+    times = interleaved_ms(
+        {"kernel": lambda: apply(kp, grad, ks, lr, wd, rescale),
+         "library": lambda: _library_update("sgd", hyper, kp, grad, ks, lr,
+                                            wd, step)}, UPDATE_PAIRS, flush)
+    plain_ms = time_ms(lambda: plain(p, grad, s, lr, wd, rescale), 10, flush)
+    nbytes = 20 * n             # p, mom read and written, the gradient read
+    bound_ms, by = bound(nbytes, 8.0 * n, "float32")
+    text, ms, lib_ms = pair_summary(times["kernel"], times["library"],
+                                    nbytes, bound_ms)
+    print(f"fused_sgd_update (sgd, momentum {RESNET_MOMENTUM}, lr "
+          f"{RESNET_LR}, wd 0, no clip) n={n} (ResNet-50 v1's bucket): "
+          f"max_abs_err {err:.3e} kernel {ms:.4f} ms plain {plain_ms:.4f} ms "
+          f"library (near) {lib_ms:.4f} ms bound {bound_ms:.4f} ms ({by}); "
+          f"{text}", flush=True)
+    record("fused_sgd_update", "float32 sgd resnet50", [n], ms, plain_ms,
+           lib_ms, bound_ms, by)
+    del p, grad, s, kp, ks, want_p, want_s
+    torch.cuda.empty_cache()
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "library_ms": lib_ms, "bound_ms": bound_ms, "bound_by": by}
+
+
+def _resnet_step(net, ce, trainer, data, label, batch):
+    """One step of MXNet's loop; returns (per-sample losses, logits)."""
+    from mxnet_tpu_torch import autograd
+    with autograd.record():
+        out = net(data)
+        loss = ce(out, label)
+    loss.backward()
+    trainer.step(batch)
+    return loss, out
+
+
+def _close(got, want, tol):
+    """max |got - want| and whether it is within ``tol * max(1, max
+    |want|)``."""
+    diff = float(abs(got - want).max())
+    return diff, diff <= tol * max(1.0, float(abs(want).max()))
+
+
+def resnet_check_weights(host_x):
+    """Phase 14's weights, made on the host (so any host can make them
+    again): ``resnet50_v1()`` initialized by ``Xavier(magnitude=2)``
+    after ``mx.random.seed(14)``, its deferred shapes resolved by a
+    forward on ``host_x``, each bottleneck's last BatchNorm gamma
+    zeroed; numpy arrays by structural name."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.convert import block_weights_to_numpy
+    from mxnet_tpu_torch.gluon.model_zoo import vision
+    with mx.cpu():
+        net = vision.resnet50_v1()
+        mx.random.seed(14)
+        net.initialize(mx.init.Xavier(magnitude=2))
+        net(mx.nd.array(host_x))
+    weights = block_weights_to_numpy(net)
+    for k in weights:
+        if k.endswith("body.7.gamma"):
+            weights[k][:] = 0.0
+    return weights
+
+
+def resnet_card_vs_cpu(dev):
+    """Phase 14: ``resnet50_v1()`` at full width in f32 (TF32 off), the
+    same weights (``Xavier(magnitude=2)`` from a seed on the card, each
+    bottleneck's last BatchNorm gamma zeroed, carried by ``convert``) on
+    the card and on the host, two SGD-momentum steps
+    (lr 0.1, momentum 0.9) on 4 x 3 x 64 x 64 from ``RandomState(0)``
+    with labels in [0, 1000): losses within 1e-4 relative, each
+    parameter's two-step update within 1e-3 relative (the body convs'
+    biases, whose gradient is zero in exact arithmetic, within
+    ``RESNET_NOISE_BIAS_ATOL`` absolute), the running statistics within
+    1e-4, a predict-mode forward after the steps within 1e-4; on the card
+    exactly 2 K1 launches.  Then ``SpaceToDepthStem`` on the card from
+    the same ``conv0_weight``: its output within 1e-4 of the stock
+    stem's.
+
+    The zeroed gammas are the zero-gamma initialization of large-batch
+    ResNet training (Goyal et al. 2017; GluonCV's ``last_gamma``): each
+    residual block starts as its shortcut.  At a plain random
+    initialization the gradient of a BatchNorm ResNet this deep
+    amplifies rounding: two CPU runs that differ only in their thread
+    count differ by 1% in the median parameter's first gradient, and
+    their second losses by 2.4%, so no card could be held to 1e-3 from
+    there; with the zeroed gammas the two CPU runs agree within 1.4e-4
+    on every update."""
+    import numpy as np
+    import torch
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import gluon, ops
+    from mxnet_tpu_torch.convert import (block_weights_to_numpy,
+                                         load_block_weights)
+    from mxnet_tpu_torch.gluon.model_zoo import vision
+    rng = np.random.RandomState(0)
+    host_x = rng.rand(RESNET_CHECK_BATCH, 3, RESNET_CHECK_SIZE,
+                      RESNET_CHECK_SIZE).astype(np.float32)
+    host_y = rng.randint(0, 1000, (RESNET_CHECK_BATCH,))
+    weights = resnet_check_weights(host_x)
+    runs, launches = [], None
+    for ctx in (mx.gpu(dev.index or 0), mx.cpu()):
+        on_card = not runs
+        net = vision.resnet50_v1()
+        net.initialize(ctx=ctx)
+        with ctx:
+            data = mx.nd.array(host_x)
+            label = mx.nd.array(host_y, dtype="int32")
+        load_block_weights(net, weights)
+        trainer = gluon.Trainer(net.collect_params(), "sgd",
+                                {"learning_rate": RESNET_LR,
+                                 "momentum": RESNET_MOMENTUM})
+        ce = gluon.loss.SoftmaxCrossEntropyLoss()
+        if on_card:
+            torch.cuda.synchronize(dev)
+            ops.reset_launches()
+        losses = [float(_resnet_step(net, ce, trainer, data, label,
+                                     RESNET_CHECK_BATCH)[0].mean()
+                        .asscalar()) for _ in range(2)]
+        if on_card:
+            torch.cuda.synchronize(dev)
+            launches = read_launches("resnet card vs cpu",
+                                     {"fused_sgd_update": 2})
+        logits = net(data).asnumpy()          # predict mode: running stats
+        runs.append((losses, block_weights_to_numpy(net), logits))
+        if on_card:
+            card_net, card_data = net, data
+        del net, trainer
+    (card_l, card_w, card_o), (cpu_l, cpu_w, cpu_o) = runs
+    w0 = weights
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(card_l, cpu_l))
+    stats = [k for k in w0 if k.endswith(("running_mean", "running_var"))]
+    noise = [k for k in w0 if k.endswith("bias") and ".body." in k]
+    held = [k for k in w0 if k not in stats and k not in noise]
+    upd = {k: float(np.linalg.norm((card_w[k] - w0[k]) -
+                                   (cpu_w[k] - w0[k])) /
+                    np.linalg.norm(cpu_w[k] - w0[k])) for k in held}
+    upd_err = max(upd.values())
+    whole_err = float(np.sqrt(sum(
+        np.sum(np.square(card_w[k] - cpu_w[k])) for k in held) / sum(
+        np.sum(np.square(cpu_w[k] - w0[k])) for k in held)))
+    noise_err = max(float(np.abs(card_w[k] - cpu_w[k]).max())
+                    for k in noise)
+    stat_err, stat_ok = 0.0, True
+    for k in stats:
+        e, ok = _close(card_w[k], cpu_w[k], RESNET_STAT_TOL)
+        stat_err, stat_ok = max(stat_err, e), stat_ok and ok
+    moved = all(not np.array_equal(card_w[k], w0[k]) for k in stats)
+    logit_err, logit_ok = _close(card_o, cpu_o, RESNET_LOGIT_TOL)
+    # the space-to-depth stem on the card, from the stepped weights
+    s2d = vision.resnet50_v1(s2d_stem=True)
+    s2d.initialize(ctx=mx.gpu(dev.index or 0))
+    load_block_weights(s2d, card_w)
+    stem = card_net.features[0](card_data).asnumpy()
+    stem_s2d = s2d.features[0](card_data).asnumpy()
+    s2d_err, s2d_ok = _close(stem_s2d, stem, RESNET_S2D_TOL)
+    s2d_logits = s2d(card_data).asnumpy()
+    worst = sorted(upd.items(), key=lambda kv: -kv[1])[:3]
+    print(f"resnet card vs cpu (resnet50_v1, {len(w0)} parameters, "
+          f"{sum(w0[k].size for k in w0 if k not in stats)} trainable, f32, "
+          f"2 sgd-momentum steps on {RESNET_CHECK_BATCH} x 3 x "
+          f"{RESNET_CHECK_SIZE} x {RESNET_CHECK_SIZE}): losses card "
+          f"{card_l} cpu {cpu_l}, max relative loss diff {loss_err:.3e} "
+          f"(limit {TRAIN_LOSS_RTOL}); relative diff of the whole update "
+          f"{whole_err:.3e}, worst of one parameter {upd_err:.3e} (limit "
+          f"{RESNET_UPDATE_RTOL}; worst {worst}); the "
+          f"body convs' biases differ by {noise_err:.3e} (limit "
+          f"{RESNET_NOISE_BIAS_ATOL}); running statistics max diff "
+          f"{stat_err:.3e} (limit {RESNET_STAT_TOL} x max(1, |x|)), moved "
+          f"{moved}; predict-mode logits max diff {logit_err:.3e} (limit "
+          f"{RESNET_LOGIT_TOL} x max(1, |logit|), max |logit| "
+          f"{float(np.abs(cpu_o).max()):.3e}); space-to-depth stem vs stock "
+          f"on the card max diff {s2d_err:.3e} (limit {RESNET_S2D_TOL} x "
+          f"max(1, |x|), max |x| {float(np.abs(stem).max()):.3e}), logits "
+          f"{float(np.abs(s2d_logits - card_o).max()):.3e}; launches "
+          f"{launches}", flush=True)
+    if not (loss_err <= TRAIN_LOSS_RTOL and upd_err <= RESNET_UPDATE_RTOL
+            and noise_err <= RESNET_NOISE_BIAS_ATOL and stat_ok and moved
+            and logit_ok and s2d_ok):
+        fail("resnet training on the card and on the CPU disagree")
+    del card_net, s2d
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def resnet_training(dev, card):
+    """Phase 15: ResNet-50 v1 training at the JAX package's own benchmark
+    configuration (``bench.py``'s ``_bench_resnet``):
+    ``resnet50_v1()`` (the stock 7x7/2 stem), ``initialize()`` on the
+    card, ``hybridize()``, ``amp.init("bfloat16")``, batch 128 x 3 x 224
+    x 224 from ``nd.random.uniform`` seeded 0, labels zeros,
+    ``SoftmaxCrossEntropyLoss`` and ``Trainer(net.collect_params(),
+    "sgd", {"learning_rate": 0.1, "momentum": 0.9})``, through MXNet's
+    loop: 3 warm-up steps, then 10 timed (host clock around each, ending
+    in a synchronize).  Fails unless the loss is finite at every step
+    and lower at the last than at the first, the logits are bf16, the
+    running statistics finite and moved, and K1 ran exactly once a step
+    (and nothing else).  Then two more steps under ``torch.profiler``:
+    the device time by kernel class and the step's host share ``1 -
+    busy / wall`` against the untraced median."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import amp, gluon, ops
+    from mxnet_tpu_torch.gluon.model_zoo import vision
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    amp.init("bfloat16")
+    try:
+        t0 = time.perf_counter()
+        mx.random.seed(0)
+        net = vision.resnet50_v1()
+        net.initialize()
+        net.hybridize()
+        ce = gluon.loss.SoftmaxCrossEntropyLoss()
+        trainer = gluon.Trainer(net.collect_params(), "sgd",
+                                {"learning_rate": RESNET_LR,
+                                 "momentum": RESNET_MOMENTUM})
+        data = mx.nd.random.uniform(shape=(RESNET_BATCH, 3, RESNET_SIZE,
+                                           RESNET_SIZE))
+        label = mx.nd.zeros((RESNET_BATCH,))
+
+        def step():
+            return _resnet_step(net, ce, trainer, data, label, RESNET_BATCH)
+
+        losses = []
+        for _ in range(RESNET_WARMUP):
+            loss, out = step()
+            losses.append(loss.mean())
+        torch.cuda.synchronize(dev)
+        setup_s = time.perf_counter() - t0
+        params = net.collect_params()
+        stats = {k: p for k, p in params.items()
+                 if k.endswith(("running_mean", "running_var"))}
+        stats0 = {k: p.data().asnumpy() for k, p in stats.items()}
+        n_params = sum(p.data().size for p in params.values())
+        n_trainable = sum(p.data().size for p in params.values()
+                          if p.grad_req != "null")
+        ops.reset_launches()
+        step_s = []
+        for _ in range(RESNET_STEPS):
+            t = time.perf_counter()
+            loss, out = step()
+            losses.append(loss.mean())
+            torch.cuda.synchronize(dev)
+            step_s.append(time.perf_counter() - t)
+        launches = read_launches("resnet training",
+                                 {"fused_sgd_update": RESNET_STEPS})
+        peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+        logits_dtype = str(out.dtype)
+        stats1 = {k: p.data().asnumpy() for k, p in stats.items()}
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t = time.perf_counter()
+            for _ in range(2):
+                step()
+            torch.cuda.synchronize(dev)
+            traced_ms = (time.perf_counter() - t) / 2 * 1e3
+    finally:
+        amp._deinit_for_tests()
+    busy = {}
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            busy[e.key] = busy.get(e.key, 0.0) + \
+                e.self_device_time_total / 1e3 / 2
+    busy_ms = sum(busy.values())
+    top = sorted(busy.items(), key=lambda kv: -kv[1])[:10]
+    classes, members = {}, {}
+    for name, ms in busy.items():
+        cls = next((c for c, keys in RESNET_CLASSES if any(
+            k in name for k in keys)), "other")
+        classes[cls] = classes.get(cls, 0.0) + ms
+        members.setdefault(cls, []).append((ms, name))
+    # the kernels behind the classes that name no operation
+    unnamed = "; ".join(
+        f"{cls}: " + ", ".join(f"{n[:60]} {ms:.3f} ms" for ms, n in
+                               sorted(members[cls], reverse=True)[:4])
+        for cls in ("gemm", "other") if cls in members)
+    losses = [float(x.asscalar()) for x in losses]
+    step_ms = statistics.median(step_s) * 1e3
+    host_share = 1 - busy_ms / step_ms
+    finite = all(np.all(np.isfinite(v)) for v in stats1.values())
+    moved = sum(not np.array_equal(stats1[k], stats0[k]) for k in stats)
+    print(f"resnet training, ResNet-50 v1 (stock stem), {n_params} params, "
+          f"{n_trainable} in the Trainer's flat buffer (K1's bucket), bf16 "
+          f"amp, sgd lr {RESNET_LR} momentum {RESNET_MOMENTUM}, batch "
+          f"{RESNET_BATCH}x3x{RESNET_SIZE}x{RESNET_SIZE} on {card}: losses "
+          f"{losses}; logits {logits_dtype}; running statistics finite "
+          f"{finite}, {moved} of {len(stats)} moved over the timed steps; "
+          f"step median {step_ms:.2f} ms over {RESNET_STEPS} steps after "
+          f"{RESNET_WARMUP} warm-up (min {min(step_s) * 1e3:.2f}, max "
+          f"{max(step_s) * 1e3:.2f}) = {RESNET_BATCH / step_ms * 1e3:.1f} "
+          f"images/s; peak memory {peak_gb:.2f} GB; set-up and warm-up "
+          f"{setup_s:.2f} s; device busy {busy_ms:.3f} ms a step (profiler, "
+          f"2 steps; traced wall {traced_ms:.2f} ms), host share "
+          f"{host_share:.4f} of the untraced step; device ms a step by "
+          f"class { {k: round(v, 3) for k, v in classes.items()} } "
+          f"({unnamed}); top kernels "
+          f"{', '.join(f'{k[:70]} {v:.3f} ms' for k, v in top)}; "
+          f"launches {launches}", flush=True)
+    if n_trainable != RESNET_TRAINABLE:
+        fail(f"resnet training: {n_trainable} trainable parameters, "
+             f"expected {RESNET_TRAINABLE}")
+    if not all(np.isfinite(losses)):
+        fail(f"resnet training: non-finite loss {losses}")
+    if not losses[-1] < losses[0]:
+        fail(f"resnet training: the loss did not fall: {losses}")
+    if logits_dtype != "bfloat16":
+        fail(f"resnet training: logits are {logits_dtype}, not bfloat16")
+    if not finite or moved != len(stats):
+        fail(f"resnet training: running statistics finite {finite}, "
+             f"{moved} of {len(stats)} moved")
+    del net, trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main():
     try:
         import torch
@@ -1978,10 +2382,12 @@ def main():
     check_flash_bert(dev, flush)
     checks.update(check_layernorm(dev, flush))
     checks.update(check_updates(dev, flush, train_param_count()))
+    # K1's row in the kernels line: ResNet-50's bucket, its full-width path
+    checks["fused_sgd_update"] = check_resnet_update(dev, flush)
     del flush
     torch.cuda.empty_cache()
 
-    # phases 4-13: each path from zeroed launch counters
+    # phases 4-15: each path from zeroed launch counters
     by_path = {"serving": serve_llama3_8b(dev, card)}
     card_vs_cpu(dev)
     by_path["serving_fp8"] = serve_llama3_8b_fp8(dev, card)
@@ -1989,10 +2395,12 @@ def main():
     by_path["training_card_vs_cpu"] = train_card_vs_cpu(dev)
     by_path["layernorm_op"] = layernorm_path(dev, card)
     by_path["bert_card_vs_cpu"] = bert_card_vs_cpu(dev)
-    # phases 11 and 13 last: amp.init() is process-wide
+    by_path["resnet_card_vs_cpu"] = resnet_card_vs_cpu(dev)
+    # phases 11, 13 and 15 last: amp.init() is process-wide
     by_path["training_amp"], _ = train_llama3_8b(
         dev, card, amp_dtype="bfloat16", f32_first_loss=f32_first_loss)
     by_path["bert_training"] = bert_training(dev, card)
+    by_path["resnet_training"] = resnet_training(dev, card)
 
     kernels = []
     for name, src, tpu in (

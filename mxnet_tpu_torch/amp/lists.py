@@ -8,10 +8,11 @@ Three classes, MXNet's scheme (the reference's
 - ``WIDEST_TYPE_CASTS``: multi-input ops whose inputs are cast to the
   widest dtype among them.
 
-Everything unlisted runs in whatever dtype arrives.  The port has no op
-registry yet, so these lists document the reference's policy and are
-what ``amp.list_lp16_ops`` / ``list_fp32_ops`` return; the casts
-themselves are ``torch.autocast``'s (see ``amp/__init__.py`` for where
+Everything unlisted runs in whatever dtype arrives.  The op registry of
+``ndarray/ops.py`` (``_register``) casts each listed op's inputs by
+these lists; they are also what ``amp.list_lp16_ops`` /
+``list_fp32_ops`` return.  Torch modules outside the registry (Llama)
+cast by ``torch.autocast``'s lists (see ``amp/__init__.py`` for where
 the two differ).
 """
 

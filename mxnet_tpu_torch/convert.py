@@ -74,7 +74,7 @@ def llama_decode_weights_to_numpy(model):
     """The port ``LlamaForCausalLM``'s parameters in the reference's
     decode-weight structure, as float32 numpy arrays (host copies)."""
     def arr(t):
-        return t.detach().float().cpu().numpy()
+        return t.detach().to("cpu", torch.float32, copy=True).numpy()
     embed, norm, head, layers = model.decode_weights()
     return (arr(embed), arr(norm), None if head is None else arr(head),
             [tuple(arr(w) for w in layer) for layer in layers])
@@ -112,6 +112,7 @@ def load_block_weights(block, arrays):
 def block_weights_to_numpy(block):
     """The gluon ``block``'s initialized parameters by structural name,
     as float32 numpy arrays (host copies)."""
-    return {name: p.data().data.detach().float().cpu().numpy()
+    return {name: p.data().data.detach().to("cpu", torch.float32,
+                                              copy=True).numpy()
             for name, p in block._collect_params_with_prefix().items()
             if p._nd is not None}

@@ -7,7 +7,8 @@ Counterpart of ``mxnet_tpu/gluon/block.py``: prefixes and
 ``register_child``, forward hooks, ``apply``, ``cast`` and ``summary``.
 ``HybridBlock.forward`` calls ``hybrid_forward(F, x, **params)`` with
 ``F`` the port's ``nd`` namespace; deferred parameter shapes resolve on
-the first call (``infer_shape``).
+the first call (``infer_shape``).  ``record_aux_update`` writes a
+layer's auxiliary state (BatchNorm's running statistics) in place.
 
 ``hybridize(active, static_alloc, static_shape, remat)`` keeps the
 reference's flags, but the hybridized forward runs eagerly: the
@@ -16,7 +17,7 @@ yet (ROADMAP §1, the queued capture item).  ``remat=True`` is honoured:
 while recording, the block runs under ``torch.utils.checkpoint`` (the
 counterpart of ``jax.checkpoint``), its activations recomputed in the
 backward with the same Dropout draws (the ``nd.random`` generator's
-state is replayed).  ``export`` and ``SymbolBlock`` raise
+state is replayed) and no second write of auxiliary state.  ``export`` and ``SymbolBlock`` raise
 ``NotSupportedError`` naming ROADMAP §1 item 11.
 
 Under ``amp.init()`` the outermost Block call opens one ``amp.region``
@@ -40,7 +41,7 @@ from ..ndarray.ndarray import NDArray
 from ..ndarray import random as _rnd, utils as nd_utils
 from .parameter import Parameter, ParameterDict, DeferredInitializationError
 
-__all__ = ["Block", "HybridBlock", "SymbolBlock"]
+__all__ = ["Block", "HybridBlock", "SymbolBlock", "record_aux_update"]
 
 _LATER = "arrives with symbol/ (ROADMAP §1 item 11)"
 
@@ -116,6 +117,28 @@ def _device_type(args):
         if isinstance(a, NDArray):
             return a.data.device.type
     return None
+
+
+class _AuxState(threading.local):
+    def __init__(self):
+        self.replaying = 0        # > 0 while remat recomputes a forward
+
+
+_AUX = _AuxState()
+
+
+def record_aux_update(param, new_value):
+    """Write ``new_value`` into ``param``, auxiliary state that takes no
+    gradient (BatchNorm's running statistics), in place and outside the
+    graph, so every view of its storage sees it (reference
+    ``record_aux_update``, eagerly).  While ``remat`` recomputes a
+    block's forward in the backward the update is skipped: the first
+    run made it."""
+    if _AUX.replaying:
+        return
+    value = new_value.data if isinstance(new_value, NDArray) else new_value
+    with torch.no_grad():
+        param.data().data.copy_(value)
 
 
 class Block:
@@ -366,8 +389,9 @@ class HybridBlock(Block):
 
     def _remat(self, args):
         """The forward under ``torch.utils.checkpoint``: its inside is
-        recomputed in the backward, in training mode as it ran and with
-        the same draws from the device's generator."""
+        recomputed in the backward, in training mode as it ran, with the
+        same draws from the device's generator and without writing the
+        auxiliary state again (``record_aux_update``)."""
         arrays = [a for a in args if isinstance(a, NDArray)]
         gen = _rnd.generator(arrays[0].data.device)
         training = _tape.is_training()
@@ -384,12 +408,14 @@ class HybridBlock(Block):
             else:
                 saved = gen.get_state()
                 gen.set_state(state[0])
+                _AUX.replaying += 1
             try:
                 with _RecordingScope(training):
                     out = self.forward(*call)
             finally:
                 if saved is not None:
                     gen.set_state(saved)
+                    _AUX.replaying -= 1
             single = isinstance(out, NDArray)
             shape[:] = [single, type(out)]
             return out.data if single else tuple(o.data for o in out)

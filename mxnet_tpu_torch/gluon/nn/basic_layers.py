@@ -5,25 +5,30 @@ Counterpart of ``mxnet_tpu/gluon/nn/basic_layers.py``: ``Sequential``,
 ``activation``), ``Dropout`` (``axes``), ``LayerNorm``, ``Embedding``,
 ``Flatten``, ``Lambda``, ``HybridLambda``, ``Activation``,
 ``LeakyReLU``, ``PReLU``, ``ELU``, ``SELU``, ``GELU``, ``Swish``,
-``Identity``, ``HybridConcatenate`` and ``Concatenate``.
-``BatchNorm``, ``InstanceNorm``, ``GroupNorm`` and ``conv_layers.py``
-arrive with the ResNet-50 slice (ROADMAP §1 item 4);
+``Identity``, ``HybridConcatenate`` and ``Concatenate``; and the
+norms of convolutional nets, ``BatchNorm`` (running statistics through
+``record_aux_update``), ``InstanceNorm`` and ``GroupNorm``.
 ``Embedding(sparse_grad=True)`` raises ``NotSupportedError`` naming
 item 8.
 """
 from __future__ import annotations
 
 import numpy as _np
+import torch
+import torch.nn.functional as F_
 
 from ...base import MXNetError, NotSupportedError
+from ... import _tape
 from ... import ndarray as nd
 from ... import initializer
-from ..block import Block, HybridBlock
+from ...ndarray.ndarray import _dtype_of, apply
+from ..block import Block, HybridBlock, record_aux_update
 
-__all__ = ["Sequential", "HybridSequential", "Dense", "Dropout", "LayerNorm",
-           "Embedding", "Flatten", "Lambda", "HybridLambda", "Activation",
-           "LeakyReLU", "PReLU", "ELU", "SELU", "Swish", "GELU", "Identity",
-           "Concatenate", "HybridConcatenate"]
+__all__ = ["Sequential", "HybridSequential", "Dense", "Dropout", "BatchNorm",
+           "InstanceNorm", "LayerNorm", "GroupNorm", "Embedding", "Flatten",
+           "Lambda", "HybridLambda", "Activation", "LeakyReLU", "PReLU",
+           "ELU", "SELU", "Swish", "GELU", "Identity", "Concatenate",
+           "HybridConcatenate"]
 
 
 def _chain(children, x, args):
@@ -121,6 +126,131 @@ class Dropout(HybridBlock):
         return f"Dropout(p = {self._rate}, axes={self._axes})"
 
 
+class BatchNorm(HybridBlock):
+    """Batch normalization with running statistics as auxiliary state
+    (reference nn.BatchNorm over src/operator/nn/batch_norm.cc).
+
+    In training (``autograd.is_training()`` and not ``use_global_stats``)
+    it normalizes with the batch's mean and biased variance, computed
+    inside the differentiated call so their derivatives reach the
+    gradient, and then writes ``momentum * running + (1 - momentum) *
+    batch`` into ``running_mean``/``running_var`` (MXNet's convention:
+    ``momentum`` weighs the old value); otherwise it normalizes with the
+    running statistics.  The call is torch's ``native_batch_norm``, which
+    returns the batch's mean and ``1 / sqrt(var + eps)`` beside the
+    output and updates nothing itself (torch's own running update would
+    weigh the other way and take the unbiased variance).
+
+    The layer calls no registered op, as the reference's does not, so
+    ``amp``'s lists leave it alone: bf16 activations give a bf16 output,
+    while the statistics are reduced in f32 and gamma, beta and the
+    running statistics stay f32 (``cast`` keeps them so)."""
+
+    def __init__(self, axis=1, momentum=0.9, epsilon=1e-5, center=True,
+                 scale=True, use_global_stats=False, beta_initializer="zeros",
+                 gamma_initializer="ones",
+                 running_mean_initializer="zeros",
+                 running_variance_initializer="ones", in_channels=0,
+                 **kwargs):
+        super().__init__(**kwargs)
+        self._axis = axis
+        self._momentum = momentum
+        self._epsilon = epsilon
+        self._center = center
+        self._scale = scale
+        self._use_global_stats = use_global_stats
+        self.in_channels = in_channels
+        with self.name_scope():
+            self.gamma = self.params.get(
+                "gamma", grad_req="write" if scale else "null",
+                shape=(in_channels,), init=gamma_initializer,
+                allow_deferred_init=True, differentiable=scale)
+            self.beta = self.params.get(
+                "beta", grad_req="write" if center else "null",
+                shape=(in_channels,), init=beta_initializer,
+                allow_deferred_init=True, differentiable=center)
+            self.running_mean = self.params.get(
+                "running_mean", grad_req="null", shape=(in_channels,),
+                init=running_mean_initializer, allow_deferred_init=True,
+                differentiable=False)
+            self.running_var = self.params.get(
+                "running_var", grad_req="null", shape=(in_channels,),
+                init=running_variance_initializer, allow_deferred_init=True,
+                differentiable=False)
+
+    def infer_shape(self, x, *args):
+        channels = x.shape[self._axis]
+        for p in (self.gamma, self.beta, self.running_mean, self.running_var):
+            p.shape_updated((channels,))
+
+    def cast(self, dtype):
+        if _dtype_of(dtype) in (torch.float16, torch.bfloat16):
+            dtype = "float32"     # the statistics stay f32 (reference)
+        super().cast(dtype)
+
+    def hybrid_forward(self, F, x, gamma, beta, running_mean, running_var):
+        training = _tape.is_training() and not self._use_global_stats
+        axis = self._axis % x.ndim
+        eps = self._epsilon
+        scale, center = self._scale, self._center
+        stats = []
+
+        def fn(d, g, b, rm, rv):
+            d = d.movedim(axis, 1)
+            g, b = (g if scale else None), (b if center else None)
+            if training:
+                out, mean, invstd = torch.native_batch_norm(
+                    d, g, b, None, None, True, 0.0, eps)
+                stats.append((mean.detach(), invstd.detach()))
+            else:
+                out = F_.batch_norm(d, rm, rv, g, b, False, 0.0, eps)
+            return out.movedim(1, axis)
+        out = apply(fn, [x, gamma, beta, running_mean, running_var])
+        if training:
+            mean, invstd = stats[0]
+            var = invstd.float().pow(-2) - eps      # the biased variance
+            mom = self._momentum
+            rm, rv = running_mean.data, running_var.data
+            record_aux_update(self.running_mean,
+                              mom * rm + (1 - mom) * mean.to(rm.dtype))
+            record_aux_update(self.running_var,
+                              mom * rv + (1 - mom) * var.to(rv.dtype))
+        return out
+
+    def __repr__(self):
+        return (f"BatchNorm(axis={self._axis}, momentum={self._momentum}, "
+                f"in_channels="
+                f"{self.gamma.shape[0] if self.gamma.shape else None})")
+
+
+class InstanceNorm(HybridBlock):
+    """Reference nn.InstanceNorm over the ``InstanceNorm`` op: gamma and
+    beta apply whatever ``scale`` and ``center`` say, as in the
+    reference."""
+
+    def __init__(self, axis=1, epsilon=1e-5, center=True, scale=False,
+                 beta_initializer="zeros", gamma_initializer="ones",
+                 in_channels=0, **kwargs):
+        super().__init__(**kwargs)
+        self._axis = axis
+        self._epsilon = epsilon
+        with self.name_scope():
+            self.gamma = self.params.get("gamma", shape=(in_channels,),
+                                         init=gamma_initializer,
+                                         allow_deferred_init=True)
+            self.beta = self.params.get("beta", shape=(in_channels,),
+                                        init=beta_initializer,
+                                        allow_deferred_init=True)
+
+    def infer_shape(self, x, *args):
+        c = x.shape[self._axis]
+        self.gamma.shape_updated((c,))
+        self.beta.shape_updated((c,))
+
+    def hybrid_forward(self, F, x, gamma, beta):
+        return F.InstanceNorm(x, gamma, beta, eps=self._epsilon)
+
+
 class LayerNorm(HybridBlock):
     """Reference nn.LayerNorm over the ``LayerNorm`` op (not the fused
     LayerNorm op)."""
@@ -146,6 +276,33 @@ class LayerNorm(HybridBlock):
 
     def hybrid_forward(self, F, x, gamma, beta):
         return F.LayerNorm(x, gamma, beta, axis=self._axis, eps=self._epsilon)
+
+
+class GroupNorm(HybridBlock):
+    """Reference nn.GroupNorm over the ``GroupNorm`` op."""
+
+    def __init__(self, num_groups=1, epsilon=1e-5, center=True, scale=True,
+                 beta_initializer="zeros", gamma_initializer="ones",
+                 in_channels=0, **kwargs):
+        super().__init__(**kwargs)
+        self._num_groups = num_groups
+        self._epsilon = epsilon
+        with self.name_scope():
+            self.gamma = self.params.get("gamma", shape=(in_channels,),
+                                         init=gamma_initializer,
+                                         allow_deferred_init=True)
+            self.beta = self.params.get("beta", shape=(in_channels,),
+                                        init=beta_initializer,
+                                        allow_deferred_init=True)
+
+    def infer_shape(self, x, *args):
+        c = x.shape[1]
+        self.gamma.shape_updated((c,))
+        self.beta.shape_updated((c,))
+
+    def hybrid_forward(self, F, x, gamma, beta):
+        return F.GroupNorm(x, gamma, beta, num_groups=self._num_groups,
+                           eps=self._epsilon)
 
 
 class Embedding(HybridBlock):

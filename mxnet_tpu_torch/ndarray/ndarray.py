@@ -169,10 +169,13 @@ class NDArray:
 
     # -- conversion ---------------------------------------------------------
     def asnumpy(self):
+        """A host copy: it never shares the array's storage, so a later
+        in-place write (a running statistic, ``x[:] = v``) leaves it as
+        it was, as the reference's copy does."""
         t = self._data.detach()
         if t.dtype == torch.bfloat16:
-            t = t.float()
-        return t.cpu().numpy()
+            return t.float().cpu().numpy()
+        return t.to("cpu", copy=True).numpy()
 
     def asscalar(self):
         if self.size != 1:

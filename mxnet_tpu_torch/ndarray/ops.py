@@ -6,11 +6,14 @@ surface and BERT call: the neural-network ops (``FullyConnected``,
 ``log_softmax``, ``Dropout``, ``LayerNorm``, ``Embedding``), the
 products (``dot``, ``batch_dot``, ``linalg_gemm2``), the shape ops, the
 gathers (``take``, ``pick``, ``one_hot``, ``gather_positions``),
-``where``, the elementwise unary and binary ops and the reductions.
-Every op runs through ``ndarray.apply`` (so only ``autograd.record()``
-builds a graph) and is listed in ``_OPS`` by ``_register``, as in the
-reference.  Where XLA fused these ops for free they are plain PyTorch:
-none is a TPU kernel.
+``where``, the elementwise unary and binary ops and the reductions;
+and the ops of convolutional nets: ``Convolution``, ``Deconvolution``,
+``Pooling``, ``BatchNorm``, ``InstanceNorm``, ``GroupNorm``,
+``Pad``/``pad``, ``space_to_depth`` and ``depth_to_space``.  Every op
+runs through ``ndarray.apply`` (so only ``autograd.record()`` builds a
+graph) and is listed in ``_OPS`` by ``_register``, as in the reference.
+Where XLA fused these ops for free they are plain PyTorch, and the
+convolutions and pooling windows torch's calls: none is a TPU kernel.
 
 Under ``amp.init()`` the registry casts an op's floating inputs by the
 reference's lists (``amp/lists.py``), as the reference's ``amp.init``
@@ -27,7 +30,9 @@ from __future__ import annotations
 
 import builtins as _builtins
 import functools
+import math
 
+import numpy as _np
 import torch
 import torch.nn.functional as F
 
@@ -751,6 +756,307 @@ def LayerNorm(data, gamma, beta, axis=-1, eps=1e-5, output_mean_var=False):
         return (d - m) * torch.rsqrt(v + eps) * g.reshape(shape) + \
             b.reshape(shape)
     return apply(fn, [data, gamma, beta])
+
+
+# ===========================================================================
+# convolution, pooling, normalization, padding
+# ===========================================================================
+# The reference lowers these to plain XLA (``lax.conv_general_dilated``,
+# ``lax.reduce_window``, ``jnp.mean``/``jnp.var``): here they are torch's
+# convolution and pooling calls and plain tensor ops.  Data is NC[D]HW
+# and a convolution weight OI[D]HW, MXNet's layout; ``layout`` is taken
+# and ignored, as the reference's op ignores it.
+
+_CONV = {1: F.conv1d, 2: F.conv2d, 3: F.conv3d}
+_DECONV = {1: F.conv_transpose1d, 2: F.conv_transpose2d,
+           3: F.conv_transpose3d}
+_MAX_POOL = {1: F.max_pool1d, 2: F.max_pool2d, 3: F.max_pool3d}
+
+
+def _spatial(value, nd, default):
+    return tuple(value) if value else (default,) * nd
+
+
+@_register
+def Convolution(data, weight, bias=None, kernel=None, stride=None,
+                dilate=None, pad=None, num_filter=None, num_group=1,
+                no_bias=False, workspace=None, layout=None, cudnn_off=False,
+                cudnn_tune=None):
+    """1-3 D convolution (reference: src/operator/nn/convolution.cc):
+    stride, symmetric ``pad``, dilation, ``num_group`` groups and a bias;
+    the output in the data's dtype."""
+    nd = len(kernel) if kernel else weight.ndim - 2
+    stride, dilate, pad = (_spatial(stride, nd, 1), _spatial(dilate, nd, 1),
+                           _spatial(pad, nd, 0))
+    inputs = [data, weight] + ([] if no_bias or bias is None else [bias])
+
+    def fn(d, w, *b):
+        return _CONV[nd](d, w, b[0].to(d.dtype) if b else None, stride, pad,
+                         dilate, num_group)
+    return apply(fn, inputs)
+
+
+@_register
+def Deconvolution(data, weight, bias=None, kernel=None, stride=None,
+                  dilate=None, pad=None, adj=None, target_shape=None,
+                  num_filter=None, num_group=1, no_bias=True, workspace=None,
+                  layout=None, cudnn_off=False, cudnn_tune=None):
+    """Transposed convolution (reference: src/operator/nn/
+    deconvolution.cc); the weight is ``(in, out / num_group, *kernel)``,
+    torch's ``conv_transpose`` layout.  The output's size is ``(in - 1) *
+    stride - 2 pad + dilate (kernel - 1) + 1 + adj``; ``target_shape``
+    overrides ``adj`` and raises when no ``0 <= adj < stride`` reaches
+    it."""
+    nd = len(kernel) if kernel else weight.ndim - 2
+    stride, dilate, pad = (_spatial(stride, nd, 1), _spatial(dilate, nd, 1),
+                           _spatial(pad, nd, 0))
+    keff = [dilate[i] * (weight.shape[2 + i] - 1) + 1 for i in range(nd)]
+    if target_shape is not None:
+        ts = tuple(target_shape)
+        in_sp = data.shape[2:]
+        adj = tuple(ts[i] - ((in_sp[i] - 1) * stride[i] - 2 * pad[i] +
+                             keff[i]) for i in range(nd))
+        if any(a < 0 or a >= stride[i] for i, a in enumerate(adj)):
+            raise MXNetError(
+                f"Deconvolution: target_shape {ts} unreachable from input "
+                f"{tuple(in_sp)} with kernel/stride/pad/dilate given")
+    adj = _spatial(adj, nd, 0)
+    inputs = [data, weight] + ([] if no_bias or bias is None else [bias])
+    # torch takes an output padding below the stride or the dilation; a
+    # larger ``adj`` runs unpadded and is cropped (and zero-filled past
+    # the last input's reach) to the size above
+    direct = all(a < _builtins.max(s, dl)
+                 for a, s, dl in zip(adj, stride, dilate))
+
+    def fn(d, w, *b):
+        bb = b[0].to(d.dtype) if b else None
+        if direct:
+            return _DECONV[nd](d, w, bb, stride, pad, adj, num_group, dilate)
+        y = _DECONV[nd](d, w, None, stride, 0, 0, num_group, dilate)
+        for i in range(nd):
+            n = y.shape[2 + i]
+            over = _builtins.max(adj[i] - pad[i], 0)
+            if over:
+                y = F.pad(y, (0, 0) * (nd - 1 - i) + (0, over))
+            y = y.narrow(2 + i, pad[i], n - 2 * pad[i] + adj[i])
+        return y if bb is None else y + bb.reshape((1, -1) + (1,) * nd)
+    return apply(fn, inputs)
+
+
+def _pool_pads(shape, k, s, p, full):
+    """(before, after) padding of each spatial axis: ``full`` rounds the
+    output size up (ceil division) and pads the right to fit it, with no
+    rule that the last window start inside the input."""
+    pads = []
+    for i in range(len(k)):
+        x = shape[2 + i] + 2 * p[i]
+        extra = 0
+        if full:
+            out = -(-(x - k[i]) // s[i]) + 1
+            extra = _builtins.max((out - 1) * s[i] + k[i] - x, 0)
+        pads.append((p[i], p[i] + extra))
+    return pads
+
+
+def _torch_pads(pairs):
+    """``F.pad``'s argument for (before, after) pairs of the trailing
+    axes, first axis first."""
+    return tuple(v for lo, hi in reversed(pairs) for v in (lo, hi))
+
+
+def _window_sum(t, k, s, divisor=1):
+    """Sum (over ``divisor``) of each ``k`` window at stride ``s`` of the
+    already padded floating ``t``."""
+    if len(k) == 1:
+        return F.avg_pool2d(t.unsqueeze(2), (1,) + k, (1,) + s,
+                            divisor_override=divisor).squeeze(2)
+    pool = F.avg_pool2d if len(k) == 2 else F.avg_pool3d
+    return pool(t, k, s, divisor_override=divisor)
+
+
+def _windows(t, k, s):
+    """Each ``k`` window at stride ``s`` of ``t`` as one trailing axis:
+    (N, C, *out, prod(k))."""
+    for i in range(len(k)):
+        t = t.unfold(2 + i, k[i], s[i])
+    return t.flatten(-len(k))
+
+
+@_register
+def Pooling(data, kernel=None, pool_type="max", global_pool=False,
+            stride=None, pad=None, pooling_convention="valid",
+            cudnn_off=False, count_include_pad=True, layout=None,
+            p_value=2):
+    """Max, avg, sum and lp pooling (reference: src/operator/nn/
+    pooling.cc), 1-3 D, or over the whole of each map (``global_pool``).
+    Padding is explicit (-inf or the integer minimum for max, zeros
+    otherwise) and the windows pool unpadded, so ``pooling_convention=
+    "full"`` (ceil division) keeps the reference's extra right padding,
+    which torch's ``ceil_mode`` drops; avg with ``count_include_pad``
+    divides by ``prod(kernel)``, the extra padding included; lp is
+    ``(sum x^p)^(1/p)`` with no ``abs``, as the reference's; a max
+    window's gradient goes to its first largest element.  Integer inputs
+    pool through ``unfold``."""
+    if pool_type not in ("max", "avg", "sum", "lp"):
+        raise MXNetError(f"unknown pool_type {pool_type!r}")
+
+    def glob(d):
+        axes = tuple(range(2, d.dim()))
+        if pool_type == "max":
+            return torch.amax(d, axes, keepdim=True)
+        if pool_type == "sum":
+            return torch.sum(d, axes, keepdim=True, dtype=d.dtype)
+        if pool_type == "lp":
+            return torch.sum(d ** p_value, axes, keepdim=True,
+                             dtype=d.dtype) ** (1.0 / p_value)
+        return torch.mean(d if d.is_floating_point() else d.float(), axes,
+                          keepdim=True)
+
+    def fn(d):
+        if global_pool:
+            return glob(d)
+        nd = d.dim() - 2
+        k = tuple(kernel)
+        s, p = _spatial(stride, nd, 1), _spatial(pad, nd, 0)
+        pairs = _pool_pads(d.shape, k, s, p, pooling_convention == "full")
+        floating = d.is_floating_point()
+        if pool_type == "max":
+            low = float("-inf") if floating else torch.iinfo(d.dtype).min
+            x = F.pad(d, _torch_pads(pairs), value=low)
+            if floating:
+                return _MAX_POOL[nd](x, k, s)
+            return torch.amax(_windows(x, k, s), -1)
+        x = F.pad(d, _torch_pads(pairs))
+        if pool_type == "lp":
+            x = x ** p_value
+        if not floating:
+            ssum = torch.sum(_windows(x, k, s), -1, dtype=d.dtype)
+        elif pool_type == "avg" and count_include_pad:
+            return _window_sum(x, k, s, math.prod(k))
+        else:
+            ssum = _window_sum(x, k, s)
+        if pool_type == "sum":
+            return ssum
+        if pool_type == "lp":
+            return (ssum ** (1.0 / p_value)).to(d.dtype)
+        if count_include_pad:
+            return (ssum / math.prod(k)).to(d.dtype)
+        ones = F.pad(torch.ones((1, 1) + tuple(d.shape[2:]),
+                                dtype=torch.float32, device=d.device),
+                     _torch_pads(pairs))
+        return (ssum / _window_sum(ones, k, s)).to(d.dtype)
+    return apply(fn, [data])
+
+
+def _var_mean(d, dims):
+    """The biased variance and the mean over ``dims`` (``jnp.var``'s
+    ``ddof=0``)."""
+    return torch.var_mean(d, dims, correction=0, keepdim=True)
+
+
+@_register
+def BatchNorm(data, gamma, beta, moving_mean, moving_var, eps=1e-3,
+              momentum=0.9, fix_gamma=True, use_global_stats=False,
+              output_mean_var=False, axis=1, cudnn_off=False):
+    """The stateless op (reference: src/operator/nn/batch_norm.cc): in
+    training (``autograd.is_training()`` and not ``use_global_stats``)
+    it normalizes with the batch's mean and biased variance, otherwise
+    with ``moving_mean``/``moving_var``; ``fix_gamma`` scales by one.
+    The running statistics' update is ``gluon.nn.BatchNorm``'s."""
+    training = _tape.is_training() and not use_global_stats
+
+    def fn(d, g, b, mm, mv):
+        ax = axis % d.dim()
+        shape = [1] * d.dim()
+        shape[ax] = d.shape[ax]
+        if training:
+            v, m = _var_mean(d, tuple(i for i in range(d.dim()) if i != ax))
+        else:
+            m, v = mm.reshape(shape), mv.reshape(shape)
+        out = (d - m) * torch.rsqrt(v + eps)
+        if not fix_gamma:
+            out = out * g.reshape(shape)
+        return out + b.reshape(shape)
+    return apply(fn, [data, gamma, beta, moving_mean, moving_var])
+
+
+@_register
+def InstanceNorm(data, gamma, beta, eps=1e-3):
+    """Normalize each (sample, channel) map over its spatial axes, then
+    scale by ``gamma`` and shift by ``beta`` per channel."""
+    def fn(d, g, b):
+        v, m = _var_mean(d, tuple(range(2, d.dim())))
+        shape = (1, -1) + (1,) * (d.dim() - 2)
+        return (d - m) * torch.rsqrt(v + eps) * g.reshape(shape) + \
+            b.reshape(shape)
+    return apply(fn, [data, gamma, beta])
+
+
+@_register
+def GroupNorm(data, gamma, beta, num_groups=1, eps=1e-5):
+    """Group normalization over groups of ``C / num_groups`` channels
+    (reference: src/operator/nn/group_norm.cc)."""
+    def fn(d, g, b):
+        n, c = d.shape[0], d.shape[1]
+        x = d.reshape((n, num_groups, c // num_groups) + tuple(d.shape[2:]))
+        v, m = _var_mean(x, tuple(range(2, x.dim())))
+        x = ((x - m) / torch.sqrt(v + eps)).reshape(d.shape)
+        shape = (1, c) + (1,) * (d.dim() - 2)
+        return x * g.reshape(shape) + b.reshape(shape)
+    return apply(fn, [data, _nd(gamma, data), _nd(beta, data)])
+
+
+@_register
+def Pad(data, mode="constant", pad_width=(), constant_value=0.0):
+    """N-d padding (reference: src/operator/pad.cc): ``pad_width`` is a
+    flat (before, after) pair per axis; ``mode`` constant, edge or
+    reflect (numpy's modes)."""
+    pw = tuple(int(p) for p in pad_width)
+    if len(pw) != 2 * len(data.shape):
+        raise MXNetError(f"pad_width needs 2 entries per axis, got "
+                         f"{len(pw)} for ndim {len(data.shape)}")
+    if mode not in ("constant", "edge", "reflect"):
+        raise MXNetError(f"unknown pad mode {mode!r}")
+    pairs = [(pw[2 * i], pw[2 * i + 1]) for i in range(len(pw) // 2)]
+
+    def fn(d):
+        if mode == "constant":
+            return F.pad(d, _torch_pads(pairs), value=constant_value)
+        for ax, (lo, hi) in enumerate(pairs):
+            if lo or hi:   # the source index of each output row
+                idx = _np.pad(_np.arange(d.shape[ax]), (lo, hi), mode=mode)
+                d = torch.index_select(d, ax, torch.as_tensor(
+                    idx, device=d.device))
+        return d
+    return apply(fn, [data])
+
+
+pad = _alias("pad", Pad)
+
+
+@_register
+def space_to_depth(data, block_size):
+    """(N, C, H, W) -> (N, C b^2, H / b, W / b); channel ``(dy b + dx) C +
+    c`` holds ``x[c, b i + dy, b j + dx]``."""
+    b = block_size
+
+    def fn(d):
+        n, c, h, w = d.shape
+        d = d.reshape(n, c, h // b, b, w // b, b).permute(0, 3, 5, 1, 2, 4)
+        return d.reshape(n, c * b * b, h // b, w // b)
+    return apply(fn, [data])
+
+
+@_register
+def depth_to_space(data, block_size):
+    """The inverse of :func:`space_to_depth`."""
+    b = block_size
+
+    def fn(d):
+        n, c, h, w = d.shape
+        d = d.reshape(n, b, b, c // (b * b), h, w).permute(0, 3, 4, 1, 5, 2)
+        return d.reshape(n, c // (b * b), h * b, w * b)
+    return apply(fn, [data])
 
 
 # ===========================================================================

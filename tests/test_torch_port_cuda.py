@@ -1078,3 +1078,229 @@ def test_tiny_bert_training_card_equals_cpu(card):
                                        rtol=0, atol=1e-5, err_msg=k)
     finally:
         torch.backends.cuda.matmul.allow_tf32 = prev
+
+
+# ----------------------------------------------------------------------
+# the convolutional ops (plain torch calls, no kernel of the port's own):
+# the card against the port's CPU path, forward and backward
+# ----------------------------------------------------------------------
+
+# bf16 through a convolution or a window: the output rounded to bf16 on
+# both sides after f32 sums in different orders; gradients sum bf16
+# products over the batch and the map in another order again
+CONV_TOL = {torch.float32: dict(atol=1e-4, rtol=1e-4),
+            torch.bfloat16: dict(atol=3e-2, rtol=3e-2)}
+CONV_GRAD_TOL = {torch.float32: dict(atol=1e-4, rtol=1e-4),
+                 torch.bfloat16: dict(atol=1e-1, rtol=5e-2)}
+
+CARD_OPS = {
+    "conv2d-groups-dilate": ("Convolution",
+                             [(2, 4, 9, 8), (6, 2, 3, 3), (6,)],
+                             dict(kernel=(3, 3), stride=(1, 2),
+                                  dilate=(2, 1), pad=(2, 1), num_filter=6,
+                                  num_group=2)),
+    "conv2d-7x7-stride2": ("Convolution", [(2, 3, 33, 33), (8, 3, 7, 7)],
+                           dict(kernel=(7, 7), stride=(2, 2), pad=(3, 3),
+                                num_filter=8, no_bias=True)),
+    "conv1d": ("Convolution", [(2, 4, 9), (6, 4, 3), (6,)],
+               dict(kernel=(3,), stride=(2,), pad=(1,), num_filter=6)),
+    "conv3d": ("Convolution", [(1, 2, 5, 5, 4), (4, 2, 3, 2, 2)],
+               dict(kernel=(3, 2, 2), pad=(1, 0, 1), num_filter=4,
+                    no_bias=True)),
+    "deconv2d-adj": ("Deconvolution", [(2, 4, 5, 4), (4, 3, 3, 3), (3,)],
+                     dict(kernel=(3, 3), stride=(2, 2), pad=(1, 1),
+                          adj=(1, 0), num_filter=3, no_bias=False)),
+    "deconv2d-groups-target": ("Deconvolution",
+                               [(1, 4, 4, 5), (4, 3, 4, 4)],
+                               dict(kernel=(4, 4), stride=(2, 3), pad=(1, 1),
+                                    num_group=2, target_shape=(9, 15),
+                                    num_filter=6)),
+    "deconv1d-adj-at-stride": ("Deconvolution",
+                               [(2, 3, 5), (3, 2, 3), (2,)],
+                               dict(kernel=(3,), stride=(1,), pad=(1,),
+                                    adj=(2,), num_filter=2, no_bias=False)),
+    "maxpool-stem": ("Pooling", [(2, 4, 17, 17)],
+                     dict(kernel=(3, 3), stride=(2, 2), pad=(1, 1))),
+    "maxpool-full-3d": ("Pooling", [(1, 2, 5, 4, 6)],
+                        dict(kernel=(2, 2, 3), stride=(2, 1, 2),
+                             pooling_convention="full")),
+    "avgpool-full-exclude-pad": ("Pooling", [(2, 2, 7, 8)],
+                                 dict(kernel=(3, 3), stride=(2, 2),
+                                      pad=(1, 1), pool_type="avg",
+                                      count_include_pad=False,
+                                      pooling_convention="full")),
+    "avgpool-1d": ("Pooling", [(2, 3, 10)],
+                   dict(kernel=(3,), stride=(2,), pad=(1,),
+                        pool_type="avg")),
+    "sumpool": ("Pooling", [(2, 3, 6, 7)],
+                dict(kernel=(2, 3), stride=(1, 2), pool_type="sum")),
+    "lppool": ("Pooling", [(2, 2, 6, 6)],
+               dict(kernel=(2, 2), stride=(2, 2), pool_type="lp",
+                    p_value=2)),
+    "global-avg": ("Pooling", [(4, 8, 7, 7)],
+                   dict(global_pool=True, pool_type="avg")),
+    "batchnorm-op": ("BatchNorm", [(4, 3, 5, 5), (3,), (3,), (3,), (3,)],
+                     dict(fix_gamma=False)),
+    "instancenorm": ("InstanceNorm", [(2, 3, 5, 6), (3,), (3,)], dict()),
+    "groupnorm": ("GroupNorm", [(2, 6, 4, 5), (6,), (6,)],
+                  dict(num_groups=3)),
+    "pad-reflect": ("Pad", [(2, 3, 4, 5)],
+                    dict(mode="reflect",
+                         pad_width=(0, 0, 0, 0, 3, 1, 2, 2))),
+    "pad-edge": ("Pad", [(2, 3, 4, 5)],
+                 dict(mode="edge", pad_width=(0, 0, 0, 0, 2, 1, 0, 3))),
+    "space-to-depth": ("space_to_depth", [(2, 3, 6, 4)],
+                       dict(block_size=2)),
+}
+
+
+def _op_run(op, arrays, kwargs, ct, ctx, dtype):
+    """(output, input gradients) of ``op`` on ``ctx``: the data (the first
+    input) and a convolution's weight in ``dtype``, the other inputs f32
+    (a norm's gamma, beta and statistics)."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import autograd
+    low = 2 if op in ("Convolution", "Deconvolution") else 1
+    with ctx:
+        xs = [mx.nd.array(a).astype(dtype_name(dtype) if i < low
+                                    else "float32")
+              for i, a in enumerate(arrays)]
+        for x in xs:
+            x.attach_grad()
+        with autograd.record():
+            y = getattr(mx.nd, op)(*xs, **kwargs)
+        y.backward(mx.nd.array(ct).astype(str(y.dtype)))
+    return y.data.float().cpu(), [x.grad.data.float().cpu() for x in xs]
+
+
+def dtype_name(dtype):
+    return str(dtype).replace("torch.", "")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", sorted(CARD_OPS))
+def test_conv_ops_on_the_card_match_the_cpu(card, case, dtype):
+    import mxnet_tpu_torch as mx
+    op, shapes, kwargs = CARD_OPS[case]
+    rng = np.random.RandomState(13)
+    arrays = [rng.randn(*s).astype(np.float32) for s in shapes]
+    if op == "BatchNorm":
+        arrays[-1] = np.abs(arrays[-1]) + 0.5           # a variance
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        with mx.cpu():
+            shape = getattr(mx.nd, op)(*[mx.nd.array(a) for a in arrays],
+                                       **kwargs).shape
+        ct = rng.randn(*shape).astype(np.float32)
+        y, gs = _op_run(op, arrays, kwargs, ct, mx.gpu(0), dtype)
+        want_y, want_gs = _op_run(op, arrays, kwargs, ct, mx.cpu(), dtype)
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
+    torch.testing.assert_close(y, want_y, **CONV_TOL[dtype])
+    for i, (g, w) in enumerate(zip(gs, want_gs)):
+        torch.testing.assert_close(g, w, **CONV_GRAD_TOL[dtype],
+                                   msg=lambda m: f"input {i}: {m}")
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_int32_pooling_on_the_card(card, dtype):
+    """Integer max and sum pooling go through ``unfold`` on both
+    devices: exact."""
+    import mxnet_tpu_torch as mx
+    x = np.random.RandomState(3).randint(-20, 20, (2, 3, 7, 6))
+    for kw in (dict(kernel=(3, 3), stride=(2, 2), pad=(1, 1)),
+               dict(kernel=(3, 2), stride=(2, 2), pool_type="sum",
+                    pooling_convention="full")):
+        outs = []
+        for ctx in (mx.gpu(0), mx.cpu()):
+            with ctx:
+                outs.append(mx.nd.Pooling(mx.nd.array(x, dtype="int32"),
+                                          **kw).asnumpy())
+        assert outs[0].dtype == np.int32
+        np.testing.assert_array_equal(outs[0], outs[1])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_batchnorm_layer_on_the_card_matches_the_cpu(card, dtype):
+    """Gluon BatchNorm in training mode (``native_batch_norm``, f32
+    gamma, beta and statistics beside ``dtype`` activations): output,
+    gradients and running statistics on the card against the CPU."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import autograd, gluon
+    rng = np.random.RandomState(5)
+    x = rng.randn(8, 16, 9, 9).astype(np.float32) * 3 + 1
+    ct = rng.randn(*x.shape).astype(np.float32)
+    runs = []
+    for ctx in (mx.gpu(0), mx.cpu()):
+        bn = gluon.nn.BatchNorm(momentum=0.9, in_channels=16)
+        bn.initialize(ctx=ctx)
+        with ctx:
+            xa = mx.nd.array(x).astype(dtype)
+            xa.attach_grad()
+            for _ in range(2):
+                with autograd.record():
+                    y = bn(xa)
+                y.backward(mx.nd.array(ct).astype(dtype))
+        assert str(y.dtype) == dtype
+        runs.append([y.data.float().cpu(), xa.grad.data.float().cpu()] +
+                    [p.data().data.float().cpu() if p.grad_req == "null"
+                     else p.grad().data.float().cpu()
+                     for p in bn.collect_params().values()])
+    tol = CONV_TOL[getattr(torch, dtype)]
+    for got, want in zip(*runs):
+        torch.testing.assert_close(got, want, **tol)
+
+
+def test_narrow_resnet_sgd_steps_card_equal_cpu(card):
+    """Two SGD-momentum steps of a narrow bottleneck ResNet (channels 8
+    to 256) through the MXNet loop on the card and on the host from the
+    same weights: K1 once a step on the card, losses within 1e-4
+    relative, parameters and running statistics within 1e-4."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import autograd, gluon
+    from mxnet_tpu_torch.convert import (block_weights_to_numpy,
+                                         load_block_weights)
+    from mxnet_tpu_torch.gluon.model_zoo import vision
+    prev = torch.backends.cudnn.allow_tf32, \
+        torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        rng = np.random.RandomState(9)
+        x = rng.rand(4, 3, 64, 64).astype(np.float32)
+        y = rng.randint(0, 10, (4,))
+        weights, runs = None, []
+        for ctx in (mx.gpu(0), mx.cpu()):
+            net = vision.ResNetV1(vision.BottleneckV1, [1, 1, 1, 1],
+                                  [8, 32, 64, 128, 256], classes=10)
+            mx.random.seed(9)
+            net.initialize(mx.init.Xavier(magnitude=2), ctx=ctx)
+            with ctx:
+                xa = mx.nd.array(x)
+                ya = mx.nd.array(y, dtype="int32")
+            if weights is None:
+                net(xa)
+                weights = block_weights_to_numpy(net)
+            load_block_weights(net, weights)
+            tr = gluon.Trainer(net.collect_params(), "sgd",
+                               {"learning_rate": 0.1, "momentum": 0.9})
+            ce = gluon.loss.SoftmaxCrossEntropyLoss()
+            ops.reset_launches()
+            losses = []
+            for _ in range(2):
+                with autograd.record():
+                    loss = ce(net(xa), ya)
+                loss.backward()
+                tr.step(4)
+                losses.append(float(loss.mean().asscalar()))
+            if ctx == mx.gpu(0):
+                assert ops.launch_counts()["fused_sgd_update"] == 2
+            runs.append((losses, block_weights_to_numpy(net)))
+        np.testing.assert_allclose(runs[0][0], runs[1][0], rtol=1e-4)
+        for k in runs[1][1]:
+            np.testing.assert_allclose(runs[0][1][k], runs[1][1][k],
+                                       rtol=1e-4, atol=1e-4, err_msg=k)
+    finally:
+        torch.backends.cudnn.allow_tf32, \
+            torch.backends.cuda.matmul.allow_tf32 = prev

@@ -308,7 +308,7 @@ def test_entry_points_raise_without_a_card_and_run_on_the_cpu_when_asked():
 
 
 def test_unported_ops_raise_naming_their_item():
-    for name in ("Convolution", "BatchNorm", "topk", "sample_normal"):
+    for name in ("RNN", "LRN", "topk", "sample_normal"):
         with pytest.raises(NotSupportedError, match="item 8"):
             getattr(mx.nd, name)
     with pytest.raises(AttributeError):
@@ -319,7 +319,10 @@ def test_unported_ops_raise_naming_their_item():
     # every reference op name is either ported or known to wait
     assert set(jops.__all__) <= later
     assert {"FullyConnected", "LayerNorm", "Embedding", "softmax",
-            "gather_positions", "batch_dot", "where"} <= ported
+            "gather_positions", "batch_dot", "where", "Convolution",
+            "Deconvolution", "Pooling", "BatchNorm", "InstanceNorm",
+            "GroupNorm", "Pad", "pad", "space_to_depth",
+            "depth_to_space"} <= ported
 
 
 def test_dropout_in_training():
