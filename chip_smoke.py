@@ -99,15 +99,18 @@ continued:
     pooling, BatchNorm's running statistics): ``resnet50_v1()`` at full
     width in f32, the same weights (``Xavier(magnitude=2)``, seeded, each
     bottleneck's last BatchNorm gamma zeroed) on both, two SGD-momentum
-    steps (lr 0.1, momentum 0.9) on 4 x 3 x 64 x
-    64: losses within 1e-4 relative, each parameter's two-step update
-    within 1e-3 relative (the body convs' biases, whose gradient is zero
+    steps (lr 0.1, momentum 0.9) on 4 x 3 x 64 x 64, the card on
+    cuDNN's deterministic algorithms: losses within 1e-4 relative, each
+    parameter's two-step update within 1e-3 relative once each
+    element's difference is reduced by
+    the f32 rounding of storing it, an ulp a step (``update_errs``, as
+    in phases 12 and 16; the body convs' biases, whose gradient is zero
     in exact arithmetic, within 1e-3 absolute), running statistics and a
     predict-mode forward after the steps within 1e-4; exactly 2 K1
     launches; then ``SpaceToDepthStem`` against the stock stem on the
     card from the same ``conv0_weight``, within 1e-4;
-11. bf16 AMP training (``amp.init`` is process-wide, so phases 11, 13
-    and 15 come last): phase 8's model, batch and AdamW under
+11. bf16 AMP training (``amp.init`` is process-wide, so phases 11, 13,
+    15, 17 and 18 come last, in that order): phase 8's model, batch and AdamW under
     ``amp.init("bfloat16")``, ``amp.init_trainer`` and
     ``amp.scale_loss``, 5 steps: the loss finite and falling, its first
     value within 2e-2 relative of phase 8's, logits and loss bf16 and
@@ -122,6 +125,20 @@ continued:
     launches a step, all bf16, and one K2; it prints the step median,
     samples/s, peak memory, and, from two profiled steps, the device
     time by kernel and the step's host share;
+16. card vs CPU, ``parallel.DataParallelTrainer`` (the reference's
+    training entry point, on ``make_mesh({"dp": 1})``): a small conv net
+    with BatchNorm (SGD momentum) and a 2-layer BERT at BERT-base width
+    (Adam), f32, 3 steps, then ``set_learning_rate`` and a 4th: losses
+    within 1e-4 relative and each parameter's update within 1e-3, card
+    (one CUDA graph replay a step after the first) against CPU; the
+    replays against the same body run eagerly on the card within 1e-5
+    (bitwise printed); ``step_indexed`` over ``put_epoch`` against
+    ``step`` on the same slices, ``step_accum(n_micro=2)`` against
+    ``step`` on the whole batch; K1 12, K2 12, K3 32 and 32 launches;
+19. checkpointing on the card: a Dense/BatchNorm net through
+    ``DataParallelTrainer`` (Adam), ``CheckpointManager.save`` at step 3,
+    2 more steps; a fresh trainer restores and takes the same 2 steps:
+    parameters bitwise; a torn checkpoint is skipped by ``latest()``;
 15. ResNet-50 v1 training at ``bench.py``'s configuration
     (``resnet50_v1()`` with the stock stem, ``initialize()`` on the
     card, ``hybridize()``, batch 128 x 3 x 224 x 224 from
@@ -133,14 +150,26 @@ continued:
     and, from two profiled steps, the device time by kernel class
     (convolutions forward and backward, cuDNN's layout transposes,
     BatchNorm, casts, K1, the gradient gather) and the step's host
-    share.
+    share;
+17. ResNet-50 v1 through ``DataParallelTrainer``, ``bench.py``'s
+    ``_bench_resnet`` with nothing cut (``resnet50_v1(s2d_stem=True)``,
+    bf16 AMP, batch 128 from ``nd.random.uniform``, zero labels, SGD lr
+    0.1 momentum 0.9): 3 warm-up steps (the first eager, the second
+    captured), 20 timed, each one graph replay with one K1 launch; step
+    median, images/s, peak memory, captures, capture seconds, graph pool
+    bytes, the replay's device time (CUDA events) and host share, and
+    the device time by class from two profiled steps;
+18. BERT-base through ``DataParallelTrainer`` at ``bench.py``'s
+    ``_bench_bert`` (bf16 AMP, batch 64 x 128 from ``RandomState(0)``,
+    Adam lr 1e-4): as phase 17, with one K2 and 12 bf16 K3 forward and
+    backward launches a replay.
 
 Phases 4 and 7 also print, from a pass after the timed run (so the
 run's steps are measured as they run without it) that replays each
 decode step on its own staged inputs, the replays' device time (CUDA
 events around ``graph.replay()``) and each step's host share beside
 it.  Before
-each of phases 4 and 7-15 the kernels' launch counters are set to 0; each phase reads them just after and fails unless its kernels
+each of phases 4 and 7-19 the kernels' launch counters are set to 0; each phase reads them just after and fails unless its kernels
 ran the expected number of times.  The second-to-last line is the
 card's name and power limit, the line before it the kernels' JSON
 record, and the line before that every timed row of phase 3 as
@@ -272,6 +301,36 @@ def read_launches(phase, want):
     if got != full or min(want.values()) < 1:
         fail(f"{phase}: kernel launches {got}, expected {full}")
     return got
+
+
+def update_errs(w0, got, want, steps, skip=()):
+    """Each parameter's update from ``w0``, one run (``got``) against
+    another (``want``), as ``|du_got - du_want| / |du_want|`` over float32
+    arrays by name, after each element's difference has been reduced by
+    ``steps`` ulps of the parameter's magnitude (and not below zero).
+
+    That reduction is the rounding of storing the parameter: each step
+    rounds the new value by up to half an ulp on each run, so ``steps``
+    steps may move the two stored updates apart by ``steps`` ulps with no
+    difference at all in what was added.  Where an update is only some
+    tens of ulps of its parameter (a BatchNorm gamma near 1 behind a
+    zeroed gamma: ResNet-50's ``features.4.0.body.4.gamma`` moves by
+    about 5e-6 an element, 44 ulps) those roundings alone made the
+    relative difference 2.9e-3 between two CPU runs that differ only in
+    their thread count."""
+    import numpy as np
+    out = {}
+    for k in w0:
+        if k in skip:
+            continue
+        du = want[k] - w0[k]
+        mag = np.maximum(np.maximum(np.abs(w0[k]), np.abs(got[k])),
+                         np.abs(want[k])).astype(np.float32)
+        diff = np.maximum(np.abs((got[k] - w0[k]) - du) -
+                          steps * np.spacing(mag), 0.0)
+        out[k] = float(np.linalg.norm(diff) /
+                       max(float(np.linalg.norm(du)), 1e-30))
+    return out
 
 
 def graph_vs_eager(eng, prompt):
@@ -1006,6 +1065,18 @@ def update_case(rule, n, dev):
     return p, grad, {"mom": torch.randn(n, device=dev, generator=g_) * 0.1}
 
 
+def device_scalars(lr, s, dev):
+    """``lr`` and the rule's state ``s`` as the update kernels take them
+    on the card: ``lr`` a one-element float32 tensor, Adam's ``t`` (the
+    count before the update) a one-element int32 tensor, both read when
+    the kernel runs."""
+    import torch
+    s = dict(s)
+    if "t" in s:
+        s["t"] = torch.tensor([int(s["t"])], dtype=torch.int32, device=dev)
+    return torch.tensor([lr], dtype=torch.float32, device=dev), s
+
+
 def copy_at(t, offset):
     """A copy of the flat ``t`` that starts ``offset`` elements into its
     own allocation."""
@@ -1041,18 +1112,18 @@ def check_updates(dev, flush, n_big):
             # the kernel's copies of p and the state, every stream (the
             # gradient too) ``offset`` elements into its allocation
             kp = copy_at(p, offset)
-            ks = {k: copy_at(v, offset) if torch.is_tensor(v) else v
-                  for k, v in s.items()}
+            lr_dev, ks = device_scalars(lr, {
+                k: copy_at(v, offset) if torch.is_tensor(v) else v
+                for k, v in s.items()}, dev)
             kp, ks = apply(kp, copy_at(grad, offset) if offset else grad, ks,
-                           lr, wd, rescale)                 # in place
+                           lr_dev, wd, rescale)             # in place
             err = 0.0
             for c in _chunks(n):
                 want_p, want_s = plain(
                     p[c], grad[c], {k: v[c] if torch.is_tensor(v) else v
                                     for k, v in s.items()}, lr, wd, rescale)
                 pairs = [(kp[c], want_p)] + [
-                    (ks[k][c], want_s[k]) for k in ks if torch.is_tensor(
-                        ks[k])]
+                    (ks[k][c], want_s[k]) for k in ks if k != "t"]
                 for got, want in pairs:
                     e, ok = max_err(got, want, UPDATE_TOL)
                     if not ok:
@@ -1074,7 +1145,7 @@ def check_updates(dev, flush, n_big):
                         for k, v in s.items()}, lr, wd, rescale)
 
             def kernel():
-                apply(kp, grad, ks, lr, wd, rescale)
+                apply(kp, grad, ks, lr_dev, wd, rescale)
 
             step = torch.tensor(3.0, device=dev)
 
@@ -1825,12 +1896,11 @@ def bert_card_vs_cpu(dev):
     # size, so an element whose gradient is mostly rounding noise (a sum
     # that cancels) moves by up to lr either way: the parameters are held
     # by each one's update p2 - p0, card against CPU, as |du_card -
-    # du_cpu| / |du_cpu|; the key projections' bias, whose gradient is
-    # zero in exact arithmetic, by Adam's bound
+    # du_cpu| / |du_cpu| less the f32 rounding of storing each step
+    # (update_errs); the key projections' bias, whose gradient is zero in
+    # exact arithmetic, by Adam's bound
     w0 = weights
-    upd = {k: float(np.linalg.norm((runs[0][1][k] - w0[k]) -
-                                   (runs[1][1][k] - w0[k])) /
-                    np.linalg.norm(runs[1][1][k] - w0[k])) for k in w0}
+    upd = update_errs(w0, runs[0][1], runs[1][1], 2)
     diff = {k: float(np.abs(runs[0][1][k] - runs[1][1][k]).max())
             for k in w0}
     noise = [k for k in w0 if k.endswith("proj_key.bias")]
@@ -1847,7 +1917,9 @@ def bert_card_vs_cpu(dev):
           f"max |param| diffs {worst}; launches {launches}", flush=True)
     if not (loss_err <= TRAIN_LOSS_RTOL and upd_err <= BERT_UPDATE_RTOL
             and noise_err <= BERT_KEY_BIAS_ATOL):
-        fail("bert training on the card and on the CPU disagree")
+        fail(f"bert training on the card and on the CPU disagree: losses "
+             f"{loss_err:.3e}, update {upd_err:.3e}, key biases "
+             f"{noise_err:.3e}")
     gc.collect()
     torch.cuda.empty_cache()
     return launches
@@ -1978,7 +2050,9 @@ RESNET_TRAINABLE = 25_575_912        # resnet50_v1()'s bucket (K1's n)
 # phase 14: card against CPU, f32, 4 x 3 x 64 x 64, two steps
 RESNET_CHECK_BATCH, RESNET_CHECK_SIZE = 4, 64
 # each parameter's two-step update, card against CPU, as |du_card -
-# du_cpu| / |du_cpu| (2.3e-4 seen); also printed for all of them together
+# du_cpu| / |du_cpu| less the f32 rounding of storing each step
+# (update_errs; 2.3e-4 seen); also printed, unreduced, for all of them
+# together
 RESNET_UPDATE_RTOL = 1e-3
 RESNET_STAT_TOL = 1e-4        # x max(1, |value|): running statistics
 RESNET_LOGIT_TOL = 1e-4       # x max(1, max |logit|): predict forward
@@ -2003,11 +2077,11 @@ RESNET_CLASSES = (("update (K1)", ("update_kernel",)),
 
 
 def check_resnet_update(dev, flush):
-    """K1 at ResNet-50 v1's bucket (n = 25,575,912, phase 15's main
-    path): momentum 0.9, lr 0.1, wd 0, rescale 1/128, no clip, against
-    the plain rule on the same inputs, then timed against the plain rule
-    and ``torch._fused_sgd_`` (``UPDATE_PAIRS`` interleaved pairs); the
-    row the kernels line reports for K1."""
+    """K1 at ResNet-50 v1's bucket (n = 25,575,912, phase 17's main
+    path): momentum 0.9, lr 0.1 read from memory, wd 0, rescale 1/128,
+    no clip, against the plain rule on the same inputs, then timed
+    against the plain rule and ``torch._fused_sgd_`` (``UPDATE_PAIRS``
+    interleaved pairs); the row the kernels line reports for K1."""
     import torch
     from mxnet_tpu_torch.ops.fused_update import fused_bucket_rule
     from mxnet_tpu_torch.optimizer import fused_rule
@@ -2016,8 +2090,8 @@ def check_resnet_update(dev, flush):
     p, grad, s = update_case("sgd", n, dev)
     _, apply = fused_bucket_rule("sgd", **hyper)
     _, plain = fused_rule("sgd", **hyper)
-    kp, ks = apply(p.clone(), grad, {"mom": s["mom"].clone()}, lr, wd,
-                   rescale)                                    # in place
+    lr_dev, ks = device_scalars(lr, {"mom": s["mom"].clone()}, dev)
+    kp, ks = apply(p.clone(), grad, ks, lr_dev, wd, rescale)   # in place
     want_p, want_s = plain(p, grad, s, lr, wd, rescale)
     err = 0.0
     for got, want in ((kp, want_p), (ks["mom"], want_s["mom"])):
@@ -2028,7 +2102,7 @@ def check_resnet_update(dev, flush):
         err = max(err, e)
     step = torch.tensor(1.0, device=dev)
     times = interleaved_ms(
-        {"kernel": lambda: apply(kp, grad, ks, lr, wd, rescale),
+        {"kernel": lambda: apply(kp, grad, ks, lr_dev, wd, rescale),
          "library": lambda: _library_update("sgd", hyper, kp, grad, ks, lr,
                                             wd, step)}, UPDATE_PAIRS, flush)
     plain_ms = time_ms(lambda: plain(p, grad, s, lr, wd, rescale), 10, flush)
@@ -2037,13 +2111,77 @@ def check_resnet_update(dev, flush):
     text, ms, lib_ms = pair_summary(times["kernel"], times["library"],
                                     nbytes, bound_ms)
     print(f"fused_sgd_update (sgd, momentum {RESNET_MOMENTUM}, lr "
-          f"{RESNET_LR}, wd 0, no clip) n={n} (ResNet-50 v1's bucket): "
-          f"max_abs_err {err:.3e} kernel {ms:.4f} ms plain {plain_ms:.4f} ms "
-          f"library (near) {lib_ms:.4f} ms bound {bound_ms:.4f} ms ({by}); "
-          f"{text}", flush=True)
+          f"{RESNET_LR} from memory, wd 0, no clip) n={n} (ResNet-50 v1's "
+          f"bucket): max_abs_err {err:.3e} kernel {ms:.4f} ms plain "
+          f"{plain_ms:.4f} ms library (near) {lib_ms:.4f} ms bound "
+          f"{bound_ms:.4f} ms ({by}); {text}", flush=True)
     record("fused_sgd_update", "float32 sgd resnet50", [n], ms, plain_ms,
            lib_ms, bound_ms, by)
     del p, grad, s, kp, ks, want_p, want_s
+    torch.cuda.empty_cache()
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "library_ms": lib_ms, "bound_ms": bound_ms, "bound_by": by}
+
+
+BERT_TRAINABLE = 109_188_866         # BERT-base's bucket (K2's n)
+
+
+def check_bert_update(dev, flush):
+    """K2 at BERT-base's bucket (n = 109,188,866, phase 18's main path):
+    Adam lr 1e-4, wd 0, no clip, lr and t read from memory (t counted up
+    by the wrapper), against the plain rule within its tolerance; then
+    timed against the plain rule and ``torch._fused_adam_``
+    (``UPDATE_PAIRS`` interleaved); the row the kernels line reports for
+    K2."""
+    import torch
+    from mxnet_tpu_torch.ops.fused_update import fused_bucket_rule
+    from mxnet_tpu_torch.optimizer import fused_rule
+    n, lr, wd = BERT_TRAINABLE, 1e-4, 0.0
+    hyper = {"beta1": 0.9, "beta2": 0.999, "epsilon": 1e-8}
+    p, grad, s = update_case("adam", n, dev)
+    _, apply = fused_bucket_rule("adam", **hyper)
+    _, plain = fused_rule("adam", **hyper)
+    lr_dev, ks = device_scalars(lr, {"m": s["m"].clone(),
+                                     "v": s["v"].clone(), "t": s["t"]}, dev)
+    kp, ks = apply(p.clone(), grad, ks, lr_dev, wd)
+    if int(ks["t"].item()) != s["t"] + 1:
+        fail("fused_adam_update: the wrapper did not count t up in place")
+    err = 0.0
+    for c in _chunks(n):
+        want_p, want_s = plain(p[c], grad[c], {"m": s["m"][c],
+                                               "v": s["v"][c],
+                                               "t": s["t"]}, lr, wd)
+        for got, want in ((kp[c], want_p), (ks["m"][c], want_s["m"]),
+                          (ks["v"][c], want_s["v"])):
+            e, ok = max_err(got, want, UPDATE_TOL)
+            if not ok:
+                fail(f"fused_adam_update at BERT-base's bucket vs plain: "
+                     f"max abs err {e}")
+            err = max(err, e)
+    step = torch.tensor(3.0, device=dev)
+    times = interleaved_ms(
+        {"kernel": lambda: apply(kp, grad, ks, lr_dev, wd),
+         "library": lambda: _library_update("adam", hyper, kp, grad, ks, lr,
+                                            wd, step)}, UPDATE_PAIRS, flush)
+
+    def plain_pass():
+        for c in _chunks(n):
+            plain(p[c], grad[c], {"m": s["m"][c], "v": s["v"][c],
+                                  "t": s["t"]}, lr, wd)
+
+    plain_ms = time_ms(plain_pass, 3, flush)
+    nbytes = 28 * n             # p, m, v read and written, the gradient read
+    bound_ms, by = bound(nbytes, 20.0 * n, "float32")
+    text, ms, lib_ms = pair_summary(times["kernel"], times["library"],
+                                    nbytes, bound_ms)
+    print(f"fused_adam_update (adam, lr {lr} and t from memory, wd 0, no "
+          f"clip) n={n} (BERT-base's bucket): max_abs_err {err:.3e} kernel "
+          f"{ms:.4f} ms plain {plain_ms:.4f} ms library (near) "
+          f"{lib_ms:.4f} ms bound {bound_ms:.4f} ms ({by}); {text}",
+          flush=True)
+    record("fused_adam_update", "float32 adam bert-base", [n], ms, plain_ms,
+           lib_ms, bound_ms, by)
+    del p, grad, s, kp, ks
     torch.cuda.empty_cache()
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "library_ms": lib_ms, "bound_ms": bound_ms, "bound_by": by}
@@ -2094,9 +2232,11 @@ def resnet_card_vs_cpu(dev):
     bottleneck's last BatchNorm gamma zeroed, carried by ``convert``) on
     the card and on the host, two SGD-momentum steps
     (lr 0.1, momentum 0.9) on 4 x 3 x 64 x 64 from ``RandomState(0)``
-    with labels in [0, 1000): losses within 1e-4 relative, each
-    parameter's two-step update within 1e-3 relative (the body convs'
-    biases, whose gradient is zero in exact arithmetic, within
+    with labels in [0, 1000), the card on cuDNN's deterministic
+    algorithms: losses within 1e-4 relative, each parameter's two-step
+    update within 1e-3 relative net of the f32 rounding of storing it
+    (the body convs' biases, whose gradient is zero in exact arithmetic,
+    within
     ``RESNET_NOISE_BIAS_ATOL`` absolute), the running statistics within
     1e-4, a predict-mode forward after the steps within 1e-4; on the card
     exactly 2 K1 launches.  Then ``SpaceToDepthStem`` on the card from
@@ -2110,8 +2250,19 @@ def resnet_card_vs_cpu(dev):
     amplifies rounding: two CPU runs that differ only in their thread
     count differ by 1% in the median parameter's first gradient, and
     their second losses by 2.4%, so no card could be held to 1e-3 from
-    there; with the zeroed gammas the two CPU runs agree within 1.4e-4
-    on every update."""
+    there.  With the zeroed gammas, CPU runs at 1, 2, 4, 16 and 64
+    threads agree within 6e-6 on every update, read net of the f32
+    rounding of storing it (``update_errs``; unreduced, one element of
+    ``features.4.0.body.4.gamma`` stored an ulp apart read 2.9e-3).  At
+    8 threads the CPU sums in another order and sits 6.7e-4 from them at
+    ``features.4.0.body.4.beta``, a parameter behind a zeroed gamma whose
+    step-2 gradient is a sum that cancels; the card agrees with the
+    8-thread run within 2e-5.  The card has a third form when cuDNN may
+    pick algorithms that sum in any order: two of nineteen such runs
+    read 5.2e-3 at ``features.4.0.body.1.beta``
+    (``tools/port_resnet_cpu_threads.py``).  So the card runs cuDNN's
+    deterministic algorithms here, as phase 16 does, and its result is
+    the same in every process."""
     import numpy as np
     import torch
     import mxnet_tpu_torch as mx
@@ -2125,6 +2276,8 @@ def resnet_card_vs_cpu(dev):
     host_y = rng.randint(0, 1000, (RESNET_CHECK_BATCH,))
     weights = resnet_check_weights(host_x)
     runs, launches = [], None
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
     for ctx in (mx.gpu(dev.index or 0), mx.cpu()):
         on_card = not runs
         net = vision.resnet50_v1()
@@ -2158,9 +2311,7 @@ def resnet_card_vs_cpu(dev):
     stats = [k for k in w0 if k.endswith(("running_mean", "running_var"))]
     noise = [k for k in w0 if k.endswith("bias") and ".body." in k]
     held = [k for k in w0 if k not in stats and k not in noise]
-    upd = {k: float(np.linalg.norm((card_w[k] - w0[k]) -
-                                   (cpu_w[k] - w0[k])) /
-                    np.linalg.norm(cpu_w[k] - w0[k])) for k in held}
+    upd = update_errs({k: w0[k] for k in held}, card_w, cpu_w, 2)
     upd_err = max(upd.values())
     whole_err = float(np.sqrt(sum(
         np.sum(np.square(card_w[k] - cpu_w[k])) for k in held) / sum(
@@ -2181,6 +2332,7 @@ def resnet_card_vs_cpu(dev):
     stem_s2d = s2d.features[0](card_data).asnumpy()
     s2d_err, s2d_ok = _close(stem_s2d, stem, RESNET_S2D_TOL)
     s2d_logits = s2d(card_data).asnumpy()
+    torch.backends.cudnn.deterministic = prev
     worst = sorted(upd.items(), key=lambda kv: -kv[1])[:3]
     print(f"resnet card vs cpu (resnet50_v1, {len(w0)} parameters, "
           f"{sum(w0[k].size for k in w0 if k not in stats)} trainable, f32, "
@@ -2200,10 +2352,19 @@ def resnet_card_vs_cpu(dev):
           f"max(1, |x|), max |x| {float(np.abs(stem).max()):.3e}), logits "
           f"{float(np.abs(s2d_logits - card_o).max()):.3e}; launches "
           f"{launches}", flush=True)
-    if not (loss_err <= TRAIN_LOSS_RTOL and upd_err <= RESNET_UPDATE_RTOL
-            and noise_err <= RESNET_NOISE_BIAS_ATOL and stat_ok and moved
-            and logit_ok and s2d_ok):
-        fail("resnet training on the card and on the CPU disagree")
+    failed = [what for what, ok in (
+        (f"losses {loss_err:.3e}", loss_err <= TRAIN_LOSS_RTOL),
+        (f"update {upd_err:.3e} at {worst[0][0]}",
+         upd_err <= RESNET_UPDATE_RTOL),
+        (f"body conv biases {noise_err:.3e}",
+         noise_err <= RESNET_NOISE_BIAS_ATOL),
+        (f"running statistics {stat_err:.3e}", stat_ok),
+        ("running statistics did not move", moved),
+        (f"predict-mode logits {logit_err:.3e}", logit_ok),
+        (f"space-to-depth stem {s2d_err:.3e}", s2d_ok)) if not ok]
+    if failed:
+        fail("resnet training on the card and on the CPU disagree: "
+             + "; ".join(failed))
     del card_net, s2d
     gc.collect()
     torch.cuda.empty_cache()
@@ -2343,6 +2504,453 @@ def resnet_training(dev, card):
     return launches
 
 
+# ----------------------------------------------------------------------
+# phases 16-19: the reference's training entry point,
+# parallel.DataParallelTrainer on a one-device mesh (each step one CUDA
+# graph replay after the first of its signature), and checkpointing
+# ----------------------------------------------------------------------
+
+DP_STEPS, DP_WARMUP, DP_TIMED = 3, 3, 20
+# phase 16: captured replays against the same body run eagerly on the
+# card, relative to each loss and each parameter's update (bitwise where
+# every kernel is deterministic; printed)
+DP_GRAPH_RTOL = 1e-5
+DP_CONV_BATCH, DP_BERT_BATCH = 8, 4
+
+
+def _dp_conv_net(nn):
+    """Phase 16's small conv net: two 3x3 convs (no bias: each feeds a
+    BatchNorm) with BatchNorm and ReLU, global pooling, a 10-way head."""
+    net = nn.HybridSequential(prefix="dpconv_")
+    with net.name_scope():
+        net.add(nn.Conv2D(16, 3, padding=1, in_channels=3, use_bias=False),
+                nn.BatchNorm(in_channels=16), nn.Activation("relu"),
+                nn.Conv2D(32, 3, strides=2, padding=1, in_channels=16,
+                          use_bias=False),
+                nn.BatchNorm(in_channels=32), nn.Activation("relu"),
+                nn.GlobalAvgPool2D(), nn.Flatten(),
+                nn.Dense(10, in_units=32))
+    return net
+
+
+def _dp_trainer(net, loss_fn, rule, params, dev):
+    from mxnet_tpu_torch import parallel
+    return parallel.DataParallelTrainer(
+        net, loss_fn, rule, dict(params),
+        mesh=parallel.make_mesh({"dp": 1}, devices=[dev]))
+
+
+def dp_card_vs_cpu(dev):
+    """Phase 16: ``parallel.DataParallelTrainer`` card against CPU in
+    f32, and its captured replays against the same body run eagerly on
+    the card.  Two nets from host-made weights: phase 16's small conv net
+    with BatchNorm (SGD momentum 0.9, lr 0.1, batch 8 x 3 x 32 x 32) and
+    ``get_bert_model(num_layers=2)`` at BERT-base width (dropout 0,
+    flash, no decoder; Adam lr 1e-4, batch 4 x 128).  Each takes 3 steps,
+    then ``set_learning_rate`` halves the rate and a 4th step follows,
+    on the card (captured), on the card with ``_use_graphs = False`` (the
+    eager body) and on the CPU.  Losses within 1e-4 relative and each
+    parameter's update within 1e-3 relative card against CPU (phase 14's
+    limits; BERT's key biases by Adam's bound), captured against eager
+    within ``DP_GRAPH_RTOL`` (the largest difference printed); one capture
+    a trainer.  Then, on the card: ``step_indexed`` over ``put_epoch`` of
+    the conv batches against ``step`` on the same slices, and
+    ``step_accum(n_micro=2)`` against ``step`` on BERT's whole batch, each
+    within the card-against-CPU limits."""
+    import numpy as np
+    import torch
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import gluon, ops
+    from mxnet_tpu_torch.convert import (block_weights_to_numpy,
+                                         load_block_weights)
+    from mxnet_tpu_torch.gluon.model_zoo.nlp import get_bert_model
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    rng = np.random.RandomState(16)
+    conv_batches = [(rng.rand(DP_CONV_BATCH, 3, 32, 32).astype(np.float32),
+                     rng.randint(0, 10, (DP_CONV_BATCH,)).astype(np.float32))
+                    for _ in range(DP_STEPS + 1)]
+    bert_batches = [(rng.randint(0, BERT_VOCAB, (DP_BERT_BATCH, BERT_SEQ))
+                     .astype(np.int32),
+                     rng.randint(0, 2, (DP_BERT_BATCH, BERT_SEQ))
+                     .astype(np.int32),
+                     rng.randint(0, 2, (DP_BERT_BATCH,)).astype(np.int32))
+                    for _ in range(DP_STEPS + 1)]
+    ce = gluon.loss.SoftmaxCrossEntropyLoss()
+
+    def bert_loss(out, label):
+        return ce(out[-1], label)
+
+    cases = {
+        "conv": dict(net=lambda: _dp_conv_net(gluon.nn), rule="sgd",
+                     params={"learning_rate": 0.1, "momentum": 0.9},
+                     loss=ce, batches=conv_batches, noise=(),
+                     init=mx.init.Xavier(magnitude=2)),
+        "bert": dict(net=lambda: get_bert_model(
+            num_layers=2, vocab_size=BERT_VOCAB, max_length=BERT_SEQ,
+            dropout=0.0, use_flash=True, use_decoder=False), rule="adam",
+            params={"learning_rate": 1e-4}, loss=bert_loss,
+            batches=bert_batches, noise="proj_key.bias", init=None)}
+    lines, bad = [], []
+    try:
+        torch.cuda.synchronize(dev)
+        ops.reset_launches()
+        for name, c in cases.items():
+            with mx.cpu():            # the weights, made on the host
+                net = c["net"]()
+                mx.random.seed(16)
+                net.initialize(c["init"])
+                net(*[mx.nd.array(x) for x in c["batches"][0][:-1]])
+            w0 = block_weights_to_numpy(net)
+            runs = {}
+            for how in ("graph", "eager", "cpu", "variant"):
+                ctx = mx.cpu() if how == "cpu" else mx.gpu(dev.index or 0)
+                net = c["net"]()
+                net.initialize(ctx=ctx)
+                load_block_weights(net, w0)
+                tr = _dp_trainer(net, c["loss"], c["rule"], c["params"],
+                                 ctx.torch_device)
+                tr._use_graphs = how != "eager"
+                handle = None
+                if how == "variant" and name == "conv":
+                    handle = tr.put_epoch(
+                        np.stack([b[0] for b in c["batches"]]),
+                        np.stack([b[1] for b in c["batches"]]))
+                losses = []
+                for i, batch in enumerate(c["batches"]):
+                    if i == DP_STEPS:
+                        tr.set_learning_rate(tr.learning_rate / 2)
+                    if how != "variant":
+                        loss = tr.step(*batch)
+                    elif handle is not None:
+                        loss = tr.step_indexed(handle, i)
+                    else:
+                        loss = tr.step_accum(*batch, n_micro=2)
+                    losses.append(float(loss.asnumpy()))
+                want_captures = 1 if how in ("graph", "variant") else 0
+                if tr.stats["captures"] != want_captures:
+                    bad.append(f"{name} {how}: {tr.stats['captures']} "
+                               f"captures, expected {want_captures}")
+                runs[how] = (losses, block_weights_to_numpy(net))
+                del net, tr
+            trainable = [k for k in w0 if "running_" not in k]
+            w0 = {k: w0[k] for k in trainable}
+            got = {how: (l, {k: w[k] for k in trainable})
+                   for how, (l, w) in runs.items()}
+            noise = [k for k in trainable if c["noise"] and
+                     k.endswith(c["noise"])]
+
+            def compare(a, b, loss_tol, upd_tol):
+                la, wa = got[a]
+                lb, wb = got[b]
+                loss_err = max(abs(x - y) / max(abs(y), 1e-30)
+                               for x, y in zip(la, lb))
+                errs = update_errs(w0, wa, wb, DP_STEPS + 1, skip=noise)
+                worst = max(errs.items(), key=lambda kv: kv[1])
+                noise_err = max([float(np.abs(wa[k] - wb[k]).max())
+                                 for k in noise] or [0.0])
+                same = la == lb and all(np.array_equal(wa[k], wb[k])
+                                        for k in wa)
+                ok = loss_err <= loss_tol and worst[1] <= upd_tol and \
+                    noise_err <= BERT_KEY_BIAS_ATOL
+                text = (f"{a} vs {b}: max relative loss diff "
+                        f"{loss_err:.3e} (limit {loss_tol}), worst relative "
+                        f"update diff {worst[1]:.3e} at {worst[0]} (limit "
+                        f"{upd_tol})"
+                        + (f", key biases {noise_err:.3e} (limit "
+                           f"{BERT_KEY_BIAS_ATOL})" if noise else "")
+                        + f", bitwise {same}")
+                return ok, text
+
+            checks = [("graph", "cpu", TRAIN_LOSS_RTOL, RESNET_UPDATE_RTOL),
+                      ("graph", "eager", DP_GRAPH_RTOL, DP_GRAPH_RTOL),
+                      ("variant", "graph", TRAIN_LOSS_RTOL,
+                       RESNET_UPDATE_RTOL)]
+            texts = []
+            for a, b, lt, ut in checks:
+                ok, text = compare(a, b, lt, ut)
+                texts.append(text)
+                if not ok:
+                    bad.append(f"{name}: {text}")
+            variant = "step_indexed over put_epoch" if name == "conv" \
+                else "step_accum(n_micro=2)"
+            lines.append(f"{name} ({c['rule']} {c['params']}, {DP_STEPS} "
+                         f"steps, then the rate halved and one more; "
+                         f"'variant' is {variant}): losses graph "
+                         f"{got['graph'][0]} cpu {got['cpu'][0]}; "
+                         + "; ".join(texts))
+        torch.cuda.synchronize(dev)
+        launches = read_launches("dp card vs cpu", {
+            "fused_sgd_update": 3 * (DP_STEPS + 1),
+            "fused_adam_update": 3 * (DP_STEPS + 1),
+            "flash_attention_fwd": 2 * 4 * (DP_STEPS + 1),
+            "flash_attention_bwd": 2 * 4 * (DP_STEPS + 1)})
+    finally:
+        torch.backends.cudnn.deterministic = prev
+    print("dp card vs cpu (DataParallelTrainer on a one-device mesh, f32): "
+          + " | ".join(lines) + f"; launches {launches}", flush=True)
+    if bad:
+        fail("dp card vs cpu: " + "; ".join(bad))
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def dp_checkpoint(dev):
+    """Phase 19: checkpointing on the card.  A Dense/BatchNorm net
+    (256 -> 512 -> BatchNorm -> ReLU -> 10, f32) through
+    ``DataParallelTrainer`` with Adam (lr 1e-3) on batch 64: 3 steps,
+    ``CheckpointManager.save`` (under ``build/`` in the checkout), 2 more
+    steps; a fresh net and trainer (other weights) restore the
+    checkpoint and take the same 2 steps: every parameter, BatchNorm's
+    statistics and Adam's step count bitwise the first run's.  Then a
+    checkpoint whose manifest is missing (torn) is skipped by
+    ``latest()``."""
+    import shutil
+    import numpy as np
+    import torch
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import checkpoint, gluon, ops
+    from mxnet_tpu_torch.convert import block_weights_to_numpy
+    root = os.path.join(REPO, "build", "smoke_checkpoints")
+    shutil.rmtree(root, ignore_errors=True)
+    rng = np.random.RandomState(19)
+    batches = [(rng.randn(64, 256).astype(np.float32),
+                rng.randint(0, 10, (64,)).astype(np.float32))
+               for _ in range(5)]
+
+    def build(seed):
+        nn = gluon.nn
+        net = nn.HybridSequential(prefix="dpckpt_")
+        with net.name_scope():
+            net.add(nn.Dense(512, in_units=256, use_bias=False),
+                    nn.BatchNorm(in_channels=512), nn.Activation("relu"),
+                    nn.Dense(10, in_units=512))
+        mx.random.seed(seed)
+        net.initialize(mx.init.Xavier(), ctx=mx.gpu(dev.index or 0))
+        return net, _dp_trainer(net, gluon.loss.SoftmaxCrossEntropyLoss(),
+                                "adam", {"learning_rate": 1e-3}, dev)
+
+    torch.cuda.synchronize(dev)
+    ops.reset_launches()
+    try:
+        mgr = checkpoint.CheckpointManager(root, keep=3)
+        net, tr = build(19)
+        for b in batches[:3]:
+            tr.step(*b)
+        t0 = time.perf_counter()
+        ticket = mgr.save(3, params=net, trainer=tr,
+                          iterator={"epoch": 0, "batch": 3})
+        save_s = time.perf_counter() - t0
+        for b in batches[3:]:
+            tr.step(*b)
+        ticket.wait()
+        want = block_weights_to_numpy(net)
+        want_t = int(tr._t.item())
+        net2, tr2 = build(7)
+        t0 = time.perf_counter()
+        manifest = mgr.restore(params=net2, trainer=tr2)
+        restore_s = time.perf_counter() - t0
+        for b in batches[3:]:
+            tr2.step(*b)
+        got = block_weights_to_numpy(net2)
+        same = {k: bool(np.array_equal(got[k], want[k])) for k in want}
+        mgr.save(5, params=net, trainer=tr, sync=True)
+        os.remove(os.path.join(root, "ckpt-00000005", "manifest.json"))
+        latest = mgr.latest()
+        launches = read_launches("dp checkpoint", {"fused_adam_update": 7})
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    print(f"dp checkpoint (Dense/BatchNorm net, adam, DataParallelTrainer "
+          f"on the card): saved at step {manifest['step']} (cursor "
+          f"{manifest['iterator']}, {len(manifest['files'])} files, save "
+          f"call {save_s * 1e3:.1f} ms, restore {restore_s * 1e3:.1f} ms); "
+          f"after 2 more steps the restored run's {len(same)} parameters "
+          f"bitwise the first run's: {sum(same.values())} of {len(same)}; "
+          f"Adam's step {int(tr2._t.item())} (first run {want_t}); captures "
+          f"{tr.stats['captures']} and {tr2.stats['captures']}; with "
+          f"step 5 torn latest() = {latest}; launches {launches}",
+          flush=True)
+    if not all(same.values()) or int(tr2._t.item()) != want_t:
+        fail(f"dp checkpoint: the restored run differs: "
+             f"{[k for k, v in same.items() if not v]}")
+    if latest != 3:
+        fail(f"dp checkpoint: latest() gave {latest} with step 5 torn")
+    del net, tr, net2, tr2
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def dp_training(dev, card, model):
+    """Phases 17 (``model="resnet"``) and 18 (``"bert"``): ``bench.py``'s
+    ``_bench_resnet`` and ``_bench_bert`` through the entry point they
+    use, ``DataParallelTrainer`` on ``make_mesh({"dp": 1})``, bf16 AMP:
+    ``resnet50_v1(s2d_stem=True)``, batch 128 x 3 x 224 x 224 from
+    ``nd.random.uniform`` seeded 0, labels zeros, SGD lr 0.1 momentum
+    0.9; or BERT-base (vocab 30522, max_length 128, dropout 0, flash, no
+    decoder), batch 64 x 128 from ``RandomState(0)``, the loss on the
+    sentence head, Adam lr 1e-4.  3 warm-up steps (the first eager, the
+    second captured), then 20 timed (host clock around each, ending in a
+    synchronize).  Fails unless every timed step was one replay of the
+    one graph, the loss is finite and lower at the last step than at the
+    first, and the kernels ran as the path says (K1 once a step; or K2
+    once and 12 bf16 K3 forward and backward).  Prints the step median,
+    images or samples per second, peak memory, captures, capture seconds
+    and the graph pool's bytes; the replay's device time (CUDA events
+    around ``graph.replay()``, 5 replays after the run) and the host share
+    ``1 - device / wall``; and from two profiled steps the device time by
+    kernel class."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import amp, gluon, ops, parallel
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    amp.init("bfloat16")
+    try:
+        t0 = time.perf_counter()
+        mx.random.seed(0)
+        ce = gluon.loss.SoftmaxCrossEntropyLoss()
+        mesh = parallel.make_mesh({"dp": 1}, devices=[dev])
+        if model == "resnet":
+            from mxnet_tpu_torch.gluon.model_zoo import vision
+            net = vision.resnet50_v1(s2d_stem=True)
+            net.initialize()
+            trainer = parallel.DataParallelTrainer(
+                net, ce, "sgd", {"learning_rate": RESNET_LR,
+                                 "momentum": RESNET_MOMENTUM}, mesh=mesh)
+            batch = (mx.nd.random.uniform(shape=(RESNET_BATCH, 3,
+                                                 RESNET_SIZE, RESNET_SIZE)),
+                     mx.nd.zeros((RESNET_BATCH,)))
+            n, unit, classes = RESNET_BATCH, "images", RESNET_CLASSES
+            want = {"fused_sgd_update": DP_TIMED}
+            label = (f"dp resnet, ResNet-50 v1 (s2d stem), bf16 amp, sgd lr "
+                     f"{RESNET_LR} momentum {RESNET_MOMENTUM}, batch "
+                     f"{RESNET_BATCH}x3x{RESNET_SIZE}x{RESNET_SIZE}")
+        else:
+            from mxnet_tpu_torch.gluon.model_zoo.nlp import get_bert_model
+            net = get_bert_model(vocab_size=BERT_VOCAB, max_length=BERT_SEQ,
+                                 dropout=0.0, use_flash=True,
+                                 use_decoder=False)
+            net.initialize()
+
+            def loss_fn(out, label):
+                return ce(out[-1], label)
+
+            trainer = parallel.DataParallelTrainer(
+                net, loss_fn, "adam", {"learning_rate": 1e-4}, mesh=mesh)
+            rng = np.random.RandomState(0)
+            batch = (mx.nd.array(rng.randint(0, BERT_VOCAB,
+                                             size=(BERT_BATCH, BERT_SEQ)),
+                                 dtype="int32"),
+                     mx.nd.zeros((BERT_BATCH, BERT_SEQ), dtype="int32"),
+                     mx.nd.array(rng.randint(0, 2, size=(BERT_BATCH,)),
+                                 dtype="int32"))
+            n, unit, classes = BERT_BATCH, "samples", BUSY_CLASSES
+            want = {name: 12 * DP_TIMED for name in (
+                "flash_attention_fwd", "flash_attention_bwd",
+                "flash_attention_fwd_bf16", "flash_attention_bwd_bf16")}
+            want["fused_adam_update"] = DP_TIMED
+            label = (f"dp bert, BERT-base (12 x 768, vocab {BERT_VOCAB}), "
+                     f"bf16 amp, adam lr 1e-4, batch {BERT_BATCH}x{BERT_SEQ}")
+        losses = [trainer.step(*batch) for _ in range(DP_WARMUP)]
+        torch.cuda.synchronize(dev)
+        setup_s = time.perf_counter() - t0
+        params = net.collect_params()
+        n_params = sum(p.data().size for p in params.values())
+        n_trainable = sum(p.data().size for p in params.values()
+                          if p.grad_req != "null")
+        stats = {k: p for k, p in params.items()
+                 if k.endswith(("running_mean", "running_var"))}
+        stats0 = {k: p.data().asnumpy() for k, p in stats.items()}
+        ops.reset_launches()
+        step_s = []
+        for _ in range(DP_TIMED):
+            t = time.perf_counter()
+            losses.append(trainer.step(*batch))
+            torch.cuda.synchronize(dev)
+            step_s.append(time.perf_counter() - t)
+        launches = read_launches(label.split(",")[0], want)
+        peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+        moved = sum(not np.array_equal(p.data().asnumpy(), stats0[k])
+                    for k, p in stats.items())
+        graph_stats = dict(trainer.stats)
+        graphs, pool = trainer.graphs_captured(), trainer.graph_pool_bytes()
+        entry = next(iter(trainer._graphs.values()))
+        replay_s = []
+        for _ in range(5):
+            start, end = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+            start.record()
+            entry.graph.replay()
+            end.record()
+            end.synchronize()
+            replay_s.append(start.elapsed_time(end) / 1e3)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t = time.perf_counter()
+            for _ in range(2):
+                trainer.step(*batch)
+            torch.cuda.synchronize(dev)
+            traced_ms = (time.perf_counter() - t) / 2 * 1e3
+    finally:
+        amp._deinit_for_tests()
+    busy = {}
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            busy[e.key] = busy.get(e.key, 0.0) + \
+                e.self_device_time_total / 1e3 / 2
+    busy_ms = sum(busy.values())
+    by_class = {}
+    for name, ms in busy.items():
+        cls = next((c for c, keys in classes if any(
+            k in name for k in keys)), "other")
+        by_class[cls] = by_class.get(cls, 0.0) + ms
+    top = sorted(busy.items(), key=lambda kv: -kv[1])[:6]
+    losses = [float(x.asnumpy()) for x in losses]
+    step_ms = statistics.median(step_s) * 1e3
+    replay_ms = statistics.median(replay_s) * 1e3
+    print(f"{label} through DataParallelTrainer (make_mesh dp=1) on {card}: "
+          f"{n_params} params, {n_trainable} in the flat buffer; losses "
+          f"{losses}; step median {step_ms:.2f} ms over {DP_TIMED} steps "
+          f"after {DP_WARMUP} warm-up (min {min(step_s) * 1e3:.2f}, max "
+          f"{max(step_s) * 1e3:.2f}) = {n / step_ms * 1e3:.1f} {unit}/s; "
+          f"peak memory {peak_gb:.2f} GB; set-up and warm-up {setup_s:.2f} "
+          f"s; {graph_stats['captures']} capture(s) in "
+          f"{graph_stats['capture_seconds']:.2f} s, {graphs} graph(s), "
+          f"graph pool {pool} bytes reserved, {graph_stats['eager_calls']} "
+          f"eager call(s); replay device time median {replay_ms:.3f} ms "
+          f"(range {min(replay_s) * 1e3:.3f}-{max(replay_s) * 1e3:.3f}; "
+          f"CUDA events around graph.replay(), 5 replays), host share "
+          f"{1 - replay_ms / step_ms:.4f} of the untraced step; profiler "
+          f"busy {busy_ms:.3f} ms a step (2 steps, traced wall "
+          f"{traced_ms:.2f} ms; host share by it "
+          f"{1 - busy_ms / step_ms:.4f}); device ms a step by class "
+          f"{ {k: round(v, 3) for k, v in by_class.items()} }; top kernels "
+          f"{', '.join(f'{k[:60]} {v:.3f} ms' for k, v in top)}; "
+          f"running statistics moved {moved} of {len(stats)}; launches "
+          f"{launches}", flush=True)
+    if graph_stats["captures"] != 1 or graphs != 1 or \
+            graph_stats["eager_calls"] != 1:
+        fail(f"{label}: expected one eager call and one capture, every "
+             f"later step a replay: {graph_stats}")
+    if not all(np.isfinite(losses)):
+        fail(f"{label}: non-finite loss {losses}")
+    if not losses[-1] < losses[0]:
+        fail(f"{label}: the loss did not fall: {losses}")
+    if model == "resnet" and (n_trainable != RESNET_TRAINABLE or
+                              moved != len(stats)):
+        fail(f"{label}: {n_trainable} trainable parameters, statistics "
+             f"moved {moved} of {len(stats)}")
+    if model == "bert" and n_trainable != BERT_TRAINABLE:
+        fail(f"{label}: {n_trainable} trainable parameters")
+    del net, trainer, entry
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main():
     try:
         import torch
@@ -2382,12 +2990,14 @@ def main():
     check_flash_bert(dev, flush)
     checks.update(check_layernorm(dev, flush))
     checks.update(check_updates(dev, flush, train_param_count()))
-    # K1's row in the kernels line: ResNet-50's bucket, its full-width path
+    # K1's and K2's rows in the kernels line: ResNet-50's and BERT-base's
+    # buckets, lr (and t) read from memory, their full-width paths
     checks["fused_sgd_update"] = check_resnet_update(dev, flush)
+    checks["fused_adam_update"] = check_bert_update(dev, flush)
     del flush
     torch.cuda.empty_cache()
 
-    # phases 4-15: each path from zeroed launch counters
+    # phases 4-19: each path from zeroed launch counters
     by_path = {"serving": serve_llama3_8b(dev, card)}
     card_vs_cpu(dev)
     by_path["serving_fp8"] = serve_llama3_8b_fp8(dev, card)
@@ -2396,11 +3006,15 @@ def main():
     by_path["layernorm_op"] = layernorm_path(dev, card)
     by_path["bert_card_vs_cpu"] = bert_card_vs_cpu(dev)
     by_path["resnet_card_vs_cpu"] = resnet_card_vs_cpu(dev)
-    # phases 11, 13 and 15 last: amp.init() is process-wide
+    by_path["dp_card_vs_cpu"] = dp_card_vs_cpu(dev)
+    by_path["dp_checkpoint"] = dp_checkpoint(dev)
+    # phases 11, 13, 15, 17 and 18 last: amp.init() is process-wide
     by_path["training_amp"], _ = train_llama3_8b(
         dev, card, amp_dtype="bfloat16", f32_first_loss=f32_first_loss)
     by_path["bert_training"] = bert_training(dev, card)
     by_path["resnet_training"] = resnet_training(dev, card)
+    by_path["dp_resnet"] = dp_training(dev, card, "resnet")
+    by_path["dp_bert"] = dp_training(dev, card, "bert")
 
     kernels = []
     for name, src, tpu in (

@@ -22,9 +22,12 @@ decode-attention kernels; the single-card training path
 (``gluon.Trainer`` with SGD/NAG/Adam/AdamW, ``gluon.loss``) with the
 flash-attention backward and the flat-bucket optimizer kernels; the
 fused LayerNorm op (``ops.fused_layer_norm``) with its forward and
-backward kernels; and bf16 mixed-precision training (``amp``,
+backward kernels; bf16 mixed-precision training (``amp``,
 ``optimizer.lr_scheduler``, ``multi_precision``), with the Trainer's
-parameters in one persistent flat buffer.
+parameters in one persistent flat buffer; and the reference's training
+entry point, ``parallel.DataParallelTrainer`` on a one-device mesh (each
+step one CUDA graph on the card), with ``checkpoint``
+(``CheckpointManager``) and the Trainers' state protocol.
 """
 from .base import MXNetError, NotSupportedError
 from .context import (Context, cpu, current_context, gpu, num_gpus,
@@ -41,8 +44,10 @@ from . import amp
 from . import optimizer
 from . import gluon
 from . import serving
+from . import parallel
+from . import checkpoint
 
 __all__ = ["MXNetError", "NotSupportedError", "Context", "cpu", "gpu",
            "current_context", "num_gpus", "resolve_device", "nd", "ndarray",
            "random", "autograd", "init", "initializer", "metric", "ops",
-           "amp", "optimizer", "gluon", "serving"]
+           "amp", "optimizer", "gluon", "serving", "parallel", "checkpoint"]

@@ -104,13 +104,34 @@ def _deinit_for_tests():
     _target_dtype = None
 
 
+_uncached = [0]               # > 0 inside no_cast_cache()
+
+
 def region(device_type):
     """The forward region of a model body on ``device_type`` (``"cuda"``
     or ``"cpu"``): ``torch.autocast`` to the target dtype while the
-    policy is on, else a context that changes nothing."""
+    policy is on, else a context that changes nothing.  Inside
+    :func:`no_cast_cache` the region keeps no cache of low-precision
+    weight copies."""
     if _target_dtype is None:
         return contextlib.nullcontext()
-    return torch.autocast(device_type, dtype=_DTYPES[_target_dtype])
+    return torch.autocast(device_type, dtype=_DTYPES[_target_dtype],
+                          cache_enabled=not _uncached[0])
+
+
+@contextlib.contextmanager
+def no_cast_cache():
+    """Regions opened inside keep no cache of cast weights.  A CUDA
+    graph's body needs it (PyTorch requires ``cache_enabled=False`` under
+    capture): a bf16 copy cast outside the graph would be read by every
+    replay after the float32 weights have moved.
+    ``parallel.DataParallelTrainer`` runs its step body inside it, on
+    the card and the CPU alike."""
+    _uncached[0] += 1
+    try:
+        yield
+    finally:
+        _uncached[0] -= 1
 
 
 def init_trainer(trainer):

@@ -30,7 +30,9 @@ flat-bucket update through ``ops.fused_update.fused_bucket_rule`` (K1
 for sgd/nag, K2 for adam/adamw on the card), and otherwise the per-param
 path (``Optimizer.update_multi_precision``: float16 weights keep an f32
 master copy under ``multi_precision``).  The two give bitwise-equal
-parameters on the CPU.
+parameters on the CPU.  On the card the kernels read the learning rate
+and Adam's step count from memory: the Trainer writes both into two
+device scalars of its own before the update.
 
 Persistent flat buffers.  When every trainable parameter is float32 on
 one device, the Trainer copies them, in its order, into one flat f32
@@ -63,15 +65,28 @@ Parameter keeps its own, by its ``grad_req``).
 
 ``amp.init_trainer`` replaces ``step`` with its loss-scaled step, as in
 the reference.
+
+The checkpoint protocol (reference ``state_dict``, ``load_state_dict``,
+``save_states``, ``load_states``): the state goes out in the
+reference's per-parameter shapes (SGD's momentum one array, Adam's mean
+and variance a tuple, ``(inner, master)`` under ``multi_precision``)
+and file format, with the update counters, so a state or file of either
+package loads in the other; loading writes into the state buffers in
+place, so they stay views of the flat buffers.
 """
 from __future__ import annotations
 
+import pickle
+
+import numpy as _np
 import torch
 from torch import nn
 
 from ..autograd import write_grad_on_backward
 from ..base import MXNetError, NotSupportedError
 from .. import optimizer as opt
+from ..ndarray.ndarray import NDArray
+from ..ndarray.utils import to_numpy
 from ..ops.fused_update import fused_bucket_rule
 from .parameter import Parameter, ParameterDict
 
@@ -132,6 +147,7 @@ class Trainer:
         self._flat_state = None   # leaf -> flat f32 buffer, or None
         self._bucket_apply = None
         self._flat_param = None   # the flat f32 buffer of the parameters
+        self._scalars = None      # (lr, Adam's t) on the card, for K1/K2
         self._in_buffer = []      # (index, view) of each parameter in it
         self._grad_writes = []
         if self._gluon is None:
@@ -313,10 +329,12 @@ class Trainer:
         flat_g = torch.cat([p.grad.reshape(-1) for p in params])
         for p in params:
             p.grad = None
+        lr, aux = optimizer._get_lr(idxs[0]), optimizer.aux(idxs[0])
+        if flat_g.is_cuda:          # the kernels read lr and t from memory
+            lr, aux = self._device_scalars(flat_g.device, lr, aux)
         new_p, new_s = self._bucket_apply(
-            flat_p, flat_g, {**state, **optimizer.aux(idxs[0])},
-            optimizer._get_lr(idxs[0]), optimizer._get_wd(idxs[0]),
-            optimizer.rescale_grad)
+            flat_p, flat_g, {**state, **aux}, lr,
+            optimizer._get_wd(idxs[0]), optimizer.rescale_grad)
         del flat_g
         if in_place:
             if new_p is not flat_p:
@@ -334,3 +352,202 @@ class Trainer:
             for leaf, buf in self._flat_state.items():
                 if new_s[leaf] is not buf:
                     buf.copy_(new_s[leaf])
+
+    def _device_scalars(self, device, lr, aux):
+        """``lr`` and Adam's step count as K1/K2 read them on the card:
+        one float32 and one int32 on ``device``, kept by the Trainer and
+        written before each update (a fill launch each, no
+        synchronization)."""
+        if self._scalars is None or self._scalars[0].device != device:
+            self._scalars = (
+                torch.zeros(1, dtype=torch.float32, device=device),
+                torch.zeros(1, dtype=torch.int32, device=device))
+        lr_dev, t_dev = self._scalars
+        lr_dev.fill_(lr)
+        if "t" in aux:
+            t_dev.fill_(aux["t"])
+            aux = {**aux, "t": t_dev}
+        return lr_dev, aux
+
+    # -- checkpoint protocol (CheckpointManager, save_states) -----------------
+    def _ensure_states(self):
+        """The state buffers, built (zero) when no update has run yet."""
+        self._refresh()
+        self._check_param_buffer()
+        if self._states is None:
+            self._init_states()
+        return self._states
+
+    def _master(self, i):
+        """Whether parameter ``i`` keeps a float32 master copy
+        (``multi_precision`` float16): its state is ``(inner, master)``."""
+        return self._optimizer.multi_precision and \
+            self._params[i].dtype == torch.float16
+
+    def _reference_state(self, i, state):
+        """Parameter ``i``'s state in the reference's shape: None, one
+        array (SGD's momentum), a tuple (Adam's mean and variance), or
+        ``(inner, master)`` under ``multi_precision``."""
+        if self._master(i):
+            inner, master = state
+            return (self._reference_state_leaves(inner), master)
+        return self._reference_state_leaves(state)
+
+    @staticmethod
+    def _reference_state_leaves(state):
+        leaves = list(state.values())
+        if not leaves:
+            return None
+        return leaves[0] if len(leaves) == 1 else tuple(leaves)
+
+    def _write_state(self, i, value):
+        """Write ``value`` (the reference's shape, arrays of either
+        package or numpy) into parameter ``i``'s state, in place."""
+        state = self._states.get(i)
+        if state is None:
+            raise MXNetError(f"optimizer state for parameter index {i}, "
+                             "which this Trainer does not update")
+        pairs = []
+        if self._master(i):
+            inner, master = state
+            value, vmaster = value
+            pairs.append((master, vmaster))
+            state = inner
+        leaves = list(state.values())
+        values = [] if value is None else \
+            list(value) if isinstance(value, (tuple, list)) else [value]
+        if len(values) != len(leaves):
+            raise MXNetError(f"optimizer state for parameter index {i} has "
+                             f"{len(values)} arrays, this optimizer keeps "
+                             f"{len(leaves)}")
+        pairs += list(zip(leaves, values))
+        with torch.no_grad():
+            for dst, src in pairs:
+                src = to_numpy(src)
+                if tuple(src.shape) != tuple(dst.shape):
+                    raise MXNetError(
+                        f"optimizer state for parameter index {i}: shape "
+                        f"{tuple(src.shape)} != {tuple(dst.shape)}")
+                dst.copy_(torch.from_numpy(_np.ascontiguousarray(src)))
+
+    def _counters(self):
+        opt_ = self._optimizer
+        return {"num_update": opt_.num_update,
+                "begin_num_update": opt_.begin_num_update,
+                "index_update_count": dict(opt_._index_update_count)}
+
+    def _set_counters(self, counters):
+        opt_ = self._optimizer
+        opt_.num_update = counters.get("num_update", 0)
+        opt_.begin_num_update = counters.get("begin_num_update", 0)
+        opt_._index_update_count = {
+            int(k): v for k, v in
+            counters.get("index_update_count", {}).items()}
+
+    def state_dict(self):
+        """The optimizer state and counters as ``{"arrays": {name:
+        NDArray}, "meta": json-able}`` in the reference's layout
+        (``opt/<i>`` for one array, ``opt/<i>.<j>`` inside tuples), so
+        either package's ``load_state_dict`` takes it.  The arrays are
+        copies."""
+        arrays, layout = {}, {}
+        for i, s in (self._states or {}).items():
+            layout[str(i)] = _encode_state(self._reference_state(i, s),
+                                           f"opt/{i}", arrays)
+        meta = {"kind": "gluon.Trainer",
+                "optimizer": type(self._optimizer).__name__,
+                "layout": layout, "counters": self._counters()}
+        return {"arrays": arrays, "meta": meta}
+
+    def load_state_dict(self, d):
+        """Inverse of :meth:`state_dict` (either package's), written in
+        place: the state buffers keep their views of the flat buffers."""
+        arrays, meta = d["arrays"], d["meta"]
+        layout = meta.get("layout", {})
+        if layout:
+            self._ensure_states()
+            for k, desc in layout.items():
+                self._write_state(int(k), _decode_state(desc, f"opt/{k}",
+                                                        arrays))
+        self._set_counters(meta.get("counters", {}))
+
+    def save_states(self, fname):
+        """Save the optimizer state and update counts (Adam's bias
+        correction and the schedules read them) in the reference's pickle
+        format: ``{"states": pickle((index -> state, None)), "counters":
+        {...}}``, each state as ``("nd", numpy)``, ``("tuple", (...))``
+        or None."""
+        serial = {i: _serialize_state(self._reference_state(i, s))
+                  for i, s in (self._states or {}).items()}
+        with open(fname, "wb") as f:
+            f.write(pickle.dumps({"states": pickle.dumps((serial, None)),
+                                  "counters": self._counters()}))
+
+    def load_states(self, fname):
+        """Load a :meth:`save_states` file of either package (or a bare
+        pickled updater state, the reference's legacy form)."""
+        with open(fname, "rb") as f:
+            blob = f.read()
+        try:
+            payload = pickle.loads(blob)
+        except Exception:
+            payload = None
+        if isinstance(payload, dict) and "states" in payload:
+            serial, _ = pickle.loads(payload["states"])
+            counters = payload.get("counters", {})
+        else:
+            serial, _ = pickle.loads(blob)
+            counters = None
+        if serial:
+            self._ensure_states()
+            for k, v in serial.items():
+                self._write_state(int(k), _deserialize_state(v))
+        if counters is not None:
+            self._set_counters(counters)
+
+
+def _encode_state(s, key, arrays):
+    """JSON-able layout descriptor of one state, its arrays (copies, as
+    NDArrays) into ``arrays`` (reference ``Trainer._encode_state``)."""
+    if s is None:
+        return None
+    if isinstance(s, tuple):
+        return ["tuple", [_encode_state(x, f"{key}.{j}", arrays)
+                          for j, x in enumerate(s)]]
+    if torch.is_tensor(s):
+        arrays[key] = NDArray(s.detach().clone())
+        return "nd"
+    raise MXNetError(f"cannot checkpoint optimizer state leaf of type "
+                     f"{type(s)}")
+
+
+def _decode_state(desc, key, arrays):
+    if desc is None:
+        return None
+    if desc == "nd":
+        return arrays[key]
+    kind, items = desc
+    if kind == "tuple":
+        return tuple(_decode_state(d, f"{key}.{j}", arrays)
+                     for j, d in enumerate(items))
+    raise MXNetError(f"unknown optimizer state descriptor {desc!r}")
+
+
+def _serialize_state(s):
+    """The reference's ``optimizer._serialize_state``, over tensors."""
+    if s is None:
+        return None
+    if isinstance(s, tuple):
+        return ("tuple", tuple(_serialize_state(x) for x in s))
+    if torch.is_tensor(s):
+        return ("nd", s.detach().cpu().numpy().copy())
+    return ("raw", s)
+
+
+def _deserialize_state(v):
+    if v is None:
+        return None
+    tag, payload = v
+    if tag == "tuple":
+        return tuple(_deserialize_state(x) for x in payload)
+    return payload

@@ -53,6 +53,17 @@ def _host(arr):
     return a, str(a.dtype)
 
 
+def to_numpy(a):
+    """A host numpy copy of ``a``: an NDArray of either package (anything
+    with ``asnumpy``), a tensor, or array-like.  Checkpoint states arrive
+    in any of these."""
+    if hasattr(a, "asnumpy"):
+        return _np.array(a.asnumpy())
+    if torch.is_tensor(a):
+        return a.detach().cpu().numpy().copy()
+    return _np.array(a)
+
+
 def save(fname, data):
     """Save an NDArray, a list of them or a ``str -> NDArray`` dict."""
     if isinstance(data, (NDArray, _np.ndarray)) or torch.is_tensor(data):

@@ -6,7 +6,9 @@
 // at :145).  Same function per element, in the reference's order:
 // g * rescale (the Trainer's flat_g * rescale), the clip, then the rule.
 // Adam's bias-corrected step size lr_t = lr * sqrt(1 - b2^t) / (1 - b1^t)
-// is computed in f32 from the runtime step t.  The clip keeps a NaN
+// is computed in f32 from the step t; the kernel reads t and lr from
+// device memory when it runs, so a captured CUDA graph replays with the
+// caller's current values.  The clip keeps a NaN
 // gradient NaN, as jnp.clip and torch.clamp do.  nvcc contracts a*b+c
 // into one FMA, so results agree with the plain PyTorch rule to an ulp or
 // two, not bitwise.
@@ -220,13 +222,20 @@ __device__ __forceinline__ void release_counters(unsigned* counters) {
 
 // The persistent kernel: each CTA draws chunks of kThreads * U float4s in
 // order from counters[0] until the body is done.  counters: two unsigned
-// ints, zero at launch and left zero.
+// ints, zero at launch and left zero.  lr_dev / t_dev, where not null,
+// replace h.lr / h.t by the values in device memory when the kernel runs,
+// so a captured CUDA graph replays with the caller's current learning
+// rate and step (the port's entry passes lr_dev always; null only from
+// the layouts of tools/update_sweep.cu, which pass the values in h).
 template <int R, bool kClip, int U>
 __global__ void __launch_bounds__(kThreads)
     update_kernel(float* __restrict__ p, const float* __restrict__ g,
                   float* __restrict__ s0, float* __restrict__ s1,
                   long long head, long long nvec, long long tail, Hyper h,
-                  unsigned* counters) {
+                  unsigned* counters, const float* __restrict__ lr_dev,
+                  const int* __restrict__ t_dev) {
+  if (lr_dev != nullptr) h.lr = *lr_dev;
+  if (t_dev != nullptr) h.t = *t_dev;
   float lr_t, lr_wd;
   adam_scalars<R>(h, lr_t, lr_wd);
   head_and_tail<R, kClip>(p, g, s0, s1, head, nvec, tail, h, lr_t, lr_wd);
@@ -246,7 +255,8 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 using Kernel = void (*)(float*, const float*, float*, float*, long long,
-                        long long, long long, Hyper, unsigned*);
+                        long long, long long, Hyper, unsigned*,
+                        const float*, const int*);
 
 template <int R>
 Kernel pick_clip(bool clip) {
@@ -327,29 +337,38 @@ extern "C" int fused_update_resident(int rule, int has_clip, int device) {
 // One launch of K1 (rule 0-2) or K2 (rule 3-4) over flat f32 buffers of
 // n elements: p, g and the rule's state (s0 = mom for momentum and NAG;
 // s0 = m, s1 = v for Adam; null where the rule keeps none), p and the
-// state updated in place.  head, nvec, tail and grid are the plan of
-// ops.fused_update.update_plan.  counters: two unsigned ints, zero, that
-// no launch running at the same time uses (the kernel leaves them zero).
-// t is Adam's step being taken (1 for the first update); (1 - beta) comes
-// from the caller.  Returns a cudaError_t code.
+// state updated in place.  The learning rate and Adam's step are read
+// from device memory when the kernel runs: lr_dev, one float32, and
+// t_dev, one int32 holding the step being taken (null for the SGD rules,
+// which keep none).  The entry makes no host read of either, allocates
+// nothing and synchronizes nothing, so a CUDA graph captures it and each
+// replay uses the values the caller wrote there since.  head / nvec /
+// tail / grid are the wrapper's plan (update_plan); counters: two
+// unsigned ints on the device, zero, left zero; one_minus_b1/b2 are
+// (1 - beta) rounded to f32 by the caller.  Returns a cudaError_t code.
 extern "C" int fused_update(int rule, int has_clip, void* p, const void* g,
                             void* s0, void* s1, long long n, long long head,
                             long long nvec, long long tail, int grid,
-                            void* counters, float lr, float wd, float rescale,
-                            float clip, float momentum, int t, float beta1,
+                            void* counters, const void* lr_dev,
+                            const void* t_dev, float wd, float rescale,
+                            float clip, float momentum, float beta1,
                             float beta2, float one_minus_b1,
                             float one_minus_b2, float eps, int device,
                             void* stream) {
   cudaError_t err = check_plan(rule, p, g, s0, s1, n, head, nvec, tail, grid,
                                device);
-  if (err == cudaSuccess && counters == nullptr) err = cudaErrorInvalidValue;
+  if (err == cudaSuccess &&
+      (counters == nullptr || lr_dev == nullptr ||
+       (rule >= kAdam && t_dev == nullptr)))
+    err = cudaErrorInvalidValue;
   if (err != cudaSuccess) return err;
-  const Hyper h{lr,    wd,           rescale,      clip, momentum, beta1,
-                beta2, one_minus_b1, one_minus_b2, eps,  t};
+  const Hyper h{0.f,   wd,           rescale,      clip, momentum, beta1,
+                beta2, one_minus_b1, one_minus_b2, eps,  0};
   const Kernel kernel = kernel_for(rule, has_clip != 0);
   kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<float*>(p), static_cast<const float*>(g),
       static_cast<float*>(s0), static_cast<float*>(s1), head, nvec, tail, h,
-      static_cast<unsigned*>(counters));
+      static_cast<unsigned*>(counters), static_cast<const float*>(lr_dev),
+      static_cast<const int*>(t_dev));
   return cudaGetLastError();
 }

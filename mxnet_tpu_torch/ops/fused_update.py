@@ -31,6 +31,17 @@ Entry points:
     the launch's head, vectors, tail and persistent grid (pure,
     CPU-testable).
 
+Device scalars.  On the card ``lr`` is a one-element float32 tensor on
+the bucket's device, and Adam's ``s["t"]`` a one-element int32 tensor
+there holding the count of updates before this one: K2's wrapper
+increments ``t`` in place, and the kernel reads ``lr`` and ``t`` from
+memory when it runs, so a CUDA graph that captured the launch replays
+with whatever the caller wrote there since (``parallel.
+DataParallelTrainer`` changes the learning rate and counts Adam's steps
+without capturing again; the gluon ``Trainer`` writes both before each
+update).  A host number there raises.  For CPU tensors the plain rule
+runs, on numbers or on the values such tensors hold.
+
 There is no switch that turns the kernels off and no fallback: a CUDA
 bucket runs its kernel or raises.  A bucket whose streams cannot be read
 as aligned vectors runs the same kernel's scalar loop.
@@ -55,8 +66,8 @@ __all__ = ["fused_bucket_rule", "fused_sgd_update", "fused_adam_update",
 _P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, \
     ctypes.c_int64
 _SIGNATURES = {
-    "fused_update": [_I, _I, _P, _P, _P, _P, _L, _L, _L, _L, _I, _P, _F, _F,
-                     _F, _F, _F, _I, _F, _F, _F, _F, _F, _I, _P],
+    "fused_update": [_I, _I, _P, _P, _P, _P, _L, _L, _L, _L, _I, _P, _P, _P,
+                     _F, _F, _F, _F, _F, _F, _F, _F, _F, _I, _P],
     "fused_update_resident": [_I, _I, _I]}
 # the kernel's CTA width and float4s of each stream a thread takes a chunk
 # (csrc/fused_update.cu kThreads, kUnroll): they size the grid of a small
@@ -107,13 +118,31 @@ def _check_bucket(what, p, tensors):
                          f"overlap in memory")
 
 
+def _device_scalar(what, x, dtype, p):
+    """The address of ``x``, a device scalar of the bucket's launch: a
+    one-element ``dtype`` tensor on ``p``'s device, or raise."""
+    if not torch.is_tensor(x) or x.device != p.device or \
+            x.dtype != dtype or x.numel() != 1:
+        got = f"{tuple(x.shape)} {x.dtype} on {x.device}" \
+            if torch.is_tensor(x) else repr(x)
+        raise MXNetError(
+            f"fused update: on the card {what} is a one-element {dtype} "
+            f"tensor on {p.device} (read when the kernel runs), got {got}")
+    return x.data_ptr()
+
+
 def _launch(rule, clip_gradient, streams, lr, wd, rescale, momentum=0.0,
-            t=0, beta1=0.0, beta2=0.0, epsilon=0.0):
+            t=None, beta1=0.0, beta2=0.0, epsilon=0.0):
     """One launch of the kernel for ``rule`` over ``streams`` (p, g, then
-    the rule's state) on the persistent grid of its instance."""
+    the rule's state) on the persistent grid of its instance; ``lr`` and
+    (for K2) ``t``, the step being taken, are device scalars that the
+    kernel reads when it runs."""
     p = streams[0]
     has_clip, clip = (0, 0.0) if clip_gradient is None else \
         (1, float(clip_gradient))
+    lr_ptr = _device_scalar("lr", lr, torch.float32, p)
+    t_ptr = _device_scalar("t", t, torch.int32, p) if rule >= _ADAM \
+        else None
     lib = _build.load("fused_update", _SIGNATURES)
     key = (rule, has_clip, p.device.index)
     if key not in _resident:
@@ -129,6 +158,8 @@ def _launch(rule, clip_gradient, streams, lr, wd, rescale, momentum=0.0,
     stream = torch.cuda.current_stream(p.device).cuda_stream
     # the CTAs draw chunks from two counters that the kernel leaves zero;
     # launches on one stream run in turn, so a stream's pair is its own
+    # (a graph's capture stream gets its pair in the eager warm-up run
+    # before the capture, so the capture allocates nothing)
     counters = _counters.get((p.device.index, stream))
     if counters is None:
         counters = torch.zeros(2, dtype=torch.int32, device=p.device)
@@ -137,21 +168,27 @@ def _launch(rule, clip_gradient, streams, lr, wd, rescale, momentum=0.0,
     # scalar multiplying an f32 tensor is in the plain rule
     err = lib.fused_update(
         rule, has_clip, ptrs[0], ptrs[1], *state, p.numel(), *plan,
-        counters.data_ptr(), float(lr), float(wd), float(rescale), clip,
-        float(momentum), t, float(beta1), float(beta2), float(1 - beta1),
+        counters.data_ptr(), lr_ptr, t_ptr, float(wd), float(rescale), clip,
+        float(momentum), float(beta1), float(beta2), float(1 - beta1),
         float(1 - beta2), float(epsilon), p.device.index, stream)
     _build.check(lib, err, "fused_update")
+
+
+def _host(x):
+    """A CPU tensor scalar as a Python number (the plain rule's input)."""
+    return x.item() if torch.is_tensor(x) else x
 
 
 def fused_sgd_update(p, g, s, lr, wd=0.0, rescale=1.0, momentum=0.0,
                      nesterov=False, clip_gradient=None):
     """K1 with the ``fused_rule`` apply contract: ``-> (p', s')``.  CPU
     tensors run the plain ``sgd``/``nag`` rule; a CUDA bucket launches
-    the kernel, which updates ``p`` and ``s["mom"]`` in place."""
+    the kernel, which updates ``p`` and ``s["mom"]`` in place and reads
+    ``lr`` (a device scalar) when it runs."""
     if p.device.type == "cpu":
         _, apply = fused_rule("nag" if nesterov else "sgd",
                               clip_gradient=clip_gradient, momentum=momentum)
-        return apply(p, g, s, lr, wd, rescale)
+        return apply(p, g, s, _host(lr), wd, rescale)
     if p.device.type != "cuda":
         raise MXNetError(f"fused_sgd_update: unsupported device {p.device}")
     mom = s["mom"] if momentum else None
@@ -172,19 +209,28 @@ def fused_adam_update(p, g, s, lr, wd=0.0, rescale=1.0, beta1=0.9,
                       clip_gradient=None):
     """K2 with the ``fused_rule`` apply contract: ``-> (p', s')`` where
     ``s`` holds ``m``, ``v`` and the previous step count ``t``.  CPU
-    tensors run the plain ``adam``/``adamw`` rule; a CUDA bucket
-    launches the kernel, which updates ``p``, ``m`` and ``v`` in place
-    and computes ``lr_t`` from ``t + 1`` in float32."""
-    t = int(s["t"]) + 1
+    tensors run the plain ``adam``/``adamw`` rule (a tensor ``t`` is
+    counted up in place); a CUDA bucket launches the kernel, which
+    updates ``p``, ``m`` and ``v`` in place after the wrapper counts
+    ``t`` (a device scalar) up, and reads ``lr`` and ``t`` when it runs,
+    computing ``lr_t`` in float32."""
+    t = s["t"]
     if p.device.type == "cpu":
         _, apply = fused_rule("adamw" if decoupled_wd else "adam",
                               clip_gradient=clip_gradient, beta1=beta1,
                               beta2=beta2, epsilon=epsilon)
-        return apply(p, g, s, lr, wd, rescale)
+        new_p, new_s = apply(p, g, {**s, "t": int(_host(t))}, _host(lr),
+                             wd, rescale)
+        if torch.is_tensor(t):
+            new_s["t"] = t.add_(1)
+        return new_p, new_s
     if p.device.type != "cuda":
         raise MXNetError(f"fused_adam_update: unsupported device {p.device}")
     m, v = s["m"], s["v"]
     _check_bucket("fused_adam_update", p, (g, m, v))
+    _device_scalar("t", t, torch.int32, p)
+    _device_scalar("lr", lr, torch.float32, p)
+    t.add_(1)                   # the step being taken, read by the kernel
     if p.numel():
         _launch(_ADAMW if decoupled_wd else _ADAM, clip_gradient,
                 (p, g, m, v), lr, wd, rescale, t=t, beta1=beta1, beta2=beta2,

@@ -441,6 +441,15 @@ _UPDATE_RULES = [("sgd", {}), ("sgd", {"momentum": 0.9}),
                  ("nag", {"momentum": 0.9}), ("adam", {}), ("adamw", {})]
 
 
+def _on_card(card, lr, s):
+    """``lr`` and the state ``s`` as K1/K2 take them on the card: a
+    float32 and (Adam's ``t``) an int32 device scalar."""
+    s = dict(s)
+    if "t" in s:
+        s["t"] = torch.tensor([int(s["t"])], dtype=torch.int32, device=card)
+    return torch.tensor([lr], dtype=torch.float32, device=card), s
+
+
 @pytest.mark.parametrize("n", [5000, 1 << 20])
 @pytest.mark.parametrize("name,hyper", _UPDATE_RULES,
                          ids=["sgd", "momentum", "nag", "adam", "adamw"])
@@ -451,14 +460,15 @@ def test_update_kernels_match_plain(card, name, hyper, n):
     p0 = torch.from_numpy(rng.randn(n).astype(np.float32)).to(card)
     init, apply = fused_bucket_rule(name, clip_gradient=0.5, **hyper)
     _, plain = fused_rule(name, clip_gradient=0.5, **hyper)
-    kp, ks = p0.clone(), init(p0)
+    lr, ks = _on_card(card, 0.01, init(p0))
+    kp = p0.clone()
     pp, ps = p0.clone(), init(p0)
     wrapper = fused_sgd_update if name in ("sgd", "nag") else \
         fused_adam_update
     for _ in range(3):
         grad = torch.from_numpy(rng.randn(n).astype(np.float32)).to(card)
         before = wrapper.launches
-        kp, ks = apply(kp, grad, ks, 0.01, 1e-3, 0.5)
+        kp, ks = apply(kp, grad, ks, lr, 1e-3, 0.5)
         assert wrapper.launches == before + 1
         pp, ps = plain(pp, grad, ps, 0.01, 1e-3, 0.5)
     torch.cuda.synchronize()
@@ -467,7 +477,7 @@ def test_update_kernels_match_plain(card, name, hyper, n):
         if torch.is_tensor(val):
             torch.testing.assert_close(ks[leaf], val, **UPDATE_TOL)
         else:
-            assert ks[leaf] == val
+            assert int(ks[leaf].item()) == val
 
 
 def _copy_at(x, offset):
@@ -506,10 +516,11 @@ def test_update_kernels_heads_tails_and_offsets(card, name, hyper, clip,
     runs = []
     for _ in range(2):
         kp = _copy_at(p, offsets[0])
-        ks = {leaf: _copy_at(val, offsets[2 + i]) if torch.is_tensor(val)
-              else val for i, (leaf, val) in enumerate(s.items())}
+        lr, ks = _on_card(card, 0.01, {
+            leaf: _copy_at(val, offsets[2 + i]) if torch.is_tensor(val)
+            else val for i, (leaf, val) in enumerate(s.items())})
         before = wrapper.launches
-        kp, ks = apply(kp, _copy_at(g, offsets[1]), ks, 0.01, 1e-3, 0.5)
+        kp, ks = apply(kp, _copy_at(g, offsets[1]), ks, lr, 1e-3, 0.5)
         assert wrapper.launches == before + 1
         runs.append((kp, ks))
     torch.cuda.synchronize()
@@ -519,30 +530,38 @@ def test_update_kernels_heads_tails_and_offsets(card, name, hyper, clip,
             if torch.is_tensor(val):
                 torch.testing.assert_close(ks[leaf], val, **UPDATE_TOL)
             else:
-                assert ks[leaf] == val
+                assert int(ks[leaf].item()) == val
     (p1, s1), (p2, s2) = runs
     assert torch.equal(p1, p2)
-    assert all(torch.equal(s1[k], s2[k]) for k in s1 if torch.is_tensor(s1[k]))
+    assert all(torch.equal(s1[k], s2[k]) for k in s1)
 
 
 def test_update_kernels_refuse_what_they_do_not_take(card):
     _, apply = fused_bucket_rule("adam")
     p = torch.zeros(4, 4, device=card)
-    s = {"m": torch.zeros_like(p), "v": torch.zeros_like(p), "t": 0}
+    lr, s = _on_card(card, 0.1, {"m": torch.zeros_like(p),
+                                 "v": torch.zeros_like(p), "t": 0})
     with pytest.raises(MXNetError):
-        apply(p, p, s, 0.1)                        # not flat
+        apply(p, p, s, lr)                         # not flat
     pb = torch.zeros(16, device=card, dtype=torch.bfloat16)
-    sb = {"m": torch.zeros_like(pb), "v": torch.zeros_like(pb), "t": 0}
+    _, sb = _on_card(card, 0.1, {"m": torch.zeros_like(pb),
+                                 "v": torch.zeros_like(pb), "t": 0})
     with pytest.raises(MXNetError):
-        apply(pb, pb, sb, 0.1)                     # not f32
+        apply(pb, pb, sb, lr)                      # not f32
     flat = torch.zeros(16, device=card)
+    _, sf = _on_card(card, 0.1, {"m": torch.zeros_like(flat),
+                                 "v": torch.zeros_like(flat), "t": 0})
     with pytest.raises(MXNetError, match="overlap"):
-        apply(flat, flat, {"m": torch.zeros_like(flat),     # p is g
-                           "v": torch.zeros_like(flat), "t": 0}, 0.1)
+        apply(flat, flat, sf, lr)                  # p is g
+    _, s8 = _on_card(card, 0.1, {"m": torch.zeros(8, device=card),
+                                 "v": torch.zeros(8, device=card), "t": 0})
     with pytest.raises(MXNetError, match="overlap"):
-        apply(flat[:8], flat[4:12], {"m": torch.zeros(8, device=card),
-                                     "v": torch.zeros(8, device=card),
-                                     "t": 0}, 0.1)
+        apply(flat[:8], flat[4:12], s8, lr)
+    g = torch.zeros(16, device=card)
+    with pytest.raises(MXNetError, match="one-element"):
+        apply(flat, g, sf, 0.1)                    # a host lr on the card
+    with pytest.raises(MXNetError, match="one-element"):
+        apply(flat, g, {**sf, "t": 0}, lr)         # a host t on the card
 
 
 def test_llama_training_step_card_equals_cpu(card):
@@ -1304,3 +1323,294 @@ def test_narrow_resnet_sgd_steps_card_equal_cpu(card):
     finally:
         torch.backends.cudnn.allow_tf32, \
             torch.backends.cuda.matmul.allow_tf32 = prev
+
+
+# ----------------------------------------------------------------------
+# K1/K2's device scalars, and DataParallelTrainer's captured steps
+# ----------------------------------------------------------------------
+
+DEVICE_SCALAR_RULES = [("sgd", {}), ("sgd", {"momentum": 0.9}),
+                       ("nag", {"momentum": 0.9}), ("adam", {}),
+                       ("adamw", {})]
+
+
+@pytest.mark.parametrize("clip", [None, 0.05])
+@pytest.mark.parametrize("rule,hyper", DEVICE_SCALAR_RULES,
+                         ids=[r if not h else f"{r}-momentum"
+                              for r, h in DEVICE_SCALAR_RULES])
+def test_update_device_scalars_change_without_recapture(card, rule, hyper,
+                                                        clip):
+    """One captured K1/K2 launch (n = 4099: head, vectors and tail),
+    replayed with lr written in memory and Adam's t counted up by the
+    graph itself: each replay is bitwise the eager launch at that lr and
+    step, on copies of the same buffers."""
+    init, apply = fused_bucket_rule(rule, clip_gradient=clip, **hyper)
+    gen = torch.Generator(device=card).manual_seed(4)
+    p = torch.randn(4099, device=card, generator=gen)
+    g = torch.randn(4099, device=card, generator=gen)
+    lr, s = _on_card(card, 1e-3, init(p))
+    hp, hs = p.clone(), {k: v.clone() for k, v in s.items()}
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):          # warm-up: counters, library
+        apply(p.clone(), g, {k: v.clone() for k, v in s.items()}, lr, 1e-3)
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream):
+        apply(p, g, s, lr, 1e-3)
+    for step, rate in enumerate((1e-3, 1e-3, 5e-4, 2e-3), start=1):
+        lr.fill_(rate)
+        graph.replay()
+        hlr, _ = _on_card(card, rate, {})
+        apply(hp, g, hs, hlr, 1e-3)
+        torch.cuda.synchronize()
+        assert torch.equal(p, hp), step
+        for k, v in s.items():
+            assert torch.equal(v, hs[k]), (k, step)
+        if "t" in s:
+            assert int(s["t"].item()) == step
+
+
+def _dp_net(nn, dropout=0.0, batchnorm=True):
+    net = nn.HybridSequential(prefix="dpc_")
+    with net.name_scope():
+        # no conv bias before a BatchNorm: its gradient is zero in exact
+        # arithmetic, and Adam would step its rounding noise
+        net.add(nn.Conv2D(8, 3, padding=1, in_channels=3,
+                          use_bias=not batchnorm))
+        if batchnorm:
+            net.add(nn.BatchNorm(in_channels=8))
+        net.add(nn.Activation("relu"), nn.GlobalAvgPool2D(), nn.Flatten())
+        if dropout:
+            net.add(nn.Dropout(dropout))
+        net.add(nn.Dense(10, in_units=8))
+    return net
+
+
+def _dp_pair(rule, params, weights=None, ctx=None, **net_kw):
+    """A DataParallelTrainer over a small conv net on ``ctx`` (the card
+    by default), from ``weights`` when given."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import gluon, parallel
+    from mxnet_tpu_torch.convert import load_block_weights
+    ctx = ctx or mx.gpu(0)
+    net = _dp_net(gluon.nn, **net_kw)
+    mx.random.seed(5)
+    net.initialize(mx.init.Xavier(magnitude=2), ctx=ctx)
+    if weights is not None:
+        load_block_weights(net, weights)
+    tr = parallel.DataParallelTrainer(
+        net, gluon.loss.SoftmaxCrossEntropyLoss(), rule, dict(params),
+        mesh=parallel.make_mesh({"dp": 1}, devices=[ctx.torch_device]))
+    return net, tr
+
+
+def _dp_batches(n, b=8, seed=6):
+    rng = np.random.RandomState(seed)
+    return [(rng.rand(b, 3, 12, 12).astype(np.float32),
+             rng.randint(0, 10, (b,)).astype(np.float32)) for _ in range(n)]
+
+
+def _weights_np(net):
+    from mxnet_tpu_torch.convert import block_weights_to_numpy
+    return block_weights_to_numpy(net)
+
+
+@pytest.mark.parametrize("rule,params", [
+    ("sgd", {"learning_rate": 0.1, "momentum": 0.9}),
+    ("adam", {"learning_rate": 1e-3})])
+def test_dp_captured_steps_match_the_eager_body(card, rule, params):
+    """The captured replays against the same body run eagerly on the
+    card, and against the CPU: f32, 5 steps, one capture, K1/K2 once a
+    step."""
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        net, tr = _dp_pair(rule, params)
+        w0 = _weights_np(net)
+        enet, etr = _dp_pair(rule, params, w0)
+        etr._use_graphs = False
+        import mxnet_tpu_torch as mx
+        cnet, ctr = _dp_pair(rule, params, w0, ctx=mx.cpu())
+        kernel = "fused_sgd_update" if rule == "sgd" else "fused_adam_update"
+        ops.reset_launches()
+        losses = []
+        for x, y in _dp_batches(5):
+            losses.append([float(t.step(x, y).asnumpy())
+                           for t in (tr, etr, ctr)])
+        assert ops.launch_counts()[kernel] == 10
+        assert tr.stats["captures"] == 1 and tr.graphs_captured() == 1
+        assert tr.stats["eager_calls"] == 1 and tr.graph_pool_bytes() > 0
+        assert etr.stats["captures"] == 0
+        losses = np.array(losses)
+        np.testing.assert_allclose(losses[:, 0], losses[:, 1], rtol=1e-5)
+        np.testing.assert_allclose(losses[:, 0], losses[:, 2], rtol=1e-4)
+        got, eager, cpu = (_weights_np(n) for n in (net, enet, cnet))
+        for k in got:
+            np.testing.assert_allclose(got[k], eager[k], rtol=1e-5,
+                                       atol=1e-6, err_msg=k)
+            np.testing.assert_allclose(got[k], cpu[k], rtol=1e-3,
+                                       atol=1e-4, err_msg=k)
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
+
+
+def test_dp_learning_rate_and_adam_step_change_without_recapture(card):
+    import mxnet_tpu_torch as mx
+    net, tr = _dp_pair("adam", {"learning_rate": 1e-3})
+    cnet, ctr = _dp_pair("adam", {"learning_rate": 1e-3}, _weights_np(net),
+                         ctx=mx.cpu())
+    for i, (x, y) in enumerate(_dp_batches(6)):
+        if i == 3:
+            for t in (tr, ctr):
+                t.set_learning_rate(5e-3)
+        for t in (tr, ctr):
+            t.step(x, y)
+    assert tr.stats["captures"] == 1 and int(tr._t.item()) == 6
+    assert float(tr._lr_buf.item()) == np.float32(5e-3)
+    got, want = _weights_np(net), _weights_np(cnet)
+    for k in got:
+        np.testing.assert_allclose(got[k], want[k], rtol=1e-3, atol=1e-4,
+                                   err_msg=k)
+
+
+def test_dp_batchnorm_statistics_advance_per_replay(card):
+    net, tr = _dp_pair("sgd", {"learning_rate": 0.1, "momentum": 0.9})
+    stat = [p for k, p in net.collect_params().items()
+            if k.endswith("running_mean")][0]
+    seen = []
+    for x, y in _dp_batches(4):
+        tr.step(x, y)
+        seen.append(stat.data().asnumpy())
+    assert tr.stats["captures"] == 1
+    for a, b in zip(seen, seen[1:]):
+        assert not np.array_equal(a, b)
+
+
+def test_dp_host_sync_in_the_forward_raises_at_capture(card):
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import gluon, parallel
+
+    class Syncing(gluon.nn.HybridBlock):
+        def __init__(self):
+            super().__init__(prefix="sync_")
+            with self.name_scope():
+                self.dense = gluon.nn.Dense(3, in_units=4)
+
+        def hybrid_forward(self, F, x):
+            out = self.dense(x)
+            out.asnumpy()                   # a device-to-host read
+            return out
+
+    net = Syncing()
+    net.initialize(ctx=mx.gpu(0))
+    tr = parallel.DataParallelTrainer(
+        net, gluon.loss.SoftmaxCrossEntropyLoss(), "sgd",
+        {"learning_rate": 0.1},
+        mesh=parallel.make_mesh({"dp": 1}, devices=[card]))
+    x = np.ones((2, 4), np.float32)
+    y = np.zeros((2,), np.float32)
+    tr.step(x, y)                           # eager: fine
+    with pytest.raises(MXNetError, match="capturing the step"):
+        tr.step(x, y)
+
+
+def test_dp_dropout_draws_differ_between_replays(card):
+    """At lr 0 the parameters stay, so the losses of replays on one batch
+    differ only by their dropout masks: they differ (the graph registers
+    the generator), and with dropout 0 they are equal."""
+    for dropout in (0.5, 0.0):
+        net, tr = _dp_pair("sgd", {"learning_rate": 0.0}, dropout=dropout,
+                           batchnorm=False)
+        x, y = _dp_batches(1)[0]
+        if not hasattr(torch.cuda.CUDAGraph, "register_generator_state") \
+                and dropout:
+            tr.step(x, y)
+            with pytest.raises(NotSupportedError, match="dropout"):
+                tr.step(x, y)
+            continue
+        losses = [float(tr.step(x, y).asnumpy()) for _ in range(5)]
+        assert tr.stats["captures"] == 1
+        if dropout:
+            assert len(set(losses[1:])) == 4, losses
+        else:
+            assert len(set(losses)) == 1, losses
+
+
+def test_dp_amp_replays_read_the_updated_weights(card):
+    """Under bf16 AMP (autocast's cast cache off in the body) each replay
+    reads the weights the last one wrote: the second replay's loss
+    differs from the first's and both match the eager body's."""
+    amp.init("bfloat16")
+    try:
+        net, tr = _dp_pair("sgd", {"learning_rate": 0.5}, batchnorm=False)
+        enet, etr = _dp_pair("sgd", {"learning_rate": 0.5}, _weights_np(net),
+                             batchnorm=False)
+        etr._use_graphs = False
+        x, y = _dp_batches(1)[0]
+        losses = [[float(t.step(x, y).asnumpy()) for t in (tr, etr)]
+                  for _ in range(4)]
+    finally:
+        amp._deinit_for_tests()
+    losses = np.array(losses)
+    assert losses[2, 0] != losses[1, 0]
+    np.testing.assert_allclose(losses[:, 0], losses[:, 1], rtol=2e-2)
+
+
+def test_dp_step_accum_and_step_indexed_on_the_card(card):
+    """``step_accum(n_micro=2)`` against ``step`` on the whole batch (no
+    BatchNorm: the two compute one gradient), ``step_indexed`` against
+    ``step`` on the same slice; each its own captured signature."""
+    runs = []
+    net0, _ = _dp_pair("sgd", {"learning_rate": 0.1}, batchnorm=False)
+    w0 = _weights_np(net0)
+    batches = _dp_batches(3)
+    for how in ("step", "accum", "indexed"):
+        net, tr = _dp_pair("sgd", {"learning_rate": 0.1}, w0,
+                           batchnorm=False)
+        handle = tr.put_epoch(np.stack([b[0] for b in batches]),
+                              np.stack([b[1] for b in batches]))
+        for i in (0, 1, 2, 1):
+            x, y = batches[i]
+            if how == "step":
+                tr.step(x, y)
+            elif how == "accum":
+                tr.step_accum(x, y, n_micro=2)
+            else:
+                tr.step_indexed(handle, i)
+        assert tr.stats["captures"] == 1
+        runs.append(_weights_np(net))
+    for k in runs[0]:
+        np.testing.assert_allclose(runs[1][k], runs[0][k], rtol=1e-5,
+                                   atol=1e-6, err_msg=k)
+        np.testing.assert_allclose(runs[2][k], runs[0][k], rtol=1e-5,
+                                   atol=1e-6, err_msg=k)
+
+
+def test_dp_step_indexed_serves_every_epoch_with_one_graph(card):
+    """Four epochs of one shape through ``put_epoch``/``step_indexed``,
+    each handle dropped after its epoch: one capture in all, the device
+    memory flat from the second epoch on (a dropped epoch is freed), and
+    each step the parameters of ``step`` on the same batch."""
+    net0, _ = _dp_pair("sgd", {"learning_rate": 0.1}, batchnorm=False)
+    w0 = _weights_np(net0)
+    inet, itr = _dp_pair("sgd", {"learning_rate": 0.1}, w0, batchnorm=False)
+    snet, str_ = _dp_pair("sgd", {"learning_rate": 0.1}, w0,
+                          batchnorm=False)
+    allocated = []
+    for e in range(4):
+        batches = _dp_batches(3, seed=20 + e)
+        handle = itr.put_epoch(np.stack([b[0] for b in batches]),
+                               np.stack([b[1] for b in batches]))
+        for i in (0, 2, 1):
+            itr.step_indexed(handle, i)
+            str_.step(*batches[i])
+        del handle
+        torch.cuda.synchronize()
+        allocated.append(torch.cuda.memory_allocated(card))
+    assert itr.stats["captures"] == 1 and itr.graphs_captured() == 1
+    assert allocated[1] == allocated[2] == allocated[3], allocated
+    got, want = _weights_np(inet), _weights_np(snet)
+    for k in want:
+        np.testing.assert_allclose(got[k], want[k], rtol=1e-5, atol=1e-6,
+                                   err_msg=k)

@@ -369,6 +369,11 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     files = sorted((REPO / "mxnet_tpu_torch").rglob("*.py"))
     files += sorted((REPO / "tools").glob("port_*.py"))
     files.append(REPO / "chip_smoke.py")
+    # the training entry point and checkpointing are covered too
+    port = REPO / "mxnet_tpu_torch"
+    for rel in ("parallel/__init__.py", "parallel/mesh.py",
+                "parallel/data_parallel.py", "checkpoint.py"):
+        assert port / rel in files, rel
     bad = []
     for path in files:
         for name in _imports(path):

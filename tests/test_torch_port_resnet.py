@@ -432,3 +432,45 @@ def test_get_model_serves_the_resnets_and_names_the_rest():
         if n[0].islower() and not n.startswith("get_"))
     assert vision._LATER == set(jvision._MODELS) - set(vision._MODELS)
 
+
+
+def _chip_smoke():
+    import importlib.util
+    path = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "chip_smoke.py")
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_smoke_update_errs_holds_the_update_net_of_storage_rounding():
+    """``chip_smoke.update_errs`` (phases 12, 14 and 16): a gamma near 1
+    whose two-step update is some tens of ulps, stored one ulp apart in
+    one element by two runs that added the same update, agrees (the
+    unreduced statistic puts it above phase 14's 1e-3); the same
+    parameters after a 0.2% error in the learning rate do not."""
+    smoke = _chip_smoke()
+    rng = np.random.RandomState(14)
+    w0 = {"gamma": (1 + rng.uniform(-0.01, 0.01, 64)).astype(np.float32),
+          "weight": rng.normal(0, 0.02, 4096).astype(np.float32)}
+    du = {"gamma": rng.normal(0, 5e-6, 64),
+          "weight": rng.normal(0, 1e-3, 4096)}
+
+    def stored(scale):
+        return {k: (w0[k].astype(np.float64) + scale * du[k])
+                .astype(np.float32) for k in w0}
+
+    want = stored(1.0)
+    got = {k: v.copy() for k, v in want.items()}
+    got["gamma"][3] = np.nextafter(got["gamma"][3], np.float32(2))
+    raw = float(np.linalg.norm(got["gamma"] - want["gamma"]) /
+                np.linalg.norm(want["gamma"] - w0["gamma"]))
+    assert raw > smoke.RESNET_UPDATE_RTOL
+    errs = smoke.update_errs(w0, got, want, 2)
+    assert errs == {"gamma": 0.0, "weight": 0.0}
+    errs = smoke.update_errs(w0, stored(1.002), want, 2)
+    assert 1.9e-3 < errs["weight"] < 2.1e-3
+    assert max(errs.values()) > smoke.RESNET_UPDATE_RTOL
+    assert smoke.update_errs(w0, got, want, 2, skip=("gamma",)).keys() \
+        == {"weight"}

@@ -84,10 +84,13 @@ def build_sweep():
         name = re.sub(r"\((?:[^()]|\([^()]*\))*\)$", "", name)
         print(f"ptxas {name}: {regs[1]} registers, {spill[1]}/{spill[2]} "
               f"bytes spill stores/loads", flush=True)
-    from mxnet_tpu_torch.ops.fused_update import _SIGNATURES
+    P, I, F, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, \
+        ctypes.c_int64
     lib = ctypes.CDLL(out)
-    lib.sweep_update.argtypes = [ctypes.c_int] * 4 + \
-        _SIGNATURES["fused_update"][2:]
+    # kind, a, b, rule; the streams, the plan and the counters; lr, wd,
+    # rescale, clip, momentum, t, the betas, eps; device, stream
+    lib.sweep_update.argtypes = [I] * 4 + [P] * 4 + [L] * 4 + [I, P] + \
+        [F] * 5 + [I] + [F] * 5 + [I, P]
     lib.sweep_resident.argtypes = [ctypes.c_int] * 5
     return lib
 
@@ -187,8 +190,9 @@ def main():
     for rule, hyper in CASES:
         p, g, s = chip_smoke.update_case(rule, n, dev)
         _, apply = fused_bucket_rule(rule, clip_gradient=CLIP, **hyper)
+        lr_dev, ks = chip_smoke.device_scalars(LR, s, dev)
         step = torch.tensor(4.0, device=dev)
-        fns = {"kernel": lambda: apply(p, g, s, LR, WD, RESCALE),
+        fns = {"kernel": lambda: apply(p, g, ks, lr_dev, WD, RESCALE),
                "library": lambda: chip_smoke._library_update(
                    rule, hyper, p, g, s, LR, WD, step)}
         per_elem = 28 if rule == "adamw" else 20

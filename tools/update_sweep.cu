@@ -27,7 +27,7 @@ __global__ void __launch_bounds__(kThreads)
     update_static_kernel(float* __restrict__ p, const float* __restrict__ g,
                          float* __restrict__ s0, float* __restrict__ s1,
                          long long head, long long nvec, long long tail,
-                         Hyper h, unsigned*) {
+                         Hyper h, unsigned*, const float*, const int*) {
   float lr_t, lr_wd;
   adam_scalars<R>(h, lr_t, lr_wd);
   head_and_tail<R, kClip>(p, g, s0, s1, head, nvec, tail, h, lr_t, lr_wd);
@@ -84,7 +84,8 @@ __global__ void __launch_bounds__(kRingThreads)
     update_ring_kernel(float* __restrict__ p, const float* __restrict__ g,
                        float* __restrict__ s0, float* __restrict__ s1,
                        long long head, long long nvec, long long tail,
-                       Hyper h, unsigned* counters) {
+                       Hyper h, unsigned* counters, const float*,
+                       const int*) {
   constexpr bool kClip = true;
   constexpr int NS = 2 + state_count(R);
   constexpr int kTile = V * kConsumers;             // float4s a stream
@@ -310,7 +311,7 @@ extern "C" int sweep_update(int kind, int a, int b, int rule, void* p,
       kernel<<<grid, K::threads, smem, static_cast<cudaStream_t>(stream)>>>(
           static_cast<float*>(p), static_cast<const float*>(g),
           static_cast<float*>(s0), static_cast<float*>(s1), head, nvec, tail,
-          h, static_cast<unsigned*>(counters));
+          h, static_cast<unsigned*>(counters), nullptr, nullptr);
       return int(cudaGetLastError());
     });
   });
