@@ -41,7 +41,10 @@ continued:
    (n = 25,575,912, momentum 0.9, lr 0.1, wd 0, no clip: phase 15's
    update) against its plain rule, timed against it and
    ``torch._fused_sgd_`` in 20 interleaved pairs (the row the kernels
-   line reports for K1);
+   line reports for K1); K3's offset form (``q_start``, the chunk
+   step's) at BH = 8 x 32, C = 256, Lk = 1024, D = 128, starts in
+   [0, 768], float32 and bfloat16, timed beside its plain version and
+   SDPA with a boolean mask, its bound from the visible keys and pairs;
 4. serving: Llama-3-8B at full width and depth in bfloat16, random
    weights from a seed, ``InferenceEngine(max_batch=8, block_size=16,
    max_context=1024)`` and a ``ContinuousBatcher`` serving 16 greedy
@@ -52,6 +55,31 @@ continued:
    request is teacher-forced for 16 decode steps, each replay held
    against ``_decode_body`` run eagerly on the same static inputs
    (logits within 2e-2, bitwise printed, tokens identical);
+21. chunked prefill and the prefix cache (on phase 4's net, right
+    after it): ``InferenceEngine(max_batch=8, block_size=16,
+    max_context=1024, prefill_chunk=256, prefix_cache=True)``, a
+    500-token system prompt pinned at set-up, 16 greedy requests (the
+    system prompt and 16-400 tokens of their own, 32 new tokens) through
+    the batcher's chunked admission, then the same requests through a
+    phase-4 engine: TTFT p50 and p99, tokens/s, prompt tokens computed
+    against submitted, chunk calls, prefix hit rate, forks, evictions,
+    captures, capture seconds and pool bytes of both; fails unless
+    ``compiles_after_warmup`` is 0 and fewer prompt tokens were computed
+    than submitted; one request the run did not serve, teacher-forced
+    16 steps along the prefix path and the cold path: logits within
+    2e-2 (bitwise printed); one K3 offset launch a layer a chunk call;
+22. speculative decoding (the same net): phase 4's engine with
+    ``spec_decode=True, spec_k=4`` serves 8 greedy requests (a 64-token
+    segment 4 times and 8 tokens, 64 new tokens); every stream must be
+    identical to the phase-4 engine's, ``verify_steps`` above 0, and a
+    verify whose drafts are the plain stream must accept every draft;
+    random weights copy nothing from their prompts, so the n-gram
+    drafts rarely fire: the same requests run again with each prompt
+    and its plain stream (but the last token) pinned in the engine's
+    prefix cache, whose continuations then draft the stream itself
+    (held to the same limits); each run prints the accept rate, tokens
+    per dispatch and the verify and dispatch walls beside the plain
+    engine's; W x layers K5 launches a verify of width W;
 5. card vs CPU, serving: a 2-layer model at the full 4096/32/8/128/14336
    geometry and full vocabulary in float32, the same weights on the card
    (graphs captured at first use) and on the host (the same step
@@ -63,6 +91,16 @@ continued:
    2e-2, a drift against the f32 pool above 0, and on the rows computed
    from fresh inputs codes identical in 99.9% of elements and scales
    within 1e-5 relative;
+20. card vs CPU, the chunk and verify steps and the prefix cache:
+    phase 5's nets, f32, ``max_batch=4, block_size=16,
+    max_context=256, prefill_chunk=64, prefix_cache=True,
+    spec_decode=True, spec_k=3``; a 100-token prefix pinned (a partial
+    tail block), two prompts continuing it (30 and 90 tokens more)
+    through ``chunk_prefill``, 8 greedy decode steps, one ``verify``
+    whose drafts are the card's own next 3 greedy tokens: logits within
+    2e-3, tokens identical, every draft accepted; then the same with
+    fp8 pools, within 2e-2; a chunk replay one K3 launch a layer, a
+    verify replay W x layers K5 launches;
 7. fp8 KV serving: Llama-3-8B bf16 at full depth with
    ``kv_dtype="fp8", max_batch=16, max_context=4096`` (4097 blocks), 32
    greedy requests with prompts of 256-3800 tokens and 32 new tokens,
@@ -169,7 +207,7 @@ run's steps are measured as they run without it) that replays each
 decode step on its own staged inputs, the replays' device time (CUDA
 events around ``graph.replay()``) and each step's host share beside
 it.  Before
-each of phases 4 and 7-19 the kernels' launch counters are set to 0; each phase reads them just after and fails unless its kernels
+each of phases 4, 7-19 and 20-22 the kernels' launch counters are set to 0; each phase reads them just after and fails unless its kernels
 ran the expected number of times.  The second-to-last line is the
 card's name and power limit, the line before it the kernels' JSON
 record, and the line before that every timed row of phase 3 as
@@ -484,7 +522,9 @@ def flash_kernel_report():
                 nbytes = smem(int(bf16), d)
             else:
                 nbytes = smem(int(bf16), d, int("_dq_" in name))
-            tag = f"{name}<{'bf16' if bf16 else 'f32'}, D={d}>"
+            # the forward's offset instantiations (``q_start``) end Lb1E
+            tag = (f"{name}<{'bf16' if bf16 else 'f32'}, D={d}"
+                   f"{', offset' if 'Lb1E' in mangled else ''}>")
             body = funcs.get(mangled, "")
             hgmma, hmma = body.count("HGMMA"), body.count("HMMA")
             n_sass = len(re.findall(r"/\*[0-9a-f]{4,}\*/ +[@A-Z]", body))
@@ -1005,6 +1045,80 @@ def check_flash_bert(dev, flush):
     torch.cuda.empty_cache()
 
 
+# phase 21's chunk step at its widest table: 8 rows of 32 heads, chunks of
+# 256 queries against 64 blocks of 16 positions, starts up to 768
+CHUNK_ATTN = dict(R=8, H=32, C=256, Lk=1024, D=128, start_max=768)
+
+
+def check_flash_offset(dev, flush):
+    """K3's offset form (``q_start``) at the chunk step's shape: BH = 8 x
+    32, C = 256 queries, Lk = 1024 keys, D = 128, each row's start drawn
+    in [0, 768] from seed 0 and repeated over its 32 heads, in float32
+    and bfloat16, against its plain version, timed beside the plain
+    version and SDPA with a boolean mask ("near": it reads every key);
+    the bound counts only the keys a row can see (bytes) and the pairs
+    it can see (FLOPs).  Returns the bfloat16 row, the chunk path's."""
+    import torch
+    import torch.nn.functional as F
+    from mxnet_tpu_torch.ops.flash_attention import (flash_attention_fwd,
+                                                     flash_attention_plain)
+    R, H, C, Lk, D = (CHUNK_ATTN[k] for k in ("R", "H", "C", "Lk", "D"))
+    g = torch.Generator(device=dev).manual_seed(0)
+    starts = torch.randint(0, CHUNK_ATTN["start_max"] + 1, (R,), device=dev,
+                           generator=g, dtype=torch.int32)
+    q_start = starts.repeat_interleave(H)
+    # SDPA's mask: query i of row r sees key j when j <= start_r + i
+    mask = (torch.arange(Lk, device=dev)[None, None, :] <=
+            starts.long()[:, None, None] +
+            torch.arange(C, device=dev)[None, :, None])[:, None]
+    visible = (starts.long() + C).clamp(max=Lk)          # keys a row reads
+    pairs = float(sum(C * int(s) + C * (C + 1) // 2 for s in starts.tolist()))
+    main = None
+    for name in ("float32", "bfloat16"):
+        dtype = getattr(torch, name)
+        q = torch.randn(R * H, C, D, device=dev, generator=g).to(dtype)
+        k, v = (torch.randn(R * H, Lk, D, device=dev, generator=g).to(dtype)
+                for _ in range(2))
+        with torch.no_grad():
+            out, lse = flash_attention_fwd(q, k, v, True, q_start=q_start)
+            ref, ref_lse = flash_attention_plain(q, k, v, True, D ** -0.5,
+                                                 q_start=q_start)
+        torch.cuda.synchronize()
+        err, ok = max_err(out, ref, FLASH_TOL[name])
+        lerr, lok = max_err(lse, ref_lse, (1e-4, 1e-4))
+        if not (ok and lok):
+            fail(f"flash offset kernel vs plain {name}: max |out| err {err}, "
+                 f"max |lse| err {lerr}")
+        qs, ks, vs = (t.view(R, H, -1, D) for t in (q, k, v))
+        with torch.no_grad():
+            ms = time_ms(lambda: flash_attention_fwd(q, k, v, True,
+                                                     q_start=q_start),
+                         20, flush)
+            plain_ms = time_ms(lambda: flash_attention_plain(
+                q, k, v, True, D ** -0.5, q_start=q_start), 5, flush)
+            lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
+                qs, ks, vs, attn_mask=mask), 20, flush)
+        elem = q.element_size()
+        nbytes = (2 * R * H * C * D + 2 * H * int(visible.sum()) * D) * elem \
+            + 4 * R * H * C                                  # + lse
+        flops = 4.0 * H * D * pairs
+        bound_ms, by = bound(nbytes, flops, name)
+        print(f"flash_attention_fwd offset BH={R * H} C={C} Lk={Lk} D={D} "
+              f"starts {sorted(starts.tolist())} {name}: max_abs_err "
+              f"{err:.3e} lse_err {lerr:.3e} kernel {ms:.4f} ms plain "
+              f"{plain_ms:.4f} ms sdpa (boolean mask, near) {lib_ms:.4f} ms "
+              f"({ms / lib_ms:.2f}x sdpa) bound {bound_ms:.4f} ms ({by}; "
+              f"{bound_ms / ms:.1%} of it)", flush=True)
+        record("flash_attention_fwd_offset", name, [R * H, C, Lk, D],
+               ms, plain_ms, lib_ms, bound_ms, by)
+        if name == "bfloat16":
+            main = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                        bound_ms=bound_ms, bound_by=by, max_abs_err=err)
+        del q, k, v, out, lse, ref, ref_lse, qs, ks, vs
+    torch.cuda.empty_cache()
+    return main
+
+
 def _chunks(n):
     return [slice(i, min(i + CHUNK, n)) for i in range(0, n, CHUNK)]
 
@@ -1217,63 +1331,101 @@ def serving_prompts(cell, vocab):
     return [rng.randint(0, vocab, n) for n in lengths], rng
 
 
-def serve_requests(serving, eng, prompts, label):
-    """Serve ``prompts``, ``NEW_TOKENS`` greedy tokens each and all
+def _pct(values, p):
+    """The ``p`` quantile of ``values`` by nearest rank, as the batcher's
+    latency percentiles take it."""
+    v = sorted(values)
+    return v[min(len(v) - 1, int(round(p * (len(v) - 1))))]
+
+
+def serve_requests(serving, eng, prompts, label, new_tokens=NEW_TOKENS):
+    """Serve ``prompts``, ``new_tokens`` greedy tokens each and all
     submitted at t = 0, through ``serving.ContinuousBatcher`` on
-    ``eng``.  Fails unless every request finished with ``NEW_TOKENS``
-    tokens and every logit was finite.  Returns the finished requests,
-    the tokens generated, the wall seconds and the three metrics: the
-    decode step median (host clock around ``decode``, which returns
-    after a host read of the sampled tokens), tokens per second over the
-    run and TTFT p50; and each decode step's wall, largest position and
-    staged inputs (a host copy of the engine's staging buffer), for
-    :func:`replay_device`."""
+    ``eng``.  Fails unless every request finished with
+    ``new_tokens`` tokens and every logit was finite.  Returns the
+    finished requests, the tokens generated, the wall seconds and the
+    three metrics: the decode step median (host clock around
+    ``decode``, which returns after a host read of the sampled tokens),
+    tokens per second over the run and TTFT p50 (and p99); each decode
+    step's wall, largest position and staged inputs (a host copy of the
+    engine's staging buffer), for :func:`replay_device`; the walls of
+    the ``verify`` and ``chunk_prefill`` calls, where the engine makes
+    them, and each verify call's longest row; and the batcher's
+    stats."""
     import torch
     finite, step_s, step_pos, staged = [], [], [], []
-    prefill, decode = eng.prefill, eng.decode
+    verify_s, verify_rows, chunk_s = [], [], []
+    # an older tree's engine (tools/port_serving_pairs.py) may lack the
+    # last two
+    calls = {name: getattr(eng, name) for name in
+             ("prefill", "decode", "verify", "chunk_prefill")
+             if hasattr(eng, name)}
 
     def prefill_checked(slot, tokens):
-        out = prefill(slot, tokens)
+        out = calls["prefill"](slot, tokens)
         if out is not None:
             finite.append(torch.isfinite(out[1]).all())
         return out
 
     def decode_checked(entries):
         t = time.perf_counter()
-        nxt, logits = decode(entries)      # returns after a host sync
+        nxt, logits = calls["decode"](entries)   # returns after a host sync
         step_s.append(time.perf_counter() - t)
         step_pos.append(max(p for _, _, p in entries))
         staged.append(eng._stage_np.copy())
         finite.append(torch.isfinite(logits).all())
         return nxt, logits
 
-    eng.prefill, eng.decode = prefill_checked, decode_checked
+    def verify_timed(entries):
+        t = time.perf_counter()
+        out = calls["verify"](entries)           # returns host tokens
+        verify_s.append(time.perf_counter() - t)
+        verify_rows.append(max(len(row) for _, row, _ in entries))
+        return out
+
+    def chunk_checked(entries):
+        t = time.perf_counter()
+        out = calls["chunk_prefill"](entries)    # returns host tokens
+        if out is not None:
+            chunk_s.append(time.perf_counter() - t)
+            finite.append(torch.isfinite(out[1]).all())
+        return out
+
+    wrapped = {"prefill": prefill_checked, "decode": decode_checked,
+               "verify": verify_timed, "chunk_prefill": chunk_checked}
+    for name in calls:
+        setattr(eng, name, wrapped[name])
     try:
         batcher = serving.ContinuousBatcher(eng)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for i, p in enumerate(prompts):
-            batcher.submit(serving.Request(p, NEW_TOKENS, request_id=i))
+            batcher.submit(serving.Request(p, new_tokens, request_id=i))
         stats = batcher.run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     finally:
         # drop the instance attributes: no cycle keeps the engine alive
-        del eng.prefill, eng.decode
+        for name in calls:
+            delattr(eng, name)
     done = batcher.finished
-    if len(done) != len(prompts) or any(len(r.generated) != NEW_TOKENS
+    if len(done) != len(prompts) or any(len(r.generated) != new_tokens
                                         for r in done):
-        fail(f"{label}: not every request finished with {NEW_TOKENS} "
+        fail(f"{label}: not every request finished with {new_tokens} "
              "tokens")
     if not bool(torch.stack(finite).all()):
         fail(f"{label}: non-finite logits on the serving path")
     tokens = stats["tokens_generated"]
+    ttft = [r.ttft() for r in done]
     return {"finished": done, "tokens": tokens, "wall_s": wall,
             "steps": len(step_s), "step_s": step_s, "step_pos": step_pos,
-            "staged": staged,
-            "step_ms": statistics.median(step_s) * 1e3,
+            "staged": staged, "verify_s": verify_s,
+            "verify_rows": verify_rows, "chunk_s": chunk_s,
+            "stats": stats,
+            "step_ms": statistics.median(step_s) * 1e3 if step_s else None,
             "tokens_per_s": tokens / wall,
-            "ttft_p50_ms": statistics.median(r.ttft() for r in done) * 1e3}
+            "ttft_p50_ms": statistics.median(ttft) * 1e3,
+            "ttft_p99_ms": _pct(ttft, 0.99) * 1e3}
 
 
 def replay_device(eng, run, label):
@@ -1343,10 +1495,337 @@ def serve_llama3_8b(dev, card):
     print(graph_vs_eager(eng, rng.randint(0, net.cfg.vocab_size,
                                           500).tolist()), flush=True)
     print(replay_device(eng, run, "serving"), flush=True)
-    del eng, net, run
+    del eng, run
     gc.collect()
     torch.cuda.empty_cache()
-    return launches
+    return launches, net
+
+
+# ----------------------------------------------------------------------
+# phases 21 and 22: chunked prefill with the prefix cache, and
+# speculative decoding, at full width on phase 4's net
+# ----------------------------------------------------------------------
+
+# phase 21: phase 4's engine with chunked prefill and the prefix cache;
+# 16 requests, each a 500-token system prompt (31 blocks and 4 tokens)
+# and 16-400 tokens of its own
+PREFIX_CELL = dict(max_batch=8, max_context=1024, prefill_chunk=256,
+                   requests=16, system=500, unique=(16, 401))
+# phase 22: phase 4's engine with speculative decoding; 8 requests whose
+# prompts repeat a 64-token segment 4 times and end with 8 tokens
+SPEC_CELL = dict(spec_k=4, requests=8, segment=64, repeats=4, tail=8,
+                 new_tokens=64)
+TEACHER_STEPS = 16
+
+
+def prefix_prompts(vocab):
+    """Phase 21's system prompt, requests and teacher-forced request,
+    from seed 21."""
+    import numpy as np
+    rng = np.random.RandomState(21)
+    system = rng.randint(0, vocab, PREFIX_CELL["system"]).tolist()
+    lengths = rng.randint(*PREFIX_CELL["unique"], PREFIX_CELL["requests"])
+    prompts = [system + rng.randint(0, vocab, n).tolist() for n in lengths]
+    # the teacher-forced request: one the run never served, 300 tokens
+    # past the system prompt (two chunks)
+    return system, prompts, system + rng.randint(0, vocab, 300).tolist()
+
+
+def spec_prompts(vocab):
+    """Phase 22's requests, from seed 22."""
+    import numpy as np
+    rng = np.random.RandomState(22)
+    c = SPEC_CELL
+    return [rng.randint(0, vocab, c["segment"]).tolist() * c["repeats"] +
+            rng.randint(0, vocab, c["tail"]).tolist()
+            for _ in range(c["requests"])]
+
+
+def _prefix_path(eng, slot, prompt, n):
+    """A request along the prefix path: attach the cached chain, chunk the
+    rest, then ``n`` greedy decode steps.  (fed tokens, logits)."""
+    start = eng.attach_prefix(slot, prompt)
+    if start == 0:
+        fail("prefix path: the system prompt missed the prefix cache")
+    C = eng.prefill_chunk
+    while start < len(prompt):
+        out = eng.chunk_prefill([(slot, prompt[start:start + C], start)])
+        if out is None:
+            fail("prefix path: KV pool exhausted")
+        start += len(prompt[start:start + C])
+    fed, logits = list(prompt) + [int(out[0][0])], [out[1][0].float()]
+    for _ in range(n):
+        pos = len(fed) - 1
+        if not eng.reserve(slot, pos):
+            fail("KV pool exhausted")
+        nxt, lg = eng.decode([(slot, fed[-1], pos)])
+        fed.append(int(nxt[0]))
+        logits.append(lg[0].float())
+    eng.release(slot)
+    return fed, logits
+
+
+def _serving_line(label, eng, run, computed, submitted, card):
+    st = eng.stats
+    pc = eng.prefix_cache
+    steps = run["step_s"] + run["verify_s"]
+    return (f"{label} on {card}: {len(run['finished'])} requests, "
+            f"{run['tokens']} tokens in {run['wall_s']:.3f} s = "
+            f"{run['tokens_per_s']:.1f} tokens/s; TTFT p50 "
+            f"{run['ttft_p50_ms']:.1f} ms p99 {run['ttft_p99_ms']:.1f} ms; "
+            f"dispatch median {statistics.median(steps) * 1e3:.2f} ms over "
+            f"{len(steps)} ({len(run['verify_s'])} verify); prompt tokens "
+            f"computed {computed} of {submitted} submitted; prefill calls {st['prefill_calls']}, chunk calls "
+            f"{st['chunk_prefill_calls']} (median "
+            f"{statistics.median(run['chunk_s']) * 1e3 if run['chunk_s'] else 0:.2f}"
+            f" ms); prefix hit rate "
+            f"{None if pc is None else pc.hit_rate()}, forks "
+            f"{eng.cache.cow_copies}, evictions "
+            f"{0 if pc is None else pc.evictions}; {graph_text(eng)}")
+
+
+def serve_prefix_and_spec(dev, card, net):
+    """Phases 21 and 22 on phase 4's net (Llama-3-8B, bf16, 32 layers).
+
+    21: an engine with ``prefill_chunk=256, prefix_cache=True`` (phase
+    4's otherwise), the system prompt pinned at set-up, serves
+    PREFIX_CELL's 16 requests (32 new tokens) through the batcher's
+    chunked admission; the same requests through a phase-4 engine.  Then
+    a request the run did not serve teacher-forced for 16 steps along the
+    prefix path and the cold path: logits within ``GRAPH_LOGIT_ATOL``.
+
+    22: an engine with ``spec_decode=True, spec_k=4`` serves SPEC_CELL's
+    8 requests (64 new tokens); the phase-4 engine serves them plainly.
+    Every stream identical, ``verify_steps`` > 0, and a verify whose
+    drafts are the plain stream accepts every draft.  The engine also
+    has a prefix cache, which serial admission leaves empty; the same
+    requests then run again with each one's prompt and plain stream
+    (but its last token) pinned, so the drafts, the cache's
+    continuations, land.  Returns the launch counts of the three paths
+    (chunked prefix serving, speculative serving, the second
+    speculative run), each from zeroed counters."""
+    import torch
+    from mxnet_tpu_torch import ops, serving
+    from mxnet_tpu_torch.serving.engine import next_bucket
+    cfg = net.cfg
+    layers = cfg.num_layers
+    cell = SERVING_CELLS["bf16"]
+    system, prompts, teacher = prefix_prompts(cfg.vocab_size)
+    submitted = sum(len(p) for p in prompts)
+
+    # phase 21: chunked prefill and the prefix cache
+    t0 = time.perf_counter()
+    eng = serving.InferenceEngine(
+        net, max_batch=PREFIX_CELL["max_batch"], block_size=16,
+        max_context=PREFIX_CELL["max_context"],
+        prefill_chunk=PREFIX_CELL["prefill_chunk"], prefix_cache=True,
+        device=dev).warmup()
+    if not eng.pin_prefix(system):
+        fail("chunked prefix serving: the system prompt did not fit")
+    setup_s = time.perf_counter() - t0
+    pinned = eng.stats["prompt_tokens_computed"]
+    ops.reset_launches()
+    run = serve_requests(serving, eng, prompts, "chunked prefix serving")
+    calls = eng.stats["chunk_prefill_calls"]
+    chunked = read_launches("chunked prefix serving", {
+        "flash_attention_fwd": layers * calls,
+        "flash_attention_fwd_bf16": layers * calls,
+        "flash_attention_fwd_offset": layers * calls,
+        "paged_decode_attention": layers * eng.stats["decode_calls"]})
+    computed = eng.stats["prompt_tokens_computed"] - pinned
+    if computed >= submitted:
+        fail("chunked prefix serving: computed every prompt token")
+    print(_serving_line("chunked prefix serving llama3_8b bf16 "
+                        "(prefill_chunk 256)", eng, run, computed, submitted,
+                        card)
+          + f"; system prompt pinned at set-up ({pinned} tokens); set-up "
+          f"{setup_s:.1f} s; launches {chunked}", flush=True)
+    prefix_fed, prefix_lg = _prefix_path(eng, "teacher", teacher,
+                                         TEACHER_STEPS)
+    eng.cache.check_leaks(holders=eng.prefix_cache.held_blocks())
+    del eng, run
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the phase-4 engine: phase 21's requests, the cold path, phase 22's
+    # requests served plainly
+    eng = serving_engine(serving, net, cell, dev)
+    run = serve_requests(serving, eng, prompts, "cold serving")
+    print(_serving_line("the same requests through phase 4's engine", eng,
+                        run, eng.stats["prompt_tokens_computed"], submitted,
+                        card), flush=True)
+    cold_lg = _replay(eng, "teacher", teacher, prefix_fed, TEACHER_STEPS)
+    eng.release("teacher")
+    worst = max(float((a - b).abs().max())
+                for a, b in zip(prefix_lg, cold_lg))
+    bitwise = all(torch.equal(a, b) for a, b in zip(prefix_lg, cold_lg))
+    print(f"prefix path vs cold path, {len(teacher)}-token prompt, "
+          f"prefill and {TEACHER_STEPS} teacher-forced decode steps: max "
+          f"|logit| diff {worst:.3e} (limit {GRAPH_LOGIT_ATOL}), bitwise "
+          f"{bitwise}", flush=True)
+    if not worst <= GRAPH_LOGIT_ATOL:
+        fail("the prefix path and the cold path disagree")
+    sprompts = spec_prompts(cfg.vocab_size)
+    new = SPEC_CELL["new_tokens"]
+    plain = serve_requests(serving, eng, sprompts, "plain serving", new)
+    streams = {r.id: r.generated for r in plain["finished"]}
+    plain_tpd = plain["stats"]["tokens_per_dispatch"]
+    plain_step_ms = plain["step_ms"]
+    print(f"phase 22's requests through phase 4's engine: "
+          f"{plain['tokens']} tokens in {plain['wall_s']:.3f} s = "
+          f"{plain['tokens_per_s']:.1f} tokens/s; TTFT p50 "
+          f"{plain['ttft_p50_ms']:.1f} ms; decode step median "
+          f"{plain['step_ms']:.2f} ms over {plain['steps']} steps, tokens "
+          f"per dispatch {plain_tpd}", flush=True)
+    del eng, run, plain
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # phase 22: speculative decoding; the prefix cache serves only as the
+    # draft source of the second run (serial admission never fills it)
+    t0 = time.perf_counter()
+    eng = serving.InferenceEngine(
+        net, max_batch=cell["max_batch"], block_size=16,
+        max_context=cell["max_context"], spec_decode=True,
+        spec_k=SPEC_CELL["spec_k"], prefix_cache=True, device=dev).warmup()
+    setup_s = time.perf_counter() - t0
+    n_prompt = sum(len(p) for p in sprompts)
+
+    def speculative_run(label, pins=()):
+        """Serve phase 22's requests through ``eng`` from zeroed launch
+        counters (after pinning ``pins``); fails unless every stream is
+        the plain engine's and a verify step ran.  (run, launches)."""
+        ops.reset_launches()
+        before = eng.stats["prefill_calls"]
+        for p in pins:
+            if not eng.pin_prefix(p):
+                fail(f"{label}: a pinned prompt did not fit")
+        run = serve_requests(serving, eng, sprompts, label, new)
+        prefills = eng.stats["prefill_calls"] - before
+        decodes = run["steps"]
+        widths = [next_bucket(max(w, 2), eng._verify_widths())
+                  for w in run["verify_rows"]]
+        launches = read_launches(label, {
+            "flash_attention_fwd": layers * prefills,
+            "flash_attention_fwd_bf16": layers * prefills,
+            "paged_decode_attention": layers * (decodes + sum(widths))})
+        got = {r.id: r.generated for r in run["finished"]}
+        st = run["stats"]
+        if got != streams:
+            bad = [i for i in streams if got[i] != streams[i]]
+            fail(f"{label}: streams {bad} differ from the plain engine's")
+        if not st["verify_steps"] > 0:
+            fail(f"{label}: no verify step ran")
+        verify = (f"{statistics.median(run['verify_s']) * 1e3:.2f} ms"
+                  if run["verify_s"] else "none")
+        print(_serving_line(f"{label} llama3_8b bf16 (spec_k 4)", eng, run,
+                            n_prompt, n_prompt, card)
+              + f"; verify steps {st['verify_steps']} of "
+              f"{st['decode_steps']} dispatches, widths "
+              f"{sorted(set(widths))}, verify median {verify} against the "
+              f"plain engine's decode step {plain_step_ms:.2f} ms; accept "
+              f"rate {st['spec_accept_rate']}, tokens per dispatch "
+              f"{st['tokens_per_dispatch']} (plain {plain_tpd}); streams "
+              f"identical to the plain engine's; set-up {setup_s:.1f} s; "
+              f"launches {launches}", flush=True)
+        return launches
+
+    spec = speculative_run("speculative serving")
+    # teacher-forced verify: the plain stream as drafts
+    prompt, plain0 = sprompts[0], streams[0]
+    k = SPEC_CELL["spec_k"]
+    tok, _ = eng.prefill("teacher", prompt)
+    if tok != plain0[0]:
+        fail("speculative engine's first token differs from the plain one")
+    if not eng.reserve("teacher", len(prompt), k + 1):
+        fail("KV pool exhausted")
+    out = eng.verify([("teacher", plain0[:k + 1], len(prompt))])
+    eng.release("teacher")
+    if list(out[0, :k + 1]) != plain0[1:k + 2]:
+        fail(f"teacher-forced verify: {list(out[0, :k + 1])} against the "
+             f"plain stream {plain0[1:k + 2]}")
+    print(f"teacher-forced verify of {k} drafts from the plain stream: "
+          f"every draft accepted, the bonus token equal", flush=True)
+    # drafts that land: each request's prompt and all but the last of its
+    # plain tokens pinned, so the prefix cache's continuation proposes
+    # the greedy stream itself
+    spec_landing = speculative_run(
+        "speculative serving, drafts from pinned continuations",
+        [p + streams[i][:-1] for i, p in enumerate(sprompts)])
+    partial_verify(eng, prompt, plain0, k, cfg.vocab_size)
+    eng.cache.check_leaks(holders=eng.prefix_cache.held_blocks())
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return chunked, spec, spec_landing
+
+
+def partial_verify(eng, prompt, plain, k, vocab):
+    """A teacher-forced ``verify`` that commits part of its window, on
+    phase 22's engine.  ``prompt`` and ``m`` plain tokens are fed (the
+    plain decode step), so that position ``pos = len(prompt) + m`` sits
+    near the end of a block, and registered in the prefix cache, which
+    then shares that partial tail block.  The verify's drafts follow the
+    ``plain`` stream but the second is wrong: its write-ahead forks the
+    shared block and opens the next one.  Fails unless the committed
+    tokens (the scheduler's rule) are the matching prefix and the bonus
+    token, the trim drops exactly the block that only rejected drafts
+    covered, the pool balances with the chain's holds after the trim,
+    and one decode step from the trimmed state gives the plain stream's
+    next token."""
+    slot, bs = "partial", eng.block_size
+    L = len(prompt)
+    m = next(m for m in range(bs) if bs - k <= (L + m) % bs <= bs - 2)
+    tok, _ = eng.prefill(slot, prompt)
+    fed = list(prompt) + [tok]
+    for _ in range(m):
+        pos = len(fed) - 1
+        if not eng.reserve(slot, pos):
+            fail("KV pool exhausted")
+        fed.append(int(eng.decode([(slot, fed[-1], pos)])[0][0]))
+    if fed[L:] != plain[:m + 1]:
+        fail(f"partial verify: the fed tokens {fed[L:]} are not the plain "
+             f"stream {plain[:m + 1]}")
+    pos = L + m
+    eng.insert_prefix(slot, fed[:pos])
+    forks = eng.cache.cow_copies
+    if not eng.reserve(slot, pos, k + 1):
+        fail("KV pool exhausted")
+    if eng.cache.cow_copies != forks + 1:
+        fail("partial verify: the write-ahead did not fork the shared "
+             "tail block")
+    row = plain[m:m + k + 1]
+    row[2] = (plain[m + 2] + 1) % vocab
+    out = eng.verify([(slot, row, pos)])
+    committed, j = [int(out[0, 0])], 1
+    while j < len(row) and row[j] == int(out[0, j - 1]):
+        committed.append(int(out[0, j]))
+        j += 1
+    if committed != plain[m + 1:m + 3]:
+        fail(f"partial verify: committed {committed} against the plain "
+             f"stream's {plain[m + 1:m + 3]}")
+    n = pos + len(committed)
+    held = len(eng.cache.table(slot))
+    eng.cache.trim(slot, n)
+    eng.cache.set_len(slot, n)
+    dropped = held - len(eng.cache.table(slot))
+    if dropped != 1:
+        fail(f"partial verify: the trim dropped {dropped} blocks, not the "
+             f"one past the committed length")
+    eng.cache.check_leaks(holders=eng.prefix_cache.held_blocks())
+    if not eng.reserve(slot, n):
+        fail("KV pool exhausted")
+    nxt = int(eng.decode([(slot, committed[-1], n)])[0][0])
+    eng.release(slot)
+    if nxt != plain[m + 3]:
+        fail(f"partial verify: after the trim decode gives {nxt}, the "
+             f"plain stream {plain[m + 3]}")
+    print(f"teacher-forced verify at position {pos} (block offset "
+          f"{pos % bs} of {bs}), second of {k} drafts wrong: committed "
+          f"{committed} (1 draft and the bonus token), the shared tail "
+          f"block forked, the trim dropped the block only rejected "
+          f"drafts covered, pool balanced, the next decode step the plain "
+          f"stream's", flush=True)
 
 
 # ----------------------------------------------------------------------
@@ -1488,6 +1967,165 @@ def card_vs_cpu(dev):
     if t_card != t_cpu or not err <= LOGIT_ATOL:
         fail("card and CPU disagree")
     card_vs_cpu_fp8(dev, on_card, on_cpu, prompt)
+    return {"chunk_spec_card_vs_cpu": chunk_spec_card_vs_cpu(
+        dev, on_card, on_cpu, None),
+        "chunk_spec_card_vs_cpu_fp8": chunk_spec_card_vs_cpu(
+        dev, on_card, on_cpu, "fp8")}
+
+
+# phase 20: the chunk and verify steps and the prefix cache, card against
+# CPU, on phase 5's nets
+CHUNK_ENGINE = dict(max_batch=4, block_size=16, max_context=256,
+                    prefill_chunk=64, prefix_cache=True, spec_decode=True,
+                    spec_k=3)
+CHUNK_PREFIX, CHUNK_SUFFIXES, CHUNK_DECODE = 100, (30, 90), 8
+
+
+def _chunk_spec_script(eng, prefix, prompts, n_decode, forced=None,
+                       drafts=None):
+    """Phase 20's requests on one engine: each prompt continues the
+    pinned ``prefix`` (adopted through ``attach_prefix``); their rest
+    goes through packed ``chunk_prefill`` calls; then ``n_decode``
+    joined greedy decode steps, and, with ``drafts``, one ``verify`` of
+    each row's last token and its drafts.  ``forced`` teacher-forces the
+    tokens ({slot: tokens}).  Returns (tokens {slot: [...]}, logits
+    [first-token rows, then each decode step's rows], verify tokens)."""
+    C = eng.prefill_chunk
+    done = {}
+    for slot, p in enumerate(prompts):
+        done[slot] = eng.attach_prefix(slot, p)
+        if done[slot] != len(prefix):
+            fail(f"card vs cpu, chunks: prompt {slot} hit {done[slot]} "
+                 f"cached positions, not {len(prefix)}")
+    toks, logits = {}, []
+    while len(toks) < len(prompts):
+        entries = [(slot, prompts[slot][done[slot]:done[slot] + C],
+                    done[slot]) for slot in done if slot not in toks]
+        out = eng.chunk_prefill(entries)
+        if out is None:
+            fail("card vs cpu, chunks: KV pool exhausted")
+        for i, (slot, chunk, start) in enumerate(entries):
+            done[slot] = start + len(chunk)
+            if done[slot] == len(prompts[slot]):
+                tok = int(out[0][i])
+                toks[slot] = [forced[slot][0] if forced else tok]
+                logits.append(out[1][i].float().cpu())
+    for step in range(n_decode):
+        entries = []
+        for slot in sorted(toks):
+            pos = len(prompts[slot]) + len(toks[slot]) - 1
+            if not eng.reserve(slot, pos):
+                fail("card vs cpu, chunks: KV pool exhausted")
+            entries.append((slot, toks[slot][-1], pos))
+        nxt, lg = eng.decode(entries)
+        logits.append(lg.float().cpu())
+        for (slot, _, _), t in zip(entries, nxt):
+            toks[slot].append(forced[slot][step + 1] if forced else int(t))
+    out = None
+    if drafts is not None:
+        entries = []
+        for slot in sorted(toks):
+            pos = len(prompts[slot]) + len(toks[slot]) - 1
+            row = [toks[slot][-1]] + drafts[slot]
+            if not eng.reserve(slot, pos, len(row)):
+                fail("card vs cpu, chunks: KV pool exhausted")
+            entries.append((slot, row, pos))
+        out = eng.verify(entries)
+    for slot in toks:
+        eng.release(slot)
+    return toks, logits, out
+
+
+def chunk_spec_card_vs_cpu(dev, on_card, on_cpu, kv_dtype):
+    """Phase 20 on phase 5's nets (2 layers at full width, f32): an
+    engine with ``CHUNK_ENGINE`` on each, ``kv_dtype`` pools.  Pin a
+    100-token prefix (6 blocks and a 4-token partial one); two prompts
+    that continue it (30 and 90 tokens more, the second longer than a
+    chunk) through ``chunk_prefill``; 8 joined greedy decode steps; one
+    ``verify`` whose drafts are the card's own next 3 greedy tokens (from
+    a first pass of the same requests on the card).  The CPU is
+    teacher-forced with the card's tokens.  Limits: logits within
+    ``LOGIT_ATOL`` (f32 pools; ``FP8_LOGIT_ATOL`` with fp8), every draft
+    accepted on the card, the CPU's greedy picks and verify tokens
+    equal to the card's (fp8 pools too); a chunk replay one K3 launch a
+    layer, a verify replay W x layers K5 launches.  Returns the card's
+    launch counts."""
+    import numpy as np
+    import torch
+    from mxnet_tpu_torch import ops
+    from mxnet_tpu_torch.serving import InferenceEngine
+    label = f"card vs cpu, chunks, prefix and verify ({kv_dtype or 'f32'} " \
+        "pools)"
+    cfg = on_card.cfg
+    rng = np.random.RandomState(20)
+    prefix = rng.randint(0, cfg.vocab_size, CHUNK_PREFIX).tolist()
+    prompts = [prefix + rng.randint(0, cfg.vocab_size, n).tolist()
+               for n in CHUNK_SUFFIXES]
+    k = CHUNK_ENGINE["spec_k"]
+    e_card = InferenceEngine(on_card, kv_dtype=kv_dtype, device=dev,
+                             **CHUNK_ENGINE).warmup()
+    ops.reset_launches()
+    if not e_card.pin_prefix(prefix):
+        fail(f"{label}: the prefix did not fit")
+    probe, _, _ = _chunk_spec_script(e_card, prefix, prompts,
+                                     CHUNK_DECODE + k + 1)
+    drafts = {s: t[CHUNK_DECODE + 1:CHUNK_DECODE + 1 + k]
+              for s, t in probe.items()}
+    toks, l_card, v_card = _chunk_spec_script(e_card, prefix, prompts,
+                                              CHUNK_DECODE, drafts=drafts)
+    st = e_card.stats
+    W = 4                                  # 4 fed tokens a row
+    paged = "paged_decode_attention_fp8" if kv_dtype == "fp8" \
+        else "paged_decode_attention"
+    launches = read_launches(label, {
+        "flash_attention_fwd": cfg.num_layers * (st["prefill_calls"] +
+                                                 st["chunk_prefill_calls"]),
+        "flash_attention_fwd_offset":
+            cfg.num_layers * st["chunk_prefill_calls"],
+        paged: cfg.num_layers * (st["decode_calls"] + W * st["verify_calls"])})
+    for slot, t in toks.items():
+        if t != probe[slot][:CHUNK_DECODE + 1]:
+            fail(f"{label}: the card's two passes differ")
+        want = probe[slot][CHUNK_DECODE + 1:CHUNK_DECODE + 2 + k]
+        if list(v_card[slot]) != want:
+            fail(f"{label}: verify {list(v_card[slot])} against the "
+                 f"card's greedy continuation {want}: a draft was refused")
+    e_card.cache.check_leaks(holders=e_card.prefix_cache.held_blocks())
+    e_cpu = InferenceEngine(on_cpu, kv_dtype=kv_dtype, device="cpu",
+                            **CHUNK_ENGINE)
+    if not e_cpu.pin_prefix(prefix):
+        fail(f"{label}: the prefix did not fit on the CPU")
+    own, l_cpu, v_cpu = _chunk_spec_script(
+        e_cpu, prefix, prompts, CHUNK_DECODE, forced=toks, drafts=drafts)
+    e_cpu.cache.check_leaks(holders=e_cpu.prefix_cache.held_blocks())
+    err = max(float((a - b).abs().max()) for a, b in zip(l_card, l_cpu))
+    # the CPU's own greedy picks at each teacher-forced position
+    picks = [int(torch.argmax(r)) for lg in l_cpu
+             for r in (lg if lg.dim() == 2 else lg[None])]
+    card_picks = [int(torch.argmax(r)) for lg in l_card
+                  for r in (lg if lg.dim() == 2 else lg[None])]
+    same = picks == card_picks
+    # the card's smallest top-2 logit margin: how near a tie came to the
+    # picks that are held equal
+    margin = min(float(t[0] - t[1]) for lg in l_card
+                 for t in torch.topk(lg if lg.dim() == 2 else lg[None],
+                                     2, dim=-1).values)
+    tol = FP8_LOGIT_ATOL if kv_dtype == "fp8" else LOGIT_ATOL
+    print(f"{label} (2 layers, full width, fp32; prefix {CHUNK_PREFIX} "
+          f"tokens pinned, suffixes {CHUNK_SUFFIXES} through "
+          f"{st['chunk_prefill_calls'] // 2} chunk calls a pass, "
+          f"{CHUNK_DECODE} decode steps, one verify of {k} drafts): max "
+          f"|logit| diff {err:.3e} (limit {tol}); greedy picks identical "
+          f"{same}, smallest top-2 margin on the card {margin:.3e}; "
+          f"verify card {v_card.tolist()} cpu {v_cpu.tolist()}; "
+          f"drafts accepted on the card; forks {e_card.cache.cow_copies}; "
+          f"launches {launches}", flush=True)
+    if not (err <= tol and same and np.array_equal(v_card, v_cpu)):
+        fail(f"{label}: card and CPU disagree")
+    del e_card, e_cpu
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
 
 
 def card_vs_cpu_fp8(dev, on_card, on_cpu, prompt):
@@ -2986,7 +3624,8 @@ def main():
     checks = {"flash_attention_fwd": check_flash(dev, flush),
               "paged_decode_attention": check_paged(dev, flush),
               "paged_decode_attention_fp8": check_paged_fp8(dev, flush),
-              "flash_attention_bwd": check_flash_bwd(dev, flush)}
+              "flash_attention_bwd": check_flash_bwd(dev, flush),
+              "flash_attention_fwd_offset": check_flash_offset(dev, flush)}
     check_flash_bert(dev, flush)
     checks.update(check_layernorm(dev, flush))
     checks.update(check_updates(dev, flush, train_param_count()))
@@ -2998,8 +3637,17 @@ def main():
     torch.cuda.empty_cache()
 
     # phases 4-19: each path from zeroed launch counters
-    by_path = {"serving": serve_llama3_8b(dev, card)}
-    card_vs_cpu(dev)
+    by_path = {}
+    by_path["serving"], net = serve_llama3_8b(dev, card)
+    # phases 21 and 22 on phase 4's net
+    (by_path["serving_chunked_prefix"], by_path["serving_speculative"],
+     by_path["serving_speculative_landing"]) = serve_prefix_and_spec(
+        dev, card, net)
+    del net
+    gc.collect()
+    torch.cuda.empty_cache()
+    # phases 5, 6 and 20
+    by_path.update(card_vs_cpu(dev))
     by_path["serving_fp8"] = serve_llama3_8b_fp8(dev, card)
     by_path["training"], f32_first_loss = train_llama3_8b(dev, card)
     by_path["training_card_vs_cpu"] = train_card_vs_cpu(dev)
@@ -3020,6 +3668,8 @@ def main():
     for name, src, tpu in (
             ("flash_attention_fwd", "flash_attention.cu",
              "mxnet_tpu/ops/flash_attention.py:51"),
+            ("flash_attention_fwd_offset", "flash_attention.cu",
+             "mxnet_tpu/serving/engine.py:844"),
             ("flash_attention_bwd", "flash_attention_bwd.cu",
              "mxnet_tpu/ops/flash_attention.py:174"),
             ("paged_decode_attention", "paged_attention.cu",

@@ -33,6 +33,7 @@ KERNELS = {"flash_attention_fwd": flash_attention_fwd,
 #: counts kept apart within a kernel's launches: name -> (wrapper, attribute)
 SUBCOUNTS = {
     "flash_attention_fwd_bf16": (flash_attention_fwd, "launches_bf16"),
+    "flash_attention_fwd_offset": (flash_attention_fwd, "launches_offset"),
     "flash_attention_bwd_bf16": (flash_attention_bwd, "launches_bf16"),
     "paged_decode_attention_fp8": (paged_decode_attention, "launches_fp8")}
 
@@ -40,8 +41,10 @@ SUBCOUNTS = {
 def launch_counts():
     """Every kernel's launches since the last :func:`reset_launches`, by
     name; with, apart, K3's bf16 launches (``flash_attention_fwd_bf16``,
-    ``flash_attention_bwd_bf16``, also counted in their kernel's total)
-    and K5's fp8 instantiation (``paged_decode_attention_fp8``)."""
+    ``flash_attention_bwd_bf16``, also counted in their kernel's total),
+    K3's offset form (``flash_attention_fwd_offset``, the chunked
+    prefill's, also in ``flash_attention_fwd``) and K5's fp8
+    instantiation (``paged_decode_attention_fp8``)."""
     counts = {name: fn.launches for name, fn in KERNELS.items()}
     counts.update((name, getattr(fn, attr))
                   for name, (fn, attr) in SUBCOUNTS.items())

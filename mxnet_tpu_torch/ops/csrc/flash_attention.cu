@@ -48,6 +48,17 @@
 //    with V's rows read in the matching permuted order;
 //  - causal: tiles wholly past the query tile are never loaded; only the
 //    diagonal and the ragged last tile mask; rows past Lq are not stored.
+//
+// Offset form (both kernels, the OFS instantiations; q_start non-null):
+// the serving engine's chunked prefill attends a chunk of C queries that
+// start at an absolute position per row to that row's whole cached
+// context.  Query i of row bh sees key j when j <= q_start[bh] + i, the
+// reference's chunk attention (mxnet_tpu/serving/engine.py, attend): the
+// causal mask shifted by the row's start.  Key tiles wholly past a query
+// tile's last visible key are skipped as in the causal form; the tile
+// order stays last-first, although with offsets every tile is long.  With
+// a null q_start the OFS = false instantiations are the causal and
+// non-causal kernels above, unchanged.
 #include "common.cuh"
 #include "hopper.cuh"
 #include "tf32x3.cuh"
@@ -65,12 +76,13 @@ constexpr size_t smem_bytes() {
   return sizeof(float) * size_t(BM + 2 * BN) * x3::kStride<D>;
 }
 
-template <int D>
+template <int D, bool OFS>
 __global__ void __launch_bounds__(NT, 2)
     flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v, float* __restrict__ o,
-                     float* __restrict__ lse, int Lq, int Lk, int causal,
-                     float scale) {
+                     float* __restrict__ lse,
+                     const int* __restrict__ q_start, int Lq, int Lk,
+                     int causal, float scale) {
   constexpr int SD = x3::kStride<D>;
   constexpr int ND = D / 8;  // 8-column blocks of the output
   extern __shared__ float smem[];
@@ -84,6 +96,10 @@ __global__ void __launch_bounds__(NT, 2)
   const int m0 = (gridDim.y - 1 - blockIdx.y) * BM;  // longest rows first
   const float* kb = k + bh * Lk * D;
   const float* vb = v + bh * Lk * D;
+  // OFS: query row i of this bh sits at absolute position qs + i and sees
+  // keys j <= qs + i (the offset-causal mask); else qs = 0
+  const int qs = OFS ? q_start[bh] : 0;
+  const bool cz = OFS || causal;
 
   x3::stage<BM, D, NT>(sQ, q + bh * Lq * D, m0, Lq);
 
@@ -100,7 +116,7 @@ __global__ void __launch_bounds__(NT, 2)
 
   // causal: key rows past the tile's last query row are masked for every
   // row of the tile, so those tiles are skipped outright
-  const int n_end = causal ? min(Lk, m0 + BM) : Lk;
+  const int n_end = cz ? min(Lk, qs + m0 + BM) : Lk;
   for (int n0 = 0; n0 < n_end; n0 += BN) {
     __syncthreads();  // every warp is done with the previous K/V tile
     x3::stage<BN, D, NT>(sK, kb, n0, Lk);
@@ -126,7 +142,7 @@ __global__ void __launch_bounds__(NT, 2)
       }
     }
 
-    const bool mask = n0 + BN > Lk || (causal && n0 + BN - 1 > m0 + r0);
+    const bool mask = n0 + BN > Lk || (cz && n0 + BN - 1 > qs + m0 + r0);
     float mx[2] = {m_r[0], m_r[1]};
 #pragma unroll
     for (int j = 0; j < BN / 8; ++j)
@@ -136,7 +152,7 @@ __global__ void __launch_bounds__(NT, 2)
         if (mask) {
           const int col = n0 + 8 * j + 2 * tig + e % 2;
           const int row = row0 + 8 * (e / 2);
-          if (col >= Lk || (causal && col > row)) x = mxt::kNegInf;
+          if (col >= Lk || (cz && col > qs + row)) x = mxt::kNegInf;
         }
         s[j][e] = x;
         mx[e / 2] = fmaxf(mx[e / 2], x);
@@ -196,20 +212,20 @@ __global__ void __launch_bounds__(NT, 2)
   }
 }
 
-template <int D>
+template <int D, bool OFS>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   void* lse, int bh, int lq, int lk, int causal, float scale,
-                   cudaStream_t stream) {
+                   void* lse, const int* q_start, int bh, int lq, int lk,
+                   int causal, float scale, cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<D>();
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_fwd_kernel<D, OFS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       int(smem));
   if (err != cudaSuccess) return err;
   dim3 grid(bh, (lq + BM - 1) / BM);
-  flash_fwd_kernel<D><<<grid, NT, smem, stream>>>(
+  flash_fwd_kernel<D, OFS><<<grid, NT, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(o),
-      static_cast<float*>(lse), lq, lk, causal, scale);
+      static_cast<float*>(lse), q_start, lq, lk, causal, scale);
   return cudaGetLastError();
 }
 
@@ -235,13 +251,14 @@ struct Smem {
   static constexpr int kAlloc = kKV + 4 * kTile + 1024;
 };
 
-template <int D>
+template <int D, bool OFS>
 __global__ void __launch_bounds__(NT, 1)
     flash_fwd_bf16_kernel(const bf16* __restrict__ q,
                           const bf16* __restrict__ k,
                           const bf16* __restrict__ v, bf16* __restrict__ o,
-                          float* __restrict__ lse, int Lq, int Lk, int causal,
-                          float scale) {
+                          float* __restrict__ lse,
+                          const int* __restrict__ q_start, int Lq, int Lk,
+                          int causal, float scale) {
   constexpr int P = D / 64;  // 64-column panels of the output
   using S = Smem<D>;
   extern __shared__ uint8_t smem_raw[];
@@ -255,8 +272,12 @@ __global__ void __launch_bounds__(NT, 1)
   const bf16* qb = q + bh * Lq * D;
   const bf16* kb = k + bh * Lk * D;
   const bf16* vb = v + bh * Lk * D;
+  // OFS: query row i sits at absolute position qs + i (as in the f32
+  // kernel); else qs = 0
+  const int qs = OFS ? q_start[bh] : 0;
+  const bool cz = OFS || causal;
 
-  const int n_end = causal ? min(Lk, m0 + BM) : Lk;
+  const int n_end = cz ? min(Lk, qs + m0 + BM) : Lk;
   const int n_tiles = (n_end + BN - 1) / BN;
 
   hw::load_tile<BM, D, NT>(sQ, qb, m0, Lq, tid);
@@ -305,7 +326,7 @@ __global__ void __launch_bounds__(NT, 1)
 
     // online softmax on the fragments: s[4 c + e] is row row0 + 8 (e / 2),
     // column n0 + 8 c + 2 (lane % 4) + e % 2
-    const bool mask = n0 + BN > Lk || (causal && n0 + BN - 1 > wg_first);
+    const bool mask = n0 + BN > Lk || (cz && n0 + BN - 1 > qs + wg_first);
     float mx[2] = {m_r[0], m_r[1]};
 #pragma unroll
     for (int j = 0; j < 64; ++j) {
@@ -313,7 +334,7 @@ __global__ void __launch_bounds__(NT, 1)
       if (mask) {
         const int col = n0 + 8 * (j / 4) + 2 * (lane % 4) + (j % 2);
         const int row = row0 + 8 * ((j / 2) % 2);
-        if (col >= Lk || (causal && col > row)) x = mxt::kNegInf;
+        if (col >= Lk || (cz && col > qs + row)) x = mxt::kNegInf;
       }
       s[j] = x;
       mx[(j / 2) % 2] = fmaxf(mx[(j / 2) % 2], x);
@@ -379,45 +400,70 @@ __global__ void __launch_bounds__(NT, 1)
   }
 }
 
-template <int D>
+template <int D, bool OFS>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   void* lse, int bh, int lq, int lk, int causal, float scale,
-                   cudaStream_t stream) {
+                   void* lse, const int* q_start, int bh, int lq, int lk,
+                   int causal, float scale, cudaStream_t stream) {
   constexpr int smem = Smem<D>::kAlloc;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_bf16_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
+      flash_fwd_bf16_kernel<D, OFS>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   dim3 grid(bh, (lq + BM - 1) / BM);
-  flash_fwd_bf16_kernel<D><<<grid, NT, smem, stream>>>(
+  flash_fwd_bf16_kernel<D, OFS><<<grid, NT, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<bf16*>(o),
-      static_cast<float*>(lse), lq, lk, causal, scale);
+      static_cast<float*>(lse), q_start, lq, lk, causal, scale);
   return cudaGetLastError();
 }
 
 }  // namespace tc
 
+template <int D, bool OFS>
+cudaError_t dispatch(int dtype, const void* q, const void* k, const void* v,
+                     void* o, void* lse, const int* q_start, int bh, int lq,
+                     int lk, int causal, float scale, cudaStream_t s) {
+  if (dtype == mxt::kF32)
+    return launch<D, OFS>(q, k, v, o, lse, q_start, bh, lq, lk, causal,
+                          scale, s);
+  if (dtype == mxt::kBF16)
+    return tc::launch<D, OFS>(q, k, v, o, lse, q_start, bh, lq, lk, causal,
+                              scale, s);
+  return cudaErrorInvalidValue;
+}
+
+template <int D>
+cudaError_t dispatch(int dtype, const void* q, const void* k, const void* v,
+                     void* o, void* lse, const int* q_start, int bh, int lq,
+                     int lk, int causal, float scale, cudaStream_t s) {
+  return q_start ? dispatch<D, true>(dtype, q, k, v, o, lse, q_start, bh, lq,
+                                     lk, causal, scale, s)
+                 : dispatch<D, false>(dtype, q, k, v, o, lse, q_start, bh,
+                                      lq, lk, causal, scale, s);
+}
+
 }  // namespace
 
 // q, k, v, o: (bh, L, d) contiguous in dtype (0 = f32, 1 = bf16), bf16
-// base pointers 16-byte aligned; lse: (bh, lq) f32.  d must be 64 or
-// 128.  Returns a cudaError_t code.
+// base pointers 16-byte aligned; lse: (bh, lq) f32.  q_start: null, or
+// (bh,) int32 on the device, the absolute position of each row's query 0
+// (query i of row bh then sees keys j <= q_start[bh] + i, whatever
+// causal says; the chunked prefill's offset-causal mask).  d must be 64
+// or 128.  Returns a cudaError_t code.
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
-                                   void* o, void* lse, int bh, int lq, int lk,
-                                   int d, int dtype, int causal, float scale,
-                                   int device, void* stream) {
+                                   void* o, void* lse, const int* q_start,
+                                   int bh, int lq, int lk, int d, int dtype,
+                                   int causal, float scale, int device,
+                                   void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const cudaError_t dev_err = cudaSetDevice(device);
   if (dev_err != cudaSuccess) return dev_err;
-  if (dtype == mxt::kF32 && d == 64)
-    return launch<64>(q, k, v, o, lse, bh, lq, lk, causal, scale, s);
-  if (dtype == mxt::kF32 && d == 128)
-    return launch<128>(q, k, v, o, lse, bh, lq, lk, causal, scale, s);
-  if (dtype == mxt::kBF16 && d == 64)
-    return tc::launch<64>(q, k, v, o, lse, bh, lq, lk, causal, scale, s);
-  if (dtype == mxt::kBF16 && d == 128)
-    return tc::launch<128>(q, k, v, o, lse, bh, lq, lk, causal, scale, s);
+  if (d == 64)
+    return dispatch<64>(dtype, q, k, v, o, lse, q_start, bh, lq, lk, causal,
+                        scale, s);
+  if (d == 128)
+    return dispatch<128>(dtype, q, k, v, o, lse, q_start, bh, lq, lk, causal,
+                         scale, s);
   return cudaErrorInvalidValue;
 }
 

@@ -47,8 +47,8 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (64, 128)
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_SIGNATURES = {"flash_attention_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                                       _I, ctypes.c_float, _I, _P]}
+_SIGNATURES = {"flash_attention_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                       _I, _I, ctypes.c_float, _I, _P]}
 _BWD_SIGNATURES = {"flash_attention_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
                                            _P, _I, _I, _I, _I, _I, _I,
                                            ctypes.c_float, _I, _P]}
@@ -68,17 +68,25 @@ def _pick_block(n, preferred=512):
     return None
 
 
-def flash_attention_plain(q, k, v, causal, sm_scale, bk=None):
+def flash_attention_plain(q, k, v, causal, sm_scale, bk=None, q_start=None):
     """Plain PyTorch version: the reference's ``_scan_forward`` on
     ``(BH, L, D)`` -- a loop over ``bk``-column KV blocks with f32 scores,
     running max and denominator, and ``p`` rounded to the value dtype
-    before the PV product.  Returns ``(out, lse)``."""
+    before the PV product.  With ``q_start`` ((BH,) int, the absolute
+    position of each row's query 0) query i of row b sees key j when
+    ``j <= q_start[b] + i``, whatever ``causal`` says: the reference
+    engine's chunk attention (``attend`` in its ``_build_chunk_prefill``),
+    with the same blocks.  Returns ``(out, lse)``."""
     bh, lq, d = q.shape
     lk = k.shape[1]
     if bk is None:
         bk = _pick_block(lk, 256) or lk
     q32 = q.float()
-    qpos = torch.arange(lq, device=q.device)[:, None]
+    qpos = torch.arange(lq, device=q.device)[None, :, None]  # (1, Lq, 1)
+    if q_start is not None:
+        causal = True
+        qpos = q_start.to(device=q.device, dtype=torch.long)[:, None, None] \
+            + qpos                                           # (BH, Lq, 1)
     acc = torch.zeros(bh, lq, d, dtype=torch.float32, device=q.device)
     m_i = torch.full((bh, lq, 1), _NEG_INF, dtype=torch.float32,
                      device=q.device)
@@ -88,8 +96,8 @@ def flash_attention_plain(q, k, v, causal, sm_scale, bk=None):
         vj = v[:, j * bk:(j + 1) * bk]
         s = torch.einsum("bqd,bkd->bqk", q32, kj) * sm_scale
         if causal:
-            kpos = j * bk + torch.arange(bk, device=q.device)[None, :]
-            s = torch.where((qpos >= kpos)[None], s, _NEG_INF)
+            kpos = j * bk + torch.arange(bk, device=q.device)
+            s = torch.where(qpos >= kpos, s, _NEG_INF)
         m_new = torch.maximum(m_i, s.amax(dim=-1, keepdim=True))
         p = torch.exp(s - m_new)
         alpha = torch.exp(m_i - m_new)
@@ -164,10 +172,15 @@ def _check(what, tensors):
         raise MXNetError(f"{what}: base pointers must be 16-byte aligned")
 
 
-def _kernel(q, k, v, causal, sm_scale):
+def _kernel(q, k, v, causal, sm_scale, q_start=None):
     _check("flash kernel", (q, k, v))
     bh, lq, d = q.shape
     lk = k.shape[1]
+    if q_start is not None and (
+            q_start.shape != (bh,) or q_start.dtype != torch.int32
+            or q_start.device != q.device or not q_start.is_contiguous()):
+        raise MXNetError("flash kernel: q_start must be a contiguous (BH,) "
+                         "int32 tensor on q's device")
     out = torch.empty_like(q)
     lse = torch.empty(bh, lq, dtype=torch.float32, device=q.device)
     if bh == 0 or lq == 0:
@@ -178,12 +191,15 @@ def _kernel(q, k, v, causal, sm_scale):
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = lib.flash_attention_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        lse.data_ptr(), bh, lq, lk, d, _DTYPES[q.dtype], int(bool(causal)),
-        float(sm_scale), q.device.index, stream)
+        lse.data_ptr(), None if q_start is None else q_start.data_ptr(),
+        bh, lq, lk, d, _DTYPES[q.dtype], int(bool(causal)), float(sm_scale),
+        q.device.index, stream)
     _build.check(lib, err, "flash_attention_fwd")
     flash_attention_fwd.launches += 1
     if q.dtype == torch.bfloat16:
         flash_attention_fwd.launches_bf16 += 1
+    if q_start is not None:
+        flash_attention_fwd.launches_offset += 1
     return out, lse
 
 
@@ -221,14 +237,14 @@ def _scale(q, sm_scale):
         else float(sm_scale)
 
 
-def _route(q, plain, kernel, *args):
+def _route(q, plain, kernel, *args, **kwargs):
     """The plain version for CPU tensors, the kernel for CUDA ones; with
     autocast off, so that inside an ``amp`` region the plain version's
     f32 products stay f32 (the kernels take the dtype they are given)."""
     if q.device.type not in ("cpu", "cuda"):
         raise MXNetError(f"flash_attention: unsupported device {q.device}")
     with torch.autocast(q.device.type, enabled=False):
-        return (plain if q.device.type == "cpu" else kernel)(*args)
+        return (plain if q.device.type == "cpu" else kernel)(*args, **kwargs)
 
 
 class _Flash(torch.autograd.Function):
@@ -255,17 +271,34 @@ class _Flash(torch.autograd.Function):
         return dq, dk, dv, None, None
 
 
-def flash_attention_fwd(q, k, v, causal=False, sm_scale=None):
+def flash_attention_fwd(q, k, v, causal=False, sm_scale=None, q_start=None):
     """Attention forward on ``(BH, L, D)``: ``(out, lse)``, differentiable
     in q, k, v.  CPU tensors run :func:`flash_attention_plain`; CUDA
     tensors launch the kernel and count one launch in
     ``flash_attention_fwd.launches`` (bf16 launches also in
-    ``.launches_bf16``)."""
-    return _Flash.apply(q, k, v, bool(causal), _scale(q, sm_scale))
+    ``.launches_bf16``).
+
+    ``q_start`` ((BH,) int32 on q's device) gives each row's query 0 an
+    absolute position: query i of row b sees key j when ``j <= q_start[b]
+    + i`` (the chunked prefill's mask; ``causal`` is then implied).  That
+    form is forward only: with autograd recording (grad mode on and an
+    input that requires grad) it raises ``NotSupportedError``.  Its
+    launches also count in ``.launches_offset``."""
+    scale = _scale(q, sm_scale)
+    if q_start is None:
+        return _Flash.apply(q, k, v, bool(causal), scale)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise NotSupportedError(
+            "flash_attention_fwd(q_start=...) is forward only: the chunked "
+            "prefill runs under no_grad, and no training path needs its "
+            "backward")
+    return _route(q, flash_attention_plain, _kernel, q, k, v, True, scale,
+                  q_start=q_start)
 
 
 flash_attention_fwd.launches = 0
 flash_attention_fwd.launches_bf16 = 0
+flash_attention_fwd.launches_offset = 0
 
 
 def flash_attention_bwd(q, k, v, out, lse, g, causal=False, sm_scale=None):

@@ -67,12 +67,14 @@ rules the reference fuses but the port has not ported (``lamb``,
 """
 from __future__ import annotations
 
+import gc
 import time
 import weakref
 
 import numpy as _np
 import torch
 
+from .._graphs import capture
 from ..base import MXNetError, NotSupportedError
 from .. import _tape, amp
 from ..ndarray.ndarray import NDArray
@@ -402,7 +404,9 @@ class DataParallelTrainer:
     def _capture(self, entry, run):
         """Capture ``run`` over the entry's static inputs into the
         trainer's graph pool, on the side stream whose eager run loaded
-        everything the body launches.  Raises on any failure."""
+        everything the body launches, with the cyclic garbage collector
+        off (``_graphs.capture``) and a collection after.  Raises on any
+        failure."""
         t0 = time.perf_counter()
         graph = torch.cuda.CUDAGraph()
         gen = _rnd.generator(self.device)
@@ -417,8 +421,7 @@ class DataParallelTrainer:
         self._stream.wait_stream(torch.cuda.current_stream(self.device))
         before = launch_counts()
         try:
-            with torch.cuda.graph(graph, pool=self._pool,
-                                  stream=self._stream):
+            with capture(graph, self._pool, self._stream):
                 loss = run(*entry.statics)
         except Exception as e:
             raise MXNetError(
@@ -426,6 +429,10 @@ class DataParallelTrainer:
                 f"failed ({type(e).__name__}: {e}); the step must not read "
                 "device values on the host (.item(), asnumpy(), shapes "
                 "from data) or synchronize") from e
+        # the collection the capture held off, now: the memory after a
+        # trainer's first captured step (its epochs' handles freed) does
+        # not depend on when the collector would have run
+        gc.collect()
         after = launch_counts()
         entry.launches = {k: after[k] - before[k] for k in after
                           if after[k] != before[k]}

@@ -5,30 +5,52 @@ contract: nothing compiles under traffic.  The reference AOT-compiles
 one executable per (kind, bucket) in :meth:`warmup` and only looks them
 up afterwards; here each (kind, bucket) is one step object
 (:class:`_Step`) over static input and output buffers, and on the card
-:meth:`warmup` captures each step's body as a CUDA graph.  ``prefill``
-and ``decode`` then copy their inputs in, replay, and read the outputs
-out.  The two bodies:
+:meth:`warmup` captures each step's body as a CUDA graph.  The serving
+calls then copy their inputs in, replay, and read the outputs out.  The
+step families:
 
-- ``_prefill_body``: a causal forward over a prompt padded to a
-  power-of-two bucket through the flash kernel, writing the unrepeated
-  GQA K/V into the sequence's pool blocks and sampling the first token
-  from the last VALID position's logits (the valid length is a device
-  tensor, so one graph serves every prompt length of its bucket).
-- ``_decode_body``: ONE token for the whole fixed-size batch (padded to
-  ``max_batch``) against the paged KV cache: the current K/V is written
-  into the pool first, then attention runs through the paged-decode
-  kernel (``ops.paged_attention``), whose plain version is the
-  reference's inline gather + ``_cache_attention``.  It is the only
-  decode path: no routing knob.
+- ``prefill`` (one per bucket), ``_prefill_body``: a causal forward over
+  a prompt padded to a power-of-two bucket through the flash kernel,
+  writing the unrepeated GQA K/V into the sequence's pool blocks and
+  sampling the first token from the last VALID position's logits (the
+  valid length is a device tensor, so one graph serves every prompt
+  length of its bucket).
+- ``decode`` (one per table width), ``_decode_body``: ONE token for the
+  whole fixed-size batch (padded to ``max_batch``) against the paged KV
+  cache: the current K/V is written into the pool first, then attention
+  runs through the paged-decode kernel (``ops.paged_attention``), whose
+  plain version is the reference's inline gather + ``_cache_attention``.
+  It is the only decode path: no routing knob.
+- ``chunk`` (one per table width, with ``prefill_chunk``),
+  ``_chunk_body``: a packed continuation prefill.  Up to ``max_batch``
+  rows, each a chunk of up to ``prefill_chunk`` prompt tokens starting
+  at any position, write their K/V rows first, then attend to that
+  row's whole cached context through its block table: the flash
+  kernel's offset form (``q_start``, each row's start), which computes
+  the reference's chunk attention.  One replay admits several prompts
+  of a boundary, or only the uncached suffix of a prompt whose prefix
+  the :class:`~.frontend.PrefixCache` holds.
+- ``verify`` (one per (width, table width), with ``spec_decode``),
+  ``_verify_body``: ``W`` decode bodies unrolled in one replay, each
+  followed by an argmax.  Step ``w`` feeds row i's ``w``-th token
+  (the last committed one, then the drafts) at ``pos + w``; its K/V
+  write is visible to step ``w + 1``.  Steps past a row's count write
+  the null block, so a row of count 1 runs the plain decode body op for
+  op: speculative streams are the greedy stream, in fewer replays.
 
-With ``kv_dtype="fp8"`` both bodies quantize each written K/V row to
+With ``kv_dtype="fp8"`` every body quantizes each written K/V row to
 e4m3 codes and one f32 amax scale (``ops.quant_kv.kv_quantize_fp8``),
 and the decode attention dequantizes inside the kernel.  Prefill's own
 attention reads the fresh K/V, so the first generated token never
-drifts; decode reads the pool.
+drifts; decode, verify and chunk read the pool (the chunk family
+dequantizes its gathered rows before the flash kernel, as the
+reference does).
 
 The KV pools are updated IN PLACE by index assignment; that replaces the
-reference's donated-argument round trip (``pool_args``/``update_pools``).
+reference's donated-argument round trip (``pool_args``/``update_pools``)
+and its ``cow`` graph: a copy-on-write fork (:meth:`reserve`,
+:meth:`chunk_prefill`) is an index copy on the stream the next replay
+runs on, so it lands before the replay writes into the fork.
 Weights are the model's own parameters, never copied, so in-place
 updates (an optimizer step) are served; an engine refuses to serve (at
 ``warmup`` and ``prefill``) once a weight has been moved to new storage,
@@ -39,9 +61,9 @@ projections stay ``torch.matmul`` (the reference leaves them to XLA);
 RMSNorm, RoPE and SwiGLU are plain torch.
 
 The graph cache (the reference's ``_sig``/``_get``): steps are keyed by
-``(kind, size)`` (``size`` is the prefill bucket or the decode's table
-width in blocks).  A miss builds one step and counts in
-``stats["compiles"]``, and after :meth:`warmup` also in
+``(kind, size)`` (``size`` is the prefill bucket, the table width in
+blocks, or ``(W, width)`` for ``verify``).  A miss builds one step and
+counts in ``stats["compiles"]``, and after :meth:`warmup` also in
 ``compiles_after_warmup``; a second :meth:`warmup` finds every step and
 builds nothing.  On CUDA a step's first run runs its body once on the
 engine's capture stream (kernels built and loaded, cuBLAS set up), then
@@ -57,12 +79,12 @@ engine.
 Inputs reach a step through one staging buffer (pinned on the card) and
 one non-blocking copy a call; a call waits on an event for the last
 copy out of the buffer before refilling it (every serving call already
-ends in a host read of the sampled token, so the wait is free).  A
+ends in a host read of the sampled tokens, so the wait is free).  A
 replay overwrites the static outputs (and the shared pool may reuse an
-output of one graph as scratch in another), so ``prefill`` and
-``decode`` return clones.  Kernel launch counters (``ops.launch_counts``)
-count what ran: a capture's wrapper calls are taken back out, and each
-replay adds them again.
+output of one graph as scratch in another), so the serving calls return
+clones.  Kernel launch counters (``ops.launch_counts``) count what ran:
+a capture's wrapper calls are taken back out, and each replay adds them
+again.
 
 Sampling runs inside the graph from one ``torch.Generator`` on the
 engine's device, registered with every graph: greedy at temperature 0,
@@ -71,12 +93,13 @@ own one-sample algorithm written out (``argmax(p / q)``, ``q`` drawn
 from ``Exp(1)``): it draws the same numbers from the generator and picks
 the same token, without the host-side validity check that makes
 ``multinomial`` itself uncapturable.  Greedy streams match the reference
-exactly; sampled streams draw other numbers than JAX's keys.
+exactly; sampled streams draw other numbers than JAX's keys (the chunk
+family draws from the same generator, where the reference folds the
+chunk call count into its key).
 
 Not in this slice (each raises ``NotSupportedError``): int8 weights
-(``quantize``), tensor parallelism (``mesh``), chunked prefill
-(``prefill_chunk``), the prefix cache, speculative decoding and sharing
-one ``kv_cache`` between engines.
+(``quantize``), tensor parallelism (``mesh``) and sharing one
+``kv_cache`` between engines.
 """
 from __future__ import annotations
 
@@ -87,15 +110,17 @@ import numpy as _np
 import torch
 import torch.nn.functional as F
 
+from .._graphs import capture
 from ..base import MXNetError, NotSupportedError
 from ..context import resolve_device
 from ..gluon.model_zoo.nlp.llama import (_rms, _rope_cos_sin,
                                          _rot_interleaved)
 from ..ops import add_launches, launch_counts
-from ..ops.flash_attention import flash_attention
+from ..ops.flash_attention import flash_attention, flash_attention_fwd
 from ..ops.paged_attention import paged_decode_attention
-from ..ops.quant_kv import (kv_cast, kv_has_scales, kv_quantize_fp8,
-                            resolve_kv_dtype)
+from ..ops.quant_kv import (kv_cast, kv_dequantize, kv_has_scales,
+                            kv_quantize_fp8, resolve_kv_dtype)
+from .frontend.prefix_cache import PrefixCache
 from .kv_cache import PagedKVCache
 
 __all__ = ["InferenceEngine", "next_bucket"]
@@ -114,54 +139,56 @@ class _Step:
     counterpart of one executable in the reference's compile cache.
 
     The inputs are int32 views of one flat buffer on the engine's
-    device: for ``"prefill"`` the padded tokens ``(1, L)``, the valid
-    length ``(1,)`` and the block table ``(L / block_size,)``; for
-    ``"decode"`` the tokens, positions and written block ids
-    ``(max_batch,)`` and the block tables ``(max_batch, size)``.  The
-    caller fills :meth:`stage`'s host views, then :meth:`run` copies
-    them in and, on CUDA, replays the step's graph (capturing it at the
-    first run) and returns the static outputs; on the CPU it runs the
-    body on the static inputs."""
+    device (``B`` is ``max_batch``): for ``"prefill"`` the padded tokens
+    ``(1, L)``, the valid length ``(1,)`` and the block table
+    ``(L / block_size,)``; for ``"decode"`` the tokens and positions
+    ``(B,)``, the block tables ``(B, size)`` and the written block ids
+    ``(B,)``; for
+    ``"chunk"`` the tokens ``(B, prefill_chunk)``, the starts and valid
+    lengths ``(B,)``, the block tables ``(B, size)`` and the active mask
+    ``(B,)``; for ``"verify"`` (``size`` is ``(W, nbl)``) the tokens
+    ``(B, W)``, the positions ``(B,)``, the block tables ``(B, nbl)``,
+    the counts and the active mask ``(B,)``.  The caller fills
+    :meth:`stage`'s host views, then :meth:`run` copies them in and, on
+    CUDA, replays the step's graph (capturing it at the first run) and
+    returns the static outputs; on the CPU it runs the body on the
+    static inputs."""
 
     def __init__(self, eng, kind, size):
         self.eng = eng
-        B = eng.max_batch
-        if kind == "prefill":
-            parts = [size, 1, size // eng.block_size]
-            self.body = eng._prefill_body
-        else:
-            parts = [B, B, B, B * size]
-            self.body = eng._decode_and_sample
+        self.shapes = eng._input_shapes(kind, size)
+        parts = [int(_np.prod(shape)) for shape in self.shapes]
+        self.body = {"prefill": eng._prefill_body,
+                     "decode": eng._decode_and_sample,
+                     "chunk": eng._chunk_body,
+                     "verify": eng._verify_body}[kind]
         self._splits = _np.cumsum(parts)[:-1]
         self.flat = torch.zeros(sum(parts), dtype=torch.int32,
                                 device=eng.device)
-        views = self.flat.split(parts)
-        if kind == "prefill":
-            toks, valid, table = views
-            self.args = (toks.view(1, size), valid, table)
-        else:
-            toks, pos, blk, tables = views
-            # the paged kernel takes contiguous (B, nbl) tables: a view
-            # of a contiguous piece, never a column slice
-            self.args = (toks, pos, tables.view(B, size), blk)
+        # the kernels take contiguous tables: each a view of a contiguous
+        # piece, never a column slice
+        self.args = tuple(v.view(shape) for v, shape in
+                          zip(self.flat.split(parts), self.shapes))
         self.graph = None
         self.outputs = None
         self.launches = {}      # kernel -> launches a replay makes
 
     def stage(self):
-        """Zeroed host views of the inputs, flat, in the order above (the
-        engine's staging buffer, pinned on CUDA; the last call's copy
-        out of it has finished)."""
+        """Zeroed host views of the inputs, in the order and shapes above
+        (the engine's staging buffer, pinned on CUDA; the last call's
+        copy out of it has finished)."""
         eng = self.eng
         if eng._staged is not None:
             eng._staged.synchronize()
         host = eng._stage_np[:self.flat.numel()]
         host[:] = 0
-        return _np.split(host, self._splits)
+        return [h.reshape(shape) for h, shape in
+                zip(_np.split(host, self._splits), self.shapes)]
 
     def run(self):
-        """Copy the staged inputs in and run the step: ``(logits,
-        tokens)``, static tensors on CUDA."""
+        """Copy the staged inputs in and run the step: its body's outputs
+        (``(logits, tokens)``; ``verify``: the tokens), static tensors on
+        CUDA."""
         eng = self.eng
         self.flat.copy_(eng._stage[:self.flat.numel()], non_blocking=True)
         if eng.device.type == "cpu":
@@ -176,7 +203,8 @@ class _Step:
     def _capture(self):
         """Run the body once on the engine's capture stream (as
         ``torch.cuda.graph`` asks: kernels loaded, cuBLAS workspaces set
-        up), then capture it into the engine's graph pool.  The capture's
+        up), then capture it into the engine's graph pool, with the
+        cyclic garbage collector off (``_graphs.capture``).  The capture's
         wrapper calls launched nothing: their counts are taken back out
         and kept as what each replay launches."""
         eng = self.eng
@@ -189,7 +217,7 @@ class _Step:
         if eng.temperature != 0.0:
             graph.register_generator_state(eng._gen)
         before = launch_counts()
-        with torch.cuda.graph(graph, pool=eng._graph_pool, stream=stream):
+        with capture(graph, eng._graph_pool, stream):
             outputs = self.body(*self.args)
         after = launch_counts()
         self.launches = {k: after[k] - before[k] for k in after
@@ -235,12 +263,22 @@ class InferenceEngine:
         0), from a ``torch.Generator`` seeded with ``seed``.
     kv_dtype : pool storage: ``None`` (the model's dtype), ``"bf16"``,
         or ``"fp8"`` (e4m3 codes with per-row f32 scales).
-    quantize, calib_data, num_calib_batches, mesh, prefill_chunk,
-    prefix_cache, compile_cache, spec_decode, spec_k, paged_attn,
-    kv_cache : the reference's arguments, in its order; each is taken at
-        a value that changes nothing (``None``, ``False``;
-        ``paged_attn=True``, the port's only decode path) and refused
-        with ``NotSupportedError`` otherwise.
+    prefill_chunk : chunk bucket in tokens (a multiple of
+        ``block_size``) for the packed ``chunk`` family; 0 or None is
+        off (no chunk steps).
+    prefix_cache : True builds a :class:`~.frontend.PrefixCache` over
+        this engine's pool; an object is used as given; None or False is
+        off.
+    spec_decode : True builds the speculative ``verify`` family at
+        warmup (greedy only: temperature 0); None or False is off.
+    spec_k : most draft tokens a ``verify`` replay scores (>= 1; None
+        means 4); the widths are the powers of two from 2 covering
+        ``spec_k + 1`` fed tokens.
+    quantize, calib_data, num_calib_batches, mesh, compile_cache,
+    paged_attn, kv_cache : the reference's other arguments, in its
+        order; each is taken at a value that changes nothing (``None``,
+        ``False``; ``paged_attn=True``, the port's only decode path) and
+        refused with ``NotSupportedError`` otherwise.
     device : ``cuda`` by default; raises without a card unless
         ``device="cpu"`` (the kernels' plain versions then run).
     """
@@ -258,16 +296,12 @@ class InferenceEngine:
         _refuse("calib_data", calib_data is not None, _ITEM5)
         _refuse("mesh", mesh, "the tensor-parallel serving slice "
                 "(ROADMAP §1 item 10)")
-        _refuse("prefill_chunk", prefill_chunk, _ITEM5)
-        _refuse("prefix_cache", prefix_cache, _ITEM5)
         if compile_cache is not None:
             raise NotSupportedError(
                 "InferenceEngine(compile_cache=...) has no counterpart in "
                 "the port: a CUDA graph bakes in its own engine's pool, "
                 "weight and buffer addresses, so no cache is shared "
                 "between engines (ROADMAP §3, standing differences)")
-        _refuse("spec_decode", spec_decode, _ITEM5)
-        _refuse("spec_k", spec_k is not None, _ITEM5)
         if paged_attn not in (None, True):
             raise NotSupportedError(
                 f"InferenceEngine(paged_attn={paged_attn!r}): the port has "
@@ -311,13 +345,42 @@ class InferenceEngine:
             device=self.device)
         self.temperature = float(temperature)
         self.top_k = int(top_k)
+        # chunked prefill: the chunk bucket in tokens; 0 builds no chunk
+        # steps
+        pc = 0 if prefill_chunk is None else int(prefill_chunk)
+        if pc < 0 or (pc and pc % bs):
+            raise MXNetError(f"prefill_chunk {pc} must be a positive "
+                             f"multiple of block_size {bs} (or 0=off)")
+        self.prefill_chunk = min(pc, mc)
+        # copy-on-write prefix cache: True builds one, an object is used
+        # as given
+        if prefix_cache is True:
+            self.prefix_cache = PrefixCache(self.cache)
+        else:
+            self.prefix_cache = prefix_cache or None
+        # speculative decoding: off by default (no verify steps)
+        self.spec_decode = bool(spec_decode)
+        self.spec_k = 4 if spec_k is None else int(spec_k)
+        if self.spec_k < 1:
+            raise MXNetError(f"spec_k {self.spec_k} must be >= 1")
+        if self.spec_decode and self.temperature != 0.0:
+            raise NotSupportedError(
+                "speculative decoding is greedy-only (acceptance "
+                "compares argmaxes); serve temperature > 0 with "
+                "spec_decode off")
         self._gen = torch.Generator(device=self.device).manual_seed(int(seed))
         self._steps = {}             # (kind, size) -> _Step
         self._warmed = False
-        top = self.buckets[-1]
+        top = self.buckets[-1] // bs
         cuda = self.device.type == "cuda"
+        sizes = [("prefill", self.buckets[-1]), ("decode", top)]
+        if self.prefill_chunk:
+            sizes.append(("chunk", top))
+        if self.spec_decode:
+            sizes.append(("verify", (self._verify_widths()[-1], top)))
         self._stage = torch.empty(
-            max(top + 1 + top // bs, self.max_batch * (3 + top // bs)),
+            max(sum(int(_np.prod(shape)) for shape in
+                    self._input_shapes(kind, size)) for kind, size in sizes),
             dtype=torch.int32, pin_memory=cuda)
         self._stage_np = self._stage.numpy()
         self._staged = torch.cuda.Event() if cuda else None
@@ -365,7 +428,7 @@ class InferenceEngine:
         w = self.params.get("head")
         return torch.matmul(x, (self.params["embed"] if w is None else w).T)
 
-    # -- the two bodies --------------------------------------------------
+    # -- the step bodies -------------------------------------------------
 
     def _write_kv(self, li, idx, k, v):
         """Store K/V rows ``k``/``v`` (..., kvh, d) of layer ``li`` at the
@@ -467,6 +530,115 @@ class InferenceEngine:
         logits = self._decode_body(toks, pos, bts, blk)
         return logits, self._sample(logits)
 
+    def _chunk_body(self, toks, starts, valids, bts, active):
+        """The packed continuation prefill (the reference's
+        ``_build_chunk_prefill``) for ``R = max_batch`` rows of ``C =
+        prefill_chunk`` tokens: row r's tokens sit at positions
+        ``starts[r] + [0, C)``, the first ``valids[r]`` of them real.
+        Each layer writes the real rows' K/V first (padded and inactive
+        rows into the null block), gathers each row's ``nbl`` blocks
+        (dequantizing fp8), repeats the K/V heads and attends through
+        the flash kernel's offset form (``q_start`` = the row's start,
+        repeated per head).  The head runs on each row's last valid
+        hidden state only.  Returns (logits (R, V), tokens (R,))."""
+        cfg = self.cfg
+        h, kvh, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+        rep, eps = h // kvh, cfg.rms_eps
+        bs = self.block_size
+        R, C = toks.shape
+        nbl = bts.shape[1]
+        L = nbl * bs
+        scale = 1.0 / math.sqrt(d)
+        c = self.cache
+        cidx = torch.arange(C, device=self.device)
+        abs_pos = starts.long()[:, None] + cidx[None, :]     # (R, C)
+        cos, sin = _rope_cos_sin(abs_pos, d, cfg.rope_theta)  # (R, C, d/2)
+        write = (active[:, None] != 0) & (cidx[None, :] < valids[:, None])
+        bts = bts.long()
+        blk = torch.gather(bts, 1, torch.clamp(abs_pos // bs, max=nbl - 1))
+        blk = torch.where(write, blk, 0)                     # null block
+        off = abs_pos % bs
+        q_start = starts.repeat_interleave(h)                # (R*h,) int32
+        x = self.params["embed"][toks.long()]                # (R, C, hid)
+        for li, lp in enumerate(self.params["layers"]):
+            hh = _rms(x, lp["in_norm"], eps)
+            q = torch.matmul(hh, lp["q"].T).reshape(R, C, h, d)
+            k = torch.matmul(hh, lp["k"].T).reshape(R, C, kvh, d)
+            v = torch.matmul(hh, lp["v"].T).reshape(R, C, kvh, d)
+            q = _rot_interleaved(q, cos[:, :, None], sin[:, :, None])
+            k = _rot_interleaved(k, cos[:, :, None], sin[:, :, None])
+            self._write_kv(li, (blk, off), k, v)
+            ck = c.k_pool[li][bts].reshape(R, L, kvh, d)
+            cv = c.v_pool[li][bts].reshape(R, L, kvh, d)
+            if self._kv_fp8:
+                ck = kv_dequantize(ck, c.k_scale[li][bts].reshape(R, L))
+                cv = kv_dequantize(cv, c.v_scale[li][bts].reshape(R, L))
+            ck, cv = ck.to(q.dtype), cv.to(q.dtype)
+            kr = ck.transpose(1, 2).repeat_interleave(rep, dim=1) \
+                .reshape(R * h, L, d)
+            vr = cv.transpose(1, 2).repeat_interleave(rep, dim=1) \
+                .reshape(R * h, L, d)
+            o, _ = flash_attention_fwd(
+                q.transpose(1, 2).reshape(R * h, C, d), kr, vr, True, scale,
+                q_start=q_start)
+            o = o.reshape(R, h, C, d).transpose(1, 2).reshape(R, C, h * d)
+            x = x + torch.matmul(o, lp["o"].T)
+            x = self._mlp(lp, x)
+        x = _rms(x, self.params["norm"], eps)
+        # each row's last valid hidden state, picked before the head (the
+        # reference takes the same row from all R x C rows' logits)
+        rows = x[torch.arange(R, device=self.device),
+                 torch.clamp(valids.long() - 1, 0, C - 1)]   # (R, hid)
+        last = self._head_logits(rows)                       # (R, V)
+        return last, self._sample(last)
+
+    def _verify_body(self, toks, pos, bts, counts, active):
+        """The speculative verify step (the reference's
+        ``_build_verify``): ``W = toks.shape[1]`` decode bodies unrolled,
+        step ``w`` feeding ``toks[:, w]`` at ``pos + w`` and taking the
+        argmax of its logits.  Steps past a row's count, and inactive
+        rows, write the null block.  Returns the greedy tokens (B, W):
+        ``[i, j]`` is the token after absorbing ``toks[i, :j + 1]``."""
+        bs = self.block_size
+        nbl = bts.shape[1]
+        live_rows = active != 0
+        outs = []
+        for w in range(toks.shape[1]):
+            live = live_rows & (w < counts)
+            pw = pos + w
+            idx = torch.clamp(pw // bs, max=nbl - 1).long()
+            blk = torch.where(live, torch.gather(bts, 1, idx[:, None])[:, 0],
+                              0).long()
+            logits = self._decode_body(toks[:, w], pw, bts, blk)
+            outs.append(torch.argmax(logits, dim=-1).to(torch.int32))
+        return torch.stack(outs, dim=1)
+
+    def _verify_widths(self):
+        """The verify widths: the powers of two from 2 covering up to
+        ``spec_k + 1`` fed tokens (the last committed one and the
+        drafts); a boundary with no draft uses the plain decode step."""
+        top = 2
+        while top < self.spec_k + 1:
+            top *= 2
+        out, w = [], 2
+        while w <= top:
+            out.append(w)
+            w *= 2
+        return out
+
+    def _input_shapes(self, kind, size):
+        """The shapes of a ``(kind, size)`` step's int32 inputs, in the
+        order of its flat buffer (see :class:`_Step`)."""
+        B, bs = self.max_batch, self.block_size
+        if kind == "prefill":
+            return [(1, size), (1,), (size // bs,)]
+        if kind == "decode":
+            return [(B,), (B,), (B, size), (B,)]
+        if kind == "chunk":
+            return [(B, self.prefill_chunk), (B,), (B,), (B, size), (B,)]
+        W, nbl = size
+        return [(B, W), (B,), (B, nbl), (B,), (B,)]
+
     def _sample(self, logits):
         """Next-token sampling on the device: greedy at temperature 0,
         else (top-k) categorical from the engine's generator, drawn as
@@ -514,11 +686,14 @@ class InferenceEngine:
     @torch.no_grad()
     def warmup(self):
         """Build every bucket's prefill and decode step and run each once
-        (the decode with every row inactive, writing the null block): on
-        CUDA each is captured as a graph here, before traffic.  Buckets
-        whose steps exist already are skipped, as the reference skips
-        signatures its cache holds.  Raises if the net's weights were
-        moved since the engine was built (:meth:`_check_weights`)."""
+        (the decode with every row inactive, writing the null block), then,
+        when enabled, every table width's chunk step and every (width,
+        table width)'s verify step, each with every row inactive (their
+        writes land in the null block, so no pool block is needed): on
+        CUDA each is captured as a graph here, before traffic.  Steps that
+        exist already are skipped, as the reference skips signatures its
+        cache holds.  Raises if the net's weights were moved since the
+        engine was built (:meth:`_check_weights`)."""
         self._check_weights()
         B = self.max_batch
         for bucket in self.buckets:
@@ -535,11 +710,23 @@ class InferenceEngine:
             table[:] = self.cache.table("__warmup__")
             step.run()
             step = self._get("decode", nb)
-            tables = step.stage()[3]
+            tables = step.stage()[2]
             tables[:] = self.cache.table_array(
-                ["__warmup__"] + [None] * (B - 1), nb).ravel()
+                ["__warmup__"] + [None] * (B - 1), nb)
             step.run()
             self.cache.free("__warmup__")
+        widths = [b // self.block_size for b in self.buckets]
+        keys = []
+        if self.prefill_chunk:
+            keys += [("chunk", nb) for nb in widths]
+        if self.spec_decode:
+            keys += [("verify", (W, nb)) for W in self._verify_widths()
+                     for nb in widths]
+        for kind, size in keys:
+            if (kind, size) not in self._steps:
+                step = self._get(kind, size)
+                step.stage()
+                step.run()
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         self._warmed = True
@@ -568,7 +755,7 @@ class InferenceEngine:
             return None
         step = self._get("prefill", bucket)
         padded, valid, table = step.stage()
-        padded[:t], valid[0] = toks, t
+        padded[0, :t], valid[0] = toks, t
         table[:] = self.cache.table(slot)
         last, tok = step.run()
         first, last = int(tok[0]), last.clone()
@@ -578,24 +765,136 @@ class InferenceEngine:
         self.stats["prompt_tokens_computed"] += t
         return first, last
 
-    def reserve(self, slot, pos, n=1):
-        """Grow ``slot``'s block table to cover positions
-        ``[pos, pos + n)`` before a decode step, copy-on-write-forking
-        any written block another holder still shares (with its fp8 scale
-        rows, so the fork dequantizes as its source).  False when the
-        pool is exhausted."""
+    def attach_prefix(self, slot, tokens):
+        """Prefix-cache admission: adopt the longest cached block chain
+        that prefixes ``tokens`` into ``slot`` (refcounts bumped, no
+        compute) and return the number of cached positions (0: a miss,
+        or no prefix cache; the caller prefills from there)."""
+        if self.prefix_cache is None:
+            return 0
+        return self.prefix_cache.attach(slot, tokens)
+
+    def insert_prefix(self, slot, tokens):
+        """Register ``slot``'s freshly prefilled prompt in the prefix
+        cache, so later requests that share the prefix skip its
+        compute."""
+        if self.prefix_cache is not None:
+            self.prefix_cache.insert(slot, tokens)
+
+    def pin_prefix(self, tokens):
+        """Prefill ``tokens`` once into a temporary slot and pin the chain,
+        the partial tail block included, in the prefix cache: every later
+        request that starts with ``tokens`` adopts the blocks (and forks
+        the tail on its first write past them) instead of recomputing
+        them.  False when the pool cannot hold the prefix now."""
+        if self.prefix_cache is None:
+            raise MXNetError("pin_prefix needs prefix_cache=True")
+        slot = ("__prefix_pin__", self.stats["prefill_calls"])
+        if self.prefill(slot, tokens) is None:
+            return False
+        self.prefix_cache.insert(slot, tokens)
+        self.release(slot)
+        return True
+
+    @torch.no_grad()
+    def chunk_prefill(self, entries):
+        """One packed continuation-prefill replay: ``entries`` is a list
+        of ``(slot, tokens, start)`` rows; ``tokens`` (at most
+        ``prefill_chunk`` of them) are the prompt positions ``[start,
+        start + n)`` of ``slot``, whose table already holds everything
+        before ``start``.
+
+        Allocates and copy-on-write-forks the written blocks, runs the
+        chunk step once for all rows, and returns ``(next_tokens (n,)
+        np.int32, logits (n, V) tensor on the engine's device)`` aligned
+        with ``entries`` (a row's token means something only where its
+        chunk ends the prompt).  None when the pool cannot cover the
+        chunk (the caller may evict prefix chains and retry).  Raises if
+        the net's weights were moved since the engine was built."""
+        self._check_weights()
+        if not self.prefill_chunk:
+            raise MXNetError("chunk_prefill needs prefill_chunk > 0")
+        n = len(entries)
+        if not 1 <= n <= self.max_batch:
+            raise MXNetError(f"chunk_prefill: {n} rows vs max_batch "
+                             f"{self.max_batch}")
+        C = self.prefill_chunk
+        end_max = 0
+        for slot, toks, start in entries:
+            t = len(toks)
+            if not 1 <= t <= C:
+                raise MXNetError(f"chunk of {t} tokens vs chunk bucket "
+                                 f"{C}")
+            if not self.cache.ensure(slot, start + t - 1):
+                return None
+            copies = self.cache.prepare_write(slot, start, start + t)
+            if copies is None:
+                return None
+            self._apply_cow(copies)
+            end_max = max(end_max, start + t)
+        bucket = next_bucket(end_max, self.buckets)
+        if bucket is None:
+            raise MXNetError(f"chunk end {end_max} exceeds max_context "
+                             f"{self.max_context}")
+        nbl = bucket // self.block_size
+        step = self._get("chunk", nbl)
+        toks, starts, valids, tables, active = step.stage()
+        slots = [None] * self.max_batch
+        for i, (slot, chunk, start) in enumerate(entries):
+            toks[i, :len(chunk)] = _np.asarray(chunk, _np.int64)
+            starts[i], valids[i], active[i] = start, len(chunk), 1
+            slots[i] = slot
+        tables[:] = self.cache.table_array(slots, nbl)
+        last, nxt = step.run()
+        last = last[:n].clone()
+        for slot, chunk, start in entries:
+            self.cache.set_len(slot, start + len(chunk))
+        self.stats["chunk_prefill_calls"] += 1
+        self.stats["prompt_tokens_computed"] += \
+            int(sum(len(c) for _s, c, _p in entries))
+        return nxt[:n].cpu().numpy(), last
+
+    def _apply_cow(self, copies):
+        """The device half of each ``(src, dst)`` copy-on-write fork the
+        cache planned, with the fp8 scale rows, so the fork dequantizes
+        as its source.  An index copy on the current stream, which the
+        next replay runs on: it lands before the replay writes into the
+        fork."""
         c = self.cache
-        if not c.ensure(slot, pos + n - 1):
-            return False
-        copies = c.prepare_write(slot, pos, pos + n)
-        if copies is None:
-            return False
         planes = [c.k_pool, c.v_pool]
         if self._kv_fp8:
             planes += [c.k_scale, c.v_scale]
         for src, dst in copies:
             for plane in planes:
                 plane[:, dst] = plane[:, src]
+
+    def reserve(self, slot, pos, n=1):
+        """Grow ``slot``'s block table to cover positions
+        ``[pos, pos + n)`` before a decode or verify step, and
+        copy-on-write-fork any written block another holder (a prefix
+        chain) still shares.  ``n > 1`` is the speculative write-ahead:
+        the verify step writes the whole draft window before acceptance
+        is known (rejected positions stay garbage until ``trim``).  Under
+        pool pressure LRU prefix chains are evicted first (only chains,
+        never a block a live sequence holds).  False when the pool is
+        exhausted even then."""
+        pc = self.prefix_cache
+        c = self.cache
+        last = pos + n - 1
+        if not c.ensure(slot, last):
+            need = c.blocks_for(last + 1) - len(c.table(slot))
+            if pc is None or not pc.evict(blocks_needed=need):
+                return False
+            if not c.ensure(slot, last):
+                return False
+        copies = c.prepare_write(slot, pos, pos + n)
+        if copies is None:
+            if pc is None or not pc.evict(blocks_needed=1):
+                return False
+            copies = c.prepare_write(slot, pos, pos + n)
+            if copies is None:
+                return False
+        self._apply_cow(copies)
         return True
 
     @torch.no_grad()
@@ -626,18 +925,70 @@ class InferenceEngine:
         slots = [s for s, _, _ in entries] + [None] * (self.max_batch - n)
         step = self._get("decode", nbl)
         # inactive rows: token 0 at position 0 of the null block
-        toks, pos, blk, tables = step.stage()
+        toks, pos, tables, blk = step.stage()
         for i, (slot, tok, p) in enumerate(entries):
             toks[i], pos[i] = tok, p
             self.cache.set_len(slot, p + 1)
         table = self.cache.table_array(slots, nbl)
         blk[:n] = table[_np.arange(n), pos[:n] // self.block_size]
-        tables[:] = table.ravel()
+        tables[:] = table
         logits, nxt = step.run()
         logits = logits[:n].clone()
         self.stats["decode_calls"] += 1
         return nxt[:n].cpu().numpy(), logits
 
+    @torch.no_grad()
+    def verify(self, entries):
+        """One speculative verify replay.
+
+        entries: list of ``(slot, tokens, position)``: ``tokens`` is the
+        row's last committed token followed by its drafts (1 <= len <=
+        spec_k + 1), fed at positions ``position .. position + len - 1``;
+        the caller must have reserved that whole range.  Returns
+        ``out`` (n, W) np.int32, ``out[i, j]`` the greedy token after
+        absorbing ``tokens[i][:j + 1]``: the caller commits the drafts
+        that match and trims the write-ahead past the committed length
+        (``ContinuousBatcher._decode_spec``)."""
+        if not entries:
+            raise MXNetError("verify: empty batch")
+        if self.temperature != 0.0:
+            raise NotSupportedError(
+                "verify is greedy-only; sampled decoding keeps the plain "
+                "decode path")
+        n = len(entries)
+        if n > self.max_batch:
+            raise MXNetError(f"verify batch {n} > max_batch")
+        wmax = max(len(t) for _, t, _ in entries)
+        if wmax < 1:
+            raise MXNetError("verify: empty token row")
+        if wmax > self.spec_k + 1:
+            raise MXNetError(f"verify row of {wmax} tokens vs spec_k "
+                             f"{self.spec_k} (+1 committed)")
+        W = next_bucket(max(wmax, 2), self._verify_widths())
+        end_max = max(p + len(t) for _, t, p in entries)
+        bucket = next_bucket(end_max, self.buckets)
+        if bucket is None:
+            raise MXNetError(f"verify end {end_max} exceeds max_context "
+                             f"{self.max_context}")
+        nbl = bucket // self.block_size
+        step = self._get("verify", (W, nbl))
+        toks, pos, tables, counts, active = step.stage()
+        slots = [s for s, _, _ in entries] + [None] * (self.max_batch - n)
+        for i, (slot, tk, p) in enumerate(entries):
+            tk = _np.asarray(tk, _np.int64).reshape(-1)
+            toks[i, :tk.shape[0]] = tk
+            pos[i], counts[i], active[i] = p, tk.shape[0], 1
+            # write-ahead length; the batcher trims back to the committed
+            # length after acceptance
+            self.cache.set_len(slot, p + tk.shape[0])
+        tables[:] = self.cache.table_array(slots, nbl)
+        out = step.run()
+        self.stats["verify_calls"] += 1
+        self.stats["draft_tokens_scored"] += \
+            int(sum(len(t) - 1 for _, t, _ in entries))
+        return out[:n].cpu().numpy()
+
     def release(self, slot):
-        """Finished sequence: drop its hold on its blocks."""
+        """Finished sequence: drop its hold on its blocks (a block a
+        prefix chain still holds stays in the pool)."""
         self.cache.free(slot)

@@ -3,18 +3,24 @@
 Counterpart of ``mxnet_tpu/serving/scheduler.py``: requests arrive on a
 queue, new sequences JOIN the running decode batch at token boundaries
 and finished ones vacate their slot in the same boundary, so the decode
-batch never drains to admit work.  Prompts run through the engine's
-bucketed prefill between decode steps, at most ``prefills_per_step`` per
-boundary.  ``StaticBatcher`` is the fixed-batch baseline over the same
-engine.
+batch never drains to admit work.  A boundary admits, then decodes:
+
+- admission: with the engine's ``prefill_chunk`` set, one packed
+  ``chunk_prefill`` a boundary (the tail chunks of prompts in flight
+  first, then new requests through the prefix cache); else up to
+  ``prefills_per_step`` bucketed prefills;
+- decoding: one joined ``decode`` step or, with ``speculative``, one
+  ``verify`` step scoring each row's drafts (``DraftSource``), which
+  commits the greedy-matching prefix and trims the write-ahead.
+
+``StaticBatcher`` is the fixed-batch baseline over the same engine.
 
 Everything here is host-side policy; per boundary the host reads back
-only the sampled tokens.  Not in this slice: chunked admission,
-speculative decoding and the disaggregated prefill/decode roles; their
-constructor arguments (``speculative``, ``spec_k``, ``slot_ns``,
+only the sampled tokens.  Not in this slice: the disaggregated
+prefill/decode roles; their constructor arguments (``slot_ns``,
 ``role``) are taken at the values that change nothing and refused
-otherwise, and ``stats()`` reports the reference's ``verify_steps`` (0)
-and ``spec_accept_rate`` (None) of a run without speculation.
+otherwise.  The reference's trace spans and telemetry are not ported
+(ROADMAP §1 item 11).
 """
 from __future__ import annotations
 
@@ -23,6 +29,7 @@ import time
 from collections import deque
 
 from ..base import MXNetError, NotSupportedError
+from .draft import DraftSource
 
 __all__ = ["Request", "ContinuousBatcher", "StaticBatcher"]
 
@@ -93,6 +100,9 @@ class _BatcherBase:
         self.occupancy_samples = []
         self.decode_steps = 0
         self.tokens_generated = 0
+        self.verify_steps = 0
+        self.spec_drafted = 0
+        self.spec_accepted = 0
 
     def submit(self, request):
         request.submit_t = time.perf_counter()
@@ -158,9 +168,10 @@ class _BatcherBase:
         return {"requests": len(self.finished),
                 "tokens_generated": self.tokens_generated,
                 "decode_steps": self.decode_steps,
-                # no speculative decoding in the port: the reference's
-                # values without it
-                "verify_steps": 0, "spec_accept_rate": None,
+                "verify_steps": self.verify_steps,
+                "spec_accept_rate": (
+                    round(self.spec_accepted / self.spec_drafted, 4)
+                    if self.spec_drafted else None),
                 "tokens_per_dispatch": (
                     round(self.tokens_generated / self.decode_steps, 4)
                     if self.decode_steps else None),
@@ -169,32 +180,156 @@ class _BatcherBase:
                 "cache": self.engine.cache.stats()}
 
 
+class _PrefillState:
+    """A prompt part-way through chunked prefill: ``done`` positions of
+    ``req.tokens`` are cached in ``slot`` (prefix-cache hits count)."""
+
+    __slots__ = ("req", "slot", "done")
+
+    def __init__(self, req, slot, done):
+        self.req = req
+        self.slot = slot
+        self.done = int(done)
+
+
 class ContinuousBatcher(_BatcherBase):
     """Token-boundary continuous batching: admit into free slots before
     every decode step, evict finished sequences the moment EOS/length
-    hits, never drain the batch to take new work."""
+    hits, never drain the batch to take new work.  With the engine's
+    ``prefill_chunk`` set, admission packs chunks of several prompts
+    into one replay a boundary; with ``speculative`` (default: the
+    engine's ``spec_decode``) each boundary verifies drafts of up to
+    ``spec_k`` tokens a row (default and ceiling: the engine's)."""
+
+    # boundaries a sequence sits out after its drafts stop landing (a
+    # host counter; it drafts again when it expires)
+    _spec_cooldown = 8
+    _spec_miss_limit = 2
 
     def __init__(self, engine, prefills_per_step=1, speculative=None,
                  spec_k=None, slot_ns=None, role="combined"):
-        _refuse("speculative", speculative, 5)
-        _refuse("spec_k", spec_k is not None, 5)
         super().__init__(engine, slot_ns=slot_ns, role=role)
         self.prefills_per_step = int(prefills_per_step)
         self.active = {}          # slot -> Request
+        self.prefilling = {}      # slot -> _PrefillState (chunked only)
         self._free_slots = list(range(engine.max_batch - 1, -1, -1))
+        self.speculative = engine.spec_decode if speculative is None \
+            else bool(speculative)
+        if self.speculative and not engine.spec_decode:
+            raise MXNetError(
+                "speculative batching needs an engine built with "
+                "spec_decode=True (the verify steps are built at warmup)")
+        self.spec_k = engine.spec_k if spec_k is None else int(spec_k)
+        if not 1 <= self.spec_k <= engine.spec_k:
+            raise MXNetError(f"spec_k {self.spec_k} outside the "
+                             f"engine's [1, {engine.spec_k}]")
+        self.draft = DraftSource(prefix_cache=engine.prefix_cache)
+        self._spec_state = {}     # req.id -> [misses, cooldown]
 
     def step(self):
-        """One scheduling boundary: admit up to ``prefills_per_step``
-        queued requests, then run one joined decode step.  Returns the
-        work done (admissions + sequences decoded; 0 is a no-op)."""
-        admitted = self._admit_serial()
+        """One scheduling boundary: admit queued requests (one packed
+        chunk replay when chunked, else up to ``prefills_per_step``
+        prefills), then run one joined decode or verify step.  Returns
+        the work done (admissions + chunk rows + sequences decoded; 0 is
+        a no-op)."""
+        if self.engine.prefill_chunk:
+            admitted = self._admit_chunked()
+        else:
+            admitted = self._admit_serial()
         if not self.active:
             return admitted
         before = set(self.active)
-        self._decode_active(self.active)
+        if self.speculative:
+            self._decode_spec(self.active)
+        else:
+            self._decode_active(self.active)
         for slot in before - set(self.active):
             self._free_slots.append(slot)
         return admitted + len(before)
+
+    def _decode_spec(self, active):
+        """One speculative boundary: draft, verify in one replay, commit
+        the greedy-matching prefix, trim the write-ahead.
+
+        A committed token is either a verify argmax (the decode body op
+        for op) or a draft that equalled one, so the stream is the plain
+        greedy stream in fewer replays.  A boundary where no row drafts
+        (cold caches, cooldowns, length caps) runs the plain decode
+        step."""
+        eng = self.engine
+        drafts = {}
+        any_draft = False
+        for slot, req in active.items():
+            pos = len(req.tokens) + len(req.generated) - 1
+            st = self._spec_state.get(req.id)
+            if st is not None and st[1] > 0:
+                st[1] -= 1        # cooling down: rides as a plain row
+                drafts[slot] = []
+                continue
+            # a draft commits up to cap + 1 tokens and writes K/V up to
+            # pos + cap: the length budget and the context ceiling bound
+            # the window
+            cap = min(self.spec_k,
+                      req.max_new_tokens - len(req.generated) - 1,
+                      eng.max_context - 2 - pos)
+            d = self.draft.propose(req.tokens + req.generated, cap) \
+                if cap > 0 else []
+            drafts[slot] = d
+            if d:
+                any_draft = True
+        if not any_draft:
+            return self._decode_active(active)
+        entries = []
+        for slot, req in active.items():
+            pos = len(req.tokens) + len(req.generated) - 1
+            toks = [req.generated[-1]] + drafts[slot]
+            if len(toks) > 1 and not eng.reserve(slot, pos, len(toks)):
+                toks = toks[:1]   # pool pressure: shed the write-ahead
+            if len(toks) == 1 and not eng.reserve(slot, pos):
+                raise MXNetError("KV pool exhausted mid-decode; raise "
+                                 "num_blocks or lower max_batch")
+            entries.append((slot, toks, pos))
+        out = eng.verify(entries)
+        self.decode_steps += 1
+        self.verify_steps += 1
+        self.occupancy_samples.append(len(entries) / eng.max_batch)
+        for i, (slot, toks, pos) in enumerate(entries):
+            req = active[slot]
+            D = len(toks) - 1
+            # out[i, j] is the greedy token after toks[:j + 1]: each draft
+            # that matches its predecessor's argmax is accepted, and the
+            # match's own argmax rides along as the next commit
+            committed = [int(out[i, 0])]
+            j = 1
+            while j <= D and int(toks[j]) == int(out[i, j - 1]):
+                committed.append(int(out[i, j]))
+                j += 1
+            accepted = j - 1
+            self.spec_drafted += D
+            self.spec_accepted += accepted
+            if D:
+                st = self._spec_state.setdefault(req.id, [0, 0])
+                if accepted == 0:
+                    st[0] += 1
+                    if st[0] >= self._spec_miss_limit:
+                        st[0], st[1] = 0, self._spec_cooldown
+                else:
+                    st[0] = 0
+            for tok in committed:
+                if req.done:
+                    break         # EOS inside the window: the rest is moot
+                self._append_token(req, slot, tok)
+            if req.done:
+                self._spec_state.pop(req.id, None)
+            else:
+                # roll back the write-ahead: K/V past the committed length
+                # is rejected-draft garbage; drop the length and any block
+                # (a fork included) only the garbage covered
+                n = pos + 1 + accepted
+                eng.cache.trim(slot, n)
+                eng.cache.set_len(slot, n)
+        for slot in [s for s, r in active.items() if r.done]:
+            del active[slot]
 
     def _admit_serial(self):
         admitted = 0
@@ -213,17 +348,86 @@ class ContinuousBatcher(_BatcherBase):
                 self.active[slot] = req
         return admitted
 
+    def _admit_chunked(self):
+        """Pack one ``chunk_prefill`` replay: the tail chunks of prompts
+        in flight first (they hold slots and blocks: finish them), then
+        new admissions through the prefix cache.  Returns admissions +
+        rows replayed."""
+        eng = self.engine
+        C = eng.prefill_chunk
+        entries, rows = [], {}
+        for slot, st in list(self.prefilling.items()):
+            if len(entries) >= eng.max_batch:
+                break
+            chunk = st.req.tokens[st.done:st.done + C]
+            entries.append((slot, chunk, st.done))
+            rows[slot] = st
+        admitted = 0
+        while (self.queue and self._free_slots
+               and len(entries) < eng.max_batch):
+            req = self.queue[0]
+            if len(req.tokens) - 1 >= eng.max_context:
+                raise MXNetError(
+                    "request cannot be admitted (prompt exceeds "
+                    "max_context)")
+            slot = self._free_slots[-1]
+            start = eng.attach_prefix(slot, req.tokens)
+            if start == 0 and not eng.cache.alloc(slot, 0):
+                break                       # cannot even open a table
+            self.queue.popleft()
+            self._free_slots.pop()
+            st = _PrefillState(req, slot, start)
+            self.prefilling[slot] = st
+            entries.append((slot, req.tokens[start:start + C], start))
+            rows[slot] = st
+            admitted += 1
+        if not entries:
+            return admitted
+        out = eng.chunk_prefill(entries)
+        if out is None and eng.prefix_cache is not None:
+            # pool pressure: evict LRU chains no request still shares
+            # (blocks of refcount > 1 survive), then retry once
+            need = sum(
+                max(0, eng.cache.blocks_for(start + len(chunk))
+                    - len(eng.cache.table(slot)))
+                for slot, chunk, start in entries)
+            if eng.prefix_cache.evict(blocks_needed=need):
+                out = eng.chunk_prefill(entries)
+        if out is None:
+            # still starved: prompts in flight keep their state and retry
+            # at the next boundary (decode frees blocks as requests end)
+            return admitted
+        nxt, _logits = out
+        for i, (slot, chunk, start) in enumerate(entries):
+            st = rows[slot]
+            st.done = start + len(chunk)
+            if st.done < len(st.req.tokens):
+                continue                    # more chunks to come
+            del self.prefilling[slot]
+            req = st.req
+            req.first_token_t = time.perf_counter()
+            # register the finished prompt before decode writes past it
+            # (the partial tail block forks on the first write)
+            eng.insert_prefix(slot, req.tokens)
+            self._append_token(req, slot, int(nxt[i]))
+            if req.done:
+                self._free_slots.append(slot)
+            else:
+                self.active[slot] = req
+        return admitted + len(entries)
+
     def run(self, max_steps=100000):
-        """Drive until queue and batch are empty."""
+        """Drive until queue, prompts in flight and batch are empty."""
         steps = 0
-        while self.queue or self.active:
+        while self.queue or self.active or self.prefilling:
             moved = self.step()
             steps += 1
             if steps > max_steps:
                 raise MXNetError("run() exceeded max_steps - scheduler "
                                  "wedged (pool too small for any "
                                  "queued request?)")
-            if moved == 0 and not self.active and self.queue:
+            if moved == 0 and not self.active and \
+                    (self.queue or self.prefilling):
                 # a no-op boundary with work still queued: the head
                 # request can never be admitted
                 raise MXNetError(

@@ -92,6 +92,67 @@ def test_flash_kernel_matches_plain(card, dtype, D, causal, lq, lk):
     torch.testing.assert_close(lse, ref_lse, atol=1e-4, rtol=1e-4)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("C,L", [(16, 16), (64, 256), (100, 300),
+                                 (128, 128), (256, 1024), (1, 65)])
+def test_flash_kernel_q_start_matches_plain(card, dtype, D, C, L):
+    """The offset form (the chunked prefill's): each row's queries start
+    at their own position in [0, L - C], the first row at 0 and the last
+    at L - C."""
+    g = torch.Generator(device=card).manual_seed(C * 7 + L + D)
+    bh = 6
+    q = torch.randn(bh, C, D, device=card, generator=g).to(dtype)
+    k = torch.randn(bh, L, D, device=card, generator=g).to(dtype)
+    v = torch.randn(bh, L, D, device=card, generator=g).to(dtype)
+    starts = torch.randint(0, L - C + 1, (bh,), device=card, generator=g,
+                           dtype=torch.int32)
+    starts[0], starts[-1] = 0, L - C
+    before = ops.launch_counts()
+    with torch.no_grad():
+        out, lse = flash_attention_fwd(q, k, v, True, q_start=starts)
+    torch.cuda.synchronize()
+    got = ops.launch_counts()
+    assert got["flash_attention_fwd"] == before["flash_attention_fwd"] + 1
+    assert got["flash_attention_fwd_offset"] == \
+        before["flash_attention_fwd_offset"] + 1
+    ref, ref_lse = flash_attention_plain(q, k, v, True, D ** -0.5,
+                                         q_start=starts)
+    _close(out, ref, dtype)
+    torch.testing.assert_close(lse, ref_lse, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_q_start_zero_is_the_causal_kernel(card, dtype):
+    """Offsets of 0 on square rows: the offset instantiation gives the
+    causal kernel's bits."""
+    g = torch.Generator(device=card).manual_seed(5)
+    q, k, v = (torch.randn(8, 300, 128, device=card, generator=g).to(dtype)
+               for _ in range(3))
+    with torch.no_grad():
+        want = flash_attention_fwd(q, k, v, True)
+        got = flash_attention_fwd(
+            q, k, v, True, q_start=torch.zeros(8, dtype=torch.int32,
+                                               device=card))
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def test_flash_kernel_q_start_refusals(card):
+    q = torch.randn(2, 16, 64, device=card)
+    with pytest.raises(MXNetError, match="q_start"):
+        flash_attention_fwd(q, q, q, True,
+                            q_start=torch.zeros(2, dtype=torch.int64,
+                                                device=card))
+    with pytest.raises(MXNetError, match="q_start"):
+        flash_attention_fwd(q, q, q, True,
+                            q_start=torch.zeros(3, dtype=torch.int32,
+                                                device=card))
+    with pytest.raises(NotSupportedError, match="forward only"):
+        flash_attention_fwd(q.requires_grad_(), q, q, True,
+                            q_start=torch.zeros(2, dtype=torch.int32,
+                                                device=card))
+
+
 def _paged_case(card, B, H, KVH, D, bs, nbl, q_dtype, kv_dtype, seed):
     """q, pools, tables and positions on the card; an fp8 pool is
     quantized there and followed by its (k_scale, v_scale)."""
@@ -922,6 +983,77 @@ def test_engine_graphs_replay_the_eager_bodies(card, pool):
     assert eng.stats["compiles_after_warmup"] == 0
     assert all(torch.equal(got, want) for got, want in outs)
     assert eng.stats["decode_calls"] == 8
+
+
+@pytest.mark.parametrize("pool", sorted(GRAPH_POOLS))
+def test_engine_chunk_and_verify_graphs_replay_the_eager_bodies(card, pool):
+    """Warmup also captures one chunk graph per table width and one
+    verify graph per (width, table width); two chunk replays (the
+    second across the 16 -> 32 bucket, after a prefix of 16) and a
+    verify replay give bitwise what their bodies give run eagerly on the
+    same static inputs, each replay making one K3 offset launch a layer
+    (chunk) or W K5 launches a layer (verify)."""
+    eng = _graph_engine(card, pool, prefill_chunk=16, spec_decode=True,
+                        spec_k=3).warmup()
+    layers = eng.cfg.num_layers
+    assert eng.graphs_captured() == eng.stats["compiles"] == 10
+    prompt = np.random.RandomState(8).randint(0, 512, 20).tolist()
+    assert eng.cache.alloc(0, 0)
+    for start, end, nbl in ((0, 16, 1), (16, 20, 2)):
+        ops.reset_launches()
+        nxt, last = eng.chunk_prefill([(0, prompt[start:end], start)])
+        got = ops.launch_counts()
+        assert got["flash_attention_fwd_offset"] == \
+            got["flash_attention_fwd"] == layers
+        assert sum(v for k, v in got.items()
+                   if not k.startswith("flash_attention_fwd")) == 0
+        want_last, want_tok = eng._chunk_body(*eng._steps["chunk",
+                                                          nbl].args)
+        assert torch.equal(last, want_last[:1])
+        assert int(nxt[0]) == int(want_tok[0])
+    toks = [int(nxt[0]), 7, 9]
+    assert eng.reserve(0, 20, 3)
+    ops.reset_launches()
+    out = eng.verify([(0, toks, 20)])
+    got = ops.launch_counts()
+    kernel = "paged_decode_attention_fp8" if pool == "fp8" \
+        else "paged_decode_attention"
+    assert got[kernel] == 4 * layers           # width 4
+    want = eng._verify_body(*eng._steps["verify", (4, 2)].args)
+    assert np.array_equal(out, want[:1].cpu().numpy())
+    assert eng.stats["compiles_after_warmup"] == 0
+    eng.release(0)
+    eng.cache.check_leaks()
+
+
+def test_engine_capture_survives_a_collection_of_another_engine(card):
+    """An engine with captured graphs, dropped in a reference cycle while
+    another engine captures, is not collected inside the capture: a
+    collection there frees its graphs, which invalidates the capture.
+    The cycle is dropped from inside the capturing body, which then runs
+    a full collection wherever the collector is enabled (where it would
+    run one on its own, at an allocation)."""
+    import gc
+    holder = [_graph_engine(card).warmup()]
+    assert holder[0].graphs_captured() == 4
+    eng = _graph_engine(card, prefill_chunk=16)
+    mlp = eng._mlp
+
+    def mlp_dropping_the_other(lp, x):
+        if torch.cuda.is_current_stream_capturing() and holder:
+            holder.clear()                     # the old engine's cycle dies
+            if gc.isenabled():
+                gc.collect()
+        return mlp(lp, x)
+
+    eng._mlp = mlp_dropping_the_other
+    try:
+        eng.warmup()
+    finally:
+        del eng._mlp
+    assert not holder
+    gc.collect()
+    assert eng.graphs_captured() == eng.stats["compiles"] == 6
 
 
 def test_engine_launch_counters_count_replays_not_captures(card):

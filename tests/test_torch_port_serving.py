@@ -282,10 +282,9 @@ def test_entry_points_refuse_without_a_card():
 
 
 @pytest.mark.parametrize("kwargs", [
-    {"quantize": "int8"}, {"mesh": "tp=2"}, {"prefill_chunk": 8},
-    {"prefix_cache": True}, {"spec_decode": True}, {"kv_cache": object()},
+    {"quantize": "int8"}, {"mesh": "tp=2"}, {"kv_cache": object()},
     {"calib_data": [np.zeros((1, 4), np.int32)]}, {"compile_cache": {}},
-    {"spec_k": 4}, {"paged_attn": False}],
+    {"paged_attn": False}],
     ids=lambda kw: next(iter(kw)))
 def test_engine_refuses_later_slices(kwargs):
     net = LlamaForCausalLM(LlamaConfig(**GEOM), device="cpu")
@@ -327,9 +326,12 @@ def test_reference_defaults_and_no_op_values_are_taken():
         for bad in ({"slot_ns": "a"}, {"role": "decode"}):
             with pytest.raises(mt.NotSupportedError, match="item 5"):
                 cls(eng, **bad)
-    for bad in ({"speculative": object()}, {"spec_k": 2}):
-        with pytest.raises(mt.NotSupportedError, match="item 5"):
-            ContinuousBatcher(eng, **bad)
+    # speculation is ported: the batcher follows the engine's
+    # ``spec_decode`` and ``spec_k`` and refuses more than the engine built
+    with pytest.raises(mt.MXNetError, match="spec_decode=True"):
+        ContinuousBatcher(eng, speculative=True)
+    assert ContinuousBatcher(eng, spec_k=2).spec_k == 2
+    assert not ContinuousBatcher(eng).speculative
     cache = PagedKVCache(1, 2, 8, 4, 4, 2, None, None, "bf16", device="cpu")
     assert cache.dtype == torch.bfloat16
     with pytest.raises(mt.NotSupportedError, match="item 10"):

@@ -203,3 +203,35 @@ def test_add_launches_adds_by_name():
     assert sum(got.values()) == 4
     ops.reset_launches()
     assert not any(ops.launch_counts().values())
+
+
+@pytest.mark.parametrize("was_enabled", [True, False])
+def test_capture_holds_off_the_cyclic_collector(monkeypatch, was_enabled):
+    """``_graphs.capture`` turns the cyclic garbage collector off for a
+    capture (a collection inside it may free another CUDA graph, which
+    invalidates the capture) and restores its state after, also when
+    the capture raises.  ``torch.cuda.graph`` is stubbed: no card."""
+    import contextlib
+    import gc
+    from mxnet_tpu_torch import _graphs
+
+    seen = []
+
+    @contextlib.contextmanager
+    def fake_graph(graph, pool=None, stream=None):
+        seen.append((graph, pool, stream, gc.isenabled()))
+        yield
+
+    monkeypatch.setattr(torch.cuda, "graph", fake_graph)
+    (gc.enable if was_enabled else gc.disable)()
+    try:
+        with _graphs.capture("g", "p", "s"):
+            assert not gc.isenabled()
+        assert gc.isenabled() == was_enabled
+        with pytest.raises(RuntimeError):
+            with _graphs.capture("g", "p", "s"):
+                raise RuntimeError("capture failed")
+        assert gc.isenabled() == was_enabled
+    finally:
+        gc.enable()
+    assert seen == [("g", "p", "s", False)] * 2
