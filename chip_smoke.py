@@ -21,8 +21,8 @@ continued:
    version and, where one PyTorch call computes the same function (or,
    marked "near", nearly the same), that call (``library_ms``), the
    flash lines with their factor against SDPA and share of the bound:
-   flash forward (float32, bfloat16), paged decode (f32 and bf16 pools;
-   an fp8 pool with a bf16 and an f32 query; an fp8 pool at phase 7's
+   flash forward (float32, bfloat16), paged decode (f32 and bf16 pools,
+   and an f32 query against a bf16 pool, the int8 path's; an fp8 pool with a bf16 and an f32 query; an fp8 pool at phase 7's
    B = 16 and 4096-position bucket), flash backward (BH=64,
    L=1024, D=128 causal, float32 and bfloat16, and ragged L=200 with
    D=64), fused LayerNorm forward and backward (4096 x 1024 with
@@ -100,7 +100,42 @@ continued:
     whose drafts are the card's own next 3 greedy tokens: logits within
     2e-3, tokens identical, every draft accepted; then the same with
     fp8 pools, within 2e-2; a chunk replay one K3 launch a layer, a
-    verify replay W x layers K5 launches;
+    verify replay W x layers K5 launches; then int8 weights on the same
+    nets: ``quantize_net`` calibrates the CPU's net on 2 seeded batches
+    of 2 x 12 tokens, ``convert`` carries its codes and scales to the
+    card's; each of the 15 ``QuantizedDense`` twins on the same inputs
+    (its own in the card's forward of the prompt, 40 rows and 1) within
+    1e-6 of its output's largest magnitude, card against CPU; then an
+    int8 engine (``prefill_chunk=64, spec_decode=True, spec_k=3``) on
+    each runs prefill, 16 greedy decode steps, one chunk and one verify,
+    the CPU teacher-forced with the card's tokens and fed the card's
+    activation codes, taped from each step's body: logits within 2e-2,
+    greedy picks, chunk and verify tokens identical, and the CPU's own
+    activations within half a code (plus float noise) of the card's
+    codes;
+23. int8 weight serving (on phase 4's net, after phase 22): phase 4's
+    engine is gone, ``quantize_net`` swaps all 225 projections (32 x 7
+    and the head) for ``QuantizedDense`` twins after 2 seeded
+    calibration batches of 2 x 12 tokens, and ``InferenceEngine(net,
+    quantize="int8", max_batch=8, block_size=16, max_context=1024)``
+    serves phase 4's 16 requests: ``compiles_after_warmup`` 0, 16
+    teacher-forced decode replays against ``_decode_body`` run eagerly
+    (logits within 2e-2, tokens identical), the prefill logits against
+    the quantized net's own forward at the bucket width (within 2e-2),
+    and the first prompt with 16 decode steps teacher-forced on phase
+    4's tokens against a plain PyTorch forward at full width fed the
+    engine's activation codes (``plain_int8_logits``: f64 products of
+    the codes, plain attention; logits within 2e-3, the same greedy
+    picks, its own activations within half a code plus float noise of
+    the engine's codes); that prompt's drift against phase 4's bf16
+    logits is printed beside the reference's bound (``|drift| <= 0.05 *
+    max|logit|``), which no implementation of the reference's int8 path
+    holds on these random weights (the activations' dtype alone moves
+    them past it, ``tools/port_int8_drift.py``); it prints the decode
+    step, the replays' device time and host share, tokens/s and TTFT p50
+    beside phase 4's, the weight bytes (int8 codes and scales against
+    bf16), peak memory and one decode replay's device time by class
+    (int8 GEMMs, the activations' quantize and rescale, K5);
 7. fp8 KV serving: Llama-3-8B bf16 at full depth with
    ``kv_dtype="fp8", max_batch=16, max_context=4096`` (4097 blocks), 32
    greedy requests with prompts of 256-3800 tokens and 32 new tokens,
@@ -207,13 +242,14 @@ run's steps are measured as they run without it) that replays each
 decode step on its own staged inputs, the replays' device time (CUDA
 events around ``graph.replay()``) and each step's host share beside
 it.  Before
-each of phases 4, 7-19 and 20-22 the kernels' launch counters are set to 0; each phase reads them just after and fails unless its kernels
+each of phases 4, 7-19 and 20-23 the kernels' launch counters are set to 0; each phase reads them just after and fails unless its kernels
 ran the expected number of times.  The second-to-last line is the
 card's name and power limit, the line before it the kernels' JSON
 record, and the line before that every timed row of phase 3 as
 ``{"kernel_rows": [...]}``; the last line is ``{"ok": true, "device":
 {...}}``.
 """
+import contextlib
 import gc
 import json
 import os
@@ -339,6 +375,18 @@ def read_launches(phase, want):
     if got != full or min(want.values()) < 1:
         fail(f"{phase}: kernel launches {got}, expected {full}")
     return got
+
+
+def copy_weights(src, dst):
+    """Copy a port block's parameters into another's of the same
+    structure, by structural name, device to device (no numpy); returns
+    ``dst``."""
+    import torch
+    want = dst._collect_params_with_prefix()
+    with torch.no_grad():
+        for name, p in src._collect_params_with_prefix().items():
+            want[name].set_data(p.data().data)
+    return dst
 
 
 def update_errs(w0, got, want, steps, skip=()):
@@ -692,18 +740,22 @@ def check_paged(dev, flush):
     pos, tab, ps = paged_tables(dev)
     main = None
     worst = 0.0
-    for name in ("float32", "bfloat16"):
+    # the query's dtype and the pool's: f32 and bf16 models, and the f32
+    # queries of int8 weights against a bf16 pool (phase 23)
+    for name, pool in (("float32", "float32"), ("bfloat16", "bfloat16"),
+                       ("float32", "bfloat16")):
         dtype = getattr(torch, name)
         g = torch.Generator(device=dev).manual_seed(1)
         q = torch.randn(B, H, D, device=dev, generator=g).to(dtype)
         kp, vp = (torch.randn(nb, bs, KVH, D, device=dev, generator=g)
-                  .to(dtype) for _ in range(2))
+                  .to(getattr(torch, pool)) for _ in range(2))
         out = paged_decode_attention(q, kp, vp, tab, ps, D ** -0.5)
         ref = paged_decode_plain(q, kp, vp, tab, ps, D ** -0.5)
         torch.cuda.synchronize()
         err, ok = max_err(out, ref, PAGED_TOL[name])
         if not ok or not bool(torch.isfinite(out).all()):
-            fail(f"paged kernel vs plain {name}: max abs err {err}")
+            fail(f"paged kernel vs plain {name}, {pool} pool: max abs err "
+                 f"{err}")
         worst = max(worst, err) if name == "bfloat16" else worst
         ms = time_ms(lambda: paged_decode_attention(q, kp, vp, tab, ps,
                                                     D ** -0.5), 50, flush)
@@ -713,16 +765,18 @@ def check_paged(dev, flush):
                                                       D ** -0.5), 5, flush)
         elem = q.element_size()
         rows = int((pos.astype(np.int64) + 1).sum())
-        nbytes = (2 * rows * KVH * D * elem + 2 * B * H * D * elem
-                  + sum(int(p) // bs + 1 for p in pos) * 4 + B * 4)
+        nbytes = (2 * rows * KVH * D * kp.element_size() + 2 * B * H * D *
+                  elem + sum(int(p) // bs + 1 for p in pos) * 4 + B * 4)
         bound_ms, by = bound(nbytes, 4.0 * rows * H * D, name)
-        print(f"paged_decode_attention B={B} pos<= {int(pos.max())} {name}: "
-              f"max_abs_err {err:.3e} kernel {ms:.4f} ms plain "
+        label = name if pool == name else f"{name} query, {pool} pool"
+        print(f"paged_decode_attention B={B} pos<= {int(pos.max())} "
+              f"{label}: max_abs_err {err:.3e} kernel {ms:.4f} ms plain "
               f"{plain_ms:.4f} ms bound {bound_ms:.4f} ms; device "
               f"{by_kernel(dev_ms)}", flush=True)
-        record("paged_decode_attention", name, [B, H, KVH, D, int(pos.max())],
-               ms, plain_ms, None, bound_ms, by, dev_ms)
-        if name == "bfloat16":
+        record("paged_decode_attention", label,
+               [B, H, KVH, D, int(pos.max())], ms, plain_ms, None, bound_ms,
+               by, dev_ms)
+        if name == pool == "bfloat16":
             main = dict(ms=ms, plain_ms=plain_ms, library_ms=None,
                         bound_ms=bound_ms, bound_by=by)
     main["max_abs_err"] = worst
@@ -1388,7 +1442,8 @@ def serve_requests(serving, eng, prompts, label, new_tokens=NEW_TOKENS):
         out = calls["chunk_prefill"](entries)    # returns host tokens
         if out is not None:
             chunk_s.append(time.perf_counter() - t)
-            finite.append(torch.isfinite(out[1]).all())
+            finite.append(torch.isfinite(torch.as_tensor(
+                out[1], device=eng.device)).all())
         return out
 
     wrapped = {"prefill": prefill_checked, "decode": decode_checked,
@@ -1495,10 +1550,17 @@ def serve_llama3_8b(dev, card):
     print(graph_vs_eager(eng, rng.randint(0, net.cfg.vocab_size,
                                           500).tolist()), flush=True)
     print(replay_device(eng, run, "serving"), flush=True)
+    # phase 23's references: the metrics, and the first prompt's greedy
+    # tokens and logits over 16 decode steps (outside the counted window)
+    fed, logits = _greedy(eng, "int8-ref", prompts[0].tolist(),
+                          TEACHER_STEPS)
+    ref = {"step_ms": run["step_ms"], "tokens_per_s": run["tokens_per_s"],
+           "ttft_p50_ms": run["ttft_p50_ms"], "peak_gb": peak_gb,
+           "prompt": prompts[0].tolist(), "fed": fed, "logits": logits}
     del eng, run
     gc.collect()
     torch.cuda.empty_cache()
-    return launches, net
+    return launches, net, ref
 
 
 # ----------------------------------------------------------------------
@@ -1544,6 +1606,7 @@ def spec_prompts(vocab):
 def _prefix_path(eng, slot, prompt, n):
     """A request along the prefix path: attach the cached chain, chunk the
     rest, then ``n`` greedy decode steps.  (fed tokens, logits)."""
+    import torch
     start = eng.attach_prefix(slot, prompt)
     if start == 0:
         fail("prefix path: the system prompt missed the prefix cache")
@@ -1553,7 +1616,8 @@ def _prefix_path(eng, slot, prompt, n):
         if out is None:
             fail("prefix path: KV pool exhausted")
         start += len(prompt[start:start + C])
-    fed, logits = list(prompt) + [int(out[0][0])], [out[1][0].float()]
+    fed = list(prompt) + [int(out[0][0])]
+    logits = [torch.as_tensor(out[1][0], device=eng.device).float()]
     for _ in range(n):
         pos = len(fed) - 1
         if not eng.reserve(slot, pos):
@@ -1942,8 +2006,7 @@ def card_vs_cpu(dev):
     from mxnet_tpu_torch.serving import InferenceEngine
     cfg = LlamaConfig(num_layers=2)
     on_card = LlamaForCausalLM(cfg, device=dev, seed=1)
-    on_cpu = LlamaForCausalLM(cfg, device="cpu", seed=None)
-    on_cpu.load_state_dict(on_card.state_dict())
+    on_cpu = copy_weights(on_card, LlamaForCausalLM(cfg, device="cpu"))
     prompt = np.random.RandomState(1).randint(0, cfg.vocab_size, 40).tolist()
     runs = []
     for net, d in ((on_card, dev), (on_cpu, "cpu")):
@@ -1967,10 +2030,13 @@ def card_vs_cpu(dev):
     if t_card != t_cpu or not err <= LOGIT_ATOL:
         fail("card and CPU disagree")
     card_vs_cpu_fp8(dev, on_card, on_cpu, prompt)
-    return {"chunk_spec_card_vs_cpu": chunk_spec_card_vs_cpu(
+    out = {"chunk_spec_card_vs_cpu": chunk_spec_card_vs_cpu(
         dev, on_card, on_cpu, None),
         "chunk_spec_card_vs_cpu_fp8": chunk_spec_card_vs_cpu(
         dev, on_card, on_cpu, "fp8")}
+    # last: it quantizes both nets in place
+    out["int8_card_vs_cpu"] = int8_card_vs_cpu(dev, on_card, on_cpu, prompt)
+    return out
 
 
 # phase 20: the chunk and verify steps and the prefix cache, card against
@@ -1990,6 +2056,7 @@ def _chunk_spec_script(eng, prefix, prompts, n_decode, forced=None,
     each row's last token and its drafts.  ``forced`` teacher-forces the
     tokens ({slot: tokens}).  Returns (tokens {slot: [...]}, logits
     [first-token rows, then each decode step's rows], verify tokens)."""
+    import torch
     C = eng.prefill_chunk
     done = {}
     for slot, p in enumerate(prompts):
@@ -2009,7 +2076,7 @@ def _chunk_spec_script(eng, prefix, prompts, n_decode, forced=None,
             if done[slot] == len(prompts[slot]):
                 tok = int(out[0][i])
                 toks[slot] = [forced[slot][0] if forced else tok]
-                logits.append(out[1][i].float().cpu())
+                logits.append(torch.as_tensor(out[1][i]).float())
     for step in range(n_decode):
         entries = []
         for slot in sorted(toks):
@@ -2190,21 +2257,565 @@ def card_vs_cpu_fp8(dev, on_card, on_cpu, prompt):
         fail("fp8 KV on the card and on the CPU disagree")
 
 
+# card vs CPU under int8 weights: the engines' logits, the CPU fed the
+# card's activation codes (the limit set before the first chip run)
+INT8_LOGIT_ATOL = 2e-2
+# each int8 projection on the same input, card against CPU: the codes
+# are one f32 division and a rounding, the product exact, the rescale
+# one f32 multiply each side, so only the last bit may differ
+INT8_PROJ_RTOL = 1e-6
+INT8_CALIB = dict(batches=2, batch=2, tokens=12)
+# A reference fed the card's activation codes computes its own x / as at
+# each projection: on the rows that carry a request it must lie within
+# half a code of the code it is fed (the rounding) plus the two sides'
+# float noise, INT8_CODE_SLACK of a code and a share of |x / as| by the
+# input's dtype: bf16 two ulps (a bf16 net's layer 0 rounds its normed
+# embedding to bf16), f32 1e-4 (the sides' reduction orders and kernels
+# differ by about 1e-6)
+INT8_CODE_SLACK = 2e-2
+INT8_CODE_RTOL = {"torch.bfloat16": 2 ** -6, "torch.float32": 1e-4}
+
+
+def int8_calibration(vocab, ctx, seed):
+    """``INT8_CALIB``'s token batches from ``seed``, as NDArrays on
+    ``ctx``."""
+    import numpy as np
+    from mxnet_tpu_torch import nd
+    rng = np.random.RandomState(seed)
+    c = INT8_CALIB
+    return [nd.array(rng.randint(0, vocab, (c["batch"], c["tokens"])),
+                     ctx=ctx) for _ in range(c["batches"])]
+
+
+def _twins(block, prefix=""):
+    """``(structural path, QuantizedDense)`` of every int8 twin."""
+    from mxnet_tpu_torch.contrib.quantization import QuantizedDense
+    for name, child in block._children.items():
+        if isinstance(child, QuantizedDense):
+            yield prefix + name, child
+        else:
+            yield from _twins(child, prefix + name + ".")
+
+
+@contextlib.contextmanager
+def _swapped(obj, name, value):
+    """``obj.name`` is ``value`` inside the block."""
+    old = getattr(obj, name)
+    setattr(obj, name, value)
+    try:
+        yield
+    finally:
+        setattr(obj, name, old)
+
+
+def taped(call):
+    """Run ``call()``, one serving call of an engine on the card (its
+    step's graph replay), then that step's body eagerly on the same
+    static inputs (it writes the same K/V rows again; its launches are
+    taken back out of the counts), taping the activation codes each
+    int8 projection quantizes to, in call order.  Returns ``(the call's
+    result, [codes])``."""
+    import torch
+    import mxnet_tpu_torch.serving.engine as em
+    from mxnet_tpu_torch import ops
+    ran, tape = [], []
+    run, quantize = em._Step.run, em.quantize_rtn_int8
+
+    def run_noted(step):
+        ran.append(step)
+        return run(step)
+
+    def quantize_taped(x, scale):
+        tape.append(quantize(x, scale))
+        return tape[-1]
+    with _swapped(em._Step, "run", run_noted):
+        out = call()
+    before = ops.launch_counts()
+    with _swapped(em, "quantize_rtn_int8", quantize_taped), torch.no_grad():
+        ran[-1].body(*ran[-1].args)
+    after = ops.launch_counts()
+    ops.add_launches({k: before[k] - after[k] for k in after})
+    return out, tape
+
+
+class CodeFeed:
+    """Stands in for ``quantize_rtn_int8`` in a reference: returns the
+    card's codes in call order (``fed``: ``(codes, rows)``, the first
+    ``rows`` rows carrying a request) and holds the reference's own
+    ``x / as`` on those rows to the code it is fed (``INT8_CODE_*``),
+    counting its own codes that differ from the card's."""
+
+    def __init__(self, fed):
+        self.fed, self.at = fed, 0
+        self.over = float("-inf")   # largest gap less what is allowed
+        self.worst = 0.0            # largest |x / as - code|
+        self.differ = self.checked = 0
+
+    def __call__(self, x, scale):
+        import torch
+        from mxnet_tpu_torch.ops.quant_matmul import quantize_rtn_int8
+        if self.at == len(self.fed):
+            fail("int8 reference: more projections than taped codes")
+        codes, rows = self.fed[self.at]
+        self.at += 1
+        if tuple(codes.shape) != tuple(x.shape):
+            fail(f"int8 reference: projection {self.at} takes "
+                 f"{tuple(x.shape)}, the card's codes are "
+                 f"{tuple(codes.shape)}")
+        codes = codes.to(x.device)
+        v = torch.clamp(x[:rows].float() / scale, -127, 127)
+        gap = (v - codes[:rows].float()).abs()
+        allowed = 0.5 + INT8_CODE_SLACK + \
+            INT8_CODE_RTOL[str(x.dtype)] * v.abs()
+        over = float((gap - allowed).max())
+        self.over = max(self.over, over if over == over else float("inf"))
+        self.worst = max(self.worst, float(gap.max()))
+        self.differ += int((quantize_rtn_int8(x[:rows], scale) !=
+                            codes[:rows]).sum())
+        self.checked += gap.numel()
+        return codes
+
+    def held(self):
+        return self.at == len(self.fed) and self.over <= 0
+
+    def text(self):
+        return (f"{self.checked} activation codes held: largest |x/as - "
+                f"code| {self.worst:.4e} (allowed 0.5 + {INT8_CODE_SLACK} "
+                f"+ rtol |x/as|, rtol {INT8_CODE_RTOL}; margin left "
+                f"{-self.over:.4e}), {self.differ} of the reference's own "
+                f"codes differ from the card's; {self.at} of "
+                f"{len(self.fed)} taped projections taken")
+
+
+def int8_script(eng, prompt, chunk, drafts, call, fed=None):
+    """Prefill ``prompt`` into slot 0, ``TEACHER_STEPS`` decode steps
+    (greedy, or teacher-forced on ``fed``), a chunk of ``chunk`` into
+    slot 1 and a verify of the last token and ``drafts``; each engine
+    call runs through ``call(fn, layer_rows, rows)`` (the rows of its
+    layers' projections and how many of them carry the request; its
+    head's carry one).  Returns ``(fed, logits, chunk token, chunk
+    logits, verify tokens)``."""
+    import torch
+    from mxnet_tpu_torch.serving.engine import next_bucket
+    label = "card vs cpu, int8 weights"
+    B = eng.max_batch
+    tok, last = call(lambda: eng.prefill(0, prompt),
+                     next_bucket(len(prompt), eng.buckets), len(prompt))
+    own = fed is None
+    fed = list(prompt) + [tok] if own else fed
+    logits = [last.float()]
+    for j in range(TEACHER_STEPS):
+        pos = len(prompt) + j
+        if not eng.reserve(0, pos):
+            fail(f"{label}: KV pool exhausted")
+        nxt, lg = call(lambda: eng.decode([(0, fed[pos], pos)]), B, 1)
+        if own:
+            fed.append(int(nxt[0]))
+        logits.append(lg[0].float())
+    if not eng.cache.alloc(1, 0):
+        fail(f"{label}: KV pool exhausted")
+    tok, lg = call(lambda: eng.chunk_prefill([(1, chunk, 0)]),
+                   B * eng.prefill_chunk, len(chunk))
+    pos = len(prompt) + TEACHER_STEPS
+    if not eng.reserve(0, pos, 1 + len(drafts)):
+        fail(f"{label}: KV pool exhausted")
+    ver = call(lambda: eng.verify([(0, [fed[pos]] + drafts, pos)]), B, 1)
+    return fed, logits, int(tok[0]), torch.as_tensor(lg[0]), ver[0].tolist()
+
+
+def int8_card_vs_cpu(dev, on_card, on_cpu, prompt):
+    """int8 weights on phase 5's nets (2 layers, full width, f32):
+    ``quantize_net`` calibrates the CPU's net, ``convert`` carries its
+    codes and scales to the card's.
+
+    First every one of the 15 ``QuantizedDense`` twins on the same
+    input, card against CPU, within ``INT8_PROJ_RTOL`` of the output's
+    largest magnitude (codes, the int8 product and the rescale: the
+    card's cuBLASLt product with its padded rows against the CPU's
+    int32 one); the inputs are each twin's own in the card's forward of
+    the prompt, all 40 rows and the last row alone (a decode-sized
+    product).
+
+    Then an int8 engine on each (``prefill_chunk=64, spec_decode=True,
+    spec_k=3``) runs :func:`int8_script`: prefill, 16 greedy decode
+    steps, one chunk of 50 tokens into a second slot and one verify of
+    the last token and 3 drafts; the card's codes are taped from each
+    step's body (:func:`taped`) and fed to the CPU's engine
+    (:class:`CodeFeed`, teacher-forced with the card's tokens), so an
+    activation on a rounding boundary cannot take the other code on
+    the CPU and move these random-weight logits by about 1e-2 (it did:
+    ``PERF.md`` §6, PR 16).  Fails unless the logits agree within
+    ``INT8_LOGIT_ATOL``, the greedy picks, the chunk's token and the
+    verify's tokens are identical, and the CPU's own activations are
+    within ``INT8_CODE_*`` of the card's codes.  Returns the card's
+    launch counts."""
+    import numpy as np
+    import torch
+    import mxnet_tpu_torch.serving.engine as em
+    from mxnet_tpu_torch import nd, ops
+    from mxnet_tpu_torch.contrib.quantization import quantize_net
+    from mxnet_tpu_torch.convert import load_quantized_state, quantized_state
+    from mxnet_tpu_torch.serving import InferenceEngine
+    from mxnet_tpu_torch.serving.engine import next_bucket
+    label = "card vs cpu, int8 weights"
+    cfg = on_card.cfg
+    quantize_net(on_cpu, calib_data=int8_calibration(
+        cfg.vocab_size, torch.device("cpu"), 5))
+    load_quantized_state(on_card, quantized_state(on_cpu))
+    card_twins, cpu_twins = dict(_twins(on_card)), dict(_twins(on_cpu))
+    inputs = {}
+    for path, twin in card_twins.items():
+        twin._forward_pre_hooks.append(
+            lambda blk, args, path=path: inputs.setdefault(
+                path, args[0].data.detach().clone()))
+    with torch.no_grad():
+        on_card(nd.array(np.asarray([prompt]), ctx=dev))
+    for twin in card_twins.values():
+        twin._forward_pre_hooks.clear()
+    worst, bitwise = 0.0, True
+    with torch.no_grad():
+        for path, x in inputs.items():
+            for rows in (x, x[:, -1:]):
+                got = card_twins[path](nd.NDArray(rows.contiguous())).data
+                want = cpu_twins[path](nd.NDArray(rows.cpu())).data
+                bitwise = bitwise and bool(torch.equal(got.cpu(), want))
+                rel = float((got.cpu() - want).abs().max()) / max(
+                    float(want.abs().max()), 1e-30)
+                worst = max(worst, rel)
+    proj_text = (f"{label}: {len(inputs)} QuantizedDense on the same inputs "
+                 f"(40 rows and 1): max |diff| / max |out| {worst:.3e} "
+                 f"(limit {INT8_PROJ_RTOL}), bitwise {bitwise}")
+    print(proj_text, flush=True)
+    if len(inputs) != 7 * cfg.num_layers + 1 or not worst <= INT8_PROJ_RTOL:
+        fail(proj_text)
+    kw = dict(max_batch=2, block_size=16, max_context=128, prefill_chunk=64,
+              spec_decode=True, spec_k=3, quantize="int8")
+    rng = np.random.RandomState(23)
+    chunk = rng.randint(0, cfg.vocab_size, 50).tolist()
+    drafts = rng.randint(0, cfg.vocab_size, 3).tolist()
+    e_card = InferenceEngine(on_card, device=dev, **kw).warmup()
+    codes = []
+
+    def on_card_call(fn, layer_rows, rows):
+        out, tape = taped(fn)
+        codes.extend((q.cpu(), rows if q.shape[0] == layer_rows else 1)
+                     for q in tape)
+        return out
+    ops.reset_launches()
+    card = int8_script(e_card, prompt, chunk, drafts, on_card_call)
+    st = e_card.stats
+    W = next_bucket(1 + len(drafts), e_card._verify_widths())
+    launches = read_launches(label, {
+        "flash_attention_fwd": cfg.num_layers * (st["prefill_calls"] +
+                                                 st["chunk_prefill_calls"]),
+        "flash_attention_fwd_offset":
+            cfg.num_layers * st["chunk_prefill_calls"],
+        "paged_decode_attention": cfg.num_layers * (st["decode_calls"] +
+                                                    W * st["verify_calls"])})
+    feed = CodeFeed(codes)
+    e_cpu = InferenceEngine(on_cpu, device="cpu", **kw)
+    with _swapped(em, "quantize_rtn_int8", feed):
+        cpu = int8_script(e_cpu, prompt, chunk, drafts,
+                          lambda fn, *_: fn(), fed=card[0])
+    err = max(float((a.cpu() - b.cpu()).abs().max())
+              for a, b in zip(card[1] + [card[3]], cpu[1] + [cpu[3]]))
+    picks = card[0][len(prompt):]
+    same = sum(p == int(torch.argmax(lg)) for p, lg in zip(picks, cpu[1]))
+    text = (f"{label}, engines (2 layers, full width, fp32; prefill, "
+            f"{TEACHER_STEPS} decode steps, a 50-token chunk, a verify of "
+            f"3 drafts; the CPU fed the card's activation codes): max "
+            f"|logit| diff {err:.3e} (limit {INT8_LOGIT_ATOL}); greedy "
+            f"picks equal at {same} of {len(picks)} positions; chunk token "
+            f"card {card[2]} cpu {cpu[2]}; verify card {card[4]} cpu "
+            f"{cpu[4]}; {feed.text()}; launches {launches}")
+    print(text, flush=True)
+    if not (err <= INT8_LOGIT_ATOL and same == len(picks) and
+            card[2] == cpu[2] and card[4] == cpu[4] and feed.held()):
+        fail(f"{label}: card and CPU disagree")
+    del e_card, e_cpu, codes
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+# ----------------------------------------------------------------------
+# phase 23: int8 weight serving at full width, on phase 4's net
+# ----------------------------------------------------------------------
+
+INT8_DRIFT_FRAC = 0.05      # the reference's serving bound on |drift|
+INT8_CLASSES = (("int8 GEMM", ("s8", "i8", "int8", "imma", "igemm")),
+                ("paged attention (K5)", ("paged_decode",)),
+                ("quantize (div, round, clamp, cast)",
+                 ("div", "round", "clamp", "copy")),
+                ("GEMM", ("nvjet", "gemm", "gemv", "cutlass", "Kernel2")),
+                ("elementwise", ("elementwise", "reduce")))
+
+
+def _class_of(name, classes):
+    low = name.lower()
+    for cls, keys in classes:
+        if any(k.lower() in low for k in keys):
+            return cls
+    return "other"
+
+
+def serve_int8(dev, card, net, bf16_ref):
+    """Phase 23: ``quantize_net`` on phase 4's bf16 net (phase 4's
+    engine deleted), then an int8 engine in phase 4's geometry serving
+    phase 4's requests; the checks and prints are in the module doc.
+    Returns the launch counts."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from mxnet_tpu_torch import nd, ops, serving
+    from mxnet_tpu_torch.contrib.quantization import quantize_net
+    from mxnet_tpu_torch.serving.engine import next_bucket
+    label = "int8 serving"
+    cfg = net.cfg
+    cell = SERVING_CELLS["bf16"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    quantize_net(net, calib_data=int8_calibration(cfg.vocab_size, dev, 23),
+                 num_calib_batches=INT8_CALIB["batches"])
+    twins = [q for _, q in _twins(net)]
+    if len(twins) != 7 * cfg.num_layers + 1:
+        fail(f"{label}: {len(twins)} QuantizedDense, expected "
+             f"{7 * cfg.num_layers + 1}")
+    # the bf16 weights the codes replace: 2 bytes an element
+    bf16_bytes = sum(2 * q.quantized_weight.numel() for q in twins)
+    int8_bytes = sum(q.quantized_weight.numel() +
+                     4 * (q.weight_scale.numel() + 1) for q in twins)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)   # the int8 serving's own peak
+    eng = serving.InferenceEngine(
+        net, quantize="int8", max_batch=cell["max_batch"], block_size=16,
+        max_context=cell["max_context"], device=dev).warmup()
+    setup_s = time.perf_counter() - t0
+    prompts, rng = serving_prompts(cell, cfg.vocab_size)
+    ops.reset_launches()
+    run = serve_requests(serving, eng, prompts, label)
+    launches = read_launches(label, {
+        "flash_attention_fwd": cfg.num_layers * eng.stats["prefill_calls"],
+        "paged_decode_attention":
+            cfg.num_layers * eng.stats["decode_calls"]})
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    lengths = [len(p) for p in prompts]
+    print(f"int8 serving llama3_8b (bf16 net, {len(twins)} QuantizedDense) "
+          f"on {card}: {len(prompts)} requests, prompts {min(lengths)}-"
+          f"{max(lengths)} tokens, {run['tokens']} tokens in "
+          f"{run['wall_s']:.3f} s = {run['tokens_per_s']:.1f} tokens/s "
+          f"(phase 4 {bf16_ref['tokens_per_s']:.1f}); TTFT p50 "
+          f"{run['ttft_p50_ms']:.1f} ms (phase 4 "
+          f"{bf16_ref['ttft_p50_ms']:.1f}); decode step median "
+          f"{run['step_ms']:.2f} ms over {run['steps']} steps (phase 4 "
+          f"{bf16_ref['step_ms']:.2f}); projection weights {int8_bytes} "
+          f"bytes int8 with scales against {bf16_bytes} bf16 "
+          f"({int8_bytes / bf16_bytes:.4f}); peak memory {peak_gb:.2f} GB "
+          f"(phase 4 {bf16_ref['peak_gb']:.2f}); set-up (calibration, "
+          f"quantization, captures) {setup_s:.1f} s; {graph_text(eng)}; "
+          f"launches {launches}", flush=True)
+    print(graph_vs_eager(eng, rng.randint(0, cfg.vocab_size,
+                                          500).tolist()), flush=True)
+    # the engine's prefill against the quantized net's own forward at the
+    # bucket width
+    prompt = bf16_ref["prompt"]
+    _, last = eng.prefill("forward-check", prompt)
+    eng.release("forward-check")
+    bucket = next_bucket(len(prompt), eng.buckets)
+    padded = np.zeros((1, bucket), np.int32)
+    padded[0, :len(prompt)] = prompt
+    with torch.no_grad():
+        full = net(nd.array(padded, ctx=dev)).data[0, len(prompt) - 1]
+    fwd_err = float((full.float() - last.float()).abs().max())
+    # the first prompt teacher-forced on phase 4's tokens, held against
+    # the plain forward; its logits give the drift
+    lg8 = int8_plain_check(eng, net, prompt, bf16_ref["fed"], label)
+    # drift against phase 4's bf16 logits over the same positions
+    drift = max(float((a - b).abs().max())
+                for a, b in zip(lg8, bf16_ref["logits"]))
+    top = max(float(b.abs().max()) for b in bf16_ref["logits"])
+    held = drift <= INT8_DRIFT_FRAC * top
+    print(f"{label}: prefill logits of the {len(prompt)}-token prompt "
+          f"against the quantized net's forward at bucket {bucket}: max "
+          f"|diff| {fwd_err:.3e} (limit {GRAPH_LOGIT_ATOL}), bitwise "
+          f"{bool(torch.equal(full, last))}; drift against phase 4's bf16 "
+          f"logits over prefill and {TEACHER_STEPS} teacher-forced decode "
+          f"steps {drift:.4e}, largest |logit| {top:.4e}: "
+          f"{drift / top:.4f} of it, the reference's bound "
+          f"{INT8_DRIFT_FRAC} {'held' if held else 'not held'} (printed: "
+          "on these random weights the activations' dtype alone moves "
+          "the logits past it, tools/port_int8_drift.py; the plain "
+          "forward above is the held reference)", flush=True)
+    if not fwd_err <= GRAPH_LOGIT_ATOL:
+        fail(f"{label}: the engine's prefill and the quantized net's "
+             "forward disagree")
+    print(replay_device(eng, run, label), flush=True)
+    # one decode replay's device time by class, from the run's last step
+    pos, staged = run["step_pos"][-1], run["staged"][-1]
+    step = eng._steps[("decode", next_bucket(pos + 1, eng.buckets) //
+                       eng.block_size)]
+    eng._stage_np[:] = staged
+    step.flat.copy_(eng._stage[:step.flat.numel()])
+    step.graph.replay()
+    torch.cuda.synchronize()
+    reps = 5
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            step.graph.replay()
+        torch.cuda.synchronize()
+    by_class, kernels = {}, {}
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        ms = e.self_device_time_total / 1e3 / reps
+        cls = _class_of(e.key, INT8_CLASSES)
+        by_class[cls] = by_class.get(cls, 0.0) + ms
+        kernels[e.key[:70]] = kernels.get(e.key[:70], 0.0) + ms
+    top_k = sorted(kernels.items(), key=lambda kv: -kv[1])[:8]
+    print(f"{label}: one decode replay (position {pos}) by class, "
+          f"profiler, {reps} replays: "
+          f"{ {k: round(v, 4) for k, v in by_class.items()} } ms, busy "
+          f"{sum(by_class.values()):.4f} ms; top kernels "
+          f"{'; '.join(f'{k} {v:.4f} ms' for k, v in top_k)}", flush=True)
+    del eng, run
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def int8_plain_check(eng, net, prompt, fed, label):
+    """Teacher-force ``fed`` through the int8 engine ``eng`` (prefill of
+    ``prompt`` and ``TEACHER_STEPS`` decode steps), taping each step's
+    activation codes (:func:`taped`), and hold its logits to
+    :func:`plain_int8_logits` fed those codes: within ``LOGIT_ATOL``,
+    the same greedy picks, and the plain forward's own activations
+    within ``INT8_CODE_*`` of the codes.  Returns the engine's logits."""
+    import torch
+    t = len(prompt)
+    (_, first), pre = taped(lambda: eng.prefill("plain", prompt))
+    served, dec = [first.float()], []
+    for j in range(TEACHER_STEPS):
+        if not eng.reserve("plain", t + j):
+            fail(f"{label}: KV pool exhausted")
+        (_, lg), tape = taped(
+            lambda: eng.decode([("plain", fed[t + j], t + j)]))
+        served.append(lg[0].float())
+        dec.append([q[:1] for q in tape])     # the request's row
+    eng.release("plain")
+    if len(pre) != 7 * net.cfg.num_layers + 1:
+        fail(f"{label}: {len(pre)} projections taped")
+    # each projection's codes over the prompt's rows and the decode rows
+    # after them; the head's over the prompt's last row and those
+    codes = [(torch.cat([q[:t]] + [d[i] for d in dec]), t + TEACHER_STEPS)
+             for i, q in enumerate(pre[:-1])]
+    codes.append((torch.cat([pre[-1]] + [d[-1] for d in dec]),
+                  1 + TEACHER_STEPS))
+    del pre, dec
+    feed = CodeFeed(codes)
+    pool = eng.cache.k_pool.dtype
+    with torch.no_grad():
+        plain = plain_int8_logits(net, fed[:t + TEACHER_STEPS], t, feed,
+                                  pool)
+    del codes
+    got = torch.stack(served)
+    err = float((plain - got).abs().max())
+    same = int((torch.argmax(plain, -1) == torch.argmax(got, -1)).sum())
+    text = (f"{label}: the {t}-token prompt and {TEACHER_STEPS} "
+            f"teacher-forced decode steps against a plain PyTorch forward "
+            f"fed the engine's activation codes (f64 products of the "
+            f"codes, f32 rescale, plain attention over the prompt's f32 "
+            f"K/V, then the pool's {str(pool).replace('torch.', '')} K/V): "
+            f"max |logit| diff {err:.3e} (limit {LOGIT_ATOL}), bitwise "
+            f"{bool(torch.equal(plain, got))}, greedy picks equal at "
+            f"{same} of {len(served)}; {feed.text()}")
+    print(text, flush=True)
+    if not (err <= LOGIT_ATOL and same == len(served) and feed.held()):
+        fail(f"{label}: the engine and the plain forward disagree")
+    return served
+
+
+def plain_int8_logits(net, tokens, t, feed, pool):
+    """The int8 path in plain PyTorch, written apart from the engine:
+    ``tokens`` at positions ``0 .. P-1``, the first ``t`` as a prefill
+    computes them (causal attention over their own f32 K/V), each later
+    one as a decode step (attention over every K/V up to it, stored in
+    ``pool``'s dtype).  Each projection takes its activation codes from
+    ``feed`` (a :class:`CodeFeed`), multiplies them with the twin's
+    weight codes in f64 (exact: every partial sum of int8 products is an
+    integer below 2^53) and rescales in f32 by the activation scale
+    times the channel's.  Returns the logits of positions ``t - 1 ..
+    P - 1`` (f32, ``(P - t + 1, vocab)``)."""
+    import math
+    import torch
+    import torch.nn.functional as F
+    cfg = net.cfg
+    h, kvh, d, eps = (cfg.num_heads, cfg.num_kv_heads, cfg.head_dim,
+                      cfg.rms_eps)
+    m = net.model
+    emb = m.embed.weight.data().data
+    dev, P = emb.device, len(tokens)
+
+    def rms(x, param):
+        x32 = x.float()
+        y = x32 / torch.sqrt((x32 * x32).mean(-1, keepdim=True) + eps)
+        return y.to(x.dtype) * param.data().data
+
+    def proj(x, twin):
+        a = torch.tensor(twin.act_scale, dtype=torch.float32, device=dev)
+        codes = feed(x, a)
+        acc = codes.double() @ twin.quantized_weight.double().T
+        return acc.float() * (a * twin.weight_scale.float().reshape(1, -1))
+
+    freqs = cfg.rope_theta ** (-torch.arange(0, d, 2, dtype=torch.float32,
+                                             device=dev) / d)
+    ang = torch.arange(P, dtype=torch.float32, device=dev)[:, None] * freqs
+    cos, sin = torch.cos(ang)[:, None], torch.sin(ang)[:, None]
+
+    def rope(u):                     # (P, heads, d), interleaved pairs
+        u1, u2 = u[..., 0::2], u[..., 1::2]
+        return torch.stack([u1 * cos - u2 * sin, u2 * cos + u1 * sin],
+                           -1).reshape(u.shape)
+
+    causal = torch.ones(P, P, dtype=torch.bool, device=dev).tril()
+
+    def attend(q, k, v, mask):       # q (n, h, d), k/v (n', h, d)
+        s = torch.einsum("qhd,khd->hqk", q, k) / math.sqrt(d)
+        s = s.masked_fill(~mask, float("-inf"))
+        return torch.einsum("hqk,khd->qhd", torch.softmax(s, -1), v)
+
+    rep = h // kvh
+    x = emb[torch.as_tensor(tokens, device=dev)]
+    for layer in m.layers:
+        a, f = layer.attention, layer.mlp
+        hh = rms(x, layer.input_norm.weight)
+        q = rope(proj(hh, a.q_proj).view(P, h, d))
+        k = rope(proj(hh, a.k_proj).view(P, kvh, d)).repeat_interleave(rep, 1)
+        v = proj(hh, a.v_proj).view(P, kvh, d).repeat_interleave(rep, 1)
+        kc, vc = k.to(pool).float(), v.to(pool).float()
+        o = torch.cat([attend(q[:t], k[:t], v[:t], causal[:t, :t]),
+                       attend(q[t:], kc, vc, causal[t:])])
+        x = x + proj(o.reshape(P, h * d), a.o_proj)
+        y = rms(x, layer.post_norm.weight)
+        x = x + proj(F.silu(proj(y, f.gate_proj)) * proj(y, f.up_proj),
+                     f.down_proj)
+    return proj(rms(x, m.norm.weight)[t - 1:], net.lm_head)
+
+
 # ----------------------------------------------------------------------
 # phase 8: training at full width
 # ----------------------------------------------------------------------
 
 def train_param_count():
-    """Parameters of the training phase's model, counted on the meta
-    device (the size of the Trainer's flat bucket)."""
-    import torch
-    from mxnet_tpu_torch.gluon.model_zoo.nlp.llama import (LlamaConfig,
-                                                           LlamaModel)
-    cfg = LlamaConfig(num_layers=TRAIN_LAYERS)
-    with torch.device("meta"):
-        trunk = LlamaModel(cfg)
-    return sum(p.numel() for p in trunk.parameters()) + \
-        cfg.vocab_size * cfg.hidden_size           # untied lm_head
+    """Parameters of the training phase's model, counted from the
+    shapes of a net whose parameters wait for ``initialize`` (the size
+    of the Trainer's flat bucket)."""
+    import numpy as np
+    from mxnet_tpu_torch.gluon.model_zoo.nlp.llama import llama3_8b
+    net = llama3_8b(num_layers=TRAIN_LAYERS)
+    return sum(int(np.prod(p.shape))
+               for p in net.collect_params().values())
 
 
 def train_llama3_8b(dev, card, amp_dtype=None, f32_first_loss=None):
@@ -2214,7 +2825,7 @@ def train_llama3_8b(dev, card, amp_dtype=None, f32_first_loss=None):
     import statistics
     import numpy as np
     import torch
-    from mxnet_tpu_torch import amp, ops
+    from mxnet_tpu_torch import amp, autograd, nd, ops
     from mxnet_tpu_torch.gluon import Trainer
     from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
     from mxnet_tpu_torch.gluon.model_zoo.nlp.llama import llama3_8b
@@ -2224,22 +2835,15 @@ def train_llama3_8b(dev, card, amp_dtype=None, f32_first_loss=None):
     t0 = time.perf_counter()
     net = llama3_8b(device=dev, dtype=torch.float32, seed=0,
                     num_layers=TRAIN_LAYERS)
-    trainer = Trainer(dict(net.named_parameters()), "adamw",
+    trainer = Trainer(net.collect_params(), "adamw",
                       {"learning_rate": 1e-3, "wd": 0.1})
-    # every parameter is a view of the Trainer's flat buffer: the update
-    # runs K2 on it where it lies, with no gather and no write-back
-    buf = trainer._flat_param
-    if buf is None or any(
-            not buf.data_ptr() <= p.data_ptr() < buf.data_ptr() + 4 *
-            buf.numel() for p in net.parameters()):
-        fail(f"{phase}: the parameters are not views of the Trainer's "
-             "flat buffer")
+    params = [p.data().data for p in net.collect_params().values()]
     loss_fn = SoftmaxCrossEntropyLoss()
     rng = np.random.RandomState(0)
     vocab = net.cfg.vocab_size
-    tokens, labels = (torch.from_numpy(rng.randint(
-        0, vocab, (TRAIN_BATCH, TRAIN_SEQ))).to(dev) for _ in range(2))
-    n_params = sum(p.numel() for p in net.parameters())
+    tokens, labels = (nd.array(rng.randint(
+        0, vocab, (TRAIN_BATCH, TRAIN_SEQ)), ctx=dev) for _ in range(2))
+    n_params = sum(p.numel() for p in params)
     if amp_dtype is not None:
         amp.init(amp_dtype)
     try:
@@ -2251,20 +2855,30 @@ def train_llama3_8b(dev, card, amp_dtype=None, f32_first_loss=None):
         losses, step_s, dtypes = [], [], set()
         for _ in range(TRAIN_STEPS):
             t = time.perf_counter()
-            logits = net(tokens)
-            loss = loss_fn(logits, labels)              # (batch,)
-            with amp.scale_loss(loss.sum(), trainer) as scaled:
-                scaled.backward()
-            dtypes.add((logits.dtype, loss.dtype, frozenset(
-                p.grad.dtype for p in net.parameters())))
+            with autograd.record():
+                logits = net(tokens)
+                loss = loss_fn(logits, labels)          # (batch,)
+                with amp.scale_loss(loss.sum(), trainer) as scaled:
+                    scaled.backward()
+            dtypes.add((logits.data.dtype, loss.data.dtype, frozenset(
+                p.grad.dtype for p in params)))
             del logits
             trainer.step(TRAIN_BATCH)
-            losses.append(loss.detach().float().mean())
+            losses.append(loss.data.detach().float().mean())
             torch.cuda.synchronize(dev)
             step_s.append(time.perf_counter() - t)
     finally:
         if amp_dtype is not None:
             amp._deinit_for_tests()
+    # every parameter is a view of the Trainer's flat buffer (built at
+    # the first update): the update runs K2 on it where it lies, with no
+    # gather and no write-back
+    buf = trainer._flat_param
+    if buf is None or any(
+            not buf.data_ptr() <= p.data_ptr() < buf.data_ptr() + 4 *
+            buf.numel() for p in params):
+        fail(f"{phase}: the parameters are not views of the Trainer's "
+             "flat buffer")
     want = {"flash_attention_fwd": TRAIN_LAYERS * TRAIN_STEPS,
             "flash_attention_bwd": TRAIN_LAYERS * TRAIN_STEPS,
             "fused_adam_update": TRAIN_STEPS}
@@ -2307,7 +2921,7 @@ def train_llama3_8b(dev, card, amp_dtype=None, f32_first_loss=None):
               flush=True)
         if not err <= AMP_FIRST_LOSS_RTOL:
             fail(f"{phase}: first loss too far from the f32 phase's")
-    del net, trainer, loss, buf
+    del net, trainer, loss, buf, params
     gc.collect()
     torch.cuda.empty_cache()
     return launches, losses[0]
@@ -2320,32 +2934,32 @@ def train_llama3_8b(dev, card, amp_dtype=None, f32_first_loss=None):
 def train_card_vs_cpu(dev):
     import numpy as np
     import torch
-    from mxnet_tpu_torch import ops
+    from mxnet_tpu_torch import autograd, nd, ops
     from mxnet_tpu_torch.gluon import Trainer
     from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
     from mxnet_tpu_torch.gluon.model_zoo.nlp.llama import (LlamaConfig,
                                                            LlamaForCausalLM)
     cfg = LlamaConfig(num_layers=1, vocab_size=32000)
     on_card = LlamaForCausalLM(cfg, device=dev, seed=1)
-    on_cpu = LlamaForCausalLM(cfg, device="cpu", seed=None)
-    on_cpu.load_state_dict(on_card.state_dict())
+    on_cpu = copy_weights(on_card, LlamaForCausalLM(cfg, device="cpu"))
     rng = np.random.RandomState(2)
-    tokens, labels = (torch.from_numpy(rng.randint(0, cfg.vocab_size,
-                                                   (1, 64)))
+    tokens, labels = (rng.randint(0, cfg.vocab_size, (1, 64))
                       for _ in range(2))
     runs, launches = [], None
     for net, d in ((on_card, dev), (on_cpu, torch.device("cpu"))):
-        trainer = Trainer(dict(net.named_parameters()), "sgd",
+        trainer = Trainer(net.collect_params(), "sgd",
                           {"learning_rate": 0.1, "momentum": 0.9})
         if d.type == "cuda":
             ops.reset_launches()
         losses = []
         for _ in range(2):
-            loss = SoftmaxCrossEntropyLoss()(net(tokens.to(d)),
-                                             labels.to(d))
-            loss.sum().backward()
+            with autograd.record():
+                loss = SoftmaxCrossEntropyLoss()(
+                    net(nd.array(tokens, ctx=d)), nd.array(labels, ctx=d))
+                total = loss.sum()
+            total.backward()
             trainer.step(1)
-            losses.append(float(loss.detach().mean()))
+            losses.append(float(loss.data.detach().mean()))
         if d.type == "cuda":
             torch.cuda.synchronize(dev)
             launches = read_launches("training card vs cpu", {
@@ -2353,9 +2967,10 @@ def train_card_vs_cpu(dev):
                 "fused_sgd_update": 2})
         runs.append(losses)
     loss_err = max(abs(a - b) / abs(b) for a, b in zip(*runs))
-    param_err = max(float((a.detach().cpu() - b.detach()).abs().max())
-                    for a, b in zip(on_card.parameters(),
-                                    on_cpu.parameters()))
+    want = on_cpu._collect_params_with_prefix()
+    param_err = max(float((p.data().data.cpu() - want[k].data().data)
+                          .abs().max())
+                    for k, p in on_card._collect_params_with_prefix().items())
     print(f"training card vs cpu (1 layer, full width, vocab cut to "
           f"{cfg.vocab_size}, fp32, 2 sgd-momentum steps on 64 tokens): "
           f"losses card {runs[0]} cpu {runs[1]}, max relative loss diff "
@@ -3638,12 +4253,14 @@ def main():
 
     # phases 4-19: each path from zeroed launch counters
     by_path = {}
-    by_path["serving"], net = serve_llama3_8b(dev, card)
+    by_path["serving"], net, bf16_ref = serve_llama3_8b(dev, card)
     # phases 21 and 22 on phase 4's net
     (by_path["serving_chunked_prefix"], by_path["serving_speculative"],
      by_path["serving_speculative_landing"]) = serve_prefix_and_spec(
         dev, card, net)
-    del net
+    # phase 23 last on it: it quantizes the net in place
+    by_path["serving_int8"] = serve_int8(dev, card, net, bf16_ref)
+    del net, bf16_ref
     gc.collect()
     torch.cuda.empty_cache()
     # phases 5, 6 and 20

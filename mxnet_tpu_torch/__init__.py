@@ -27,7 +27,9 @@ backward kernels; bf16 mixed-precision training (``amp``,
 parameters in one persistent flat buffer; and the reference's training
 entry point, ``parallel.DataParallelTrainer`` on a one-device mesh (each
 step one CUDA graph on the card), with ``checkpoint``
-(``CheckpointManager``) and the Trainers' state protocol.
+(``CheckpointManager``) and the Trainers' state protocol; Llama as Gluon
+blocks, and int8 weight serving (``contrib.quantization`` and the
+engine's ``quantize="int8"``).
 """
 from .base import MXNetError, NotSupportedError
 from .context import (Context, cpu, current_context, gpu, num_gpus,
@@ -46,8 +48,10 @@ from . import gluon
 from . import serving
 from . import parallel
 from . import checkpoint
+from . import contrib
 
 __all__ = ["MXNetError", "NotSupportedError", "Context", "cpu", "gpu",
            "current_context", "num_gpus", "resolve_device", "nd", "ndarray",
            "random", "autograd", "init", "initializer", "metric", "ops",
-           "amp", "optimizer", "gluon", "serving", "parallel", "checkpoint"]
+           "amp", "optimizer", "gluon", "serving", "parallel", "checkpoint",
+           "contrib"]

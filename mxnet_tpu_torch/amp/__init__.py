@@ -10,49 +10,32 @@ scaler.
 
 The policy.  ``init()`` sets a process-wide policy, as the reference's
 does (it patches the JAX package's op registry; ``_deinit_for_tests``
-undoes either).  It switches on no global autocast: a model opens one
-``torch.autocast`` region around its forward body while the policy is
-on (:func:`region`; ``LlamaForCausalLM.forward`` does, and so does the
-outermost call of a gluon ``Block``).  A region per forward is what
-keeps autocast's cache of low-precision weight copies fresh: the cache
-lives until the outermost region exits, so under one global region the
-forward after an in-place optimizer update would read the last step's
-bf16 weights.  Parameters, their gradients and the optimizer state stay
-float32; the matmuls' casts are differentiable, so the gradients arrive
-in float32.
+undoes either).  It switches on no global autocast: the outermost call
+of a gluon ``Block`` opens one ``torch.autocast`` region around its
+forward while the policy is on (:func:`region`), and
+``parallel.DataParallelTrainer`` opens one around its step body.  A
+region per forward is what keeps autocast's cache of low-precision
+weight copies fresh: the cache lives until the outermost region exits,
+so under one global region the forward after an in-place optimizer
+update would read the last step's bf16 weights.  Parameters, their
+gradients and the optimizer state stay float32; the casts are
+differentiable, so the gradients arrive in float32.
 
-The gluon path (NDArray ops, ``gluon.nn``, BERT) casts as the
-reference does: the op registry of ``ndarray/ops.py`` casts each listed
-op's inputs by ``lists.py`` and runs the op with autocast off, so an op
-computes in the same dtype on the CPU and on the card.
-
-Where the Llama path's casts differ from ``amp/lists.py``.  Its torch
-modules call no registered op, so their casts are autocast's lists, not
-the reference's:
-
-- ``TARGET_DTYPE_OPS``: ``FullyConnected``, ``dot``/``batch_dot`` and
-  ``Convolution`` are ``linear``, ``matmul``/``bmm`` and ``conv*`` in
-  autocast's low-precision lists on the CPU and on CUDA alike, so the
-  Llama projections and the LM head run in the target dtype, as the
-  reference's ``nn.Dense`` do.
-- ``FP32_OPS``: CUDA autocast widens ``softmax``, ``log_softmax``,
-  ``exp``, ``log``, ``pow``, ``sum``, ``prod``, ``cumsum`` and the norms
-  to float32; CPU autocast (torch 2.13) leaves ``log_softmax`` and most
-  of these in bfloat16.  The Llama body does not depend on either list:
-  RMSNorm reduces in float32 by its own casts and RoPE's angles are
-  float32.  The loss stays outside the region, so on both devices
-  ``SoftmaxCrossEntropyLoss`` takes the bf16 logits and computes in
-  bf16, as the reference's does (its loss runs through an unlisted
-  ``apply_nary``, ``mxnet_tpu/gluon/loss.py:127``).
-- ``WIDEST_TYPE_CASTS``: PyTorch's type promotion widens a bf16 + f32
-  elementwise op to f32 by itself, as the residual adds do in both
-  packages.
-- RoPE: the reference's float32 cos/sin widen q and k to float32 (JAX's
-  promotion), so its attention takes f32 q, k and bf16 v; the port
-  rounds the rotation back to bf16, so flash attention (K3) takes bf16
-  q, k and v and runs its bf16 tensor-core kernels on the card.  K3 has
-  no float16 kernels: under ``init("float16")`` the card raises
-  ``NotSupportedError`` at the kernel (the CPU runs the plain versions).
+The casts are the reference's: the op registry of ``ndarray/ops.py``
+casts each listed op's inputs by ``lists.py`` and runs the op with
+autocast off, so an op computes in the same dtype on the CPU and on the
+card.  The Llama blocks (``gluon/model_zoo/nlp/llama.py``), BERT and the
+ResNets all run through it: the projections (``FullyConnected``) run in
+the target dtype, so the untied LM head's logits leave in bf16, and the
+unlisted ops (``rms_norm``, ``llama_attention``, ``swiglu``,
+``tied_lm_head``) compute in the dtype that reaches them, as the
+reference's unlisted ``apply_nary`` ops do.  One standing difference:
+the reference's float32 cos/sin tables widen q and k to float32 (JAX's
+promotion), so its attention takes f32 q, k and bf16 v; the port rounds
+the rotation back to bf16, so flash attention (K3) takes bf16 q, k and
+v and runs its bf16 tensor-core kernels on the card.  K3 has no
+float16 kernels: under ``init("float16")`` the card raises
+``NotSupportedError`` at the kernel (the CPU runs the plain versions).
 
 ``convert_model`` works on symbols, which the port does not have yet:
 it raises ``NotSupportedError``.
@@ -193,15 +176,12 @@ def unscale(trainer):
 
 def convert_hybrid_block(block, target_dtype="bfloat16"):
     """Cast a block's parameters to the target dtype in place and return
-    it: a gluon ``HybridBlock`` through ``block.cast(target_dtype)``, as
-    the reference does, so each Parameter's dtype follows; a torch
-    module (the Llama path) through ``.to``, floating-point parameters
-    and buffers.  A Trainer built on the block before loses its flat
-    parameter buffer's aliasing and says so at its next step."""
+    it, through ``block.cast(target_dtype)`` as the reference does, so
+    each Parameter's dtype follows.  A Trainer built on the block before
+    loses its flat parameter buffer's aliasing and says so at its next
+    step."""
     if target_dtype not in _DTYPES:
         raise MXNetError("target_dtype must be bfloat16 or float16")
-    if isinstance(block, torch.nn.Module):
-        return block.to(_DTYPES[target_dtype])
     block.cast(target_dtype)
     return block
 

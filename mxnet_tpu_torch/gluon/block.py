@@ -21,7 +21,7 @@ state is replayed) and no second write of auxiliary state.  ``export`` and ``Sym
 ``NotSupportedError`` naming ROADMAP §1 item 11.
 
 Under ``amp.init()`` the outermost Block call opens one ``amp.region``
-on its inputs' device, as ``LlamaForCausalLM.forward`` does; the ported
+on its inputs' device (Llama, BERT, the ResNets alike); the ported
 ops cast by the reference's lists inside it (``ndarray/ops.py``).
 """
 from __future__ import annotations

@@ -4,8 +4,8 @@ Counterpart of ``mxnet_tpu/gluon/loss.py``: ``Loss`` (weight and
 batch_axis), ``L2Loss`` and ``SoftmaxCrossEntropyLoss``.  Each returns
 one loss per sample: the mean over every axis but ``batch_axis``.  A
 loss takes NDArrays (the Gluon path: the result is an NDArray, recorded
-inside ``autograd.record()``) or ``torch.Tensor``s (the Llama path: the
-result is a tensor under torch's own grad mode).  A loss opens no
+inside ``autograd.record()``) or ``torch.Tensor``s (the result is then
+a tensor under torch's own grad mode).  A loss opens no
 ``amp`` region and casts nothing, as the reference's (its losses run
 through an unlisted ``apply_nary``): it computes in the dtype of
 ``pred``.  The other losses of the reference wait (ROADMAP §1 item 3).

@@ -1,10 +1,30 @@
-"""Llama-family decoder LM as PyTorch modules.
+"""Llama-family decoder LM as Gluon ``HybridBlock``s.
 
 Counterpart of ``mxnet_tpu/gluon/model_zoo/nlp/llama.py``: RMSNorm +
 interleaved RoPE + grouped-query attention + SwiGLU, causal attention
-through the flash kernel (``ops.flash_attention``).  ``_rms``,
-``_rot_interleaved`` and ``_cache_attention`` are the shared math the
-serving engine reuses, as in the reference.
+through the flash kernel (``ops.flash_attention``).  The blocks, their
+children and their structural parameter names are the reference's
+(``model.embed.weight``, ``model.layers.0.attention.q_proj.weight``,
+..., ``lm_head.weight``), so ``save_parameters`` files and
+``convert.load_block_weights`` cross between the packages, and
+``Trainer(net.collect_params())``, ``DataParallelTrainer`` and
+``contrib.quantization.quantize_net`` take the net.  The math the
+reference runs through ``apply_nary`` runs through ``nd.apply``:
+``rms_norm``, ``llama_attention``, ``swiglu`` and ``tied_lm_head``.
+``_rms``, ``_rope_cos_sin``, ``_rot_interleaved`` and
+``_cache_attention`` are the shared math the serving engine reuses.
+
+Construction.  ``LlamaForCausalLM(cfg)`` is the reference's: the
+parameters wait for ``net.initialize(ctx=...)`` (the initializers draw
+them).  The port adds three keywords: ``device`` places every
+parameter there (``cuda`` by default, which raises without a card),
+``dtype`` is the parameters' dtype, and ``seed`` allocates the weights
+on that device at once and draws them there from one
+``torch.Generator`` (normal, std 0.02; norms 1), in the order of the
+structural names; no seeded weight passes through the host.  With a
+device and no seed the parameters hold no data until
+``load_parameters``, ``convert`` or ``set_data`` writes them there: a
+forward or an ``InferenceEngine`` raises before.
 
 Numerics follow the reference op for op where the dtype is float32:
 RoPE frequencies and angles in float32, ``_rms`` casting the normalised
@@ -13,8 +33,10 @@ repeated with ``repeat_interleave`` (``jnp.repeat``).  In bfloat16 the
 port keeps activations in bfloat16 (the rotation is computed in float32
 and rounded back), where JAX's type promotion would widen them to
 float32 after the rotation; parity with the reference is held in float32.
-Under ``amp.init("bfloat16")`` the same holds of q and k after RoPE
-(``amp`` module doc), and the forward body runs in one autocast region.
+Under ``amp.init("bfloat16")`` the outermost block call opens the
+``amp`` region and the ops cast by the registry's lists, as every Gluon
+block does: the projections (``FullyConnected``) run in bfloat16, and
+K3 takes bfloat16 q and k after RoPE (``amp`` module doc).
 
 Not in this slice: ``generate()``, tensor and context parallelism and
 ``fused_ce_loss``.
@@ -22,13 +44,14 @@ Not in this slice: ``generate()``, tensor and context parallelism and
 from __future__ import annotations
 
 import torch
-from torch import nn
-import torch.nn.functional as F
+import torch.nn.functional as F_
 
-from .... import amp
 from ....base import MXNetError, NotSupportedError
 from ....context import resolve_device
+from ....ndarray.ndarray import _dtype_of, apply
 from ....ops.flash_attention import flash_attention
+from ...block import HybridBlock
+from ... import nn
 
 __all__ = ["LlamaConfig", "LlamaModel", "LlamaForCausalLM", "RMSNorm",
            "llama3_8b", "llama_tiny"]
@@ -118,166 +141,200 @@ def _cache_attention(q, ck, cv, valid, scale):
     return out[:, 0].reshape(b, h * d)
 
 
-class RMSNorm(nn.Module):
+class RMSNorm(HybridBlock):
     """Root-mean-square norm (no mean subtraction, no bias)."""
 
-    def __init__(self, hidden_size, eps=1e-5, device=None, dtype=None):
-        super().__init__()
-        self.eps = eps
-        self.weight = nn.Parameter(torch.ones(hidden_size, device=device,
-                                              dtype=dtype))
+    def __init__(self, hidden_size, eps=1e-5, dtype="float32", **kwargs):
+        super().__init__(**kwargs)
+        self._eps = eps
+        with self.name_scope():
+            self.weight = self.params.get("weight", shape=(hidden_size,),
+                                          dtype=dtype, init="ones")
 
-    def forward(self, x):
-        return _rms(x, self.weight, self.eps)
+    def hybrid_forward(self, F, x, weight):
+        eps = self._eps
+
+        def rms_norm(d, w):
+            return _rms(d, w, eps)
+        return apply(rms_norm, [x, weight])
 
 
-def _linear(n_in, n_out, device, dtype):
-    return nn.Linear(n_in, n_out, bias=False, device=device, dtype=dtype)
+def _dense(units, in_units, dtype):
+    return nn.Dense(units, use_bias=False, flatten=False, dtype=dtype,
+                    in_units=in_units)
 
 
-class LlamaAttention(nn.Module):
-    def __init__(self, cfg, device=None, dtype=None):
-        super().__init__()
+class LlamaAttention(HybridBlock):
+    def __init__(self, cfg, dtype="float32", **kwargs):
+        super().__init__(**kwargs)
         self.cfg = cfg
         h, kvh, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-        self.q_proj = _linear(cfg.hidden_size, h * d, device, dtype)
-        self.k_proj = _linear(cfg.hidden_size, kvh * d, device, dtype)
-        self.v_proj = _linear(cfg.hidden_size, kvh * d, device, dtype)
-        self.o_proj = _linear(h * d, cfg.hidden_size, device, dtype)
+        hid = cfg.hidden_size
+        with self.name_scope():
+            self.q_proj = _dense(h * d, hid, dtype)
+            self.k_proj = _dense(kvh * d, hid, dtype)
+            self.v_proj = _dense(kvh * d, hid, dtype)
+            self.o_proj = _dense(hid, h * d, dtype)
 
-    def forward(self, x):
+    def hybrid_forward(self, F, x):
         cfg = self.cfg
         b, t = x.shape[0], x.shape[1]
         h, kvh, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-        q = self.q_proj(x).reshape(b, t, h, d).transpose(1, 2)
-        k = self.k_proj(x).reshape(b, t, kvh, d).transpose(1, 2)
-        v = self.v_proj(x).reshape(b, t, kvh, d).transpose(1, 2)
-        cos, sin = _rope_cos_sin(torch.arange(t, device=x.device), d,
-                                 cfg.rope_theta)
-        q = _rot_interleaved(q, cos, sin)
-        k = _rot_interleaved(k, cos, sin)
-        rep = h // kvh
-        k = k.repeat_interleave(rep, dim=1)
-        v = v.repeat_interleave(rep, dim=1)
-        o = flash_attention(q, k, v, causal=True)
-        return self.o_proj(o.transpose(1, 2).reshape(b, t, h * d))
+        theta = cfg.rope_theta
+
+        def llama_attention(q, k, v):
+            q = q.reshape(b, t, h, d).transpose(1, 2)
+            k = k.reshape(b, t, kvh, d).transpose(1, 2)
+            v = v.reshape(b, t, kvh, d).transpose(1, 2)
+            cos, sin = _rope_cos_sin(torch.arange(t, device=q.device), d,
+                                     theta)
+            q = _rot_interleaved(q, cos, sin)
+            k = _rot_interleaved(k, cos, sin)
+            rep = h // kvh
+            o = flash_attention(q, k.repeat_interleave(rep, dim=1),
+                                v.repeat_interleave(rep, dim=1), causal=True)
+            return o.transpose(1, 2).reshape(b, t, h * d)
+
+        out = apply(llama_attention,
+                    [self.q_proj(x), self.k_proj(x), self.v_proj(x)])
+        return self.o_proj(out)
 
 
-class LlamaMLP(nn.Module):
+class LlamaMLP(HybridBlock):
     """SwiGLU feed-forward."""
 
-    def __init__(self, cfg, device=None, dtype=None):
-        super().__init__()
+    def __init__(self, cfg, dtype="float32", **kwargs):
+        super().__init__(**kwargs)
         hid, inter = cfg.hidden_size, cfg.intermediate_size
-        self.gate_proj = _linear(hid, inter, device, dtype)
-        self.up_proj = _linear(hid, inter, device, dtype)
-        self.down_proj = _linear(inter, hid, device, dtype)
+        with self.name_scope():
+            self.gate_proj = _dense(inter, hid, dtype)
+            self.up_proj = _dense(inter, hid, dtype)
+            self.down_proj = _dense(hid, inter, dtype)
 
-    def forward(self, x):
-        return self.down_proj(F.silu(self.gate_proj(x)) * self.up_proj(x))
+    def hybrid_forward(self, F, x):
+        def swiglu(g, u):
+            return F_.silu(g) * u
+        return self.down_proj(apply(swiglu, [self.gate_proj(x),
+                                             self.up_proj(x)]))
 
 
-class LlamaLayer(nn.Module):
-    def __init__(self, cfg, device=None, dtype=None):
-        super().__init__()
-        self.input_norm = RMSNorm(cfg.hidden_size, cfg.rms_eps, device, dtype)
-        self.attention = LlamaAttention(cfg, device, dtype)
-        self.post_norm = RMSNorm(cfg.hidden_size, cfg.rms_eps, device, dtype)
-        self.mlp = LlamaMLP(cfg, device, dtype)
+class LlamaLayer(HybridBlock):
+    def __init__(self, cfg, dtype="float32", **kwargs):
+        super().__init__(**kwargs)
+        with self.name_scope():
+            self.input_norm = RMSNorm(cfg.hidden_size, cfg.rms_eps, dtype)
+            self.attention = LlamaAttention(cfg, dtype)
+            self.post_norm = RMSNorm(cfg.hidden_size, cfg.rms_eps, dtype)
+            self.mlp = LlamaMLP(cfg, dtype)
 
-    def forward(self, x):
+    def hybrid_forward(self, F, x):
         x = x + self.attention(self.input_norm(x))
         return x + self.mlp(self.post_norm(x))
 
 
-class LlamaModel(nn.Module):
-    def __init__(self, cfg, device=None, dtype=None):
-        super().__init__()
+class LlamaModel(HybridBlock):
+    def __init__(self, cfg, dtype="float32", **kwargs):
+        super().__init__(**kwargs)
         self.cfg = cfg
-        self.embed = nn.Embedding(cfg.vocab_size, cfg.hidden_size,
-                                  device=device, dtype=dtype)
-        self.layers = nn.ModuleList(LlamaLayer(cfg, device, dtype)
-                                    for _ in range(cfg.num_layers))
-        self.norm = RMSNorm(cfg.hidden_size, cfg.rms_eps, device, dtype)
+        with self.name_scope():
+            self.embed = nn.Embedding(cfg.vocab_size, cfg.hidden_size,
+                                      dtype=dtype)
+            self.layers = nn.HybridSequential()
+            for _ in range(cfg.num_layers):
+                self.layers.add(LlamaLayer(cfg, dtype))
+            self.norm = RMSNorm(cfg.hidden_size, cfg.rms_eps, dtype)
 
-    def forward(self, tokens):
-        x = self.embed(tokens.long())
+    def hybrid_forward(self, F, tokens):
+        x = self.embed(tokens)
         for layer in self.layers:
             x = layer(x)
         return self.norm(x)
 
+    def remat(self, active=True):
+        """Per-decoder-layer rematerialization: while recording, each
+        layer runs under ``torch.utils.checkpoint``, so the backward keeps
+        only the layers' boundary activations and recomputes the rest."""
+        for layer in self.layers:
+            layer.hybridize(active, remat=active)
 
-class LlamaForCausalLM(nn.Module):
-    """Causal LM.  Built directly on ``device`` (``cuda`` by default;
-    raises without a card unless ``device="cpu"``): the modules are laid
-    out on the meta device, storage is allocated on the target, and the
-    weights are drawn there from a generator seeded with ``seed``
-    (normal, std 0.02; norms 1).  No weight ever passes through the host.
-    ``seed=None`` leaves the storage uninitialised, for weights that are
-    loaded right after (``load_state_dict``, ``convert``).
-    """
 
-    def __init__(self, cfg, device=None, dtype=None, seed=0):
-        super().__init__()
-        dev = resolve_device(device)
+class LlamaForCausalLM(HybridBlock):
+    """Causal LM: ``net(tokens)`` takes an int NDArray ``(B, T)`` and
+    returns the logits ``(B, T, vocab)`` as an NDArray.
+
+    ``device``/``dtype``/``seed`` (see the module doc): with a device or
+    a seed, every parameter is placed on ``device`` (``cuda`` when None)
+    in ``dtype`` (float32 when None); with a seed it is allocated and
+    drawn there, without one it holds no data until it is loaded; with
+    neither, the parameters wait for ``initialize``, as in the
+    reference."""
+
+    def __init__(self, cfg, device=None, dtype=None, seed=None, **kwargs):
+        super().__init__(**kwargs)
         self.cfg = cfg
-        dtype = dtype or torch.float32
-        with torch.device("meta"):
-            self.model = LlamaModel(cfg, dtype=dtype)
+        dt = str(_dtype_of(dtype)).replace("torch.", "")
+        with self.name_scope():
+            self.model = LlamaModel(cfg, dt)
             self.lm_head = None if cfg.tie_embeddings else \
-                _linear(cfg.hidden_size, cfg.vocab_size, None, dtype)
-        self.to_empty(device=dev)
-        if seed is not None:
-            self.reset_parameters(seed)
-
-    @torch.no_grad()
-    def reset_parameters(self, seed=0):
-        """Seeded random init on the model's own device."""
-        dev = self.model.embed.weight.device
+                _dense(cfg.vocab_size, cfg.hidden_size, dt)
+        if device is None and seed is None:
+            return
+        dev = resolve_device(device)
+        if seed is None:
+            for p in self.collect_params().values():
+                p.reset_ctx(dev)
+            return
         gen = torch.Generator(device=dev).manual_seed(int(seed))
-        for name, p in self.named_parameters():
-            if name.endswith("norm.weight"):
-                p.fill_(1.0)
-            else:
-                p.normal_(0.0, _INIT_STD, generator=gen)
+        with torch.no_grad():
+            # the structural names' order
+            for name, p in self._collect_params_with_prefix().items():
+                w = torch.empty(p.shape, dtype=_dtype_of(p.dtype), device=dev)
+                if name.endswith("norm.weight"):
+                    w.fill_(1.0)
+                else:
+                    w.normal_(0.0, _INIT_STD, generator=gen)
+                p._bind(w)
 
-    def forward(self, tokens):
-        """Logits ``(B, T, vocab)``.  While ``amp.init()`` is in force the
-        body runs in one ``torch.autocast`` region (``amp.region``): the
-        projections and the LM head in the target dtype, so the logits
-        leave it in bf16; otherwise nothing changes."""
-        with amp.region(self.model.embed.weight.device.type):
-            x = self.model(tokens)
-            if self.lm_head is not None:
-                return self.lm_head(x)
-            return x @ self.model.embed.weight.T
+    def hybrid_forward(self, F, tokens):
+        x = self.model(tokens)
+        if self.lm_head is not None:
+            return self.lm_head(x)
+
+        def tied_lm_head(d, emb):
+            return d @ emb.T
+        return apply(tied_lm_head, [x, self.model.embed.weight.data()])
+
+    def _decode_params(self):
+        """:meth:`decode_weights`' structure of the Parameters."""
+        m = self.model
+        layers = []
+        for layer in m.layers:
+            a, f = layer.attention, layer.mlp
+            layers.append(tuple(blk.weight for blk in (
+                layer.input_norm, a.q_proj, a.k_proj, a.v_proj, a.o_proj,
+                layer.post_norm, f.gate_proj, f.up_proj, f.down_proj)))
+        head = None if self.lm_head is None else self.lm_head.weight
+        return (m.embed.weight, m.norm.weight, head, layers)
 
     def decode_weights(self):
         """Decode-weight structure, as the reference's
         ``decode_weights()``: ``(embed, final_norm, lm_head|None,
         [per-layer (in_norm, q, k, v, o, post_norm, gate, up, down)])``.
-        The tensors are the modules' own parameters (no copies)."""
-        m = self.model
-        layers = []
-        for layer in m.layers:
-            a, f = layer.attention, layer.mlp
-            layers.append((layer.input_norm.weight, a.q_proj.weight,
-                           a.k_proj.weight, a.v_proj.weight,
-                           a.o_proj.weight, layer.post_norm.weight,
-                           f.gate_proj.weight, f.up_proj.weight,
-                           f.down_proj.weight))
-        head = None if self.lm_head is None else self.lm_head.weight
-        return (m.embed.weight, m.norm.weight, head, layers)
+        The tensors are the parameters' own (no copies)."""
+        embed, norm, head, layers = self._decode_params()
+        return (embed.data().data, norm.data().data,
+                None if head is None else head.data().data,
+                [tuple(p.data().data for p in layer) for layer in layers])
 
 
-def llama3_8b(device=None, dtype=None, seed=0, **overrides):
+def llama3_8b(device=None, dtype=None, seed=None, **overrides):
     """Llama-3-8B geometry: hidden 4096, 32 layers, 32/8 heads, head_dim
     128, SwiGLU 14336, vocab 128256."""
     return LlamaForCausalLM(LlamaConfig(**overrides), device=device,
                             dtype=dtype, seed=seed)
 
 
-def llama_tiny(device=None, dtype=None, seed=0, **overrides):
+def llama_tiny(device=None, dtype=None, seed=None, **overrides):
     """Tiny config for tests."""
     kw = dict(vocab_size=256, hidden_size=64, intermediate_size=128,
               num_layers=2, num_heads=4, num_kv_heads=2, max_seq_len=128)

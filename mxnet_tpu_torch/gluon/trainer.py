@@ -2,9 +2,8 @@
 
 Counterpart of ``mxnet_tpu/gluon/trainer.py`` on one card.  ``params``
 is, as in the reference, a ``ParameterDict`` (``net.collect_params()``)
-or a list of gluon ``Parameter``s; or, for the port's torch modules, a
-dict ``name -> nn.Parameter`` (``dict(net.named_parameters())``) or a
-list of them.  Dict keys are sorted, as in the reference.
+or a list of gluon ``Parameter``s; or a dict ``name -> nn.Parameter``
+or a list of bare ``torch.nn.Parameter``s.  Dict keys are sorted, as in the reference.
 ``step(batch_size)`` rescales the gradients by ``rescale_grad /
 batch_size`` and updates every parameter whose gradient a backward pass
 has written since the last update; each updated parameter's ``.grad``
@@ -48,7 +47,7 @@ state views are gathered into a bucket and written back.  Before every
 update the Trainer checks that each parameter still lies in the buffer
 and raises if one was moved off it (``p.data = ...``, ``net.to(...)``,
 ``Parameter.cast``), rather than update a stale copy; in-place writes
-(``load_state_dict``, ``set_data``, ``reset_parameters``) keep the
+(``load_parameters``, ``set_data``, ``convert``) keep the
 aliasing.  Building the buffer moves every parameter to new storage, so
 whatever held the old storage no longer sees the parameters: a
 ``serving.InferenceEngine`` built on the net before the Trainer raises
@@ -223,7 +222,7 @@ class Trainer:
                     f"Parameter `{self._names[i]}` no longer lies in the "
                     "Trainer's flat parameter buffer (its .data was "
                     "replaced, or the net moved with .to()); write into it "
-                    "in place (copy_, load_state_dict) or build a new "
+                    "in place (copy_, set_data) or build a new "
                     "Trainer")
 
     # -- state ---------------------------------------------------------------

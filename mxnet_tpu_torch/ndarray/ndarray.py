@@ -641,8 +641,8 @@ def array(source_array, ctx=None, dtype=None):
 
 def from_torch(tensor, ctx=None):
     """An NDArray over ``tensor`` itself (no copy), or over its copy on
-    ``ctx`` when that is another device: the bridge to and from the
-    port's torch modules (the reference's ``from_jax``)."""
+    ``ctx`` when that is another device: the bridge to and from plain
+    torch code (the reference's ``from_jax``)."""
     return NDArray(tensor, ctx)
 
 

@@ -53,12 +53,27 @@ and its ``cow`` graph: a copy-on-write fork (:meth:`reserve`,
 runs on, so it lands before the replay writes into the fork.
 Weights are the model's own parameters, never copied, so in-place
 updates (an optimizer step) are served; an engine refuses to serve (at
-``warmup`` and ``prefill``) once a weight has been moved to new storage,
-as a ``gluon.Trainer`` built on the net after the engine moves it into
-its flat buffer.  (The reference's engine keeps the arrays it was built
-with, whatever the net does afterwards.)  The big
+``warmup``, ``prefill`` and ``chunk_prefill``) once a weight has been
+moved to new storage, as a ``gluon.Trainer`` built on the net after the
+engine moves it into its flat buffer, or once ``quantize_net`` has
+swapped the projections it read.  (The reference's engine keeps the
+arrays it was built with, whatever the net does afterwards.)  The big
 projections stay ``torch.matmul`` (the reference leaves them to XLA);
 RMSNorm, RoPE and SwiGLU are plain torch.
+
+int8 weights (``quantize="int8"``, the reference's): the net's ``Dense``
+projections become ``contrib.quantization.QuantizedDense`` twins
+(calibrated on ``calib_data`` by ``quantize_net``, or taken as they are
+when the net is quantized already), and every projection of every step
+family runs :meth:`_proj`'s int8 branch, op for op the twin's forward:
+the input quantized at the activation scale, ``ops.quant_matmul.
+int8_matmul`` (cuBLASLt's int8 GEMM on the card, an exact int32 product
+on the CPU), then the f32 rescale.  As in the reference, that product
+leaves f32 whatever the net's dtype, so in a bf16 net the residual
+stream, q, k and v are f32 after the first projection: the prefill's
+and the chunk's attention run in f32, the decode queries are f32
+against the pool's own dtype, and K/V rows are cast to the pool's
+dtype when written.
 
 The graph cache (the reference's ``_sig``/``_get``): steps are keyed by
 ``(kind, size)`` (``size`` is the prefill bucket, the table width in
@@ -97,9 +112,8 @@ exactly; sampled streams draw other numbers than JAX's keys (the chunk
 family draws from the same generator, where the reference folds the
 chunk call count into its key).
 
-Not in this slice (each raises ``NotSupportedError``): int8 weights
-(``quantize``), tensor parallelism (``mesh``) and sharing one
-``kv_cache`` between engines.
+Not in this slice (each raises ``NotSupportedError``): tensor
+parallelism (``mesh``) and sharing one ``kv_cache`` between engines.
 """
 from __future__ import annotations
 
@@ -118,6 +132,7 @@ from ..gluon.model_zoo.nlp.llama import (_rms, _rope_cos_sin,
 from ..ops import add_launches, launch_counts
 from ..ops.flash_attention import flash_attention, flash_attention_fwd
 from ..ops.paged_attention import paged_decode_attention
+from ..ops.quant_matmul import int8_matmul, quantize_rtn_int8
 from ..ops.quant_kv import (kv_cast, kv_dequantize, kv_has_scales,
                             kv_quantize_fp8, resolve_kv_dtype)
 from .frontend.prefix_cache import PrefixCache
@@ -228,13 +243,33 @@ class _Step:
 
 
 _ITEM5 = "the serving features' slice (ROADMAP §1 item 5)"
+_LAYER_PROJ = (("q", "attention", "q_proj"), ("k", "attention", "k_proj"),
+               ("v", "attention", "v_proj"), ("o", "attention", "o_proj"),
+               ("gate", "mlp", "gate_proj"), ("up", "mlp", "up_proj"),
+               ("down", "mlp", "down_proj"))
 
 
-def _weight_leaves(tree):
-    """The tensors of a ``decode_weights()`` tree."""
-    embed, norm, head, layers = tree
-    return [embed, norm] + ([] if head is None else [head]) + \
-        [w for layer in layers for w in layer]
+def _net_leaves(net):
+    """The tensors whose storage the steps read, as the net holds them
+    now, in a fixed order: each Parameter's own tensor, a twin's codes
+    and scales."""
+    m = net.model
+    out = [m.embed.weight._var, m.norm.weight._var]
+    projs = [] if net.lm_head is None else [net.lm_head]
+    for layer in m.layers._children.values():
+        out += [layer.input_norm.weight._var, layer.post_norm.weight._var]
+        projs += [getattr(getattr(layer, part), proj)
+                  for _, part, proj in _LAYER_PROJ]
+    for b in projs:
+        out += [b._qw, b._w_scale] if hasattr(b, "_qw") else [b.weight._var]
+    return out
+
+
+def _mm(x, w):
+    """``x @ w.T`` in the wider of the two dtypes (an int8 projection
+    hands a bf16 net's float weights f32 activations)."""
+    dt = torch.promote_types(x.dtype, w.dtype)
+    return torch.matmul(x.to(dt), w.T.to(dt))
 
 
 def _refuse(name, value, later):
@@ -274,11 +309,16 @@ class InferenceEngine:
     spec_k : most draft tokens a ``verify`` replay scores (>= 1; None
         means 4); the widths are the powers of two from 2 covering
         ``spec_k + 1`` fed tokens.
-    quantize, calib_data, num_calib_batches, mesh, compile_cache,
-    paged_attn, kv_cache : the reference's other arguments, in its
-        order; each is taken at a value that changes nothing (``None``,
-        ``False``; ``paged_attn=True``, the port's only decode path) and
-        refused with ``NotSupportedError`` otherwise.
+    quantize : ``"int8"`` serves int8 projection weights (the net's
+        ``Dense`` children become ``QuantizedDense`` twins, in place);
+        None serves the net's own weights.  Anything else raises.
+    calib_data : calibration token batches (NDArrays, or arrays the
+        engine puts on its device) for ``quantize="int8"`` on a net not
+        yet quantized; ``num_calib_batches`` of them are run.
+    mesh, compile_cache, paged_attn, kv_cache : the reference's other
+        arguments, in its order; each is taken at a value that changes
+        nothing (``None``; ``paged_attn=True``, the port's only decode
+        path) and refused with ``NotSupportedError`` otherwise.
     device : ``cuda`` by default; raises without a card unless
         ``device="cpu"`` (the kernels' plain versions then run).
     """
@@ -291,9 +331,11 @@ class InferenceEngine:
                  paged_attn=None, kv_cache=None, kv_dtype=None, device=None):
         # the reference's arguments in its order; what is not ported is
         # taken only at a value that changes nothing
-        # (``num_calib_batches`` is read only with ``quantize``)
-        _refuse("quantize", quantize, _ITEM5)
-        _refuse("calib_data", calib_data is not None, _ITEM5)
+        # (``calib_data``/``num_calib_batches`` are read only with
+        # ``quantize``)
+        if quantize not in (None, "int8"):
+            raise MXNetError(f"quantize={quantize!r}: only int8 weight "
+                             "quantization is supported")
         _refuse("mesh", mesh, "the tensor-parallel serving slice "
                 "(ROADMAP §1 item 10)")
         if compile_cache is not None:
@@ -310,12 +352,15 @@ class InferenceEngine:
         _refuse("kv_cache", kv_cache is not None, _ITEM5)
         self.device = resolve_device(device)
         cfg = net.cfg
-        net_dev = net.model.embed.weight.device
+        net_dev = net.model.embed.weight.data().data.device
         if net_dev != self.device:
             raise MXNetError(f"net lives on {net_dev} but the engine runs "
                              f"on {self.device}; build the net there")
         self.net = net
         self.cfg = cfg
+        self.quantized = False
+        if quantize == "int8":
+            self._quantize_in_place(net, calib_data, num_calib_batches)
         self.max_batch = max(2, 4 if max_batch is None else int(max_batch))
         bs = 16 if block_size is None else int(block_size)
         mc = max_context if max_context is not None else \
@@ -335,9 +380,8 @@ class InferenceEngine:
         self.kv_dtype = resolve_kv_dtype(kv_dtype)
         self._kv_fp8 = kv_has_scales(self.kv_dtype)
         self.params = self._extract_weights(net)
-        # where each of the net's weights lay when the engine took it
-        self._weight_ptrs = [(w, w.data_ptr())
-                             for w in _weight_leaves(net.decode_weights())]
+        # where each weight the steps read lay when the engine took it
+        self._weight_ptrs = [w.data_ptr() for w in _net_leaves(net)]
         self.cache = PagedKVCache(
             cfg.num_layers, cfg.num_kv_heads, cfg.head_dim,
             num_blocks=num_blocks, block_size=bs, max_batch=self.max_batch,
@@ -398,35 +442,89 @@ class InferenceEngine:
     # -- weights ---------------------------------------------------------
 
     def _check_weights(self):
-        """Raise if one of the net's weights no longer lies where the
-        engine took it: its steps (and their graphs) read the old storage
-        and would serve stale weights.  A ``gluon.Trainer`` built on the
-        net after the engine moves every f32 parameter into its flat
-        buffer; ``p.data = ...`` and ``net.to()`` move one too.  In-place
-        writes (``load_state_dict``, an optimizer step) keep it."""
-        for w, ptr in self._weight_ptrs:
-            if w.data_ptr() != ptr:
-                raise MXNetError(
-                    "the net's weights were moved since this "
-                    "InferenceEngine was built (a gluon.Trainer built on "
-                    "the net afterwards, p.data = ..., net.to()): build "
-                    "the engine after the Trainer, or a new one")
+        """Raise if one of the weights the net holds now no longer lies
+        where the engine took it: its steps (and their graphs) read the
+        old storage and would serve stale weights.  A ``gluon.Trainer``
+        built on the net after the engine moves every f32 parameter into
+        its flat buffer; ``p.data = ...`` and ``cast`` move one too, and
+        ``quantize_net`` replaces the projections.  In-place writes
+        (``load_parameters``, ``convert``, an optimizer step) keep
+        them."""
+        if [w.data_ptr() for w in _net_leaves(self.net)] != \
+                self._weight_ptrs:
+            raise MXNetError(
+                "the net's weights were moved since this "
+                "InferenceEngine was built (a gluon.Trainer built on "
+                "the net afterwards, p.data = ..., cast, quantize_net): "
+                "build the engine after them, or a new one")
+
+    def _quantize_in_place(self, net, calib_data, num_calib_batches):
+        """The reference's: a net with ``QuantizedDense`` twins is served
+        as it is; otherwise ``quantize_net`` calibrates on ``calib_data``
+        (required) and swaps the projections in place."""
+        from ..contrib.quantization import (QuantizedDense, _walk,
+                                            quantize_net)
+        from ..ndarray.ndarray import NDArray, array
+        if not any(isinstance(m, QuantizedDense) for m in _walk(net)):
+            if calib_data is None:
+                raise MXNetError("quantize='int8' needs calib_data "
+                                 "(token batches for PTQ calibration)")
+            batches = [b if isinstance(b, NDArray) else
+                       array(b, ctx=self.device) for b in calib_data]
+            with torch.no_grad():
+                quantize_net(net, calib_data=batches,
+                             num_calib_batches=num_calib_batches)
+        self.quantized = True
 
     @staticmethod
-    def _extract_weights(net):
-        embed, norm, head, layers = net.decode_weights()
-        names = ("in_norm", "q", "k", "v", "o", "post_norm", "gate", "up",
-                 "down")
-        params = {"embed": embed.detach(), "norm": norm.detach(),
-                  "layers": [{n: w.detach() for n, w in zip(names, lw)}
-                             for lw in layers]}
-        if head is not None:
-            params["head"] = head.detach()
+    def _proj_params(layer):
+        """One projection as a tagged dict: ``{"w"}`` (float) or
+        ``{"qw", "ws", "as"}`` (int8 codes, per-channel f32 scales, the
+        f32 activation scale) of a ``QuantizedDense`` twin."""
+        if hasattr(layer, "quantized_weight"):
+            return {"qw": layer.quantized_weight,
+                    "ws": layer.weight_scale.float(), "as": layer._as}
+        return {"w": layer.weight.data().data.detach()}
+
+    @classmethod
+    def _extract_weights(cls, net):
+        """The weights the steps read, the net's own tensors (no
+        copies): the embedding, the norms and each projection's
+        :meth:`_proj_params`."""
+        m = net.model
+        layers = []
+        for layer in m.layers:
+            lp = {"in_norm": layer.input_norm.weight.data().data.detach(),
+                  "post_norm": layer.post_norm.weight.data().data.detach()}
+            for name, part, proj in _LAYER_PROJ:
+                lp[name] = cls._proj_params(
+                    getattr(getattr(layer, part), proj))
+            layers.append(lp)
+        params = {"embed": m.embed.weight.data().data.detach(),
+                  "norm": m.norm.weight.data().data.detach(),
+                  "layers": layers}
+        if net.lm_head is not None:
+            params["head"] = cls._proj_params(net.lm_head)
         return params
 
+    @staticmethod
+    def _proj(x, p):
+        """A projection, op for op the block's forward: the float one
+        ``x @ w.T`` (in the wider of the two dtypes, as the reference's
+        promotion); the int8 one ``QuantizedDense``'s round/clip, the
+        int8 x int8 -> int32 product and the f32 rescale."""
+        if "qw" in p:
+            lead = x.shape[:-1]
+            qx = quantize_rtn_int8(x.reshape(-1, x.shape[-1]), p["as"])
+            acc = int8_matmul(qx, p["qw"])
+            out = acc.float() * (p["as"] * p["ws"].reshape(1, -1))
+            return out.reshape(lead + (out.shape[-1],))
+        return _mm(x, p["w"])
+
     def _head_logits(self, x):
-        w = self.params.get("head")
-        return torch.matmul(x, (self.params["embed"] if w is None else w).T)
+        if "head" in self.params:
+            return self._proj(x, self.params["head"])
+        return _mm(x, self.params["embed"])
 
     # -- the step bodies -------------------------------------------------
 
@@ -445,8 +543,8 @@ class InferenceEngine:
 
     def _mlp(self, lp, x):
         y = _rms(x, lp["post_norm"], self.cfg.rms_eps)
-        return x + torch.matmul(F.silu(torch.matmul(y, lp["gate"].T)) *
-                                torch.matmul(y, lp["up"].T), lp["down"].T)
+        return x + self._proj(F.silu(self._proj(y, lp["gate"])) *
+                              self._proj(y, lp["up"]), lp["down"])
 
     def _prefill_body(self, toks, valid, bt):
         """Prefill for one prompt padded to ``L = toks.shape[1]`` tokens:
@@ -467,11 +565,9 @@ class InferenceEngine:
                                  cfg.rope_theta)
         for li, lp in enumerate(self.params["layers"]):
             hh = _rms(x, lp["in_norm"], eps)
-            q = torch.matmul(hh, lp["q"].T).reshape(1, L, h, d).transpose(1, 2)
-            k = torch.matmul(hh, lp["k"].T).reshape(1, L, kvh, d) \
-                .transpose(1, 2)
-            v = torch.matmul(hh, lp["v"].T).reshape(1, L, kvh, d) \
-                .transpose(1, 2)
+            q = self._proj(hh, lp["q"]).reshape(1, L, h, d).transpose(1, 2)
+            k = self._proj(hh, lp["k"]).reshape(1, L, kvh, d).transpose(1, 2)
+            v = self._proj(hh, lp["v"]).reshape(1, L, kvh, d).transpose(1, 2)
             q = _rot_interleaved(q, cos, sin)
             k = _rot_interleaved(k, cos, sin)
             # unrepeated K/V rows into the pool blocks, then attention
@@ -482,7 +578,7 @@ class InferenceEngine:
             o = flash_attention(q, k.repeat_interleave(rep, dim=1),
                                 v.repeat_interleave(rep, dim=1), causal=True)
             o = o.transpose(1, 2).reshape(1, L, h * d)
-            x = x + torch.matmul(o, lp["o"].T)
+            x = x + self._proj(o, lp["o"])
             x = self._mlp(lp, x)
         x = _rms(x, self.params["norm"], eps)
         # the last valid row, picked on the device (a graph serves every
@@ -510,9 +606,9 @@ class InferenceEngine:
         blk = blk.long()
         for li, lp in enumerate(self.params["layers"]):
             hh = _rms(x, lp["in_norm"], eps)
-            q = torch.matmul(hh, lp["q"].T).reshape(B, h, d)
-            k = torch.matmul(hh, lp["k"].T).reshape(B, kvh, d)
-            v = torch.matmul(hh, lp["v"].T).reshape(B, kvh, d)
+            q = self._proj(hh, lp["q"]).reshape(B, h, d)
+            k = self._proj(hh, lp["k"]).reshape(B, kvh, d)
+            v = self._proj(hh, lp["v"]).reshape(B, kvh, d)
             q = _rot_interleaved(q, cos, sin)
             k = _rot_interleaved(k, cos, sin)
             self._write_kv(li, (blk, off), k, v)
@@ -520,7 +616,7 @@ class InferenceEngine:
                 (c.k_scale[li], c.v_scale[li])
             o = paged_decode_attention(q, c.k_pool[li], c.v_pool[li], bts,
                                        pos, scale, k_scale=ks, v_scale=vs)
-            x = x + torch.matmul(o, lp["o"].T)
+            x = x + self._proj(o, lp["o"])
             x = self._mlp(lp, x)
         return self._head_logits(_rms(x, self.params["norm"], eps))
 
@@ -562,9 +658,9 @@ class InferenceEngine:
         x = self.params["embed"][toks.long()]                # (R, C, hid)
         for li, lp in enumerate(self.params["layers"]):
             hh = _rms(x, lp["in_norm"], eps)
-            q = torch.matmul(hh, lp["q"].T).reshape(R, C, h, d)
-            k = torch.matmul(hh, lp["k"].T).reshape(R, C, kvh, d)
-            v = torch.matmul(hh, lp["v"].T).reshape(R, C, kvh, d)
+            q = self._proj(hh, lp["q"]).reshape(R, C, h, d)
+            k = self._proj(hh, lp["k"]).reshape(R, C, kvh, d)
+            v = self._proj(hh, lp["v"]).reshape(R, C, kvh, d)
             q = _rot_interleaved(q, cos[:, :, None], sin[:, :, None])
             k = _rot_interleaved(k, cos[:, :, None], sin[:, :, None])
             self._write_kv(li, (blk, off), k, v)
@@ -582,7 +678,7 @@ class InferenceEngine:
                 q.transpose(1, 2).reshape(R * h, C, d), kr, vr, True, scale,
                 q_start=q_start)
             o = o.reshape(R, h, C, d).transpose(1, 2).reshape(R, C, h * d)
-            x = x + torch.matmul(o, lp["o"].T)
+            x = x + self._proj(o, lp["o"])
             x = self._mlp(lp, x)
         x = _rms(x, self.params["norm"], eps)
         # each row's last valid hidden state, picked before the head (the
@@ -806,9 +902,10 @@ class InferenceEngine:
 
         Allocates and copy-on-write-forks the written blocks, runs the
         chunk step once for all rows, and returns ``(next_tokens (n,)
-        np.int32, logits (n, V) tensor on the engine's device)`` aligned
-        with ``entries`` (a row's token means something only where its
-        chunk ends the prompt).  None when the pool cannot cover the
+        np.int32, logits (n, V) numpy)`` aligned with ``entries``, as the
+        reference does (bf16 logits widen to float32, which numpy has; a
+        row's token means something only where its chunk ends the
+        prompt).  None when the pool cannot cover the
         chunk (the caller may evict prefix chains and retry).  Raises if
         the net's weights were moved since the engine was built."""
         self._check_weights()
@@ -846,7 +943,7 @@ class InferenceEngine:
             slots[i] = slot
         tables[:] = self.cache.table_array(slots, nbl)
         last, nxt = step.run()
-        last = last[:n].clone()
+        last = last[:n].float().cpu().numpy()
         for slot, chunk, start in entries:
             self.cache.set_len(slot, start + len(chunk))
         self.stats["chunk_prefill_calls"] += 1

@@ -49,6 +49,7 @@ from mxnet_tpu import autograd, gluon as jgluon
 from mxnet_tpu.gluon.model_zoo.nlp.llama import llama_tiny as jax_llama_tiny
 from mxnet_tpu.optimizer import lr_scheduler as jsched
 
+import mxnet_tpu_torch as mt
 from mxnet_tpu_torch import amp, MXNetError, NotSupportedError
 from mxnet_tpu_torch.convert import (llama_decode_weights_to_numpy,
                                      load_llama_decode_weights)
@@ -117,6 +118,10 @@ def _leaves(tree):
     return out
 
 
+def _nd(a):
+    return mt.nd.array(a, ctx=mt.cpu())
+
+
 def _batch():
     tokens = np.random.RandomState(0).randint(0, VOCAB, (BATCH, SEQ))
     labels = np.random.RandomState(1).randint(0, VOCAB, (BATCH * SEQ,))
@@ -145,17 +150,18 @@ def _train_port_amp(w0, optname, args, tokens, labels):
     trainer)."""
     pnet = load_llama_decode_weights(
         llama_tiny(num_layers=1, device="cpu", seed=None), w0)
-    ptr = Trainer(dict(pnet.named_parameters()), optname, dict(args))
+    ptr = Trainer(pnet.collect_params(), optname, dict(args))
     amp.init_trainer(ptr)
     losses = []
     for _ in range(4):
-        logits = pnet(torch.from_numpy(tokens))
-        ploss = SoftmaxCrossEntropyLoss()(logits.reshape(-1, VOCAB),
-                                          torch.from_numpy(labels))
-        with amp.scale_loss(ploss.mean(), ptr) as scaled:
-            scaled.backward()
+        with mt.autograd.record():
+            logits = pnet(_nd(tokens))
+            ploss = SoftmaxCrossEntropyLoss()(logits.reshape(-1, VOCAB),
+                                              _nd(labels)).mean()
+            with amp.scale_loss(ploss, ptr) as scaled:
+                scaled.backward()
         ptr.step(BATCH)
-        losses.append(float(ploss.detach().mean()))
+        losses.append(float(ploss.asnumpy()))
     return losses, llama_decode_weights_to_numpy(pnet), ptr
 
 
@@ -243,17 +249,20 @@ def test_amp_dtypes_of_logits_loss_attention_and_gradients(
     amp.init("bfloat16")
     tokens, labels = _batch()
     try:
-        logits = pnet(torch.from_numpy(tokens))
-        loss = SoftmaxCrossEntropyLoss()(logits.reshape(-1, VOCAB),
-                                         torch.from_numpy(labels))
-        loss.sum().backward()
+        with mt.autograd.record():
+            logits = pnet(_nd(tokens))
+            loss = SoftmaxCrossEntropyLoss()(logits.reshape(-1, VOCAB),
+                                             _nd(labels))
+            total = loss.sum()
+        total.backward()
     finally:
         amp._deinit_for_tests()
     bf16 = torch.bfloat16
-    assert logits.dtype == bf16 and loss.dtype == bf16
+    assert logits.data.dtype == bf16 and loss.data.dtype == bf16
     assert seen["fwd"] == [(bf16,) * 3] and seen["bwd"] == [(bf16,) * 5]
-    for name, p in pnet.named_parameters():
-        assert p.dtype == torch.float32 and p.grad.dtype == torch.float32, \
+    for name, p in pnet._collect_params_with_prefix().items():
+        w = p.data().data
+        assert w.dtype == torch.float32 and w.grad.dtype == torch.float32, \
             name
     # the reference's, from its AMP training steps
     assert set(amp_trained["jax_dtypes"]) == {("bfloat16", "bfloat16")}
@@ -263,15 +272,14 @@ def test_without_amp_the_forward_is_unchanged_bitwise():
     """``amp.init`` then ``_deinit_for_tests`` leaves the f32 forward's
     bits as they were, and the policy is off."""
     net = llama_tiny(num_layers=1, device="cpu", seed=4)
-    tokens = torch.from_numpy(_batch()[0])
-    with torch.no_grad():
-        before = net(tokens)
-        amp.init("bfloat16")
-        try:
-            assert net(tokens).dtype == torch.bfloat16
-        finally:
-            amp._deinit_for_tests()
-        after = net(tokens)
+    tokens = _nd(_batch()[0])
+    before = net(tokens).data
+    amp.init("bfloat16")
+    try:
+        assert net(tokens).data.dtype == torch.bfloat16
+    finally:
+        amp._deinit_for_tests()
+    after = net(tokens).data
     assert after.dtype == torch.float32 and torch.equal(before, after)
 
 
@@ -388,7 +396,8 @@ def test_convert_hybrid_block_casts_the_parameters(target):
     net = llama_tiny(num_layers=1, device="cpu", seed=1)
     assert amp.convert_hybrid_block(net, target) is net
     want = getattr(torch, target)
-    assert all(p.dtype == want for p in net.parameters())
+    assert all(p.data().data.dtype == want
+               for p in net.collect_params().values())
     jnet = jgluon.nn.Dense(3)
     jnet.initialize()
     jnet(nd.zeros((2, 5)))
@@ -472,7 +481,7 @@ def sched_trained(request):
 
     jtr = jgluon.Trainer(jnet.collect_params(), optname,
                          dict(args, lr_scheduler=schedule(jsched)))
-    ptr = Trainer(dict(pnet.named_parameters()), optname,
+    ptr = Trainer(pnet.collect_params(), optname,
                   dict(args, lr_scheduler=schedule(sched)))
     lrs = []
     for _ in range(4):
@@ -482,9 +491,10 @@ def sched_trained(request):
                 nd.array(labels)).mean()
         loss.backward()
         jtr.step(BATCH)
-        SoftmaxCrossEntropyLoss()(pnet(torch.from_numpy(tokens))
-                                  .reshape(-1, VOCAB),
-                                  torch.from_numpy(labels)).mean().backward()
+        with mt.autograd.record():
+            ploss = SoftmaxCrossEntropyLoss()(
+                pnet(_nd(tokens)).reshape(-1, VOCAB), _nd(labels)).mean()
+        ploss.backward()
         ptr.step(BATCH)
         lrs.append((ptr.learning_rate, jtr.learning_rate))
     return dict(lrs=lrs, trainer=ptr, atol=atol,

@@ -26,6 +26,8 @@ import pytest
 import torch
 
 from mxnet_tpu_torch import MXNetError, NotSupportedError, amp, ops
+from mxnet_tpu_torch import autograd as mt_autograd, nd as mt_nd
+from mxnet_tpu_torch.convert import block_weights_to_numpy, load_block_weights
 from mxnet_tpu_torch.gluon import Trainer
 from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
 from mxnet_tpu_torch.gluon.model_zoo.nlp.llama import llama_tiny
@@ -48,6 +50,7 @@ from mxnet_tpu_torch.ops.paged_attention import (paged_decode_attention,
                                                  paged_decode_plain,
                                                  split_plan)
 from mxnet_tpu_torch.ops.quant_kv import kv_quantize_fp8
+from mxnet_tpu_torch.ops.quant_matmul import int8_matmul, quantize_rtn_int8
 from mxnet_tpu_torch.serving import InferenceEngine
 
 pytestmark = pytest.mark.cuda
@@ -625,39 +628,57 @@ def test_update_kernels_refuse_what_they_do_not_take(card):
         apply(flat, g, {**sf, "t": 0}, lr)         # a host t on the card
 
 
+def _weights(net):
+    """A port Llama's parameter tensors by structural name."""
+    return {name: p.data().data
+            for name, p in net._collect_params_with_prefix().items()}
+
+
+def _copy_weights(src, dst):
+    load_block_weights(dst, block_weights_to_numpy(src))
+    return dst
+
+
+def _nd(a, dev):
+    return mt_nd.array(a, ctx=dev)
+
+
 def test_llama_training_step_card_equals_cpu(card):
-    """Two SGD-momentum steps of a small Llama (head_dim 64, the
-    kernels' smallest) on the card and on the host from the same
-    weights: the card runs flash fwd/bwd and K1."""
+    """Two SGD-momentum steps of a small Llama block (head_dim 64, the
+    kernels' smallest) through ``Trainer(net.collect_params())`` on the
+    card and on the host from the same weights: the card runs flash
+    fwd/bwd and K1."""
     prev = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = False
     try:
         kw = dict(hidden_size=128, num_heads=2, num_kv_heads=1,
                   intermediate_size=256, num_layers=2)
         on_card = llama_tiny(device=card, seed=4, **kw)
-        on_cpu = llama_tiny(device="cpu", seed=None, **kw)
-        on_cpu.load_state_dict(on_card.state_dict())
+        on_cpu = _copy_weights(on_card,
+                               llama_tiny(device="cpu", seed=None, **kw))
         rng = np.random.RandomState(4)
-        tokens = torch.from_numpy(rng.randint(0, 256, (2, 48)))
-        labels = torch.from_numpy(rng.randint(0, 256, (2, 48)))
+        tokens = rng.randint(0, 256, (2, 48))
+        labels = rng.randint(0, 256, (2, 48))
         losses = []
         for net in (on_card, on_cpu):
-            dev = next(net.parameters()).device
-            tr = Trainer(dict(net.named_parameters()), "sgd",
+            dev = net.decode_weights()[0].device
+            tr = Trainer(net.collect_params(), "sgd",
                          {"learning_rate": 0.1, "momentum": 0.9})
             run = []
             for _ in range(2):
-                loss = SoftmaxCrossEntropyLoss()(
-                    net(tokens.to(dev)), labels.to(dev))
-                loss.sum().backward()
+                with mt_autograd.record():
+                    loss = SoftmaxCrossEntropyLoss()(
+                        net(_nd(tokens, dev)), _nd(labels, dev))
+                    total = loss.sum()
+                total.backward()
                 tr.step(2)
-                run.append(float(loss.mean()))
+                run.append(float(loss.data.mean()))
             losses.append(run)
         np.testing.assert_allclose(losses[0], losses[1], rtol=1e-5)
-        for (name, a), (_, b) in zip(on_card.named_parameters(),
-                                     on_cpu.named_parameters()):
-            torch.testing.assert_close(a.cpu(), b, atol=1e-5, rtol=0,
-                                       msg=name)
+        got, want = _weights(on_card), _weights(on_cpu)
+        for name in got:
+            torch.testing.assert_close(got[name].cpu(), want[name],
+                                       atol=1e-5, rtol=0, msg=name)
     finally:
         torch.backends.cuda.matmul.allow_tf32 = prev
 
@@ -668,22 +689,23 @@ def test_trainer_flat_bucket_after_a_stale_step_still_launches_k1(card):
     kw = dict(hidden_size=128, num_heads=2, num_kv_heads=1,
               intermediate_size=256, num_layers=1)
     net = llama_tiny(device=card, seed=6, **kw)
-    params = dict(net.named_parameters())
-    tr = Trainer(params, "sgd", {"learning_rate": 0.1, "momentum": 0.9})
-    tokens = torch.from_numpy(
-        np.random.RandomState(6).randint(0, 256, (2, 16))).to(card)
-    before = params["model.norm.weight"].detach().clone()
+    tr = Trainer(net.collect_params(), "sgd",
+                 {"learning_rate": 0.1, "momentum": 0.9})
+    tokens = _nd(np.random.RandomState(6).randint(0, 256, (2, 16)), card)
+    before = _weights(net)["model.norm.weight"].detach().clone()
     for step in range(2):
-        SoftmaxCrossEntropyLoss()(net(tokens), tokens).sum().backward()
+        with mt_autograd.record():
+            total = SoftmaxCrossEntropyLoss()(net(tokens), tokens).sum()
+        total.backward()
         launches = fused_sgd_update.launches
         if step == 0:
-            params["model.norm.weight"].grad = None
+            _weights(net)["model.norm.weight"].grad = None
             tr.step(2, ignore_stale_grad=True)
-            assert torch.equal(params["model.norm.weight"], before)
+            assert torch.equal(_weights(net)["model.norm.weight"], before)
         else:
             tr.step(2)
         assert fused_sgd_update.launches == launches + 1
-    assert not torch.equal(params["model.norm.weight"], before)
+    assert not torch.equal(_weights(net)["model.norm.weight"], before)
 
 
 # ----------------------------------------------------------------------
@@ -708,36 +730,40 @@ def test_amp_bf16_training_steps_on_the_card(card):
     held over all parameters, not leaf by leaf: in a 128-element norm
     weight one such element alone is 0.18 of the norm."""
     on_card = llama_tiny(device=card, seed=11, **AMP_NET)
-    on_cpu = llama_tiny(device="cpu", seed=None, **AMP_NET)
-    on_cpu.load_state_dict(on_card.state_dict())
-    w0 = {k: p.detach().clone() for k, p in on_cpu.named_parameters()}
+    on_cpu = _copy_weights(on_card,
+                           llama_tiny(device="cpu", seed=None, **AMP_NET))
+    w0 = {k: p.detach().clone() for k, p in _weights(on_cpu).items()}
     rng = np.random.RandomState(11)
-    tokens = torch.from_numpy(rng.randint(0, 256, (2, 64)))
-    labels = torch.from_numpy(rng.randint(0, 256, (2, 64)))
+    tokens = rng.randint(0, 256, (2, 64))
+    labels = rng.randint(0, 256, (2, 64))
     amp.init("bfloat16")
     try:
         first, updates = [], []
         for net in (on_card, on_cpu):
-            dev = next(net.parameters()).device
-            tr = Trainer(dict(net.named_parameters()), "adamw",
+            dev = net.decode_weights()[0].device
+            tr = Trainer(net.collect_params(), "adamw",
                          {"learning_rate": 1e-3, "wd": 0.1})
             amp.init_trainer(tr)
-            ptrs = [p.data_ptr() for p in net.parameters()]
+            tr._refresh()     # gluon parameters join the flat buffer here
+            ptrs = [p.data_ptr() for p in _weights(net).values()]
             for step in range(2):
-                logits = net(tokens.to(dev))
-                loss = SoftmaxCrossEntropyLoss()(logits, labels.to(dev))
-                with amp.scale_loss(loss.sum(), tr) as scaled:
-                    scaled.backward()
-                assert logits.dtype == loss.dtype == torch.bfloat16
+                with mt_autograd.record():
+                    logits = net(_nd(tokens, dev))
+                    loss = SoftmaxCrossEntropyLoss()(logits,
+                                                     _nd(labels, dev))
+                    with amp.scale_loss(loss.sum(), tr) as scaled:
+                        scaled.backward()
+                assert logits.data.dtype == loss.data.dtype == \
+                    torch.bfloat16
                 assert all(p.grad.dtype == torch.float32
-                           for p in net.parameters())
+                           for p in _weights(net).values())
                 tr.step(2)
                 if step == 0:
-                    first.append(float(loss.float().mean()))
-                assert bool(torch.isfinite(loss.float()).all())
-            assert [p.data_ptr() for p in net.parameters()] == ptrs
+                    first.append(float(loss.data.float().mean()))
+                assert bool(torch.isfinite(loss.data.float()).all())
+            assert [p.data_ptr() for p in _weights(net).values()] == ptrs
             updates.append({k: p.detach().cpu() - w0[k]
-                            for k, p in net.named_parameters()})
+                            for k, p in _weights(net).items()})
     finally:
         amp._deinit_for_tests()
     np.testing.assert_allclose(first[0], first[1], rtol=2e-2)
@@ -751,15 +777,15 @@ def test_amp_bf16_launch_counts_on_the_card(card):
     """One AMP step runs K3's bf16 kernels forward and backward once a
     layer and K2 once."""
     net = llama_tiny(device=card, seed=12, **AMP_NET)
-    tr = Trainer(dict(net.named_parameters()), "adamw",
-                 {"learning_rate": 1e-3})
-    tokens = torch.from_numpy(
-        np.random.RandomState(12).randint(0, 256, (2, 64))).to(card)
+    tr = Trainer(net.collect_params(), "adamw", {"learning_rate": 1e-3})
+    tokens = _nd(np.random.RandomState(12).randint(0, 256, (2, 64)), card)
     amp.init("bfloat16")
     try:
         amp.init_trainer(tr)
         ops.reset_launches()
-        SoftmaxCrossEntropyLoss()(net(tokens), tokens).sum().backward()
+        with mt_autograd.record():
+            total = SoftmaxCrossEntropyLoss()(net(tokens), tokens).sum()
+        total.backward()
         tr.step(2)
     finally:
         amp._deinit_for_tests()
@@ -777,7 +803,7 @@ def test_amp_float16_is_refused_at_the_flash_kernel(card):
     amp.init("float16")
     try:
         with pytest.raises(NotSupportedError, match="float16"):
-            net(torch.zeros(1, 16, dtype=torch.int64, device=card))
+            net(_nd(np.zeros((1, 16), np.int32), card))
     finally:
         amp._deinit_for_tests()
 
@@ -1009,7 +1035,8 @@ def test_engine_chunk_and_verify_graphs_replay_the_eager_bodies(card, pool):
                    if not k.startswith("flash_attention_fwd")) == 0
         want_last, want_tok = eng._chunk_body(*eng._steps["chunk",
                                                           nbl].args)
-        assert torch.equal(last, want_last[:1])
+        # chunk_prefill returns numpy logits (bf16 widened to f32)
+        assert np.array_equal(last, want_last[:1].float().cpu().numpy())
         assert int(nxt[0]) == int(want_tok[0])
     toks = [int(nxt[0]), 7, 9]
     assert eng.reserve(0, 20, 3)
@@ -1746,3 +1773,115 @@ def test_dp_step_indexed_serves_every_epoch_with_one_graph(card):
     for k in want:
         np.testing.assert_allclose(got[k], want[k], rtol=1e-5, atol=1e-6,
                                    err_msg=k)
+
+
+# ----------------------------------------------------------------------
+# int8 weight serving: cuBLASLt's int8 product, QuantizedDense, engines
+# ----------------------------------------------------------------------
+
+@pytest.mark.parametrize("KN", [(4096, 1024), (4096, 14336), (14336, 4096)],
+                         ids=lambda kn: f"K{kn[0]}-N{kn[1]}")
+@pytest.mark.parametrize("M", [1, 8, 16, 17, 32])
+def test_int8_matmul_is_exact_on_the_card(card, M, KN):
+    """``int8_matmul`` on the card (cuBLASLt, rows padded past 16) equals
+    the CPU's exact int32 product at Llama-3-8B's projection shapes."""
+    K, N = KN
+    g = torch.Generator().manual_seed(M + K + N)
+    a = torch.randint(-127, 128, (M, K), dtype=torch.int8, generator=g)
+    b = torch.randint(-127, 128, (N, K), dtype=torch.int8, generator=g)
+    got = int8_matmul(a.to(card), b.to(card))
+    assert got.dtype == torch.int32 and got.shape == (M, N)
+    assert torch.equal(got.cpu(), int8_matmul(a, b))
+
+
+@pytest.mark.parametrize("bad", ["K", "N"])
+def test_int8_matmul_refuses_shapes_off_eight_on_the_card(card, bad):
+    K, N = (36, 64) if bad == "K" else (64, 36)
+    a = torch.ones(32, K, dtype=torch.int8, device=card)
+    b = torch.ones(N, K, dtype=torch.int8, device=card)
+    with pytest.raises(MXNetError, match="multiples of 8"):
+        int8_matmul(a, b)
+
+
+def test_int8_matmul_replays_in_a_captured_graph(card):
+    """A captured ``quantize -> int8_matmul -> rescale`` (the engine's
+    projection, M = 8 padded) replays on new inputs as it runs eagerly."""
+    g = torch.Generator(device=card).manual_seed(9)
+    x = torch.randn(8, 4096, device=card, generator=g)
+    qw = torch.randint(-127, 128, (1024, 4096), dtype=torch.int8,
+                       device=card, generator=g)
+    scale = torch.tensor(0.03, device=card)
+
+    def body():
+        return int8_matmul(quantize_rtn_int8(x, scale), qw).float() * scale
+
+    s = torch.cuda.Stream(card)
+    s.wait_stream(torch.cuda.current_stream(card))
+    with torch.cuda.stream(s):
+        body()
+    torch.cuda.current_stream(card).wait_stream(s)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = body()
+    x.copy_(torch.randn(8, 4096, device=card, generator=g))
+    graph.replay()
+    torch.cuda.synchronize(card)
+    assert torch.equal(out, body())
+
+
+def test_quantized_dense_card_equals_cpu(card):
+    """A ``QuantizedDense`` made on the CPU, carried to the card by
+    ``convert``: the same codes, and outputs within f32 rounding (the
+    int32 sums are exact; the rescale is the same f32 ops)."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.contrib.quantization import quantize_net
+    from mxnet_tpu_torch.convert import load_quantized_state, quantized_state
+    from mxnet_tpu_torch.gluon import nn
+    rng = np.random.RandomState(3)
+    x = rng.uniform(-1, 1, (24, 256)).astype(np.float32)
+    nets = []
+    for ctx in (mx.cpu(), mx.gpu(0)):
+        net = nn.HybridSequential()
+        net.add(nn.Dense(128, activation="relu", in_units=256),
+                nn.Dense(64, in_units=128))
+        net.initialize(ctx=ctx)
+        nets.append(net)
+    cpu_net, card_net = nets
+    _copy_weights(cpu_net, card_net)
+    quantize_net(cpu_net, calib_data=[_nd(x, torch.device("cpu"))])
+    load_quantized_state(card_net, quantized_state(cpu_net))
+    want = cpu_net(_nd(x, torch.device("cpu"))).data
+    got = card_net(_nd(x, card)).data
+    assert got.dtype == torch.float32
+    torch.testing.assert_close(got.cpu(), want, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("pool", sorted(GRAPH_POOLS))
+def test_int8_engine_graphs_replay_the_eager_bodies(card, pool):
+    """int8 weights (calibrated on seeded token batches): the prefill and
+    decode replays give bitwise what their bodies give run eagerly on
+    the same static inputs; the logits are f32 whatever the net's
+    dtype."""
+    dtype, kv_dtype = GRAPH_POOLS[pool]
+    net = llama_tiny(device=card, dtype=dtype, seed=3, **GRAPH_NET)
+    calib = [np.random.RandomState(i).randint(0, 512, (2, 12))
+             for i in range(2)]
+    eng = InferenceEngine(net, quantize="int8", calib_data=calib,
+                          kv_dtype=kv_dtype, device=card,
+                          **GRAPH_ENGINE).warmup()
+    assert eng.quantized and eng.graphs_captured() == 4
+    prompt = np.random.RandomState(7).randint(0, 512, 12).tolist()
+    tok, last = eng.prefill(0, prompt)
+    want_last, want_tok = eng._prefill_body(*eng._steps["prefill", 16].args)
+    assert last.dtype == torch.float32
+    assert torch.equal(last, want_last) and tok == int(want_tok[0])
+    fed = prompt + [tok]
+    for _ in range(8):
+        pos = len(fed) - 1
+        assert eng.reserve(0, pos)
+        nxt, logits = eng.decode([(0, fed[-1], pos)])
+        want = eng._decode_body(*eng._steps["decode",
+                                            _bucket(eng, pos)].args)[:1]
+        assert torch.equal(logits, want)
+        fed.append(int(nxt[0]))
+    assert eng.stats["compiles_after_warmup"] == 0

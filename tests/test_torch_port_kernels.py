@@ -369,10 +369,13 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     files = sorted((REPO / "mxnet_tpu_torch").rglob("*.py"))
     files += sorted((REPO / "tools").glob("port_*.py"))
     files.append(REPO / "chip_smoke.py")
-    # the training entry point and checkpointing are covered too
+    # the training entry point, checkpointing and int8 quantization are
+    # covered too
     port = REPO / "mxnet_tpu_torch"
     for rel in ("parallel/__init__.py", "parallel/mesh.py",
-                "parallel/data_parallel.py", "checkpoint.py"):
+                "parallel/data_parallel.py", "checkpoint.py",
+                "contrib/__init__.py", "contrib/quantization.py",
+                "ops/quant_matmul.py"):
         assert port / rel in files, rel
     bad = []
     for path in files:

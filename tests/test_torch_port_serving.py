@@ -20,14 +20,27 @@ from mxnet_tpu.serving import (ContinuousBatcher as JaxContinuous,
                                StaticBatcher as JaxStatic)
 
 import mxnet_tpu_torch as mt
-from mxnet_tpu_torch.convert import load_llama_decode_weights
+from mxnet_tpu_torch.contrib.quantization import (QuantizedDense, _walk,
+                                                  quantize_net)
+from mxnet_tpu_torch.convert import (load_block_weights,
+                                     load_llama_decode_weights,
+                                     load_quantized_state, quantized_state)
 from mxnet_tpu_torch.gluon.model_zoo.nlp.llama import (LlamaConfig,
                                                        LlamaForCausalLM)
 from mxnet_tpu_torch.serving import (ContinuousBatcher, DoubleFreeError,
                                      InferenceEngine, PagedKVCache, Request,
                                      StaticBatcher)
+from mxnet_tpu_torch.serving.engine import next_bucket
 
 ATOL = 1e-4
+# int8 engines against the JAX int8 engine on the same codes: an
+# activation code may flip by one at a rounding boundary where the two
+# packages' f32 activations differ in the last digits (none flipped in
+# these runs: the logits agreed bitwise)
+INT8_ATOL = 1e-3
+# fp8 pools against f32 pools under one int8 net: the decode steps read
+# e4m3 rows back (the fp8 tests' limit)
+FP8_ATOL = 2e-2
 GEOM = dict(vocab_size=64, hidden_size=32, num_layers=2, num_heads=4,
             num_kv_heads=2, intermediate_size=64, max_seq_len=64)
 ENGINE = dict(max_batch=2, block_size=8, max_context=32)
@@ -80,8 +93,7 @@ def test_forward_matches_jax(nets):
     jnet, pnet = nets
     toks = np.random.RandomState(1).randint(0, 64, (2, 13)).astype(np.int32)
     ref = jnet(mx.nd.array(toks, dtype="int32")).asnumpy()
-    with torch.no_grad():
-        out = pnet(torch.from_numpy(toks)).numpy()
+    out = pnet(mt.nd.array(toks, ctx=mt.cpu())).asnumpy()
     assert out.shape == ref.shape == (2, 13, 64)
     np.testing.assert_allclose(out, ref, atol=ATOL, rtol=0)
 
@@ -273,7 +285,9 @@ def test_entry_points_refuse_without_a_card():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present; the default is valid here")
     with pytest.raises(mt.MXNetError, match="device='cpu'"):
-        LlamaForCausalLM(LlamaConfig(**GEOM))
+        LlamaForCausalLM(LlamaConfig(**GEOM), seed=0)
+    with pytest.raises(mt.MXNetError, match="device='cpu'"):
+        LlamaForCausalLM(LlamaConfig(**GEOM)).initialize()
     with pytest.raises(mt.MXNetError, match="device='cpu'"):
         PagedKVCache(1, 2, 8)
     net = LlamaForCausalLM(LlamaConfig(**GEOM), device="cpu")
@@ -282,8 +296,7 @@ def test_entry_points_refuse_without_a_card():
 
 
 @pytest.mark.parametrize("kwargs", [
-    {"quantize": "int8"}, {"mesh": "tp=2"}, {"kv_cache": object()},
-    {"calib_data": [np.zeros((1, 4), np.int32)]}, {"compile_cache": {}},
+    {"mesh": "tp=2"}, {"kv_cache": object()}, {"compile_cache": {}},
     {"paged_attn": False}],
     ids=lambda kw: next(iter(kw)))
 def test_engine_refuses_later_slices(kwargs):
@@ -313,7 +326,7 @@ def test_reference_defaults_and_no_op_values_are_taken():
     """``max_batch=None`` / ``block_size=None`` mean 4 and 16 (the
     reference's without its environment); the no-op values of the other
     arguments change nothing."""
-    net = LlamaForCausalLM(LlamaConfig(**GEOM), device="cpu")
+    net = LlamaForCausalLM(LlamaConfig(**GEOM), device="cpu", seed=0)
     eng = InferenceEngine(net, None, None, None, 32, 0.0, 0, 0, None, None,
                           3, None, None, None, None, None, None, True, None,
                           None, device="cpu")
@@ -358,3 +371,262 @@ def test_decode_returns_numpy_tokens_and_device_logits(nets):
 def test_config_refuses_parallel_modes():
     with pytest.raises(mt.NotSupportedError):
         LlamaConfig(tensor_parallel=True, **GEOM)
+
+
+def test_engine_return_types_follow_the_reference(nets):
+    """``prefill`` returns (int, device logits) in both packages;
+    ``decode`` numpy tokens in both and the logits on the engine's device
+    (standing difference g: the reference returns numpy);
+    ``chunk_prefill`` numpy tokens and numpy logits in both."""
+    jnet, pnet = nets
+    kw = dict(ENGINE, prefill_chunk=8)
+    jeng = JaxEngine(jnet, compile_cache=jnet.engine_compile_cache,
+                     **kw).warmup()
+    peng = InferenceEngine(pnet, device="cpu", **kw).warmup()
+    out = {}
+    for name, eng in (("jax", jeng), ("port", peng)):
+        tok, last = eng.prefill(0, [1, 2, 3])
+        assert eng.reserve(0, 3)
+        nxt, logits = eng.decode([(0, int(tok), 3)])
+        assert eng.cache.alloc(1, 0)
+        ctoks, clogits = eng.chunk_prefill([(1, [4, 5, 6, 7], 0)])
+        out[name] = (tok, last, nxt, logits, ctoks, clogits)
+    jtok, jlast, jnxt, _, jct, jcl = out["jax"]
+    tok, last, nxt, logits, ct, cl = out["port"]
+    assert type(tok) is type(jtok) is int
+    assert isinstance(last, torch.Tensor) and not isinstance(jlast,
+                                                             np.ndarray)
+    for got, want in ((nxt, jnxt), (ct, jct), (cl, jcl)):
+        assert isinstance(got, np.ndarray) and isinstance(want, np.ndarray)
+        assert got.dtype == want.dtype and got.shape == want.shape
+    assert isinstance(logits, torch.Tensor) and logits.device == peng.device
+    np.testing.assert_allclose(cl, jcl, atol=ATOL, rtol=0)
+
+
+# ----------------------------------------------------------------------
+# int8 weight serving
+# ----------------------------------------------------------------------
+
+def _calib(seed=1):
+    rng = np.random.RandomState(seed)
+    return [rng.randint(0, 64, (2, 12)).astype(np.int32) for _ in range(2)]
+
+
+def _port_float(weights, tie=False, dtype=None):
+    net = LlamaForCausalLM(LlamaConfig(tie_embeddings=tie, **GEOM),
+                           device="cpu", dtype=dtype)
+    return load_block_weights(net, weights)
+
+
+def _block_weights(jnet):
+    return {k: p.data().asnumpy()
+            for k, p in jnet._collect_params_with_prefix().items()}
+
+
+@pytest.fixture(scope="module")
+def int8_nets():
+    """The JAX net quantized by its int8 engine's calibration (the
+    engine's compile in here), and the port's net on the carried float
+    weights and int8 codes."""
+    jnet = _jax_net(False)
+    weights = _block_weights(jnet)
+    jeng = JaxEngine(jnet, quantize="int8",
+                     calib_data=[mx.nd.array(b, dtype="int32")
+                                 for b in _calib()], **ENGINE)
+    assert jeng.quantized
+    jeng.warmup()
+    pnet = load_quantized_state(_port_float(weights), quantized_state(jnet))
+    return dict(jnet=jnet, jeng=jeng, pnet=pnet, weights=weights)
+
+
+def _forward_rows(net, toks, bucket):
+    """The net's own forward over ``toks`` padded to ``bucket``: the
+    logits of each position (the reference engine's parity oracle)."""
+    padded = np.zeros((1, bucket), np.int32)
+    padded[0, :len(toks)] = toks
+    return net(mt.nd.array(padded, ctx=mt.cpu())).data[0]
+
+
+def test_int8_engine_is_its_quantized_net_bitwise(int8_nets):
+    """Prefill and 8 decode steps of the port's int8 engine equal the
+    port's quantized net's own forward at each step's bucket width,
+    bitwise: the engine's projections are ``QuantizedDense``'s ops and
+    the int32 product is exact."""
+    pnet = int8_nets["pnet"]
+    eng = InferenceEngine(pnet, quantize="int8", device="cpu",
+                          **ENGINE).warmup()
+    assert eng.quantized
+    prompt = np.random.RandomState(5).randint(0, 64, (6,)).tolist()
+    tok, last = eng.prefill(0, prompt)
+    bucket = next_bucket(len(prompt), eng.buckets)
+    assert torch.equal(last, _forward_rows(pnet, prompt, bucket)[5])
+    cur = list(prompt) + [tok]
+    for _ in range(8):
+        pos = len(cur) - 1
+        assert eng.reserve(0, pos)
+        nxt, lg = eng.decode([(0, cur[-1], pos)])
+        want = _forward_rows(pnet, cur, next_bucket(pos + 1, eng.buckets))
+        assert torch.equal(lg[0], want[pos]), pos
+        cur.append(int(nxt[0]))
+    assert eng.stats["compiles_after_warmup"] == 0
+
+
+def test_int8_engine_matches_the_jax_int8_engine(int8_nets):
+    prompt = np.random.RandomState(6).randint(0, 64, (9,)).tolist()
+    ref_toks, ref_logits = _drive(int8_nets["jeng"], 0, prompt, 8)
+    int8_nets["jeng"].release(0)
+    eng = InferenceEngine(int8_nets["pnet"], quantize="int8", device="cpu",
+                          **ENGINE).warmup()
+    toks, logits = _drive(eng, 0, prompt, 8)
+    assert toks == ref_toks
+    for a, b in zip(logits, ref_logits):
+        assert a.dtype == np.asarray(b).dtype == np.float32
+        np.testing.assert_allclose(a, b, atol=INT8_ATOL, rtol=0)
+
+
+def _int8_dtype_calls(eng):
+    """Prefill, one decode step and one chunk: their logits."""
+    tok, last = eng.prefill(0, [1, 2, 3])
+    assert eng.reserve(0, 3)
+    _, logits = eng.decode([(0, int(tok), 3)])
+    assert eng.cache.alloc(1, 0)
+    _, clogits = eng.chunk_prefill([(1, [4, 5, 6], 0)])
+    return last, logits, clogits
+
+
+@pytest.fixture(scope="module")
+def jax_int8_bf16():
+    """The reference's int8 engine on a bf16 net: the float weights it
+    started from and its logits' dtypes (its compiles here, outside the
+    test's call)."""
+    jnet = _jax_net(False)
+    weights = _block_weights(jnet)
+    jnet.cast("bfloat16")
+    calib = [mx.nd.array(b, dtype="int32") for b in _calib()]
+    jeng = JaxEngine(jnet, quantize="int8", calib_data=calib,
+                     **dict(ENGINE, prefill_chunk=8))
+    return weights, [str(np.asarray(x).dtype)
+                     for x in _int8_dtype_calls(jeng)]
+
+
+def test_int8_logit_dtypes_follow_the_reference_in_bf16(jax_int8_bf16):
+    """In a bf16 net the int8 projections leave f32, as the reference's:
+    the prefill, decode and chunk logits are f32 in both packages, and
+    the port's prefill attention takes f32 q, k and v."""
+    from mxnet_tpu_torch.serving import engine as engine_mod
+    weights, jax_dtypes = jax_int8_bf16
+    kw = dict(ENGINE, prefill_chunk=8)
+    pnet = _port_float(weights, dtype=torch.bfloat16)
+    peng = InferenceEngine(pnet, quantize="int8", calib_data=_calib(),
+                           device="cpu", **kw)
+    seen = []
+    flash = engine_mod.flash_attention
+
+    def recording(q, k, v, **a):
+        seen.append((q.dtype, k.dtype, v.dtype))
+        return flash(q, k, v, **a)
+    engine_mod.flash_attention = recording
+    try:
+        port_dtypes = [str(x.dtype).replace("torch.", "")
+                       for x in _int8_dtype_calls(peng)]
+    finally:
+        engine_mod.flash_attention = flash
+    assert port_dtypes == jax_dtypes == ["float32"] * 3
+    assert seen and set(seen) == {(torch.float32,) * 3}
+    assert peng.cache.k_pool.dtype == torch.bfloat16
+
+
+def test_int8_chunk_verify_and_fp8_pools(int8_nets):
+    """The chunk and verify families and fp8 pools under int8 weights:
+    a prompt chunked in two gives the plain prefill's tokens; a verify
+    whose drafts are the plain stream accepts them all; an fp8-pool
+    engine's prefill logits equal the f32 pool's (its own attention
+    reads the fresh K/V) and its decode logits stay within the fp8
+    limit."""
+    pnet = int8_nets["pnet"]
+    prompt = np.random.RandomState(7).randint(0, 64, (12,)).tolist()
+    plain = InferenceEngine(pnet, quantize="int8", device="cpu",
+                            **ENGINE).warmup()
+    ref_toks, ref_logits = _drive(plain, 0, prompt, 4)
+    eng = InferenceEngine(pnet, quantize="int8", device="cpu",
+                          prefill_chunk=8, spec_decode=True, spec_k=3,
+                          **ENGINE).warmup()
+    assert eng.cache.alloc(0, 0)
+    out = eng.chunk_prefill([(0, prompt[:8], 0)])
+    out = eng.chunk_prefill([(0, prompt[8:], 8)])
+    assert int(out[0][0]) == ref_toks[0]
+    np.testing.assert_allclose(out[1][0], ref_logits[0], atol=1e-5, rtol=0)
+    pos = len(prompt)
+    assert eng.reserve(0, pos, 4)
+    got = eng.verify([(0, ref_toks[:4], pos)])
+    assert got[0].tolist()[:3] == ref_toks[1:4]
+    fp8 = InferenceEngine(pnet, quantize="int8", kv_dtype="fp8",
+                          device="cpu", **ENGINE).warmup()
+    tok, last = fp8.prefill(0, prompt)
+    np.testing.assert_array_equal(_np(last), ref_logits[0])
+    fed = list(prompt) + ref_toks        # teacher-forced: the plain stream
+    for step in range(4):
+        pos = len(prompt) + step
+        assert fp8.reserve(0, pos)
+        _, lg = fp8.decode([(0, fed[pos], pos)])
+        np.testing.assert_allclose(_np(lg)[0], ref_logits[step + 1],
+                                   atol=FP8_ATOL, rtol=0)
+
+
+def test_int8_engine_takes_quantize_and_calib_data():
+    """``quantize="int8"`` with ``calib_data`` quantizes a float net in
+    place (7 projections a layer and the head); ``quantize`` and
+    ``calib_data`` are ported, so neither is refused."""
+    net = LlamaForCausalLM(LlamaConfig(**GEOM), device="cpu", seed=0)
+    eng = InferenceEngine(net, quantize="int8", calib_data=_calib(),
+                          num_calib_batches=1, device="cpu", **ENGINE)
+    assert eng.quantized
+    twins = [b for b in _walk(net) if isinstance(b, QuantizedDense)]
+    assert len(twins) == 2 * 7 + 1
+    assert eng.params["head"]["qw"] is net.lm_head.quantized_weight
+    tok, last = eng.warmup().prefill(0, [1, 2, 3])
+    assert last.dtype == torch.float32 and torch.isfinite(last).all()
+
+
+def test_int8_engine_follows_a_reloaded_quantized_state():
+    """``load_quantized_state`` writes the codes, the scales and the
+    activation scale in place, so an engine built before it serves the
+    new state (its steps read the twins' own tensors), as an engine
+    built after it does."""
+    net = LlamaForCausalLM(LlamaConfig(**GEOM), device="cpu", seed=0)
+    quantize_net(net, calib_data=[mt.nd.array(b, ctx=mt.cpu())
+                                  for b in _calib()])
+    early = InferenceEngine(net, quantize="int8", device="cpu", **ENGINE)
+    other = LlamaForCausalLM(LlamaConfig(**GEOM), device="cpu", seed=1)
+    quantize_net(other, calib_data=[mt.nd.array(b, ctx=mt.cpu())
+                                    for b in _calib(2)])
+    old, new = quantized_state(net), quantized_state(other)
+    assert all(old[k][2] != new[k][2] for k in old)
+    load_quantized_state(net, new)
+    _, got = early.prefill(0, [1, 2, 3])
+    _, want = InferenceEngine(net, quantize="int8", device="cpu",
+                              **ENGINE).prefill(0, [1, 2, 3])
+    assert torch.equal(got, want)
+
+
+def test_int8_refusals_follow_the_reference():
+    """``quantize="int4"`` and ``quantize="int8"`` on a float net without
+    ``calib_data`` raise ``MXNetError`` with the reference's messages; an
+    engine built before ``quantize_net`` swapped the projections refuses
+    to serve at ``warmup``, ``prefill`` and ``chunk_prefill``."""
+    net = LlamaForCausalLM(LlamaConfig(**GEOM), device="cpu", seed=0)
+    with pytest.raises(mt.MXNetError, match="only int8"):
+        InferenceEngine(net, quantize="int4", device="cpu")
+    with pytest.raises(mt.MXNetError, match="needs calib_data"):
+        InferenceEngine(net, quantize="int8", device="cpu")
+    early = InferenceEngine(net, device="cpu", prefill_chunk=8, **ENGINE)
+    early.prefill(0, [1, 2, 3])
+    quantize_net(net, calib_data=[mt.nd.array(b, ctx=mt.cpu())
+                                  for b in _calib()])
+    assert early.cache.alloc(2, 0)
+    for call in (early.warmup, lambda: early.prefill(1, [1, 2, 3]),
+                 lambda: early.chunk_prefill([(2, [1, 2], 0)])):
+        with pytest.raises(mt.MXNetError, match="quantize_net"):
+            call()
+    late = InferenceEngine(net, quantize="int8", device="cpu", **ENGINE)
+    assert late.warmup().prefill(0, [1, 2, 3]) is not None

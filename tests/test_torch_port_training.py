@@ -257,13 +257,31 @@ def _batch():
     return tokens, labels
 
 
+def _nd(a):
+    return mt.nd.array(a, ctx=mt.cpu())
+
+
+def _port_loss(net, tokens, labels):
+    """The port's mean loss of one batch, recorded (MXNet's loop:
+    ``record()``, then ``backward()`` outside it)."""
+    with mt.autograd.record():
+        logits = net(_nd(tokens))
+        loss = SoftmaxCrossEntropyLoss()(logits.reshape(-1, VOCAB),
+                                         _nd(labels)).mean()
+    return loss
+
+
 def _port_step(net, trainer, tokens, labels):
-    logits = net(torch.from_numpy(tokens))
-    loss = SoftmaxCrossEntropyLoss()(logits.reshape(-1, VOCAB),
-                                     torch.from_numpy(labels)).mean()
+    loss = _port_loss(net, tokens, labels)
     loss.backward()
     trainer.step(BATCH)
-    return float(loss.detach())
+    return float(loss.asnumpy())
+
+
+def _weights(net):
+    """The port net's parameter tensors by structural name."""
+    return {name: p.data().data
+            for name, p in net._collect_params_with_prefix().items()}
 
 
 @pytest.fixture(scope="module", params=sorted(TRAIN_CASES))
@@ -280,7 +298,7 @@ def trained(request):
         llama_tiny(num_layers=1, device="cpu", seed=None),
         _tree_to_numpy(jnet.decode_weights()))
     jtr = jgluon.Trainer(jnet.collect_params(), optname, dict(args))
-    ptr = Trainer(dict(pnet.named_parameters()), optname, dict(args))
+    ptr = Trainer(pnet.collect_params(), optname, dict(args))
     jloss_fn = jgluon.loss.SoftmaxCrossEntropyLoss()
     jl, pl = [], []
     for _ in range(4):
@@ -322,12 +340,6 @@ def _second_batch():
     return tokens, labels
 
 
-def _port_loss(net, tokens, labels):
-    logits = net(torch.from_numpy(tokens))
-    return SoftmaxCrossEntropyLoss()(logits.reshape(-1, VOCAB),
-                                     torch.from_numpy(labels)).mean()
-
-
 @pytest.mark.parametrize("optname", sorted(TRAIN_CASES))
 def test_two_backward_passes_then_step_match_jax(optname):
     """Backward on two batches, then one ``step``: the reference's default
@@ -341,7 +353,7 @@ def test_two_backward_passes_then_step_match_jax(optname):
         llama_tiny(num_layers=1, device="cpu", seed=None),
         _tree_to_numpy(jnet.decode_weights()))
     jtr = jgluon.Trainer(jnet.collect_params(), optname, dict(args))
-    ptr = Trainer(dict(pnet.named_parameters()), optname, dict(args))
+    ptr = Trainer(pnet.collect_params(), optname, dict(args))
     jloss_fn = jgluon.loss.SoftmaxCrossEntropyLoss()
     for tokens, labels in batches:
         with autograd.record():
@@ -361,16 +373,16 @@ def test_two_backward_passes_equal_the_last_alone_bitwise():
     """The port alone: backward on the first and the second batch, then
     a step, gives the bits of one backward on the second batch."""
     nets = [llama_tiny(num_layers=1, device="cpu", seed=7) for _ in range(2)]
-    trainers = [Trainer(dict(n.named_parameters()), "sgd",
+    trainers = [Trainer(n.collect_params(), "sgd",
                         {"learning_rate": 0.1, "momentum": 0.9})
                 for n in nets]
     _port_loss(nets[0], *_batch()).backward()
     for net, tr in zip(nets, trainers):
         _port_loss(net, *_second_batch()).backward()
         tr.step(BATCH)
-    for (name, a), (_, b) in zip(nets[0].named_parameters(),
-                                 nets[1].named_parameters()):
-        assert torch.equal(a, b), name
+    w0, w1 = _weights(nets[0]), _weights(nets[1])
+    for name in w0:
+        assert torch.equal(w0[name], w1[name]), name
 
 
 def test_tied_use_within_one_backward_still_sums():
@@ -395,6 +407,16 @@ def test_autograd_grad_leaves_dot_grad_alone():
     torch.testing.assert_close(w.detach(), torch.tensor([0.7, -2.3]))
 
 
+def _ref_update(ref_opt, ref_params, ref_states, skip=None):
+    """``Optimizer.update`` over each parameter tensor with its own
+    state (the per-param path the flat bucket is held against)."""
+    ref_opt.rescale_grad = 1.0 / BATCH
+    for i, p in enumerate(ref_params):
+        if i != skip:
+            ref_opt.update(i, p, p.grad, ref_states[i])
+        p.grad = None
+
+
 @pytest.mark.parametrize("optname,args", [
     ("sgd", {"learning_rate": 0.05, "momentum": 0.9, "wd": 1e-4,
              "clip_gradient": 0.01}),
@@ -414,25 +436,20 @@ def test_trainer_flat_bucket_equals_per_param_bitwise(monkeypatch, optname,
     tokens, labels = _batch()
     flat_net = llama_tiny(num_layers=1, device="cpu", seed=5)
     ref_net = llama_tiny(num_layers=1, device="cpu", seed=5)
-    trainer = Trainer(dict(flat_net.named_parameters()), optname, dict(args))
-    assert (trainer._flat_param is not None) == buffer
+    trainer = Trainer(flat_net.collect_params(), optname, dict(args))
     ref_opt = create(optname, **args)
-    ref_params = [p for _, p in sorted(ref_net.named_parameters())]
+    ref_params = [p for _, p in sorted(_weights(ref_net).items())]
     ref_states = {i: ref_opt.create_state(i, p.detach())
                   for i, p in enumerate(ref_params)}
     for _ in range(3):
         _port_step(flat_net, trainer, tokens, labels)
-        logits = ref_net(torch.from_numpy(tokens))
-        SoftmaxCrossEntropyLoss()(logits.reshape(-1, VOCAB),
-                                  torch.from_numpy(labels)).mean().backward()
-        ref_opt.rescale_grad = 1.0 / BATCH
-        for i, p in enumerate(ref_params):
-            ref_opt.update(i, p, p.grad, ref_states[i])
-            p.grad = None
+        _port_loss(ref_net, tokens, labels).backward()
+        _ref_update(ref_opt, ref_params, ref_states)
+    assert (trainer._flat_param is not None) == buffer
     assert trainer._bucket_apply is not None
-    for (name, a), (_, b) in zip(sorted(flat_net.named_parameters()),
-                                 sorted(ref_net.named_parameters())):
-        assert torch.equal(a, b), name
+    got, want = _weights(flat_net), _weights(ref_net)
+    for name in got:
+        assert torch.equal(got[name], want[name]), name
 
 
 @pytest.mark.parametrize("optname,args,flat_steps", [
@@ -460,38 +477,33 @@ def test_trainer_flat_bucket_skips_stale_params(monkeypatch, optname, args,
     tokens, labels = _batch()
     net = llama_tiny(num_layers=1, device="cpu", seed=2)
     ref_net = llama_tiny(num_layers=1, device="cpu", seed=2)
-    params = dict(net.named_parameters())
-    trainer = Trainer(params, optname, dict(args))
+    trainer = Trainer(net.collect_params(), optname, dict(args))
     ref_opt = create(optname, **args)
-    ref_params = [p for _, p in sorted(ref_net.named_parameters())]
+    ref_w = _weights(ref_net)
+    ref_params = [ref_w[k] for k in sorted(ref_w)]
     ref_states = {i: ref_opt.create_state(i, p.detach())
                   for i, p in enumerate(ref_params)}
     frozen = "model.norm.weight"
-    frozen_idx = sorted(params).index(frozen)
-    before = params[frozen].detach().clone()
+    frozen_idx = sorted(ref_w).index(frozen)
+    before = _weights(net)[frozen].detach().clone()
     for step in range(2):
         for model in (net, ref_net):
-            logits = model(torch.from_numpy(tokens))
-            SoftmaxCrossEntropyLoss()(logits.reshape(-1, VOCAB),
-                                      torch.from_numpy(labels)).mean() \
-                .backward()
+            _port_loss(model, tokens, labels).backward()
+        params = _weights(net)
         if step == 0:
             params[frozen].grad = None
             trainer.step(BATCH, ignore_stale_grad=True)
-            assert torch.equal(params[frozen], before)
+            assert torch.equal(_weights(net)[frozen], before)
         else:
             trainer.step(BATCH)
-        ref_opt.rescale_grad = 1.0 / BATCH
-        for i, p in enumerate(ref_params):
-            if not (step == 0 and i == frozen_idx):
-                ref_opt.update(i, p, p.grad, ref_states[i])
-            p.grad = None
-        assert all(p.grad is None for p in params.values())
-    total = sum(p.numel() for p in params.values())
+        _ref_update(ref_opt, ref_params, ref_states,
+                    skip=frozen_idx if step == 0 else None)
+        assert all(p.grad is None for p in _weights(net).values())
+    total = sum(p.numel() for p in _weights(net).values())
     assert calls == [total - before.numel(), total][:flat_steps]
-    for (name, a), (_, b) in zip(sorted(net.named_parameters()),
-                                 sorted(ref_net.named_parameters())):
-        assert torch.equal(a, b), name
+    got, want = _weights(net), _weights(ref_net)
+    for name in got:
+        assert torch.equal(got[name], want[name]), name
 
 
 def test_whole_group_update_runs_on_the_parameter_buffer(monkeypatch):
@@ -511,12 +523,13 @@ def test_whole_group_update_runs_on_the_parameter_buffer(monkeypatch):
         return init, recorded
     monkeypatch.setattr(trainer_mod, "fused_bucket_rule", recording_rule)
     net = llama_tiny(num_layers=1, device="cpu", seed=6)
-    params = dict(net.named_parameters())
+    params = net.collect_params()
     trainer = Trainer(params, "adamw", {"learning_rate": 1e-3, "wd": 0.1})
+    trainer._refresh()      # gluon parameters join the buffer here
     buf = trainer._flat_param
     off = 0
-    for name in sorted(params):
-        p = params[name]
+    for name in sorted(params.keys()):
+        p = params[name].data().data
         assert p.data_ptr() == buf.data_ptr() + 4 * off, name
         off += p.numel()
     assert off == buf.numel()
@@ -525,28 +538,32 @@ def test_whole_group_update_runs_on_the_parameter_buffer(monkeypatch):
     assert len(seen) == 1 and seen[0] is buf
     assert not torch.equal(before, buf)
     torch.testing.assert_close(
-        torch.cat([params[k].detach().reshape(-1) for k in sorted(params)]),
+        torch.cat([params[k].data().data.detach().reshape(-1)
+                   for k in sorted(params.keys())]),
         buf, rtol=0, atol=0)
 
 
-def test_parameter_buffer_survives_load_state_dict():
-    """``load_state_dict`` copies into the parameters in place: they stay
-    views of the buffer, and the next step updates the loaded values
-    exactly as a Trainer built on them does."""
+def test_parameter_buffer_survives_load_state_dict(tmp_path):
+    """Loading weights copies into the parameters in place
+    (``load_parameters``): they stay views of the buffer, and the next
+    step updates the loaded values exactly as a Trainer built on them
+    does."""
     net = llama_tiny(num_layers=1, device="cpu", seed=7)
-    trainer = Trainer(dict(net.named_parameters()), "sgd",
+    trainer = Trainer(net.collect_params(), "sgd",
                       {"learning_rate": 0.1, "momentum": 0.9})
-    ptrs = [p.data_ptr() for _, p in sorted(net.named_parameters())]
+    trainer._refresh()      # gluon parameters join the buffer here
+    ptrs = [p.data_ptr() for _, p in sorted(_weights(net).items())]
     loaded = llama_tiny(num_layers=1, device="cpu", seed=8)
-    net.load_state_dict(loaded.state_dict())
-    assert [p.data_ptr() for _, p in sorted(net.named_parameters())] == ptrs
-    fresh = Trainer(dict(loaded.named_parameters()), "sgd",
+    loaded.save_parameters(str(tmp_path / "w.params"))
+    net.load_parameters(str(tmp_path / "w.params"))
+    assert [p.data_ptr() for _, p in sorted(_weights(net).items())] == ptrs
+    fresh = Trainer(loaded.collect_params(), "sgd",
                     {"learning_rate": 0.1, "momentum": 0.9})
     for model, tr in ((net, trainer), (loaded, fresh)):
         _port_step(model, tr, *_batch())
-    for (name, a), (_, b) in zip(sorted(net.named_parameters()),
-                                 sorted(loaded.named_parameters())):
-        assert torch.equal(a, b), name
+    got, want = _weights(net), _weights(loaded)
+    for name in got:
+        assert torch.equal(got[name], want[name]), name
 
 
 @pytest.mark.parametrize("move", ["rebind", "to-double"])
@@ -554,15 +571,17 @@ def test_parameter_moved_off_the_buffer_is_detected(move):
     """A parameter whose storage was replaced no longer lies in the
     buffer: the next step raises, naming it, and updates nothing."""
     net = llama_tiny(num_layers=1, device="cpu", seed=9)
-    params = dict(net.named_parameters())
+    params = net.collect_params()
     trainer = Trainer(params, "sgd", {"learning_rate": 0.1})
+    trainer._refresh()      # gluon parameters join the buffer here
     buf = trainer._flat_param.clone()
     if move == "rebind":
-        params["lm_head.weight"].data = params["lm_head.weight"].data.clone()
-        name = "lm_head.weight"
+        var = net.lm_head.weight.data().data
+        var.data = var.data.clone()
+        name = net.lm_head.weight.name
     else:
-        net.to(torch.float64)
-        name = sorted(params)[0]
+        net.cast("bfloat16")
+        name = sorted(params.keys())[0]
     _port_loss(net, *_batch()).backward()
     with pytest.raises(MXNetError, match=f"`{name}`.*flat parameter buffer"):
         trainer.step(BATCH)
@@ -580,14 +599,14 @@ def test_engine_built_before_the_trainer_refuses_to_serve():
     net = llama_tiny(num_layers=1, device="cpu", seed=10)
     early = InferenceEngine(net, **kw)
     early.prefill(0, [1, 2, 3])
-    trainer = Trainer(dict(net.named_parameters()), "sgd",
-                      {"learning_rate": 0.5})
+    trainer = Trainer(net.collect_params(), "sgd", {"learning_rate": 0.5})
+    _port_step(net, trainer, *_batch())
     for call in (early.warmup, lambda: early.prefill(1, [1, 2, 3])):
         with pytest.raises(MXNetError, match="InferenceEngine was built"):
             call()
     late = InferenceEngine(net, **kw)
     assert late.params["embed"].data_ptr() == \
-        net.model.embed.weight.data_ptr()
+        net.model.embed.weight.data().data.data_ptr()
     _, before = late.prefill(0, [1, 2, 3])
     _port_step(net, trainer, *_batch())
     _, after = late.prefill(1, [1, 2, 3])
@@ -596,14 +615,13 @@ def test_engine_built_before_the_trainer_refuses_to_serve():
 
 def test_stale_grad_step_raises_naming_the_parameter():
     net = llama_tiny(num_layers=1, device="cpu", seed=3)
-    params = dict(net.named_parameters())
-    trainer = Trainer(params, "adam", {"learning_rate": 1e-3})
+    trainer = Trainer(net.collect_params(), "adam", {"learning_rate": 1e-3})
     tokens, labels = _batch()
     _port_step(net, trainer, tokens, labels)
-    before = {k: p.detach().clone() for k, p in params.items()}
-    with pytest.raises(MXNetError, match="`lm_head.weight`"):
+    before = {k: p.detach().clone() for k, p in _weights(net).items()}
+    with pytest.raises(MXNetError, match=f"`{net.lm_head.weight.name}`"):
         trainer.step(BATCH)
-    assert all(torch.equal(p, before[k]) for k, p in params.items())
+    assert all(torch.equal(p, before[k]) for k, p in _weights(net).items())
     trainer.step(BATCH, ignore_stale_grad=True)   # nothing to update
 
 

@@ -5,8 +5,10 @@ on one NVIDIA GPU.
 
     python3 tools/port_serving_pairs.py --checkout DIR [--pairs 10]
 
-One Llama-3-8B (bfloat16, full width and depth, random weights from
-seed 0) is built once from this checkout.  For each of the two cells of
+Each tree builds its own Llama-3-8B (bfloat16, full width and depth,
+random weights drawn on the card from seed 0; the same seed gives both
+trees the same weights, so the streams can be held equal).  For each of
+the two cells of
 ``chip_smoke.SERVING_CELLS`` (``bf16``: phase 4's 16 requests on a bf16
 pool, ``max_batch=8, max_context=1024``; ``fp8``: phase 7's 32 requests
 on an fp8 pool, ``max_batch=16, max_context=4096``), an
@@ -49,7 +51,7 @@ def load_port(root, name):
         submodule_search_locations=[pkg])
     sys.modules[name] = mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
-    for sub in ("serving", "ops._build"):
+    for sub in ("serving", "ops._build", "gluon.model_zoo.nlp.llama"):
         importlib.import_module(f"{name}.{sub}")
     return mod
 
@@ -62,14 +64,14 @@ def serve(smoke, pkg, eng, prompts, label):
             {m: run[m] for m in METRICS})
 
 
-def run_cell(smoke, name, net, pkgs, pairs, dev):
+def run_cell(smoke, name, nets, pkgs, pairs, dev):
     import torch
     cell = smoke.SERVING_CELLS[name]
-    prompts, _ = smoke.serving_prompts(cell, net.cfg.vocab_size)
+    prompts, _ = smoke.serving_prompts(cell, nets["this"].cfg.vocab_size)
     engines = {}
     for tree, pkg in pkgs.items():
         t0 = time.perf_counter()
-        eng = smoke.serving_engine(pkg.serving, net, cell, dev)
+        eng = smoke.serving_engine(pkg.serving, nets[tree], cell, dev)
         graphs = eng.graphs_captured() if hasattr(eng, "graphs_captured") \
             else 0
         print(f"{name}: {tree} engine warmed up in "
@@ -135,7 +137,7 @@ def main():
     import chip_smoke
     import mxnet_tpu_torch
     import mxnet_tpu_torch.serving
-    from mxnet_tpu_torch.gluon.model_zoo.nlp.llama import llama3_8b
+    import mxnet_tpu_torch.gluon.model_zoo.nlp.llama
     from mxnet_tpu_torch.ops import _build
     card = chip_smoke.card_line()
     print(f"{card}; this port from {REPO}, other from {args.checkout}",
@@ -147,11 +149,13 @@ def main():
         build.build(["flash_attention", "paged_attention"])
     print(f"kernels built in {time.perf_counter() - t0:.1f} s", flush=True)
     dev = torch.device("cuda", 0)
-    net = llama3_8b(device=dev, dtype=torch.bfloat16, seed=0)
-    summaries = [run_cell(chip_smoke, name, net, pkgs, args.pairs, dev)
+    nets = {tree: pkg.gluon.model_zoo.nlp.llama.llama3_8b(
+        device=dev, dtype=torch.bfloat16, seed=0)
+        for tree, pkg in pkgs.items()}
+    summaries = [run_cell(chip_smoke, name, nets, pkgs, args.pairs, dev)
                  for name in chip_smoke.SERVING_CELLS]
     print(card)
-    print(json.dumps({"card": card, "layers": net.cfg.num_layers,
+    print(json.dumps({"card": card, "layers": nets["this"].cfg.num_layers,
                       "cells": summaries}))
 
 

@@ -59,7 +59,7 @@ def main():
     if not torch.cuda.is_available():
         sys.exit("needs a CUDA device")
     sys.path.insert(0, REPO)
-    from mxnet_tpu_torch import amp, ops
+    from mxnet_tpu_torch import amp, autograd, nd, ops
     from mxnet_tpu_torch.gluon import Trainer
     from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
     from mxnet_tpu_torch.gluon.model_zoo.nlp.llama import llama3_8b
@@ -79,21 +79,22 @@ def main():
     else:
         net = llama3_8b(device=dev, dtype=torch.float32, seed=args.seed,
                         num_layers=args.layers)
-        trainer = Trainer(dict(net.named_parameters()), "adamw",
+        trainer = Trainer(net.collect_params(), "adamw",
                           {"learning_rate": 1e-3, "wd": 0.1})
         if args.amp:
             amp.init("bfloat16")
             amp.init_trainer(trainer)
-        tokens, labels = (torch.from_numpy(rng.randint(
-            0, net.cfg.vocab_size, (args.batch, args.seq))).to(dev)
+        tokens, labels = (nd.array(rng.randint(
+            0, net.cfg.vocab_size, (args.batch, args.seq)), ctx=dev)
             for _ in range(2))
-        params = list(net.parameters())
+        params = [p.data().data for p in net.collect_params().values()]
 
         # ``window`` runs each function twice (untraced, then traced), so
         # each one can run again: the backward keeps its graph, and the
         # update puts the backward's gradients back before each step
         def forward():
-            state["loss"] = loss_fn(net(tokens), labels).sum()
+            with autograd.record():
+                state["loss"] = loss_fn(net(tokens), labels).sum()
 
         def backward():
             with amp.scale_loss(state["loss"], trainer) as scaled:
