@@ -80,6 +80,37 @@ continued:
     (held to the same limits); each run prints the accept rate, tokens
     per dispatch and the verify and dispatch walls beside the plain
     engine's; W x layers K5 launches a verify of width W;
+24. the serving ``Router`` (on phase 4's net, after phase 22): phase
+    21's engine configuration as ``Router(factory, replicas=2)``
+    replicas, the system prompt pinned on each, phase 21's 16 requests
+    submitted at once, three ways: ``drive()``; ``drive()`` with replica
+    1 killed at its fifth boundary (``testing.faults.inject(
+    "serving.replica1.step", at=5)``); threaded (``start()``,
+    ``wait_all_done``) with ``add_replica()`` while the two workers run
+    (they are held while the newcomer captures its graphs), the system
+    prompt pinned on the newcomer and 4 requests submitted again.  Every
+    stream must be phase 21's single engine's, none lost or duplicated,
+    ``compiles_after_warmup`` 0 on every replica, each live pool clean
+    but for its prefix chains, and the membership exact: no death and
+    no requeue in the first run (epoch 0), only replica 1 dead with
+    requeues above 0 after the kill (epoch 1), all three alive and no
+    requeue in the threaded run (epoch 1, the add); it prints tokens/s, latency and TTFT (from submission),
+    per-replica requests, occupancy, captures, capture seconds and graph
+    pool bytes, requeues, epoch, peak memory, and the first run's
+    ``serving_block`` as one JSON line;
+25. disaggregated serving (the same net): ``Router(factory, replicas=4,
+    disaggregated=True)``, rids 0 and 2 prefill (the system prompt
+    pinned), 1 and 3 decode, over one pool of 2305 blocks, phase 21's
+    requests: the same streams, ``handoffs`` 16 (every request outlives
+    its prefill), epoch 0 with every replica alive and no requeue, the
+    shared pool clean once the pins are dropped; then a fresh fleet with
+    replica 0 killed mid-handoff (``inject("serving.replica0.handoff",
+    at=3)``): none lost or duplicated, only replica 0 dead, epoch 1, the
+    same streams, the pool clean; it prints the handoff
+    time (median and max), the two pools' occupancy, tokens/s and TTFT
+    beside phase 21's, the pool's bytes and peak memory.  Phases 24 and
+    25 count one K3 offset launch a layer a chunk call and one K5 a
+    layer a decode call, over every replica;
 5. card vs CPU, serving: a 2-layer model at the full 4096/32/8/128/14336
    geometry and full vocabulary in float32, the same weights on the card
    (graphs captured at first use) and on the host (the same step
@@ -113,7 +144,7 @@ continued:
     greedy picks, chunk and verify tokens identical, and the CPU's own
     activations within half a code (plus float noise) of the card's
     codes;
-23. int8 weight serving (on phase 4's net, after phase 22): phase 4's
+23. int8 weight serving (on phase 4's net, after phase 25): phase 4's
     engine is gone, ``quantize_net`` swaps all 225 projections (32 x 7
     and the head) for ``QuantizedDense`` twins after 2 seeded
     calibration batches of 2 x 12 tokens, and ``InferenceEngine(net,
@@ -242,7 +273,7 @@ run's steps are measured as they run without it) that replays each
 decode step on its own staged inputs, the replays' device time (CUDA
 events around ``graph.replay()``) and each step's host share beside
 it.  Before
-each of phases 4, 7-19 and 20-23 the kernels' launch counters are set to 0; each phase reads them just after and fails unless its kernels
+each of phases 4, 7-19 and 20-25 the kernels' launch counters are set to 0; each phase reads them just after and fails unless its kernels
 ran the expected number of times.  The second-to-last line is the
 card's name and power limit, the line before it the kernels' JSON
 record, and the line before that every timed row of phase 3 as
@@ -365,12 +396,13 @@ def max_err(got, want, tol):
 # shared checks
 # ----------------------------------------------------------------------
 
-def read_launches(phase, want):
-    """Every kernel's launch count since the last ``reset_launches``;
-    fails unless the kernels in ``want`` ran exactly that often (at
-    least once) and every other kernel not at all."""
+def read_launches(phase, want, got=None):
+    """Every kernel's launch count since the last ``reset_launches`` (or
+    ``got``, a path's counts summed over its windows); fails unless the
+    kernels in ``want`` ran exactly that often (at least once) and every
+    other kernel not at all."""
     from mxnet_tpu_torch import ops
-    got = ops.launch_counts()
+    got = ops.launch_counts() if got is None else got
     full = {name: want.get(name, 0) for name in got}
     if got != full or min(want.values()) < 1:
         fail(f"{phase}: kernel launches {got}, expected {full}")
@@ -1667,7 +1699,9 @@ def serve_prefix_and_spec(dev, card, net):
     (but its last token) pinned, so the drafts, the cache's
     continuations, land.  Returns the launch counts of the three paths
     (chunked prefix serving, speculative serving, the second
-    speculative run), each from zeroed counters."""
+    speculative run), each from zeroed counters, and phase 21's system
+    prompt, requests, streams (by request id) and metrics, the
+    reference of phases 24 and 25."""
     import torch
     from mxnet_tpu_torch import ops, serving
     from mxnet_tpu_torch.serving.engine import next_bucket
@@ -1707,6 +1741,12 @@ def serve_prefix_and_spec(dev, card, net):
     prefix_fed, prefix_lg = _prefix_path(eng, "teacher", teacher,
                                          TEACHER_STEPS)
     eng.cache.check_leaks(holders=eng.prefix_cache.held_blocks())
+    # phases 24 and 25's references: the streams and metrics
+    phase21 = {"system": system, "prompts": prompts,
+               "streams": {r.id: r.generated for r in run["finished"]},
+               "tokens_per_s": run["tokens_per_s"],
+               "ttft_p50_ms": run["ttft_p50_ms"],
+               "ttft_p99_ms": run["ttft_p99_ms"]}
     del eng, run
     gc.collect()
     torch.cuda.empty_cache()
@@ -1821,7 +1861,7 @@ def serve_prefix_and_spec(dev, card, net):
     del eng
     gc.collect()
     torch.cuda.empty_cache()
-    return chunked, spec, spec_landing
+    return chunked, spec, spec_landing, phase21
 
 
 def partial_verify(eng, prompt, plain, k, vocab):
@@ -1922,6 +1962,406 @@ def _replay(eng, slot, prompt, fed, n):
         _, lg = eng.decode([(slot, fed[pos], pos)])
         logits.append(lg[0].float())
     return logits
+
+
+# ----------------------------------------------------------------------
+# phases 24 and 25: the serving Router and disaggregated serving, at
+# full width on phase 4's net, with phase 21's engine and requests
+# ----------------------------------------------------------------------
+
+ROUTER_REPLICAS = 2
+DISAGG_REPLICAS = 4
+ROUTER_DEATH_AT = 5        # replica 1 dies at its fifth boundary
+DISAGG_HANDOFF_AT = 3      # replica 0 dies handing off a request id >= 3
+
+
+def router_factory(serving, net, dev, num_blocks=None):
+    """The replicas' engine: phase 21's configuration."""
+    def factory(compile_cache, kv_cache=None):
+        return serving.InferenceEngine(
+            net, max_batch=PREFIX_CELL["max_batch"], block_size=16,
+            max_context=PREFIX_CELL["max_context"], num_blocks=num_blocks,
+            prefill_chunk=PREFIX_CELL["prefill_chunk"], prefix_cache=True,
+            compile_cache=compile_cache, kv_cache=kv_cache, device=dev)
+    return factory
+
+
+def add_counts(total):
+    """Add the launch counters since the last ``reset_launches`` into
+    ``total`` (one window of a path read from zeroed counters)."""
+    from mxnet_tpu_torch import ops
+    for name, n in ops.launch_counts().items():
+        total[name] = total.get(name, 0) + n
+    return total
+
+
+def chunk_launches(layers, chunk_calls, prefill_calls=0):
+    """The launches a bf16 engine's chunk and prefill replays make: one
+    K3 a layer each, the chunk's in the offset form."""
+    k3 = layers * (chunk_calls + prefill_calls)
+    return {"flash_attention_fwd": k3, "flash_attention_fwd_bf16": k3,
+            "flash_attention_fwd_offset": layers * chunk_calls}
+
+
+def router_run(router, prompts, label, streams, fault=None):
+    """Submit ``prompts`` (ids 0..n-1) to ``router`` at t0 and drive it
+    (with ``fault`` = (site, at) armed); fails unless every request
+    finished once with phase 21's stream.  Returns the requests, the
+    wall and the TTFTs and latencies from t0 (a replica stamps a request
+    when it takes it from its inbox, so the batcher's own TTFT starts
+    later on all but the first replica)."""
+    import torch
+    from mxnet_tpu_torch import serving
+    from mxnet_tpu_torch.testing import faults
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    reqs = [router.submit(serving.Request(p, NEW_TOKENS, request_id=i))
+            for i, p in enumerate(prompts)]
+    if fault is None:
+        router.drive()
+    else:
+        with faults.inject(fault[0], at=fault[1]):
+            router.drive()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    check_router_streams(router, reqs, label, streams)
+    return {"reqs": reqs, "wall_s": wall,
+            "ttft": [r.first_token_t - t0 for r in reqs],
+            "latency": [r.finish_t - t0 for r in reqs]}
+
+
+def check_router_streams(router, reqs, label, streams):
+    """Every request finished exactly once (none lost, none twice), each
+    with phase 21's stream, and no replica captured under traffic."""
+    fin = sorted(r.id for r in router.finished())
+    if fin != sorted(r.id for r in reqs):
+        fail(f"{label}: finished {fin}: a request was lost or duplicated")
+    bad = [r.id for r in reqs if r.generated != streams[r.id]]
+    if bad:
+        fail(f"{label}: streams {bad} differ from phase 21's engine's")
+    caw = [rep.engine.stats["compiles_after_warmup"]
+           for rep in router.replicas]
+    if any(caw):
+        fail(f"{label}: compiles after warmup {caw}: traffic must only "
+             "replay")
+
+
+def check_membership(router, label, epoch, dead=()):
+    """The fleet ends with epoch ``epoch``, exactly the replicas ``dead``
+    dead and requeues only if one died: the death path catches a
+    replica's exception and requeues its requests on the survivors, so
+    identical streams alone would hide a replica that raised."""
+    died = [rep.rid for rep in router.replicas if not rep.alive]
+    if router.epoch != epoch or died != sorted(dead) or \
+            (router.requeues > 0) != bool(dead):
+        fail(f"{label}: epoch {router.epoch} (expected {epoch}), dead "
+             f"replicas {died} (expected {sorted(dead)}), requeues "
+             f"{router.requeues}")
+
+
+def router_line(label, router, run, card):
+    """The phase line of one router run."""
+    st = router.stats()
+    tokens = sum(len(r.generated) for r in run["reqs"])
+    per = ", ".join(
+        f"r{p['rid']} {p['role']}{'' if p['alive'] else ' (dead)'}: "
+        f"{p['requests']} requests, occupancy {p['occupancy']}, "
+        f"{rep.engine.graphs_captured()} graphs in "
+        f"{rep.engine.capture_seconds:.2f} s, pool "
+        f"{rep.engine.graph_pool_bytes()} bytes"
+        for p, rep in zip(st["per_replica"], router.replicas))
+    return (f"{label} on {card}: {len(run['reqs'])} requests, {tokens} "
+            f"tokens in {run['wall_s']:.3f} s = {tokens / run['wall_s']:.1f}"
+            f" tokens/s; latency p50 {_pct(run['latency'], 0.5) * 1e3:.1f}"
+            f" ms p99 {_pct(run['latency'], 0.99) * 1e3:.1f} ms, TTFT p50 "
+            f"{statistics.median(run['ttft']) * 1e3:.1f} ms p99 "
+            f"{_pct(run['ttft'], 0.99) * 1e3:.1f} ms (from submission to "
+            f"the router); requeues {st['requeues']}, epoch {st['epoch']}, "
+            f"handoffs {st['handoffs']}; {per}")
+
+
+def router_leaks(router):
+    """Each live replica's pool holds nothing but its prefix chains."""
+    for rep in router.live_replicas():
+        rep.engine.cache.check_leaks(
+            holders=rep.engine.prefix_cache.held_blocks())
+
+
+def serve_router(dev, card, net, ref):
+    """Phase 24: phase 21's engine as ``Router`` replicas on one card.
+
+    1. ``Router(factory, replicas=2)`` in ``drive()`` mode, the system
+       prompt pinned on each replica, phase 21's 16 requests submitted
+       at once: every stream identical to phase 21's single engine's,
+       ``compiles_after_warmup`` 0 on every replica, each replica's
+       pool clean but for its prefix chains, both replicas alive, epoch
+       0 and no requeue;
+    2. the same through a fresh router with replica 1 killed at its
+       fifth boundary (``inject("serving.replica1.step", at=5)``): none
+       lost or duplicated, only replica 1 dead, requeues above 0, epoch
+       1, the same streams, the survivor's pool clean;
+    3. the same in threaded mode (``start()``, ``wait_all_done``), with
+       ``add_replica()`` while the two workers run (the router holds
+       them while the newcomer captures its graphs), the system prompt
+       then pinned on the newcomer and 4 of the requests submitted
+       again: the same streams, all three replicas alive, epoch 1 (the
+       add only) and no requeue.
+    Prints tokens/s, latency p50/p99 and TTFT p50 (from submission),
+    per-replica requests, occupancy, captures, capture seconds and graph
+    pool bytes, requeues, epoch, peak memory, and run 1's
+    ``serving_block`` as one JSON line.  The launch counts are the three
+    runs' traffic (and the newcomer's warmup and pin), each window from
+    zeroed counters: one K3 offset launch a layer a chunk call and one
+    K5 a layer a decode call, summed over the replicas."""
+    import torch
+    from mxnet_tpu_torch import ops, serving
+    layers = net.cfg.num_layers
+    streams, prompts = ref["streams"], ref["prompts"]
+    factory = router_factory(serving, net, dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    total, want = {}, {}
+
+    def pinned(router):
+        for rep in router.replicas:
+            if not rep.engine.pin_prefix(ref["system"]):
+                fail("router: the system prompt did not fit")
+        return router
+
+    def traffic(router):
+        st = [(rep.engine.stats["chunk_prefill_calls"],
+               rep.engine.stats["decode_calls"]) for rep in router.replicas]
+        return [sum(c for c, _ in st), sum(d for _, d in st)]
+
+    def expect(chunks, decodes, prefills=0):
+        for name, n in dict(chunk_launches(layers, chunks, prefills),
+                            paged_decode_attention=layers * decodes).items():
+            want[name] = want.get(name, 0) + n
+
+    # 1. drive()
+    t0 = time.perf_counter()
+    router = pinned(serving.Router(factory, replicas=ROUTER_REPLICAS))
+    setup_s = time.perf_counter() - t0
+    before = traffic(router)
+    ops.reset_launches()
+    run = router_run(router, prompts, "router", streams)
+    add_counts(total)
+    expect(*[a - b for a, b in zip(traffic(router), before)])
+    check_membership(router, "router", epoch=0)
+    router_leaks(router)
+    st = router.stats()
+    tokens = sum(len(r.generated) for r in run["reqs"])
+    print(router_line(f"router, {ROUTER_REPLICAS} replicas, drive()",
+                      router, run, card)
+          + f"; phase 21's single engine {ref['tokens_per_s']:.1f} tokens/s,"
+          f" TTFT p50 {ref['ttft_p50_ms']:.1f} ms; streams identical to "
+          f"phase 21's; set-up {setup_s:.1f} s (warmups and pins)",
+          flush=True)
+    pcs = [rep.engine.prefix_cache for rep in router.replicas]
+    lookups = sum(pc.lookups for pc in pcs)
+    occ = [p["occupancy"] for p in st["per_replica"]
+           if p["occupancy"] is not None]
+    block = serving.serving_block(
+        max_batch=PREFIX_CELL["max_batch"], block_size=16,
+        buckets=router.replicas[0].engine.buckets, continuous=True,
+        requests=st["requests"],
+        p50_ms=_pct(run["latency"], 0.5) * 1e3,
+        p99_ms=_pct(run["latency"], 0.99) * 1e3,
+        ttft_p50_ms=statistics.median(run["ttft"]) * 1e3,
+        tokens_s=tokens / run["wall_s"],
+        tokens_s_chip=tokens / run["wall_s"],      # one card
+        occupancy=sum(occ) / len(occ),
+        compiles_after_warmup=st["compiles_after_warmup"],
+        chunked_prefill=True, router_replicas=ROUTER_REPLICAS,
+        prefix_hit_rate=(sum(pc.hits for pc in pcs) / lookups
+                         if lookups else None),
+        router_p99_ms=_pct(run["latency"], 0.99) * 1e3, paged_attn=True,
+        kv_dtype="bf16")
+    print(json.dumps({"serving_router": block}), flush=True)
+    del router, run
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 2. replica 1 dies mid-traffic
+    router = pinned(serving.Router(factory, replicas=ROUTER_REPLICAS))
+    before = traffic(router)
+    ops.reset_launches()
+    run = router_run(router, prompts, "router, replica 1 killed", streams,
+                     ("serving.replica1.step", ROUTER_DEATH_AT))
+    add_counts(total)
+    expect(*[a - b for a, b in zip(traffic(router), before)])
+    check_membership(router, "router, replica 1 killed", epoch=1,
+                     dead=[1])
+    router_leaks(router)
+    print(router_line(f"router, replica 1 killed at boundary "
+                      f"{ROUTER_DEATH_AT}", router, run, card)
+          + "; none lost or duplicated, streams identical, the "
+          "survivor's pool clean", flush=True)
+    del router, run
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 3. threaded, a replica added while the workers run
+    router = pinned(serving.Router(factory, replicas=ROUTER_REPLICAS))
+    before = traffic(router)
+    ops.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    router.start()
+    try:
+        reqs = [router.submit(serving.Request(p, NEW_TOKENS, request_id=i))
+                for i, p in enumerate(prompts)]
+        t1 = time.perf_counter()
+        new = router.add_replica()
+        add_s = time.perf_counter() - t1
+        if not new.engine.pin_prefix(ref["system"]):
+            fail("router, threaded: the system prompt did not fit")
+        again = [router.submit(serving.Request(prompts[i], NEW_TOKENS,
+                                               request_id=100 + i))
+                 for i in range(4)]
+        router.wait_all_done(timeout=600)
+    finally:
+        router.stop()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    add_counts(total)
+    stn = new.engine.stats
+    expect(*[a - b for a, b in zip(traffic(router), before)])
+    # the newcomer's warmup runs each step's body eagerly and replays its
+    # graph once; its pin is one prefill
+    kinds = [kind for kind, _ in new.engine._steps]
+    expect(2 * kinds.count("chunk"), 2 * kinds.count("decode"),
+           2 * kinds.count("prefill") + stn["prefill_calls"])
+    threaded = {**streams, **{100 + i: streams[i] for i in range(4)}}
+    check_router_streams(router, reqs + again, "router, threaded",
+                         threaded)
+    # the add is the only membership change
+    check_membership(router, "router, threaded", epoch=1)
+    if len(router.replicas) != ROUTER_REPLICAS + 1:
+        fail(f"router, threaded: {len(router.replicas)} replicas after "
+             "add_replica()")
+    router_leaks(router)
+    st = router.stats()
+    print(f"router, threaded (start()/wait_all_done), add_replica() while "
+          f"2 workers ran: {len(reqs) + len(again)} requests in "
+          f"{wall:.3f} s; add_replica {add_s:.2f} s (workers held), "
+          f"{new.engine.graphs_captured()} graphs captured in "
+          f"{new.engine.capture_seconds:.2f} s; requests by replica "
+          f"{[p['requests'] for p in st['per_replica']]}, epoch "
+          f"{st['epoch']}; streams identical to phase 21's", flush=True)
+    del router, reqs, again, new
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"router: peak memory {torch.cuda.max_memory_allocated(dev) / 1e9:.2f}"
+          f" GB (the net, {ROUTER_REPLICAS} replicas' pools and graph "
+          "pools)", flush=True)
+    return read_launches("serving router", want, total)
+
+
+def serve_disagg(dev, card, net, ref):
+    """Phase 25: disaggregated serving, ``Router(factory, replicas=4,
+    disaggregated=True)``: rids 0 and 2 prefill (the system prompt
+    pinned on each), rids 1 and 3 decode, over one pool of ``1 + 4 * 9 *
+    64 = 2305`` blocks (the loadgen's sizing).
+
+    1. phase 21's requests: every stream identical to phase 21's,
+       ``handoffs`` equal to the requests that outlived their prefill
+       (all 16: 32 new tokens), ``compiles_after_warmup`` 0, every
+       replica alive, epoch 0 and no requeue, and the shared pool clean
+       once the prefix pins are dropped;
+    2. again on a fresh fleet with replica 0 killed as it hands off a
+       request of id 3 or more (``inject("serving.replica0.handoff",
+       at=3)``): none lost or duplicated, only replica 0 dead, requeues
+       above 0, epoch 1, the same streams, the pool clean.
+    Prints the handoff time (host, median and max), the prefill and
+    decode pools' occupancy, tokens/s and TTFT p50 beside phase 21's,
+    and the pool's bytes.  Launches: one K3 offset a layer a chunk call
+    (prefill replicas), one K5 a layer a decode call (decode
+    replicas)."""
+    import torch
+    from mxnet_tpu_torch import ops, serving
+    layers = net.cfg.num_layers
+    streams, prompts = ref["streams"], ref["prompts"]
+    mb, mc = PREFIX_CELL["max_batch"], PREFIX_CELL["max_context"]
+    num_blocks = 1 + DISAGG_REPLICAS * (mb + 1) * (mc // 16)
+    factory = router_factory(serving, net, dev, num_blocks)
+    torch.cuda.reset_peak_memory_stats(dev)
+    total, want = {}, {}
+
+    def fleet():
+        router = serving.Router(factory, replicas=DISAGG_REPLICAS,
+                                disaggregated=True)
+        if [r.role for r in router.replicas] != \
+                ["prefill", "decode", "prefill", "decode"]:
+            fail("disaggregated: roles "
+                 f"{[r.role for r in router.replicas]}")
+        for rep in router.replicas:
+            if rep.role == "prefill" and \
+                    not rep.engine.pin_prefix(ref["system"]):
+                fail("disaggregated: the system prompt did not fit")
+        return router
+
+    def run_fleet(label, fault=None):
+        t0 = time.perf_counter()
+        router = fleet()
+        setup_s = time.perf_counter() - t0
+        ops.reset_launches()
+        run = router_run(router, prompts, label, streams, fault)
+        add_counts(total)
+        chunks = sum(r.engine.stats["chunk_prefill_calls"]
+                     for r in router.replicas)
+        decodes = sum(r.engine.stats["decode_calls"]
+                      for r in router.replicas)
+        for name, n in dict(chunk_launches(layers, chunks),
+                            paged_decode_attention=layers * decodes).items():
+            want[name] = want.get(name, 0) + n
+        cache = router._shared_cache
+        held = sum(r.engine.prefix_cache.held_blocks()
+                   for r in router.live_replicas())
+        cache.check_leaks(holders=held)
+        for rep in router.live_replicas():
+            rep.engine.prefix_cache.clear()
+        cache.check_leaks(holders=0)
+        if cache.blocks_in_use:
+            fail(f"{label}: {cache.blocks_in_use} blocks still held")
+        ms = router.handoff_ms
+        st = router.stats()
+        print(router_line(label, router, run, card)
+              + f"; handoff (host) median {statistics.median(ms):.3f} ms, "
+              f"max {max(ms):.3f} ms over {len(ms)}; prefill pool occupancy "
+              f"{st['prefill_pool_occupancy']}, decode pool occupancy "
+              f"{st['decode_pool_occupancy']}; phase 21's single engine "
+              f"{ref['tokens_per_s']:.1f} tokens/s, TTFT p50 "
+              f"{ref['ttft_p50_ms']:.1f} ms; one pool of "
+              f"{cache.num_blocks} blocks, "
+              f"{cache.num_blocks * cache.block_nbytes} bytes, clean once "
+              f"the pins were dropped; set-up {setup_s:.1f} s", flush=True)
+        return router, run
+
+    # 1. the plain fleet
+    router, run = run_fleet(f"disaggregated, {DISAGG_REPLICAS} replicas")
+    outlived = sum(1 for r in run["reqs"] if r.max_new_tokens > 1)
+    check_membership(router, "disaggregated", epoch=0)
+    if router.handoffs != outlived:
+        fail(f"disaggregated: handoffs {router.handoffs} (expected "
+             f"{outlived})")
+    del router, run
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 2. replica 0 dies mid-handoff
+    router, run = run_fleet(
+        f"disaggregated, replica 0 killed mid-handoff (request id >= "
+        f"{DISAGG_HANDOFF_AT})",
+        ("serving.replica0.handoff", DISAGG_HANDOFF_AT))
+    check_membership(router, "disaggregated, replica 0 killed", epoch=1,
+                     dead=[0])
+    del router, run
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"disaggregated: peak memory "
+          f"{torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB (the net, "
+          f"one shared pool, {DISAGG_REPLICAS} graph pools)", flush=True)
+    return read_launches("serving disaggregated", want, total)
 
 
 def serve_llama3_8b_fp8(dev, card):
@@ -4256,8 +4696,12 @@ def main():
     by_path["serving"], net, bf16_ref = serve_llama3_8b(dev, card)
     # phases 21 and 22 on phase 4's net
     (by_path["serving_chunked_prefix"], by_path["serving_speculative"],
-     by_path["serving_speculative_landing"]) = serve_prefix_and_spec(
-        dev, card, net)
+     by_path["serving_speculative_landing"], phase21) = \
+        serve_prefix_and_spec(dev, card, net)
+    # phases 24 and 25 on it: the router and disaggregated serving
+    by_path["serving_router"] = serve_router(dev, card, net, phase21)
+    by_path["serving_disagg"] = serve_disagg(dev, card, net, phase21)
+    del phase21
     # phase 23 last on it: it quantizes the net in place
     by_path["serving_int8"] = serve_int8(dev, card, net, bf16_ref)
     del net, bf16_ref

@@ -5,6 +5,8 @@ wrapper, its plain PyTorch version (run for CPU tensors) and a launch
 counter on the public function.  Kernels build from ``csrc/`` at first
 use (see ``_build``).
 """
+import threading
+
 from .flash_attention import (flash_attention, flash_attention_bwd,
                               flash_attention_fwd)
 from .fused_layernorm import (fused_layer_norm, fused_layer_norm_bwd,
@@ -59,13 +61,18 @@ def reset_launches():
         setattr(fn, attr, 0)
 
 
+_add_lock = threading.Lock()
+
+
 def add_launches(counts):
     """Add ``counts`` (launches by name, as :func:`launch_counts` names
     them) to the counters: a CUDA graph's replay launches the kernels it
-    captured without calling their wrappers."""
-    for name, n in counts.items():
-        if name in SUBCOUNTS:
-            fn, attr = SUBCOUNTS[name]
-            setattr(fn, attr, getattr(fn, attr) + n)
-        else:
-            KERNELS[name].launches += n
+    captured without calling their wrappers.  Under a lock: a threaded
+    ``serving.Router`` replays from one worker thread per replica."""
+    with _add_lock:
+        for name, n in counts.items():
+            if name in SUBCOUNTS:
+                fn, attr = SUBCOUNTS[name]
+                setattr(fn, attr, getattr(fn, attr) + n)
+            else:
+                KERNELS[name].launches += n

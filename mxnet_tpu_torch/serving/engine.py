@@ -112,8 +112,17 @@ exactly; sampled streams draw other numbers than JAX's keys (the chunk
 family draws from the same generator, where the reference folds the
 chunk call count into its key).
 
-Not in this slice (each raises ``NotSupportedError``): tensor
-parallelism (``mesh``) and sharing one ``kv_cache`` between engines.
+``kv_cache=`` adopts another engine's :class:`~.kv_cache.PagedKVCache`
+(the disaggregated fleet's one pool behind its prefill and decode
+replicas, ``frontend.Router``): the geometry must match, and
+``cache_shared`` is then True.  The pool is updated in place and never
+reallocated, so every engine over it bakes the same addresses into its
+graphs.  A replay runs on the caller's current stream, so an engine's
+replay reads what another engine's earlier replay on that stream wrote
+into a shared block.
+
+Not in this slice (raises ``NotSupportedError``): tensor parallelism
+(``mesh``).
 """
 from __future__ import annotations
 
@@ -135,6 +144,7 @@ from ..ops.paged_attention import paged_decode_attention
 from ..ops.quant_matmul import int8_matmul, quantize_rtn_int8
 from ..ops.quant_kv import (kv_cast, kv_dequantize, kv_has_scales,
                             kv_quantize_fp8, resolve_kv_dtype)
+from ..parallel.mesh import MeshConfig
 from .frontend.prefix_cache import PrefixCache
 from .kv_cache import PagedKVCache
 
@@ -242,7 +252,6 @@ class _Step:
         eng.capture_seconds += time.perf_counter() - t0
 
 
-_ITEM5 = "the serving features' slice (ROADMAP §1 item 5)"
 _LAYER_PROJ = (("q", "attention", "q_proj"), ("k", "attention", "k_proj"),
                ("v", "attention", "v_proj"), ("o", "attention", "o_proj"),
                ("gate", "mlp", "gate_proj"), ("up", "mlp", "up_proj"),
@@ -315,10 +324,15 @@ class InferenceEngine:
     calib_data : calibration token batches (NDArrays, or arrays the
         engine puts on its device) for ``quantize="int8"`` on a net not
         yet quantized; ``num_calib_batches`` of them are run.
-    mesh, compile_cache, paged_attn, kv_cache : the reference's other
-        arguments, in its order; each is taken at a value that changes
-        nothing (``None``; ``paged_attn=True``, the port's only decode
-        path) and refused with ``NotSupportedError`` otherwise.
+    kv_cache : an existing ``PagedKVCache`` to adopt instead of
+        building one (engines over one pool: the disaggregated fleet);
+        its layers, KV heads, head size, block size and storage dtype
+        must be this engine's, and it must live on ``device``.
+        ``num_blocks`` is then ignored.
+    mesh, compile_cache, paged_attn : the reference's other arguments,
+        in its order; each is taken at a value that changes nothing
+        (``None``; ``paged_attn=True``, the port's only decode path) and
+        refused with ``NotSupportedError`` otherwise.
     device : ``cuda`` by default; raises without a card unless
         ``device="cpu"`` (the kernels' plain versions then run).
     """
@@ -349,8 +363,10 @@ class InferenceEngine:
                 f"InferenceEngine(paged_attn={paged_attn!r}): the port has "
                 "one decode path, the paged-decode kernel (ROADMAP §3, "
                 "standing differences)")
-        _refuse("kv_cache", kv_cache is not None, _ITEM5)
         self.device = resolve_device(device)
+        # the reference records its MeshConfig; the port serves on one
+        # device, so it is always the one-device config ("dp1")
+        self.mesh_config = MeshConfig()
         cfg = net.cfg
         net_dev = net.model.embed.weight.data().data.device
         if net_dev != self.device:
@@ -382,11 +398,40 @@ class InferenceEngine:
         self.params = self._extract_weights(net)
         # where each weight the steps read lay when the engine took it
         self._weight_ptrs = [w.data_ptr() for w in _net_leaves(net)]
-        self.cache = PagedKVCache(
-            cfg.num_layers, cfg.num_kv_heads, cfg.head_dim,
-            num_blocks=num_blocks, block_size=bs, max_batch=self.max_batch,
-            dtype=self.params["embed"].dtype, kv_dtype=self.kv_dtype,
-            device=self.device)
+        if kv_cache is not None:
+            # disaggregated serving: prefill and decode replicas adopt one
+            # pool, and a handoff moves block ownership through its
+            # refcounts, never the data; a graph over another geometry
+            # would gather garbage
+            if (kv_cache.num_layers != cfg.num_layers
+                    or kv_cache.num_kv_heads != cfg.num_kv_heads
+                    or kv_cache.head_dim != cfg.head_dim
+                    or kv_cache.block_size != bs
+                    or kv_cache.kv_dtype != self.kv_dtype
+                    or (self.kv_dtype is None and
+                        kv_cache.dtype != self.params["embed"].dtype)):
+                raise MXNetError(
+                    "kv_cache geometry mismatch: shared pool is "
+                    f"(layers={kv_cache.num_layers}, "
+                    f"kvh={kv_cache.num_kv_heads}, "
+                    f"hd={kv_cache.head_dim}, "
+                    f"bs={kv_cache.block_size}, "
+                    f"kv_dtype={kv_cache.kv_dtype or 'fp32'}) vs this "
+                    f"engine's (layers={cfg.num_layers}, "
+                    f"kvh={cfg.num_kv_heads}, hd={cfg.head_dim}, "
+                    f"bs={bs}, kv_dtype={self.kv_dtype or 'fp32'})")
+            if kv_cache.device != self.device:
+                raise MXNetError(f"kv_cache lives on {kv_cache.device} but "
+                                 f"the engine runs on {self.device}")
+            self.cache = kv_cache
+            self.cache_shared = True
+        else:
+            self.cache = PagedKVCache(
+                cfg.num_layers, cfg.num_kv_heads, cfg.head_dim,
+                num_blocks=num_blocks, block_size=bs,
+                max_batch=self.max_batch, dtype=self.params["embed"].dtype,
+                kv_dtype=self.kv_dtype, device=self.device)
+            self.cache_shared = False
         self.temperature = float(temperature)
         self.top_k = int(top_k)
         # chunked prefill: the chunk bucket in tokens; 0 builds no chunk
@@ -797,6 +842,9 @@ class InferenceEngine:
             if ("prefill", bucket) in self._steps and \
                     ("decode", nb) in self._steps:
                 continue
+            # one slot key for every engine: over a shared pool it is
+            # taken and freed within this loop, and a Router warms its
+            # replicas one after another
             if not self.cache.alloc("__warmup__", bucket):
                 raise MXNetError("warmup: KV pool too small for bucket "
                                  f"{bucket}; raise num_blocks")
@@ -885,7 +933,9 @@ class InferenceEngine:
         them.  False when the pool cannot hold the prefix now."""
         if self.prefix_cache is None:
             raise MXNetError("pin_prefix needs prefix_cache=True")
-        slot = ("__prefix_pin__", self.stats["prefill_calls"])
+        # id(self) keeps the slot apart from other engines' pins over a
+        # shared pool (the disaggregated fleet)
+        slot = ("__prefix_pin__", id(self), self.stats["prefill_calls"])
         if self.prefill(slot, tokens) is None:
             return False
         self.prefix_cache.insert(slot, tokens)

@@ -23,6 +23,13 @@ hand the same physical block to another holder; ``prepare_write``
 plans a copy-on-write before a shared block is written;
 ``free``/``trim`` only decrement, and a block rejoins the free list at
 0.  Violations raise :class:`DoubleFreeError`.
+
+Engines that share one cache (the disaggregated fleet's prefill and
+decode replicas) hand a request's blocks over through the refcounts:
+the adopting side refs every block first, the releasing side drops its
+slot second.  A handoff that breaks that order raises
+:class:`HandoffError`.  The pools are never reallocated: every engine
+over a shared cache bakes their addresses into its CUDA graphs.
 """
 from __future__ import annotations
 
@@ -33,12 +40,21 @@ from ..base import MXNetError, NotSupportedError
 from ..context import resolve_device
 from ..ops.quant_kv import kv_has_scales, kv_pool_dtype, resolve_kv_dtype
 
-__all__ = ["PagedKVCache", "DoubleFreeError"]
+__all__ = ["PagedKVCache", "DoubleFreeError", "HandoffError"]
 
 
 class DoubleFreeError(MXNetError):
     """A block refcount went below zero or a slot was freed twice: the
     host-side block accounting is corrupt."""
+
+
+class HandoffError(MXNetError):
+    """A block handoff between replicas broke the ownership protocol:
+    the adopting side must take its reference before the releasing side
+    drops its own (adopt-then-release), both sides must share one pool,
+    and every handed-off block must have at least 2 holders when it is
+    released.  Anything else would let a decode replica read blocks the
+    free list already recycled."""
 
 
 class PagedKVCache:

@@ -15,12 +15,23 @@ batch never drains to admit work.  A boundary admits, then decodes:
 
 ``StaticBatcher`` is the fixed-batch baseline over the same engine.
 
+Disaggregated prefill/decode: a batcher built with ``role="prefill"``
+admits prompts and parks each finished prefill in its ``handoff_ready``
+outbox instead of decoding it; a ``role="decode"`` batcher is given no
+queue (the router admits only to the other roles) and takes requests
+through :meth:`ContinuousBatcher.adopt_handoff`,
+whose blocks a prefill-role peer filled in the same
+:class:`~.kv_cache.PagedKVCache`.  The handoff rides the refcounts: the
+decode side refs every block first (adopt), the prefill side releases
+its slot second (``complete_handoff``, which insists every block still
+shows the adopter's hold), so a death between the two leaves blocks
+over-held and requeueable, never freed early.  Engines over a shared
+pool namespace their slots (``slot_ns``).  Protocol violations raise
+:class:`~.kv_cache.HandoffError`.
+
 Everything here is host-side policy; per boundary the host reads back
-only the sampled tokens.  Not in this slice: the disaggregated
-prefill/decode roles; their constructor arguments (``slot_ns``,
-``role``) are taken at the values that change nothing and refused
-otherwise.  The reference's trace spans and telemetry are not ported
-(ROADMAP §1 item 11).
+only the sampled tokens.  The reference's trace spans and telemetry are
+not ported (ROADMAP §1 item 11).
 """
 from __future__ import annotations
 
@@ -28,8 +39,9 @@ import itertools
 import time
 from collections import deque
 
-from ..base import MXNetError, NotSupportedError
+from ..base import MXNetError
 from .draft import DraftSource
+from .kv_cache import HandoffError
 
 __all__ = ["Request", "ContinuousBatcher", "StaticBatcher"]
 
@@ -79,21 +91,21 @@ class Request:
             / (len(self.generated) - 1)
 
 
-def _refuse(what, value, item):
-    if value:
-        raise NotSupportedError(
-            f"{what}={value!r} is not ported yet: it arrives with ROADMAP "
-            f"§1 item {item}")
-
-
 class _BatcherBase:
     def __init__(self, engine, slot_ns=None, role="combined"):
-        # the reference's arguments: a slot namespace for engines that
-        # share one KV cache, and the disaggregated roles; the port takes
-        # each at the value that changes nothing
-        _refuse("slot_ns", slot_ns is not None, 5)
-        _refuse("role", role != "combined", 5)
+        if role not in ("combined", "prefill", "decode"):
+            raise MXNetError(f"batcher role {role!r} must be "
+                             "combined|prefill|decode")
         self.engine = engine
+        # slot namespace: engines sharing one PagedKVCache must not
+        # collide on slot keys; slots are opaque hashables, so a
+        # namespaced slot is (ns, i)
+        self.slot_ns = slot_ns
+        self.role = role
+        # prefill-role outbox: (slot, request) whose prompt is cached in
+        # a slot this batcher still owns, awaiting handoff to a
+        # decode-role peer (the router drains it every boundary)
+        self.handoff_ready = deque()
         self.queue = deque()
         self.finished = []
         # per-boundary occupancy samples: active slots / max_batch
@@ -212,7 +224,8 @@ class ContinuousBatcher(_BatcherBase):
         self.prefills_per_step = int(prefills_per_step)
         self.active = {}          # slot -> Request
         self.prefilling = {}      # slot -> _PrefillState (chunked only)
-        self._free_slots = list(range(engine.max_batch - 1, -1, -1))
+        self._free_slots = [self._slot(i)
+                            for i in range(engine.max_batch - 1, -1, -1)]
         self.speculative = engine.spec_decode if speculative is None \
             else bool(speculative)
         if self.speculative and not engine.spec_decode:
@@ -226,16 +239,71 @@ class ContinuousBatcher(_BatcherBase):
         self.draft = DraftSource(prefix_cache=engine.prefix_cache)
         self._spec_state = {}     # req.id -> [misses, cooldown]
 
+    def _slot(self, i):
+        """Slot ``i``'s key: ``i``, or ``(slot_ns, i)`` in a namespace,
+        so two engines over one shared pool never collide."""
+        return i if self.slot_ns is None else (self.slot_ns, i)
+
+    def _stage_or_activate(self, slot, req):
+        """A freshly prefilled, unfinished request joins the decode batch
+        (combined role) or parks in the handoff outbox (prefill role):
+        the slot and its blocks stay this batcher's until a decode-role
+        peer adopts them."""
+        if self.role == "prefill":
+            self.handoff_ready.append((slot, req))
+        else:
+            self.active[slot] = req
+
+    def adopt_handoff(self, req, blocks, n_tokens):
+        """The decode role's way in: adopt a prefilled request whose KV
+        ``blocks`` (covering ``n_tokens`` positions) lie in the shared
+        pool.  Each block gains a holder before the prefill side drops
+        its own.  Returns the new slot, or None when no batch slot is
+        free (the entry stays in the prefill outbox)."""
+        if self.role != "decode":
+            raise HandoffError(
+                f"adopt_handoff on a {self.role!r}-role batcher: only "
+                "decode-role replicas adopt prefill handoffs")
+        if not self._free_slots:
+            return None
+        slot = self._free_slots[-1]
+        self.engine.cache.adopt(slot, blocks, n_tokens)
+        self._free_slots.pop()
+        self.active[slot] = req
+        return slot
+
+    def complete_handoff(self, slot):
+        """The prefill role's way out: release ``slot`` after the decode
+        side adopted its blocks.  Every block must still show the
+        adopter's hold (refcount >= 2): releasing a sole-held block here
+        would free live KV mid-handoff."""
+        cache = self.engine.cache
+        for blk in cache.table(slot):
+            if cache.refcount(blk) < 2:
+                raise HandoffError(
+                    f"complete_handoff({slot!r}): block {blk} has "
+                    f"{cache.refcount(blk)} holder(s); the decode side "
+                    "must adopt before the prefill side releases")
+        self.engine.release(slot)
+        self._free_slots.append(slot)
+
     def step(self):
         """One scheduling boundary: admit queued requests (one packed
         chunk replay when chunked, else up to ``prefills_per_step``
-        prefills), then run one joined decode or verify step.  Returns
-        the work done (admissions + chunk rows + sequences decoded; 0 is
-        a no-op)."""
+        prefills), then run one joined decode or verify step; a
+        prefill-role batcher stops after admission.  Returns the work done (admissions + chunk rows + sequences
+        decoded; 0 is a no-op)."""
         if self.engine.prefill_chunk:
             admitted = self._admit_chunked()
         else:
             admitted = self._admit_serial()
+        if self.role == "prefill":
+            # the prefill pool's saturation: admissions this boundary
+            # and prompts mid-chunk, over the batch
+            self.occupancy_samples.append(min(
+                1.0, (admitted + len(self.prefilling))
+                / self.engine.max_batch))
+            return admitted
         if not self.active:
             return admitted
         before = set(self.active)
@@ -345,7 +413,7 @@ class ContinuousBatcher(_BatcherBase):
             if req.done:                    # finished inside prefill
                 self._free_slots.append(slot)
             else:
-                self.active[slot] = req
+                self._stage_or_activate(slot, req)
         return admitted
 
     def _admit_chunked(self):
@@ -413,11 +481,17 @@ class ContinuousBatcher(_BatcherBase):
             if req.done:
                 self._free_slots.append(slot)
             else:
-                self.active[slot] = req
+                self._stage_or_activate(slot, req)
         return admitted + len(entries)
 
     def run(self, max_steps=100000):
-        """Drive until queue, prompts in flight and batch are empty."""
+        """Drive until queue, prompts in flight and batch are empty (a
+        combined-role batcher only)."""
+        if self.role != "combined":
+            raise MXNetError(
+                f"run() drives a combined-role batcher; a "
+                f"{self.role!r}-role batcher only makes progress under "
+                "a Router that drains its handoffs")
         steps = 0
         while self.queue or self.active or self.prefilling:
             moved = self.step()

@@ -1885,3 +1885,107 @@ def test_int8_engine_graphs_replay_the_eager_bodies(card, pool):
         assert torch.equal(logits, want)
         fed.append(int(nxt[0]))
     assert eng.stats["compiles_after_warmup"] == 0
+
+
+# ----------------------------------------------------------------------
+# the serving Router: a shared KV pool and threaded replicas
+# ----------------------------------------------------------------------
+
+def _chunked_then_decoded(pre, dec, slot_pre, slot_dec, prompt, n):
+    """Chunk-prefill ``prompt`` on ``pre`` (chunks of its
+    ``prefill_chunk``), hand the slot's blocks to ``dec`` when it is
+    another engine over the same pool (adopt, then release), and run
+    ``n`` greedy decode steps there.  (first token, decode logits)."""
+    C = pre.prefill_chunk
+    assert pre.cache.alloc(slot_pre, 0)
+    for start in range(0, len(prompt), C):
+        nxt, _ = pre.chunk_prefill([(slot_pre, prompt[start:start + C],
+                                     start)])
+    slot = slot_pre
+    if dec is not pre:
+        cache = pre.cache
+        m = cache.seq_len(slot_pre)
+        cache.trim(slot_pre, m)
+        cache.adopt(slot_dec, cache.table(slot_pre), m)
+        pre.release(slot_pre)
+        slot = slot_dec
+    fed, logits = list(prompt) + [int(nxt[0])], []
+    for _ in range(n):
+        pos = len(fed) - 1
+        assert dec.reserve(slot, pos)
+        tok, lg = dec.decode([(slot, fed[-1], pos)])
+        logits.append(lg[0].clone())
+        fed.append(int(tok[0]))
+    dec.release(slot)
+    return fed[len(prompt)], logits
+
+
+@pytest.mark.parametrize("pool", sorted(GRAPH_POOLS))
+def test_shared_pool_handoff_decodes_bitwise_the_combined_engine(card,
+                                                                 pool):
+    """A prefill engine's chunk graphs fill blocks of a pool that a
+    decode engine adopted (``kv_cache=``); the decode engine takes the
+    blocks over and its first 8 decode replays give bitwise the logits
+    of one combined engine on the same prompt.  Both engines replay on
+    the current stream, so the decode replay reads what the chunk replay
+    wrote."""
+    dtype, kv_dtype = GRAPH_POOLS[pool]
+    net = llama_tiny(device=card, dtype=dtype, seed=3, **GRAPH_NET)
+    kw = dict(GRAPH_ENGINE, kv_dtype=kv_dtype, device=card,
+              prefill_chunk=16)
+    pre = InferenceEngine(net, **kw)
+    dec = InferenceEngine(net, kv_cache=pre.cache, **kw)
+    solo = InferenceEngine(net, **kw)
+    for eng in (pre, dec, solo):
+        eng.warmup()
+    assert dec.cache is pre.cache and dec.cache_shared
+    assert not pre.cache_shared and not solo.cache_shared
+    prompt = np.random.RandomState(9).randint(0, 512, 20).tolist()
+    got = _chunked_then_decoded(pre, dec, (0, 0), (1, 0), prompt, 8)
+    want = _chunked_then_decoded(solo, solo, 0, 0, prompt, 8)
+    assert got[0] == want[0]
+    assert all(torch.equal(a, b) for a, b in zip(got[1], want[1]))
+    pre.cache.check_leaks()
+    for eng in (pre, dec, solo):
+        assert eng.stats["compiles_after_warmup"] == 0
+
+
+def test_router_add_replica_while_two_workers_replay(card):
+    """In threaded mode ``add_replica`` warms a third engine (capturing
+    its graphs) while two workers serve: the workers are held at their
+    next boundary for the warmup, the newcomer joins, and every stream
+    is the one ``drive()`` gives on a fresh router."""
+    from mxnet_tpu_torch.serving import Request, Router
+    net = llama_tiny(device=card, dtype=torch.bfloat16, seed=3, **GRAPH_NET)
+
+    def factory(cc):
+        return InferenceEngine(net, compile_cache=cc, device=card,
+                               max_batch=4, block_size=16, max_context=64,
+                               prefill_chunk=16, prefix_cache=True)
+
+    rng = np.random.RandomState(10)
+    prompts = [rng.randint(0, 512, int(n)).tolist()
+               for n in rng.randint(4, 24, 16)]
+    ref = Router(factory, replicas=2)
+    want = [ref.submit(Request(p, 40, request_id=i))
+            for i, p in enumerate(prompts)]
+    ref.drive()
+    router = Router(factory, replicas=2).start()
+    try:
+        reqs = [router.submit(Request(p, 40, request_id=i))
+                for i, p in enumerate(prompts)]
+        rep = router.add_replica()
+        assert not router.all_done()        # the workers were held
+        assert rep.thread is not None and rep.engine.graphs_captured() > 0
+        more = [router.submit(Request(p, 40, request_id=100 + i))
+                for i, p in enumerate(prompts[:4])]
+        assert router.wait_all_done(timeout=300)
+    finally:
+        router.stop()
+    assert [r.generated for r in reqs] == [r.generated for r in want]
+    assert [r.generated for r in more] == [r.generated for r in want[:4]]
+    assert router.epoch == 1 and len(router.finished()) == 20
+    assert router.stats()["compiles_after_warmup"] == 0
+    for rep in router.replicas:
+        rep.engine.cache.check_leaks(
+            holders=rep.engine.prefix_cache.held_blocks())

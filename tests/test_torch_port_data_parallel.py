@@ -518,7 +518,10 @@ def test_no_environment_knob_is_read(monkeypatch, tmp_path):
                         ("MXTPU_CKPT_ASYNC", "0"),
                         ("MXTPU_PP_MICROBATCH", "7"),
                         ("MXTPU_STEPS_PER_CALL", "4"),
-                        ("DMLC_PS_ROOT_URI", "localhost")):
+                        ("DMLC_PS_ROOT_URI", "localhost"),
+                        ("MXTPU_SERVE_REPLICAS", "3"),
+                        ("MXTPU_SERVE_DISAGG", "1"),
+                        ("MXTPU_FAULT_INJECT", "serving.replica0.step:at=1")):
         monkeypatch.setenv(name, value)
     with mx.cpu():
         assert parallel.make_mesh().shape == {"dp": 1}
@@ -528,9 +531,29 @@ def test_no_environment_knob_is_read(monkeypatch, tmp_path):
         parallel.mesh_config_from_env()
     mgr = mx.checkpoint.CheckpointManager(tmp_path)
     assert mgr.keep == 3 and mgr._async_save
+    # the serving Router: two combined replicas, and no fault armed
+    from mxnet_tpu_torch.gluon.model_zoo.nlp.llama import (
+        LlamaConfig, LlamaForCausalLM)
+    from mxnet_tpu_torch.serving import InferenceEngine, Request, Router
+    from mxnet_tpu_torch.testing import faults
+    net = LlamaForCausalLM(LlamaConfig(
+        vocab_size=32, hidden_size=16, num_layers=1, num_heads=2,
+        num_kv_heads=2, intermediate_size=32, max_seq_len=32),
+        device="cpu", seed=0)
+    router = Router(lambda cc: InferenceEngine(
+        net, max_batch=2, block_size=8, max_context=16, device="cpu"))
+    assert len(router.replicas) == 2 and not router.disaggregated
+    assert [r.role for r in router.replicas] == ["combined"] * 2
+    assert faults.active() == []
+    req = router.submit(Request([1, 2, 3], 2))
+    router.drive()
+    assert req.done and router.epoch == 0
     # and no module of the slice touches os.environ or os.getenv
     for rel in ("parallel/mesh.py", "parallel/data_parallel.py",
-                "parallel/__init__.py", "checkpoint.py"):
+                "parallel/__init__.py", "checkpoint.py",
+                "serving/frontend/router.py", "testing/faults.py",
+                "testing/__init__.py", "serving/scheduler.py",
+                "serving/engine.py"):
         tree = ast.parse((REPO / "mxnet_tpu_torch" / rel).read_text())
         names = {n.attr for n in ast.walk(tree)
                  if isinstance(n, ast.Attribute)}

@@ -375,8 +375,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     for rel in ("parallel/__init__.py", "parallel/mesh.py",
                 "parallel/data_parallel.py", "checkpoint.py",
                 "contrib/__init__.py", "contrib/quantization.py",
-                "ops/quant_matmul.py"):
+                "ops/quant_matmul.py", "serving/frontend/router.py",
+                "testing/__init__.py", "testing/faults.py"):
         assert port / rel in files, rel
+    assert REPO / "tools" / "port_serve_loadgen.py" in files
     bad = []
     for path in files:
         for name in _imports(path):

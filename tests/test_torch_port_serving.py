@@ -296,11 +296,20 @@ def test_entry_points_refuse_without_a_card():
 
 
 @pytest.mark.parametrize("kwargs", [
-    {"mesh": "tp=2"}, {"kv_cache": object()}, {"compile_cache": {}},
+    {"mesh": "tp=2"}, {"kv_cache": None}, {"compile_cache": {}},
     {"paged_attn": False}],
     ids=lambda kw: next(iter(kw)))
 def test_engine_refuses_later_slices(kwargs):
+    """What is not ported raises ``NotSupportedError`` naming ROADMAP.
+    ``kv_cache`` is ported: a pool of another geometry raises the
+    reference's mismatch error instead."""
     net = LlamaForCausalLM(LlamaConfig(**GEOM), device="cpu")
+    if "kv_cache" in kwargs:
+        net = LlamaForCausalLM(LlamaConfig(**GEOM), device="cpu", seed=0)
+        other = PagedKVCache(1, GEOM["num_kv_heads"], 8, device="cpu")
+        with pytest.raises(mt.MXNetError, match="geometry mismatch"):
+            InferenceEngine(net, device="cpu", kv_cache=other)
+        return
     with pytest.raises(mt.NotSupportedError, match="ROADMAP §"):
         InferenceEngine(net, device="cpu", **kwargs)
 
@@ -336,9 +345,11 @@ def test_reference_defaults_and_no_op_values_are_taken():
         if cls is ContinuousBatcher:
             kw.update(prefills_per_step=2, speculative=None, spec_k=None)
         assert cls(eng, **kw).engine is eng
-        for bad in ({"slot_ns": "a"}, {"role": "decode"}):
-            with pytest.raises(mt.NotSupportedError, match="item 5"):
-                cls(eng, **bad)
+        # the disaggregated roles and slot namespaces are ported
+        b = cls(eng, slot_ns="a", role="decode")
+        assert (b.slot_ns, b.role) == ("a", "decode")
+        with pytest.raises(mt.MXNetError, match="combined|prefill|decode"):
+            cls(eng, role="router")
     # speculation is ported: the batcher follows the engine's
     # ``spec_decode`` and ``spec_k`` and refuses more than the engine built
     with pytest.raises(mt.MXNetError, match="spec_decode=True"):
