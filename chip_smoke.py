@@ -144,6 +144,13 @@ continued:
     greedy picks, chunk and verify tokens identical, and the CPU's own
     activations within half a code (plus float noise) of the card's
     codes;
+26b. ``generate`` on phase 4's net (Llama-3-8B bf16, after phase 25,
+    before phase 23 quantizes it): batch 4, prefix 32, 32 new tokens,
+    greedy: one CUDA graph for the signature, the replayed tokens equal
+    the same step body run eagerly on the card; the agreement with phase
+    4's engine streams for the same prompts is printed, not held (dense
+    caches and the engine's paged K5 round bf16 differently); no kernel
+    of the table runs;
 23. int8 weight serving (on phase 4's net, after phase 25): phase 4's
     engine is gone, ``quantize_net`` swaps all 225 projections (32 x 7
     and the head) for ``QuantizedDense`` twins after 2 seeded
@@ -213,6 +220,48 @@ continued:
     predict-mode forward after the steps within 1e-4; exactly 2 K1
     launches; then ``SpaceToDepthStem`` against the stock stem on the
     card from the same ``conv0_weight``, within 1e-4;
+26a. ``generate`` at ``bench.py``'s ``_bench_decode`` configuration,
+    nothing cut (vocab 32000, hidden 1024, 8 layers, 16/8 heads,
+    intermediate 2816, ``max_seq_len`` 512, f32, seeded weights): batch
+    8, prefix 32, 96 new tokens, greedy, one first call then 3 timed
+    (host clock ending in a synchronize): exactly one CUDA graph
+    captured for the signature; capture time, tokens/s over all 128
+    scanned positions, ms a step, host share (``1 - busy / wall``, one
+    profiled call) and peak memory printed; a teacher-forced full
+    forward over the generated tokens (K3, f32) must pick generate's
+    token at every position whose top-2 margin exceeds ``GEN_MARGIN``
+    (the smallest margin and the positions below it printed); at
+    temperature 1.0 the same seed gives the same tokens twice through
+    replays and some seed in {1, 2, 3} other tokens; 8 K3 launches;
+27. the blocked cross-entropy at Llama-3-8B's head (d 4096, V 128256,
+    N 8192 f32 activations, a bf16 head weight, block 2048, targets
+    with 64 at ``ignore_index`` and 64 out of range):
+    ``ops.fused_linear_cross_entropy`` against the materialized path
+    (f32 logits, ``log_softmax``; 4.2 GB of logits), forward and
+    backward: the loss and dx within ``CE_TOL`` of the largest
+    magnitude, dW within one bf16 ulp of its largest; both paths' time
+    and peak memory above the inputs, the blocked one below the
+    materialized logits' bytes; then phase 8's model, batch and AdamW
+    from the same seeded weights, 2 steps on ``fused_ce_loss(...).mean()``
+    and 2 on ``SoftmaxCrossEntropyLoss`` of the logits: losses within
+    1e-4 relative and each parameter's update within 1e-3
+    (``update_errs``, as in phases 12, 14 and 16), both peaks printed;
+    16 K3 forward and backward launches and 4 K2;
+28. the Transformer and the samplers: card against CPU at 2 + 2 layers
+    and 64 units (vocab 1000, 4 heads, weights carried by
+    ``load_block_weights``): logits within 1e-4, one Adam step's
+    updates within 1e-3 (``update_errs``), and ``BeamSearchSampler``
+    (beam 4, 4 sources, ``max_length`` 16) samples and lengths
+    identical, scores within 1e-4 (the smallest top-k margin printed);
+    then ``transformer_en_de_512`` at full width (6 + 6 layers, 512
+    units, 2048 hidden, 8 heads, vocab 36794, f32, dropout 0.1) through
+    the MXNet loop with Adam: 64 x 64 source and target tokens, varied
+    ``src_valid_length``, 3 warm-up and 10 timed steps; step median,
+    target tokens/s, peak memory, and from two profiled steps the host
+    share and device time by class; one K2 a step; then beam search on
+    it (beam 4, 8 sources, ``max_length`` 32, a step that re-decodes the
+    prefix): ms a step, and every returned score within 1e-4 of the
+    GNMT-penalized sum of the model's own log-probs along its tokens;
 11. bf16 AMP training (``amp.init`` is process-wide, so phases 11, 13,
     15, 17 and 18 come last, in that order): phase 8's model, batch and AdamW under
     ``amp.init("bfloat16")``, ``amp.init_trainer`` and
@@ -273,7 +322,7 @@ run's steps are measured as they run without it) that replays each
 decode step on its own staged inputs, the replays' device time (CUDA
 events around ``graph.replay()``) and each step's host share beside
 it.  Before
-each of phases 4, 7-19 and 20-25 the kernels' launch counters are set to 0; each phase reads them just after and fails unless its kernels
+each of phases 4, 7-19 and 20-28 the kernels' launch counters are set to 0; each phase reads them just after and fails unless its kernels
 ran the expected number of times.  The second-to-last line is the
 card's name and power limit, the line before it the kernels' JSON
 record, and the line before that every timed row of phase 3 as
@@ -1589,6 +1638,11 @@ def serve_llama3_8b(dev, card):
     ref = {"step_ms": run["step_ms"], "tokens_per_s": run["tokens_per_s"],
            "ttft_p50_ms": run["ttft_p50_ms"], "peak_gb": peak_gb,
            "prompt": prompts[0].tolist(), "fed": fed, "logits": logits}
+    # phase 26b's: the engine's greedy streams for its prompts
+    ref["gen_streams"] = [
+        _greedy(eng, f"generate-{i}", p.tolist(), GEN8B["new"] - 1)[0]
+        [GEN8B["prefix"]:] for i, p in enumerate(
+            gen8b_prompts(net.cfg.vocab_size))]
     del eng, run
     gc.collect()
     torch.cuda.empty_cache()
@@ -4644,6 +4698,642 @@ def dp_training(dev, card, model):
     return launches
 
 
+# ----------------------------------------------------------------------
+# phases 26-28: the LLM extras (generate, the blocked cross-entropy, the
+# Transformer and the samplers)
+# ----------------------------------------------------------------------
+
+# phase 26a: bench.py's _bench_decode configuration, nothing cut
+GEN_CFG = dict(vocab_size=32000, hidden_size=1024, num_layers=8,
+               num_heads=16, num_kv_heads=8, intermediate_size=2816,
+               max_seq_len=512)
+GEN_BATCH, GEN_PREFIX, GEN_NEW, GEN_REPS = 8, 32, 96, 3
+# the teacher-forced forward (K3, 3xTF32) and generate's cached steps
+# (plain f32 attention) give logits about 1e-5 apart at these random
+# weights' magnitudes (|logit| ~ 1): a position whose top-2 margin
+# exceeds 1e-3 must pick the same token
+GEN_MARGIN = 1e-3
+# phase 26b: on phase 4's net
+GEN8B = dict(batch=4, prefix=32, new=32)
+# phase 27: Llama-3-8B's head
+CE_SHAPE = dict(N=8192, d=4096, V=128256, block=2048)
+CE_IGNORE = -100
+# of the largest magnitude: the loss and dx are f32 sums over 128256
+# logits in two orders; dW is rounded to bf16 on both paths (one ulp)
+CE_TOL = {"loss": 1e-5, "dx": 1e-4, "dw": 2 ** -8}
+CE_REPS = 3
+# phases 12, 14 and 16's limit on each parameter's update
+FUSED_UPDATE_RTOL = 1e-3
+# phase 28: the narrow Transformer (card against CPU) and the full one
+MT_NARROW = dict(src_vocab_size=1000, num_layers=2, units=64,
+                 hidden_size=256, num_heads=4, max_length=64, dropout=0.0,
+                 prefix="mt_")
+MT_BATCH, MT_LEN, MT_WARMUP, MT_STEPS = 64, 64, 3, 10
+MT_BEAM, MT_SOURCES, MT_MAX_LEN, MT_EOS = 4, 8, 32, 2
+MT_SCORE_ATOL = 1e-4
+MT_LOGIT_TOL = 1e-4
+# an Adam step moves a key bias (zero gradient in exact arithmetic) by
+# up to lr either way on each device
+MT_KEY_BIAS_ATOL = 2e-3
+
+
+def gen8b_prompts(vocab):
+    import numpy as np
+    return np.random.RandomState(26).randint(
+        0, vocab, (GEN8B["batch"], GEN8B["prefix"]))
+
+
+def update_errs_dev(w0, got, want, steps):
+    """``update_errs`` on device tensors, parameter by parameter (the
+    host would hold three copies of a 1.92 G-parameter model)."""
+    import torch
+    out = {}
+    for k in w0:
+        du = want[k] - w0[k]
+        mag = torch.maximum(torch.maximum(w0[k].abs(), got[k].abs()),
+                            want[k].abs())
+        ulp = torch.nextafter(mag, torch.full_like(mag, float("inf"))) - mag
+        diff = (((got[k] - w0[k]) - du).abs() - steps * ulp).clamp_min(0)
+        out[k] = float(diff.norm()) / max(float(du.norm()), 1e-30)
+    return out
+
+
+def busy_by_class(prof, calls, classes=BUSY_CLASSES):
+    """(busy ms a call, {class: ms a call}) of a profile over ``calls``
+    calls (first match by name, else "other")."""
+    import torch
+    busy = {}
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            busy[e.key] = busy.get(e.key, 0.0) + \
+                e.self_device_time_total / 1e3 / calls
+    by = {}
+    for name, ms in busy.items():
+        cls = next((c for c, keys in classes if any(
+            k in name for k in keys)), "other")
+        by[cls] = round(by.get(cls, 0.0) + ms, 3)
+    return sum(busy.values()), by
+
+
+def generate_decode(dev, card):
+    """Phase 26a (module doc)."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from mxnet_tpu_torch import nd, ops
+    from mxnet_tpu_torch.gluon.model_zoo.nlp.llama import (LlamaConfig,
+                                                           LlamaForCausalLM)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    cfg = LlamaConfig(**GEN_CFG)
+    net = LlamaForCausalLM(cfg, device=dev, dtype=torch.float32, seed=0)
+    toks = np.random.RandomState(0).randint(0, cfg.vocab_size,
+                                            (GEN_BATCH, GEN_PREFIX))
+    steps = GEN_PREFIX + GEN_NEW
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    out = net.generate(toks, GEN_NEW)
+    torch.cuda.synchronize(dev)
+    first_s = time.perf_counter() - t0
+    wall = []
+    for _ in range(GEN_REPS):
+        t = time.perf_counter()
+        out = net.generate(toks, GEN_NEW)
+        torch.cuda.synchronize(dev)
+        wall.append(time.perf_counter() - t)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        net.generate(toks, GEN_NEW)
+        torch.cuda.synchronize(dev)
+    busy_ms, by = busy_by_class(prof, 1)
+    stats = net.generate_stats()
+    if stats["captures"] != 1 or stats["graphs"] != 1:
+        fail(f"generate: {stats} for one signature, expected one graph")
+    gen = out.asnumpy()
+    if gen.shape != (GEN_BATCH, steps) or gen.dtype != np.int32 or not \
+            np.array_equal(gen[:, :GEN_PREFIX], toks):
+        fail(f"generate returned {gen.dtype} {gen.shape} without its prefix")
+    # the reference test's rule at full width: a teacher-forced forward
+    # over the generated sequence picks generate's tokens
+    logits = net(nd.array(gen, ctx=dev, dtype="int32")).data.float()
+    top2 = torch.topk(logits[:, GEN_PREFIX - 1:steps - 1], 2, dim=-1)
+    margin = top2.values[..., 0] - top2.values[..., 1]
+    differ = top2.indices[..., 0] != torch.from_numpy(
+        gen[:, GEN_PREFIX:]).to(dev)
+    above = margin > GEN_MARGIN
+    wrong = int((differ & above).sum())
+    # sampling: one seed twice through replays, and three other seeds
+    sampled = [net.generate(toks, GEN_NEW, temperature=1.0, seed=s)
+               .asnumpy() for s in (0, 0, 1, 2, 3)]
+    torch.cuda.synchronize(dev)
+    launches = read_launches("generate", {
+        "flash_attention_fwd": cfg.num_layers})
+    stats = net.generate_stats()
+    step_ms = statistics.median(wall) * 1e3
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    print(f"generate at bench.py's decode configuration (vocab "
+          f"{cfg.vocab_size}, hidden {cfg.hidden_size}, {cfg.num_layers} "
+          f"layers, {cfg.num_heads}/{cfg.num_kv_heads} heads, f32) on "
+          f"{card}: batch {GEN_BATCH}, prefix {GEN_PREFIX}, {GEN_NEW} new "
+          f"tokens, greedy: first call {first_s:.3f} s (capture "
+          f"{stats['capture_seconds']:.3f} s); call median "
+          f"{step_ms:.2f} ms over {GEN_REPS} (min {min(wall) * 1e3:.2f}) = "
+          f"{GEN_BATCH * steps / step_ms * 1e3:.1f} tokens/s over all "
+          f"{steps} scanned positions, {step_ms / steps:.4f} ms a step; "
+          f"device busy {busy_ms:.3f} ms a call (profiler), host share "
+          f"{1 - busy_ms / step_ms:.4f}; device ms a call by class {by}; "
+          f"peak memory {peak_gb:.3f} GB; teacher-forced forward against "
+          f"the {GEN_NEW * GEN_BATCH} generated tokens: smallest top-2 "
+          f"margin {float(margin.min()):.3e}, "
+          f"{int((~above).sum())} positions at or below {GEN_MARGIN} "
+          f"({int((differ & ~above).sum())} of them picked otherwise), "
+          f"{wrong} above it picked otherwise; captures {stats['captures']}"
+          f" (greedy and temperature 1.0); launches {launches}",
+          flush=True)
+    if wrong:
+        fail(f"generate: {wrong} tokens differ from the teacher-forced "
+             f"forward's pick above the {GEN_MARGIN} margin")
+    if not np.array_equal(sampled[0], sampled[1]) or all(
+            np.array_equal(sampled[0], s) for s in sampled[2:]):
+        fail("generate at temperature 1.0: seed 0 twice differs, or seeds "
+             "1-3 all give seed 0's tokens")
+    if stats["captures"] != 2:
+        fail(f"generate: {stats['captures']} captures for two signatures")
+    del net, logits
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def generate_llama3_8b(dev, card, net, ref):
+    """Phase 26b (module doc); ``ref`` holds phase 4's engine streams for
+    the same prompts."""
+    import numpy as np
+    import torch
+    from mxnet_tpu_torch import ops
+    prompts = gen8b_prompts(net.cfg.vocab_size)
+    ops.reset_launches()
+    times = {}
+    outs = {}
+    for label, graphs in (("first", True), ("replay", True),
+                          ("eager", False)):
+        net._generate_graphs = graphs
+        t = time.perf_counter()
+        outs[label] = net.generate(prompts, GEN8B["new"]).asnumpy()
+        times[label] = time.perf_counter() - t
+    net._generate_graphs = True
+    launches = ops.launch_counts()
+    stats = net.generate_stats()
+    del net._generate_cache          # its graph holds the bf16 weights
+    gc.collect()
+    torch.cuda.empty_cache()
+    gen = [o[:, GEN8B["prefix"]:] for o in outs.values()]
+    same = [int(np.sum(np.asarray(r) == g)) for r, g in
+            zip(ref["gen_streams"], gen[0])]
+    first = [next((i for i, (a, b) in enumerate(zip(r, g)) if a != b), None)
+             for r, g in zip(ref["gen_streams"], gen[0])]
+    print(f"generate on phase 4's net (llama3_8b bf16, 32 layers) on "
+          f"{card}: batch {GEN8B['batch']}, prefix {GEN8B['prefix']}, "
+          f"{GEN8B['new']} new tokens, greedy: first call (capture "
+          f"{stats['capture_seconds']:.3f} s) {times['first']:.3f} s, "
+          f"replayed {times['replay']:.3f} s, eager body "
+          f"{times['eager']:.3f} s; replayed tokens equal the eager body's:"
+          f" {np.array_equal(outs['first'], outs['eager'])}; against phase "
+          f"4's engine streams (not held): {same} of {GEN8B['new']} tokens "
+          f"equal, first difference at {first}; launches {launches}",
+          flush=True)
+    if any(launches.values()):
+        fail(f"generate on phase 4's net launched {launches}")
+    if stats["captures"] != 1:
+        fail(f"generate on phase 4's net: {stats['captures']} captures")
+    if not (np.array_equal(outs["first"], outs["eager"]) and
+            np.array_equal(outs["replay"], outs["eager"])):
+        fail("generate on phase 4's net: replays differ from the eager body")
+    return launches
+
+
+def _ce_paths(x, w, t):
+    """The blocked path and the materialized one, each a function that
+    runs the forward and the backward of the summed losses and returns
+    (loss, dx, dW)."""
+    import torch
+    from mxnet_tpu_torch.ops import fused_linear_cross_entropy
+    V = w.shape[1]
+
+    def run(loss_of):
+        xr = x.detach().requires_grad_(True)
+        wr = w.detach().requires_grad_(True)
+        loss = loss_of(xr, wr)
+        loss.sum().backward()
+        return loss.detach(), xr.grad, wr.grad
+
+    def blocked(xr, wr):
+        return fused_linear_cross_entropy(xr, wr, t, CE_SHAPE["block"],
+                                          CE_IGNORE)
+
+    def plain(xr, wr):
+        lp = torch.log_softmax(xr @ wr.float(), dim=-1)
+        valid = (t >= 0) & (t < V) & (t != CE_IGNORE)
+        return torch.where(valid, -lp.gather(1, t.clamp(0, V - 1)[:, None])
+                           [:, 0], 0.0)
+
+    return {"blocked": lambda: run(blocked), "materialized": lambda: run(plain)}
+
+
+def blocked_ce_op(dev, card):
+    """Phase 27's op part (module doc)."""
+    import torch
+    N, d, V = CE_SHAPE["N"], CE_SHAPE["d"], CE_SHAPE["V"]
+    gen = torch.Generator(device=dev).manual_seed(27)
+    x = torch.randn(N, d, generator=gen, device=dev)
+    # the head as fused_ce_loss hands it over: a (V, d) bf16 parameter,
+    # transposed
+    w = (torch.randn(V, d, generator=gen, device=dev) * 0.02) \
+        .to(torch.bfloat16).T
+    t = torch.randint(0, V, (N,), generator=gen, device=dev)
+    t[:64] = CE_IGNORE
+    t[64:96] = V
+    t[96:128] = -1
+    paths = _ce_paths(x, w, t)
+    res, peak = {}, {}
+    for name, fn in paths.items():
+        torch.cuda.synchronize(dev)
+        base = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        res[name] = fn()
+        torch.cuda.synchronize(dev)
+        peak[name] = torch.cuda.max_memory_allocated(dev) - base
+    errs = {}
+    for key, got, want in zip(("loss", "dx", "dw"), res["blocked"],
+                              res["materialized"]):
+        errs[key] = float((got.float() - want.float()).abs().max() /
+                          want.float().abs().max().clamp_min(1e-30))
+    dead = res["blocked"][0][:128]
+    del res
+    torch.cuda.empty_cache()
+    flush = torch.empty(128 * 2 ** 20, dtype=torch.uint8, device=dev)
+    ms = interleaved_ms(paths, CE_REPS, flush)
+    del flush, paths
+    logit_bytes = N * V * 4
+    print(f"blocked cross-entropy at Llama-3-8B's head (N {N}, d {d}, V "
+          f"{V}, f32 activations, bf16 head, block {CE_SHAPE['block']}, "
+          f"128 targets ignored or out of range) on {card}: forward and "
+          f"backward {statistics.median(ms['blocked']):.2f} ms blocked, "
+          f"{statistics.median(ms['materialized']):.2f} ms materialized "
+          f"(medians of {CE_REPS}, in turns); peak above the inputs "
+          f"{peak['blocked'] / 1e9:.3f} GB blocked, "
+          f"{peak['materialized'] / 1e9:.3f} GB materialized, the f32 "
+          f"logits {logit_bytes / 1e9:.3f} GB; errors of the largest "
+          f"magnitude {errs} (limits {CE_TOL})", flush=True)
+    if not all(errs[k] <= CE_TOL[k] for k in CE_TOL):
+        fail(f"blocked cross-entropy against the materialized path: {errs}")
+    if not peak["blocked"] < logit_bytes:
+        fail("blocked cross-entropy: peak memory above the logits' bytes")
+    if bool((dead != 0).any()):
+        fail("blocked cross-entropy: an ignored target has a loss")
+
+
+def blocked_ce_training(dev, card):
+    """Phase 27's training part (module doc)."""
+    import numpy as np
+    import torch
+    from mxnet_tpu_torch import autograd, nd, ops
+    from mxnet_tpu_torch.gluon import Trainer
+    from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+    from mxnet_tpu_torch.gluon.model_zoo.nlp.llama import llama3_8b
+    rng = np.random.RandomState(0)
+    vocab = CE_SHAPE["V"]
+    tokens, labels = (nd.array(rng.randint(
+        0, vocab, (TRAIN_BATCH, TRAIN_SEQ)), ctx=dev) for _ in range(2))
+    loss_fn = SoftmaxCrossEntropyLoss()
+    ops.reset_launches()
+    runs, w0 = {}, None
+    for path in ("fused", "logits"):
+        gc.collect()
+        torch.cuda.empty_cache()
+        base, held = torch.cuda.memory_allocated(dev), 0
+        torch.cuda.reset_peak_memory_stats(dev)
+        net = llama3_8b(device=dev, dtype=torch.float32, seed=0,
+                        num_layers=TRAIN_LAYERS)
+        if w0 is None:          # the first weights, kept for the updates
+            w0 = {k: p.data().data.detach().clone() for k, p in
+                  net._collect_params_with_prefix().items()}
+            held = sum(v.numel() * 4 for v in w0.values())
+        trainer = Trainer(net.collect_params(), "adamw",
+                          {"learning_rate": 1e-3, "wd": 0.1})
+        losses, step_s = [], []
+        for _ in range(2):
+            t = time.perf_counter()
+            with autograd.record():
+                if path == "fused":
+                    loss = net.fused_ce_loss(
+                        tokens, labels, block=CE_SHAPE["block"]).mean()
+                else:
+                    loss = loss_fn(net(tokens), labels).mean()
+            loss.backward()
+            if not losses:      # the activations' peak, before the
+                # first update builds the Trainer's flat buffers
+                fb_peak = (torch.cuda.max_memory_allocated(dev) - base -
+                           held) / 1e9
+            trainer.step(1)
+            losses.append(float(loss.asscalar()))
+            step_s.append(time.perf_counter() - t)
+        torch.cuda.synchronize(dev)
+        peak = (torch.cuda.max_memory_allocated(dev) - base - held) / 1e9
+        runs[path] = (losses, step_s, (fb_peak, peak), {
+            k: p.data().data.detach().clone()
+            for k, p in net._collect_params_with_prefix().items()})
+        del net, trainer, loss
+    launches = read_launches("training fused ce", {
+        "flash_attention_fwd": 4 * TRAIN_LAYERS,
+        "flash_attention_bwd": 4 * TRAIN_LAYERS, "fused_adam_update": 4})
+    (lf, sf, pf, wf), (ll, sl, pl, wl) = runs["fused"], runs["logits"]
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(lf, ll))
+    upd = update_errs_dev(w0, wf, wl, 2)
+    worst = sorted(upd.items(), key=lambda kv: -kv[1])[:3]
+    print(f"training fused ce, phase 8's model (llama3_8b width, "
+          f"{TRAIN_LAYERS} layers, f32, adamw, batch {TRAIN_BATCH}x"
+          f"{TRAIN_SEQ}) on {card}: 2 steps on fused_ce_loss(block "
+          f"{CE_SHAPE['block']}).mean() losses {lf}, steps "
+          f"{[round(s * 1e3, 1) for s in sf]} ms, peak above the held "
+          f"weights through the first backward {pf[0]:.2f} GB, over both "
+          f"steps {pf[1]:.2f} GB; 2 steps on SoftmaxCrossEntropyLoss of "
+          f"the logits losses {ll}, steps {[round(s * 1e3, 1) for s in sl]}"
+          f" ms, peaks {pl[0]:.2f} and {pl[1]:.2f} GB; max relative loss "
+          f"diff {loss_err:.3e} "
+          f"(limit {TRAIN_LOSS_RTOL}), worst relative update diffs {worst} "
+          f"(limit {FUSED_UPDATE_RTOL}); launches {launches}", flush=True)
+    if not (loss_err <= TRAIN_LOSS_RTOL and
+            worst[0][1] <= FUSED_UPDATE_RTOL):
+        fail("training on fused_ce_loss and on the logits path disagree")
+    del runs, w0, wf, wl
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def mt_step(net):
+    """A beam-search step over ``net`` (a ``TransformerModel``) that
+    re-decodes the whole prefix (the model keeps no incremental state):
+    states hold the memory, its (n, 1, Ls) mask and the tokens so far;
+    returns the last position's log-probs."""
+    import torch
+    from mxnet_tpu_torch.ndarray import NDArray
+
+    def raw(x):
+        return x.data if isinstance(x, NDArray) else x
+
+    def step(step_input, states):
+        prefix = torch.cat([raw(states["prefix"]),
+                            raw(step_input).to(torch.int32)[:, None]], 1)
+        logits = net.decode(NDArray(prefix), NDArray(raw(states["mem"])),
+                            None, NDArray(raw(states["mask"])))
+        lp = torch.log_softmax(logits.data[:, -1].float(), dim=-1)
+        return NDArray(lp), dict(states, prefix=prefix)
+    return step
+
+
+def mt_states(net, src, vl):
+    """The beam search's first states: the encoder's memory of ``src``
+    (NDArrays) masked by the valid lengths ``vl``."""
+    import torch
+    from mxnet_tpu_torch.ndarray import NDArray
+    lk = src.shape[1]
+    keep = (torch.arange(lk, device=src.data.device)[None, None, :] <
+            vl.data[:, None, None]).float()
+    mem = net.encode(src, NDArray(keep.expand(src.shape[0], lk, lk)))
+    return {"mem": mem, "mask": NDArray(keep),
+            "prefix": torch.zeros((src.shape[0], 0), dtype=torch.int32,
+                                  device=src.data.device)}
+
+
+def beam_search(net, src, vl, beam, max_length, margins=None):
+    """``BeamSearchSampler`` over ``mt_step``; with ``margins`` (a list)
+    each selection's smallest gap between the kept k-th and the first
+    dropped candidate is appended.  Returns (samples, scores, lengths)
+    as tensors and the steps' wall seconds."""
+    import torch
+    from mxnet_tpu_torch.gluon.model_zoo.nlp import BeamSearchSampler
+    from mxnet_tpu_torch.gluon.model_zoo.nlp import sampler as smp
+    from mxnet_tpu_torch.ndarray import NDArray
+    topk = smp._topk
+
+    def margin_topk(x, k):
+        vals, idx = topk(x, k + 1)
+        live = vals[..., k - 1] > -1e17
+        if bool(live.any()):
+            margins.append(float((vals[..., k - 1] - vals[..., k])[live]
+                                 .min()))
+        return vals[..., :k], idx[..., :k]
+
+    sampler = BeamSearchSampler(beam, mt_step(net), eos_id=MT_EOS,
+                                max_length=max_length)
+    first = NDArray(torch.full((src.shape[0],), 1, dtype=torch.int32,
+                               device=src.data.device))
+    with contextlib.ExitStack() as stack:
+        if margins is not None:
+            stack.enter_context(_swapped(smp, "_topk", margin_topk))
+        t = time.perf_counter()
+        out = sampler(first, mt_states(net, src, vl))
+        res = [o.data for o in out]
+        if res[0].is_cuda:
+            torch.cuda.synchronize(res[0].device)
+    return res, time.perf_counter() - t
+
+
+def gnmt_scores(net, src, vl, samples, lengths, beam):
+    """The GNMT-penalized sum of the model's own log-probs along each
+    returned sequence (one teacher-forced decode of all of them): the
+    sum of log p(token j | tokens < j) over j < length, over lp(length
+    - 1), BeamSearchScorer's default alpha 1 and K 5."""
+    import torch
+    from mxnet_tpu_torch.gluon.model_zoo.nlp import BeamSearchScorer
+    from mxnet_tpu_torch.ndarray import NDArray
+    b, k, L = samples.shape
+    seq = samples.reshape(b * k, L).to(torch.int32)
+    states = mt_states(net, src, vl)
+    mem = states["mem"].data.repeat_interleave(beam, dim=0)
+    mask = states["mask"].data.repeat_interleave(beam, dim=0)
+    logits = net.decode(NDArray(seq[:, :-1]), NDArray(mem), None,
+                        NDArray(mask)).data
+    lp = torch.log_softmax(logits.float(), dim=-1).gather(
+        2, seq[:, 1:, None].long())[..., 0]
+    n = lengths.reshape(-1).long() - 1
+    keep = torch.arange(L - 1, device=lp.device)[None, :] < n[:, None]
+    penalty = BeamSearchScorer()._lp(n.double()).float()
+    return ((lp * keep).sum(1) / penalty).reshape(b, k)
+
+
+def transformer_card_vs_cpu(dev):
+    """Phase 28's card-against-CPU part (module doc)."""
+    import numpy as np
+    import torch
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import autograd, gluon, ops
+    from mxnet_tpu_torch.convert import (block_weights_to_numpy,
+                                         load_block_weights)
+    from mxnet_tpu_torch.gluon.model_zoo.nlp import TransformerModel
+    vocab = MT_NARROW["src_vocab_size"]
+    rng = np.random.RandomState(28)
+    host = {"src": rng.randint(0, vocab, (8, 24)),
+            "tgt": rng.randint(0, vocab, (8, 20)),
+            "label": rng.randint(0, vocab, (8, 20)),
+            "vl": rng.randint(4, 25, 8).astype(np.float32)}
+    weights, runs, launches = None, [], None
+    for ctx in (mx.gpu(dev.index or 0), mx.cpu()):
+        net = TransformerModel(**MT_NARROW)
+        mx.random.seed(28)
+        net.initialize(ctx=ctx)
+        with ctx:
+            src, tgt, label = (mx.nd.array(host[k], dtype="int32")
+                               for k in ("src", "tgt", "label"))
+            vl = mx.nd.array(host["vl"])
+        if weights is None:
+            net(src, tgt, vl)
+            weights = block_weights_to_numpy(net)
+        load_block_weights(net, weights)
+        if ctx.device_type == "gpu":
+            torch.cuda.synchronize(dev)
+            ops.reset_launches()
+        logits = net(src, tgt, vl).asnumpy()
+        margins = []
+        beam, _ = beam_search(net, src[:4], vl[:4], MT_BEAM, 16, margins)
+        trainer = gluon.Trainer(net.collect_params(), "adam",
+                                {"learning_rate": 1e-3})
+        with autograd.record():
+            loss = gluon.loss.SoftmaxCrossEntropyLoss()(
+                net(src, tgt, vl), label)
+        loss.backward()
+        trainer.step(8)
+        if ctx.device_type == "gpu":
+            torch.cuda.synchronize(dev)
+            launches = read_launches("transformer card vs cpu",
+                                     {"fused_adam_update": 1})
+        runs.append((logits, [b.cpu() for b in beam], margins,
+                     block_weights_to_numpy(net)))
+        del net, trainer
+    logit_err = float(np.abs(runs[0][0] - runs[1][0]).max())
+    upd = update_errs(weights, runs[0][3], runs[1][3], 1)
+    noise = [k for k in weights if k.endswith("proj_key.bias")]
+    upd_err = max(v for k, v in upd.items() if k not in noise)
+    noise_err = max(float(np.abs(runs[0][3][k] - runs[1][3][k]).max())
+                    for k in noise)
+    (s0, sc0, l0), (s1, sc1, l1) = runs[0][1], runs[1][1]
+    same = bool(torch.equal(s0, s1) and torch.equal(l0, l1))
+    score_err = float((sc0 - sc1).abs().max())
+    print(f"transformer card vs cpu (2 + 2 layers, {MT_NARROW['units']} "
+          f"units, {MT_NARROW['num_heads']} heads, vocab {vocab}, f32, "
+          f"8 x 24 sources, valid lengths {host['vl'].astype(int).tolist()})"
+          f": max |logit| diff {logit_err:.3e} (limit {MT_LOGIT_TOL}); one "
+          f"adam step: worst relative update diff {upd_err:.3e} (limit "
+          f"{FUSED_UPDATE_RTOL}) but the key biases, {noise_err:.3e} (limit "
+          f"{MT_KEY_BIAS_ATOL}); beam search (beam {MT_BEAM}, 4 sources, "
+          f"max_length 16): samples and lengths identical {same}, max score"
+          f" diff {score_err:.3e} (limit {MT_SCORE_ATOL}), smallest top-k "
+          f"margin card {min(runs[0][2]):.3e} cpu {min(runs[1][2]):.3e}; "
+          f"launches {launches}", flush=True)
+    if not (logit_err <= MT_LOGIT_TOL and upd_err <= FUSED_UPDATE_RTOL and
+            noise_err <= MT_KEY_BIAS_ATOL and same and
+            score_err <= MT_SCORE_ATOL):
+        fail("the Transformer on the card and on the CPU disagree")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def transformer_training(dev, card):
+    """Phase 28's full-width part (module doc)."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import autograd, gluon, ops
+    from mxnet_tpu_torch.gluon.model_zoo.nlp import transformer_en_de_512
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    net = transformer_en_de_512(prefix="mt512_")
+    vocab = net._tgt_vocab_size
+    mx.random.seed(0)
+    net.initialize(ctx=mx.gpu(dev.index or 0))
+    net.hybridize()
+    rng = np.random.RandomState(28)
+    with mx.gpu(dev.index or 0):
+        src, tgt, label = (mx.nd.array(rng.randint(0, vocab, (MT_BATCH,
+                                                             MT_LEN)),
+                                       dtype="int32") for _ in range(3))
+        vl = mx.nd.array(rng.randint(MT_LEN // 4, MT_LEN + 1, MT_BATCH)
+                         .astype(np.float32))
+    ce = gluon.loss.SoftmaxCrossEntropyLoss()
+    trainer = gluon.Trainer(net.collect_params(), "adam",
+                            {"learning_rate": 1e-4})
+
+    def step():
+        with autograd.record():
+            loss = ce(net(src, tgt, vl), label)
+        loss.backward()
+        trainer.step(MT_BATCH)
+        return loss.mean()
+
+    losses = [step() for _ in range(MT_WARMUP)]
+    torch.cuda.synchronize(dev)
+    setup_s = time.perf_counter() - t0
+    n_params = sum(p.data().size for p in net.collect_params().values()
+                   if p.grad_req != "null")
+    ops.reset_launches()
+    step_s = []
+    for _ in range(MT_STEPS):
+        t = time.perf_counter()
+        losses.append(step())
+        torch.cuda.synchronize(dev)
+        step_s.append(time.perf_counter() - t)
+    launches = read_launches("transformer training",
+                             {"fused_adam_update": MT_STEPS})
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(2):
+            step()
+        torch.cuda.synchronize(dev)
+    busy_ms, by = busy_by_class(prof, 2)
+    losses = [float(x.asscalar()) for x in losses]
+    step_ms = statistics.median(step_s) * 1e3
+    print(f"transformer training, transformer_en_de_512 (6 + 6 layers, 512 "
+          f"units, 2048 hidden, 8 heads, vocab {vocab}, shared and tied "
+          f"embeddings, dropout 0.1), {n_params} params, f32, adam lr 1e-4,"
+          f" {MT_BATCH} x {MT_LEN} source and target tokens, valid lengths "
+          f"{MT_LEN // 4}-{MT_LEN}, on {card}: losses {losses}; step median "
+          f"{step_ms:.2f} ms over {MT_STEPS} after {MT_WARMUP} warm-up (min "
+          f"{min(step_s) * 1e3:.2f}, max {max(step_s) * 1e3:.2f}) = "
+          f"{MT_BATCH * MT_LEN / step_ms * 1e3:.1f} target tokens/s; peak "
+          f"memory {peak_gb:.2f} GB; set-up and warm-up {setup_s:.2f} s; "
+          f"device busy {busy_ms:.3f} ms a step (profiler, 2 steps), host "
+          f"share {1 - busy_ms / step_ms:.4f}; device ms a step by class "
+          f"{by}; launches {launches}", flush=True)
+    if not all(np.isfinite(losses)):
+        fail(f"transformer training: non-finite loss {losses}")
+    # beam search on the trained net, its scores against the model's own
+    # log-probs
+    (samples, scores, lengths), wall = beam_search(
+        net, src[:MT_SOURCES], vl[:MT_SOURCES], MT_BEAM, MT_MAX_LEN)
+    steps = samples.shape[-1] - 1
+    want = gnmt_scores(net, src[:MT_SOURCES], vl[:MT_SOURCES], samples,
+                       lengths, MT_BEAM)
+    err = float((scores - want).abs().max())
+    print(f"beam search on it (beam {MT_BEAM}, {MT_SOURCES} sources, "
+          f"max_length {MT_MAX_LEN}, each step re-decodes the prefix): "
+          f"{steps} steps in {wall:.3f} s = {wall / steps * 1e3:.2f} ms a "
+          f"step; lengths {sorted(set(lengths.reshape(-1).tolist()))}; "
+          f"scores {float(scores.min()):.4f} to {float(scores.max()):.4f}, "
+          f"max diff from the GNMT-penalized sum of the model's log-probs "
+          f"{err:.3e} (limit {MT_SCORE_ATOL})", flush=True)
+    if not err <= MT_SCORE_ATOL:
+        fail("beam search: a score is not its sequence's penalized "
+             "log-prob")
+    del net, trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main():
     try:
         import torch
@@ -4702,6 +5392,9 @@ def main():
     by_path["serving_router"] = serve_router(dev, card, net, phase21)
     by_path["serving_disagg"] = serve_disagg(dev, card, net, phase21)
     del phase21
+    # phase 26b on it, before phase 23 quantizes it
+    by_path["generate_llama3_8b"] = generate_llama3_8b(dev, card, net,
+                                                       bf16_ref)
     # phase 23 last on it: it quantizes the net in place
     by_path["serving_int8"] = serve_int8(dev, card, net, bf16_ref)
     del net, bf16_ref
@@ -4717,6 +5410,12 @@ def main():
     by_path["resnet_card_vs_cpu"] = resnet_card_vs_cpu(dev)
     by_path["dp_card_vs_cpu"] = dp_card_vs_cpu(dev)
     by_path["dp_checkpoint"] = dp_checkpoint(dev)
+    # phases 26a, 27 and 28: the LLM extras
+    by_path["generate"] = generate_decode(dev, card)
+    blocked_ce_op(dev, card)
+    by_path["training_fused_ce"] = blocked_ce_training(dev, card)
+    by_path["transformer_card_vs_cpu"] = transformer_card_vs_cpu(dev)
+    by_path["transformer_training"] = transformer_training(dev, card)
     # phases 11, 13, 15, 17 and 18 last: amp.init() is process-wide
     by_path["training_amp"], _ = train_llama3_8b(
         dev, card, amp_dtype="bfloat16", f32_first_loss=f32_first_loss)

@@ -38,17 +38,26 @@ Under ``amp.init("bfloat16")`` the outermost block call opens the
 block does: the projections (``FullyConnected``) run in bfloat16, and
 K3 takes bfloat16 q and k after RoPE (``amp`` module doc).
 
-Not in this slice: ``generate()``, tensor and context parallelism and
-``fused_ce_loss``.
+``fused_ce_loss`` runs the head and the loss through
+``ops.fused_linear_cross_entropy`` (the vocabulary in blocks).
+``generate`` decodes with dense per-layer caches, one step a position,
+over ``decode_weights()``; on CUDA each step is one CUDA graph, captured
+once a signature and replayed (see :class:`_GenerateStep`).  Tensor and
+context parallelism are not ported (ROADMAP §1 item 10).
 """
 from __future__ import annotations
+
+import math
+import time
 
 import torch
 import torch.nn.functional as F_
 
+from .... import _graphs
 from ....base import MXNetError, NotSupportedError
 from ....context import resolve_device
-from ....ndarray.ndarray import _dtype_of, apply
+from ....ndarray.ndarray import NDArray, _dtype_of, apply
+from ....ops.blocked_cross_entropy import fused_linear_cross_entropy
 from ....ops.flash_attention import flash_attention
 from ...block import HybridBlock
 from ... import nn
@@ -139,6 +148,16 @@ def _cache_attention(q, ck, cv, valid, scale):
     acc = torch.einsum("bqk,bkd->bqd", p.to(vr.dtype).float(), vr.float())
     out = (acc / torch.clamp_min(l, 1e-30)).to(q.dtype)
     return out[:, 0].reshape(b, h * d)
+
+
+def _categorical(scores, gen):
+    """One draw a row from ``softmax(scores)``, as ``torch.multinomial(p,
+    1)`` draws it but with no host synchronisation, so a CUDA graph can
+    capture it: the argmax of ``p / q`` with ``q`` exponential from
+    ``gen`` (an exponential race)."""
+    p = torch.softmax(scores, dim=-1)
+    q = torch.empty_like(p).exponential_(1, generator=gen)
+    return torch.argmax(p / q, dim=-1)
 
 
 class RMSNorm(HybridBlock):
@@ -304,6 +323,98 @@ class LlamaForCausalLM(HybridBlock):
             return d @ emb.T
         return apply(tied_lm_head, [x, self.model.embed.weight.data()])
 
+    def fused_ce_loss(self, tokens, targets, block=2048,
+                      ignore_index=None):
+        """Per-token cross-entropy of the next-token logits against
+        ``targets`` through the blocked fused head
+        (``ops.fused_linear_cross_entropy``): the (B, L, V) logits never
+        exist.  Returns the losses, shaped as ``tokens``, as an NDArray;
+        differentiable under ``autograd.record()``.  A target equal to
+        ``ignore_index`` or outside [0, V) gives loss 0 and gradient 0."""
+        x = self.model(tokens)
+        head = self.model.embed if self.lm_head is None else self.lm_head
+        if not isinstance(targets, NDArray):
+            targets = NDArray(torch.as_tensor(targets,
+                                              device=x.data.device))
+
+        def fused_ce_loss(h, wv, t):
+            d = h.shape[-1]
+            # the tied embedding and lm_head are both stored (V, d):
+            # transposed unconditionally, as the reference does
+            loss = fused_linear_cross_entropy(
+                h.reshape(-1, d), wv.T, t.reshape(-1), block=block,
+                ignore_index=ignore_index)
+            return loss.reshape(h.shape[:-1])
+        return apply(fused_ce_loss, [x, head.weight.data(), targets])
+
+    #: False runs ``generate``'s step eagerly on CUDA too (the body its
+    #: graphs are held against)
+    _generate_graphs = True
+
+    def generate(self, tokens, max_new_tokens, temperature=0.0, seed=0):
+        """Autoregressive decode with dense per-layer caches ``(B, KVH,
+        T_prefix + max_new_tokens, D)`` in the weights' dtype, one step a
+        position: the prefix tokens are forced one at a time, then each
+        step feeds the last prediction.  Greedy at temperature 0, else a
+        categorical draw from ``logits.float() / temperature`` taken from
+        a generator on the net's device seeded with ``seed`` at every
+        call.  tokens: ``(B, T_prefix)`` integers (an NDArray or an
+        array); returns the ``(B, T_prefix + max_new_tokens)`` int32
+        NDArray on the net's device.
+
+        The step reads ``decode_weights()``.  On CUDA it is captured as
+        one CUDA graph per signature ``(B, T_prefix, total, temperature)``
+        and a call is ``total`` replays; a graph is keyed on the weight
+        tensors' addresses, so weights loaded into new storage are
+        captured again, and weights updated in place are read as they
+        are."""
+        weights = self.decode_weights()
+        emb = weights[0]
+        toks = tokens.data if isinstance(tokens, NDArray) else \
+            torch.as_tensor(tokens)
+        if toks.dim() != 2:
+            raise MXNetError(f"generate() takes (batch, prefix) tokens, "
+                             f"not shape {tuple(toks.shape)}")
+        b, t_prefix = toks.shape
+        if t_prefix == 0:
+            raise MXNetError("generate() needs at least one prefix token")
+        sig = (b, t_prefix, t_prefix + int(max_new_tokens),
+               float(temperature))
+        leaves = [emb, weights[1]] + ([] if weights[2] is None else
+                                      [weights[2]])
+        leaves += [w for layer in weights[3] for w in layer]
+        key = tuple((w.data_ptr(), w.dtype, tuple(w.shape))
+                    for w in leaves)
+        cache = self._generate_cache_of()
+        steps = cache["steps"]
+        step = steps.get(sig)
+        if step is None or step.key != key:
+            # steps over other weights hold those alive: drop them
+            for s_ in [s_ for s_, st in steps.items() if st.key != key]:
+                del steps[s_]
+            step = steps[sig] = _GenerateStep(self.cfg, weights, sig, key)
+        out = step.run(toks.to(emb.device, torch.int32), seed,
+                       self._generate_graphs, cache)
+        return NDArray(out)
+
+    def _generate_cache_of(self):
+        """``generate``'s steps by signature and its capture counts."""
+        cache = self.__dict__.get("_generate_cache")
+        if cache is None:
+            cache = self._generate_cache = {"steps": {}, "captures": 0,
+                                            "capture_seconds": 0.0}
+        return cache
+
+    def generate_stats(self):
+        """``{"captures", "capture_seconds", "graphs"}``: the CUDA graphs
+        ``generate`` has captured on this net, the seconds they took, and
+        how many are cached now."""
+        cache = self._generate_cache_of()
+        return {"captures": cache["captures"],
+                "capture_seconds": cache["capture_seconds"],
+                "graphs": sum(st.graph is not None
+                              for st in cache["steps"].values())}
+
     def _decode_params(self):
         """:meth:`decode_weights`' structure of the Parameters."""
         m = self.model
@@ -325,6 +436,111 @@ class LlamaForCausalLM(HybridBlock):
         return (embed.data().data, norm.data().data,
                 None if head is None else head.data().data,
                 [tuple(p.data().data for p in layer) for layer in layers])
+
+
+class _GenerateStep:
+    """One ``generate`` signature over one set of weight tensors.
+
+    Static device buffers: the per-layer caches, the forced tokens (the
+    prefix, then zeros), the previous prediction, the position and the
+    predictions.  The body is one decode step: it reads the position and
+    both tokens from those buffers, writes its K/V rows and its
+    prediction, and advances the position, so the same body serves every
+    position.  On CUDA it is captured once as a CUDA graph
+    (``_graphs.capture``, the sampling generator registered with the
+    graph) and a call is ``total`` replays; on the CPU, or with graphs
+    off, the body runs eagerly ``total`` times."""
+
+    def __init__(self, cfg, weights, sig, key):
+        self.cfg, self.weights, self.key = cfg, weights, key
+        b, self.t_prefix, self.total, self.temp = sig
+        emb = weights[0]
+        dev = emb.device
+        shape = (b, cfg.num_kv_heads, self.total, cfg.head_dim)
+        self.ck = [torch.zeros(shape, dtype=emb.dtype, device=dev)
+                   for _ in weights[3]]
+        self.cv = [torch.zeros(shape, dtype=emb.dtype, device=dev)
+                   for _ in weights[3]]
+        self.forced = torch.zeros((b, self.total), dtype=torch.int32,
+                                  device=dev)
+        self.out = torch.zeros_like(self.forced)
+        self.prev = torch.zeros(b, dtype=torch.int32, device=dev)
+        self.pos = torch.zeros(1, dtype=torch.int64, device=dev)
+        self.positions = torch.arange(self.total, device=dev)
+        self.gen = None if self.temp == 0.0 else torch.Generator(device=dev)
+        self.graph = None
+
+    @torch.no_grad()
+    def body(self):
+        cfg = self.cfg
+        emb, norm_w, head_w, layers = self.weights
+        h, kvh, d, eps = (cfg.num_heads, cfg.num_kv_heads, cfg.head_dim,
+                          cfg.rms_eps)
+        b, pos = self.prev.shape[0], self.pos
+        forced = self.forced.index_select(1, pos)[:, 0]
+        tok = torch.where(pos < self.t_prefix, forced, self.prev)
+        x = emb[tok.long()]                                  # (B, hidden)
+        cos, sin = _rope_cos_sin(pos, d, cfg.rope_theta)
+        valid = (self.positions <= pos).expand(b, self.total)
+        for (in_w, qw, kw, vw, ow, po_w, gw, uw, dw), ck, cv in zip(
+                layers, self.ck, self.cv):
+            hh = _rms(x, in_w, eps)
+            q = _rot_interleaved((hh @ qw.T).reshape(b, h, d), cos, sin)
+            k = _rot_interleaved((hh @ kw.T).reshape(b, kvh, d), cos, sin)
+            ck.index_copy_(2, pos, k[:, :, None, :])
+            cv.index_copy_(2, pos, (hh @ vw.T).reshape(b, kvh, 1, d))
+            o = _cache_attention(q, ck, cv, valid, 1.0 / math.sqrt(d))
+            x = x + o @ ow.T
+            y = _rms(x, po_w, eps)
+            x = x + (F_.silu(y @ gw.T) * (y @ uw.T)) @ dw.T
+        logits = _rms(x, norm_w, eps) @ (emb if head_w is None else head_w).T
+        if self.temp == 0.0:
+            nxt = torch.argmax(logits, dim=-1)
+        else:
+            nxt = _categorical(logits.float() / self.temp, self.gen)
+        nxt = nxt.to(torch.int32)
+        self.out.index_copy_(1, pos, nxt[:, None])
+        self.prev.copy_(nxt)
+        pos.add_(1)
+
+    def _capture(self, cache):
+        """Run the body once on a side stream (kernels loaded, cuBLAS
+        set up), then capture it with the cyclic collector off."""
+        t0 = time.perf_counter()
+        dev = self.pos.device
+        stream = torch.cuda.Stream(dev)
+        stream.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(stream):
+            self.body()
+        graph = torch.cuda.CUDAGraph()
+        if self.gen is not None:
+            graph.register_generator_state(self.gen)
+        with _graphs.capture(graph, None, stream):
+            self.body()
+        torch.cuda.current_stream(dev).wait_stream(stream)
+        self.graph = graph
+        cache["captures"] += 1
+        cache["capture_seconds"] += time.perf_counter() - t0
+
+    def run(self, toks, seed, graphs, cache):
+        """Decode ``toks`` (the prefix, on the device, int32); returns the
+        prefix followed by the generated tokens."""
+        replay = graphs and self.pos.device.type == "cuda"
+        if replay and self.graph is None:
+            self._capture(cache)
+        self.forced[:, :self.t_prefix].copy_(toks)
+        self.pos.zero_()
+        self.prev.zero_()
+        if self.gen is not None:
+            self.gen.manual_seed(int(seed))
+        for _ in range(self.total):
+            if replay:
+                self.graph.replay()
+            else:
+                self.body()
+        # out[:, i] is the prediction after position i
+        return torch.cat([toks, self.out[:, self.t_prefix - 1:
+                                          self.total - 1]], dim=1)
 
 
 def llama3_8b(device=None, dtype=None, seed=None, **overrides):

@@ -6,7 +6,7 @@ from .ndarray import (NDArray, apply, array, arange, concatenate, empty,
                       eye, from_torch, full, linspace, ones, waitall, zeros)
 from .ops import *  # noqa: F401,F403
 from .ops import concat, stack, later as _later, _REFERENCE_OPS
-from . import ops, random
+from . import contrib, ops, random
 from .utils import load, load_frombuffer, save
 
 

@@ -7,6 +7,7 @@ use (see ``_build``).
 """
 import threading
 
+from .blocked_cross_entropy import fused_linear_cross_entropy
 from .flash_attention import (flash_attention, flash_attention_bwd,
                               flash_attention_fwd)
 from .fused_layernorm import (fused_layer_norm, fused_layer_norm_bwd,
@@ -19,7 +20,8 @@ from .quant_kv import resolve_kv_dtype
 __all__ = ["flash_attention", "flash_attention_fwd", "flash_attention_bwd",
            "paged_decode_attention", "fused_bucket_rule", "fused_sgd_update",
            "fused_adam_update", "fused_layer_norm", "fused_layer_norm_fwd",
-           "fused_layer_norm_bwd", "resolve_kv_dtype", "KERNELS",
+           "fused_layer_norm_bwd", "fused_linear_cross_entropy",
+           "resolve_kv_dtype", "KERNELS",
            "SUBCOUNTS", "launch_counts", "reset_launches", "add_launches"]
 
 #: the kernel wrappers whose ``launches`` counts the main paths read

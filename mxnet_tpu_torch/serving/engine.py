@@ -136,8 +136,8 @@ import torch.nn.functional as F
 from .._graphs import capture
 from ..base import MXNetError, NotSupportedError
 from ..context import resolve_device
-from ..gluon.model_zoo.nlp.llama import (_rms, _rope_cos_sin,
-                                         _rot_interleaved)
+from ..gluon.model_zoo.nlp.llama import (_categorical, _rms,
+                                         _rope_cos_sin, _rot_interleaved)
 from ..ops import add_launches, launch_counts
 from ..ops.flash_attention import flash_attention, flash_attention_fwd
 from ..ops.paged_attention import paged_decode_attention
@@ -790,9 +790,7 @@ class InferenceEngine:
         idx = None
         if self.top_k > 0:
             scaled, idx = torch.topk(scaled, self.top_k, dim=-1)
-        p = torch.softmax(scaled, dim=-1)
-        q = torch.empty_like(p).exponential_(1, generator=self._gen)
-        pick = torch.argmax(p / q, dim=-1, keepdim=True)
+        pick = _categorical(scaled, self._gen)[:, None]
         if idx is not None:
             pick = torch.gather(idx, 1, pick)
         return pick[:, 0].to(torch.int32)

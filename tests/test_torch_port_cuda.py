@@ -1989,3 +1989,132 @@ def test_router_add_replica_while_two_workers_replay(card):
     for rep in router.replicas:
         rep.engine.cache.check_leaks(
             holders=rep.engine.prefix_cache.held_blocks())
+
+
+# ----------------------------------------------------------------------
+# the LLM extras: generate's captured step, the blocked cross-entropy,
+# the Transformer
+# ----------------------------------------------------------------------
+
+@pytest.mark.parametrize("temperature", [0.0, 0.8])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_generate_replays_equal_the_eager_body(card, dtype, temperature):
+    """One graph a signature; its replays give the tokens of the same
+    step body run eagerly on the card (sampled ones from the same seeded
+    generator)."""
+    net = llama_tiny(device=card, dtype=dtype, seed=7, hidden_size=128,
+                     num_heads=2, num_kv_heads=1, intermediate_size=256)
+    prefix = np.random.RandomState(7).randint(0, 256, (3, 9))
+    got = [net.generate(prefix, 12, temperature=temperature,
+                        seed=3).asnumpy() for _ in range(2)]
+    assert net.generate_stats()["captures"] == 1
+    net._generate_graphs = False
+    want = net.generate(prefix, 12, temperature=temperature,
+                        seed=3).asnumpy()
+    np.testing.assert_array_equal(got[0], want)
+    np.testing.assert_array_equal(got[1], want)
+    assert net.generate_stats()["captures"] == 1
+
+
+def test_generate_graph_follows_weight_changes(card):
+    """In-place updates are read by the same graph; weights in new
+    storage are captured again; both decode what the eager body does."""
+    net = llama_tiny(device=card, seed=8)
+    other = llama_tiny(device=card, seed=9)
+    prefix = np.random.RandomState(8).randint(0, 256, (2, 6))
+
+    def both():
+        got = net.generate(prefix, 8).asnumpy()
+        net._generate_graphs = False
+        want = net.generate(prefix, 8).asnumpy()
+        net._generate_graphs = True
+        np.testing.assert_array_equal(got, want)
+        return got
+
+    first = both()
+    with torch.no_grad():
+        for p, q in zip(net.collect_params().values(),
+                        other.collect_params().values()):
+            p.data().data.copy_(q.data().data)
+    second = both()
+    assert net.generate_stats()["captures"] == 1
+    assert not np.array_equal(first, second)
+    for p in net.collect_params().values():
+        p._bind(p.data().data.clone() * 0.5)
+    both()
+    assert net.generate_stats()["captures"] == 2
+    assert net.generate_stats()["graphs"] == 1
+
+
+@pytest.mark.parametrize("wdtype", [torch.float32, torch.bfloat16])
+def test_blocked_cross_entropy_card_equals_cpu(card, wdtype):
+    from mxnet_tpu_torch.ops import fused_linear_cross_entropy
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        rng = np.random.RandomState(9)
+        x = torch.from_numpy(rng.randn(300, 128).astype(np.float32))
+        w = torch.from_numpy((rng.randn(128, 5000) * 0.05)
+                             .astype(np.float32)).to(wdtype)
+        t = torch.from_numpy(rng.randint(-5, 5005, 300))
+        out = []
+        for dev in (card, torch.device("cpu")):
+            xd = x.to(dev).requires_grad_(True)
+            wd = w.to(dev).requires_grad_(True)
+            loss = fused_linear_cross_entropy(xd, wd, t.to(dev), 1024,
+                                              ignore_index=3)
+            loss.sum().backward()
+            out.append([loss.detach().cpu(), xd.grad.cpu(),
+                        wd.grad.float().cpu()])
+        for a, b in zip(*out):
+            torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+
+
+def test_transformer_adam_step_card_equals_cpu(card):
+    """One Adam step of a narrow Transformer (2 + 2 layers, 64 units,
+    masked by valid lengths) on the card and on the host from the same
+    weights: logits and parameters agree, and the card runs K2."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import autograd, gluon
+    from mxnet_tpu_torch.gluon.model_zoo.nlp import TransformerModel
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        kw = dict(src_vocab_size=100, num_layers=2, units=64,
+                  hidden_size=128, num_heads=4, max_length=64,
+                  dropout=0.0, prefix="t_")
+        rng = np.random.RandomState(10)
+        src, tgt = rng.randint(0, 100, (4, 20)), rng.randint(0, 100, (4, 12))
+        vl = np.array([20, 15, 9, 3], np.float32)
+        weights, runs = None, []
+        for ctx in (mx.gpu(0), mx.cpu()):
+            net = TransformerModel(**kw)
+            net.initialize(ctx=ctx)
+            with ctx:
+                s_, t_, v_ = (mx.nd.array(src, dtype="int32"),
+                              mx.nd.array(tgt, dtype="int32"),
+                              mx.nd.array(vl))
+            if weights is None:
+                net(s_, t_, v_)
+                weights = block_weights_to_numpy(net)
+            load_block_weights(net, weights)
+            tr = gluon.Trainer(net.collect_params(), "adam",
+                               {"learning_rate": 1e-3})
+            ops.reset_launches()
+            with autograd.record():
+                out = net(s_, t_, v_)
+                loss = gluon.loss.SoftmaxCrossEntropyLoss()(out, t_)
+            loss.backward()
+            tr.step(4)
+            if ctx == mx.gpu(0):
+                assert ops.launch_counts()["fused_adam_update"] == 1
+            runs.append((out.asnumpy(), block_weights_to_numpy(net)))
+        np.testing.assert_allclose(runs[0][0], runs[1][0], atol=1e-4,
+                                   rtol=1e-4)
+        for k in runs[1][1]:
+            np.testing.assert_allclose(runs[0][1][k], runs[1][1][k],
+                                       rtol=0, atol=1e-5, err_msg=k)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev

@@ -369,14 +369,19 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     files = sorted((REPO / "mxnet_tpu_torch").rglob("*.py"))
     files += sorted((REPO / "tools").glob("port_*.py"))
     files.append(REPO / "chip_smoke.py")
-    # the training entry point, checkpointing and int8 quantization are
-    # covered too
+    # the training entry point, checkpointing, int8 quantization and
+    # the LLM extras are covered too
     port = REPO / "mxnet_tpu_torch"
     for rel in ("parallel/__init__.py", "parallel/mesh.py",
                 "parallel/data_parallel.py", "checkpoint.py",
                 "contrib/__init__.py", "contrib/quantization.py",
                 "ops/quant_matmul.py", "serving/frontend/router.py",
-                "testing/__init__.py", "testing/faults.py"):
+                "testing/__init__.py", "testing/faults.py",
+                "ops/blocked_cross_entropy.py", "ndarray/contrib.py",
+                "gluon/model_zoo/nlp/__init__.py",
+                "gluon/model_zoo/nlp/llama.py",
+                "gluon/model_zoo/nlp/sampler.py",
+                "gluon/model_zoo/nlp/transformer.py"):
         assert port / rel in files, rel
     assert REPO / "tools" / "port_serve_loadgen.py" in files
     bad = []
