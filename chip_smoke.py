@@ -205,7 +205,10 @@ continued:
     relative, each parameter's update within 1e-3 relative (Adam maps a
     noise-level gradient to a step of about lr, so parameters are not
     held absolutely); on the card 2 K3 forward and 2 backward launches a
-    step (f32, non-causal, D = 64) and one K2;
+    step (f32, non-causal, D = 64) and one K2; then the same again with
+    both nets ``hybridize()``d, held to the same limits: on the card
+    the first step runs eagerly and the second is the CachedOp's one
+    capture, replayed (its counts printed);
 14. card vs CPU, ResNet-50 v1 through the Gluon loop (convolutions,
     pooling, BatchNorm's running statistics): ``resnet50_v1()`` at full
     width in f32, the same weights (``Xavier(magnitude=2)``, seeded, each
@@ -258,12 +261,13 @@ continued:
     the MXNet loop with Adam: 64 x 64 source and target tokens, varied
     ``src_valid_length``, 3 warm-up and 10 timed steps; step median,
     target tokens/s, peak memory, and from two profiled steps the host
-    share and device time by class; one K2 a step; then beam search on
+    share and device time by class; one K2 a step, and the CachedOp
+    replaying every timed step, as in phase 13; then beam search on
     it (beam 4, 8 sources, ``max_length`` 32, a step that re-decodes the
     prefix): ms a step, and every returned score within 1e-4 of the
     GNMT-penalized sum of the model's own log-probs along its tokens;
 11. bf16 AMP training (``amp.init`` is process-wide, so phases 11, 13,
-    15, 17 and 18 come last, in that order): phase 8's model, batch and AdamW under
+    29, 15, 17 and 18 come last, in that order): phase 8's model, batch and AdamW under
     ``amp.init("bfloat16")``, ``amp.init_trainer`` and
     ``amp.scale_loss``, 5 steps: the loss finite and falling, its first
     value within 2e-2 relative of phase 8's, logits and loss bf16 and
@@ -277,7 +281,20 @@ continued:
     the loss finite and falling, exactly 12 K3 forward and 12 backward
     launches a step, all bf16, and one K2; it prints the step median,
     samples/s, peak memory, and, from two profiled steps, the device
-    time by kernel and the step's host share;
+    time by kernel and the step's host share; the CachedOp must have
+    captured and every timed step must replay (``captures``, capture
+    seconds, ``replays``, eager calls and graph pool bytes printed);
+29. the Gluon loop captured against the same loop eager: two BERT-base
+    nets at phase 13's configuration with the same weights (copied on
+    the card), one ``hybridize()``d and one ``hybridize(active=False)``,
+    a Trainer each, 8 steps in turns on the same new batches, on torch's
+    deterministic algorithms (the embeddings' backward adds with atomics
+    otherwise): each step's loss within 1e-4 relative (bitwise printed),
+    12 + 12 K3 and
+    one K2 a step a net; for both the step median after the first two
+    steps, the host share from two profiled steps, the peak memory of a
+    step above its start, and the captured net's CachedOp counts and
+    graph pool bytes;
 16. card vs CPU, ``parallel.DataParallelTrainer`` (the reference's
     training entry point, on ``make_mesh({"dp": 1})``): a small conv net
     with BatchNorm (SGD momentum) and a 2-layer BERT at BERT-base width
@@ -303,7 +320,7 @@ continued:
     and, from two profiled steps, the device time by kernel class
     (convolutions forward and backward, cuDNN's layout transposes,
     BatchNorm, casts, K1, the gradient gather) and the step's host
-    share;
+    share; the CachedOp must replay every timed step, as in phase 13;
 17. ResNet-50 v1 through ``DataParallelTrainer``, ``bench.py``'s
     ``_bench_resnet`` with nothing cut (``resnet50_v1(s2d_stem=True)``,
     bf16 AMP, batch 128 from ``nd.random.uniform``, zero labels, SGD lr
@@ -322,7 +339,7 @@ run's steps are measured as they run without it) that replays each
 decode step on its own staged inputs, the replays' device time (CUDA
 events around ``graph.replay()``) and each step's host share beside
 it.  Before
-each of phases 4, 7-19 and 20-28 the kernels' launch counters are set to 0; each phase reads them just after and fails unless its kernels
+each of phases 4, 7-19 and 20-29 the kernels' launch counters are set to 0; each phase reads them just after and fails unless its kernels
 ran the expected number of times.  The second-to-last line is the
 card's name and power limit, the line before it the kernels' JSON
 record, and the line before that every timed row of phase 3 as
@@ -3585,7 +3602,28 @@ def _bert_step(net, ce, trainer, amp, data, types, label, batch):
     return loss
 
 
-def bert_card_vs_cpu(dev):
+def cached_stats(net, label):
+    """The hybridized ``net``'s CachedOp counts (``captures``,
+    ``capture_seconds``, ``replays``, ``eager_calls``) and
+    ``graph_pool_bytes``; fails when the net made no CachedOp."""
+    op = net._cached_op
+    if op is None:
+        fail(f"{label}: the hybridized net made no CachedOp")
+    return dict(op.stats, graph_pool_bytes=op.graph_pool_bytes())
+
+
+def check_replays(label, before, after, steps):
+    """Fails unless the CachedOp captured, and every one of ``steps``
+    calls between ``before`` and ``after`` (``cached_stats``) replayed
+    and none ran eagerly."""
+    if not after["captures"] > 0 or \
+            after["replays"] - before["replays"] != steps or \
+            after["eager_calls"] != before["eager_calls"]:
+        fail(f"{label}: the CachedOp did not replay every timed step: "
+             f"before {before}, after {after}")
+
+
+def bert_card_vs_cpu(dev, hybridize=False):
     """Phase 12: ``get_bert_model(num_layers=2)`` at BERT-base width
     (768 units, 12 heads, FFN 3072, vocab 30522, max_length 128), dropout
     0, ``use_flash=True``, no decoder, f32; the same weights (initialized
@@ -3595,7 +3633,9 @@ def bert_card_vs_cpu(dev):
     host: losses within 1e-4 relative, each parameter's update within
     1e-3 relative (``BERT_UPDATE_RTOL``; the key biases within Adam's
     bound); on the card 2 K3 forward and 2 backward launches a step, all
-    f32, and one K2."""
+    f32, and one K2.  With ``hybridize`` both nets are hybridized: on the
+    card the first step runs eagerly and the second is captured (the
+    Trainer's first step moved the parameters) and replayed."""
     import numpy as np
     import torch
     import mxnet_tpu_torch as mx
@@ -3621,6 +3661,8 @@ def bert_card_vs_cpu(dev):
             net(data, types)            # the deferred shapes resolve
             weights = block_weights_to_numpy(net)
         load_block_weights(net, weights)
+        if hybridize:
+            net.hybridize()
         trainer = gluon.Trainer(net.collect_params(), "adam",
                                 {"learning_rate": 1e-4})
         ce = gluon.loss.SoftmaxCrossEntropyLoss()
@@ -3635,6 +3677,12 @@ def bert_card_vs_cpu(dev):
             launches = read_launches("bert card vs cpu", {
                 "flash_attention_fwd": 4, "flash_attention_bwd": 4,
                 "fused_adam_update": 2})
+            stats = cached_stats(net, "bert card vs cpu") if hybridize \
+                else None
+            if hybridize and (stats["captures"], stats["replays"],
+                              stats["eager_calls"]) != (1, 1, 1):
+                fail(f"bert card vs cpu, hybridized: expected one eager "
+                     f"step, then one capture replayed: {stats}")
         runs.append((losses, block_weights_to_numpy(net)))
         del net, trainer
     loss_err = max(abs(a - b) / abs(b) for a, b in zip(runs[0][0],
@@ -3654,14 +3702,17 @@ def bert_card_vs_cpu(dev):
     upd_err = max(v for k, v in upd.items() if k not in noise)
     noise_err = max(diff[k] for k in noise)
     worst = sorted(diff.items(), key=lambda kv: -kv[1])[:3]
-    print(f"bert card vs cpu (2 layers at BERT-base width, vocab "
+    print(f"bert card vs cpu{', hybridized' if hybridize else ''} (2 "
+          f"layers at BERT-base width, vocab "
           f"{BERT_VOCAB}, f32, flash non-causal D=64, 2 adam steps on 2 x "
           f"{BERT_SEQ} tokens): losses card {runs[0][0]} cpu {runs[1][0]}, "
           f"max relative loss diff {loss_err:.3e} (limit {TRAIN_LOSS_RTOL}),"
           f" worst relative update diff {upd_err:.3e} (limit "
           f"{BERT_UPDATE_RTOL}) over every parameter but the key biases, "
           f"which differ by {noise_err:.3e} (limit {BERT_KEY_BIAS_ATOL}); "
-          f"max |param| diffs {worst}; launches {launches}", flush=True)
+          f"max |param| diffs {worst}; launches {launches}"
+          + (f"; CachedOp on the card {stats}" if hybridize else ""),
+          flush=True)
     if not (loss_err <= TRAIN_LOSS_RTOL and upd_err <= BERT_UPDATE_RTOL
             and noise_err <= BERT_KEY_BIAS_ATOL):
         fail(f"bert training on the card and on the CPU disagree: losses "
@@ -3724,12 +3775,15 @@ def bert_training(dev, card):
         n_params = sum(p.data().size for p in
                        net.collect_params().values())
         ops.reset_launches()
+        cached0 = cached_stats(net, "bert training")
         step_s = []
         for _ in range(BERT_STEPS):
             t = time.perf_counter()
             losses.append(step().mean())
             torch.cuda.synchronize(dev)
             step_s.append(time.perf_counter() - t)
+        cached = cached_stats(net, "bert training")
+        check_replays("bert training", cached0, cached, BERT_STEPS)
         want = {"flash_attention_fwd": 12 * BERT_STEPS,
                 "flash_attention_bwd": 12 * BERT_STEPS,
                 "flash_attention_fwd_bf16": 12 * BERT_STEPS,
@@ -3773,12 +3827,155 @@ def bert_training(dev, card):
           f"untraced step; device ms a step by class "
           f"{ {k: round(v, 3) for k, v in classes.items()} }; top kernels "
           f"{', '.join(f'{k[:60]} {v:.3f} ms' for k, v in top)}; launches "
-          f"{launches}", flush=True)
+          f"{launches}; CachedOp {cached}", flush=True)
     if not all(np.isfinite(losses)):
         fail(f"bert training: non-finite loss {losses}")
     if not losses[-1] < losses[0]:
         fail(f"bert training: the loss did not fall: {losses}")
     del net, trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+# phase 29: the same loop captured (hybridize()) and eager
+# (hybridize(active=False)), in turns on the same batches, on torch's
+# deterministic algorithms: the embeddings' backward otherwise adds with
+# atomics, in another order each run (5.9e-7 of the token-type table's
+# gradient between two nets, tools/port_cached_op_pairs.py --parity),
+# and Adam turns that noise on near-zero gradients into steps of ~lr
+PAIR_STEPS, PAIR_PROFILED = 8, 2
+PAIR_LOSS_RTOL = 1e-4        # per step, captured against eager
+
+
+def bert_captured_vs_eager(dev, card):
+    """Phase 29: two BERT-base nets at phase 13's configuration (bf16
+    AMP, Adam lr 1e-4 with ``amp.init_trainer``, batch 64 x 128), the
+    second given the first's weights on the card; the first
+    ``hybridize()``d, the second ``hybridize(active=False)``; a Trainer
+    each.  ``PAIR_STEPS`` steps in turns on the same batches (a new batch
+    a step): each step's loss within 1e-4 relative of the other net's
+    (bitwise printed), exactly 12 K3 forward and backward launches and
+    one K2 a step a net, on torch's deterministic algorithms (warnings
+    only: each eager call of an op without a deterministic kernel warns,
+    which the replays do not; ``tools/port_cached_op_pairs.py`` times
+    both loops without it), one capture and every step from the second
+    a replay.  Prints for both: the step median over the
+    steps after the first two (host clock, ending in a synchronize), the
+    host share from two profiled steps, the peak memory of a step above
+    what was allocated before it, the CachedOp's captures, capture
+    seconds, replays and graph pool bytes."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import amp, gluon, ops
+    from mxnet_tpu_torch.gluon.model_zoo.nlp import get_bert_model
+    torch.cuda.empty_cache()
+    amp.init("bfloat16")
+    import torch.utils.deterministic as det
+    deterministic = (torch.are_deterministic_algorithms_enabled(),
+                     det.fill_uninitialized_memory)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    det.fill_uninitialized_memory = False     # no fill kernels in the steps
+    try:
+        rng = np.random.RandomState(29)
+        batches = [(mx.nd.array(rng.randint(0, BERT_VOCAB,
+                                            (BERT_BATCH, BERT_SEQ)),
+                                dtype="int32"),
+                    mx.nd.array(rng.randint(0, 2, (BERT_BATCH, BERT_SEQ)),
+                                dtype="int32"),
+                    mx.nd.array(rng.randint(0, 2, (BERT_BATCH,)),
+                                dtype="int32"))
+                   for _ in range(PAIR_STEPS + PAIR_PROFILED)]
+        nets, trainers = [], []
+        for active in (True, False):
+            mx.random.seed(0)
+            net = get_bert_model(vocab_size=BERT_VOCAB, max_length=BERT_SEQ,
+                                 dropout=0.0, use_flash=True,
+                                 use_decoder=False)
+            net.initialize()
+            net.hybridize(active=active)
+            net(*batches[0][:2])            # the deferred shapes resolve
+            nets.append(net)
+        copy_weights(nets[0], nets[1])
+        for net in nets:
+            trainer = gluon.Trainer(net.collect_params(), "adam",
+                                    {"learning_rate": 1e-4})
+            amp.init_trainer(trainer)
+            trainers.append(trainer)
+        ce = gluon.loss.SoftmaxCrossEntropyLoss()
+        losses, step_s, peak = [[], []], [[], []], [0, 0]
+        torch.cuda.synchronize(dev)
+        ops.reset_launches()
+        for data, types, label in batches[:PAIR_STEPS]:
+            for j in (0, 1):
+                torch.cuda.synchronize(dev)
+                base = torch.cuda.memory_allocated(dev)
+                torch.cuda.reset_peak_memory_stats(dev)
+                t = time.perf_counter()
+                loss = _bert_step(nets[j], ce, trainers[j], amp, data,
+                                  types, label, BERT_BATCH).mean()
+                torch.cuda.synchronize(dev)
+                step_s[j].append(time.perf_counter() - t)
+                peak[j] = max(peak[j],
+                              torch.cuda.max_memory_allocated(dev) - base)
+                losses[j].append(float(loss.asscalar()))
+        launches = read_launches("bert captured vs eager", {
+            "flash_attention_fwd": 24 * PAIR_STEPS,
+            "flash_attention_bwd": 24 * PAIR_STEPS,
+            "flash_attention_fwd_bf16": 24 * PAIR_STEPS,
+            "flash_attention_bwd_bf16": 24 * PAIR_STEPS,
+            "fused_adam_update": 2 * PAIR_STEPS})
+        stats = cached_stats(nets[0], "bert captured vs eager")
+        busy, traced = [], []
+        for j in (0, 1):
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                t = time.perf_counter()
+                for data, types, label in batches[PAIR_STEPS:]:
+                    _bert_step(nets[j], ce, trainers[j], amp, data, types,
+                               label, BERT_BATCH)
+                torch.cuda.synchronize(dev)
+                traced.append((time.perf_counter() - t) / PAIR_PROFILED
+                              * 1e3)
+            busy.append(busy_by_class(prof, PAIR_PROFILED))
+        pool_gb = stats["graph_pool_bytes"] / 1e9
+    finally:
+        torch.use_deterministic_algorithms(deterministic[0])
+        det.fill_uninitialized_memory = deterministic[1]
+        amp._deinit_for_tests()
+    errs = [abs(a - b) / abs(b) for a, b in zip(*losses)]
+    bitwise = losses[0] == losses[1]
+    step_ms = [statistics.median(s[2:]) * 1e3 for s in step_s]
+    lines = []
+    for j, name in enumerate(("captured", "eager")):
+        lines.append(
+            f"{name}: step median {step_ms[j]:.2f} ms (min "
+            f"{min(step_s[j][2:]) * 1e3:.2f}, max "
+            f"{max(step_s[j][2:]) * 1e3:.2f}; first two "
+            f"{[round(x * 1e3, 1) for x in step_s[j][:2]]}), device busy "
+            f"{busy[j][0]:.3f} ms a step (profiler, traced wall "
+            f"{traced[j]:.2f} ms), host share "
+            f"{1 - busy[j][0] / step_ms[j]:.4f}, peak memory of a step "
+            f"{peak[j] / 1e9:.2f} GB above its start, device ms by class "
+            f"{busy[j][1]}")
+    print(f"bert captured vs eager, BERT-base at phase 13's configuration "
+          f"(bf16 amp, adam, batch {BERT_BATCH}x{BERT_SEQ}, deterministic "
+          f"algorithms), {PAIR_STEPS} "
+          f"steps in turns on {card}: losses captured {losses[0]} eager "
+          f"{losses[1]}, max relative diff {max(errs):.3e} (limit "
+          f"{PAIR_LOSS_RTOL}), bitwise {bitwise}; "
+          + "; ".join(lines) + f"; CachedOp {stats} (graph pool "
+          f"{pool_gb:.2f} GB); launches {launches}", flush=True)
+    if not max(errs) <= PAIR_LOSS_RTOL:
+        fail(f"bert captured vs eager: losses differ by {max(errs):.3e}")
+    # the shape probe and step 1 eager, step 2 captured (the Trainer's
+    # first step moved the parameters), every step from 2 a replay
+    if (stats["captures"], stats["eager_calls"], stats["replays"]) != \
+            (1, 2, PAIR_STEPS - 1):
+        fail(f"bert captured vs eager: the hybridized net did not replay "
+             f"its steps: {stats}")
+    del nets, trainers
     gc.collect()
     torch.cuda.empty_cache()
     return launches
@@ -4173,6 +4370,7 @@ def resnet_training(dev, card):
         n_trainable = sum(p.data().size for p in params.values()
                           if p.grad_req != "null")
         ops.reset_launches()
+        cached0 = cached_stats(net, "resnet training")
         step_s = []
         for _ in range(RESNET_STEPS):
             t = time.perf_counter()
@@ -4180,6 +4378,8 @@ def resnet_training(dev, card):
             losses.append(loss.mean())
             torch.cuda.synchronize(dev)
             step_s.append(time.perf_counter() - t)
+        cached = cached_stats(net, "resnet training")
+        check_replays("resnet training", cached0, cached, RESNET_STEPS)
         launches = read_launches("resnet training",
                                  {"fused_sgd_update": RESNET_STEPS})
         peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
@@ -4232,7 +4432,7 @@ def resnet_training(dev, card):
           f"class { {k: round(v, 3) for k, v in classes.items()} } "
           f"({unnamed}); top kernels "
           f"{', '.join(f'{k[:70]} {v:.3f} ms' for k, v in top)}; "
-          f"launches {launches}", flush=True)
+          f"launches {launches}; CachedOp {cached}", flush=True)
     if n_trainable != RESNET_TRAINABLE:
         fail(f"resnet training: {n_trainable} trainable parameters, "
              f"expected {RESNET_TRAINABLE}")
@@ -5280,12 +5480,15 @@ def transformer_training(dev, card):
     n_params = sum(p.data().size for p in net.collect_params().values()
                    if p.grad_req != "null")
     ops.reset_launches()
+    cached0 = cached_stats(net, "transformer training")
     step_s = []
     for _ in range(MT_STEPS):
         t = time.perf_counter()
         losses.append(step())
         torch.cuda.synchronize(dev)
         step_s.append(time.perf_counter() - t)
+    cached = cached_stats(net, "transformer training")
+    check_replays("transformer training", cached0, cached, MT_STEPS)
     launches = read_launches("transformer training",
                              {"fused_adam_update": MT_STEPS})
     peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
@@ -5307,7 +5510,7 @@ def transformer_training(dev, card):
           f"memory {peak_gb:.2f} GB; set-up and warm-up {setup_s:.2f} s; "
           f"device busy {busy_ms:.3f} ms a step (profiler, 2 steps), host "
           f"share {1 - busy_ms / step_ms:.4f}; device ms a step by class "
-          f"{by}; launches {launches}", flush=True)
+          f"{by}; launches {launches}; CachedOp {cached}", flush=True)
     if not all(np.isfinite(losses)):
         fail(f"transformer training: non-finite loss {losses}")
     # beam search on the trained net, its scores against the model's own
@@ -5407,6 +5610,8 @@ def main():
     by_path["training_card_vs_cpu"] = train_card_vs_cpu(dev)
     by_path["layernorm_op"] = layernorm_path(dev, card)
     by_path["bert_card_vs_cpu"] = bert_card_vs_cpu(dev)
+    by_path["bert_card_vs_cpu_hybridized"] = bert_card_vs_cpu(
+        dev, hybridize=True)
     by_path["resnet_card_vs_cpu"] = resnet_card_vs_cpu(dev)
     by_path["dp_card_vs_cpu"] = dp_card_vs_cpu(dev)
     by_path["dp_checkpoint"] = dp_checkpoint(dev)
@@ -5420,6 +5625,7 @@ def main():
     by_path["training_amp"], _ = train_llama3_8b(
         dev, card, amp_dtype="bfloat16", f32_first_loss=f32_first_loss)
     by_path["bert_training"] = bert_training(dev, card)
+    by_path["bert_captured_vs_eager"] = bert_captured_vs_eager(dev, card)
     by_path["resnet_training"] = resnet_training(dev, card)
     by_path["dp_resnet"] = dp_training(dev, card, "resnet")
     by_path["dp_bert"] = dp_training(dev, card, "bert")

@@ -15,7 +15,15 @@ MXNet adds on top of it:
   the attention cells read.  ``record()`` sets it by default,
   ``pause()`` clears it, ``train_mode()``/``predict_mode()`` set only it.
 
-Both flags are per thread, as in the reference.  ``run`` also turns
+- **Inlining** (:class:`inline_scope`, the reference's ``trace_scope``):
+  a hybridized block called inside the scope runs its forward as plain
+  ops instead of through its ``CachedOp``.  The scope is open inside a
+  ``CachedOp``'s captured function and inside ``DataParallelTrainer``'s
+  step body, and :func:`inlining` is also true whenever the current CUDA
+  stream is capturing a graph (the serving engine's and ``generate``'s
+  captures): a CUDA graph cannot be captured inside another's capture.
+
+The flags are per thread, as in the reference.  ``run`` also turns
 autocast off around an op: under ``amp.init()`` the op registry casts an
 op's inputs by the reference's lists (``ndarray/ops.py``), so the same
 op computes in the same dtype on the CPU and on the card, whose
@@ -28,7 +36,7 @@ import threading
 import torch
 
 __all__ = ["is_recording", "is_training", "set_recording", "set_training",
-           "run"]
+           "run", "inline_scope", "inlining", "capturing"]
 
 
 class _State(threading.local):
@@ -36,6 +44,7 @@ class _State(threading.local):
         self.recording = False
         self.training = False
         self.cast = None          # amp: the dtype the next op casts to
+        self.inline = 0           # > 0 inside inline_scope
 
 
 _STATE = _State()
@@ -61,6 +70,30 @@ def set_training(flag):
     prev = _STATE.training
     _STATE.training = bool(flag)
     return prev
+
+
+class inline_scope:
+    """Hybridized blocks called inside run as plain ops (reference
+    ``trace_scope``)."""
+
+    def __enter__(self):
+        _STATE.inline += 1
+        return self
+
+    def __exit__(self, *exc):
+        _STATE.inline -= 1
+        return False
+
+
+def capturing():
+    """True while the current CUDA stream is capturing a graph."""
+    return torch.cuda.is_initialized() and \
+        torch.cuda.is_current_stream_capturing()
+
+
+def inlining():
+    """True inside :class:`inline_scope` or a stream capture."""
+    return _STATE.inline > 0 or capturing()
 
 
 def run(fn, tensors, device_type):

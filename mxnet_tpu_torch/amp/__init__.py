@@ -62,28 +62,27 @@ def init(target_dtype="bfloat16", target_precision_ops=None,
          conditional_fp32_ops=None, fp32_ops=None):
     """Switch the process-wide mixed-precision policy on (a second call
     changes nothing, as in the reference).  ``target_dtype``:
-    ``"bfloat16"`` or ``"float16"``.  The op-list arguments extend the
-    reference's registry patch; the port's registry applies the
-    reference's own lists and takes no extensions yet, so only None or
-    empty lists are taken."""
+    ``"bfloat16"`` or ``"float16"``.  ``target_precision_ops`` and
+    ``fp32_ops`` extend the registry's lists as the reference's do (an
+    op in both runs in the target dtype; ``ndarray.ops.set_amp_lists``);
+    ``conditional_fp32_ops`` is taken and unused, as there."""
     global _target_dtype
     if _target_dtype is not None:
         return
     if target_dtype not in _DTYPES:
         raise MXNetError("target_dtype must be bfloat16 or float16")
-    for name, ops in (("target_precision_ops", target_precision_ops),
-                      ("conditional_fp32_ops", conditional_fp32_ops),
-                      ("fp32_ops", fp32_ops)):
-        if ops:
-            raise NotSupportedError(
-                f"amp.init({name}=...): extending the op registry's "
-                "lists arrives with ROADMAP §1 item 12")
+    if target_precision_ops or fp32_ops:
+        from ..ndarray import ops
+        ops.set_amp_lists(target_precision_ops or (), fp32_ops or ())
     _target_dtype = target_dtype
 
 
 def _deinit_for_tests():
-    """Undo :func:`init` (a test helper, not part of the reference API)."""
+    """Undo :func:`init`, the lists' extensions too (a test helper, not
+    part of the reference API)."""
     global _target_dtype
+    from ..ndarray import ops
+    ops.set_amp_lists()
     _target_dtype = None
 
 

@@ -1,4 +1,4 @@
-"""Gluon ``Block`` / ``HybridBlock``.
+"""Gluon ``Block`` / ``HybridBlock`` and the CachedOp.
 
 Counterpart of ``mxnet_tpu/gluon/block.py``: prefixes and
 ``name_scope`` (``_BlockScope``), ``collect_params(select)``,
@@ -10,22 +10,44 @@ Counterpart of ``mxnet_tpu/gluon/block.py``: prefixes and
 the first call (``infer_shape``).  ``record_aux_update`` writes a
 layer's auxiliary state (BatchNorm's running statistics) in place.
 
-``hybridize(active, static_alloc, static_shape, remat)`` keeps the
-reference's flags, but the hybridized forward runs eagerly: the
-reference's CachedOp (a ``jax.jit`` of the forward) has no counterpart
-yet (ROADMAP §1, the queued capture item).  ``remat=True`` is honoured:
-while recording, the block runs under ``torch.utils.checkpoint`` (the
-counterpart of ``jax.checkpoint``), its activations recomputed in the
-backward with the same Dropout draws (the ``nd.random`` generator's
-state is replayed) and no second write of auxiliary state.  ``export`` and ``SymbolBlock`` raise
+``hybridize(active, static_alloc, static_shape, remat)`` routes the
+block's calls through its :class:`CachedOp`, the reference's engine of
+``hybridize()``: there one ``jax.jit`` program per input signature,
+here the block's pure function of (parameters, inputs), which on the
+card each signature captures as CUDA graphs, forward and (while
+recording) backward, and replays (``_graphs.GraphedCalls``); on the CPU
+the same call runs the pure function eagerly.  As in the reference:
+
+- the active block's own hooks do not fire, and its children's fire
+  only in the run that traces a new signature (on the card its eager
+  warm-up; never in a capture or a replay, nor while ``remat``
+  recomputes a forward);
+- a hybridized block called inside another's captured function, inside
+  ``DataParallelTrainer``'s step or during any stream capture
+  (``_tape.inlining``) runs as plain ops;
+- the auxiliary state that ``record_aux_update`` writes is returned by
+  the pure function and written back at every call (on the card by the
+  forward graph, so every replay advances it);
+- every distinct ``(train, None positions, shapes, dtypes)`` signature
+  is recorded with a ``lint.RetraceMonitor``, which warns once past 3.
+
+``remat=True`` keeps the block's forward under ``torch.utils.checkpoint``
+(the counterpart of ``jax.checkpoint``) while recording, inside the
+captured function: its activations are recomputed in the backward with
+the same Dropout draws (the ``nd.random`` generator's state is replayed;
+not under a capture, which raises for a remat block that draws) and no
+second write of auxiliary state.  ``export`` and ``SymbolBlock`` raise
 ``NotSupportedError`` naming ROADMAP §1 item 11.
 
-Under ``amp.init()`` the outermost Block call opens one ``amp.region``
-on its inputs' device (Llama, BERT, the ResNets alike); the ported
-ops cast by the reference's lists inside it (``ndarray/ops.py``).
+Under ``amp.init()`` the outermost Block call, and every CachedOp call,
+opens one ``amp.region`` on its inputs' device (Llama, BERT, the ResNets
+alike); the ported ops cast by the reference's lists inside it
+(``ndarray/ops.py``).  A CachedOp's region keeps no cast cache
+(``amp.no_cast_cache``): a graph must read the weights as they are.
 """
 from __future__ import annotations
 
+import contextlib
 import re
 import threading
 
@@ -35,13 +57,15 @@ import torch.utils.checkpoint
 
 from ..base import MXNetError, NotSupportedError
 from ..context import Context
-from .. import _tape, amp
+from .. import _graphs, _tape, amp
+from ..lint.retrace import RetraceMonitor
 from .. import ndarray as _F
 from ..ndarray.ndarray import NDArray
 from ..ndarray import random as _rnd, utils as nd_utils
 from .parameter import Parameter, ParameterDict, DeferredInitializationError
 
-__all__ = ["Block", "HybridBlock", "SymbolBlock", "record_aux_update"]
+__all__ = ["Block", "HybridBlock", "SymbolBlock", "CachedOp",
+           "record_aux_update"]
 
 _LATER = "arrives with symbol/ (ROADMAP §1 item 11)"
 
@@ -122,21 +146,40 @@ def _device_type(args):
 class _AuxState(threading.local):
     def __init__(self):
         self.replaying = 0        # > 0 while remat recomputes a forward
+        self.stack = []           # a CachedOp's collected aux updates
+        self.quiet = 0            # > 0: children's hooks do not fire
+        self.remats = 0           # remat forwards started (ever)
 
 
 _AUX = _AuxState()
+
+
+class _aux_scope:
+    """Collect the auxiliary updates of a CachedOp's pure function."""
+
+    def __enter__(self):
+        _AUX.stack.append([])
+        return _AUX.stack[-1]
+
+    def __exit__(self, *exc):
+        _AUX.stack.pop()
+        return False
 
 
 def record_aux_update(param, new_value):
     """Write ``new_value`` into ``param``, auxiliary state that takes no
     gradient (BatchNorm's running statistics), in place and outside the
     graph, so every view of its storage sees it (reference
-    ``record_aux_update``, eagerly).  While ``remat`` recomputes a
-    block's forward in the backward the update is skipped: the first
-    run made it."""
+    ``record_aux_update``).  Inside a CachedOp's pure function the update
+    is collected and returned, and the CachedOp writes it back.  While
+    ``remat`` recomputes a block's forward in the backward the update is
+    skipped: the first run made it."""
     if _AUX.replaying:
         return
     value = new_value.data if isinstance(new_value, NDArray) else new_value
+    if _AUX.stack:
+        _AUX.stack[-1].append((param, value))
+        return
     with torch.no_grad():
         param.data().data.copy_(value)
 
@@ -324,6 +367,8 @@ class Block:
     def _hooked_call(self, args, kwargs):
         _CALLS.depth += 1
         try:
+            if _AUX.quiet or _AUX.replaying:
+                return self._call(*args, **kwargs)
             for hook in self._forward_pre_hooks:
                 hook(self, args)
             out = self._call(*args, **kwargs)
@@ -346,20 +391,198 @@ class Block:
         return s + ("\n)" if self._children else ")")
 
 
+def _flatten_output(out):
+    if isinstance(out, NDArray):
+        return [out], "single"
+    if isinstance(out, (list, tuple)):
+        flat, tree = [], []
+        for o in out:
+            f, t = _flatten_output(o)
+            flat.extend(f)
+            tree.append((t, len(f)))
+        return flat, ("seq", type(out).__name__, tuple(tree))
+    raise MXNetError(f"unsupported forward output type {type(out)}")
+
+
+def _unflatten_output(flat, tree):
+    if tree == "single":
+        return flat[0]
+    _, typename, subtrees = tree
+    out, i = [], 0
+    for sub, n in subtrees:
+        out.append(_unflatten_output(flat[i:i + n], sub))
+        i += n
+    return tuple(out) if typename == "tuple" else out
+
+
+class CachedOp:
+    """The engine of ``hybridize()`` for one HybridBlock (reference
+    ``CachedOp``, ``src/imperative/cached_op.cc``): the block's pure
+    function of (sorted parameters, inputs), its calls by signature
+    through ``_graphs.GraphedCalls`` (CUDA graphs on the card), and the
+    ``RetraceMonitor`` of its signatures.
+
+    ``stats``: ``captures``, ``capture_seconds``, ``replays`` and
+    ``eager_calls``; ``graph_pool_bytes()`` and ``graphs_captured()``.
+    ``static_alloc``, ``static_shape`` and ``inline_limit`` are taken
+    and change nothing: a captured graph allocates statically."""
+
+    def __init__(self, block, static_alloc=False, static_shape=False,
+                 inline_limit=2, remat=False):
+        self.block = block
+        self.remat = remat
+        self._param_objs = None
+        self._out_tree = {}          # key -> (n_out, output tree)
+        self._aux_params = {}        # key -> [Parameter] the forward wrote
+        name = block.name or type(block).__name__
+        self._retrace = RetraceMonitor(name)
+        self._calls = _graphs.GraphedCalls(name, lambda: _AUX.remats)
+
+    @property
+    def stats(self):
+        return self._calls.stats
+
+    def graph_pool_bytes(self):
+        return self._calls.graph_pool_bytes()
+
+    def graphs_captured(self):
+        return self._calls.graphs_captured()
+
+    def _collect(self):
+        if self._param_objs is None:
+            items = sorted(self.block.collect_params().items())
+            self._param_objs = [p for _, p in items]
+        return self._param_objs
+
+    def _make_pure(self, train, recording, none_pos, key):
+        """``pure(param_tensors, input_tensors, quiet)``: the block's
+        forward with each parameter bound to the given tensor, in
+        ``train`` mode with recording as given, inside the inline scope,
+        ``amp``'s region (no cast cache) and a collector of auxiliary
+        updates.  Returns the flat outputs, then the auxiliary values;
+        notes the output tree and the auxiliary parameters under
+        ``key``.  ``quiet``: the children's hooks do not fire."""
+        block, cached = self.block, self
+        params = self._param_objs
+
+        def _pure(param_tensors, input_tensors, quiet):
+            arrays = [p._nd for p in params]
+            owned = [a._data for a in arrays]
+            prev = (_tape.set_training(train), _tape.set_recording(recording))
+            dev = input_tensors[0].device.type if input_tensors else \
+                owned[0].device.type
+            _CALLS.depth += 1
+            _AUX.quiet += quiet
+            try:
+                for a, t in zip(arrays, param_tensors):
+                    a._data = t
+                # torch's grad mode follows the recording flag here, as
+                # each op's own (``_tape.run``): an amp cast made before
+                # an op's call, and any torch call outside ``apply``,
+                # joins the graph while recording, inside an autograd
+                # Function's forward as in an eager call
+                with _tape.inline_scope(), _aux_scope() as aux, \
+                        torch.set_grad_enabled(recording), \
+                        amp.no_cast_cache(), amp.region(dev):
+                    ins = [NDArray(t) for t in input_tensors]
+                    for i in none_pos:
+                        ins.insert(i, None)
+                    out = block._call(*ins)
+            finally:
+                for a, t in zip(arrays, owned):
+                    a._data = t
+                _AUX.quiet -= quiet
+                _CALLS.depth -= 1
+                _tape.set_training(prev[0])
+                _tape.set_recording(prev[1])
+            flat, out_tree = _flatten_output(out)
+            cached._out_tree[key] = (len(flat), out_tree)
+            cached._aux_params[key] = [p for p, _ in aux]
+            return tuple(o.data for o in flat) + tuple(v for _, v in aux)
+        return _pure
+
+    def _finish_deferred(self, args):
+        """Resolve deferred shapes with one eager forward, inline and
+        not recording (the reference's ``trace_scope`` pass; BatchNorm
+        in training mode writes its statistics in it, as there)."""
+        dev = next((a.data.device.type for a in args
+                    if isinstance(a, NDArray)), None)
+        prev = _tape.set_recording(False)
+        _CALLS.depth += 1
+        try:
+            with _tape.inline_scope(), torch.no_grad(), \
+                    (amp.region(dev) if dev else contextlib.nullcontext()):
+                self.block.forward(*args)
+        finally:
+            _CALLS.depth -= 1
+            _tape.set_recording(prev)
+        self._param_objs = None
+
+    def __call__(self, *args):
+        # None arguments (optional masks, lengths) leave the signature
+        # and are put back by position inside the pure function
+        none_pos = tuple(i for i, a in enumerate(args) if a is None)
+        args = tuple(a for a in args if a is not None)
+        params = self._collect()
+        if any(p._nd is None for p in params):
+            full = list(args)
+            for i in none_pos:
+                full.insert(i, None)
+            self._finish_deferred(full)
+            params = self._collect()
+        for a in args:
+            if not isinstance(a, NDArray):
+                raise MXNetError(
+                    f"hybridized block '{self._retrace.name}' takes NDArrays "
+                    f"(or None), not {type(a).__name__}")
+        tensors = [a.data for a in args]
+        train, recording = _tape.is_training(), _tape.is_recording()
+        # the reference's signature: one jit cache miss each
+        first = self._retrace.record(
+            (train, none_pos,
+             tuple((tuple(t.shape), str(t.dtype).replace("torch.", ""))
+                   for t in tensors)))
+        vars_ = [p._var for p in params]
+        key = (train, recording, none_pos, amp._target_dtype,
+               tuple((tuple(t.shape), t.dtype, t.requires_grad)
+                     for t in tensors),
+               tuple((v.dtype, tuple(v.shape), p._grad_req)
+                     for p, v in zip(params, vars_)))
+        ptrs = tuple(v.data_ptr() for v in vars_)
+        device = tensors[0].device if tensors else vars_[0].device
+        pure = self._make_pure(train, recording, none_pos, key)
+        n = len(vars_)
+
+        def run(leaves, eager):
+            res = pure(leaves[:n], leaves[n:], not (eager and first))
+            n_out = self._out_tree[key][0]
+            with torch.no_grad():
+                for p, v in zip(self._aux_params[key], res[n_out:]):
+                    p._var.copy_(v)
+            return list(res[:n_out])
+
+        outs = self._calls(key, ptrs, run, vars_ + tensors, n, recording,
+                           device, self.remat)
+        return _unflatten_output([NDArray(o) for o in outs],
+                                 self._out_tree[key][1])
+
+
 class HybridBlock(Block):
     """A Block whose forward is ``hybrid_forward(F, ...)`` (reference
-    gluon.HybridBlock)."""
+    gluon.HybridBlock); ``hybridize()`` routes its calls through a
+    :class:`CachedOp`."""
 
     def __init__(self, prefix=None, params=None):
         super().__init__(prefix=prefix, params=params)
         self._active = False
+        self._cached_op = None
         self._flags = {}
 
     def hybridize(self, active=True, static_alloc=False, static_shape=False,
                   inline_limit=2, remat=None, **kwargs):
-        """Keep the reference's flags (the forward runs eagerly);
-        ``remat=True`` recomputes this block's activations in the
-        backward.  ``remat=None`` keeps an earlier setting, so an
+        """Route calls through a CachedOp (dropped here, rebuilt at the
+        next call); ``remat=True`` recomputes this block's activations
+        in the backward.  ``remat=None`` keeps an earlier setting, so an
         ancestor's ``hybridize()`` does not clear a per-layer one."""
         self._active = active
         if remat is None:
@@ -367,8 +590,20 @@ class HybridBlock(Block):
         self._flags = {"static_alloc": static_alloc,
                        "static_shape": static_shape,
                        "inline_limit": inline_limit, "remat": remat}
+        self._cached_op = None
         super().hybridize(active, static_alloc=static_alloc,
                           static_shape=static_shape, **kwargs)
+
+    def cast(self, dtype):
+        self._cached_op = None
+        super().cast(dtype)
+
+    def __call__(self, *args, **kwargs):
+        if self._active and not kwargs and not _tape.inlining():
+            if self._cached_op is None:
+                self._cached_op = CachedOp(self, **self._flags)
+            return self._cached_op(*args)
+        return super().__call__(*args, **kwargs)
 
     def infer_shape(self, *args):
         """Resolve deferred parameter shapes from the inputs' shapes."""
@@ -391,30 +626,37 @@ class HybridBlock(Block):
         """The forward under ``torch.utils.checkpoint``: its inside is
         recomputed in the backward, in training mode as it ran, with the
         same draws from the device's generator and without writing the
-        auxiliary state again (``record_aux_update``)."""
+        auxiliary state again (``record_aux_update``).  Under a stream
+        capture the generator's state is left alone (a captured remat
+        block that draws is refused at its capture, ``_graphs``)."""
         arrays = [a for a in args if isinstance(a, NDArray)]
         gen = _rnd.generator(arrays[0].data.device)
         training = _tape.is_training()
+        capturing = _tape.capturing()
         state = []
         shape = []
+        _AUX.remats += 1
 
         def run(*tensors):
             it = iter(tensors)
             call = [NDArray(next(it)) if isinstance(a, NDArray) else a
                     for a in args]
             saved = None
-            if not state:
-                state.append(gen.get_state())
+            recompute = bool(state)
+            if not recompute:
+                state.append(None if capturing else gen.get_state())
             else:
-                saved = gen.get_state()
-                gen.set_state(state[0])
                 _AUX.replaying += 1
+                if state[0] is not None:
+                    saved = gen.get_state()
+                    gen.set_state(state[0])
             try:
-                with _RecordingScope(training):
+                with _RecordingScope(training), _tape.inline_scope():
                     out = self.forward(*call)
             finally:
-                if saved is not None:
-                    gen.set_state(saved)
+                if recompute:
+                    if saved is not None:
+                        gen.set_state(saved)
                     _AUX.replaying -= 1
             single = isinstance(out, NDArray)
             shape[:] = [single, type(out)]
@@ -422,7 +664,8 @@ class HybridBlock(Block):
 
         with torch.enable_grad():
             outs = torch.utils.checkpoint.checkpoint(
-                run, *[a.data for a in arrays], use_reentrant=False)
+                run, *[a.data for a in arrays], use_reentrant=False,
+                preserve_rng_state=not capturing)
         if shape[0]:
             return NDArray(outs)
         return shape[1](NDArray(o) for o in outs)

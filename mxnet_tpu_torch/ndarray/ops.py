@@ -45,11 +45,22 @@ from .ndarray import NDArray, apply, _dtype_of, array, zeros, ones, full, \
 __all__ = []          # filled by _register
 _OPS = {}             # op name -> the registered function
 
-_AMP_MODE = {}
-for _mode, _names in (("widest", _lists.WIDEST_TYPE_CASTS),
-                      ("fp32", _lists.FP32_OPS),
-                      ("low", _lists.TARGET_DTYPE_OPS)):
-    _AMP_MODE.update((n, _mode) for n in _names)
+
+def _amp_modes(low_extra=(), fp32_extra=()):
+    """Op name -> ``"low"``/``"fp32"``/``"widest"``: the reference's
+    lists extended as its ``amp.init`` extends them (``low`` wins over
+    ``fp32``, both over ``widest``)."""
+    low = set(_lists.TARGET_DTYPE_OPS) | set(low_extra)
+    fp32 = (set(_lists.FP32_OPS) | set(fp32_extra)) - low
+    widest = set(_lists.WIDEST_TYPE_CASTS) - low - fp32
+    modes = dict.fromkeys(widest, "widest")
+    modes.update(dict.fromkeys(fp32, "fp32"))
+    modes.update(dict.fromkeys(low, "low"))
+    return modes
+
+
+_AMP_MODE = _amp_modes()
+_PLAIN = {}           # op name -> the function without its amp wrapper
 
 # every op name of the reference's registry; those the port lacks raise
 # NotSupportedError when looked up (ROADMAP §1 item 8)
@@ -121,29 +132,54 @@ def _amp_dtype(mode, args, kwargs):
     return functools.reduce(torch.promote_types, dts) if dts else None
 
 
+def _amp_op(fn, name):
+    """``fn`` with the amp cast of ``name``'s mode: while the policy is
+    on, ``_tape.run`` casts the op's floating inputs inside the op's own
+    recorded call, so the cast costs no op of its own."""
+    @functools.wraps(fn)
+    def op(*args, **kwargs):
+        mode = None if _amp._target_dtype is None else _AMP_MODE.get(name)
+        if mode is None:
+            return fn(*args, **kwargs)
+        state = _tape._STATE
+        prev = state.cast
+        state.cast = _amp_dtype(mode, args, kwargs)
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            state.cast = prev
+    return op
+
+
 def _register(fn, name=None):
-    """List ``fn`` in the registry under ``name`` (default: its own).
-    While the ``amp`` policy is on, an op of its lists casts its floating
-    inputs: ``_tape.run`` casts them inside the op's own recorded call,
-    so the cast costs no op of its own."""
+    """List ``fn`` in the registry under ``name`` (default: its own),
+    with the amp cast when ``name`` is on the lists."""
     name = name or fn.__name__
-    mode = _AMP_MODE.get(name)
-    op = fn
-    if mode is not None:
-        @functools.wraps(fn)
-        def op(*args, **kwargs):
-            if _amp._target_dtype is None:
-                return fn(*args, **kwargs)
-            state = _tape._STATE
-            prev = state.cast
-            state.cast = _amp_dtype(mode, args, kwargs)
-            try:
-                return fn(*args, **kwargs)
-            finally:
-                state.cast = prev
+    op = _amp_op(fn, name) if name in _AMP_MODE else fn
+    _PLAIN[name] = fn
     _OPS[name] = op
     __all__.append(name)
     return op
+
+
+def set_amp_lists(target_precision_ops=(), fp32_ops=()):
+    """Extend the reference's lists (``amp.init``'s op-list arguments;
+    no arguments: the reference's own lists again) and rebind each
+    registered op whose wrapping changes, here and in the ``nd``
+    namespace, as the reference's ``amp.init`` patches its registry."""
+    import sys
+    _AMP_MODE.clear()
+    _AMP_MODE.update(_amp_modes(target_precision_ops, fp32_ops))
+    modules = [sys.modules[__name__], sys.modules[__package__]]
+    for name, fn in _PLAIN.items():
+        op = _OPS[name]
+        if (name in _AMP_MODE) == (op is not fn):
+            continue
+        new = _amp_op(fn, name) if name in _AMP_MODE else fn
+        _OPS[name] = new
+        for mod in modules:
+            if getattr(mod, name, None) is op:
+                setattr(mod, name, new)
 
 
 def _alias(name, op):

@@ -38,6 +38,9 @@ replays:
   graph registers (``CUDAGraph.register_generator_state``), so replays
   draw fresh masks; on a torch without that method a body that draws
   raises ``NotSupportedError`` at capture;
+- hybridized blocks inside the body run as plain ops
+  (``_tape.inline_scope``, the reference's ``trace_scope``): the step is
+  one graph, and no block captures a graph of its own inside it;
 - BatchNorm's running statistics are written in place
   (``record_aux_update``), so each replay advances them.  The
   reference's jitted step leaves them where they were (its update rule
@@ -80,6 +83,7 @@ from .. import _tape, amp
 from ..ndarray.ndarray import NDArray
 from ..ndarray import random as _rnd
 from ..ndarray.utils import to_numpy
+from ..gluon.block import _AUX as _BLOCK_AUX
 from ..gluon.parameter import _tensor
 from ..ops import add_launches, launch_counts
 from ..ops.fused_update import fused_bucket_rule
@@ -105,6 +109,7 @@ class _Graph:
         self.loss = None
         self.launches = {}
         self.draws = False          # the eager run drew random numbers
+        self.remat = False          # the eager run ran a remat block
 
 
 class DataParallelTrainer:
@@ -204,7 +209,7 @@ class DataParallelTrainer:
                 probe = probe()
                 prev = (_tape.set_recording(False), _tape.set_training(False))
                 try:
-                    with torch.no_grad():
+                    with torch.no_grad(), _tape.inline_scope():
                         self.block.forward(*[NDArray(b) for b in probe])
                 finally:
                     _tape.set_recording(prev[0])
@@ -321,7 +326,7 @@ class DataParallelTrainer:
         """One step: the gradient of the mean loss (summed over
         ``n_micro`` microbatches and divided, in f32, as the reference's
         accumulation scan), then the update.  Returns the loss."""
-        with amp.no_cast_cache(), torch.enable_grad():
+        with amp.no_cast_cache(), torch.enable_grad(), _tape.inline_scope():
             if n_micro == 1:
                 loss, grad = self._loss_and_grad(inputs, label)
             else:
@@ -372,13 +377,14 @@ class DataParallelTrainer:
                                         device=self.device) for t in tensors])
             self._stage(entry, tensors, epoch)
             gen = _rnd.generator(self.device)
-            drew = gen.get_state()
+            drew, remats = gen.get_state(), _BLOCK_AUX.remats
             self._stream.wait_stream(cur)
             with torch.cuda.stream(self._stream):
                 loss = run(*entry.statics)
             cur.wait_stream(self._stream)
             loss.record_stream(cur)
             entry.draws = not torch.equal(drew, gen.get_state())
+            entry.remat = _BLOCK_AUX.remats != remats
             self._graphs[sig] = entry
             self.stats["eager_calls"] += 1
             return NDArray(loss)
@@ -407,6 +413,12 @@ class DataParallelTrainer:
         everything the body launches, with the cyclic garbage collector
         off (``_graphs.capture``) and a collection after.  Raises on any
         failure."""
+        if entry.draws and entry.remat:
+            raise NotSupportedError(
+                "DataParallelTrainer: a remat block that draws random "
+                "numbers (dropout) inside the captured step: its backward "
+                "would recompute other masks; use dropout 0 with remat "
+                "(ROADMAP §3)")
         t0 = time.perf_counter()
         graph = torch.cuda.CUDAGraph()
         gen = _rnd.generator(self.device)

@@ -2118,3 +2118,334 @@ def test_transformer_adam_step_card_equals_cpu(card):
                                        rtol=0, atol=1e-5, err_msg=k)
     finally:
         torch.backends.cuda.matmul.allow_tf32 = prev
+
+
+# ----------------------------------------------------------------------
+# hybridize(): the CachedOp's captured forward and backward against the
+# same net with hybridize(active=False), on the card
+# ----------------------------------------------------------------------
+
+# each replay against the eager block: the same kernels on the same
+# inputs (bitwise expected; summation order only otherwise)
+CACHED_TOL = dict(rtol=1e-5, atol=1e-6)
+
+
+def _cached_pair(dropout=0.0, batchnorm=True):
+    """A small conv net twice on the card, the same weights: the first
+    hybridized, the second not."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import gluon
+    nets = []
+    for active in (True, False):
+        net = _dp_net(gluon.nn, dropout=dropout, batchnorm=batchnorm)
+        mx.random.seed(5)
+        net.initialize(mx.init.Xavier(magnitude=2), ctx=mx.gpu(0))
+        net.hybridize(active=active)
+        nets.append(net)
+    load_block_weights(nets[1], _weights_np(nets[0]))
+    return nets
+
+
+def _recorded(net, x, calls=1):
+    """``calls`` recorded forwards of ``x`` summed into one loss and its
+    backward: (first output, parameter gradients, input gradient)."""
+    import mxnet_tpu_torch as mx
+    xx = mt_nd.array(x, ctx=mx.gpu(0))
+    xx.attach_grad()
+    with mt_autograd.record():
+        outs = [net(xx) for _ in range(calls)]
+        loss = outs[0] * outs[0]
+        for o in outs[1:]:
+            loss = loss + o * o
+        loss = loss.sum()
+    loss.backward()
+    grads = {k: p.grad().data.clone() for k, p in
+             net._collect_params_with_prefix().items()
+             if p.grad_req != "null"}
+    return outs[0].data, grads, xx.grad.data
+
+
+def _stats_of(net):
+    return {k: p.data().data.clone() for k, p in
+            net._collect_params_with_prefix().items() if "running" in k}
+
+
+def _assert_same(got, want):
+    if isinstance(got, dict):
+        assert sorted(got) == sorted(want)
+        for k in want:
+            torch.testing.assert_close(got[k], want[k], **CACHED_TOL,
+                                       msg=k)
+    else:
+        torch.testing.assert_close(got, want, **CACHED_TOL)
+
+
+def test_cached_op_replays_match_the_inactive_block(card):
+    """Forward, gradients and running statistics of 4 training calls
+    (one eager warm-up, one capture, two replays), then predict calls."""
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        cap, eager = _cached_pair()
+        for x, _ in _dp_batches(4):
+            for got, want in zip(_recorded(cap, x), _recorded(eager, x)):
+                _assert_same(got, want)
+            _assert_same(_stats_of(cap), _stats_of(eager))
+        assert cap._cached_op.stats["captures"] == 1
+        assert cap._cached_op.stats["eager_calls"] == 1
+        assert cap._cached_op.stats["replays"] == 3
+        assert cap._cached_op.graph_pool_bytes() > 0
+        import mxnet_tpu_torch as mx
+        x = mt_nd.array(_dp_batches(1, seed=9)[0][0], ctx=mx.gpu(0))
+        for _ in range(3):      # predict mode: warm-up, capture, replay
+            _assert_same(cap(x).data, eager(x).data)
+        assert cap._cached_op.stats["captures"] == 2
+        assert cap._cached_op.graphs_captured() == 3
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
+
+
+def test_cached_op_dropout_draws_fresh_masks(card):
+    """Replays on one input differ only by their dropout masks: they
+    differ (each graph registers the generator); with dropout 0 they are
+    equal."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import gluon
+    x = mt_nd.array(_dp_batches(1)[0][0], ctx=mx.gpu(0))
+    for dropout in (0.5, 0.0):
+        net = _dp_net(gluon.nn, dropout=dropout, batchnorm=False)
+        net.initialize(ctx=mx.gpu(0))
+        net.hybridize()
+        outs = []
+        for _ in range(6):
+            with mt_autograd.record():
+                y = net(x).sum()
+            y.backward()
+            outs.append(float(y.asscalar()))
+        assert net._cached_op.stats["replays"] == 5
+        if dropout:
+            assert len(set(outs)) == 6, outs
+        else:
+            assert len(set(outs)) == 1, outs
+
+
+def test_cached_op_two_pending_forwards_of_one_key(card):
+    """A block called twice in one record(): the second forward of the
+    signature captures another instance, so the first backward reads its
+    own activations; the gradients equal the eager block's."""
+    cap, eager = _cached_pair()
+    for i, (x, _) in enumerate(_dp_batches(4)):
+        for got, want in zip(_recorded(cap, x, calls=2),
+                             _recorded(eager, x, calls=2)):
+            _assert_same(got, want)
+    assert cap._cached_op.stats["captures"] == 2
+    assert cap._cached_op.stats["replays"] == 6
+
+
+def test_cached_op_recaptures_after_the_trainer_moves_parameters(card):
+    """The Trainer's first step moves the parameters into its flat
+    buffer: the next call captures over the new addresses (no second
+    warm-up), and later steps replay; the weights follow the eager
+    net's."""
+    from mxnet_tpu_torch import gluon
+    cap, eager = _cached_pair()
+    trainers = [gluon.Trainer(n.collect_params(), "sgd",
+                              {"learning_rate": 0.1, "momentum": 0.9})
+                for n in (cap, eager)]
+    ops.reset_launches()
+    for x, y in _dp_batches(5):
+        for net, tr in zip((cap, eager), trainers):
+            _recorded(net, x)
+            tr.step(8)
+    st = cap._cached_op.stats
+    assert (st["captures"], st["eager_calls"], st["replays"]) == (1, 1, 4)
+    assert ops.launch_counts()["fused_sgd_update"] == 10
+    got, want = _weights_np(cap), _weights_np(eager)
+    for k in want:
+        np.testing.assert_allclose(got[k], want[k], rtol=1e-5, atol=1e-6,
+                                   err_msg=k)
+
+
+def test_cached_op_makes_no_graph_inside_dp_or_a_capture(card):
+    """A hybridized net inside DataParallelTrainer's step, inside a raw
+    stream capture and under a serving engine's warm-up runs as plain
+    ops: none of its blocks makes a CachedOp."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import gluon, parallel
+    net = _dp_net(gluon.nn)
+    net.initialize(ctx=mx.gpu(0))
+    net.hybridize()
+    tr = parallel.DataParallelTrainer(
+        net, gluon.loss.SoftmaxCrossEntropyLoss(), "sgd",
+        {"learning_rate": 0.1},
+        mesh=parallel.make_mesh({"dp": 1}, devices=[card]))
+    for x, y in _dp_batches(3):
+        tr.step(x, y)
+    assert tr.stats["captures"] == 1
+    blocks = []
+    net.apply(blocks.append)
+    assert all(getattr(b, "_cached_op", None) is None for b in blocks)
+    # a raw capture of the hybridized net's forward
+    x = mt_nd.array(_dp_batches(1)[0][0], ctx=mx.gpu(0))
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream), mt_autograd.predict_mode():
+        from mxnet_tpu_torch import _tape
+        with _tape.inline_scope():
+            want = net(x).data.clone()
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph), mt_autograd.predict_mode():
+        out = net(x)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out.data, want)
+    assert all(getattr(b, "_cached_op", None) is None for b in blocks)
+    # a serving engine over a hybridized Llama
+    lnet = llama_tiny(device=card, dtype=torch.float32, seed=3, **GRAPH_NET)
+    lnet.hybridize()
+    eng = InferenceEngine(lnet, device=card, **GRAPH_ENGINE).warmup()
+    tok, _ = eng.prefill(0, [1, 2, 3])
+    assert eng.graphs_captured() > 0 and lnet._cached_op is None
+    lblocks = []
+    lnet.apply(lblocks.append)
+    assert all(getattr(b, "_cached_op", None) is None for b in lblocks)
+
+
+def test_cached_op_failed_capture_raises(card):
+    """A forward that reads a device value on the host runs in the
+    warm-up and raises at its capture: nothing falls back to eager."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import gluon
+
+    class Syncing(gluon.nn.HybridBlock):
+        def __init__(self):
+            super().__init__(prefix="csync_")
+            with self.name_scope():
+                self.dense = gluon.nn.Dense(3, in_units=4)
+
+        def hybrid_forward(self, F, x):
+            out = self.dense(x)
+            out.asnumpy()                   # a device-to-host read
+            return out
+
+    net = Syncing()
+    net.initialize(ctx=mx.gpu(0))
+    net.hybridize()
+    x = mt_nd.array(np.ones((2, 4), np.float32), ctx=mx.gpu(0))
+    net(x)
+    with pytest.raises(MXNetError, match="capturing the forward"):
+        net(x)
+    assert net._cached_op.stats["eager_calls"] == 1
+    assert net._cached_op.stats["replays"] == 0
+
+
+def test_cached_op_second_order_gradient_raises(card):
+    """``create_graph=True`` through a captured block raises
+    ``NotSupportedError`` (the captured backward is not differentiable
+    again); the first-order gradient equals the eager block's."""
+    cap, eager = _cached_pair(batchnorm=False)
+    x = _dp_batches(1)[0][0]
+    for _ in range(2):
+        _recorded(cap, x)
+    import mxnet_tpu_torch as mx
+    xs = []
+    for net in (cap, eager):
+        xx = mt_nd.array(x, ctx=mx.gpu(0))
+        xx.attach_grad()
+        with mt_autograd.record():
+            y = (net(xx) ** 2).sum()
+        xs.append((xx, y))
+    with pytest.raises(NotSupportedError, match="create_graph"):
+        mt_autograd.grad(xs[0][1], [xs[0][0]], create_graph=True)
+    with mt_autograd.record():
+        y = (cap(xs[0][0]) ** 2).sum()
+    (g_cap,) = mt_autograd.grad(y, [xs[0][0]])
+    (g_eager,) = mt_autograd.grad(xs[1][1], [xs[1][0]])
+    _assert_same(g_cap.data, g_eager.data)
+
+
+def _remat_footprint(card, layers):
+    """Two same-weight Llamas with ``net.model.remat()``: the first's
+    layers run as CachedOps, the second's inline (eager remat).  Each
+    takes two recorded steps (warm-up, capture), then two more after
+    the allocator's cache is emptied; returns ({name: (peak reserved,
+    peak allocated)} of those two, {name: gradients}, the CachedOps)."""
+    import gc
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import _tape
+    from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+    kw = dict(num_layers=layers, hidden_size=256, intermediate_size=512,
+              num_heads=4, num_kv_heads=2, vocab_size=512)
+    nets = [llama_tiny(device=card, seed=11, **kw) for _ in range(2)]
+    for net in nets:
+        net.model.remat()
+    rng = np.random.RandomState(11)
+    tokens, labels = (mt_nd.array(rng.randint(0, 512, (8, 512)),
+                                  dtype="int32", ctx=mx.gpu(0))
+                      for _ in range(2))
+    ce = SoftmaxCrossEntropyLoss()
+
+    def step(net, inline):
+        with mt_autograd.record():
+            if inline:
+                with _tape.inline_scope():
+                    out = net(tokens)
+            else:
+                out = net(tokens)
+            loss = ce(out, labels).sum()
+        loss.backward()
+
+    grads, peaks = {}, {}
+    for name, net, inline in (("eager", nets[1], True),
+                              ("captured", nets[0], False)):
+        for _ in range(2):                      # warm-up, capture
+            step(net, inline)
+        torch.cuda.synchronize()
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        for _ in range(2):
+            step(net, inline)
+        torch.cuda.synchronize()
+        peaks[name] = (torch.cuda.max_memory_reserved(),
+                       torch.cuda.max_memory_allocated())
+        grads[name] = {k: p.grad().data.clone() for k, p in
+                       net._collect_params_with_prefix().items()}
+    return peaks, grads, [layer._cached_op for layer in nets[0].model.layers]
+
+
+def test_cached_op_per_layer_remat_llama(card):
+    """``net.model.remat()`` makes each decoder layer its own CachedOp
+    (checkpointed inside its captured function, in the device's shared
+    pool, its outputs and gradients in the device's shared buffers):
+    recorded steps give the gradients of the same remat run eagerly (the
+    layers inline), and what the captured layers reserve beyond eager
+    remat in steady steps (the graph pool: one layer's temporaries) does
+    not grow with depth, by more than one activation from 2 to 4 layers.
+    The peaks are printed: at these sizes the captured path reserves its
+    pool on top of eager remat's peak."""
+    from mxnet_tpu_torch import _graphs
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        extra = {}
+        for layers in (2, 4):
+            peaks, grads, ops_ = _remat_footprint(card, layers)
+            assert all(o is not None and o.stats["captures"] == 1
+                       and o.stats["replays"] == 3 for o in ops_)
+            for k in grads["eager"]:
+                torch.testing.assert_close(grads["captured"][k],
+                                           grads["eager"][k], rtol=1e-5,
+                                           atol=1e-6, msg=k)
+            extra[layers] = peaks["captured"][0] - peaks["eager"][0]
+            print(f"per-layer remat, {layers} layers of width 256, 8 x 512 "
+                  f"tokens: peak reserved / allocated bytes, eager "
+                  f"{peaks['eager']}, captured {peaks['captured']} (graph "
+                  f"pool {ops_[0].graph_pool_bytes()}, shared buffers "
+                  f"{_graphs.scratch_bytes(torch.device('cuda', 0))})")
+            del grads, ops_
+        one_activation = 8 * 512 * 256 * 4
+        assert extra[4] <= extra[2] + one_activation, extra
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev

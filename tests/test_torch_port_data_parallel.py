@@ -521,7 +521,8 @@ def test_no_environment_knob_is_read(monkeypatch, tmp_path):
                         ("DMLC_PS_ROOT_URI", "localhost"),
                         ("MXTPU_SERVE_REPLICAS", "3"),
                         ("MXTPU_SERVE_DISAGG", "1"),
-                        ("MXTPU_FAULT_INJECT", "serving.replica0.step:at=1")):
+                        ("MXTPU_FAULT_INJECT", "serving.replica0.step:at=1"),
+                        ("MXTPU_RETRACE_WARN", "0"), ("MXTPU_EAGER", "1")):
         monkeypatch.setenv(name, value)
     with mx.cpu():
         assert parallel.make_mesh().shape == {"dp": 1}
@@ -548,12 +549,21 @@ def test_no_environment_knob_is_read(monkeypatch, tmp_path):
     req = router.submit(Request([1, 2, 3], 2))
     router.drive()
     assert req.done and router.epoch == 0
+    # hybridize() routes through a CachedOp (no MXTPU_EAGER), whose
+    # retrace monitor keeps the reference's default threshold
+    from mxnet_tpu_torch.gluon import nn
+    dense = nn.Dense(2, in_units=3)
+    dense.initialize(ctx=mx.cpu())
+    dense.hybridize()
+    dense(mx.nd.ones((1, 3), ctx=mx.cpu()))
+    assert dense._active and dense._cached_op._retrace.threshold == 3
     # and no module of the slice touches os.environ or os.getenv
     for rel in ("parallel/mesh.py", "parallel/data_parallel.py",
                 "parallel/__init__.py", "checkpoint.py",
                 "serving/frontend/router.py", "testing/faults.py",
                 "testing/__init__.py", "serving/scheduler.py",
-                "serving/engine.py"):
+                "serving/engine.py", "gluon/block.py", "_graphs.py",
+                "lint/retrace.py", "lint/__init__.py"):
         tree = ast.parse((REPO / "mxnet_tpu_torch" / rel).read_text())
         names = {n.attr for n in ast.walk(tree)
                  if isinstance(n, ast.Attribute)}

@@ -266,7 +266,9 @@ def test_hybridize_gives_the_outputs_of_eager_and_hooks_run():
     net.hybridize(static_alloc=True, static_shape=True)
     assert net._active and net._flags["static_alloc"]
     np.testing.assert_array_equal(net(x).asnumpy(), eager)
-    assert seen == ["pre", (2, 2)]
+    # the reference's CachedOp: the hybridized block's own hooks do not
+    # fire (its children's fire only while a signature is traced)
+    assert seen == []
     names = []
     net.apply(lambda b: names.append(type(b).__name__))
     assert names[-1] == "HybridSequential" and names.count("Dense") == 2

@@ -369,8 +369,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     files = sorted((REPO / "mxnet_tpu_torch").rglob("*.py"))
     files += sorted((REPO / "tools").glob("port_*.py"))
     files.append(REPO / "chip_smoke.py")
-    # the training entry point, checkpointing, int8 quantization and
-    # the LLM extras are covered too
+    # the training entry point, checkpointing, int8 quantization, the
+    # LLM extras and the CachedOp are covered too
     port = REPO / "mxnet_tpu_torch"
     for rel in ("parallel/__init__.py", "parallel/mesh.py",
                 "parallel/data_parallel.py", "checkpoint.py",
@@ -381,9 +381,12 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                 "gluon/model_zoo/nlp/__init__.py",
                 "gluon/model_zoo/nlp/llama.py",
                 "gluon/model_zoo/nlp/sampler.py",
-                "gluon/model_zoo/nlp/transformer.py"):
+                "gluon/model_zoo/nlp/transformer.py",
+                "lint/__init__.py", "lint/retrace.py", "_graphs.py",
+                "gluon/block.py"):
         assert port / rel in files, rel
     assert REPO / "tools" / "port_serve_loadgen.py" in files
+    assert REPO / "tools" / "port_cached_op_pairs.py" in files
     bad = []
     for path in files:
         for name in _imports(path):

@@ -393,7 +393,11 @@ def test_remat_writes_the_running_statistics_once():
         _, w, _, _ = _train(mx, net, x, y, steps=2)
         runs.append((w, len(calls)))
     (plain, n_plain), (remat, n_remat) = runs
-    assert n_plain == 2 and n_remat == 4     # recomputed in each backward
+    # the hybridized stage is a CachedOp: its children's hooks fire only
+    # while its one signature is traced, as the reference's do, and not
+    # in the backward's recompute
+    assert n_plain == 2 and n_remat == 1
+    assert stage._cached_op.stats["eager_calls"] == 2
     for k in plain:
         np.testing.assert_array_equal(remat[k], plain[k], err_msg=k)
 
