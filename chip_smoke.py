@@ -266,6 +266,28 @@ continued:
     it (beam 4, 8 sources, ``max_length`` 32, a step that re-decodes the
     prefix): ms a step, and every returned score within 1e-4 of the
     GNMT-penalized sum of the model's own log-probs along its tokens;
+30a. (after phase 28) phase 30's f32 check: BERT-base at ``bench.py``'s
+    configuration in f32, two nets of the same weights, two steps on one
+    batch of 64 x 128: ``DataParallelTrainer`` with LAMB (lr 1e-3, wd
+    0.01; its second step captured and replayed, the norms per parameter
+    of the flat bucket) against ``gluon.Trainer(..., "lamb")`` in the
+    MXNet loop on the batch's mean loss (the rule per parameter): step
+    1's gradients of both paths compared first (those apart by more
+    than 1e-4 relative are rounding-dominated); losses within 1e-4
+    relative, each other parameter's update within 1e-3
+    (``update_errs``), each rounding-dominated one's update norm a step
+    within 1e-3 (LAMB's step is lr |w| long whatever its direction), the
+    key biases within two LAMB steps on noise; 48 K3 f32 forward and
+    backward launches;
+32. the training surface at small sizes, card against CPU: each
+    optimizer (3 updates, 3 parameters, with wd, clip, rescale and an
+    ``lr_mult``; weights and states), each loss, optimizer and density
+    op (outputs, in-place state writes, the loss ops' gradients under a
+    random head) and each Gluon loss (value and gradient, with
+    ``weight`` and ``sample_weight``) within 1e-5 relative (CTC 1e-4);
+    SGLD, the ``nd.random`` samplers and the ``sample_*`` ops over 10^6
+    draws on the card within 5 standard errors of their distributions'
+    mean and variance; no kernel of the port runs;
 11. bf16 AMP training (``amp.init`` is process-wide, so phases 11, 13,
     29, 15, 17 and 18 come last, in that order): phase 8's model, batch and AdamW under
     ``amp.init("bfloat16")``, ``amp.init_trainer`` and
@@ -304,7 +326,9 @@ continued:
     replays against the same body run eagerly on the card within 1e-5
     (bitwise printed); ``step_indexed`` over ``put_epoch`` against
     ``step`` on the same slices, ``step_accum(n_micro=2)`` against
-    ``step`` on the whole batch; K1 12, K2 12, K3 32 and 32 launches;
+    ``step`` on the whole batch; the BERT with LAMB and the conv net
+    with LARS and RMSProp (plain and centered) the same way; K1 12, K2
+    12, K3 64 and 64 launches;
 19. checkpointing on the card: a Dense/BatchNorm net through
     ``DataParallelTrainer`` (Adam), ``CheckpointManager.save`` at step 3,
     2 more steps; a fresh trainer restores and takes the same 2 steps:
@@ -332,14 +356,25 @@ continued:
 18. BERT-base through ``DataParallelTrainer`` at ``bench.py``'s
     ``_bench_bert`` (bf16 AMP, batch 64 x 128 from ``RandomState(0)``,
     Adam lr 1e-4): as phase 17, with one K2 and 12 bf16 K3 forward and
-    backward launches a replay.
+    backward launches a replay;
+30. BERT-base with LAMB through ``DataParallelTrainer``: phase 18 with
+    ``"lamb", {"learning_rate": 1e-3, "wd": 0.01}`` at the reference's
+    other defaults, nothing cut: 12 bf16 K3 forward and backward
+    launches a replay and no K1/K2 (the rule is plain PyTorch over the
+    flat bucket);
+31. ResNet-50 v1 with LARS through ``DataParallelTrainer``: phase 17
+    with ``"lars", {"learning_rate": 0.1, "momentum": 0.9, "wd": 5e-5}``
+    at the reference's ``eta`` and ``eps``: no kernel of the port.
+    Phases 17, 18, 30 and 31 also print the update's device time alone
+    (its rule over clones of the flat buffers, one captured graph, 10
+    replays) beside its bytes bound.
 
 Phases 4 and 7 also print, from a pass after the timed run (so the
 run's steps are measured as they run without it) that replays each
 decode step on its own staged inputs, the replays' device time (CUDA
 events around ``graph.replay()``) and each step's host share beside
 it.  Before
-each of phases 4, 7-19 and 20-29 the kernels' launch counters are set to 0; each phase reads them just after and fails unless its kernels
+each of phases 4, 7-19 and 20-32 the kernels' launch counters are set to 0; each phase reads them just after and fails unless its kernels
 ran the expected number of times.  The second-to-last line is the
 card's name and power limit, the line before it the kernels' JSON
 record, and the line before that every timed row of phase 3 as
@@ -466,11 +501,11 @@ def read_launches(phase, want, got=None):
     """Every kernel's launch count since the last ``reset_launches`` (or
     ``got``, a path's counts summed over its windows); fails unless the
     kernels in ``want`` ran exactly that often (at least once) and every
-    other kernel not at all."""
+    other kernel not at all (``want`` empty: a path of no kernel)."""
     from mxnet_tpu_torch import ops
     got = ops.launch_counts() if got is None else got
     full = {name: want.get(name, 0) for name in got}
-    if got != full or min(want.values()) < 1:
+    if got != full or min(want.values(), default=1) < 1:
         fail(f"{phase}: kernel launches {got}, expected {full}")
     return got
 
@@ -4493,7 +4528,10 @@ def dp_card_vs_cpu(dev):
     the card.  Two nets from host-made weights: phase 16's small conv net
     with BatchNorm (SGD momentum 0.9, lr 0.1, batch 8 x 3 x 32 x 32) and
     ``get_bert_model(num_layers=2)`` at BERT-base width (dropout 0,
-    flash, no decoder; Adam lr 1e-4, batch 4 x 128).  Each takes 3 steps,
+    flash, no decoder; Adam lr 1e-4, batch 4 x 128); then the rules
+    without a bucket kernel: the BERT with LAMB (lr 1e-4, wd 0.01), the
+    conv net with LARS (momentum 0.9, wd 5e-5) and with RMSProp (lr
+    1e-3), plain and centered.  Each takes 3 steps,
     then ``set_learning_rate`` halves the rate and a 4th step follows,
     on the card (captured), on the card with ``_use_graphs = False`` (the
     eager body) and on the CPU.  Losses within 1e-4 relative and each
@@ -4532,12 +4570,26 @@ def dp_card_vs_cpu(dev):
         "conv": dict(net=lambda: _dp_conv_net(gluon.nn), rule="sgd",
                      params={"learning_rate": 0.1, "momentum": 0.9},
                      loss=ce, batches=conv_batches, noise=(),
-                     init=mx.init.Xavier(magnitude=2)),
+                     init=mx.init.Xavier(magnitude=2), kind="conv"),
         "bert": dict(net=lambda: get_bert_model(
             num_layers=2, vocab_size=BERT_VOCAB, max_length=BERT_SEQ,
             dropout=0.0, use_flash=True, use_decoder=False), rule="adam",
             params={"learning_rate": 1e-4}, loss=bert_loss,
-            batches=bert_batches, noise="proj_key.bias", init=None)}
+            batches=bert_batches, noise="proj_key.bias", init=None,
+            kind="bert")}
+    # the rules without a bucket kernel (plain PyTorch in the captured
+    # step; LAMB's and LARS's norms per parameter of the flat bucket)
+    cases.update({
+        "bert lamb": dict(cases["bert"], rule="lamb",
+                          params={"learning_rate": 1e-4, "wd": 0.01}),
+        "conv lars": dict(cases["conv"], rule="lars",
+                          params={"learning_rate": 0.1, "momentum": 0.9,
+                                  "wd": 5e-5}),
+        "conv rmsprop": dict(cases["conv"], rule="rmsprop",
+                             params={"learning_rate": 1e-3}),
+        "conv rmsprop centered": dict(cases["conv"], rule="rmsprop",
+                                      params={"learning_rate": 1e-3,
+                                              "centered": True})})
     lines, bad = [], []
     try:
         torch.cuda.synchronize(dev)
@@ -4559,7 +4611,7 @@ def dp_card_vs_cpu(dev):
                                  ctx.torch_device)
                 tr._use_graphs = how != "eager"
                 handle = None
-                if how == "variant" and name == "conv":
+                if how == "variant" and c["kind"] == "conv":
                     handle = tr.put_epoch(
                         np.stack([b[0] for b in c["batches"]]),
                         np.stack([b[1] for b in c["batches"]]))
@@ -4619,7 +4671,7 @@ def dp_card_vs_cpu(dev):
                 texts.append(text)
                 if not ok:
                     bad.append(f"{name}: {text}")
-            variant = "step_indexed over put_epoch" if name == "conv" \
+            variant = "step_indexed over put_epoch" if c["kind"] == "conv" \
                 else "step_accum(n_micro=2)"
             lines.append(f"{name} ({c['rule']} {c['params']}, {DP_STEPS} "
                          f"steps, then the rate halved and one more; "
@@ -4627,11 +4679,13 @@ def dp_card_vs_cpu(dev):
                          f"{got['graph'][0]} cpu {got['cpu'][0]}; "
                          + "; ".join(texts))
         torch.cuda.synchronize(dev)
+        # K3: 2 layers, 4 bodies a step (graph, eager, 2 microbatches)
+        # in each of the two BERT cases
         launches = read_launches("dp card vs cpu", {
             "fused_sgd_update": 3 * (DP_STEPS + 1),
             "fused_adam_update": 3 * (DP_STEPS + 1),
-            "flash_attention_fwd": 2 * 4 * (DP_STEPS + 1),
-            "flash_attention_bwd": 2 * 4 * (DP_STEPS + 1)})
+            "flash_attention_fwd": 2 * 2 * 4 * (DP_STEPS + 1),
+            "flash_attention_bwd": 2 * 2 * 4 * (DP_STEPS + 1)})
     finally:
         torch.backends.cudnn.deterministic = prev
     print("dp card vs cpu (DataParallelTrainer on a one-device mesh, f32): "
@@ -4729,25 +4783,92 @@ def dp_checkpoint(dev):
     return launches
 
 
-def dp_training(dev, card, model):
-    """Phases 17 (``model="resnet"``) and 18 (``"bert"``): ``bench.py``'s
-    ``_bench_resnet`` and ``_bench_bert`` through the entry point they
-    use, ``DataParallelTrainer`` on ``make_mesh({"dp": 1})``, bf16 AMP:
-    ``resnet50_v1(s2d_stem=True)``, batch 128 x 3 x 224 x 224 from
-    ``nd.random.uniform`` seeded 0, labels zeros, SGD lr 0.1 momentum
-    0.9; or BERT-base (vocab 30522, max_length 128, dropout 0, flash, no
-    decoder), batch 64 x 128 from ``RandomState(0)``, the loss on the
-    sentence head, Adam lr 1e-4.  3 warm-up steps (the first eager, the
-    second captured), then 20 timed (host clock around each, ending in a
-    synchronize).  Fails unless every timed step was one replay of the
-    one graph, the loss is finite and lower at the last step than at the
-    first, and the kernels ran as the path says (K1 once a step; or K2
-    once and 12 bf16 K3 forward and backward).  Prints the step median,
-    images or samples per second, peak memory, captures, capture seconds
-    and the graph pool's bytes; the replay's device time (CUDA events
-    around ``graph.replay()``, 5 replays after the run) and the host share
-    ``1 - device / wall``; and from two profiled steps the device time by
-    kernel class."""
+# phases 17, 18, 30 and 31: each model's rule through DataParallelTrainer
+DP_RULES = {
+    ("resnet", "sgd"): {"learning_rate": RESNET_LR,
+                        "momentum": RESNET_MOMENTUM},
+    ("bert", "adam"): {"learning_rate": 1e-4},
+    ("bert", "lamb"): {"learning_rate": 1e-3, "wd": 0.01},
+    ("resnet", "lars"): {"learning_rate": 0.1, "momentum": 0.9,
+                         "wd": 5e-5},
+}
+# the f32 streams each rule must move an element: SGD momentum reads p,
+# g, m and writes p, m; Adam also v; LARS first reads p and g for their
+# norms, then as SGD; LAMB first reads p, g, m, v and writes m, v (the
+# norms need the whole update before any of it applies), then reads p,
+# m, v and writes p
+UPDATE_STREAMS = {"sgd": 5, "adam": 7, "lars": 7, "lamb": 10}
+# (model, rule) -> the update's device time alone in this run, so phases
+# 30 and 31 print it beside phases 18 and 17's K2 and K1
+UPDATE_MS = {}
+
+
+def update_device_ms(trainer, reps=10):
+    """Device time of the trainer's update alone (``_update``: K1/K2, or
+    the plain rule with its per-parameter norms) over clones of its flat
+    buffers and a random gradient, captured as one CUDA graph whose
+    replays are timed with CUDA events (median of ``reps``); the
+    trainer's own buffers are put back untouched."""
+    import torch
+    from mxnet_tpu_torch import ops
+    keep = (trainer._flat_p, trainer._flat_state, trainer._t)
+    trainer._flat_p = keep[0].clone()
+    trainer._flat_state = {k: v.clone() for k, v in keep[1].items()}
+    trainer._t = None if keep[2] is None else keep[2].clone()
+    try:
+        g = torch.randn_like(trainer._flat_p) * 1e-3
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            trainer._update(g)              # loads every kernel it runs
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        before = ops.launch_counts()
+        with torch.cuda.graph(graph):
+            trainer._update(g)
+        # the capture's wrapper calls are not launches of the path
+        ops.add_launches({k: before[k] - v
+                          for k, v in ops.launch_counts().items()})
+        times = []
+        for _ in range(reps):
+            start, end = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+            start.record()
+            graph.replay()
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+        del graph
+        return statistics.median(times)
+    finally:
+        trainer._flat_p, trainer._flat_state, trainer._t = keep
+
+
+def dp_training(dev, card, model, rule=None):
+    """Phases 17 (``model="resnet"``), 18 (``"bert"``), 30 (``"bert"``,
+    ``rule="lamb"``) and 31 (``"resnet"``, ``rule="lars"``):
+    ``bench.py``'s ``_bench_resnet`` and ``_bench_bert`` through the entry
+    point they use, ``DataParallelTrainer`` on ``make_mesh({"dp": 1})``,
+    bf16 AMP: ``resnet50_v1(s2d_stem=True)``, batch 128 x 3 x 224 x 224
+    from ``nd.random.uniform`` seeded 0, labels zeros, SGD lr 0.1
+    momentum 0.9 (phase 31: LARS lr 0.1 momentum 0.9 wd 5e-5 at the
+    reference's eta and eps); or BERT-base (vocab 30522, max_length 128,
+    dropout 0, flash, no decoder), batch 64 x 128 from
+    ``RandomState(0)``, the loss on the sentence head, Adam lr 1e-4
+    (phase 30: LAMB lr 1e-3 wd 0.01 at the reference's other defaults).
+    3 warm-up steps (the first eager, the second captured), then 20
+    timed (host clock around each, ending in a synchronize).  Fails
+    unless every timed step was one replay of the one graph, the loss is
+    finite and lower at the last step than at the first, and the
+    kernels ran as the path says (K1 once a step; or K2 once and 12 bf16
+    K3 forward and backward; LAMB: the 12 K3 and no K1/K2; LARS: none of
+    the port's kernels).  Prints the step median, images or samples per
+    second, peak memory, captures, capture seconds and the graph pool's
+    bytes; the replay's device time (CUDA events around
+    ``graph.replay()``, 5 replays after the run) and the host share
+    ``1 - device / wall``; from two profiled steps the device time by
+    kernel class; and the update's device time alone
+    (``update_device_ms``) beside its bytes bound."""
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -4761,21 +4882,22 @@ def dp_training(dev, card, model):
         mx.random.seed(0)
         ce = gluon.loss.SoftmaxCrossEntropyLoss()
         mesh = parallel.make_mesh({"dp": 1}, devices=[dev])
+        rule = rule or ("sgd" if model == "resnet" else "adam")
+        hyper = DP_RULES[(model, rule)]
         if model == "resnet":
             from mxnet_tpu_torch.gluon.model_zoo import vision
             net = vision.resnet50_v1(s2d_stem=True)
             net.initialize()
             trainer = parallel.DataParallelTrainer(
-                net, ce, "sgd", {"learning_rate": RESNET_LR,
-                                 "momentum": RESNET_MOMENTUM}, mesh=mesh)
+                net, ce, rule, dict(hyper), mesh=mesh)
             batch = (mx.nd.random.uniform(shape=(RESNET_BATCH, 3,
                                                  RESNET_SIZE, RESNET_SIZE)),
                      mx.nd.zeros((RESNET_BATCH,)))
             n, unit, classes = RESNET_BATCH, "images", RESNET_CLASSES
-            want = {"fused_sgd_update": DP_TIMED}
-            label = (f"dp resnet, ResNet-50 v1 (s2d stem), bf16 amp, sgd lr "
-                     f"{RESNET_LR} momentum {RESNET_MOMENTUM}, batch "
-                     f"{RESNET_BATCH}x3x{RESNET_SIZE}x{RESNET_SIZE}")
+            want = {"fused_sgd_update": DP_TIMED} if rule == "sgd" else {}
+            label = (f"dp resnet{'' if rule == 'sgd' else ' ' + rule}, "
+                     f"ResNet-50 v1 (s2d stem), bf16 amp, {rule} {hyper}, "
+                     f"batch {RESNET_BATCH}x3x{RESNET_SIZE}x{RESNET_SIZE}")
         else:
             from mxnet_tpu_torch.gluon.model_zoo.nlp import get_bert_model
             net = get_bert_model(vocab_size=BERT_VOCAB, max_length=BERT_SEQ,
@@ -4787,7 +4909,7 @@ def dp_training(dev, card, model):
                 return ce(out[-1], label)
 
             trainer = parallel.DataParallelTrainer(
-                net, loss_fn, "adam", {"learning_rate": 1e-4}, mesh=mesh)
+                net, loss_fn, rule, dict(hyper), mesh=mesh)
             rng = np.random.RandomState(0)
             batch = (mx.nd.array(rng.randint(0, BERT_VOCAB,
                                              size=(BERT_BATCH, BERT_SEQ)),
@@ -4799,9 +4921,11 @@ def dp_training(dev, card, model):
             want = {name: 12 * DP_TIMED for name in (
                 "flash_attention_fwd", "flash_attention_bwd",
                 "flash_attention_fwd_bf16", "flash_attention_bwd_bf16")}
-            want["fused_adam_update"] = DP_TIMED
-            label = (f"dp bert, BERT-base (12 x 768, vocab {BERT_VOCAB}), "
-                     f"bf16 amp, adam lr 1e-4, batch {BERT_BATCH}x{BERT_SEQ}")
+            if rule == "adam":
+                want["fused_adam_update"] = DP_TIMED
+            label = (f"dp bert{'' if rule == 'adam' else ' ' + rule}, "
+                     f"BERT-base (12 x 768, vocab {BERT_VOCAB}), bf16 amp, "
+                     f"{rule} {hyper}, batch {BERT_BATCH}x{BERT_SEQ}")
         losses = [trainer.step(*batch) for _ in range(DP_WARMUP)]
         torch.cuda.synchronize(dev)
         setup_s = time.perf_counter() - t0
@@ -4841,6 +4965,13 @@ def dp_training(dev, card, model):
                 trainer.step(*batch)
             torch.cuda.synchronize(dev)
             traced_ms = (time.perf_counter() - t) / 2 * 1e3
+        update_ms = update_device_ms(trainer)
+        n_bucket = trainer._flat_p.numel()
+        streams = UPDATE_STREAMS[rule]
+        update_bound_ms = streams * 4 * n_bucket / H100_BYTES_PER_S * 1e3
+        UPDATE_MS[(model, rule)] = update_ms
+        others = {r: ms for (m, r), ms in UPDATE_MS.items()
+                  if m == model and r != rule}
     finally:
         amp._deinit_for_tests()
     busy = {}
@@ -4876,8 +5007,14 @@ def dp_training(dev, card, model):
           f"{1 - busy_ms / step_ms:.4f}); device ms a step by class "
           f"{ {k: round(v, 3) for k, v in by_class.items()} }; top kernels "
           f"{', '.join(f'{k[:60]} {v:.3f} ms' for k, v in top)}; "
-          f"running statistics moved {moved} of {len(stats)}; launches "
-          f"{launches}", flush=True)
+          f"running statistics moved {moved} of {len(stats)}; the update "
+          f"alone ({rule} over the {n_bucket}-element bucket, one captured "
+          f"graph of it, median of 10 replays) {update_ms:.4f} ms device "
+          f"time, its bound {update_bound_ms:.4f} ms ({streams} f32 "
+          f"streams at {H100_BYTES_PER_S / 1e12} TB/s)"
+          + "".join(f", beside {r}'s {ms:.4f} ms earlier in this run"
+                    for r, ms in others.items())
+          + f"; launches {launches}", flush=True)
     if graph_stats["captures"] != 1 or graphs != 1 or \
             graph_stats["eager_calls"] != 1:
         fail(f"{label}: expected one eager call and one capture, every "
@@ -4893,6 +5030,596 @@ def dp_training(dev, card, model):
     if model == "bert" and n_trainable != BERT_TRAINABLE:
         fail(f"{label}: {n_trainable} trainable parameters")
     del net, trainer, entry
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+# ----------------------------------------------------------------------
+# phases 30-32: the rest of the training surface (LAMB, LARS and RMSProp
+# in the captured step, the other optimizers, the losses, the samplers
+# and their ops)
+# ----------------------------------------------------------------------
+
+# phase 30's f32 check: step 1's gradients of the two paths differ by
+# rounding (median 1.5e-6 relative; tools/port_lamb_grad_noise.py); a
+# parameter whose two gradients differ by more than this limit has a
+# rounding-dominated gradient (the key biases' is zero in exact
+# arithmetic; deep layers' query and key projections sum terms that
+# cancel), which LAMB's normalized step turns into another direction of
+# the same length: such a parameter is held by its update's norm each
+# step, lr |w| for LAMB, which the per-parameter norms set
+LAMB_GRAD_RTOL = 1e-4
+
+
+def _rel_dev(a, b):
+    return float((a - b).norm()) / max(float(b.norm()), 1e-30)
+
+
+def lamb_dp_vs_gluon(dev):
+    """Phase 30's check before its timed run: BERT-base at ``bench.py``'s
+    configuration in f32 (no amp), two nets of the same weights on the
+    card, two steps on one batch of 64 x 128: ``DataParallelTrainer``
+    with ``"lamb"`` at the timed run's hyperparameters (the first step
+    eager, the second captured and replayed: the norms per parameter of
+    the flat bucket) against ``gluon.Trainer(net.collect_params(),
+    "lamb", ...)`` in the MXNet loop on the batch's mean loss (the rule
+    per parameter).  First both paths' step-1 gradients are taken
+    (the trainer's step body, ``_loss_and_grad``, and the loop's
+    ``backward``) and each parameter's difference printed; the
+    parameters whose gradients differ by more than ``LAMB_GRAD_RTOL``
+    are rounding-dominated.  Losses within 1e-4 relative; each other
+    parameter's two-step update within 1e-3 net of storing's rounding
+    (phase 16's limits); each rounding-dominated one's update norm each
+    step within 1e-3 of the other path's (LAMB's step is lr |w| long);
+    the key biases (zero gradient) within two LAMB steps of lr; K3 f32
+    12 forward and 12 backward launches a step on each path."""
+    import numpy as np
+    import torch
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import autograd, gluon, ops, parallel
+    from mxnet_tpu_torch.gluon.model_zoo.nlp import get_bert_model
+    hyper = DP_RULES[("bert", "lamb")]
+    # LAMB's ratio is 1 at a zero weight, so its first step moves a key
+    # bias (zero gradient in exact arithmetic) by up to lr on rounding
+    # noise on either path, the second by lr times a ratio near lr
+    key_atol = 2 * hyper["learning_rate"]
+    ctx = mx.gpu(dev.index or 0)
+    rng = np.random.RandomState(30)
+    data = mx.nd.array(rng.randint(0, BERT_VOCAB, (BERT_BATCH, BERT_SEQ)),
+                       dtype="int32", ctx=ctx)
+    types = mx.nd.zeros((BERT_BATCH, BERT_SEQ), dtype="int32", ctx=ctx)
+    label = mx.nd.array(rng.randint(0, 2, (BERT_BATCH,)), dtype="int32",
+                        ctx=ctx)
+    nets = []
+    for _ in range(2):
+        mx.random.seed(30)
+        net = get_bert_model(vocab_size=BERT_VOCAB, max_length=BERT_SEQ,
+                             dropout=0.0, use_flash=True, use_decoder=False)
+        net.initialize(ctx=ctx)
+        net(data, types)                # deferred shapes
+        nets.append(net)
+    copy_weights(nets[0], nets[1])
+    params = [net._collect_params_with_prefix() for net in nets]
+
+    def weights(i):
+        return {k: p.data().data.detach().clone()
+                for k, p in params[i].items()}
+
+    ce = gluon.loss.SoftmaxCrossEntropyLoss()
+    dp = parallel.DataParallelTrainer(
+        nets[0], lambda out, y: ce(out[-1], y), "lamb", dict(hyper),
+        mesh=parallel.make_mesh({"dp": 1}, devices=[dev]))
+    tr = gluon.Trainer(nets[1].collect_params(), "lamb", dict(hyper))
+    # step 1's gradients on both paths, before either updates
+    dp._prepare(lambda: [data.data, types.data])
+    _, flat_g = dp._loss_and_grad([data.data, types.data], label.data)
+    name_of = {id(p): k for k, p in params[0].items()}
+    g_dp, off = {}, 0
+    for i in dp._train:
+        var = dp._param_objs[i]._var
+        g_dp[name_of[id(dp._param_objs[i])]] = \
+            flat_g[off:off + var.numel()].view(var.shape)
+        off += var.numel()
+    with autograd.record():
+        loss = ce(nets[1](data, types)[-1], label).mean()
+    loss.backward()
+    grad_err = {k: _rel_dev(g, params[1][k].grad().data)
+                for k, g in g_dp.items()}
+    del flat_g, g_dp
+    w = [[weights(0)], [weights(1)]]
+    torch.cuda.synchronize(dev)
+    ops.reset_launches()
+    losses = []
+    for _ in range(2):
+        a = float(dp.step(data, types, label).asnumpy())
+        with autograd.record():
+            loss = ce(nets[1](data, types)[-1], label).mean()
+        loss.backward()
+        tr.step(1)
+        losses.append((a, float(loss.asnumpy())))
+        w[0].append(weights(0))
+        w[1].append(weights(1))
+    torch.cuda.synchronize(dev)
+    launches = read_launches("phase 30 lamb check", {
+        "flash_attention_fwd": 4 * 12, "flash_attention_bwd": 4 * 12})
+    keys = [k for k in grad_err if k.endswith("proj_key.bias")]
+    noisy = [k for k, e in grad_err.items()
+             if e > LAMB_GRAD_RTOL and k not in keys]
+    clean = [k for k in grad_err if k not in keys and k not in noisy]
+    errs = update_errs_dev({k: w[0][0][k] for k in clean}, w[0][2], w[1][2],
+                           2)
+    worst = max(errs.items(), key=lambda kv: kv[1])
+    norm_errs = {k: max(abs(_rel_dev(w[0][s][k], w[0][s - 1][k])
+                            / _rel_dev(w[1][s][k], w[1][s - 1][k]) - 1)
+                        for s in (1, 2)) for k in noisy}
+    worst_norm = max(norm_errs.values(), default=0.0)
+    key_err = max(float((w[0][2][k] - w[1][2][k]).abs().max()) for k in keys)
+    loss_err = max(abs(a - b) / abs(b) for a, b in losses)
+    top = sorted(grad_err.items(), key=lambda kv: -kv[1])[:4]
+    print(f"phase 30 check (BERT-base f32, batch {BERT_BATCH}x{BERT_SEQ}, "
+          f"lamb {hyper}, 2 steps): DataParallelTrainer (captured second "
+          f"step, {dp.stats['captures']} capture) against gluon.Trainer "
+          f"per parameter: step 1's gradients, median relative difference "
+          f"{statistics.median(grad_err.values()):.3e} over "
+          f"{len(grad_err)} parameters, largest "
+          f"{[(k, float(f'{v:.3g}')) for k, v in top]}; losses {losses}, "
+          f"max relative loss diff {loss_err:.3e} (limit "
+          f"{TRAIN_LOSS_RTOL}); worst relative update diff {worst[1]:.3e} "
+          f"at {worst[0]} over {len(clean)} parameters (limit "
+          f"{FUSED_UPDATE_RTOL}); {len(noisy)} with gradients apart by "
+          f"more than {LAMB_GRAD_RTOL} ({noisy}): update norms a step "
+          f"within {worst_norm:.3e} (limit {FUSED_UPDATE_RTOL}); "
+          f"{len(keys)} key biases within {key_err:.3e} (limit "
+          f"{key_atol}); launches {launches}", flush=True)
+    if loss_err > TRAIN_LOSS_RTOL or worst[1] > FUSED_UPDATE_RTOL or \
+            worst_norm > FUSED_UPDATE_RTOL or key_err > key_atol or \
+            dp.stats["captures"] != 1:
+        fail("phase 30: the captured LAMB step differs from gluon.Trainer's")
+    del nets, dp, tr, w, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+# phase 32: card against CPU at small sizes; samplers by their moments
+SURFACE_RTOL = 1e-5
+SURFACE_CTC_RTOL = 1e-4
+SAMPLER_DRAWS = 10 ** 6
+SAMPLER_SE = 5
+SURFACE_HP = {"wd": 0.01, "rescale_grad": 0.7, "clip_gradient": 0.9}
+SURFACE_OPTIMIZERS = {
+    "sgd": {"momentum": 0.9}, "nag": {"momentum": 0.9},
+    "adam": {"learning_rate": 1e-2}, "adamw": {"learning_rate": 1e-2},
+    "adagrad": {"learning_rate": 0.1}, "adadelta": {"rho": 0.8},
+    "rmsprop": {"learning_rate": 1e-2},
+    "rmsprop centered": {"learning_rate": 1e-2, "centered": True,
+                         "clip_weights": 1.5},
+    "ftrl": {"learning_rate": 0.1}, "signum": {"wd_lh": 0.01},
+    "lamb": {"learning_rate": 1e-2},
+    "lamb bounded": {"learning_rate": 1e-2, "lower_bound": 0.5,
+                     "upper_bound": 2.0, "bias_correction": False},
+    "lars": {"learning_rate": 0.1, "momentum": 0.9}, "test": {}}
+
+
+def _rel(got, want):
+    import numpy as np
+    got = np.asarray(got, np.float64)
+    want = np.asarray(want, np.float64)
+    return float(np.linalg.norm(got - want)) / max(
+        float(np.linalg.norm(want)), 1e-30)
+
+
+def _surface_optimizers(dev):
+    """Each optimizer, 3 updates of 3 parameters on the card and the
+    CPU: the worst relative difference of a weight or state array."""
+    import numpy as np
+    import torch
+    from mxnet_tpu_torch import optimizer as opt
+    shapes = [(64, 33), (257,), (4, 5, 6)]
+    rng = np.random.RandomState(32)
+    w0 = [rng.randn(*s).astype(np.float32) for s in shapes]
+    grads = [[rng.randn(*s).astype(np.float32) for s in shapes]
+             for _ in range(3)]
+    worst = {}
+    for case, kw in SURFACE_OPTIMIZERS.items():
+        runs = []
+        for device in (dev, torch.device("cpu")):
+            o = opt.create(case.split()[0], **kw, **SURFACE_HP)
+            o.set_lr_mult({1: 0.5})
+            ws = [torch.tensor(w, device=device) for w in w0]
+            states = [o.create_state_multi_precision(i, w)
+                      for i, w in enumerate(ws)]
+            for step in grads:
+                for i, (w, g) in enumerate(zip(ws, step)):
+                    o.update_multi_precision(
+                        i, w, torch.tensor(g, device=device), states[i])
+            leaves = [w.cpu().numpy() for w in ws]
+            for s in states:
+                ref = o.reference_state(s)
+                ref = () if ref is None else \
+                    ref if isinstance(ref, tuple) else (ref,)
+                leaves += [t.cpu().numpy() for t in ref]
+            runs.append(leaves)
+        worst[case] = max(_rel(a, b) for a, b in zip(*runs))
+    return worst
+
+
+def _arrays(rng, n, shape=(6, 5), positive=()):
+    import numpy as np
+    out = [rng.randn(*shape).astype(np.float32) for _ in range(n)]
+    for i in positive:
+        out[i] = np.abs(out[i]) + 0.1
+    return out
+
+
+def _surface_op_cases(rng):
+    """``(name, call(nd, arrays), numpy inputs, index of the input whose
+    gradient is held or None, rtol)`` for each of the loss and optimizer
+    ops and the densities."""
+    import numpy as np
+    hp = dict(SURFACE_HP)
+    f16 = lambda *a: [x.astype(np.float16) for x in a]   # noqa: E731
+    labels = lambda c: rng.randint(0, c, (6,)).astype(np.float32)  # noqa
+    r = lambda: (np.abs(rng.randn(1)) + 0.5).astype(np.float32)  # noqa
+    cases = []
+
+    def op(name, arrays, grad=None, rtol=SURFACE_RTOL, **kw):
+        cases.append((name, lambda nd, a: getattr(nd, name)(*a, **kw),
+                      arrays, grad, rtol))
+
+    op("sgd_update", _arrays(rng, 2), lr=0.1, **hp)
+    op("sgd_mom_update", _arrays(rng, 3), lr=0.1, momentum=0.9, **hp)
+    op("nag_mom_update", _arrays(rng, 3), lr=0.1, momentum=0.9, **hp)
+    op("adam_update", _arrays(rng, 4, positive=(3,)), lr=0.01, **hp)
+    op("signsgd_update", _arrays(rng, 2), lr=0.1, **hp)
+    op("signum_update", _arrays(rng, 3), lr=0.1, momentum=0.9, wd_lh=0.01,
+       **hp)
+    op("rmsprop_update", _arrays(rng, 3, positive=(2,)), lr=0.01,
+       clip_weights=1.2, **hp)
+    alex = _arrays(rng, 5, positive=(2,))
+    alex[2] += 1.0
+    alex[3] *= 0.1
+    op("rmspropalex_update", alex, lr=0.01, **hp)
+    op("ftrl_update", _arrays(rng, 4, positive=(3,)), lr=0.1, **hp)
+    op("adagrad_update", _arrays(rng, 3, positive=(2,)), lr=0.1, **hp)
+    op("ftml_update", _arrays(rng, 5, positive=(2, 3)), lr=0.1, t=3,
+       wd=0.01, rescale_grad=0.7, clip_grad=0.9)
+    op("adamax_update", _arrays(rng, 4, positive=(3,)), lr=0.01, **hp)
+    op("nadam_update", _arrays(rng, 4, positive=(3,)), lr=0.01, t=4, **hp)
+    lamb1 = dict(t=3, beta1=0.9, beta2=0.99, **hp)
+    op("lamb_update_phase1", _arrays(rng, 4, positive=(3,)), **lamb1)
+    op("lamb_update_phase2", _arrays(rng, 2) + [r(), r()], lr=0.01,
+       lower_bound=0.5, upper_bound=3.0)
+    w, g, m, w32 = _arrays(rng, 4)
+    op("mp_sgd_update", f16(w, g) + [w], lr=0.1, **hp)
+    op("mp_sgd_mom_update", f16(w, g) + [m, w], lr=0.1, momentum=0.9, **hp)
+    op("mp_nag_mom_update", f16(w, g) + [m, w], lr=0.1, momentum=0.9, **hp)
+    op("mp_lamb_update_phase1", f16(w, g) + [m, np.abs(w32) + 0.1, w],
+       **lamb1)
+    op("mp_lamb_update_phase2", f16(w) + [g, r(), r(), w], lr=0.01)
+    multi = dict(lrs=[0.1, 0.05], wds=[0.01, 0.0], rescale_grad=0.5,
+                 clip_gradient=0.9)
+    op("multi_sgd_update", _arrays(rng, 4), **multi)
+    op("multi_sgd_mom_update", _arrays(rng, 6), momentum=0.8, **multi)
+    op("multi_mp_sgd_update", f16(w, g) + [w] + f16(m, g) + [m], **multi)
+    op("multi_mp_sgd_mom_update", f16(w, g) + [m, w] + f16(m, g) + [w, m],
+       momentum=0.8, **multi)
+    op("multi_lamb_update", _arrays(rng, 4, positive=(3,)) +
+       _arrays(rng, 4, positive=(3,)), step=3, lower_bound=0.2,
+       upper_bound=5.0, **multi)
+    pre = [np.array([0.1, 0.05], np.float32), np.array([0.01, 0.0],
+                                                       np.float32)]
+    pkw = dict(rescale_grad=0.5, clip_gradient=0.9)
+    op("preloaded_multi_sgd_update", _arrays(rng, 4) + pre, **pkw)
+    op("preloaded_multi_sgd_mom_update", _arrays(rng, 6) + pre,
+       momentum=0.8, **pkw)
+    op("preloaded_multi_mp_sgd_update",
+       f16(w, g) + [w] + f16(m, g) + [m] + pre, **pkw)
+    op("preloaded_multi_mp_sgd_mom_update",
+       f16(w, g) + [m, w] + f16(m, g) + [w, m] + pre, momentum=0.8, **pkw)
+    op("multi_sum_sq", _arrays(rng, 3), num_arrays=3)
+    op("multi_lars", [np.array([0.1, 0.2], np.float32),
+                      np.array([4.0, 0.0], np.float32),
+                      np.array([1.0, 9.0], np.float32),
+                      np.array([0.01, 0.02], np.float32)], eta=0.01,
+       eps=1e-6, rescale_grad=0.5)
+    inf = _arrays(rng, 1)[0]
+    inf[1, 1] = np.inf
+    op("all_finite", [inf])
+    op("multi_all_finite", _arrays(rng, 2) + [inf])
+    op("reset_arrays", _arrays(rng, 2), num_arrays=2)
+    # the loss ops, with their gradients
+    op("SoftmaxOutput", [_arrays(rng, 1)[0], labels(5)], grad=0,
+       grad_scale=0.5, use_ignore=True, normalization="valid")
+    op("softmax_cross_entropy", [_arrays(rng, 1)[0], labels(5)], grad=0)
+    op("smooth_l1", _arrays(rng, 1), grad=0, scalar=1.5)
+    op("MakeLoss", _arrays(rng, 1), grad=0, grad_scale=0.3)
+    cases.append(("BlockGrad", lambda nd, a: nd.BlockGrad(a[0]) + a[0] * 2,
+                  _arrays(rng, 1), 0, SURFACE_RTOL))
+    op("LinearRegressionOutput", _arrays(rng, 2), grad=0, grad_scale=0.5)
+    op("MAERegressionOutput", _arrays(rng, 2), grad=0)
+    op("LogisticRegressionOutput",
+       [_arrays(rng, 1)[0], (rng.rand(6, 5) > 0.5).astype(np.float32)],
+       grad=0, grad_scale=2.0)
+    op("SVMOutput", [_arrays(rng, 1)[0], labels(5)], grad=0, margin=0.5)
+    op("IdentityAttachKLSparseReg", [rng.rand(6, 5).astype(np.float32)],
+       grad=0, sparseness_target=0.2, penalty=0.01)
+    act = rng.randn(12, 4, 6).astype(np.float32)            # (T, B, C)
+    lab = np.array([[1, 1, 3, 2], [4, -1, -1, -1], [2, 5, 1, -1],
+                    [3, 3, -1, -1]], np.float32)
+    op("ctc_loss", [act, lab], grad=0, rtol=SURFACE_CTC_RTOL)
+    op("CTCLoss", [act, lab, np.array([12, 10, 9, 11], np.float32),
+                   np.array([4, 1, 3, 2], np.float32)], grad=0,
+       rtol=SURFACE_CTC_RTOL, use_data_lengths=True, use_label_lengths=True,
+       blank_label="first")
+    # the densities
+    pos = lambda *s: (rng.rand(*s) * 2 + 0.5).astype(np.float32)  # noqa
+    counts = rng.poisson(2.0, (2, 5)).astype(np.float32)
+    dirichlet = rng.rand(2, 5, 3).astype(np.float32) + 0.1
+    for name, sample, params in (
+            ("uniform", rng.rand(2, 5).astype(np.float32),
+             [np.zeros(2, np.float32), np.ones(2, np.float32) * 1.5]),
+            ("normal", rng.randn(2, 5).astype(np.float32),
+             [rng.randn(2).astype(np.float32), pos(2)]),
+            ("gamma", pos(2, 5), [pos(2), pos(2)]),
+            ("exponential", pos(2, 5), [pos(2)]),
+            ("poisson", counts, [pos(2)]),
+            ("negative_binomial", counts,
+             [pos(2), np.array([0.3, 0.7], np.float32)]),
+            ("generalized_negative_binomial", counts, [pos(2), pos(2)]),
+            ("dirichlet", dirichlet / dirichlet.sum(-1, keepdims=True),
+             [pos(2, 3)])):
+        op(f"random_pdf_{name}", [sample] + params, is_log=True)
+    return cases
+
+
+def _outputs(out):
+    if out is None:
+        return []
+    return list(out) if isinstance(out, (list, tuple)) else [out]
+
+
+def _surface_ops(dev):
+    """Each case of ``_surface_op_cases`` on the card and the CPU: its
+    outputs, every input after the call (the in-place state writes) and
+    the held gradient; ``{name: worst relative difference}`` and the
+    cases whose difference exceeds their limit."""
+    import numpy as np
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import autograd
+    rng = np.random.RandomState(33)
+    worst, bad = {}, []
+    for name, call, inputs, grad, rtol in _surface_op_cases(rng):
+        runs = []
+        head = None
+        for ctx in (mx.gpu(dev.index or 0), mx.cpu()):
+            arrs = [mx.nd.array(x, ctx=ctx, dtype=str(x.dtype))
+                    for x in inputs]
+            if grad is None:
+                outs = _outputs(call(mx.nd, arrs))
+                got = [o.asnumpy() for o in outs]
+            else:
+                arrs[grad].attach_grad()
+                with autograd.record():
+                    out = call(mx.nd, arrs)
+                if head is None:
+                    head = np.asarray(np.random.RandomState(3).randn(
+                        *out.shape), np.float32)
+                out.backward(mx.nd.array(head, ctx=ctx) if out.ndim
+                             else None)
+                got = [out.asnumpy(), arrs[grad].grad.asnumpy()]
+            runs.append(got + [a.asnumpy() for a in arrs])
+        worst[name] = max(_rel(a.astype(np.float32), b.astype(np.float32))
+                          for a, b in zip(*runs)
+                          if np.isfinite(b).all())
+        if worst[name] > rtol:
+            bad.append(f"{name} {worst[name]:.3e} > {rtol}")
+    return worst, bad
+
+
+def _surface_losses(dev):
+    """Each Gluon loss's value and gradient (with ``weight`` and a
+    ``sample_weight``), card against CPU."""
+    import numpy as np
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import autograd, gluon
+    L = gluon.loss
+    rng = np.random.RandomState(34)
+    f = lambda *s: rng.randn(*s).astype(np.float32)   # noqa: E731
+    sign = lambda *s: np.where(rng.rand(*s) > 0.5, 1, -1).astype(  # noqa
+        np.float32)
+    probs = np.exp(f(2, 6, 5))
+    probs = (probs / probs.sum(-1, keepdims=True)).astype(np.float32)
+    ctc_pred = f(4, 12, 6)
+    ctc_lab = np.array([[1, 1, 3, 2], [4, 0, 0, 0], [2, 5, 1, 0],
+                        [3, 3, 0, 0]], np.float32)
+    cases = {
+        "L2Loss": (L.L2Loss(weight=0.7), [f(6, 5), f(6, 5)]),
+        "L1Loss": (L.L1Loss(weight=0.5), [f(6, 5), f(6, 5)]),
+        "SigmoidBinaryCrossEntropyLoss": (
+            L.SigmoidBinaryCrossEntropyLoss(weight=0.6),
+            [f(6, 5), (rng.rand(6, 5) > 0.5).astype(np.float32)]),
+        "SoftmaxCrossEntropyLoss": (
+            L.SoftmaxCrossEntropyLoss(weight=0.8),
+            [f(6, 5), rng.randint(0, 5, (6,)).astype(np.float32)]),
+        "KLDivLoss": (L.KLDivLoss(weight=0.9), [np.log(probs[0]),
+                                                probs[1]]),
+        "HuberLoss": (L.HuberLoss(rho=0.5), [f(6, 5), f(6, 5)]),
+        "HingeLoss": (L.HingeLoss(), [f(6, 5), sign(6, 5)]),
+        "SquaredHingeLoss": (L.SquaredHingeLoss(), [f(6, 5), sign(6, 5)]),
+        "LogisticLoss": (L.LogisticLoss(), [f(6, 5), sign(6, 5)]),
+        "TripletLoss": (L.TripletLoss(margin=0.5), [f(6, 5), f(6, 5),
+                                                    f(6, 5)]),
+        "CTCLoss": (L.CTCLoss(weight=0.5), [ctc_pred, ctc_lab]),
+        "CosineEmbeddingLoss": (L.CosineEmbeddingLoss(margin=0.2),
+                                [f(6, 5), f(6, 5), sign(6)]),
+        "PoissonNLLLoss": (L.PoissonNLLLoss(), [
+            f(6, 5), rng.poisson(2.0, (6, 5)).astype(np.float32)]),
+    }
+    worst, bad = {}, []
+    for name, (loss, inputs) in cases.items():
+        batch = inputs[0].shape[0]
+        sw = rng.rand(batch, *([1] * (inputs[0].ndim - 1))).astype(
+            np.float32)
+        if name in ("TripletLoss", "CosineEmbeddingLoss", "CTCLoss"):
+            sw = sw.reshape(batch)
+        runs = []
+        for ctx in (mx.gpu(dev.index or 0), mx.cpu()):
+            arrs = [mx.nd.array(x, ctx=ctx) for x in inputs]
+            arrs[0].attach_grad()
+            with autograd.record():
+                out = loss(*arrs, sample_weight=mx.nd.array(sw, ctx=ctx))
+            out.backward()
+            runs.append([out.asnumpy(), arrs[0].grad.asnumpy()])
+        rtol = SURFACE_CTC_RTOL if name == "CTCLoss" else SURFACE_RTOL
+        worst[name] = max(_rel(a, b) for a, b in zip(*runs))
+        if worst[name] > rtol:
+            bad.append(f"{name} {worst[name]:.3e} > {rtol}")
+    return worst, bad
+
+
+def _moments_ok(x, mean, var):
+    """(ok, text): the draws' mean and variance within ``SAMPLER_SE``
+    standard errors of the distribution's (the variance's from the
+    sample's own fourth moment)."""
+    import numpy as np
+    x = np.asarray(x, np.float64).reshape(-1)
+    n = x.size
+    m = x.mean()
+    dev2 = (x - m) ** 2
+    v = dev2.mean() * n / (n - 1)
+    zm = abs(m - mean) / np.sqrt(var / n)
+    zv = abs(v - var) / np.sqrt(dev2.var() / n)
+    return max(zm, zv) <= SAMPLER_SE, f"{zm:.2f}/{zv:.2f} SE"
+
+
+def _surface_samplers(dev):
+    """Each sampler and ``sample_*`` op, ``SAMPLER_DRAWS`` draws on the
+    card from the device generator: ``{name: z-scores}`` and failures."""
+    import numpy as np
+    import mxnet_tpu_torch as mx
+    ctx = mx.gpu(dev.index or 0)
+    n = SAMPLER_DRAWS
+    nb = lambda k, p: (k * (1 - p) / p, k * (1 - p) / p ** 2)  # noqa
+    R = mx.nd.random
+    draws = {
+        "uniform": (lambda: R.uniform(-1.0, 3.0, shape=(n,), ctx=ctx),
+                    1.0, 16 / 12),
+        "normal": (lambda: R.normal(0.5, 2.0, shape=(n,), ctx=ctx),
+                   0.5, 4.0),
+        "gamma": (lambda: R.gamma(2.5, 0.8, shape=(n,), ctx=ctx), 2.0, 1.6),
+        "exponential": (lambda: R.exponential(1.5, shape=(n,), ctx=ctx),
+                        1.5, 2.25),
+        "poisson": (lambda: R.poisson(3.5, shape=(n,), ctx=ctx), 3.5, 3.5),
+        "negative_binomial": (
+            lambda: R.negative_binomial(3, 0.4, shape=(n,), ctx=ctx),
+            *nb(3, 0.4)),
+        "generalized_negative_binomial": (
+            lambda: R.generalized_negative_binomial(2.0, 0.5, shape=(n,),
+                                                    ctx=ctx), 2.0, 4.0),
+    }
+
+    def per_element(name, params):
+        return getattr(mx.nd, name)(*[mx.nd.array(p, ctx=ctx)
+                                      for p in params], shape=n)
+
+    draws.update({
+        "sample_uniform": (lambda: per_element(
+            "sample_uniform", [[-1.0], [3.0]]), 1.0, 16 / 12),
+        "sample_normal": (lambda: per_element(
+            "sample_normal", [[0.5], [2.0]]), 0.5, 4.0),
+        "sample_gamma": (lambda: per_element(
+            "sample_gamma", [[2.5], [0.8]]), 2.0, 1.6),
+        "sample_exponential": (lambda: per_element(
+            "sample_exponential", [[2.0]]), 0.5, 0.25),
+        "sample_poisson": (lambda: per_element(
+            "sample_poisson", [[3.5]]), 3.5, 3.5),
+        "sample_negative_binomial": (lambda: per_element(
+            "sample_negative_binomial", [[3.0], [0.4]]), *nb(3, 0.4)),
+        "sample_generalized_negative_binomial": (lambda: per_element(
+            "sample_generalized_negative_binomial", [[2.0], [0.5]]),
+            2.0, 4.0),
+        "random_uniform": (lambda: mx.nd.random_uniform(
+            -1.0, 3.0, shape=(n,), ctx=ctx), 1.0, 16 / 12),
+        "random_normal": (lambda: mx.nd.random_normal(
+            0.5, 2.0, shape=(n,), ctx=ctx), 0.5, 4.0)})
+    out, bad = {}, []
+    for name, (draw, mean, var) in draws.items():
+        x = draw()
+        if not x.data.is_cuda:
+            bad.append(f"{name} drew on {x.data.device}")
+        ok, text = _moments_ok(x.asnumpy(), mean, var)
+        out[name] = text
+        if not ok:
+            bad.append(f"{name} {text}")
+    probs = np.array([[0.1, 0.2, 0.7]], np.float32)
+    for name, fn in (("multinomial", mx.nd.random.multinomial),
+                     ("sample_multinomial", mx.nd.sample_multinomial)):
+        d = fn(mx.nd.array(probs, ctx=ctx), shape=n).asnumpy()[0]
+        z = max(abs((d == c).mean() - p) / np.sqrt(p * (1 - p) / n)
+                for c, p in enumerate(probs[0]))
+        out[name] = f"{z:.2f} SE"
+        if z > SAMPLER_SE:
+            bad.append(f"{name} {z:.2f} SE")
+    rows = mx.nd.array(np.arange(n, dtype=np.float32), ctx=ctx)
+    shuffled = mx.nd.random.shuffle(rows).asnumpy()
+    if np.array_equal(shuffled, rows.asnumpy()) or not np.array_equal(
+            np.sort(shuffled), rows.asnumpy()):
+        bad.append("shuffle is not a permutation")
+    return out, bad
+
+
+def surface_card_vs_cpu(dev):
+    """Phase 32: the training surface at small sizes, card against CPU.
+    Each optimizer (3 updates of 3 parameters with wd, clip, rescale and
+    an ``lr_mult``; weights and states), each loss, optimizer and density
+    op (outputs, in-place state writes and the loss ops' gradients under
+    a random head) and each Gluon loss (value and gradient, with
+    ``weight`` and ``sample_weight``) within the CPU tests' 1e-5
+    relative (CTC 1e-4); SGLD, each ``nd.random`` sampler and each
+    ``sample_*`` op over 10^6 draws on the card within 5 standard errors
+    of the distribution's mean and variance (the multinomial's
+    frequencies within 5 binomial errors; ``shuffle`` a permutation).
+    None of them reaches a kernel of the port."""
+    import numpy as np
+    import torch
+    from mxnet_tpu_torch import ops, optimizer as opt
+    torch.cuda.synchronize(dev)
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    optimizers = _surface_optimizers(dev)
+    bad = [f"optimizer {k} {v:.3e} > {SURFACE_RTOL}"
+           for k, v in optimizers.items() if v > SURFACE_RTOL]
+    op_worst, op_bad = _surface_ops(dev)
+    loss_worst, loss_bad = _surface_losses(dev)
+    samplers, sampler_bad = _surface_samplers(dev)
+    # SGLD: the update less its drift is N(0, lr)
+    lr, wd = 0.04, 0.1
+    rng = np.random.RandomState(35)
+    w0 = rng.randn(SAMPLER_DRAWS).astype(np.float32)
+    g = rng.randn(SAMPLER_DRAWS).astype(np.float32)
+    sgld = opt.create("sgld", learning_rate=lr, wd=wd)
+    w = torch.tensor(w0, device=dev)
+    sgld.update(0, w, torch.tensor(g, device=dev), sgld.create_state(0, w))
+    noise = w.cpu().numpy().astype(np.float64) - w0 + lr / 2 * (g + wd * w0)
+    ok, samplers["sgld"] = _moments_ok(noise, 0.0, lr)
+    if not ok:
+        sampler_bad.append(f"sgld {samplers['sgld']}")
+    torch.cuda.synchronize(dev)
+    launches = read_launches("surface card vs cpu", {})
+    bad += op_bad + loss_bad + sampler_bad
+    print(f"surface card vs cpu ({len(optimizers)} optimizers, "
+          f"{len(op_worst)} op cases, {len(loss_worst)} losses, "
+          f"{len(samplers)} samplers, {time.perf_counter() - t0:.1f} s): "
+          f"worst relative difference card vs CPU: optimizers "
+          f"{ {k: float(f'{v:.3g}') for k, v in optimizers.items()} }; ops "
+          f"{ {k: float(f'{v:.3g}') for k, v in op_worst.items()} }; losses "
+          f"{ {k: float(f'{v:.3g}') for k, v in loss_worst.items()} }; "
+          f"sampler moments (mean/variance, in standard errors) "
+          f"{samplers}; launches {launches}", flush=True)
+    if bad:
+        fail("surface card vs cpu: " + "; ".join(bad))
     gc.collect()
     torch.cuda.empty_cache()
     return launches
@@ -5621,6 +6348,9 @@ def main():
     by_path["training_fused_ce"] = blocked_ce_training(dev, card)
     by_path["transformer_card_vs_cpu"] = transformer_card_vs_cpu(dev)
     by_path["transformer_training"] = transformer_training(dev, card)
+    # phase 30's f32 check and phase 32, before the amp phases
+    by_path["dp_bert_lamb_check"] = lamb_dp_vs_gluon(dev)
+    by_path["surface_card_vs_cpu"] = surface_card_vs_cpu(dev)
     # phases 11, 13, 15, 17 and 18 last: amp.init() is process-wide
     by_path["training_amp"], _ = train_llama3_8b(
         dev, card, amp_dtype="bfloat16", f32_first_loss=f32_first_loss)
@@ -5629,6 +6359,9 @@ def main():
     by_path["resnet_training"] = resnet_training(dev, card)
     by_path["dp_resnet"] = dp_training(dev, card, "resnet")
     by_path["dp_bert"] = dp_training(dev, card, "bert")
+    # phases 30 and 31: LAMB and LARS in the captured step
+    by_path["dp_bert_lamb"] = dp_training(dev, card, "bert", "lamb")
+    by_path["dp_resnet_lars"] = dp_training(dev, card, "resnet", "lars")
 
     kernels = []
     for name, src, tpu in (

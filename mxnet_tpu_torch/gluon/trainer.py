@@ -21,15 +21,18 @@ update); ``"write"`` is the Parameter's own hook.  The optimizer's
 
 The update mirrors the reference's ``_fused_jit_update``: qualification
 first, mutating nothing (a stale gradient raises before any parameter
-moves); then the update counts; then, when the parameters with fresh
+moves); then the update counts; then, for sgd, nag, adam and adamw (the
+reference's flat-bucket rules) when the parameters with fresh
 gradients form a uniform group (one lr, one wd -- so one multiplier --,
 one value of the optimizer's host scalars -- Adam's step count --, every
 parameter float32 on one device, two or more parameters), ONE
 flat-bucket update through ``ops.fused_update.fused_bucket_rule`` (K1
 for sgd/nag, K2 for adam/adamw on the card), and otherwise the per-param
 path (``Optimizer.update_multi_precision``: float16 weights keep an f32
-master copy under ``multi_precision``).  The two give bitwise-equal
-parameters on the CPU.  On the card the kernels read the learning rate
+master copy under ``multi_precision``), which every other optimizer
+takes (LAMB, LARS and RMSProp through their ``fused_rule``, AdaGrad,
+AdaDelta, Ftrl, Signum, SGLD and Test through their own chains).  The
+two give bitwise-equal parameters on the CPU.  On the card the kernels read the learning rate
 and Adam's step count from memory: the Trainer writes both into two
 device scalars of its own before the update.
 
@@ -67,8 +70,10 @@ the reference.
 
 The checkpoint protocol (reference ``state_dict``, ``load_state_dict``,
 ``save_states``, ``load_states``): the state goes out in the
-reference's per-parameter shapes (SGD's momentum one array, Adam's mean
-and variance a tuple, ``(inner, master)`` under ``multi_precision``)
+reference's per-parameter shapes (``Optimizer.reference_state``: SGD's
+momentum one array, Adam's and LAMB's mean and variance a tuple,
+RMSProp's ``(n,)`` or ``(n, g, delta)``, ``(inner, master)`` under
+``multi_precision``)
 and file format, with the update counters, so a state or file of either
 package loads in the other; loading writes into the state buffers in
 place, so they stay views of the flat buffers.
@@ -77,7 +82,6 @@ from __future__ import annotations
 
 import pickle
 
-import numpy as _np
 import torch
 from torch import nn
 
@@ -85,8 +89,8 @@ from ..autograd import write_grad_on_backward
 from ..base import MXNetError, NotSupportedError
 from .. import optimizer as opt
 from ..ndarray.ndarray import NDArray
-from ..ndarray.utils import to_numpy
-from ..ops.fused_update import fused_bucket_rule
+from ..ops.fused_update import BUCKET_RULES, fused_bucket_rule
+from ..optimizer.optimizer import _deserialize_state, _serialize_state
 from .parameter import Parameter, ParameterDict
 
 __all__ = ["Trainer"]
@@ -169,6 +173,12 @@ class Trainer:
         """Rescale gradients by ``rescale_grad / batch_size`` and update.
         On one card there is nothing to all-reduce."""
         self.update(batch_size, ignore_stale_grad)
+
+    def allreduce_grads(self):
+        """All-reduce the gradients across devices (reference
+        ``allreduce_grads``): the Trainer's kvstores are all of one
+        device (others raise at construction, ROADMAP §1 item 10), so,
+        as in the reference's local store, there is nothing to do."""
 
     def update(self, batch_size, ignore_stale_grad=False):
         """Update only (the reference's step without the all-reduce)."""
@@ -284,7 +294,7 @@ class Trainer:
             optimizer._update_count(i)
         params = [self._params[i] for i in idxs]
         auxs = [optimizer.aux(i) for i in idxs]
-        flat = (len(idxs) > 1
+        flat = (optimizer.rule in BUCKET_RULES and len(idxs) > 1
                 and len({float(optimizer._get_lr(i)) for i in idxs}) == 1
                 and len({float(optimizer._get_wd(i)) for i in idxs}) == 1
                 and all(a == auxs[0] for a in auxs)
@@ -377,28 +387,6 @@ class Trainer:
             self._init_states()
         return self._states
 
-    def _master(self, i):
-        """Whether parameter ``i`` keeps a float32 master copy
-        (``multi_precision`` float16): its state is ``(inner, master)``."""
-        return self._optimizer.multi_precision and \
-            self._params[i].dtype == torch.float16
-
-    def _reference_state(self, i, state):
-        """Parameter ``i``'s state in the reference's shape: None, one
-        array (SGD's momentum), a tuple (Adam's mean and variance), or
-        ``(inner, master)`` under ``multi_precision``."""
-        if self._master(i):
-            inner, master = state
-            return (self._reference_state_leaves(inner), master)
-        return self._reference_state_leaves(state)
-
-    @staticmethod
-    def _reference_state_leaves(state):
-        leaves = list(state.values())
-        if not leaves:
-            return None
-        return leaves[0] if len(leaves) == 1 else tuple(leaves)
-
     def _write_state(self, i, value):
         """Write ``value`` (the reference's shape, arrays of either
         package or numpy) into parameter ``i``'s state, in place."""
@@ -406,28 +394,8 @@ class Trainer:
         if state is None:
             raise MXNetError(f"optimizer state for parameter index {i}, "
                              "which this Trainer does not update")
-        pairs = []
-        if self._master(i):
-            inner, master = state
-            value, vmaster = value
-            pairs.append((master, vmaster))
-            state = inner
-        leaves = list(state.values())
-        values = [] if value is None else \
-            list(value) if isinstance(value, (tuple, list)) else [value]
-        if len(values) != len(leaves):
-            raise MXNetError(f"optimizer state for parameter index {i} has "
-                             f"{len(values)} arrays, this optimizer keeps "
-                             f"{len(leaves)}")
-        pairs += list(zip(leaves, values))
-        with torch.no_grad():
-            for dst, src in pairs:
-                src = to_numpy(src)
-                if tuple(src.shape) != tuple(dst.shape):
-                    raise MXNetError(
-                        f"optimizer state for parameter index {i}: shape "
-                        f"{tuple(src.shape)} != {tuple(dst.shape)}")
-                dst.copy_(torch.from_numpy(_np.ascontiguousarray(src)))
+        self._optimizer.load_reference_state(
+            state, value, f"optimizer state for parameter index {i}")
 
     def _counters(self):
         opt_ = self._optimizer
@@ -451,7 +419,7 @@ class Trainer:
         copies."""
         arrays, layout = {}, {}
         for i, s in (self._states or {}).items():
-            layout[str(i)] = _encode_state(self._reference_state(i, s),
+            layout[str(i)] = _encode_state(self._optimizer.reference_state(s),
                                            f"opt/{i}", arrays)
         meta = {"kind": "gluon.Trainer",
                 "optimizer": type(self._optimizer).__name__,
@@ -476,7 +444,7 @@ class Trainer:
         format: ``{"states": pickle((index -> state, None)), "counters":
         {...}}``, each state as ``("nd", numpy)``, ``("tuple", (...))``
         or None."""
-        serial = {i: _serialize_state(self._reference_state(i, s))
+        serial = {i: _serialize_state(self._optimizer.reference_state(s))
                   for i, s in (self._states or {}).items()}
         with open(fname, "wb") as f:
             f.write(pickle.dumps({"states": pickle.dumps((serial, None)),
@@ -530,23 +498,3 @@ def _decode_state(desc, key, arrays):
         return tuple(_decode_state(d, f"{key}.{j}", arrays)
                      for j, d in enumerate(items))
     raise MXNetError(f"unknown optimizer state descriptor {desc!r}")
-
-
-def _serialize_state(s):
-    """The reference's ``optimizer._serialize_state``, over tensors."""
-    if s is None:
-        return None
-    if isinstance(s, tuple):
-        return ("tuple", tuple(_serialize_state(x) for x in s))
-    if torch.is_tensor(s):
-        return ("nd", s.detach().cpu().numpy().copy())
-    return ("raw", s)
-
-
-def _deserialize_state(v):
-    if v is None:
-        return None
-    tag, payload = v
-    if tag == "tuple":
-        return tuple(_deserialize_state(x) for x in payload)
-    return payload

@@ -6,11 +6,13 @@ and running means with zeros, ``*gamma`` and running variances with
 ones, anything else through ``_init_weight``), the registry by name
 (``create("xavier")``, ``"zeros"``, ``"ones"``, ``"normal"``,
 ``"uniform"``, ...), ``Uniform``, ``Normal``, ``Constant``, ``Zero``,
-``One``, ``Xavier``, ``MSRAPrelu`` and ``Mixed``.  An initializer fills
-an NDArray in place; the random ones draw from the ``nd.random``
-generator of its device, so their bits differ from the reference's (the
-distributions agree).  ``Orthogonal``, ``Bilinear``, ``LSTMBias``,
-``Load`` and ``FusedRNN`` arrive with ``gluon/rnn`` (ROADMAP §1 item 11).
+``One``, ``Xavier``, ``MSRAPrelu``, ``Orthogonal``, ``Bilinear``,
+``LSTMBias``, ``Load`` and ``Mixed``.  An initializer fills an NDArray
+in place; the random ones (``Orthogonal`` too, where the reference draws
+from numpy's global generator) draw from the ``nd.random`` generator of
+its device, so their bits differ from the reference's (the
+distributions agree).  ``FusedRNN`` arrives with ``gluon/rnn`` (ROADMAP
+§1 item 11).
 """
 from __future__ import annotations
 
@@ -24,7 +26,8 @@ from .base import MXNetError
 from .ndarray import random as _rnd
 
 __all__ = ["Initializer", "Uniform", "Normal", "Constant", "Zero", "One",
-           "Xavier", "MSRAPrelu", "Mixed", "register", "create", "InitDesc"]
+           "Xavier", "MSRAPrelu", "Orthogonal", "Bilinear", "LSTMBias",
+           "Load", "Mixed", "register", "create", "InitDesc"]
 
 _REGISTRY = {}
 
@@ -215,6 +218,107 @@ class MSRAPrelu(Xavier):
     def __init__(self, factor_type="avg", slope=0.25):
         super().__init__("gaussian", factor_type, 2.0 / (1 + slope ** 2))
         self._kwargs = {"factor_type": factor_type, "slope": slope}
+
+
+@register
+class Orthogonal(Initializer):
+    """``scale`` times the orthonormal factor of a random ``(nout, nin)``
+    matrix (uniform in [-1, 1] or standard normal, ``rand_type``): rows
+    orthonormal when ``nout <= nin``, else columns (reference
+    initializer.Orthogonal)."""
+
+    def __init__(self, scale=1.414, rand_type="uniform"):
+        super().__init__(scale=scale, rand_type=rand_type)
+        self.scale = scale
+        self.rand_type = rand_type
+
+    def _init_weight(self, name, arr):
+        t = arr.data
+        nout = t.shape[0]
+        nin = int(_np.prod(t.shape[1:]))
+        tmp = torch.empty((nout, nin), dtype=torch.float32, device=t.device)
+        gen = _rnd.generator(t.device)
+        if self.rand_type == "uniform":
+            tmp.uniform_(-1.0, 1.0, generator=gen)
+        else:
+            tmp.normal_(0.0, 1.0, generator=gen)
+        u, _, v = torch.linalg.svd(tmp, full_matrices=False)
+        q = u if tuple(u.shape) == (nout, nin) else v
+        _fill(arr, (self.scale * q).reshape(t.shape))
+
+
+@register
+class Bilinear(Initializer):
+    """The bilinear upsampling kernel of a deconvolution weight (reference
+    initializer.Bilinear)."""
+
+    def _init_weight(self, name, arr):
+        shape = arr.shape
+        f = _np.ceil(shape[3] / 2.0)
+        c = (2 * f - 1 - f % 2) / (2.0 * f)
+        i = _np.arange(int(_np.prod(shape)))
+        x, y = i % shape[3], (i // shape[3]) % shape[2]
+        weight = ((1 - _np.abs(x / f - c)) * (1 - _np.abs(y / f - c)))
+        _fill(arr, torch.from_numpy(weight.astype(_np.float32))
+              .reshape(shape))
+
+
+@register
+class LSTMBias(Initializer):
+    """Zeros but the forget gate's quarter, ``forget_bias`` (reference
+    initializer.LSTMBias; gates in MXNet's i, f, c, o order)."""
+
+    def __init__(self, forget_bias=1.0):
+        super().__init__(forget_bias=forget_bias)
+        self.forget_bias = forget_bias
+
+    def _init_weight(self, name, arr):
+        b = torch.zeros(arr.shape, dtype=torch.float32)
+        h = arr.shape[0] // 4
+        b[h:2 * h] = self.forget_bias
+        _fill(arr, b)
+
+    _init_bias = _init_weight
+
+
+@register
+class Load(Initializer):
+    """Values from a dict (or a ``.params`` file) of named arrays, the
+    ``arg:``/``aux:`` prefixes dropped; a name it lacks goes to
+    ``default_init``, or raises (reference initializer.Load)."""
+
+    def __init__(self, param, default_init=None, verbose=False):
+        super().__init__()
+        if isinstance(param, str):
+            from .ndarray.utils import load
+            param = load(param)
+        if not isinstance(param, dict):
+            raise MXNetError("Load initializer requires NAMED arrays (a dict "
+                             "or a .params file saved with names)")
+        self.param = {(k[4:] if k.startswith(("arg:", "aux:")) else k): v
+                      for k, v in param.items()}
+        self.default_init = default_init
+        self.verbose = verbose
+
+    def __call__(self, desc, arr):
+        name = str(desc)
+        if name not in self.param:
+            if self.default_init is None:
+                raise MXNetError(f"Load initializer: no value for {name} and "
+                                 "no default_init given")
+            self.default_init(desc, arr)
+            return
+        from .ndarray.utils import to_numpy
+        src = to_numpy(self.param[name])
+        if tuple(src.shape) != tuple(arr.shape):
+            raise MXNetError(f"Load initializer: parameter {name} has shape "
+                             f"{tuple(arr.shape)} but the source is "
+                             f"{tuple(src.shape)}")
+        _fill(arr, torch.from_numpy(_np.ascontiguousarray(src))
+              .to(arr.data.dtype))
+        if self.verbose:
+            import logging
+            logging.info("Initialized %s by loading", name)
 
 
 class Mixed:

@@ -9,11 +9,23 @@ gathers (``take``, ``pick``, ``one_hot``, ``gather_positions``),
 ``where``, the elementwise unary and binary ops and the reductions;
 and the ops of convolutional nets: ``Convolution``, ``Deconvolution``,
 ``Pooling``, ``BatchNorm``, ``InstanceNorm``, ``GroupNorm``,
-``Pad``/``pad``, ``space_to_depth`` and ``depth_to_space``.  Every op
-runs through ``ndarray.apply`` (so only ``autograd.record()`` builds a
-graph) and is listed in ``_OPS`` by ``_register``, as in the reference.
-Where XLA fused these ops for free they are plain PyTorch, and the
-convolutions and pooling windows torch's calls: none is a TPU kernel.
+``Pad``/``pad``, ``space_to_depth`` and ``depth_to_space``; the loss
+ops (``SoftmaxOutput``, ``softmax_cross_entropy``, ``smooth_l1``,
+``MakeLoss``, ``BlockGrad``, ``ctc_loss``/``CTCLoss``, the regression
+outputs, ``SVMOutput``, ``IdentityAttachKLSparseReg``; where the
+reference defines its own gradient, a ``torch.autograd.Function``), the
+optimizer update ops (``sgd_update`` ... ``preloaded_multi_*``,
+``lamb_update_phase1/2``, ``multi_sum_sq``, ``multi_lars``,
+``all_finite``, ``reset_arrays``: they write their state arguments and
+the weight in place, calling ``optimizer.fused_rule`` where a rule
+computes the same function) and the samplers (``sample_*``,
+``random_uniform``/``random_normal``, the ``random_pdf_*`` densities).
+Every op but the update ops (which run under ``no_grad``) runs through
+``ndarray.apply`` (so only ``autograd.record()`` builds a graph), and
+every op is listed in ``_OPS`` by ``_register``, as in the reference.
+Where XLA
+fused these ops for free they are plain PyTorch, and the convolutions
+and pooling windows torch's calls: none is a TPU kernel.
 
 Under ``amp.init()`` the registry casts an op's floating inputs by the
 reference's lists (``amp/lists.py``), as the reference's ``amp.init``
@@ -1104,3 +1116,974 @@ _alias("zeros", zeros)
 _alias("ones", ones)
 _alias("full", full)
 _alias("array", array)
+
+
+# ===========================================================================
+# losses at op level (reference: src/operator/loss_binary_op.cc,
+# softmax_output.cc, regression_output.cc, svm_output.cc, make_loss.cc,
+# identity_attach_KL_sparse_reg.cc, nn/ctc_loss.cc).  Where the reference
+# defines its own gradient (a custom_vjp), it is a torch.autograd.Function
+# here: the op's gradient replaces the incoming one, as there.
+# ===========================================================================
+
+def _onehot(label, depth, dtype):
+    """One-hot rows of ``label`` (any float or int tensor); an index out
+    of ``[0, depth)`` (an ignore label of -1) gives a zero row, as
+    ``jax.nn.one_hot`` does."""
+    idx = label.long().unsqueeze(-1)
+    return (idx == torch.arange(depth, device=label.device)).to(dtype)
+
+
+class _SoftmaxOutputFn(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, d, label, grad_scale, ignore_label, use_ignore,
+                normalization):
+        p = torch.softmax(d, dim=-1)
+        ctx.save_for_backward(p, label)
+        ctx.cfg = (grad_scale, ignore_label, use_ignore, normalization)
+        return p
+
+    @staticmethod
+    def backward(ctx, g):
+        p, label = ctx.saved_tensors
+        grad_scale, ignore_label, use_ignore, normalization = ctx.cfg
+        grad = (p - _onehot(label, p.shape[-1], p.dtype)) * grad_scale
+        if use_ignore:
+            grad = grad * (label != ignore_label).to(p.dtype)[..., None]
+        if normalization == "batch":
+            grad = grad / p.shape[0]
+        elif normalization == "valid" and use_ignore:
+            grad = grad / torch.clamp((label != ignore_label).sum(),
+                                      min=1).to(p.dtype)
+        return grad, None, None, None, None, None
+
+
+@_register
+def SoftmaxOutput(data, label, grad_scale=1.0, ignore_label=-1,
+                  use_ignore=False, multi_output=False, normalization="null",
+                  out_grad=False, smooth_alpha=0.0):
+    """Forward softmax over the last axis; backward ``(p - onehot(label))
+    * grad_scale`` (masked by ``use_ignore``, divided by the batch or the
+    valid count), replacing the incoming gradient.  Reference:
+    src/operator/softmax_output.cc."""
+    return apply(lambda d, l: _SoftmaxOutputFn.apply(
+        d, l, grad_scale, ignore_label, use_ignore, normalization),
+        [data, _nd(label, data)])
+
+
+@_register
+def softmax_cross_entropy(data, label):
+    """``-sum(onehot(label) * log_softmax(data))`` over everything: one
+    scalar (reference loss_binary_op.cc)."""
+    def fn(d, l):
+        return -torch.sum(_onehot(l, d.shape[-1], d.dtype) *
+                          F.log_softmax(d, dim=-1))
+    return apply(fn, [data, _nd(label, data)])
+
+
+@_register
+def smooth_l1(data, scalar=1.0):
+    s2 = scalar * scalar
+
+    def fn(d):
+        a = torch.abs(d)
+        return torch.where(a < 1.0 / s2, 0.5 * s2 * torch.square(d),
+                           a - 0.5 / s2)
+    return apply(fn, [data])
+
+
+@_register
+def MakeLoss(data, grad_scale=1.0, valid_thresh=0.0, normalization="null"):
+    """``data * grad_scale`` (reference make_loss.cc, as the reference's
+    port computes it)."""
+    return apply(lambda d: d * grad_scale, [data])
+
+
+BlockGrad = _alias("BlockGrad", stop_gradient)
+
+
+class _OutputFn(torch.autograd.Function):
+    """The Module-era output ops: ``forward(d)`` is the op's forward;
+    the backward is ``grad_of(out or d, label)``, replacing the incoming
+    gradient (the label takes none)."""
+
+    @staticmethod
+    def forward(ctx, d, label, forward, grad_of, from_output):
+        out = forward(d)
+        ctx.save_for_backward(out if from_output else d, label)
+        ctx.grad_of = grad_of
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        x, label = ctx.saved_tensors
+        return ctx.grad_of(x, label).to(x.dtype), None, None, None, None
+
+
+def _output_op(name, grad_of, forward=None, doc=""):
+    def op(data, label, grad_scale=1.0):
+        fwd = forward or (lambda d: d.clone())
+        return apply(lambda d, l: _OutputFn.apply(
+            d, l, fwd, lambda x, lab: grad_of(x, lab, grad_scale),
+            forward is not None), [data, _nd(label, data)])
+    op.__name__ = name
+    op.__doc__ = doc
+    return _register(op)
+
+
+LinearRegressionOutput = _output_op(
+    "LinearRegressionOutput",
+    lambda d, l, s: (d - l.reshape(d.shape)) * s,
+    doc="Identity forward; backward ``(data - label) * grad_scale`` "
+        "(reference regression_output.cc).")
+MAERegressionOutput = _output_op(
+    "MAERegressionOutput",
+    lambda d, l, s: torch.sign(d - l.reshape(d.shape)) * s,
+    doc="Identity forward; backward ``sign(data - label) * grad_scale``.")
+LogisticRegressionOutput = _output_op(
+    "LogisticRegressionOutput",
+    lambda out, l, s: (out - l.reshape(out.shape)) * s,
+    forward=torch.sigmoid,
+    doc="Forward ``sigmoid(data)``; backward ``(out - label) * "
+        "grad_scale``.")
+
+
+def _svm_grad(d, l, scale, margin, coef, use_linear):
+    onehot = _onehot(l, d.shape[-1], d.dtype) > 0
+    signed = torch.where(onehot, -d, d)
+    viol = (margin + signed) > 0
+    sign = torch.where(onehot, -1.0, 1.0).to(d.dtype)
+    g = sign if use_linear else 2.0 * (margin + signed) * sign
+    return torch.where(viol, g, torch.zeros_like(g)) * scale * coef
+
+
+@_register
+def SVMOutput(data, label, margin=1.0, regularization_coefficient=1.0,
+              use_linear=False, grad_scale=1.0):
+    """Identity forward; backward the hinge (``use_linear``) or squared
+    hinge margin-violation gradient (reference svm_output.cc)."""
+    return apply(lambda d, l: _OutputFn.apply(
+        d, l, lambda x: x.clone(),
+        lambda x, lab: _svm_grad(x, lab, grad_scale, margin,
+                                 regularization_coefficient, use_linear),
+        False), [data, _nd(label, data)])
+
+
+class _KLSparseFn(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, d, target, penalty):
+        ctx.save_for_backward(d)
+        ctx.cfg = (target, penalty)
+        return d.clone()
+
+    @staticmethod
+    def backward(ctx, g):
+        (d,) = ctx.saved_tensors
+        t, penalty = ctx.cfg
+        rho = torch.clamp(d.mean(dim=0, keepdim=True), 1e-6, 1 - 1e-6)
+        kl = penalty * (-t / rho + (1 - t) / (1 - rho))
+        return g + kl.expand_as(g) / d.shape[0], None, None
+
+
+@_register
+def IdentityAttachKLSparseReg(data, sparseness_target=0.1, penalty=0.001,
+                              momentum=0.9):
+    """Identity forward; the backward adds the KL sparsity penalty's
+    gradient toward ``sparseness_target`` (reference
+    identity_attach_KL_sparse_reg.cc, as the reference's port computes
+    it: ``rho`` is the batch's mean activation, so ``momentum`` has no
+    effect)."""
+    return apply(lambda d: _KLSparseFn.apply(d, sparseness_target, penalty),
+                 [data])
+
+
+_CTC_NEG = -1e30
+
+
+def _ctc_nll(logp, ext, skip, t_len, l_len):
+    """The CTC negative log-likelihood of each row: ``logp`` (N, T, C)
+    log-probabilities, ``ext`` (N, S) the blank-interleaved labels,
+    ``skip`` (N, S) where a position may be reached from two back,
+    ``t_len``/``l_len`` (N,) the used lengths.  The forward (alpha)
+    recursion in log space, one step a time position, differentiable
+    by autograd (the reference's ``lax.scan``)."""
+    n, T, _ = logp.shape
+    neg = logp.new_full((n, 1), _CTC_NEG)
+    emit = torch.gather(logp, 2, ext.unsqueeze(1).expand(n, T, -1))
+    alpha = torch.cat([emit[:, 0, :1],
+                       torch.where(l_len[:, None] > 0, emit[:, 0, 1:2], neg),
+                       logp.new_full((n, ext.shape[1] - 2), _CTC_NEG)], 1)
+    for t in range(1, T):
+        a = torch.logaddexp(alpha, torch.cat([neg, alpha[:, :-1]], 1))
+        a2 = torch.cat([neg, neg, alpha[:, :-2]], 1)
+        a = torch.where(skip, torch.logaddexp(a, a2), a)
+        alpha = torch.where((t < t_len)[:, None], a + emit[:, t], alpha)
+    end = 2 * l_len
+    last = torch.gather(alpha, 1, end[:, None])[:, 0]
+    last2 = torch.gather(alpha, 1, torch.clamp(end - 1, min=0)[:, None])[:, 0]
+    last2 = torch.where(l_len > 0, last2, neg[:, 0])
+    return -torch.logaddexp(last, last2)
+
+
+def _ctc_extended(lab, blank):
+    """The blank-interleaved labels (N, 2L + 1) of ``lab`` (N, L, padding
+    already clamped into range) and the positions reachable from two
+    back (a label that differs from the one two back)."""
+    n, L = lab.shape
+    ext = torch.full((n, 2 * L + 1), blank, dtype=torch.long,
+                     device=lab.device)
+    ext[:, 1::2] = lab
+    skip = torch.zeros(ext.shape, dtype=torch.bool, device=lab.device)
+    skip[:, 2:] = (ext[:, 2:] != blank) & (ext[:, 2:] != ext[:, :-2])
+    return ext, skip
+
+
+@_register
+def ctc_loss(data, label, data_lengths=None, label_lengths=None,
+             use_data_lengths=False, use_label_lengths=False,
+             blank_label="first"):
+    """Connectionist temporal classification loss of each example.
+
+    ``data`` (T, B, C) pre-softmax activations; ``label`` (B, L), padded
+    with -1 (or, with the blank first, with 0s).  Without
+    ``use_label_lengths`` a label's length counts its entries above 0
+    (blank first) or at least 0 (blank last, ``C - 1``).  Returns (B,)
+    in float32.  Reference: src/operator/nn/ctc_loss.cc, as the
+    reference's port computes it (``_ctc_nll``'s log-space recursion)."""
+    if blank_label not in ("first", "last"):
+        raise MXNetError("blank_label must be 'first' or 'last'")
+    inputs = [data, _nd(label, data)]
+    for flag, value, what in ((use_data_lengths, data_lengths,
+                               "use_data_lengths"),
+                              (use_label_lengths, label_lengths,
+                               "use_label_lengths")):
+        if flag:
+            if value is None:
+                raise MXNetError(f"{what}=True requires "
+                                 f"{what[4:]}")
+            inputs.append(_nd(value, data))
+
+    def fn(d, lab, *lens):
+        t, b, c = d.shape
+        blank = 0 if blank_label == "first" else c - 1
+        logp = F.log_softmax(d.permute(1, 0, 2).float(), dim=-1)
+        lab = lab.long()
+        if use_label_lengths:
+            l_len = lens[1 if use_data_lengths else 0].long()
+        else:
+            l_len = ((lab > 0) if blank == 0 else (lab >= 0)).sum(1)
+        t_len = lens[0].long() if use_data_lengths else \
+            torch.full((b,), t, dtype=torch.long, device=d.device)
+        ext, skip = _ctc_extended(torch.clamp(lab, min=0), blank)
+        return _ctc_nll(logp, ext, skip, t_len, l_len)
+    return apply(fn, inputs)
+
+
+CTCLoss = _alias("CTCLoss", ctc_loss)
+
+
+# ===========================================================================
+# optimizer update ops (reference: src/operator/optimizer_op.cc and
+# contrib/{multi_lamb,multi_sum_sq,multi_lars,all_finite,reset_arrays,
+# preloaded_multi_sgd}.cc).  Each writes its state arguments and the
+# weight (or ``out``) in place, as the reference's ``_set_data``, and
+# returns the weight.  Where a rule of ``optimizer.fused_rule`` computes
+# the same function, the op calls it: the update math has one source.
+# ===========================================================================
+
+def _t(x):
+    return x._data if isinstance(x, NDArray) else x
+
+
+def _write_outs(pairs):
+    """Write each new tensor into its NDArray, in place; return the
+    first NDArray."""
+    for target, value in pairs:
+        target._write(value.detach())
+    return pairs[0][0]
+
+
+def _clip_or_none(clip):
+    return clip if clip is not None and clip >= 0 else None
+
+
+def _rule(name, clip, **hyper):
+    from ..optimizer.optimizer import fused_rule
+    return fused_rule(name, clip_gradient=_clip_or_none(clip), **hyper)[1]
+
+
+def _prep_grad(g, w, wd, rescale_grad, clip_gradient):
+    g = g * rescale_grad
+    clip = _clip_or_none(clip_gradient)
+    if clip is not None:
+        g = torch.clamp(g, -clip, clip)
+    return g + wd * w
+
+
+def _sgd_mom(w, g, m, lr, momentum, wd, rescale, clip, nesterov=False):
+    """``(w', m')`` of sgd_mom_update (nag_mom_update): the sgd (nag)
+    rule; with ``momentum`` 0 the reference still writes the momentum
+    (``-lr·g``, or ``g`` for nag)."""
+    if momentum:
+        new_w, s = _rule("nag" if nesterov else "sgd", clip,
+                         momentum=momentum)(w, g, {"mom": m}, lr, wd,
+                                            rescale)
+        return new_w, s["mom"]
+    g = _prep_grad(g, w, wd, rescale, clip)
+    return w - lr * g, (g if nesterov else -lr * g)
+
+
+@_register
+@torch.no_grad()
+def sgd_update(weight, grad, lr, wd=0.0, rescale_grad=1.0, clip_gradient=-1.0,
+               lazy_update=True, out=None):
+    new_w, _ = _rule("sgd", clip_gradient)(_t(weight), _t(grad), {}, lr, wd,
+                                           rescale_grad)
+    return _write_outs([(out if out is not None else weight, new_w)])
+
+
+@_register
+@torch.no_grad()
+def sgd_mom_update(weight, grad, mom, lr, momentum=0.0, wd=0.0,
+                   rescale_grad=1.0, clip_gradient=-1.0, lazy_update=True,
+                   out=None):
+    new_w, new_m = _sgd_mom(_t(weight), _t(grad), _t(mom), lr, momentum, wd,
+                            rescale_grad, clip_gradient)
+    return _write_outs([(out if out is not None else weight, new_w),
+                        (mom, new_m)])
+
+
+@_register
+@torch.no_grad()
+def nag_mom_update(weight, grad, mom, lr, momentum=0.0, wd=0.0,
+                   rescale_grad=1.0, clip_gradient=-1.0, out=None):
+    new_w, new_m = _sgd_mom(_t(weight), _t(grad), _t(mom), lr, momentum, wd,
+                            rescale_grad, clip_gradient, nesterov=True)
+    return _write_outs([(out if out is not None else weight, new_w),
+                        (mom, new_m)])
+
+
+@_register
+@torch.no_grad()
+def adam_update(weight, grad, mean, var, lr, beta1=0.9, beta2=0.999,
+                epsilon=1e-8, wd=0.0, rescale_grad=1.0, clip_gradient=-1.0,
+                lazy_update=True, out=None):
+    """Adam's step at a learning rate the caller has bias-corrected (the
+    op takes no step count)."""
+    w = _t(weight)
+    g = _prep_grad(_t(grad), w, wd, rescale_grad, clip_gradient)
+    m = beta1 * _t(mean) + (1 - beta1) * g
+    v = beta2 * _t(var) + (1 - beta2) * torch.square(g)
+    return _write_outs([(out if out is not None else weight,
+                         w - lr * m / (torch.sqrt(v) + epsilon)),
+                        (mean, m), (var, v)])
+
+
+@_register
+@torch.no_grad()
+def signsgd_update(weight, grad, lr, wd=0.0, rescale_grad=1.0,
+                   clip_gradient=-1.0, out=None):
+    w = _t(weight)
+    g = _prep_grad(_t(grad), w, 0.0, rescale_grad, clip_gradient)
+    return _write_outs([(out if out is not None else weight,
+                         (1 - lr * wd) * w - lr * torch.sign(g))])
+
+
+@_register
+@torch.no_grad()
+def signum_update(weight, grad, mom, lr, momentum=0.0, wd=0.0,
+                  rescale_grad=1.0, clip_gradient=-1.0, wd_lh=0.0, out=None):
+    w = _t(weight)
+    g = _prep_grad(_t(grad), w, wd, rescale_grad, clip_gradient)
+    m = momentum * _t(mom) - (1 - momentum) * g
+    return _write_outs([(out if out is not None else weight,
+                         (1 - lr * wd_lh) * w + lr * torch.sign(m)),
+                        (mom, m)])
+
+
+@_register
+@torch.no_grad()
+def rmsprop_update(weight, grad, n, lr, gamma1=0.95, epsilon=1e-8, wd=0.0,
+                   rescale_grad=1.0, clip_gradient=-1.0, clip_weights=-1.0,
+                   out=None):
+    """The op's RMSProp: ``w - lr·g / (sqrt(n) + eps)`` (the optimizer's
+    rule takes ``sqrt(n + eps)``)."""
+    w = _t(weight)
+    g = _prep_grad(_t(grad), w, wd, rescale_grad, clip_gradient)
+    n_new = gamma1 * _t(n) + (1 - gamma1) * torch.square(g)
+    w_new = w - lr * g / (torch.sqrt(n_new) + epsilon)
+    if clip_weights > 0:
+        w_new = torch.clamp(w_new, -clip_weights, clip_weights)
+    return _write_outs([(out if out is not None else weight, w_new),
+                        (n, n_new)])
+
+
+@_register
+@torch.no_grad()
+def rmspropalex_update(weight, grad, n, g, delta, lr, gamma1=0.95,
+                       gamma2=0.9, epsilon=1e-8, wd=0.0, rescale_grad=1.0,
+                       clip_gradient=-1.0, clip_weights=-1.0, out=None):
+    """Centered RMSProp with momentum (Graves): the centered rmsprop
+    rule."""
+    apply_ = _rule("rmsprop", clip_gradient, gamma1=gamma1, gamma2=gamma2,
+                   epsilon=epsilon, centered=True,
+                   clip_weights=clip_weights if clip_weights > 0 else None)
+    new_w, s = apply_(_t(weight), _t(grad),
+                      {"n": _t(n), "g": _t(g), "d": _t(delta)}, lr, wd,
+                      rescale_grad)
+    return _write_outs([(out if out is not None else weight, new_w),
+                        (n, s["n"]), (g, s["g"]), (delta, s["d"])])
+
+
+@_register
+@torch.no_grad()
+def ftrl_update(weight, grad, z, n, lr, lamda1=0.01, beta=1.0, wd=0.0,
+                rescale_grad=1.0, clip_gradient=-1.0, out=None):
+    w = _t(weight)
+    g = _prep_grad(_t(grad), w, 0.0, rescale_grad, clip_gradient)
+    n_old = _t(n)
+    n_new = n_old + torch.square(g)
+    sigma = (torch.sqrt(n_new) - torch.sqrt(n_old)) / lr
+    z_new = _t(z) + g - sigma * w
+    w_new = -(z_new - torch.sign(z_new) * lamda1) / \
+        ((beta + torch.sqrt(n_new)) / lr + wd)
+    w_new = torch.where(torch.abs(z_new) <= lamda1, torch.zeros_like(w_new),
+                        w_new)
+    return _write_outs([(out if out is not None else weight, w_new),
+                        (z, z_new), (n, n_new)])
+
+
+@_register
+@torch.no_grad()
+def adagrad_update(weight, grad, history, lr, epsilon=1e-7, wd=0.0,
+                   rescale_grad=1.0, clip_gradient=-1.0, out=None):
+    w = _t(weight)
+    g = _prep_grad(_t(grad), w, wd, rescale_grad, clip_gradient)
+    h = _t(history) + torch.square(g)
+    return _write_outs([(out if out is not None else weight,
+                         w - lr * g / (torch.sqrt(h) + epsilon)),
+                        (history, h)])
+
+
+@_register
+@torch.no_grad()
+def ftml_update(weight, grad, d, v, z, lr, t, beta1=0.6, beta2=0.999,
+                epsilon=1e-8, wd=0.0, rescale_grad=1.0, clip_grad=-1.0,
+                out=None):
+    w = _t(weight)
+    g = _prep_grad(_t(grad), w, wd, rescale_grad, clip_grad)
+    v_new = beta2 * _t(v) + (1 - beta2) * torch.square(g)
+    d_new = (1 - beta1 ** t) / lr * (
+        torch.sqrt(v_new / (1 - beta2 ** t)) + epsilon)
+    sigma = d_new - beta1 * _t(d)
+    z_new = beta1 * _t(z) + (1 - beta1) * g - sigma * w
+    return _write_outs([(out if out is not None else weight, -z_new / d_new),
+                        (d, d_new), (v, v_new), (z, z_new)])
+
+
+@_register
+@torch.no_grad()
+def adamax_update(weight, grad, mean, var, lr, beta1=0.9, beta2=0.999,
+                  epsilon=1e-8, wd=0.0, rescale_grad=1.0, clip_gradient=-1.0,
+                  out=None):
+    """AdaMax at a learning rate the caller has bias-corrected."""
+    w = _t(weight)
+    g = _prep_grad(_t(grad), w, wd, rescale_grad, clip_gradient)
+    m = beta1 * _t(mean) + (1 - beta1) * g
+    u = torch.maximum(beta2 * _t(var), torch.abs(g))
+    return _write_outs([(out if out is not None else weight,
+                         w - lr * m / (u + epsilon)), (mean, m), (var, u)])
+
+
+_NADAM_SCHED = {}   # (beta1, schedule_decay) -> (mus, cumulative products)
+
+
+def _nadam_schedule(beta1, schedule_decay, t):
+    mus, cum = _NADAM_SCHED.setdefault((beta1, schedule_decay),
+                                       ([None], [1.0]))
+    while len(mus) <= t + 1:
+        mu = beta1 * (1 - 0.5 * 0.96 ** (len(mus) * schedule_decay))
+        mus.append(mu)
+        cum.append(cum[-1] * mu)
+    return mus[t], mus[t + 1], cum[t], cum[t] * mus[t + 1]
+
+
+@_register
+@torch.no_grad()
+def nadam_update(weight, grad, mean, var, lr, t, beta1=0.9, beta2=0.999,
+                 epsilon=1e-8, schedule_decay=0.004, wd=0.0,
+                 rescale_grad=1.0, clip_gradient=-1.0, out=None):
+    """Nesterov Adam with the cumulative momentum schedule (the
+    reference's; its products cached per ``(beta1, schedule_decay)``)."""
+    mu_t, mu_next, m_sched, m_sched_next = _nadam_schedule(
+        beta1, schedule_decay, t)
+    w = _t(weight)
+    g = _prep_grad(_t(grad), w, wd, rescale_grad, clip_gradient)
+    m = beta1 * _t(mean) + (1 - beta1) * g
+    v = beta2 * _t(var) + (1 - beta2) * torch.square(g)
+    m_bar = (1 - mu_t) * (g / (1 - m_sched)) + \
+        mu_next * (m / (1 - m_sched_next))
+    v_hat = v / (1 - beta2 ** t)
+    return _write_outs([(out if out is not None else weight,
+                         w - lr * m_bar / (torch.sqrt(v_hat) + epsilon)),
+                        (mean, m), (var, v)])
+
+
+def _lamb_direction(w32, g, m, v, t, beta1, beta2, epsilon,
+                    bias_correction, wd, rescale_grad, clip_gradient):
+    g = _prep_grad(g, w32, 0.0, rescale_grad, clip_gradient)
+    m = beta1 * m + (1 - beta1) * g
+    v = beta2 * v + (1 - beta2) * torch.square(g)
+    if bias_correction:
+        m_hat, v_hat = m / (1 - beta1 ** t), v / (1 - beta2 ** t)
+    else:
+        m_hat, v_hat = m, v
+    return m_hat / (torch.sqrt(v_hat) + epsilon) + wd * w32, m, v
+
+
+def _lamb_ratio(r1, r2, lower_bound, upper_bound):
+    r1, r2 = r1.reshape(()), r2.reshape(())
+    if lower_bound > 0:
+        r1 = torch.clamp(r1, min=lower_bound)
+    if upper_bound > 0:
+        r1 = torch.clamp(r1, max=upper_bound)
+    return torch.where((r1 > 0) & (r2 > 0), r1 / r2, torch.ones_like(r1))
+
+
+@_register
+@torch.no_grad()
+def lamb_update_phase1(weight, grad, mean, var, t, beta1=0.9, beta2=0.999,
+                       epsilon=1e-6, bias_correction=True, wd=0.0,
+                       rescale_grad=1.0, clip_gradient=-1.0):
+    """LAMB's direction ``m̂ / (sqrt(v̂) + eps) + wd·w`` (returned);
+    mean and var updated in place.  Phase 2 applies the trust ratio."""
+    g_out, m, v = _lamb_direction(
+        _t(weight), _t(grad), _t(mean), _t(var), t, beta1, beta2, epsilon,
+        bias_correction, wd, rescale_grad, clip_gradient)
+    _write_outs([(mean, m), (var, v)])
+    return NDArray(g_out)
+
+
+@_register
+@torch.no_grad()
+def lamb_update_phase2(weight, g, r1, r2, lr, lower_bound=-1.0,
+                       upper_bound=-1.0, out=None):
+    """``w - lr · (r1 / r2) · g``, ``r1`` bounded, ratio 1 where either
+    norm is 0."""
+    ratio = _lamb_ratio(_t(_nd(r1, weight)), _t(_nd(r2, weight)),
+                        lower_bound, upper_bound)
+    return _write_outs([(out if out is not None else weight,
+                         _t(weight) - lr * ratio * _t(g))])
+
+
+@_register
+@torch.no_grad()
+def mp_sgd_update(weight, grad, weight32, lr, wd=0.0, rescale_grad=1.0,
+                  clip_gradient=-1.0, out=None):
+    """SGD on the float32 master copy; the weight is its cast."""
+    new32, _ = _rule("sgd", clip_gradient)(_t(weight32), _t(grad).float(),
+                                           {}, lr, wd, rescale_grad)
+    return _write_outs([(out if out is not None else weight,
+                         new32.to(_t(weight).dtype)), (weight32, new32)])
+
+
+@_register
+@torch.no_grad()
+def mp_sgd_mom_update(weight, grad, mom, weight32, lr, momentum=0.0, wd=0.0,
+                      rescale_grad=1.0, clip_gradient=-1.0, out=None):
+    new32, m = _sgd_mom(_t(weight32), _t(grad).float(), _t(mom), lr,
+                        momentum, wd, rescale_grad, clip_gradient)
+    return _write_outs([(out if out is not None else weight,
+                         new32.to(_t(weight).dtype)), (mom, m),
+                        (weight32, new32)])
+
+
+@_register
+@torch.no_grad()
+def mp_nag_mom_update(weight, grad, mom, weight32, lr, momentum=0.0, wd=0.0,
+                      rescale_grad=1.0, clip_gradient=-1.0, out=None):
+    new32, m = _sgd_mom(_t(weight32), _t(grad).float(), _t(mom), lr,
+                        momentum, wd, rescale_grad, clip_gradient,
+                        nesterov=True)
+    return _write_outs([(out if out is not None else weight,
+                         new32.to(_t(weight).dtype)), (mom, m),
+                        (weight32, new32)])
+
+
+@_register
+@torch.no_grad()
+def mp_lamb_update_phase1(weight, grad, mean, var, weight32, t, beta1=0.9,
+                          beta2=0.999, epsilon=1e-6, bias_correction=True,
+                          wd=0.0, rescale_grad=1.0, clip_gradient=-1.0):
+    """Phase 1 of LAMB on the float32 master copy."""
+    g_out, m, v = _lamb_direction(
+        _t(weight32), _t(grad).float(), _t(mean), _t(var), t, beta1, beta2,
+        epsilon, bias_correction, wd, rescale_grad, clip_gradient)
+    _write_outs([(mean, m), (var, v)])
+    return NDArray(g_out)
+
+
+@_register
+@torch.no_grad()
+def mp_lamb_update_phase2(weight, g, r1, r2, weight32, lr, lower_bound=-1.0,
+                          upper_bound=-1.0, out=None):
+    ratio = _lamb_ratio(_t(_nd(r1, weight)), _t(_nd(r2, weight)),
+                        lower_bound, upper_bound)
+    new32 = _t(weight32) - lr * ratio * _t(g)
+    return _write_outs([(out if out is not None else weight,
+                         new32.to(_t(weight).dtype)), (weight32, new32)])
+
+
+def _groups(name, arrays, per_weight, num_weights=None):
+    if len(arrays) % per_weight:
+        raise MXNetError(f"{name}: {len(arrays)} arrays are not groups of "
+                         f"{per_weight}")
+    groups = [arrays[i:i + per_weight]
+              for i in range(0, len(arrays), per_weight)]
+    if num_weights is not None and num_weights != len(groups):
+        raise MXNetError(f"{name}: num_weights {num_weights} != "
+                         f"{len(groups)} weight groups passed")
+    return groups
+
+
+@_register
+@torch.no_grad()
+def multi_sgd_update(*arrays, lrs, wds, rescale_grad=1.0,
+                     clip_gradient=None, num_weights=None, out=None):
+    """Group SGD over ``(w0, g0, w1, g1, ...)``; each weight in place;
+    returns the weights."""
+    groups = _groups("multi_sgd_update", arrays, 2, num_weights)
+    apply_ = _rule("sgd", clip_gradient)
+    for (w, g), lr, wd in zip(groups, lrs, wds):
+        _write_outs([(w, apply_(_t(w), _t(g), {}, lr, wd, rescale_grad)[0])])
+    return [grp[0] for grp in groups]
+
+
+@_register
+@torch.no_grad()
+def multi_sgd_mom_update(*arrays, lrs, wds, momentum=0.9, rescale_grad=1.0,
+                         clip_gradient=None, num_weights=None, out=None):
+    """Group SGD with momentum over ``(w0, g0, m0, ...)``."""
+    groups = _groups("multi_sgd_mom_update", arrays, 3, num_weights)
+    for (w, g, m), lr, wd in zip(groups, lrs, wds):
+        new_w, new_m = _sgd_mom(_t(w), _t(g), _t(m), lr, momentum, wd,
+                                rescale_grad, clip_gradient)
+        _write_outs([(w, new_w), (m, new_m)])
+    return [grp[0] for grp in groups]
+
+
+@_register
+@torch.no_grad()
+def multi_mp_sgd_update(*arrays, lrs, wds, rescale_grad=1.0,
+                        clip_gradient=None, num_weights=None, out=None):
+    """Group mixed-precision SGD over ``(w0, g0, w32_0, ...)``."""
+    groups = _groups("multi_mp_sgd_update", arrays, 3, num_weights)
+    for (w, g, w32), lr, wd in zip(groups, lrs, wds):
+        mp_sgd_update(w, g, w32, lr, wd, rescale_grad,
+                      -1.0 if clip_gradient is None else clip_gradient)
+    return [grp[0] for grp in groups]
+
+
+@_register
+@torch.no_grad()
+def multi_mp_sgd_mom_update(*arrays, lrs, wds, momentum=0.9,
+                            rescale_grad=1.0, clip_gradient=None,
+                            num_weights=None, out=None):
+    """Group mixed-precision SGD with momentum over ``(w0, g0, m0, w32_0,
+    ...)``."""
+    groups = _groups("multi_mp_sgd_mom_update", arrays, 4, num_weights)
+    for (w, g, m, w32), lr, wd in zip(groups, lrs, wds):
+        mp_sgd_mom_update(w, g, m, w32, lr, momentum, wd, rescale_grad,
+                          -1.0 if clip_gradient is None else clip_gradient)
+    return [grp[0] for grp in groups]
+
+
+@_register
+@torch.no_grad()
+def multi_lamb_update(*arrays, lrs, wds, beta1=0.9, beta2=0.999,
+                      epsilon=1e-6, rescale_grad=1.0, clip_gradient=None,
+                      step=1, lower_bound=None, upper_bound=None, out=None):
+    """Group LAMB over ``(w0, g0, mean0, var0, ...)`` at step ``step``;
+    the bounds apply to the trust ratio (the reference's multi_lamb)."""
+    groups = _groups("multi_lamb_update", arrays, 4)
+    for (w, g, mean, var), lr, wd in zip(groups, lrs, wds):
+        upd, m, v = _lamb_direction(
+            _t(w), _t(g), _t(mean), _t(var), step, beta1, beta2, epsilon,
+            True, wd, rescale_grad, clip_gradient)
+        wn = torch.linalg.vector_norm(_t(w))
+        un = torch.linalg.vector_norm(upd)
+        ratio = torch.where((wn > 0) & (un > 0),
+                            wn / torch.clamp(un, min=1e-12),
+                            torch.ones_like(wn))
+        if lower_bound is not None:
+            ratio = torch.clamp(ratio, min=lower_bound)
+        if upper_bound is not None:
+            ratio = torch.clamp(ratio, max=upper_bound)
+        _write_outs([(w, _t(w) - lr * ratio * upd), (mean, m), (var, v)])
+    return [grp[0] for grp in groups]
+
+
+def _preloaded(name, per_weight, rule_step):
+    def op(*data, rescale_grad=1.0, clip_gradient=-1.0, momentum=0.0,
+           num_weights=None):
+        n = num_weights if num_weights is not None else \
+            (len(data) - 2) // per_weight
+        if len(data) != n * per_weight + 2:
+            raise MXNetError(f"{name}: expected {n}*{per_weight}+2 arrays "
+                             f"(groups + lrs + wds), got {len(data)}")
+        lrs, wds = _t(data[-2]), _t(data[-1])
+        groups = [data[i * per_weight:(i + 1) * per_weight]
+                  for i in range(n)]
+        with torch.no_grad():
+            for i, grp in enumerate(groups):
+                rule_step(grp, lrs[i], wds[i], rescale_grad, clip_gradient,
+                          momentum)
+        return [grp[0] for grp in groups]
+    op.__name__ = name
+    op.__doc__ = (f"{name}: the learning rates and weight decays are device "
+                  "tensors (the last two arrays), read per weight on the "
+                  "device (reference contrib/preloaded_multi_sgd.cc).")
+    return _register(op)
+
+
+preloaded_multi_sgd_update = _preloaded(
+    "preloaded_multi_sgd_update", 2,
+    lambda grp, lr, wd, r, c, m: sgd_update(*grp, lr, wd, r, c))
+preloaded_multi_sgd_mom_update = _preloaded(
+    "preloaded_multi_sgd_mom_update", 3,
+    lambda grp, lr, wd, r, c, m: sgd_mom_update(*grp, lr, m, wd, r, c))
+preloaded_multi_mp_sgd_update = _preloaded(
+    "preloaded_multi_mp_sgd_update", 3,
+    lambda grp, lr, wd, r, c, m: mp_sgd_update(*grp, lr, wd, r, c))
+preloaded_multi_mp_sgd_mom_update = _preloaded(
+    "preloaded_multi_mp_sgd_mom_update", 4,
+    lambda grp, lr, wd, r, c, m: mp_sgd_mom_update(*grp, lr, m, wd, r, c))
+
+
+@_register
+def all_finite(data, init_output=True):
+    """``[1.0]`` if every element is finite, else ``[0.0]``."""
+    return apply(lambda d: torch.isfinite(d).all().float().reshape(1),
+                 [data])
+
+
+@_register
+def multi_all_finite(*arrays, num_arrays=None, init_output=True):
+    if num_arrays is not None and num_arrays != len(arrays):
+        raise MXNetError(f"multi_all_finite: num_arrays {num_arrays} != "
+                         f"{len(arrays)} inputs")
+    return apply(lambda *ds: torch.stack(
+        [torch.isfinite(d).all() for d in ds]).all().float().reshape(1),
+        list(arrays))
+
+
+@_register
+def multi_sum_sq(*arrays, num_arrays=None):
+    """Each array's sum of squares in float32, as one ``(n,)`` array."""
+    if num_arrays is not None and num_arrays != len(arrays):
+        raise MXNetError(f"multi_sum_sq: num_arrays {num_arrays} != "
+                         f"{len(arrays)} inputs")
+    return apply(lambda *ds: torch.stack(
+        [torch.sum(torch.square(d.float())) for d in ds]), list(arrays))
+
+
+@_register
+def multi_lars(lrs, weights_sum_sq, grads_sum_sq, wds, eta=0.001, eps=1e-8,
+               rescale_grad=1.0):
+    """Each layer's learning rate times LARS's trust ratio
+    ``eta |w| / (|g| rescale + wd |w| + eps)``, unchanged where a norm
+    is 0."""
+    def fn(lr, wss, gss, wd):
+        wn = torch.sqrt(wss)
+        gn = torch.sqrt(gss) * rescale_grad
+        return torch.where((wn > 0) & (gn > 0),
+                           lr * (eta * wn / (gn + wd * wn + eps)), lr)
+    return apply(fn, [lrs, _nd(weights_sum_sq, lrs), _nd(grads_sum_sq, lrs),
+                      _nd(wds, lrs)])
+
+
+@_register
+def reset_arrays(*arrays, num_arrays=None):
+    """Zero every array in place (the gradients of ``grad_req='add'``)."""
+    if num_arrays is not None and num_arrays != len(arrays):
+        raise MXNetError(f"reset_arrays: num_arrays {num_arrays} != "
+                         f"{len(arrays)} arrays passed")
+    for a in arrays:
+        a._write(torch.zeros_like(a._data))
+    return None
+
+
+# ===========================================================================
+# samplers (reference: src/operator/random/sample_op.cc,
+# multisample_op.cc, pdf_op.cc).  Every draw comes from the explicit
+# generator of the parameters' device (``nd.random.generator``): the
+# distributions are the reference's, the bits are not.
+# ===========================================================================
+
+def _sample_shape(pshape, shape):
+    if shape is None:
+        return tuple(pshape)
+    return tuple(pshape) + ((shape,) if isinstance(shape, int)
+                            else tuple(shape))
+
+
+def _bcast(p, out_shape):
+    """A parameter tensor broadcast over the sample axes after its own."""
+    return p.reshape(p.shape + (1,) * (len(out_shape) - p.dim())) \
+        .expand(out_shape)
+
+
+def _sampler(name, n_params, draw):
+    """``name(*params, shape=None, dtype=None, ctx=None)``: per-element
+    parameters; the output is ``params[0].shape + shape``, each element
+    drawn by ``draw(generator, *broadcast params)`` in float32."""
+    def op(*params, shape=None, dtype=None, ctx=None):
+        if len(params) != n_params:
+            raise MXNetError(f"{name} takes {n_params} parameter arrays")
+        first = _nd(params[0], None)
+        ps = [first] + [_nd(p, first) for p in params[1:]]
+        out_shape = _sample_shape(first.shape, shape)
+        from . import random as _rnd
+        gen = _rnd.generator(first._data.device)
+
+        def fn(*ts):
+            ts = [_bcast(t.float(), out_shape) for t in ts]
+            return draw(gen, *ts).to(_dtype_of(dtype or "float32"))
+        with torch.no_grad():
+            return apply(fn, ps)
+    op.__name__ = name
+    return _register(op)
+
+
+def _standard_gamma(gen, alpha):
+    return torch._standard_gamma(alpha.contiguous(), generator=gen)
+
+
+def _gamma_poisson(gen, shape_, scale):
+    """Negative binomial draws as the Gamma-Poisson mixture (the
+    reference's construction)."""
+    return torch.poisson(_standard_gamma(gen, shape_) * scale, generator=gen)
+
+
+sample_uniform = _sampler(
+    "sample_uniform", 2, lambda gen, lo, hi: lo + torch.rand(
+        lo.shape, generator=gen, device=lo.device) * (hi - lo))
+sample_normal = _sampler(
+    "sample_normal", 2, lambda gen, mu, sigma: mu + torch.randn(
+        mu.shape, generator=gen, device=mu.device) * sigma)
+sample_gamma = _sampler(
+    "sample_gamma", 2,
+    lambda gen, alpha, beta: _standard_gamma(gen, alpha) * beta)
+sample_exponential = _sampler(
+    "sample_exponential", 1, lambda gen, lam: torch.empty(
+        lam.shape, device=lam.device).exponential_(generator=gen) / lam)
+sample_poisson = _sampler(
+    "sample_poisson", 1,
+    lambda gen, lam: torch.poisson(lam.contiguous(), generator=gen))
+sample_negative_binomial = _sampler(
+    "sample_negative_binomial", 2,
+    lambda gen, k, p: _gamma_poisson(gen, k, (1 - p) / torch.clamp(
+        p, min=1e-12)))
+sample_generalized_negative_binomial = _sampler(
+    "sample_generalized_negative_binomial", 2,
+    lambda gen, mu, alpha: _gamma_poisson(
+        gen, 1 / torch.clamp(alpha, min=1e-12),
+        mu * torch.clamp(alpha, min=1e-12)))
+
+
+@_register
+def sample_multinomial(data, shape=None, get_prob=False, dtype="int32"):
+    """Draws from the rows of ``data`` (probabilities on the last axis):
+    ``data.shape[:-1] + shape``; with ``get_prob`` also each draw's
+    ``log(max(p, 1e-30))``."""
+    from . import random as _rnd
+    data = _nd(data)
+    extra = () if shape is None else (
+        (shape,) if isinstance(shape, int) else tuple(shape))
+    n = int(_np.prod(extra)) if extra else 1
+    p = data._data
+    gen = _rnd.generator(p.device)
+    rows = p.reshape(-1, p.shape[-1]).float()
+    with torch.no_grad():
+        draws = torch.multinomial(rows, n, replacement=True, generator=gen)
+    out_shape = tuple(p.shape[:-1]) + extra
+    out = NDArray(draws.reshape(out_shape).to(_dtype_of(dtype)))
+    if not get_prob:
+        return out
+    logp = apply(lambda t: torch.gather(
+        torch.log(torch.clamp(t.reshape(-1, t.shape[-1]), min=1e-30)), 1,
+        draws).reshape(out_shape), [data])
+    return [out, logp]
+
+
+@_register
+def random_uniform(*args, **kwargs):
+    """The reference's ``_random_uniform``: ``nd.random.uniform``."""
+    from . import random as _rnd
+    return _rnd.uniform(*args, **kwargs)
+
+
+@_register
+def random_normal(*args, **kwargs):
+    """The reference's ``_random_normal``: ``nd.random.normal``."""
+    from . import random as _rnd
+    return _rnd.normal(*args, **kwargs)
+
+
+def _pdf_op(name, logpdf, n_params, event_dims=0):
+    def op(sample, *params, is_log=False):
+        if len(params) != n_params:
+            raise MXNetError(f"{name} expects {n_params} parameter "
+                             f"array(s), got {len(params)}")
+
+        def fn(s, *ps):
+            # the parameters broadcast over the trailing sample axis
+            # (dirichlet's event axis stays last)
+            ps = [p.unsqueeze(-1 - event_dims) for p in ps]
+            lp = logpdf(s, *ps)
+            return lp if is_log else torch.exp(lp)
+        return apply(fn, [sample] + [_nd(p, sample) for p in params])
+    op.__name__ = name
+    op.__doc__ = (f"{name}(sample, *params, is_log=False): the density (or "
+                  "log-density) of each sample under its row's parameters "
+                  "(reference src/operator/random/pdf_op.cc).")
+    return _register(op)
+
+
+def _lgamma(x):
+    return torch.lgamma(x.float())
+
+
+def _gnb_logpdf(s, mu, alpha):
+    r = 1.0 / alpha
+    p = r / (r + mu)
+    return (_lgamma(s + r) - _lgamma(s + 1) - _lgamma(r)
+            + r * torch.log(p) + s * torch.log1p(-p))
+
+
+random_pdf_uniform = _pdf_op(
+    "random_pdf_uniform", lambda s, low, high: torch.where(
+        (s >= low) & (s <= high), -torch.log(high - low),
+        torch.full_like(s, -math.inf)), 2)
+random_pdf_normal = _pdf_op(
+    "random_pdf_normal", lambda s, mu, sigma: -0.5 * torch.square(
+        (s - mu) / sigma) - torch.log(sigma) - 0.5 * math.log(2 * math.pi), 2)
+random_pdf_gamma = _pdf_op(
+    "random_pdf_gamma", lambda s, alpha, beta: (alpha - 1) * torch.log(s)
+    - s * beta + alpha * torch.log(beta) - _lgamma(alpha), 2)
+random_pdf_exponential = _pdf_op(
+    "random_pdf_exponential", lambda s, lam: torch.log(lam) - lam * s, 1)
+random_pdf_poisson = _pdf_op(
+    "random_pdf_poisson",
+    lambda s, lam: s * torch.log(lam) - lam - _lgamma(s + 1), 1)
+random_pdf_negative_binomial = _pdf_op(
+    "random_pdf_negative_binomial", lambda s, k, p: _lgamma(s + k)
+    - _lgamma(s + 1) - _lgamma(k) + k * torch.log(p)
+    + s * torch.log1p(-p), 2)
+random_pdf_generalized_negative_binomial = _pdf_op(
+    "random_pdf_generalized_negative_binomial", _gnb_logpdf, 2)
+random_pdf_dirichlet = _pdf_op(
+    "random_pdf_dirichlet", lambda s, alpha: torch.sum(
+        (alpha - 1) * torch.log(s), dim=-1)
+    + _lgamma(torch.sum(alpha, dim=-1)) - torch.sum(_lgamma(alpha), dim=-1),
+    1, event_dims=1)

@@ -61,7 +61,11 @@ from ..optimizer.optimizer import fused_rule
 from . import _build
 
 __all__ = ["fused_bucket_rule", "fused_sgd_update", "fused_adam_update",
-           "update_plan"]
+           "update_plan", "BUCKET_RULES"]
+
+#: the rules K1 and K2 update (the reference's Pallas bucket covers the
+#: same four, ``mxnet_tpu/ops/fused_update.py:214-234``)
+BUCKET_RULES = ("sgd", "nag", "adam", "adamw")
 
 _P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, \
     ctypes.c_int64
@@ -247,9 +251,15 @@ def fused_bucket_rule(name, clip_gradient=None, **hyper):
     returned ``apply(p, g, s, lr, wd=0.0, rescale=1.0)`` calls K1 or K2's
     wrapper, which runs the plain ``fused_rule`` apply for CPU tensors
     and the kernel for a CUDA flat f32 bucket (in place); anything else
-    on CUDA raises."""
-    init, _ = fused_rule(name, clip_gradient=clip_gradient, **hyper)
+    on CUDA raises.  A rule with no bucket kernel (LAMB, LARS, RMSProp)
+    raises ``MXNetError``: it runs through ``optimizer.fused_rule``."""
     rule = name.lower()
+    if rule not in BUCKET_RULES:
+        raise MXNetError(
+            f"fused_bucket_rule: K1 and K2 update {list(BUCKET_RULES)}; "
+            f"'{name}' has no bucket kernel (its rule runs as plain "
+            "PyTorch through optimizer.fused_rule)")
+    init, _ = fused_rule(name, clip_gradient=clip_gradient, **hyper)
     if rule in ("sgd", "nag"):
         wrapper, kw = fused_sgd_update, dict(
             momentum=float(hyper.get("momentum", 0.0)),

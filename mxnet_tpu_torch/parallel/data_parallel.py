@@ -20,9 +20,17 @@ replays:
   them where they lie with K1 (``sgd``, ``nag``) or K2 (``adam``,
   ``adamw``) through ``ops.fused_update.fused_bucket_rule``.  The
   reference applies ``fused_rule`` per parameter; the bucket computes
-  the same elementwise function.  The learning rate is a device scalar
-  the host writes before a call, and Adam's step count a device counter
-  the step itself increments, so neither is frozen into the graph;
+  the same elementwise function.  ``rmsprop`` runs its plain rule over
+  the whole bucket in one pass of PyTorch; ``lamb`` and ``lars`` run
+  theirs over the bucket with one norm a parameter
+  (``optimizer.Segments``: ``torch._foreach_norm`` over each
+  parameter's view, the ratios spread back by a gather through each
+  element's segment number), so the step stays free of host
+  synchronization and of a loop over the parameters.  None of the
+  three reaches a kernel of the reference (XLA fuses their ``jnp``
+  chains).  The learning rate is a device scalar the host writes before
+  a call, and Adam's and LAMB's step count a device counter the step
+  itself increments, so neither is frozen into the graph;
 - capture: a signature (the entry point, its inputs' shapes and dtypes,
   ``n_micro``, the amp dtype) runs its first call eagerly on the
   trainer's side stream (kernels loaded, deferred shapes resolved, the
@@ -64,9 +72,9 @@ one-device mesh), ``batch_axis`` and ``label_batch_axis`` (where
 place), ``shard_updates`` (a no-op at dp=1, as in the reference) and
 ``pp_microbatches``.  Refused with ``NotSupportedError`` naming ROADMAP
 §1 item 10: a mesh of more than one device, ``rebuild`` onto one,
-``comm_stats``, ``overlap_probe`` and ``all_reduce_gradients(kvstore=)``;
-rules the reference fuses but the port has not ported (``lamb``,
-``lars``, ``rmsprop``) name item 3.
+``comm_stats``, ``overlap_probe`` and ``all_reduce_gradients(kvstore=)``.
+A rule the reference does not fuse (``adagrad``, ...) raises
+``MXNetError`` naming the gluon ``Trainer``, as in the reference.
 """
 from __future__ import annotations
 
@@ -86,15 +94,14 @@ from ..ndarray.utils import to_numpy
 from ..gluon.block import _AUX as _BLOCK_AUX
 from ..gluon.parameter import _tensor
 from ..ops import add_launches, launch_counts
-from ..ops.fused_update import fused_bucket_rule
-from ..optimizer.optimizer import fused_rule
+from ..ops.fused_update import BUCKET_RULES, fused_bucket_rule
+from ..optimizer.optimizer import NORM_RULES, Segments, fused_rule
 from .mesh import current_mesh, MeshConfig, AXIS_DP
 
 __all__ = ["DataParallelTrainer", "all_reduce_gradients"]
 
-# the reference's fused rules, and the ones the port has kernels for
+# the reference's fused rules
 _RULES = ("adam", "adamw", "lamb", "lars", "nag", "rmsprop", "sgd")
-_PORTED = ("adam", "adamw", "nag", "sgd")
 _MULTI = "arrives with the multi-device slice (ROADMAP §1 item 10)"
 
 
@@ -155,16 +162,16 @@ class DataParallelTrainer:
             raise MXNetError(
                 f"DataParallelTrainer supports {sorted(_RULES)}; for "
                 f"'{optimizer}' use gluon.Trainer (eager path)")
-        if name not in _PORTED:
-            raise NotSupportedError(
-                f"DataParallelTrainer: the '{name}' rule is not ported yet "
-                f"({sorted(_PORTED)} are); the other optimizers arrive with "
-                "the training surface (ROADMAP §1 item 3)")
         self._rule_name = name
-        self._adam = name in ("adam", "adamw")
+        self._clip, self._hyper = clip, kwargs
         self._rule_init, _ = fused_rule(name, clip_gradient=clip, **kwargs)
-        _, self._bucket_apply = fused_bucket_rule(name, clip_gradient=clip,
-                                                  **kwargs)
+        # K1/K2 for their four rules, the plain rule for the others (for
+        # lamb and lars built again over the flat buffer's segments)
+        self._apply = (fused_bucket_rule if name in BUCKET_RULES
+                       else fused_rule)(name, clip_gradient=clip,
+                                        **kwargs)[1]
+        # Adam's and LAMB's step count, a device int32
+        self._counted = "t" in self._rule_init(torch.empty(0))
         self._num_update = 0
         self._param_objs = None       # every parameter, sorted by name
         self._train = []              # indices of the trainable ones
@@ -254,8 +261,12 @@ class DataParallelTrainer:
         template = self._rule_init(torch.empty(0))
         self._flat_state = {leaf: torch.zeros_like(buf) for leaf, v in
                             template.items() if torch.is_tensor(v)}
-        if self._adam:
+        if self._counted:
             self._t = torch.zeros(1, dtype=torch.int32, device=self.device)
+        if self._rule_name in NORM_RULES:
+            _, self._apply = fused_rule(
+                self._rule_name, clip_gradient=self._clip,
+                segments=Segments(sizes, self.device), **self._hyper)
         self._param_objs, self._train, self._flat_p = params, train, buf
         self._ptrs = [(p, p._var.data_ptr()) for p in params]
 
@@ -304,17 +315,20 @@ class DataParallelTrainer:
 
     def _update(self, flat_g):
         """The rule over the flat buffers, in place (K1 or K2 on the
-        card), at the device learning rate (and Adam's device step)."""
+        card; the plain rule for the others), at the device learning rate
+        (and Adam's and LAMB's device step)."""
         state = dict(self._flat_state)
-        if self._adam:
+        if self._counted:
             state["t"] = self._t
-        new_p, new_s = self._bucket_apply(self._flat_p, flat_g, state,
-                                          self._lr_buf, self._wd)
+        new_p, new_s = self._apply(self._flat_p, flat_g, state,
+                                   self._lr_buf, self._wd)
         if new_p is not self._flat_p:
             self._flat_p.copy_(new_p)
         for leaf, buf in self._flat_state.items():
             if new_s[leaf] is not buf:
                 buf.copy_(new_s[leaf])
+        if self._counted and new_s["t"] is not self._t:
+            self._t.copy_(new_s["t"])
 
     def _micro(self, b, m, n_micro, is_label=False):
         """Microbatch ``m`` of ``n_micro`` of ``b``, along its batch axis."""
@@ -609,7 +623,7 @@ class DataParallelTrainer:
                 n = self._param_objs[i]._var.numel()
                 views[i] = (off, n)
                 off += n
-            t = int(self._t.item()) if self._adam else None
+            t = int(self._t.item()) if self._counted else None
             for i, p in enumerate(self._param_objs):
                 shape = tuple(p._var.shape)
                 for leaf, buf in self._flat_state.items():
@@ -654,7 +668,7 @@ class DataParallelTrainer:
                     buf[off:off + n].copy_(torch.from_numpy(
                         _np.ascontiguousarray(src, _np.float32)).reshape(-1))
                 off += n
-            if self._adam:
+            if self._counted:
                 key = next((f"opt/{i}/t" for i in self._train
                             if f"opt/{i}/t" in arrays), "opt_scalar/t")
                 self._t.fill_(int(to_numpy(arrays[key]).reshape(())))

@@ -4,8 +4,10 @@ protocol) against the JAX package's, on the CPU.
 Files cross between the packages both ways:
 
 - ``gluon.Trainer.save_states`` / ``load_states`` (the reference's
-  pickle of per-parameter states and update counters), for SGD momentum
-  and Adam: a file written after two eager steps in one package loads in
+  pickle of per-parameter states and update counters), for SGD momentum,
+  Adam, LAMB (a tuple with a step count), LARS, RMSProp (a 1-tuple) and
+  Ftrl (a tuple, no learning-rate rule): a file written after two eager
+  steps in one package loads in
   the other, and one more step from there gives the parameters the
   writer's next step gives;
 - ``CheckpointManager`` directories (``params.ndz``, ``trainer.ndz``,
@@ -42,7 +44,11 @@ RTOL = 1e-5
 STATE_ATOL = 1e-6
 B = 4
 RULES = {"sgd": {"learning_rate": 0.1, "momentum": 0.9},
-         "adam": {"learning_rate": 1e-2}}
+         "adam": {"learning_rate": 1e-2},
+         "lamb": {"learning_rate": 1e-2, "wd": 0.01},
+         "lars": {"learning_rate": 0.1, "momentum": 0.9, "wd": 1e-3},
+         "rmsprop": {"learning_rate": 1e-2},
+         "ftrl": {"learning_rate": 0.1}}
 
 
 def _net(pkg):

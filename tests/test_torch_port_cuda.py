@@ -1614,6 +1614,50 @@ def test_dp_captured_steps_match_the_eager_body(card, rule, params):
         torch.backends.cudnn.allow_tf32 = prev
 
 
+@pytest.mark.parametrize("rule,params", [
+    ("lamb", {"learning_rate": 1e-3, "wd": 0.01}),
+    ("lars", {"learning_rate": 0.1, "momentum": 0.9, "wd": 5e-5}),
+    ("rmsprop", {"learning_rate": 1e-3, "centered": True})])
+def test_dp_lamb_lars_rmsprop_steps_capture_without_host_sync(card, rule,
+                                                              params):
+    """The rules without a bucket kernel run in the captured step: LAMB's
+    and LARS's per-parameter norms (``_foreach_norm`` over the flat
+    buffer's views, the ratios gathered back by segment number) read no
+    device value on the host, so the step captures (a synchronizing call
+    makes the capture raise) and every later step replays; LAMB's step
+    count advances on the device.  Held against the eager body on the
+    card (1e-5) and the CPU (1e-3) over 5 steps, f32."""
+    import mxnet_tpu_torch as mx
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        net, tr = _dp_pair(rule, params)
+        w0 = _weights_np(net)
+        enet, etr = _dp_pair(rule, params, w0)
+        etr._use_graphs = False
+        cnet, ctr = _dp_pair(rule, params, w0, ctx=mx.cpu())
+        ops.reset_launches()
+        losses = np.array([[float(t.step(x, y).asnumpy())
+                            for t in (tr, etr, ctr)]
+                           for x, y in _dp_batches(5)])
+        assert tr.stats["captures"] == 1 and tr.graphs_captured() == 1
+        assert tr.stats["eager_calls"] == 1
+        assert ops.launch_counts()["fused_adam_update"] == 0
+        assert ops.launch_counts()["fused_sgd_update"] == 0
+        if rule == "lamb":
+            assert int(tr._t.item()) == 5
+        np.testing.assert_allclose(losses[:, 0], losses[:, 1], rtol=1e-5)
+        np.testing.assert_allclose(losses[:, 0], losses[:, 2], rtol=1e-4)
+        got, eager, cpu = (_weights_np(n) for n in (net, enet, cnet))
+        for k in got:
+            np.testing.assert_allclose(got[k], eager[k], rtol=1e-5,
+                                       atol=1e-6, err_msg=k)
+            np.testing.assert_allclose(got[k], cpu[k], rtol=1e-3,
+                                       atol=1e-4, err_msg=k)
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
+
+
 def test_dp_learning_rate_and_adam_step_change_without_recapture(card):
     import mxnet_tpu_torch as mx
     net, tr = _dp_pair("adam", {"learning_rate": 1e-3})

@@ -10,7 +10,12 @@ batches (from ``RandomState``), call for call:
 - a small Conv/BatchNorm/Dense net, SGD momentum 0.9 at lr 0.1;
 - a 2-layer narrow BERT (32 units, 4 heads, vocab 100, L 16, dropout 0,
   ``use_flash=True``), Adam at lr 1e-3, the loss on the sentence head as
-  in ``bench.py``'s ``_bench_bert``.
+  in ``bench.py``'s ``_bench_bert``;
+- the rules without a bucket kernel, as the reference's own cases pair
+  them (``tests/test_parallel.py:152``): the BERT with LAMB (lr 1e-3, wd
+  0.01; its norms per parameter over the flat bucket), the conv net
+  with LARS (momentum 0.9, wd 5e-4) and with RMSProp, plain and
+  centered (lr 1e-3).
 
 The sequence: three ``step``s, the learning rate halved by
 ``set_learning_rate`` before the third; ``step_accum(n_micro=2)`` on a
@@ -65,6 +70,10 @@ REPO = pathlib.Path(__file__).resolve().parent.parent
 RTOL = 1e-5
 KEY_BIAS_ATOL = 3 * 1e-3        # BERT's Adam lr, three times
 BN_BIAS_ATOL = 1e-6
+# RMSProp divides a gradient by the root of its own running square: on
+# rounding noise a step moves by up to lr / sqrt(1 - gamma1), whatever
+# the noise's size (about 3.2 lr); three calls' worth, as Adam's
+RMSPROP_NOISE_ATOL = 3 * 1e-3 / np.sqrt(1 - 0.9)
 BN_FED_BIASES = ("0.bias", "4.bias")    # the conv net's convs' biases
 B, SIZE, CLASSES = 4, 8, 10
 BERT = dict(num_layers=2, units=32, hidden_size=64, num_heads=4,
@@ -127,6 +136,20 @@ CASES = {
                  batch=_bert_batch, rule="adam",
                  params={"learning_rate": 1e-3}, loss=_bert_loss),
 }
+CASES.update({
+    "bert-lamb": dict(CASES["bert"], rule="lamb",
+                      params={"learning_rate": 1e-3, "wd": 0.01}),
+    "conv-lars": dict(CASES["conv"], rule="lars",
+                      params={"learning_rate": 0.1, "momentum": 0.9,
+                              "wd": 5e-4}),
+    "conv-rmsprop": dict(CASES["conv"], rule="rmsprop",
+                         params={"learning_rate": 1e-3},
+                         noise_atol=RMSPROP_NOISE_ATOL),
+    "conv-rmsprop-centered": dict(CASES["conv"], rule="rmsprop",
+                                  params={"learning_rate": 1e-3,
+                                          "centered": True},
+                                  noise_atol=RMSPROP_NOISE_ATOL),
+})
 
 
 def _batches(case, seed=0):
@@ -242,16 +265,19 @@ def _close(got, want, what, rtol=RTOL):
     assert err <= rtol, f"{what}: {err:.3g} relative to {scale:.3g}"
 
 
-def _close_params(got, want, what):
+def _close_params(got, want, what, case):
     assert sorted(got) == sorted(want)
     for k in want:
         if k.endswith("proj_key.bias"):
-            # zero gradient in exact arithmetic: Adam steps rounding noise
-            # by up to about lr a call, in either package
+            # zero gradient in exact arithmetic: Adam (and LAMB, whose
+            # ratio is 1 at a zero weight) steps rounding noise by up to
+            # about lr a call, in either package
             assert np.abs(got[k] - want[k]).max() <= KEY_BIAS_ATOL, k
         elif k in BN_FED_BIASES:
             # zero gradient in exact arithmetic: rounding noise times lr
-            assert np.abs(got[k] - want[k]).max() <= BN_BIAS_ATOL, k
+            # (SGD, LARS), or RMSProp's step on noise
+            atol = CASES[case].get("noise_atol", BN_BIAS_ATOL)
+            assert np.abs(got[k] - want[k]).max() <= atol, k
         else:
             _close(got[k], want[k], f"{what} {k}")
 
@@ -273,7 +299,7 @@ def test_trainer_matches_jax_call_by_call(runs, call):
     (jl, jp), (pl, pp) = runs["jout"][call], runs["pout"][call]
     assert jl.shape == pl.shape
     _close(pl, jl, f"{runs['case']} {CALLS[call]} loss")
-    _close_params(pp, jp, f"{runs['case']} {CALLS[call]}")
+    _close_params(pp, jp, f"{runs['case']} {CALLS[call]}", runs["case"])
 
 
 def test_step_multi_is_two_steps(runs):
@@ -291,7 +317,7 @@ def test_step_multi_is_two_steps(runs):
     b.step(*bt["b0"])
     losses = b.step_multi([bt["b1"], bt["b2"]])
     assert losses.shape == (2,)
-    _close_params(_params(net2), multi, f"{case} step_multi")
+    _close_params(_params(net2), multi, f"{case} step_multi", case)
 
 
 def test_step_indexed_matches_step_on_the_same_slice(runs):
@@ -304,7 +330,8 @@ def test_step_indexed_matches_step_on_the_same_slice(runs):
     la = a.step(*bt["b1"])
     lb = b.step_indexed(b.put_epoch(*_epoch(bt["b0"], bt["b1"])), 1)
     _close(lb.asnumpy(), la.asnumpy(), f"{case} step_indexed loss")
-    _close_params(_params(nets[1]), _params(nets[0]), f"{case} step_indexed")
+    _close_params(_params(nets[1]), _params(nets[0]), f"{case} step_indexed",
+                  case)
 
 
 # ----------------------------------------------------------------------
@@ -350,7 +377,8 @@ def test_jax_state_dict_resumes_in_the_port(runs):
     tr.set_learning_rate(CASES[case]["params"]["learning_rate"] / 2)
     assert tr._num_update == runs["jstate"]["meta"]["num_update"]
     tr.step(*runs["bt"]["b4"])
-    _close_params(_params(net), runs["jnext"], f"{case} resumed in the port")
+    _close_params(_params(net), runs["jnext"], f"{case} resumed in the port",
+                  case)
 
 
 def test_port_state_dict_resumes_in_jax(runs):
@@ -360,7 +388,7 @@ def test_port_state_dict_resumes_in_jax(runs):
     tr.load_state_dict(_to_jax_state(runs["pstate"]))
     tr.set_learning_rate(CASES[case]["params"]["learning_rate"] / 2)
     tr.step(*runs["bt"]["b4"])
-    _close_params(_params(net), runs["pnext"], f"{case} resumed in jax")
+    _close_params(_params(net), runs["pnext"], f"{case} resumed in jax", case)
 
 
 def test_running_statistics_advance_where_the_reference_keeps_them(runs):
@@ -436,9 +464,12 @@ def test_learning_rate_schedule_and_rules():
         assert lrs == [fresh(n) for n in range(3)] and lrs[0] > lrs[-1]
         with pytest.raises(mx.MXNetError, match="gluon.Trainer"):
             parallel.DataParallelTrainer(net, ce, "adagrad", mesh=mesh)
-        for rule in ("lamb", "lars", "rmsprop"):
-            with pytest.raises(NotSupportedError, match="item 3"):
-                parallel.DataParallelTrainer(net, ce, rule, mesh=mesh)
+        for rule, leaves in (("lamb", {"m", "v", "t"}), ("lars", set()),
+                             ("rmsprop", {"n"})):
+            other = parallel.DataParallelTrainer(
+                net, ce, rule, {"learning_rate": 1e-3}, mesh=mesh)
+            assert np.isfinite(float(other.step(x, y).asnumpy()))
+            assert set(other.state_dict()["meta"]["leaves"]) == leaves
         for probe in (tr.comm_stats, tr.overlap_probe):
             with pytest.raises(NotSupportedError, match="item 10"):
                 probe()

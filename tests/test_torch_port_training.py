@@ -627,9 +627,15 @@ def test_stale_grad_step_raises_naming_the_parameter():
 
 def test_unported_optimizers_and_kvstores_raise():
     p = {"w": torch.nn.Parameter(torch.zeros(3))}
+    # the rest of the reference's optimizers are ported now: each one
+    # constructs and steps (test_torch_port_optimizers.py holds their
+    # numbers against the reference's)
     for name in ("lamb", "rmsprop", "adagrad"):
-        with pytest.raises(NotSupportedError, match="training-surface"):
-            Trainer(p, name)
+        q = {"w": torch.nn.Parameter(torch.linspace(-1, 1, 3))}
+        tr = Trainer(q, name, {"learning_rate": 0.1})
+        q["w"].grad = torch.ones(3)
+        tr.step(1)
+        assert not torch.equal(q["w"].detach(), torch.linspace(-1, 1, 3))
     # lr_scheduler and multi_precision are ported now: taken as the
     # reference takes them (test_torch_port_amp.py holds their numbers)
     sched = mt.optimizer.lr_scheduler.FactorScheduler(step=2)
@@ -643,6 +649,7 @@ def test_unported_optimizers_and_kvstores_raise():
     with pytest.raises(MXNetError):
         Trainer([torch.zeros(3)], "sgd")
     tr = Trainer(p, "sgd", {"learning_rate": 0.5}, kvstore="local")
+    assert tr.allreduce_grads() is None      # one device: nothing to reduce
     tr.set_learning_rate(0.25)
     assert tr.learning_rate == 0.25 and isinstance(tr.optimizer,
                                                    mt.optimizer.SGD)
