@@ -287,7 +287,25 @@ continued:
     ``weight`` and ``sample_weight``) within 1e-5 relative (CTC 1e-4);
     SGLD, the ``nd.random`` samplers and the ``sample_*`` ops over 10^6
     draws on the card within 5 standard errors of their distributions'
-    mean and variance; no kernel of the port runs;
+    mean and variance; then every op name of the registry's tail and
+    every ``nd.linalg`` function (``_surface_tail_cases``: outputs and
+    a held gradient within 1e-5 relative, the transcendental ops and
+    the factorizations within 1e-4); no kernel of the port runs;
+33. the op library at full width, card against the port's CPU result
+    on the same inputs, each line with the card's median time over 5
+    calls: ``topk(k=50, ret_typ="both")``, ``sort`` and ``argsort`` on
+    (8, 128256) bf16-valued f32 logits (exactly the CPU's, and numpy's
+    stable order); BERT-base's ``masked_softmax`` with its gradient at
+    (64, 12, 128, 128); ``SequenceMask``/``Last``/``Reverse`` at (128,
+    64, 1024) (exact); ResNet-50's stem through ``im2col`` (exact;
+    columns times the weight against ``Convolution``, ``col2im`` its
+    adjoint); ``GridGenerator`` and ``BilinearSampler`` with gradients
+    at (32, 3, 224, 224); FlowNetC's ``Correlation`` at (8, 256, 48,
+    64); AlexNet's ``LRN`` at (32, 96, 55, 55): within 1e-5 relative;
+    ``linalg`` ``potrf``, ``potri``, ``trsm``, ``syrk``, ``inverse``,
+    ``slogdet``, ``gelqf`` and ``syevd`` on (64, 256, 256) f32 within
+    1e-4 (factors up to sign, reconstructions on the card); its wall
+    time printed; no kernel of the port runs;
 11. bf16 AMP training (``amp.init`` is process-wide, so phases 11, 13,
     29, 15, 17 and 18 come last, in that order): phase 8's model, batch and AdamW under
     ``amp.init("bfloat16")``, ``amp.init_trainer`` and
@@ -5371,13 +5389,227 @@ def _surface_op_cases(rng):
             ("dirichlet", dirichlet / dirichlet.sum(-1, keepdims=True),
              [pos(2, 3)])):
         op(f"random_pdf_{name}", [sample] + params, is_log=True)
+    return cases + _surface_tail_cases(rng)
+
+
+# phase 32's looser limits: CUDA's transcendental functions (lgamma,
+# digamma and erfinv among them) and the CPU's are ulps apart, more
+# where a gradient divides by a small value; cuSOLVER's factorizations
+# and LAPACK's round in other orders
+SURFACE_TRANS_RTOL = 1e-4
+SURFACE_LINALG_RTOL = 1e-4
+
+
+def _surface_tail_cases(rng):
+    """Phase 32's cases of the rest of the op registry and of
+    ``nd.linalg`` (each op name at least once, at small sizes), in
+    ``_surface_op_cases``'s form, labels unique.  Multi-output ops with
+    a held gradient hold one output, or a sign-invariant function of
+    the factors (``syevd``, ``gelqf``)."""
+    import numpy as np
+    f32 = np.float32
+    cases = []
+
+    def op(label, name, arrays, grad=None, rtol=SURFACE_RTOL, **kw):
+        cases.append((label, lambda nd, a: getattr(nd, name)(*a, **kw),
+                      arrays, grad, rtol))
+
+    def fn(label, call, arrays, grad=None, rtol=SURFACE_RTOL):
+        cases.append((label, call, arrays, grad, rtol))
+
+    T, LA = SURFACE_TRANS_RTOL, SURFACE_LINALG_RTOL
+    a, b = _arrays(rng, 2)
+    pos = np.abs(a) + 0.5
+    unit = (np.tanh(a) * 0.9).astype(f32)
+    ints = rng.randint(-20, 20, (6, 5)).astype(np.int32)
+    intp = rng.randint(1, 30, (6, 5)).astype(np.int32)
+    intq = rng.randint(1, 8, (6, 5)).astype(np.int32)
+    ties = rng.randint(0, 4, (6, 8)).astype(f32)
+    special = np.array([np.nan, np.inf, -np.inf, 1.5, -2.0, 0.0], f32)
+    x3 = rng.randn(2, 3, 4).astype(f32)
+    x4 = rng.randn(2, 6, 5, 7).astype(f32)
+    vec = rng.randn(6).astype(f32)
+    for name, x in (("arcsin", unit), ("arccos", unit), ("arctan", a),
+                    ("sinh", a), ("cosh", a), ("arcsinh", a),
+                    ("arccosh", pos + 1), ("arctanh", unit), ("cbrt", a),
+                    ("rcbrt", pos), ("erfinv", unit), ("digamma", pos),
+                    ("gammaln", pos), ("gamma", pos), ("gelu", a),
+                    ("mish", a), ("selu", a), ("softrelu", a),
+                    ("log_sigmoid", a), ("silu", a), ("swish", a),
+                    ("softmin", a), ("SoftmaxActivation", a), ("elu", a)):
+        op(name, name, [x], 0, T)
+    for name in ("degrees", "radians", "hard_sigmoid"):
+        op(name, name, [a], 0)
+    fn("relu6", lambda nd, x: nd.relu6(x[0] * 4), [a], 0)
+    fn("fix", lambda nd, x: nd.fix(x[0] * 3), [a])
+    op("rint", "rint", [np.array([-2.5, -1.5, -0.5, 0.5, 1.5, 2.5], f32)])
+    for name in ("isnan", "isinf", "isfinite", "isposinf", "isneginf",
+                 "nan_to_num"):
+        op(name, name, [special])
+    for name in ("hypot", "broadcast_hypot", "arctan2"):
+        op(name, name, [a, b], 0, T)
+    for name in ("logical_xor", "broadcast_logical_xor"):
+        fn(name, lambda nd, x, name=name: getattr(nd, name)(
+            x[0] > 0, x[1] > 0), [a, b])
+    for name in ("fmod", "mod", "true_divide"):
+        op(name, name, [a * 3, pos], 0)
+    op("floor_divide", "floor_divide", [ints, intq])
+    op("divmod", "divmod", [a * 5, pos])
+    for name in ("outer", "kron"):
+        op(name, name, [a[0], b[1]], 0)
+    for name in ("inner", "vdot"):
+        op(name, name, [a, b], 0)
+    op("matmul", "matmul", [x3, rng.randn(2, 4, 5).astype(f32)], 0)
+    op("tensordot", "tensordot", [x3, rng.randn(3, 4, 2).astype(f32)], 0,
+       axes=2)
+    for name in ("gcd", "lcm", "bitwise_and", "bitwise_or", "bitwise_xor",
+                 "left_shift", "right_shift"):
+        op(name, name, [ints if name != "lcm" else intq, intq])
+    for name in ("bitwise_not", "invert"):
+        op(name, name, [ints])
+    op("cumsum", "cumsum", [a], 0, axis=1)
+    op("cumprod", "cumprod", [pos], 0, axis=0)
+    op("nanprod", "nanprod", [np.where(a > 1, np.nan, pos).astype(f32)],
+       0, axis=1)
+    op("mp_sum", "mp_sum", [a], 0, axis=0)
+    fn("moments", lambda nd, x: sum(nd.moments(x[0], axes=(0, 2))), [x3], 0)
+    op("ediff1d", "ediff1d", [a], 0, to_begin=[1.0], to_end=2.0)
+    xp = np.sort(rng.randn(5)).astype(f32)
+    op("interp", "interp", [a, xp, vec[:5]], 0)
+    op("polyval", "polyval", [vec[:4], a], 1)
+    op("searchsorted", "searchsorted", [xp, a], side="right")
+    op("digitize", "digitize", [a, xp])
+    fn("histogram", lambda nd, x: nd.histogram(x[0], bins=6), [a])
+    op("bincount", "bincount", [intp.reshape(-1), a.reshape(-1)],
+       minlength=40)
+    op("unique", "unique", [ties])
+    for asc in (True, False):
+        op(f"sort {asc}", "sort", [ties], 0, is_ascend=asc)
+        op(f"argsort {asc}", "argsort", [ties], is_ascend=asc, axis=0)
+        op(f"topk {asc}", "topk", [ties], k=3, ret_typ="both",
+           is_ascend=asc)
+    fn("topk value", lambda nd, x: nd.topk(x[0], k=3, ret_typ="value"),
+       [ties], 0)
+    op("argmax_channel", "argmax_channel", [x4])
+    op("gather_nd", "gather_nd", [x3, np.array([[0, 1, -1], [2, 0, 1]],
+                                               f32)], 0)
+    op("scatter_nd", "scatter_nd", [vec[:4], np.array(
+        [[0, 2, 2, 1], [1, 3, 3, 0]], f32)], 0, shape=(3, 4))
+    op("batch_take", "batch_take", [a, rng.randint(0, 5, 6).astype(f32)], 0)
+    op("choose_element_0index", "choose_element_0index",
+       [a, rng.randint(0, 5, 6).astype(f32)], 0)
+    op("fill_element_0index", "fill_element_0index",
+       [a, vec, rng.randint(0, 5, 6).astype(f32)], 0)
+    for name in ("one_hot_encode", "onehot_encode"):
+        op(name, name, [np.array([1, 4, 0], f32), np.zeros((3, 5), f32)])
+    op("ravel_multi_index", "ravel_multi_index",
+       [np.array([[0, 2, 1], [3, 0, 1]], f32)], shape=(3, 4))
+    op("unravel_index", "unravel_index", [np.array([0, 5, 11, 13, -3], f32)],
+       shape=(3, 4))
+    op("slice_like", "slice_like", [x3, np.zeros((1, 2, 3), f32)], 0)
+    op("diag", "diag", [a], 0, k=1)
+    op("tril", "tril", [a], 0, k=1)
+    op("triu", "triu", [x3], 0, k=-1)
+    op("trace", "trace", [a], 0)
+    op("reverse", "reverse", [a], 0, axis=1)
+    op("SwapAxis", "SwapAxis", [x3], 0, dim1=0, dim2=2)
+    op("rot90", "rot90", [x3], 0, k=3, axes=(1, 2))
+    for name in ("shape_array", "size_array"):
+        op(name, name, [x3])
+    op("arange_like", "arange_like", [x3], start=1.0, step=0.5, repeat=2)
+    op("full_like", "full_like", [a], fill_value=2.5)
+    op("khatri_rao", "khatri_rao", [rng.randn(3, 2).astype(f32),
+                                    rng.randn(4, 2).astype(f32)], 0)
+    for name in ("hstack", "vstack", "dstack"):
+        op(name, name, [a, b], 0)
+    op("hsplit", "hsplit", [ties], indices_or_sections=2)
+    op("vsplit", "vsplit", [ties], indices_or_sections=[2])
+    op("meshgrid", "meshgrid", [vec[:3], vec])
+    op("embedding", "embedding", [np.array([[1, 0], [3, 2]], f32), a], 1)
+    seq = rng.randn(5, 3, 2).astype(f32)
+    lens = np.array([2, 5, 1], f32)
+    for name in ("SequenceMask", "sequence_mask", "SequenceLast",
+                 "sequence_last", "SequenceReverse", "sequence_reverse"):
+        op(name, name, [seq, lens], 0, use_sequence_length=True)
+    op("SequenceMask axis 1", "SequenceMask",
+       [seq.transpose(1, 0, 2).copy(), lens], 0, use_sequence_length=True,
+       axis=1)
+    mask = (rng.rand(2, 3, 4) > 0.4).astype(f32)
+    mask[0, 1] = 0.0
+    op("masked_softmax", "masked_softmax", [x3, mask], 0, T)
+    op("L2Normalization", "L2Normalization", [x4], 0, mode="channel")
+    op("LRN", "LRN", [x4], 0, nsize=3)
+    op("UpSampling", "UpSampling", [x4], 0, scale=2)
+    op("UpSampling bilinear", "UpSampling", [x4], 0, scale=2,
+       sample_type="bilinear")
+    op("Crop", "Crop", [x4], 0, h_w=(2, 3), offset=(1, 1))
+    op("Correlation", "Correlation", [x4, rng.randn(2, 6, 5, 7).astype(f32)],
+       0, max_displacement=2, stride2=2, pad_size=1)
+    theta = np.array([[0.9, 0.1, 0.05, -0.2, 1.1, -0.1],
+                      [1.2, -0.3, 0.2, 0.25, 0.8, 0.1]], f32)
+    op("GridGenerator", "GridGenerator", [theta], 0, target_shape=(4, 5))
+    grid = (np.tanh(rng.randn(2, 2, 4, 5)) * 1.15).astype(f32)
+    op("BilinearSampler", "BilinearSampler", [x4, grid], 0)
+    op("SpatialTransformer", "SpatialTransformer", [x4, theta], 0,
+       target_shape=(4, 5))
+    op("im2col", "im2col", [x4], 0, kernel=(3, 3), stride=(2, 1),
+       pad=(1, 1))
+    op("col2im", "col2im", [rng.randn(2, 54, 21).astype(f32)], 0,
+       output_size=(5, 7), kernel=(3, 3), stride=(2, 1), pad=(1, 1))
+    op("amp_cast", "amp_cast", [a], 0, dtype="float16")
+    op("amp_multicast", "amp_multicast", [a.astype(np.float16), b])
+    fn("foreach", lambda nd, x: nd.foreach(
+        lambda xt, st: (xt * 2 + st, st + xt), x[0], x[1]), [seq, seq[0]])
+    fn("cond", lambda nd, x: nd.cond(x[0].sum() > 0, lambda: x[0] * 2,
+                                     lambda: x[0] - 1), [a])
+    fn("while_loop", lambda nd, x: nd.while_loop(
+        lambda j, s: j < 3, lambda j, s: (s * j, [j + 1, s + j]),
+        [x[0], x[1]]), [np.zeros(1, f32), a])
+    # nd.linalg: SPD inputs B B^T + n I, n = 8
+    bb = rng.randn(2, 8, 8)
+    spd = (bb @ bb.transpose(0, 2, 1) + 8 * np.eye(8)).astype(f32)
+    low = np.linalg.cholesky(spd).astype(f32)
+    m = rng.randn(2, 8, 3).astype(f32)
+    op("linalg_gemm", "linalg_gemm", [spd, m, m], 0, alpha=0.5, beta=2.0)
+    op("linalg_potrf", "linalg_potrf", [spd], 0, LA)
+    op("linalg_potri", "linalg_potri", [low], 0, LA)
+    op("linalg_trsm", "linalg_trsm", [low, m], 0, LA)
+    op("linalg_trsm right transposed", "linalg_trsm",
+       [low, m.transpose(0, 2, 1).copy()], 0, LA, rightside=True,
+       transpose=True)
+    op("linalg_trmm", "linalg_trmm", [spd, m], 0, lower=False)
+    op("linalg_syrk", "linalg_syrk", [m], 0, transpose=True)
+    op("linalg_sumlogdiag", "linalg_sumlogdiag", [spd], 0, LA)
+    op("linalg_extractdiag", "linalg_extractdiag", [spd], 0, offset=1)
+    op("linalg_makediag", "linalg_makediag", [m[:, 0]], 0, offset=-1)
+    op("linalg_extracttrian", "linalg_extracttrian", [spd], 0, lower=False)
+    op("linalg_maketrian", "linalg_maketrian", [rng.randn(2, 6).astype(f32)],
+       0, offset=1)
+    op("linalg_inverse", "linalg_inverse", [spd], 0, LA)
+    op("linalg_det", "linalg_det", [spd / 8], 0, LA)
+    op("linalg_slogdet", "linalg_slogdet", [spd], None, LA)
+    fn("linalg_slogdet grad", lambda nd, x: nd.linalg_slogdet(x[0])[1],
+       [spd], 0, LA)
+    wide = rng.randn(2, 3, 8).astype(f32)
+    fn("linalg_gelqf", lambda nd, x: [f ** 2 for f in nd.linalg_gelqf(x[0])]
+       + [nd.linalg_gemm2(*nd.linalg_gelqf(x[0]))], [wide], None, LA)
+    fn("linalg_gelqf grad", lambda nd, x: sum(
+        (f ** 2).sum() for f in nd.linalg_gelqf(x[0])), [wide], 0, LA)
+    fn("linalg_syevd", lambda nd, x: [nd.linalg_syevd(x[0])[0] ** 2,
+                                      nd.linalg_syevd(x[0])[1]], [spd], None,
+       LA)
+    fn("linalg_syevd grad", lambda nd, x: nd.linalg_syevd(x[0])[1] + (
+        nd.linalg_syevd(x[0])[0] ** 2).sum(axis=2), [spd], 0, LA)
+    fn("linalg.gemm2", lambda nd, x: nd.linalg.gemm2(x[0], x[1]), [spd, m], 0)
     return cases
 
 
 def _outputs(out):
     if out is None:
         return []
-    return list(out) if isinstance(out, (list, tuple)) else [out]
+    if isinstance(out, (list, tuple)):
+        return [o for x in out for o in _outputs(x)]
+    return [out]
 
 
 def _surface_ops(dev):
@@ -5620,6 +5852,390 @@ def surface_card_vs_cpu(dev):
           f"{samplers}; launches {launches}", flush=True)
     if bad:
         fail("surface card vs cpu: " + "; ".join(bad))
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+# ----------------------------------------------------------------------
+# phase 33: the op library at full width, card against the port's CPU
+# ----------------------------------------------------------------------
+
+# f32 arithmetic in another order (sums of a softmax, a convolution's
+# 147 products, a channel mean, LRN's window, a bilinear blend and its
+# scattered gradient)
+OPLIB_RTOL = 1e-5
+# cuSOLVER's factorizations against LAPACK's, on well-conditioned SPD
+# matrices B B^T + n I
+OPLIB_LINALG_RTOL = 1e-4
+# Correlation's CPU reference runs on the first samples of the batch
+# only (each sample is computed alone; 441 displacements over 8 x 256
+# maps take the CPU seconds)
+OPLIB_CORR_CPU_SAMPLES = 2
+# syevd's eigenvectors are compared where the eigenvalue's gap to both
+# neighbours exceeds this (about 1e-3 of the largest eigenvalue of
+# B B^T + n I at n = 256)
+OPLIB_EIG_GAP = 1.0
+# cycles the card sleeps ahead of each timed call (time_ms's cover),
+# some 25 ms: longer than the host takes to enqueue Correlation's 882
+# launches, so the events time the card and not the Python loop; a call
+# whose enqueue outlasts it (or that waits on the card inside, as
+# eigh's convergence check does) prints its time as including dispatch
+OPLIB_COVER = 50_000_000
+# the models' widths: Llama-3-8B's vocabulary, BERT-base's attention
+# (batch 64 x 128), ResNet-50's stem and AlexNet's conv1 output (batch
+# 32), FlowNetC's correlation, a (64, 256, 256) batch of matrices
+OPLIB = dict(logits=(8, 128256), topk=50, attn=(64, 12, 128, 128),
+             seq=(128, 64, 1024), img=(32, 3, 224, 224), stem=64,
+             corr=(8, 256, 48, 64), corr_kw=dict(max_displacement=20,
+                                                 stride2=2, pad_size=20),
+             lrn=(32, 96, 55, 55), linalg=(64, 256))
+
+
+def oplib_full_width(dev, card, shapes=OPLIB):
+    """Phase 33: ops of the registry's tail and ``nd.linalg`` at the
+    full width of a model that calls them, card against the port's own
+    CPU result on the same inputs; each line prints the card's median
+    time over 5 calls (``time_ms`` behind ``OPLIB_COVER``, the L2
+    flushed), marked where it includes the host's dispatch, and the
+    card.
+
+    - top-k sampling at Llama-3-8B's vocabulary: ``topk(k=50,
+      ret_typ="both")``, ``sort`` and ``argsort`` on (8, 128256) f32
+      logits rounded to bf16 (a bf16 head's logits, so values tie):
+      values and indices exactly the CPU's, and the indices numpy's
+      stable order (the lower index first among equal values);
+    - BERT-base attention: ``masked_softmax`` and its gradient on (64,
+      12, 128, 128) scores masked by per-row valid lengths;
+    - ``SequenceMask``, ``SequenceLast`` and ``SequenceReverse`` at
+      (128, 64, 1024) with per-row lengths, exactly;
+    - ResNet-50's stem: ``im2col`` at (32, 3, 224, 224), kernel 7,
+      stride 2, pad 3, exactly the CPU's; its columns times the stem's
+      weight equal ``Convolution``'s output, and ``col2im`` is its
+      adjoint (``<im2col(x), y> = <x, col2im(y)>``);
+    - a spatial transformer: ``GridGenerator`` (affine) and
+      ``BilinearSampler`` with its gradients at (32, 3, 224, 224), both
+      samplers fed the CPU's grid;
+    - FlowNetC's ``Correlation`` at (8, 256, 48, 64), max_displacement
+      20, stride2 2, pad 20 (the CPU on the first samples);
+    - AlexNet's ``LRN(nsize=5)`` at (32, 96, 55, 55);
+    - ``linalg`` ``potrf``, ``potri``, ``trsm``, ``syrk``, ``inverse``,
+      ``slogdet``, ``gelqf`` and ``syevd`` on (64, 256, 256) f32 (SPD
+      B B^T + n I where it takes one): the factors and the eigenvectors
+      up to sign, each factorization also by its reconstruction on the
+      card.
+    Nothing here launches a kernel of the port, and every card output
+    lies on the card."""
+    import numpy as np
+    import torch
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import autograd, ops
+    nd = mx.nd
+    gpu, cpu = mx.gpu(dev.index or 0), mx.cpu()
+    torch.cuda.synchronize(dev)
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    rng = np.random.RandomState(330)
+    bad = []
+    flush = torch.empty(128 * 2 ** 20, dtype=torch.uint8, device=dev)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    torch.cuda._sleep(OPLIB_COVER)
+    end.record()
+    end.synchronize()
+    cover_ms = start.elapsed_time(end)
+
+    def card_ms(fn):
+        """``fn``'s median card time as text: device time where the
+        host enqueues one call within the cover, else marked as time
+        that includes the dispatch."""
+        ms = time_ms(fn, 5, flush, OPLIB_COVER)
+        torch.cuda._sleep(OPLIB_COVER)
+        t = time.perf_counter()
+        fn()
+        host = (time.perf_counter() - t) * 1e3
+        torch.cuda.synchronize(dev)
+        if host < cover_ms:
+            return f"{ms:.3f} ms"
+        return f"{ms:.3f} ms (includes dispatch: host {host:.3f} ms)"
+
+    def both(x):
+        return (nd.array(x, ctx=gpu, dtype=str(x.dtype)),
+                nd.array(x, ctx=cpu, dtype=str(x.dtype)))
+
+    def on_card(*arrays):
+        for a in arrays:
+            if not a.data.is_cuda:
+                fail("phase 33: an op returned a CPU array for card inputs")
+
+    def report(label, errs, limit, ms, extra=""):
+        shown = {k: float(f"{v:.3g}") for k, v in errs.items()}
+        print(f"phase 33 {label}: card {ms}; relative difference card vs "
+              f"CPU {shown} (limit {limit}){extra}; {card}", flush=True)
+        for k, v in errs.items():
+            if not v <= limit:
+                bad.append(f"{label} {k} {v:.3e} > {limit}")
+
+    def grad_run(op, data, extra_in, head, **kw):
+        data = nd.array(data, ctx=data.context)
+        data.attach_grad()
+        with autograd.record():
+            out = op(data, *extra_in, **kw)
+        out.backward(head)
+        return out, data.grad
+
+    # top-k sampling at Llama-3-8B's vocabulary
+    K = shapes["topk"]
+    logits = torch.tensor(rng.randn(*shapes["logits"]).astype(np.float32) *
+                          3).bfloat16().float().numpy()
+    lg, lc = both(logits)
+    exact = {}
+    for name, call in (
+            ("topk", lambda x: nd.topk(x, k=K, ret_typ="both")),
+            ("sort", lambda x: [nd.sort(x, is_ascend=False)]),
+            ("argsort", lambda x: [nd.argsort(x, is_ascend=False,
+                                              dtype="int32")])):
+        got, want = call(lg), call(lc)
+        on_card(*got)
+        exact[name] = all(np.array_equal(g.asnumpy(), w.asnumpy())
+                          for g, w in zip(got, want))
+    # the reference's orders: top-k the lower index first among equal
+    # values, a descending argsort the stable ascending one reversed
+    exact["numpy's orders"] = np.array_equal(
+        nd.topk(lg, k=K).asnumpy().astype(np.int64),
+        np.argsort(-logits, axis=-1, kind="stable")[:, :K]) and \
+        np.array_equal(nd.argsort(lg, is_ascend=False).asnumpy().astype(
+            np.int64), np.flip(np.argsort(logits, -1, kind="stable"), -1))
+    top = np.sort(logits, -1)[:, ::-1][:, :K + 1]
+    ties = int((top[:, 1:] == top[:, :-1]).sum())
+    ms = {n: card_ms(c) for n, c in (
+        ("topk", lambda: nd.topk(lg, k=K, ret_typ="both")),
+        ("sort", lambda: nd.sort(lg)), ("argsort", lambda: nd.argsort(lg)))}
+    print(f"phase 33 top-k sampling ({shapes['logits']} f32 logits, bf16 "
+          f"values, {ties} tied neighbours in the top {K + 1}): card {ms}; "
+          f"exactly the CPU's {exact}; {card}", flush=True)
+    if not all(exact.values()):
+        bad.append(f"top-k sampling: not exact {exact}")
+    del lg, lc
+
+    # BERT-base attention
+    bb, hh, ll, _ = shapes["attn"]
+    scores = rng.randn(*shapes["attn"]).astype(np.float32)
+    lengths = rng.randint(1, ll + 1, bb)
+    mask = (np.arange(ll)[None, :] < lengths[:, None]).astype(
+        np.float32).reshape(bb, 1, 1, ll)
+    head = rng.randn(*shapes["attn"]).astype(np.float32)
+    runs = []
+    for ctx in (gpu, cpu):
+        runs.append(grad_run(nd.masked_softmax, nd.array(scores, ctx=ctx),
+                             [nd.array(mask, ctx=ctx)],
+                             nd.array(head, ctx=ctx)))
+    on_card(*runs[0])
+    sg, mg = both(scores)[0], nd.array(mask, ctx=gpu)
+    hg = nd.array(head, ctx=gpu)
+    fwd = card_ms(lambda: nd.masked_softmax(sg, mg))
+    both_ms = card_ms(lambda: grad_run(nd.masked_softmax, sg, [mg], hg))
+    report(f"BERT-base masked_softmax {shapes['attn']}",
+           {"output": _rel(runs[0][0].asnumpy(), runs[1][0].asnumpy()),
+            "gradient": _rel(runs[0][1].asnumpy(), runs[1][1].asnumpy())},
+           OPLIB_RTOL, f"{fwd} forward, {both_ms} with the backward")
+    del runs, sg, mg, hg
+
+    # sequence ops
+    seq = rng.randn(*shapes["seq"]).astype(np.float32)
+    slen = rng.randint(1, seq.shape[0] + 1, seq.shape[1]).astype(np.float32)
+    qg, qc = both(seq)
+    lg_, lc_ = both(slen)
+    exact, ms = {}, {}
+    for name in ("SequenceMask", "SequenceLast", "SequenceReverse"):
+        op = getattr(nd, name)
+        got = op(qg, lg_, use_sequence_length=True)
+        on_card(got)
+        exact[name] = np.array_equal(
+            got.asnumpy(), op(qc, lc_, use_sequence_length=True).asnumpy())
+        ms[name] = card_ms(lambda: op(qg, lg_, use_sequence_length=True))
+    print(f"phase 33 sequence ops ({shapes['seq']}, per-row lengths): card "
+          f"{ms}; exactly the CPU's {exact}; {card}", flush=True)
+    if not all(exact.values()):
+        bad.append(f"sequence ops: not exact {exact}")
+    del qg, qc
+
+    # ResNet-50's stem through im2col
+    x = rng.randn(*shapes["img"]).astype(np.float32)
+    side = x.shape[2]
+    w = (rng.randn(shapes["stem"], 3, 7, 7) * 0.1).astype(np.float32)
+    xg, xc = both(x)
+    stem = dict(kernel=(7, 7), stride=(2, 2), pad=(3, 3))
+    cols = nd.im2col(xg, **stem)
+    on_card(cols)
+    cols_exact = np.array_equal(cols.asnumpy(),
+                                nd.im2col(xc, **stem).asnumpy())
+    wg = nd.array(w, ctx=gpu)
+    conv = nd.Convolution(xg, wg, no_bias=True, num_filter=w.shape[0],
+                          **stem)
+    via = torch.matmul(wg.data.reshape(w.shape[0], -1), cols.data).reshape(
+        conv.shape)
+    y = rng.randn(*cols.shape).astype(np.float32)
+    yg, yc = both(y)
+    back = nd.col2im(yg, output_size=(side, side), **stem)
+    on_card(back)
+    lhs = float((cols.data.double() * yg.data.double()).sum())
+    rhs = float((xg.data.double() * back.data.double()).sum())
+    errs = {"columns x weight vs Convolution": _rel(via.cpu().numpy(),
+                                                    conv.asnumpy()),
+            "adjoint": abs(lhs - rhs) / abs(lhs),
+            "col2im": _rel(back.asnumpy(), nd.col2im(
+                yc, output_size=(side, side), **stem).asnumpy())}
+    ms = {"im2col": card_ms(lambda: nd.im2col(xg, **stem)),
+          "col2im": card_ms(lambda: nd.col2im(
+              yg, output_size=(side, side), **stem)),
+          "Convolution": card_ms(lambda: nd.Convolution(
+              xg, wg, no_bias=True, num_filter=w.shape[0], **stem))}
+    report(f"ResNet-50 stem im2col ({shapes['img']}, kernel 7, stride 2, "
+           "pad 3)", errs, OPLIB_RTOL, ms,
+           f"; im2col exactly the CPU's: {cols_exact}")
+    if not cols_exact:
+        bad.append("im2col: not the CPU's columns")
+    del xg, xc, cols, yg, yc, back, conv, via
+
+    # a spatial transformer
+    data = rng.randn(*shapes["img"]).astype(np.float32)
+    theta = (np.tile([[1.0, 0.0, 0.0, 0.0, 1.0, 0.0]], (data.shape[0], 1)) +
+             rng.randn(data.shape[0], 6) * 0.1).astype(np.float32)
+    tg, tc = both(theta)
+    grid_g = nd.GridGenerator(tg, target_shape=(side, side))
+    grid_c = nd.GridGenerator(tc, target_shape=(side, side))
+    on_card(grid_g)
+    grid = grid_c.asnumpy()
+    head = rng.randn(*shapes["img"]).astype(np.float32)
+    runs = []
+    for ctx in (gpu, cpu):
+        d = nd.array(data, ctx=ctx)
+        g = nd.array(grid, ctx=ctx)
+        d.attach_grad()
+        g.attach_grad()
+        with autograd.record():
+            out = nd.BilinearSampler(d, g)
+        out.backward(nd.array(head, ctx=ctx))
+        runs.append((out, d.grad, g.grad))
+    on_card(*runs[0])
+    dg, gg, hg = nd.array(data, ctx=gpu), nd.array(grid, ctx=gpu), \
+        nd.array(head, ctx=gpu)
+
+    def sampler_step():
+        dd = nd.array(dg, ctx=gpu)
+        gr = nd.array(gg, ctx=gpu)
+        dd.attach_grad()
+        gr.attach_grad()
+        with autograd.record():
+            out = nd.BilinearSampler(dd, gr)
+        out.backward(hg)
+    ms = {"GridGenerator": card_ms(lambda: nd.GridGenerator(
+        tg, target_shape=(side, side))),
+        "BilinearSampler": card_ms(lambda: nd.BilinearSampler(dg, gg)),
+        "BilinearSampler with the backward": card_ms(sampler_step)}
+    report(f"spatial transformer {shapes['img']}",
+           {"grid": _rel(grid_g.asnumpy(), grid),
+            "output": _rel(runs[0][0].asnumpy(), runs[1][0].asnumpy()),
+            "data gradient": _rel(runs[0][1].asnumpy(), runs[1][1].asnumpy()),
+            "grid gradient": _rel(runs[0][2].asnumpy(), runs[1][2].asnumpy())},
+           OPLIB_RTOL, ms)
+    del runs, dg, gg, hg
+
+    # FlowNetC's correlation
+    a = rng.randn(*shapes["corr"]).astype(np.float32)
+    b = rng.randn(*shapes["corr"]).astype(np.float32)
+    corr = shapes["corr_kw"]
+    ag, bg = nd.array(a, ctx=gpu), nd.array(b, ctx=gpu)
+    got = nd.Correlation(ag, bg, **corr)
+    on_card(got)
+    k = OPLIB_CORR_CPU_SAMPLES
+    want = nd.Correlation(nd.array(a[:k], ctx=cpu), nd.array(b[:k], ctx=cpu),
+                          **corr).asnumpy()
+    report(f"FlowNetC Correlation ({shapes['corr']}, {corr}; "
+           f"{got.shape[1]} displacements; CPU on samples 0-{k - 1})",
+           {"output": _rel(got.asnumpy()[:k], want)},
+           OPLIB_RTOL,
+           card_ms(lambda: nd.Correlation(ag, bg, **corr)))
+    del ag, bg, got
+
+    # AlexNet's LRN
+    x = np.abs(rng.randn(*shapes["lrn"])).astype(np.float32)
+    xg, xc = both(x)
+    got = nd.LRN(xg, nsize=5)
+    on_card(got)
+    report(f"AlexNet LRN(nsize=5) {shapes['lrn']}",
+           {"output": _rel(got.asnumpy(), nd.LRN(xc, nsize=5).asnumpy())},
+           OPLIB_RTOL, card_ms(lambda: nd.LRN(xg, nsize=5)))
+    del xg, xc, got
+
+    # linalg on (64, 256, 256)
+    nb, n = shapes["linalg"]
+    bm = rng.randn(nb, n, n)
+    spd = (bm @ bm.transpose(0, 2, 1) + n * np.eye(n)).astype(np.float32)
+    gen = rng.randn(nb, n, n).astype(np.float32)
+    sg, sc = both(spd)
+    mg, mc = both(gen)
+    low = nd.linalg_potrf(sc).asnumpy()
+    lowg, lowc = both(low)
+    errs, ms = {}, {}
+    for name, call, args in (
+            ("potrf", nd.linalg_potrf, (sg, sc)),
+            ("potri", nd.linalg_potri, (lowg, lowc)),
+            ("trsm", lambda x, m: nd.linalg_trsm(x, m), ((lowg, mg),
+                                                          (lowc, mc))),
+            ("syrk", nd.linalg_syrk, (mg, mc)),
+            ("inverse", nd.linalg_inverse, (sg, sc))):
+        ga, ca = args if isinstance(args[0], tuple) else ((args[0],),
+                                                          (args[1],))
+        got = call(*ga)
+        on_card(got)
+        errs[name] = _rel(got.asnumpy(), call(*ca).asnumpy())
+        ms[name] = card_ms(lambda: call(*ga))
+    sign_g, logdet_g = nd.linalg_slogdet(sg)
+    sign_c, logdet_c = nd.linalg_slogdet(sc)
+    on_card(sign_g, logdet_g)
+    errs["slogdet"] = _rel(logdet_g.asnumpy(), logdet_c.asnumpy()) + float(
+        np.abs(sign_g.asnumpy() - sign_c.asnumpy()).max())
+    ms["slogdet"] = card_ms(lambda: nd.linalg_slogdet(sg))
+    lq_g, lq_c = nd.linalg_gelqf(mg), nd.linalg_gelqf(mc)
+    on_card(*lq_g)
+    lg64 = [t.asnumpy().astype(np.float64) for t in lq_g]
+    errs["gelqf |L|, |Q|"] = max(
+        _rel(np.abs(g), np.abs(c.asnumpy())) for g, c in zip(lg64, lq_c))
+    errs["gelqf L Q = A"] = _rel(lg64[0] @ lg64[1], gen)
+    errs["gelqf Q Q^T = I"] = float(np.abs(
+        lg64[1] @ lg64[1].transpose(0, 2, 1) - np.eye(n)).max())
+    ms["gelqf"] = card_ms(lambda: nd.linalg_gelqf(mg))
+    ev_g, ev_c = nd.linalg_syevd(sg), nd.linalg_syevd(sc)
+    on_card(*ev_g)
+    u, lam = (t.asnumpy().astype(np.float64) for t in ev_g)
+    lam_c = ev_c[1].asnumpy().astype(np.float64)
+    errs["syevd eigenvalues"] = _rel(lam, lam_c)
+    # an eigenvector is determined up to sign only where its eigenvalue
+    # stands apart: the rows whose gap to both neighbours exceeds
+    # OPLIB_EIG_GAP (B B^T's spectrum crowds near its lower end)
+    gaps = np.diff(lam_c, axis=-1)
+    apart = np.minimum(np.pad(gaps, ((0, 0), (1, 0)), constant_values=np.inf),
+                       np.pad(gaps, ((0, 0), (0, 1)),
+                              constant_values=np.inf)) > OPLIB_EIG_GAP
+    dots = np.abs(np.einsum("bij,bij->bi", u, ev_c[0].asnumpy().astype(
+        np.float64)))
+    errs[f"syevd rows up to sign ({int(apart.sum())} of {apart.size} "
+         "apart)"] = float(np.abs(1.0 - dots[apart]).max())
+    errs["syevd U^T diag(L) U = A"] = _rel(
+        u.transpose(0, 2, 1) @ (lam[..., None] * u), spd)
+    ms["syevd"] = card_ms(lambda: nd.linalg_syevd(sg))
+    report(f"linalg ({nb} x {n} x {n} f32)", errs, OPLIB_LINALG_RTOL, ms)
+    torch.cuda.synchronize(dev)
+    launches = read_launches("op library full width", {})
+    wall = time.perf_counter() - t0
+    print(f"phase 33 op library at full width: {wall:.1f} s of wall time; "
+          f"launches {launches}", flush=True)
+    if bad:
+        fail("op library full width: " + "; ".join(bad))
+    del flush
     gc.collect()
     torch.cuda.empty_cache()
     return launches
@@ -6351,6 +6967,7 @@ def main():
     # phase 30's f32 check and phase 32, before the amp phases
     by_path["dp_bert_lamb_check"] = lamb_dp_vs_gluon(dev)
     by_path["surface_card_vs_cpu"] = surface_card_vs_cpu(dev)
+    by_path["oplib_full_width"] = oplib_full_width(dev, card)
     # phases 11, 13, 15, 17 and 18 last: amp.init() is process-wide
     by_path["training_amp"], _ = train_llama3_8b(
         dev, card, amp_dtype="bfloat16", f32_first_loss=f32_first_loss)

@@ -178,6 +178,9 @@ class NDArray:
         return t.to("cpu", copy=True).numpy()
 
     def asscalar(self):
+        if _tape.capturing():
+            raise MXNetError("asscalar reads the device from the host and "
+                             "cannot run inside a CUDA graph capture")
         if self.size != 1:
             raise MXNetError("The current array is not a scalar")
         return self.asnumpy().reshape(()).item()

@@ -1,9 +1,8 @@
 """The operator library: MXNet op names and semantics over PyTorch.
 
-Counterpart of ``mxnet_tpu/ndarray/ops.py``, the subset the training
-surface and BERT call: the neural-network ops (``FullyConnected``,
-``Activation``, ``LeakyReLU`` with exact-erf GELU, ``softmax``,
-``log_softmax``, ``Dropout``, ``LayerNorm``, ``Embedding``), the
+Counterpart of ``mxnet_tpu/ndarray/ops.py``: the neural-network ops
+(``FullyConnected``, ``Activation``, ``LeakyReLU`` with exact-erf GELU,
+``softmax``, ``log_softmax``, ``Dropout``, ``LayerNorm``, ``Embedding``), the
 products (``dot``, ``batch_dot``, ``linalg_gemm2``), the shape ops, the
 gathers (``take``, ``pick``, ``one_hot``, ``gather_positions``),
 ``where``, the elementwise unary and binary ops and the reductions;
@@ -34,9 +33,16 @@ patches its registry: ``TARGET_DTYPE_OPS`` to the target dtype,
 dtype; the op itself runs with autocast off, so it computes the same on
 the CPU and on the card.
 
-Every other op name of the reference's registry (``_REFERENCE_OPS``)
-raises ``NotSupportedError`` naming ROADMAP §1 item 8, through the
-``nd`` namespace's ``__getattr__``.
+and the rest of the registry (its tail below): the elementwise math and
+activations, the ordering, indexing and shaping ops, the sequence ops,
+the vision ops, the casts and the control flow.  An op that needs a
+host sync (``unique``, ``histogram``, ``bincount``, ``cond``,
+``while_loop``) refuses to run inside a CUDA graph capture
+(:func:`host_sync`).
+
+The one op name of the reference's registry (``_REFERENCE_OPS``) not
+ported, ``RNN``, raises ``NotSupportedError`` naming ROADMAP §1 item 11,
+through the ``nd`` namespace's ``__getattr__``.
 """
 from __future__ import annotations
 
@@ -74,8 +80,8 @@ def _amp_modes(low_extra=(), fp32_extra=()):
 _AMP_MODE = _amp_modes()
 _PLAIN = {}           # op name -> the function without its amp wrapper
 
-# every op name of the reference's registry; those the port lacks raise
-# NotSupportedError when looked up (ROADMAP §1 item 8)
+# every op name of the reference's registry; one the port lacks raises
+# NotSupportedError when looked up (``later``)
 _REFERENCE_OPS = frozenset("""
 Activation BatchNorm BilinearSampler BlockGrad CTCLoss Concat Convolution
 Correlation Crop Deconvolution Dropout ElementWiseSum Embedding Flatten
@@ -205,14 +211,20 @@ def _nd(x, like=None):
         return x
     if torch.is_tensor(x):
         return NDArray(x)
-    return array(x, ctx=like.context if like is not None else None)
+    ctx = like.context if like is not None else None
+    if isinstance(x, (bool, int, float, _np.bool_, _np.number)):
+        # a float32 scalar, as ``array`` makes it, but by a fill on the
+        # device: a CUDA graph capture cannot hold a copy from the host
+        return full((), float(x), ctx=ctx, dtype="float32")
+    return array(x, ctx=ctx)
 
 
 def later(name):
-    """The error for a reference op that is not ported yet."""
+    """The error for a reference op that is not ported yet: ``RNN``,
+    which runs ``gluon/rnn``'s fused RNN."""
     return NotSupportedError(
-        f"op {name!r} is not ported yet: the rest of ndarray/ops.py arrives "
-        "with ROADMAP §1 item 8")
+        f"op {name!r} is not ported yet: it runs gluon/rnn's fused RNN, "
+        "which arrives with ROADMAP §1 item 11")
 
 
 # ===========================================================================
@@ -2087,3 +2099,1166 @@ random_pdf_dirichlet = _pdf_op(
         (alpha - 1) * torch.log(s), dim=-1)
     + _lgamma(torch.sum(alpha, dim=-1)) - torch.sum(_lgamma(alpha), dim=-1),
     1, event_dims=1)
+
+
+# ===========================================================================
+# the rest of the registry (reference: the tail of ops.py, from its
+# elementwise math to its vision and control-flow ops).  The reference
+# runs JAX with 64-bit types off, so an integer result is int32 and a
+# float result float32 wherever jnp would widen; each op here casts to the
+# reference's dtype.  None reaches a kernel of the port: XLA fused these
+# ops in the reference, so they are plain PyTorch.
+# ===========================================================================
+
+def _inexact(t):
+    """``t`` as jnp's inexact ops take it: integers and booleans become
+    float32."""
+    return t if t.is_floating_point() else t.float()
+
+
+def _apply_n(fn, inputs, n):
+    """``fn``'s ``n`` outputs as a list of NDArrays, one included."""
+    if n == 1:
+        return [apply(lambda *ts: fn(*ts)[0], inputs)]
+    return apply(fn, inputs, n_out=n)
+
+
+def _promote(*ts):
+    dt = functools.reduce(torch.promote_types, [t.dtype for t in ts])
+    return [t.to(dt) for t in ts]
+
+
+def _const(v, dtype, device):
+    """``v``, a number or a short sequence of numbers, as a tensor made
+    by fills on ``device``: a CUDA graph capture cannot hold a copy from
+    the host, and a hybridized block's ops run inside one."""
+    if _np.ndim(v) == 0:
+        return torch.full((), _np.asarray(v).item(), dtype=dtype,
+                          device=device)
+    vals = _np.asarray(v)
+    out = torch.empty(vals.size, dtype=dtype, device=device)
+    for i, x in enumerate(vals.reshape(-1).tolist()):
+        out[i].fill_(x)
+    return out.reshape(vals.shape)
+
+
+def host_sync(name):
+    """Refuse ``name`` inside a CUDA graph capture (a hybridized block's
+    capture, a trainer's or an engine's): the op reads the device from
+    the host or makes a shape from the data, which a captured graph
+    cannot replay.  The reference fails the same way under ``jit``."""
+    if _tape.capturing():
+        raise MXNetError(
+            f"{name} needs a host sync (a data-dependent shape or a host "
+            "read) and cannot run inside a CUDA graph capture: call it "
+            "outside the hybridized block")
+
+
+def _funary(name, tfn):
+    """A unary op over jnp's inexact promotion."""
+    return _unary(name, lambda t: tfn(_inexact(t)))
+
+
+def _cbrt(t):
+    t = _inexact(t)
+    return torch.sign(t) * torch.pow(torch.abs(t), 1.0 / 3.0)
+
+
+arcsin = _funary("arcsin", torch.asin)
+arccos = _funary("arccos", torch.acos)
+arctan = _funary("arctan", torch.atan)
+sinh = _funary("sinh", torch.sinh)
+cosh = _funary("cosh", torch.cosh)
+arcsinh = _funary("arcsinh", torch.asinh)
+arccosh = _funary("arccosh", torch.acosh)
+arctanh = _funary("arctanh", torch.atanh)
+degrees = _funary("degrees", lambda t: t * (180.0 / math.pi))
+radians = _funary("radians", lambda t: t * (math.pi / 180.0))
+cbrt = _unary("cbrt", _cbrt)
+rcbrt = _unary("rcbrt", lambda t: 1.0 / _cbrt(t))
+erfinv = _funary("erfinv", torch.erfinv)
+digamma = _funary("digamma", torch.digamma)
+gammaln = _funary("gammaln", torch.lgamma)
+# exp(gammaln): |Γ(x)| for negative x, as the reference computes it
+gamma = _funary("gamma", lambda t: torch.exp(torch.lgamma(t)))
+fix = _unary("fix", lambda t: torch.trunc(t) if t.is_floating_point()
+             else t.clone())
+# torch.round rounds half to even, as jnp.rint does
+rint = _funary("rint", torch.round)
+gelu = _funary("gelu", lambda t: F.gelu(t, approximate="none"))
+mish = _funary("mish", F.mish)
+relu6 = _funary("relu6", lambda t: torch.clamp(t, 0.0, 6.0))
+selu = _funary("selu", F.selu)
+softrelu = _funary("softrelu", F.softplus)
+log_sigmoid = _funary("log_sigmoid", F.logsigmoid)
+silu = _funary("silu", F.silu)
+swish = _funary("swish", F.silu)
+isnan = _unary("isnan", torch.isnan)
+isinf = _unary("isinf", torch.isinf)
+isfinite = _unary("isfinite", torch.isfinite)
+isposinf = _unary("isposinf", lambda t: torch.isposinf(t).float())
+isneginf = _unary("isneginf", lambda t: torch.isneginf(t).float())
+
+
+@_register
+def hard_sigmoid(data, alpha=0.2, beta=0.5):
+    """``clip(alpha x + beta, 0, 1)``."""
+    return apply(lambda t: torch.clamp(alpha * t + beta, 0.0, 1.0), [data])
+
+
+@_register
+def elu(data, alpha=1.0):
+    return apply(lambda t: torch.where(t > 0, t, alpha * torch.expm1(t)),
+                 [data])
+
+
+@_register
+def softmin(data, axis=-1):
+    return apply(lambda t: torch.softmax(-t, axis), [data])
+
+
+@_register
+def SoftmaxActivation(data, mode="instance"):
+    """Softmax over the channels (``mode="channel"``, axis 1) or the last
+    axis."""
+    return softmax(data, axis=1 if mode == "channel" else -1)
+
+
+@_register
+def nan_to_num(data, copy=True, nan=0.0, posinf=None, neginf=None):
+    """NaN to ``nan``, infinities to ``posinf``/``neginf`` (the dtype's
+    largest and smallest by default); ``copy=False`` writes the result
+    into ``data``."""
+    out = apply(lambda t: torch.nan_to_num(t, nan, posinf, neginf)
+                if t.is_floating_point() else t.clone(), [data])
+    if not copy:
+        data._write(out._data)
+        return data
+    return out
+
+
+def _scalar_tensor(b, like):
+    """A Python number ``b`` in ``like``'s dtype (jnp's weak typing)."""
+    return b if torch.is_tensor(b) else _const(b, like.dtype, like.device)
+
+
+def _inexact_pair(a, b):
+    """``a`` and ``b`` under jnp's inexact promotion, a Python number
+    ``b`` taking ``a``'s float dtype."""
+    a = _inexact(a)
+    return _promote(a, _inexact(_scalar_tensor(b, a)))
+
+
+hypot = _binary("hypot", lambda a, b: torch.hypot(*_inexact_pair(a, b)))
+arctan2 = _binary("arctan2", lambda a, b: torch.atan2(*_inexact_pair(a, b)))
+logical_xor = _binary("logical_xor", lambda a, b: torch.logical_xor(
+    a != 0, _scalar_tensor(b, a) != 0).float())
+broadcast_hypot = _register(getattr(hypot, "__wrapped__", hypot),
+                            "broadcast_hypot")
+broadcast_logical_xor = _register(
+    getattr(logical_xor, "__wrapped__", logical_xor), "broadcast_logical_xor")
+
+
+def _binary_nd(name, tfn):
+    """The reference's second binary form: a Python number becomes a
+    float32 array first (``_nd``), so it promotes as an array (with an
+    integer operand, to float32), where ``_binary`` passes it on as a
+    number that takes the other operand's dtype."""
+    def op(lhs, rhs, **kwargs):
+        return apply(tfn, [lhs, _nd(rhs, lhs)])
+    op.__name__ = name
+    op.__doc__ = f"Elementwise {name} (reference: elemwise_binary_op_basic)."
+    return _register(op)
+
+
+def _outer(a, b):
+    return a.reshape(-1, 1) * b.reshape(1, -1)
+
+
+fmod = _binary_nd("fmod", torch.fmod)
+# C fmod: the sign of the dividend (not torch.remainder)
+mod = _binary_nd("mod", torch.fmod)
+floor_divide = _binary_nd("floor_divide", torch.floor_divide)
+true_divide = _binary_nd("true_divide", torch.true_divide)
+outer = _binary_nd("outer", _outer)
+inner = _binary_nd("inner", lambda a, b: torch.inner(*_promote(a, b)))
+vdot = _binary_nd("vdot", lambda a, b: torch.dot(
+    *_promote(a.reshape(-1), b.reshape(-1))))
+kron = _binary_nd("kron", lambda a, b: torch.kron(*_promote(a, b)))
+matmul = _binary_nd("matmul", lambda a, b: torch.matmul(*_promote(a, b)))
+
+
+@_register
+def divmod(lhs, rhs):
+    """``(floor(a / b), a - floor(a / b) b)``."""
+    def fn(a, b):
+        q = torch.floor_divide(a, b)
+        return q, a - q * b
+    return apply(fn, [lhs, _nd(rhs, lhs)], n_out=2)
+
+
+@_register
+def tensordot(a, b, axes=2):
+    if isinstance(axes, (list, tuple)) and all(
+            isinstance(x, int) for x in axes):
+        axes = ([axes[0]], [axes[1]])
+    return apply(lambda x, y: torch.tensordot(*_promote(x, y), dims=axes),
+                 [a, _nd(b, a)])
+
+
+# the integer ops: a Python number takes the other operand's integer
+# dtype (the reference passes it to jnp raw)
+bitwise_and = _binary("bitwise_and", lambda a, b: torch.bitwise_and(
+    a, _scalar_tensor(b, a)))
+bitwise_or = _binary("bitwise_or", lambda a, b: torch.bitwise_or(
+    a, _scalar_tensor(b, a)))
+bitwise_xor = _binary("bitwise_xor", lambda a, b: torch.bitwise_xor(
+    a, _scalar_tensor(b, a)))
+left_shift = _binary("left_shift", lambda a, b: torch.bitwise_left_shift(
+    a, _scalar_tensor(b, a)))
+right_shift = _binary("right_shift", lambda a, b: torch.bitwise_right_shift(
+    a, _scalar_tensor(b, a)))
+lcm = _binary("lcm", lambda a, b: torch.lcm(a, _scalar_tensor(b, a)))
+gcd = _binary("gcd", lambda a, b: torch.gcd(a, _scalar_tensor(b, a)))
+
+
+@_register
+def bitwise_not(data):
+    return apply(torch.bitwise_not, [data])
+
+
+invert = _alias("invert", bitwise_not)
+
+
+# ---- scans, reductions and numpy-style numerics ----
+
+def _flat_axis(t, axis):
+    return (t.reshape(-1), 0) if axis is None else (t, axis)
+
+
+def _scan_dtype(t, dtype=None):
+    if dtype is not None:
+        return _dtype_of(dtype)
+    return t.dtype if t.is_floating_point() else torch.int32
+
+
+@_register
+def cumsum(a, axis=None, dtype=None):
+    """Over the flattened array when ``axis`` is None; integers sum in
+    int32."""
+    def fn(t):
+        t, ax = _flat_axis(t, axis)
+        return torch.cumsum(t, ax).to(_scan_dtype(t, dtype))
+    return apply(fn, [a])
+
+
+@_register
+def cumprod(a, axis=None):
+    def fn(t):
+        t, ax = _flat_axis(t, axis)
+        return torch.cumprod(t, ax).to(_scan_dtype(t))
+    return apply(fn, [a])
+
+
+nanprod = _reduce("nanprod", lambda t, d, k=False: _prod(
+    torch.where(torch.isnan(t), torch.ones_like(t), t), d, k))
+
+
+@_register
+def mp_sum(*args, **kwargs):
+    """The reference's alias of ``sum``."""
+    return sum(*args, **kwargs)
+
+
+@_register
+def moments(data, axes=None, keepdims=False):
+    """``(mean, biased variance)`` over ``axes`` (all by default)."""
+    ax = tuple(axes) if isinstance(axes, (list, tuple)) else axes
+
+    def fn(t):
+        dims = tuple(range(t.dim())) if ax is None else ax
+        v, m = torch.var_mean(t, dims, correction=0, keepdim=keepdims)
+        return m, v
+    return apply(fn, [data], n_out=2)
+
+
+@_register
+def ediff1d(data, to_end=None, to_begin=None):
+    """The differences of the flattened array, with ``to_begin`` before
+    and ``to_end`` after (in its dtype)."""
+    def fn(t):
+        out = torch.diff(t.reshape(-1))
+        parts = [_const(v, out.dtype, out.device).reshape(-1)
+                 if v is not None else None for v in (to_begin, to_end)]
+        return torch.cat([p for p in (parts[0], out, parts[1])
+                          if p is not None])
+    return apply(fn, [data])
+
+
+@_register
+def interp(x, xp, fp, left=None, right=None):
+    """Piecewise-linear interpolation (``jnp.interp``'s formula: the
+    interval by a right-side search, a zero-width interval takes its
+    left value)."""
+    def fn(a, b, c):
+        a, b = _promote(_inexact(a), _inexact(b))
+        c = _inexact(c)
+        i = torch.clamp(torch.searchsorted(b, a, side="right"), 1,
+                        b.shape[0] - 1)
+        df = c[i] - c[i - 1]
+        dx = b[i] - b[i - 1]
+        delta = a - b[i - 1]
+        eps = float(_np.spacing(_np.finfo(_np.float32).eps))
+        dx0 = torch.abs(dx) <= eps
+        f = torch.where(dx0, c[i - 1], c[i - 1] + (
+            delta / torch.where(dx0, torch.ones_like(dx), dx)) * df)
+        lo = c[0] if left is None else _const(left, f.dtype, f.device)
+        hi = c[-1] if right is None else _const(right, f.dtype, f.device)
+        f = torch.where(a < b[0], lo, f)
+        return torch.where(a > b[-1], hi, f)
+    return apply(fn, [x, _nd(xp, x), _nd(fp, x)])
+
+
+@_register
+def polyval(p, x):
+    """Horner's rule from the highest coefficient, as ``jnp.polyval``."""
+    def fn(pp, xx):
+        pp, xx = _promote(_inexact(pp), _inexact(xx))
+        y = torch.zeros(torch.broadcast_shapes(pp.shape[1:], xx.shape),
+                        dtype=xx.dtype, device=xx.device)
+        for k in range(pp.shape[0]):
+            y = y * xx + pp[k]
+        return y
+    return apply(fn, [_nd(p, x), x])
+
+
+def _search(sorted_seq, values, side):
+    a, v = _promote(sorted_seq, values)
+    return torch.searchsorted(a.contiguous(), v.contiguous(), side=side)
+
+
+@_register
+def searchsorted(a, v, side="left", sorter=None):
+    """int32 insertion points of ``v`` in the sorted 1-D ``a``."""
+    if sorter is not None:
+        raise MXNetError("searchsorted: sorter is not supported; pre-sort "
+                         "the input")
+    return apply(lambda s, x: _search(s, x, side).to(torch.int32),
+                 [a, _nd(v, a)])
+
+
+@_register
+def digitize(data, bins, right=False):
+    """int32 bin indices (numpy's, increasing or decreasing bins)."""
+    side = "left" if right else "right"
+
+    def fn(d, b):
+        up = _search(b, d, side)
+        down = b.shape[0] - _search(torch.flip(b, (0,)), d, side)
+        return torch.where(b[-1] >= b[0], up, down).to(torch.int32)
+    return apply(fn, [data, _nd(bins, data)])
+
+
+def _linspace_t(lo, hi, num):
+    """``jnp.linspace(lo, hi, num)`` over float32 device scalars
+    (``start (1 - s) + stop s``, ``s = i / (num - 1)``, the stop
+    itself last), as the port's ``nd.linspace`` computes it."""
+    div = num - 1
+    s = torch.arange(div, dtype=torch.float32, device=lo.device) * \
+        _const(1.0 / div, torch.float32, lo.device)
+    return torch.cat([lo * (1 - s) + hi * s, hi.reshape(1)])
+
+
+@_register
+def histogram(data, bins=10, range=None):
+    """``(counts, edges)`` as ``jnp.histogram``: float32 counts, the last
+    bin closed, edges over ``range`` or the data's min and max (widened
+    by 0.5 each way when they are equal); ``bins`` a count or the edges.
+    Not differentiable (the input is detached)."""
+    host_sync("histogram")
+    d = _inexact(_nd(data)._data.detach()).reshape(-1)
+    if isinstance(bins, (NDArray, list, tuple, _np.ndarray)):
+        edges = _inexact(_nd(bins, _nd(data))._data.detach()).to(d.dtype)
+    else:
+        if range is None:
+            lo, hi = torch.amin(d), torch.amax(d)
+        else:
+            lo, hi = (_const(float(v), d.dtype, d.device) for v in range)
+        same = lo == hi
+        lo, hi = torch.where(same, lo - 0.5, lo), torch.where(same, hi + 0.5,
+                                                               hi)
+        edges = _linspace_t(lo, hi, int(bins) + 1)
+    idx = torch.searchsorted(edges, d, side="right")
+    idx = torch.where(d == edges[-1], edges.shape[0] - 1, idx)
+    keep = idx < edges.shape[0]          # past the last edge: dropped
+    counts = torch.zeros(edges.shape[0], dtype=d.dtype, device=d.device)
+    counts.index_add_(0, idx[keep], torch.ones_like(d[keep]))
+    return [NDArray(counts[1:]), NDArray(edges)]
+
+
+@_register
+def bincount(data, weights=None, minlength=0):
+    """Counts (int32), or sums of ``weights``, of each non-negative
+    integer value (negative values count as 0); the length is
+    ``max(minlength, max + 1)``, read from the device.  Not
+    differentiable (the inputs are detached)."""
+    host_sync("bincount")
+    x = torch.clamp(_nd(data)._data.detach().to(torch.int32), min=0)
+    x = x.reshape(-1).long()
+    n = _builtins.max(int(minlength), int(x.max()) + 1 if x.numel() else 0)
+    if weights is None:
+        w = torch.ones(x.shape, dtype=torch.int32, device=x.device)
+    else:
+        w = _nd(weights, _nd(data))._data.detach().reshape(-1)
+    return NDArray(torch.zeros(n, dtype=w.dtype, device=x.device)
+                   .index_add_(0, x, w))
+
+
+@_register
+def unique(data):
+    """The sorted unique values of the flattened array.  Not
+    differentiable (the input is detached)."""
+    host_sync("unique")
+    return NDArray(torch.unique(_nd(data)._data.detach().reshape(-1)))
+
+
+# ---- ordering (reference: src/operator/tensor/ordering_op.cc) ----
+# The reference sorts stably ascending and flips for descending order,
+# so among equal values a descending sort puts the later index first;
+# its topk (lax.top_k) puts the lower index first.  Every order here is
+# a stable sort, which is the same on the CPU and on the card.
+
+@_register
+def sort(data, axis=-1, is_ascend=True):
+    def fn(t):
+        t, ax = _flat_axis(t, axis)
+        out = torch.sort(t, dim=ax, stable=True).values
+        return out if is_ascend else torch.flip(out, (ax,))
+    return apply(fn, [data])
+
+
+@_register
+def argsort(data, axis=-1, is_ascend=True, dtype="float32"):
+    dt = _dtype_of(dtype)
+
+    def fn(t):
+        t, ax = _flat_axis(t, axis)
+        out = torch.argsort(t, dim=ax, stable=True)
+        return (out if is_ascend else torch.flip(out, (ax,))).to(dt)
+    return apply(fn, [data])
+
+
+@_register
+def topk(data, axis=-1, k=1, ret_typ="indices", is_ascend=False,
+         dtype="float32"):
+    """The ``k`` largest (``is_ascend``: smallest) along ``axis``, the
+    lower index first among equal values: ``ret_typ`` "value", "both"
+    (values, indices) or the indices, in ``dtype``."""
+    dt = _dtype_of(dtype)
+
+    def fn(t):
+        ax = axis % t.dim()
+        last = ax == t.dim() - 1
+        x = t if last else t.transpose(ax, -1)
+        vals, idx = torch.sort(x, dim=-1, descending=not is_ascend,
+                               stable=True)
+        vals, idx = vals[..., :k], idx[..., :k]
+        if not last:
+            vals, idx = vals.transpose(ax, -1), idx.transpose(ax, -1)
+        if ret_typ == "value":
+            return vals
+        if ret_typ == "both":
+            return vals, idx.to(dt)
+        return idx.to(dt)
+    return apply(fn, [data], n_out=2 if ret_typ == "both" else 1)
+
+
+@_register
+def argmax_channel(data):
+    """float32 argmax over axis 1."""
+    return apply(lambda t: torch.argmax(t, 1).float(), [data])
+
+
+# ---- indexing (reference: src/operator/tensor/indexing_op.cc,
+# ravel.cc) ----
+
+def _wrap_index(i, n):
+    """Negative indices count from the end (jnp normalizes them)."""
+    i = i.long()
+    return torch.where(i < 0, i + n, i)
+
+
+@_register
+def gather_nd(data, indices):
+    """``data[indices[0], ..., indices[M - 1]]``: indices (M, ...)
+    address the first M axes; an index past an axis is clamped to it."""
+    def fn(d, i):
+        idx = tuple(torch.clamp(_wrap_index(i[k], d.shape[k]), 0,
+                                d.shape[k] - 1) for k in range(i.shape[0]))
+        return d[idx]
+    return apply(fn, [data, _nd(indices, data)])
+
+
+@_register
+def scatter_nd(data, indices, shape):
+    """Zeros of ``shape`` with ``data`` added at ``indices`` (duplicates
+    add; an index past an axis is dropped)."""
+    shape = tuple(int(s) for s in shape)
+
+    def fn(d, i):
+        idx = [_wrap_index(i[k], shape[k]) for k in range(i.shape[0])]
+        ok = functools.reduce(torch.logical_and, [
+            (x >= 0) & (x < shape[k]) for k, x in enumerate(idx)])
+        idx = tuple(torch.where(ok, x, 0) for x in idx)
+        vals = torch.where(ok.reshape(ok.shape + (1,) * (
+            d.dim() - ok.dim())), d, torch.zeros((), dtype=d.dtype,
+                                                 device=d.device))
+        out = torch.zeros(shape, dtype=d.dtype, device=d.device)
+        return out.index_put(idx, vals, accumulate=True)
+    return apply(fn, [data, _nd(indices, data)])
+
+
+@_register
+def batch_take(a, indices):
+    """``a[i, indices[i]]`` for each row ``i``."""
+    def fn(d, i):
+        ii = torch.clamp(_wrap_index(i.reshape(-1), d.shape[1]), 0,
+                         d.shape[1] - 1)
+        return torch.gather(d, 1, ii.reshape(-1, 1)).squeeze(1)
+    return apply(fn, [a, _nd(indices, a)])
+
+
+@_register
+def choose_element_0index(data, index, axis=1, keepdims=False):
+    """``pick`` along the row axis (the reference's legacy op)."""
+    return pick(data, index, axis=axis, keepdims=keepdims)
+
+
+@_register
+def fill_element_0index(lhs, mhs, rhs):
+    """``lhs`` with ``lhs[i, rhs[i]] = mhs[i]`` for each row."""
+    def fn(l, m, r):
+        rows = torch.arange(l.shape[0], device=l.device)
+        return l.index_put((rows, r.long()), m.to(l.dtype))
+    return apply(fn, [lhs, _nd(mhs, lhs), _nd(rhs, lhs)])
+
+
+@_register
+def one_hot_encode(indices, out):
+    """Write ``out[i] = one_hot(indices[i])`` in place (``out`` (N, C)
+    gives the class count and the dtype); returns ``out``."""
+    if out.ndim != 2 or indices.ndim != 1:
+        raise MXNetError("one_hot_encode expects indices (N,), out (N, C)")
+    n, c = out.shape
+    if indices.shape[0] != n:
+        raise MXNetError(f"one_hot_encode: indices length "
+                         f"{indices.shape[0]} != out rows {n}")
+    res = apply(lambda i: _onehot(i.to(torch.int32), c, out._data.dtype),
+                [indices])
+    out._write(res._data)
+    return out
+
+
+onehot_encode = _alias("onehot_encode", one_hot_encode)
+
+
+@_register
+def ravel_multi_index(data, shape):
+    """(ndim, n) coordinates to int32 flat indices into ``shape``."""
+    shape = tuple(int(s) for s in shape)
+    strides = _np.cumprod((1,) + shape[:0:-1])[::-1].copy()
+
+    def fn(d):
+        st = _const(strides, torch.int32, d.device)
+        return torch.sum(d.to(torch.int32) * st[:, None], 0,
+                         dtype=torch.int32)
+    return apply(fn, [data])
+
+
+@_register
+def unravel_index(data, shape):
+    """int32 flat indices to (ndim, n) coordinates in ``shape``; an index
+    past either end gives the nearest corner (``jnp.unravel_index``)."""
+    shape = tuple(int(s) for s in shape)
+
+    def fn(d):
+        rest = d.to(torch.int32)
+        coords = [None] * len(shape)
+        for k in reversed(range(len(shape))):
+            coords[k] = torch.remainder(rest, shape[k])
+            rest = torch.div(rest, shape[k], rounding_mode="floor")
+        over, under = rest > 0, rest < -1
+        return torch.stack([torch.where(over, s - 1, torch.where(under, 0, c))
+                            for s, c in zip(shape, coords)]).to(torch.int32)
+    return apply(fn, [data])
+
+
+@_register
+def slice_like(data, shape_like, axes=None):
+    """``data`` cut to ``shape_like``'s size on ``axes`` (all by
+    default), from the start."""
+    def fn(d, ref):
+        sl = [_builtins.slice(None)] * d.dim()
+        for a in (axes if axes is not None else range(d.dim())):
+            sl[a] = _builtins.slice(0, ref.shape[a])
+        return d[tuple(sl)]
+    return apply(fn, [data, shape_like])
+
+
+@_register
+def diag(data, k=0):
+    """A vector's diagonal matrix or a matrix's ``k``-th diagonal; past
+    two axes, the diagonal of the first two (last in the output)."""
+    def fn(t):
+        if t.dim() <= 2:
+            return torch.diag(t, k)
+        return torch.diagonal(t, k, 0, 1)
+    return apply(fn, [data])
+
+
+@_register
+def tril(data, k=0):
+    return apply(lambda t: torch.tril(t, k), [data])
+
+
+@_register
+def triu(data, k=0):
+    return apply(lambda t: torch.triu(t, k), [data])
+
+
+@_register
+def trace(data, offset=0, axis1=0, axis2=1):
+    """The sum of each diagonal; integers sum in int32."""
+    return apply(lambda t: torch.diagonal(t, offset, axis1, axis2).sum(
+        -1, dtype=_scan_dtype(t)), [data])
+
+
+reverse = _alias("reverse", flip)
+SwapAxis = _alias("SwapAxis", swapaxes)
+embedding = _alias("embedding", Embedding)
+
+
+@_register
+def rot90(data, k=1, axes=(0, 1)):
+    return apply(lambda t: torch.rot90(t, k, list(axes)), [data])
+
+
+@_register
+def shape_array(data):
+    """The shape as an int32 vector."""
+    return NDArray(_const(data.shape, torch.int32, data._data.device))
+
+
+@_register
+def size_array(data):
+    """The element count as a one-element int32 vector."""
+    return NDArray(_const([data.size], torch.int32, data._data.device))
+
+
+@_register
+def arange_like(data, start=0.0, step=1.0, repeat=1, ctx=None, axis=None):
+    """``start + step (i // repeat)`` over ``data``'s elements (shaped
+    like it) or along ``axis``, in ``data``'s dtype."""
+    def fn(t):
+        n = t.shape[axis] if axis is not None else t.numel()
+        q = torch.div(torch.arange(n, device=t.device), repeat,
+                      rounding_mode="floor").float()
+        dt = t.dtype if t.dtype != torch.bool else torch.float32
+        vals = (start + step * q).to(dt)
+        return vals if axis is not None else vals.reshape(t.shape)
+    return apply(fn, [data])
+
+
+@_register
+def full_like(data, fill_value, dtype=None):
+    return apply(lambda t: torch.full_like(
+        t, fill_value, dtype=_dtype_of(dtype) if dtype else t.dtype),
+        [data])
+
+
+@_register
+def khatri_rao(*args):
+    """The column-wise Kronecker product: (m, k) x (n, k) -> (m n, k)."""
+    if not args:
+        raise MXNetError("khatri_rao needs at least one matrix")
+
+    def fn(*ms):
+        out = ms[0]
+        for m in ms[1:]:
+            out = (out.unsqueeze(1) * m.unsqueeze(0)).reshape(
+                -1, out.shape[1])
+        return out
+    return apply(fn, [_nd(a) for a in args])
+
+
+@_register
+def meshgrid(*arrays, indexing="xy"):
+    """numpy's meshgrid: a list of arrays, each in its own dtype."""
+    arrs = [_nd(a) for a in arrays]
+
+    def fn(*ts):
+        sizes = [t.numel() for t in ts]
+        pos = list(range(len(ts)))
+        if indexing == "xy" and len(ts) > 1:
+            pos[0], pos[1] = 1, 0
+        full_shape = [0] * len(ts)
+        for i, s in enumerate(sizes):
+            full_shape[pos[i]] = s
+        outs = []
+        for i, t in enumerate(ts):
+            shape = [1] * len(ts)
+            shape[pos[i]] = -1
+            outs.append(t.reshape(shape).expand(full_shape).contiguous())
+        return tuple(outs)
+    return _apply_n(fn, arrs, len(arrs))
+
+
+def _stacker(name, tfn):
+    def op(*arrays, **kwargs):
+        if len(arrays) == 1 and isinstance(arrays[0], (list, tuple)):
+            arrays = tuple(arrays[0])
+        return apply(lambda *ts: tfn(_promote(*ts)), [_nd(a) for a in arrays])
+    op.__name__ = name
+    op.__doc__ = f"numpy's {name}."
+    return _register(op)
+
+
+hstack = _stacker("hstack", torch.hstack)
+vstack = _stacker("vstack", torch.vstack)
+dstack = _stacker("dstack", torch.dstack)
+
+
+def _splitter(name, tfn):
+    def op(data, indices_or_sections):
+        n = indices_or_sections if isinstance(indices_or_sections, int) \
+            else len(indices_or_sections) + 1
+        sec = indices_or_sections if isinstance(indices_or_sections, int) \
+            else list(indices_or_sections)
+        return _apply_n(lambda t: tuple(tfn(t, sec)), [data], n)
+    op.__name__ = name
+    op.__doc__ = f"numpy's {name}: always a list."
+    return _register(op)
+
+
+hsplit = _splitter("hsplit", torch.hsplit)
+vsplit = _splitter("vsplit", torch.vsplit)
+
+
+# ---- sequence ops (reference: src/operator/sequence_*.cc): time on
+# ``axis`` (0 or 1), the batch on the other ----
+
+def _batch_shape(d, axis):
+    shape = [1] * d.dim()
+    shape[1 - axis] = d.shape[1 - axis]
+    return shape
+
+
+@_register
+def sequence_mask(data, sequence_length=None, use_sequence_length=False,
+                  value=0.0, axis=0):
+    """Steps at or past each sequence's length set to ``value``."""
+    if not use_sequence_length or sequence_length is None:
+        return identity(data)
+
+    def fn(d, sl):
+        tshape = [1] * d.dim()
+        tshape[axis] = d.shape[axis]
+        steps = torch.arange(d.shape[axis], device=d.device).reshape(tshape)
+        mask = steps < sl.reshape(_batch_shape(d, axis))
+        return d.masked_fill(~mask, value)
+    return apply(fn, [data, _nd(sequence_length, data)])
+
+
+@_register
+def sequence_last(data, sequence_length=None, use_sequence_length=False,
+                  axis=0):
+    """Each sequence's last valid step (the last step without lengths)."""
+    if not use_sequence_length or sequence_length is None:
+        return slice_axis(data, axis=axis, begin=-1, end=None).squeeze(axis)
+
+    def fn(d, sl):
+        idx = (sl.to(torch.int32) - 1).long().reshape(_batch_shape(d, axis))
+        shape = list(d.shape)
+        shape[axis] = 1
+        return torch.gather(d, axis, idx.expand(shape)).squeeze(axis)
+    return apply(fn, [data, _nd(sequence_length, data)])
+
+
+@_register
+def sequence_reverse(data, sequence_length=None, use_sequence_length=False,
+                     axis=0):
+    """Each sequence's first ``length`` steps reversed, the rest in
+    place.  With lengths the reference gathers along axis 0 whatever
+    ``axis`` says (its index is (T, B, 1, ...) broadcast to the data's
+    shape), and so does this port: ``axis=1`` works where that
+    broadcast does."""
+    if not use_sequence_length or sequence_length is None:
+        return flip(data, axis)
+
+    def fn(d, sl):
+        T = d.shape[axis]
+        steps = torch.arange(T, device=d.device).reshape(
+            (-1,) + (1,) * (d.dim() - 1))
+        sl_b = sl.to(torch.int32).long().reshape((1, -1) + (1,) * (
+            d.dim() - 2))
+        rev = torch.where(steps < sl_b, sl_b - 1 - steps, steps)
+        try:
+            rev = rev.expand(d.shape)
+        except RuntimeError as e:
+            raise MXNetError(f"sequence_reverse: index of shape "
+                             f"{tuple(rev.shape)} does not broadcast to the "
+                             f"data's {tuple(d.shape)}") from e
+        return torch.gather(d, 0, rev)
+    return apply(fn, [data, _nd(sequence_length, data)])
+
+
+SequenceMask = _alias("SequenceMask", sequence_mask)
+SequenceLast = _alias("SequenceLast", sequence_last)
+SequenceReverse = _alias("SequenceReverse", sequence_reverse)
+
+
+# ---- vision and neural-network ops (reference: src/operator/{lrn,
+# l2_normalization,upsampling,crop,correlation,grid_generator,
+# bilinear_sampler,spatial_transformer}.cc, nn/softmax.cc, nn/im2col.h) ----
+
+@_register
+def masked_softmax(data, mask, axis=-1, temperature=1.0):
+    """Softmax over the positions where ``mask`` is nonzero; the others
+    take probability 0 (a row with none gives zeros)."""
+    def fn(d, m):
+        keep = m.to(torch.bool)
+        neg = torch.finfo(d.dtype if d.is_floating_point()
+                          else torch.float32).min
+        z = (d / temperature).masked_fill(~keep, neg)
+        p = torch.softmax(z, axis)
+        return torch.where(keep, p, torch.zeros((), dtype=p.dtype,
+                                                device=p.device))
+    return apply(fn, [data, _nd(mask, data)])
+
+
+@_register
+def L2Normalization(data, eps=1e-10, mode="instance"):
+    """``x / sqrt(sum x^2 + eps)`` over every axis after the first
+    (``mode="channel"``: over axis 1; the reference reads any other mode
+    as "instance")."""
+    def fn(d):
+        axes = (1,) if mode == "channel" else tuple(range(1, d.dim()))
+        return d / torch.sqrt(torch.sum(torch.square(d), axes,
+                                        keepdim=True) + eps)
+    return apply(fn, [data])
+
+
+@_register
+def LRN(data, alpha=1e-4, beta=0.75, knorm=2.0, nsize=5):
+    """Local response normalization across channels: ``x / (knorm +
+    alpha / nsize * sum of x^2 over nsize neighbouring channels)^beta``,
+    the window summed in the reference's order."""
+    def fn(d):
+        half = nsize // 2
+        padded = F.pad(torch.square(d), (0, 0) * (d.dim() - 2) +
+                       (half, half))
+        acc = torch.zeros_like(d)
+        for i in range(nsize):
+            acc = acc + padded.narrow(1, i, d.shape[1])
+        return d / torch.pow(knorm + alpha * acc / nsize, beta)
+    return apply(fn, [data])
+
+
+@_register
+def UpSampling(*data, scale=2, sample_type="nearest", num_filter=0,
+               num_args=1):
+    """NCHW upsampling by ``scale`` (nearest, or bilinear with half-pixel
+    centres); several inputs are each resized to the first's target and
+    concatenated on the channels, as the reference does."""
+    def one(d, th, tw):
+        if sample_type == "nearest" and th == d.shape[2] * scale and \
+                tw == d.shape[3] * scale:
+            return torch.repeat_interleave(
+                torch.repeat_interleave(d, scale, 2), scale, 3)
+        if sample_type == "nearest":
+            return F.interpolate(d, size=(th, tw), mode="nearest-exact")
+        return F.interpolate(d, size=(th, tw), mode="bilinear",
+                             align_corners=False)
+
+    def fn(*ds):
+        th, tw = ds[0].shape[2] * scale, ds[0].shape[3] * scale
+        outs = [one(d, th, tw) for d in ds]
+        return outs[0] if len(outs) == 1 else torch.cat(outs, 1)
+    return apply(fn, [_nd(d) for d in data])
+
+
+@_register
+def Crop(*data, offset=(0, 0), h_w=(0, 0), num_args=1, center_crop=False):
+    """The first NCHW input cut to the second's size (``num_args=2``) or
+    to ``h_w``, at ``offset`` or centred."""
+    x = data[0]
+    if num_args == 2 and len(data) > 1:
+        th, tw = data[1].shape[2], data[1].shape[3]
+    else:
+        th, tw = h_w
+    if th <= 0 or tw <= 0:
+        raise MXNetError("Crop needs a reference input (num_args=2) or a "
+                         f"positive h_w, got {(th, tw)}")
+    h, w = x.shape[2], x.shape[3]
+    oy, ox = ((h - th) // 2, (w - tw) // 2) if center_crop else offset
+    if oy < 0 or ox < 0 or oy + th > h or ox + tw > w:
+        raise MXNetError(f"Crop window {(th, tw)} at offset {(oy, ox)} "
+                         f"exceeds input {(h, w)}")
+    return apply(lambda d: d[:, :, oy:oy + th, ox:ox + tw], [x])
+
+
+def _window_start(start, size, pad):
+    """Where the reference's ``lax.dynamic_slice`` starts a window of
+    ``size`` in an axis padded by ``pad`` on each side: a negative start
+    counts from the axis's end, then it is clamped into range."""
+    if start < 0:
+        start += size + 2 * pad
+    return _builtins.min(_builtins.max(start, 0), 2 * pad)
+
+
+@_register
+def Correlation(data1, data2, kernel_size=1, max_displacement=4, stride1=1,
+                stride2=1, pad_size=4, is_multiply=True):
+    """FlowNet's correlation: for each displacement on the ``stride2``
+    grid within ``max_displacement``, the channel mean of ``a`` times
+    (or ``|a - b|`` with) ``b`` shifted by it, ``b`` zero-padded by
+    ``pad_size``; (N, D^2, H, W), then every ``stride1``-th position."""
+    if kernel_size != 1:
+        raise MXNetError("Correlation: only kernel_size=1 is supported")
+
+    def fn(a, b):
+        n, c, h, w = a.shape
+        bp = F.pad(b, (pad_size,) * 4)
+        d = max_displacement
+        outs = []
+        for dy in range(-d, d + 1, stride2):
+            for dx in range(-d, d + 1, stride2):
+                oy, ox = _window_start(dy + pad_size, h, pad_size), \
+                    _window_start(dx + pad_size, w, pad_size)
+                shifted = bp[:, :, oy:oy + h, ox:ox + w]
+                prod = a * shifted if is_multiply else torch.abs(a - shifted)
+                outs.append(torch.mean(prod, 1))
+        out = torch.stack(outs, 1)
+        return out[:, :, ::stride1, ::stride1] if stride1 > 1 else out
+    return apply(fn, [data1, _nd(data2, data1)])
+
+
+@_register
+def GridGenerator(data, transform_type="affine", target_shape=None):
+    """``affine``: (B, 6) transforms to a (B, 2, H, W) grid of (x, y) in
+    [-1, 1]; ``warp``: a (B, 2, H, W) flow field plus each position,
+    scaled to [-1, 1]."""
+    if transform_type == "affine":
+        if target_shape is None:
+            raise MXNetError("GridGenerator(affine) needs target_shape")
+        h, w = int(target_shape[0]), int(target_shape[1])
+
+        def fn(theta):
+            dev = theta.device
+            one = _const(1.0, torch.float32, dev)
+            ys, xs = _linspace_t(-one, one, h), _linspace_t(-one, one, w)
+            gy, gx = ys[:, None].expand(h, w), xs[None, :].expand(h, w)
+            base = torch.stack([gx.reshape(-1), gy.reshape(-1),
+                                torch.ones(h * w, device=dev)])
+            t = theta.reshape(theta.shape[0], 2, 3).float()
+            return torch.matmul(t, base).reshape(theta.shape[0], 2, h, w)
+        return apply(fn, [data])
+    if transform_type == "warp":
+        def fn(flow):
+            b, _, h, w = flow.shape
+            gy = torch.arange(h, dtype=torch.float32,
+                              device=flow.device)[:, None].expand(h, w)
+            gx = torch.arange(w, dtype=torch.float32,
+                              device=flow.device)[None, :].expand(h, w)
+            x = (gx[None] + flow[:, 0]) * (2.0 / _builtins.max(w - 1, 1)) - 1.0
+            y = (gy[None] + flow[:, 1]) * (2.0 / _builtins.max(h - 1, 1)) - 1.0
+            return torch.stack([x, y], 1)
+        return apply(fn, [data])
+    raise MXNetError(f"unknown transform_type {transform_type!r}")
+
+
+def _bilinear_sample(d, g):
+    """``d`` (B, C, H, W) at ``g`` (B, 2, Ho, Wo), (x, y) in [-1, 1]:
+    each output the bilinear blend of its four neighbours, a neighbour
+    outside the image taken as 0 (the reference's formula, so the
+    gradients in ``d`` and ``g`` are its)."""
+    b, c, h, w = d.shape
+    x = (g[:, 0] + 1.0) * (w - 1) / 2.0
+    y = (g[:, 1] + 1.0) * (h - 1) / 2.0
+    x0, y0 = torch.floor(x), torch.floor(y)
+    flat = d.reshape(b, c, h * w)
+
+    def corner(yy, xx):
+        yi = torch.clamp(yy.to(torch.int32), 0, h - 1).long()
+        xi = torch.clamp(xx.to(torch.int32), 0, w - 1).long()
+        valid = ((yy >= 0) & (yy <= h - 1) & (xx >= 0) &
+                 (xx <= w - 1)).to(d.dtype)
+        idx = (yi * w + xi).reshape(b, 1, -1).expand(b, c, -1)
+        vals = torch.gather(flat, 2, idx).reshape((b, c) + tuple(yy.shape[1:]))
+        return vals * valid[:, None]
+    wx, wy = x - x0, y - y0
+    wx, wy = wx[:, None], wy[:, None]
+    return (corner(y0, x0) * (1 - wy) * (1 - wx) +
+            corner(y0, x0 + 1) * (1 - wy) * wx +
+            corner(y0 + 1, x0) * wy * (1 - wx) +
+            corner(y0 + 1, x0 + 1) * wy * wx)
+
+
+@_register
+def BilinearSampler(data, grid, cudnn_off=None):
+    """Sample ``data`` (B, C, H, W) at ``grid`` (B, 2, Ho, Wo), zero
+    outside; differentiable in both."""
+    return apply(_bilinear_sample, [data, _nd(grid, data)])
+
+
+@_register
+def SpatialTransformer(data, loc, target_shape=None, transform_type="affine",
+                       sampler_type="bilinear", cudnn_off=None):
+    """``GridGenerator`` (affine) then ``BilinearSampler``."""
+    if transform_type != "affine" or sampler_type != "bilinear":
+        raise MXNetError("SpatialTransformer supports affine/bilinear "
+                         "(reference supports exactly these too)")
+    return BilinearSampler(data, GridGenerator(
+        loc, transform_type="affine", target_shape=target_shape))
+
+
+def _patch_geometry(kernel, stride, dilate, pad):
+    nd = len(kernel)
+    return (tuple(kernel), _spatial(stride, nd, 1), _spatial(dilate, nd, 1),
+            _spatial(pad, nd, 0))
+
+
+def _patch_slices(spatial, k, s, dl, p):
+    """For each kernel offset (row-major), the strided slice of each
+    padded spatial axis it reads, and the output's spatial size."""
+    out = [(spatial[i] + 2 * p[i] - dl[i] * (k[i] - 1) - 1) // s[i] + 1
+           for i in range(len(k))]
+    offsets = _np.ndindex(*k)
+    return [tuple(_builtins.slice(o[i] * dl[i], o[i] * dl[i] +
+                                  (out[i] - 1) * s[i] + 1, s[i])
+                  for i in range(len(k))) for o in offsets], out
+
+
+@_register
+def im2col(data, kernel, stride=None, dilate=None, pad=None):
+    """Convolution patches (N, C, *spatial) -> (N, C prod(kernel), L):
+    channel-major, then the kernel offsets row-major, the output
+    positions last (the reference's column order)."""
+    k, s, dl, p = _patch_geometry(kernel, stride, dilate, pad)
+
+    def fn(d):
+        n, c = d.shape[:2]
+        x = F.pad(d, _torch_pads([(q, q) for q in p]))
+        sls, _ = _patch_slices(d.shape[2:], k, s, dl, p)
+        cols = torch.stack([x[(Ellipsis,) + sl] for sl in sls], 2)
+        return cols.reshape(n, c * len(sls), -1)
+    return apply(fn, [data])
+
+
+@_register
+def col2im(data, output_size, kernel, stride=None, dilate=None, pad=None):
+    """The adjoint of :func:`im2col`: each column added back at its
+    patch's place (overlaps sum) into an image of ``output_size``."""
+    k, s, dl, p = _patch_geometry(kernel, stride, dilate, pad)
+    out_sp = (output_size,) * len(k) if isinstance(output_size, int) \
+        else tuple(output_size)
+
+    def fn(cols):
+        n = cols.shape[0]
+        sls, out = _patch_slices(out_sp, k, s, dl, p)
+        c = cols.shape[1] // len(sls)
+        parts = cols.reshape((n, c, len(sls)) + tuple(out))
+        img = torch.zeros((n, c) + tuple(o + 2 * q for o, q in
+                                         zip(out_sp, p)),
+                          dtype=cols.dtype, device=cols.device)
+        for j, sl in enumerate(sls):
+            img[(Ellipsis,) + sl] += parts[:, :, j]
+        return img[(Ellipsis,) + tuple(_builtins.slice(q, q + o)
+                                       for o, q in zip(out_sp, p))]
+    return apply(fn, [data])
+
+
+# ---- casts (reference: src/operator/tensor/amp_cast.cc) ----
+
+@_register
+def amp_cast(data, dtype):
+    """The cast ``amp`` inserts."""
+    dt = _dtype_of(dtype)
+    return apply(lambda t: t.to(dt), [data])
+
+
+@_register
+def amp_multicast(*data, num_outputs=None, cast_narrow=False):
+    """Every input cast to the widest (``cast_narrow``: the narrowest)
+    floating dtype among them."""
+    if num_outputs is not None and num_outputs != len(data):
+        raise MXNetError(f"amp_multicast: num_outputs {num_outputs} != "
+                         f"{len(data)} inputs")
+    bits = [torch.finfo(d._data.dtype).bits for d in data]
+    pick_ = _builtins.min if cast_narrow else _builtins.max
+    target = data[bits.index(pick_(bits))]._data.dtype
+    outs = _apply_n(lambda *ts: tuple(t.to(target) for t in ts),
+                    list(data), len(data))
+    return outs[0] if len(outs) == 1 else outs
+
+
+# ---- control flow (reference: src/operator/control_flow.cc) ----
+
+@_register
+def foreach(body, data, init_states):
+    """``body(x_t, states) -> (out, new_states)`` over the first axis of
+    ``data`` (an array or a list), the outputs stacked on a new first
+    axis: ``(outs, final_states)``.  As in the reference it runs outside
+    the tape: nothing inside records a graph."""
+    single = not isinstance(data, (list, tuple))
+    datas = [data] if single else list(data)
+    states_single = not isinstance(init_states, (list, tuple))
+    states = [init_states] if states_single else list(init_states)
+    prev = _tape.set_recording(False)
+    try:
+        steps = []
+        for t in range(datas[0].shape[0]):
+            xs = [NDArray(d._data[t]) for d in datas]
+            out, new = body(xs[0] if single else xs,
+                            states[0] if states_single else states)
+            steps.append(list(out) if isinstance(out, (list, tuple))
+                         else [out])
+            states = list(new) if isinstance(new, (list, tuple)) else [new]
+        outs = [NDArray(torch.stack([s[i]._data for s in steps]))
+                for i in range(len(steps[0]))]
+    finally:
+        _tape.set_recording(prev)
+    return (outs[0] if len(outs) == 1 else outs,
+            states[0] if states_single else states)
+
+
+@_register
+def cond(pred, then_func, else_func):
+    """``then_func()`` if ``pred`` (read from the device) else
+    ``else_func()``."""
+    host_sync("cond")
+    p = pred.asscalar() if isinstance(pred, NDArray) else pred
+    return then_func() if p else else_func()
+
+
+@_register
+def while_loop(cond_fn, func, loop_vars, max_iterations=None):
+    """Run ``func(*vars) -> (out, new_vars)`` while ``cond_fn(*vars)``
+    (read from the device) holds, at most ``max_iterations`` times:
+    ``(stacked outputs, final vars)``."""
+    host_sync("while_loop")
+    steps, outputs, lv = 0, [], list(loop_vars)
+    while cond_fn(*lv) and (max_iterations is None or steps < max_iterations):
+        out, lv = func(*lv)
+        lv = list(lv) if isinstance(lv, (list, tuple)) else [lv]
+        if out is not None:
+            outputs.append(out)
+        steps += 1
+    if outputs and isinstance(outputs[0], (list, tuple)):
+        outs = [stack(*[o[i] for o in outputs], axis=0)
+                for i in range(len(outputs[0]))]
+    elif outputs:
+        outs = stack(*outputs, axis=0)
+    else:
+        outs = []
+    return outs, lv

@@ -24,11 +24,19 @@ Tolerances, with their reasons:
   bf16 roundings; 5e-3 seen).  AdamW's step ``m / sqrt(v)`` is about
   ``lr`` whatever the gradient's size, so a near-zero gradient element
   whose bf16 sign differs between the packages moves by ``2 lr`` the
-  other way: within 0.1 (0.046 seen).  Planted faults of the port's
+  other way: within 0.1.  One such element alone carries a 64-element
+  RMSNorm weight past 0.1 (0.099-0.106 in three of eight draws), so the
+  norm weights are held together, as one vector, and each matrix leaf
+  alone (``held_update_errors``): over the draws of seeds 0-7 the
+  worst is 0.063 (``tools/port_amp_seed_sweep.py``).  The reference's
+  initialisation draws under ``AMP_SEED`` of its global key
+  (``seeded``), so the test holds the same draw in any test order.
+  Planted faults of the port's
   training -- no update, half the learning rate, no momentum (SGD), no
   weight decay (AdamW) -- are trained beside it and must each miss
   these limits (0.18-1.0 seen), so the limits are shown to be below
-  the size of a wrong update.
+  the size of a wrong update (no wd, the closest, by 1.71-1.89x over
+  the same draws).
 - learning-rate schedules: rtol 1e-12 (the same Python float
   arithmetic).
 - ``multi_precision`` (float16 weights, f32 master): masters within 1e-6
@@ -37,6 +45,7 @@ Tolerances, with their reasons:
   precision where the port takes it in float32), float16 weights within
   one float16 rounding (rtol 1e-3) of the reference's.
 """
+import contextlib
 import importlib
 
 import numpy as np
@@ -69,6 +78,7 @@ AMP_CASES = {
     "adamw": ("adamw", {"learning_rate": 5e-3, "wd": 0.1}, 0.1,
               {"half lr": {"learning_rate": 2.5e-3}, "no wd": {"wd": 0.0}})}
 LOSS_ATOL = 2.0 ** -6
+AMP_SEED = 0          # the reference's global key for its initialisation
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -172,17 +182,50 @@ def _update_errors(w0, w, ref):
             for a, b, c in zip(_leaves(w0), _leaves(w), _leaves(ref))]
 
 
-@pytest.fixture(scope="module", params=sorted(AMP_CASES))
-def amp_trained(request):
+def held_update_errors(w0, w, ref):
+    """The update errors as the parity test holds them: each matrix leaf
+    alone (``_update_errors``), and the RMSNorm weights (the 1-D leaves)
+    together, as one vector.  A norm weight of 64 elements carries one
+    sign-flipped AdamW element (about ``2 lr`` the other way) past 0.1 on
+    its own; held over every norm weight (as
+    ``test_amp_bf16_training_steps_on_the_card`` holds its update over
+    all parameters), that element counts once among all of them."""
+    leaves = list(zip(_leaves(w0), _leaves(w), _leaves(ref)))
+    errs = [float(np.linalg.norm(b - c) / np.linalg.norm(c - a))
+            for a, b, c in leaves if a.ndim > 1]
+    vecs = [(a, b, c) for a, b, c in leaves if a.ndim == 1]
+    if vecs:
+        a, b, c = (np.concatenate(x) for x in zip(*vecs))
+        errs.append(float(np.linalg.norm(b - c) / np.linalg.norm(c - a)))
+    return errs
+
+
+@contextlib.contextmanager
+def seeded(seed):
+    """The reference's global key and numpy's global generator seeded
+    with ``seed``, both restored after: the draws of the block inside
+    do not depend on what ran before it on this process."""
+    key, state = mx.random.get_key_data(), np.random.get_state()
+    mx.random.seed(seed)
+    np.random.seed(seed)
+    try:
+        yield
+    finally:
+        mx.random.set_key_data(key)
+        np.random.set_state(state)
+
+
+def train_amp_case(case, seed=AMP_SEED):
     """Both packages train ``llama_tiny`` 4 steps under
-    ``amp.init("bfloat16")``, ``init_trainer`` and ``scale_loss``, and
-    the port again with each planted fault (in a fixture: the JAX
-    package's first AMP step compiles for seconds)."""
-    optname, args, tol, faults = AMP_CASES[request.param]
+    ``amp.init("bfloat16")``, ``init_trainer`` and ``scale_loss`` from
+    the reference's initialisation under ``seeded(seed)``, and the port
+    again with each planted fault of ``AMP_CASES[case]``."""
+    optname, args, tol, faults = AMP_CASES[case]
     jamp.init("bfloat16")
     amp.init("bfloat16")
     try:
-        jnet, _ = _nets()
+        with seeded(seed):
+            jnet, _ = _nets()
         w0 = _tree_to_numpy(jnet.decode_weights())
         tokens, labels = _batch()
         jtr = jgluon.Trainer(jnet.collect_params(), optname, dict(args))
@@ -210,6 +253,13 @@ def amp_trained(request):
                 jax_w=_tree_to_numpy(jnet.decode_weights()))
 
 
+@pytest.fixture(scope="module", params=sorted(AMP_CASES))
+def amp_trained(request):
+    """``train_amp_case`` in a fixture: the JAX package's first AMP step
+    compiles for seconds."""
+    return train_amp_case(request.param)
+
+
 def test_amp_llama_training_matches_jax(amp_trained):
     got = amp_trained
     np.testing.assert_allclose(got["port_losses"], got["jax_losses"],
@@ -217,13 +267,13 @@ def test_amp_llama_training_matches_jax(amp_trained):
     assert got["port_losses"][-1] < got["port_losses"][0]
     assert got["trainer"]._bucket_apply is not None   # the flat update ran
     w0, ref, tol = got["w0"], got["jax_w"], got["tol"]
-    errs = _update_errors(w0, got["port_w"], ref)
+    errs = held_update_errors(w0, got["port_w"], ref)
     assert max(errs) <= tol, errs
     # the limit is below a wrong update's distance: each planted fault,
     # and no update at all, misses it
-    assert min(_update_errors(w0, w0, ref)) == 1.0
+    assert min(held_update_errors(w0, w0, ref)) == 1.0
     for name, (_, w, _) in got["planted"].items():
-        assert max(_update_errors(w0, w, ref)) > 1.5 * tol, name
+        assert max(held_update_errors(w0, w, ref)) > 1.5 * tol, name
 
 
 def test_amp_dtypes_of_logits_loss_attention_and_gradients(

@@ -2493,3 +2493,208 @@ def test_cached_op_per_layer_remat_llama(card):
         assert extra[4] <= extra[2] + one_activation, extra
     finally:
         torch.backends.cuda.matmul.allow_tf32 = prev
+
+
+def _spd_np(r, n=4):
+    b = r.randn(2, n, n)
+    return (b @ b.transpose(0, 2, 1) + n * np.eye(n)).astype(np.float32)
+
+
+def _randn(r, *shape):
+    return r.randn(*shape).astype(np.float32)
+
+
+# op -> (the block's body over F and its inputs, the inputs drawn from a
+# RandomState, the inputs that take a gradient): the ops of the
+# registry's tail and ``nd.linalg`` that need no host sync, each with the
+# constants it makes (fills, Python scalars, index tensors)
+_SEQ = (lambda r: [_randn(r, 5, 3, 4), np.array([2, 5, 1], np.float32)])
+_CAPTURED_OPS = {
+    "masked_softmax": (lambda F, x, m: F.masked_softmax(x, m, temperature=2.0),
+                       lambda r: [_randn(r, 2, 3, 5), (r.rand(2, 3, 5) > 0.3)
+                                  .astype(np.float32)], (0,)),
+    "SequenceMask": (lambda F, x, n: F.SequenceMask(
+        x, n, use_sequence_length=True, value=-1.0), _SEQ, (0,)),
+    "SequenceLast": (lambda F, x, n: F.SequenceLast(
+        x, n, use_sequence_length=True), _SEQ, (0,)),
+    "SequenceReverse": (lambda F, x, n: F.SequenceReverse(
+        x, n, use_sequence_length=True), _SEQ, (0,)),
+    "GridGenerator+BilinearSampler": (
+        lambda F, d, t: F.BilinearSampler(d, F.GridGenerator(
+            t, transform_type="affine", target_shape=(5, 5))),
+        lambda r: [_randn(r, 2, 3, 6, 6), np.array(
+            [[1, 0, 0, 0, 1, 0]] * 2, np.float32) + _randn(r, 2, 6) * 0.1],
+        (0, 1)),
+    "SpatialTransformer": (
+        lambda F, d, t: F.SpatialTransformer(d, t, target_shape=(5, 5)),
+        lambda r: [_randn(r, 2, 3, 6, 6), np.array(
+            [[1, 0, 0, 0, 1, 0]] * 2, np.float32) + _randn(r, 2, 6) * 0.1],
+        (0, 1)),
+    "shape_array": (lambda F, x: F.shape_array(x),
+                    lambda r: [_randn(r, 2, 3, 5)], ()),
+    "size_array": (lambda F, x: F.size_array(x),
+                   lambda r: [_randn(r, 2, 3, 5)], ()),
+    "hypot-scalar": (lambda F, x: F.hypot(x, 3.0),
+                     lambda r: [_randn(r, 3, 4)], (0,)),
+    "arctan2-scalar": (lambda F, x: F.arctan2(x, 2.0),
+                       lambda r: [_randn(r, 3, 4)], (0,)),
+    "logical_xor-scalar": (lambda F, x: F.logical_xor(x, 1.0),
+                           lambda r: [(r.rand(3, 4) > 0.5).astype(
+                               np.float32)], ()),
+    "gcd-scalar": (lambda F, x: F.gcd(x, 6),
+                   lambda r: [r.randint(1, 50, (3, 4)).astype(np.int32)], ()),
+    "left_shift-scalar": (lambda F, x: F.left_shift(x, 2),
+                          lambda r: [r.randint(0, 50, (3, 4)).astype(
+                              np.int32)], ()),
+    "fmod-scalar": (lambda F, x: F.fmod(x, 1.5),
+                    lambda r: [_randn(r, 3, 4) * 3], (0,)),
+    "LRN": (lambda F, x: F.LRN(x, nsize=3),
+            lambda r: [np.abs(_randn(r, 2, 6, 4, 4))], (0,)),
+    "im2col": (lambda F, x: F.im2col(x, kernel=(3, 3), pad=(1, 1)),
+               lambda r: [_randn(r, 2, 3, 6, 6)], (0,)),
+    "col2im": (lambda F, x: F.col2im(x, output_size=(6, 6), kernel=(3, 3),
+                                     pad=(1, 1)),
+               lambda r: [_randn(r, 2, 27, 36)], (0,)),
+    "topk-value": (lambda F, x: F.topk(x, k=3, ret_typ="value"),
+                   lambda r: [_randn(r, 3, 7)], (0,)),
+    "topk-indices": (lambda F, x: F.topk(x, k=3),
+                     lambda r: [np.round(_randn(r, 3, 7))], ()),
+    "sort": (lambda F, x: F.sort(x, is_ascend=False),
+             lambda r: [_randn(r, 3, 7)], (0,)),
+    "argsort": (lambda F, x: F.argsort(x),
+                lambda r: [np.round(_randn(r, 3, 7))], ()),
+    "cumsum": (lambda F, x: F.cumsum(x, axis=1),
+               lambda r: [_randn(r, 3, 7)], (0,)),
+    "gelu": (lambda F, x: F.gelu(x), lambda r: [_randn(r, 3, 7)], (0,)),
+    "interp": (lambda F, x, xp, fp: F.interp(x, xp, fp, left=-1.0,
+                                             right=2.0),
+               lambda r: [_randn(r, 9) * 2, np.sort(_randn(r, 5)),
+                          _randn(r, 5)], (0, 2)),
+    "ravel_multi_index": (lambda F, c: F.ravel_multi_index(c, shape=(4, 6)),
+                          lambda r: [np.stack([r.randint(0, 4, 5), r.randint(
+                              0, 6, 5)]).astype(np.float32)], ()),
+    "ediff1d": (lambda F, x: F.ediff1d(x, to_begin=0.5, to_end=[1.0, 2.0]),
+                lambda r: [_randn(r, 3, 4)], (0,)),
+    "gather_nd": (lambda F, x, i: F.gather_nd(x, i),
+                  lambda r: [_randn(r, 3, 4), np.array(
+                      [[0, 2, 1], [3, 0, 1]], np.float32)], (0,)),
+    "UpSampling": (lambda F, x: F.UpSampling(x, scale=2,
+                                             sample_type="nearest"),
+                   lambda r: [_randn(r, 2, 3, 4, 4)], (0,)),
+    "L2Normalization": (lambda F, x: F.L2Normalization(x),
+                        lambda r: [_randn(r, 2, 3, 4)], (0,)),
+    "Correlation": (lambda F, a, b: F.Correlation(a, b, max_displacement=1),
+                    lambda r: [_randn(r, 2, 4, 6, 6), _randn(r, 2, 4, 6, 6)],
+                    (0, 1)),
+    "amp_cast": (lambda F, x: F.amp_cast(x, dtype="bfloat16"),
+                 lambda r: [_randn(r, 3, 4)], (0,)),
+    "linalg_extracttrian": (lambda F, a: F.linalg_extracttrian(a, offset=1),
+                            lambda r: [_randn(r, 2, 4, 4)], (0,)),
+    "linalg_maketrian": (lambda F, v: F.linalg_maketrian(v, lower=False),
+                         lambda r: [_randn(r, 2, 6)], (0,)),
+    "linalg_potrf": (lambda F, a: F.linalg_potrf(a),
+                     lambda r: [_spd_np(r)], (0,)),
+    "linalg_potri": (lambda F, a: F.linalg_potri(F.linalg_potrf(a)),
+                     lambda r: [_spd_np(r)], (0,)),
+    "linalg_trsm": (lambda F, a, b: F.linalg_trsm(F.linalg_potrf(a), b),
+                    lambda r: [_spd_np(r), _randn(r, 2, 4, 3)], (0, 1)),
+    "linalg_inverse": (lambda F, a: F.linalg_inverse(a),
+                       lambda r: [_spd_np(r)], (0,)),
+    "linalg_det": (lambda F, a: F.linalg_det(a),
+                   lambda r: [_spd_np(r) * 0.5], (0,)),
+    "linalg_slogdet": (lambda F, a: F.linalg_slogdet(a)[1],
+                       lambda r: [_spd_np(r)], (0,)),
+    "linalg_gelqf": (lambda F, a: F.linalg_gelqf(a)[0] ** 2,
+                     lambda r: [_randn(r, 2, 3, 5)], (0,)),
+}
+
+
+@pytest.mark.parametrize("op", sorted(_CAPTURED_OPS))
+def test_tail_ops_capture_in_a_hybridized_block(card, op):
+    """A hybridized block calling the op captures it (its second call)
+    and replays it: four calls on fresh inputs, in predict mode and,
+    where the op is differentiable, recording with a backward, give the
+    outputs and input gradients of the same block unhybridized."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import gluon
+    body, draw, diff = _CAPTURED_OPS[op]
+
+    class Net(gluon.HybridBlock):
+        def hybrid_forward(self, F, *xs):
+            return body(F, *xs)
+
+    nets = []
+    for active in (True, False):
+        net = Net()
+        net.initialize(ctx=mx.gpu(0))
+        net.hybridize(active=active)
+        nets.append(net)
+    for recording in ((False, True) if diff else (False,)):
+        for step in range(4):     # warm-up, capture, two replays
+            arrays = draw(np.random.RandomState(step))
+            runs = []
+            for net in nets:
+                xs = [mt_nd.array(a, ctx=mx.gpu(0)) for a in arrays]
+                if not recording:
+                    runs.append((net(*xs).data, []))
+                    continue
+                for i in diff:
+                    xs[i].attach_grad()
+                with mt_autograd.record():
+                    out = net(*xs)
+                head = np.random.RandomState(100 + step).randn(*out.shape)
+                out.backward(mt_nd.array(head, ctx=mx.gpu(0)).astype(
+                    out.dtype))
+                runs.append((out.data, [xs[i].grad.data for i in diff]))
+            (got, got_g), (want, want_g) = runs
+            _assert_same(got, want)
+            for g, w in zip(got_g, want_g):
+                _assert_same(g, w)
+    # each mode: one eager warm-up, one capture that replays, two replays
+    modes = 2 if diff else 1
+    stats = nets[0]._cached_op.stats
+    assert (stats["eager_calls"], stats["captures"], stats["replays"]) == (
+        modes, modes, 3 * modes), stats
+
+
+@pytest.mark.parametrize("op", ["unique", "histogram", "cond",
+                                "linalg_syevd"])
+def test_host_sync_ops_refuse_a_capture_naming_themselves(card, op):
+    """An op that reads the device from the host or shapes its output by
+    the data runs eagerly, and inside a hybridized block's capture (its
+    second call) raises ``MXNetError`` naming itself, as the reference
+    fails under ``jit`` (``linalg_syevd`` is cuSOLVER's host-buffered
+    call here, where the reference runs it under ``jit``); a stream
+    capture of the bare op refuses it too."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import gluon
+
+    def call(F, x):
+        if op == "unique":
+            return F.unique(x)
+        if op == "histogram":
+            return F.histogram(x, bins=4)[0]
+        if op == "linalg_syevd":      # a diagonal matrix: exact
+            return F.linalg_syevd(F.linalg_makediag(x))[1]
+        return F.cond(x.sum() > 0, lambda: x * 2, lambda: x - 1)
+
+    class Net(gluon.HybridBlock):
+        def hybrid_forward(self, F, x):
+            return call(F, x)
+
+    x = mt_nd.array(np.array([3, 1, 3, 2, 0, 2], np.float32), ctx=mx.gpu(0))
+    want = call(mt_nd, mt_nd.array(x.asnumpy(), ctx=mx.cpu())).asnumpy()
+    net = Net()
+    net.initialize(ctx=mx.gpu(0))
+    net.hybridize()
+    np.testing.assert_array_equal(net(x).asnumpy(), want)   # the warm-up
+    with pytest.raises(MXNetError, match=op):
+        net(x)
+    graph = torch.cuda.CUDAGraph()
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with pytest.raises(MXNetError, match=op):
+        with torch.cuda.graph(graph, stream=stream):
+            call(mt_nd, x)
+    torch.cuda.synchronize()
+    np.testing.assert_array_equal(call(mt_nd, x).asnumpy(), want)

@@ -308,22 +308,30 @@ def test_entry_points_raise_without_a_card_and_run_on_the_cpu_when_asked():
 
 
 def test_unported_ops_raise_naming_their_item():
-    for name in ("RNN", "LRN", "topk", "SequenceMask"):
-        with pytest.raises(NotSupportedError, match="item 8"):
-            getattr(mx.nd, name)
+    with pytest.raises(NotSupportedError, match="item 11"):
+        mx.nd.RNN
     with pytest.raises(AttributeError):
         mx.nd.no_such_op
-    from mxnet_tpu.ndarray import ops as jops
+    from mxnet_tpu.ndarray import _METHOD_FORWARD_OPS, ops as jops
+    from mxnet_tpu.ndarray import linalg as jlinalg
     ported = set(mx.nd.ops._OPS)
     later = mx.nd.ops._REFERENCE_OPS
     # every reference op name is either ported or known to wait
     assert set(jops.__all__) <= later
+    assert later - ported == {"RNN"}
     assert {"FullyConnected", "LayerNorm", "Embedding", "softmax",
             "gather_positions", "batch_dot", "where", "Convolution",
             "Deconvolution", "Pooling", "BatchNorm", "InstanceNorm",
             "GroupNorm", "Pad", "pad", "space_to_depth",
             "depth_to_space", "sample_normal", "sgd_update",
-            "SoftmaxOutput", "ctc_loss"} <= ported
+            "SoftmaxOutput", "ctc_loss", "LRN", "topk",
+            "SequenceMask"} <= ported
+    # the registry-driven methods and nd.linalg's short names resolve
+    for name in _METHOD_FORWARD_OPS:
+        assert callable(getattr(mx.nd.NDArray, name)), name
+    for name in jlinalg.__all__:
+        assert getattr(mx.nd.linalg, name[len("linalg_"):]) is \
+            getattr(mx.nd, name)
 
 
 def test_dropout_in_training():
