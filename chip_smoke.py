@@ -306,6 +306,43 @@ continued:
     ``slogdet``, ``gelqf`` and ``syevd`` on (64, 256, 256) f32 within
     1e-4 (factors up to sign, reconstructions on the card); its wall
     time printed; no kernel of the port runs;
+34. quantized training (``ops.quant_matmul``, ``Dense(compute_dtype=)``):
+    (a) BERT-base's Dense products at ``bench.py``'s batch, (8192, 768) x
+    (768, 3072), (8192, 3072) x (3072, 768), the pooler's (64, 768, 768)
+    and the classifier's N = 2, int8 and fp8, the forward and both
+    gradients against the plain version on the card with the same
+    draws: int8 bitwise, fp8 within 1e-3 of the norm; each product's
+    time beside ``torch.matmul``'s bf16 one; (c) a narrow BERT in f32
+    with every Dense in fp8, two SGD steps on the card against the
+    port on the CPU (mean losses within 5e-2, the updates of all
+    parameters together within 0.25 of their norm: the card's e4m3 sums
+    differ by 1.3e-4 and each layer requantizes its input,
+    ``tools/port_fp8_accum_noise.py``); and, last of all (it runs under ``amp.init``), (b)
+    BERT-base through ``DataParallelTrainer`` at phase 18's
+    configuration with every Dense in fp8, then in int8: 3 warm-up and
+    20 timed steps, each one replay, the loss finite and falling, K2
+    once and K3's f32 forward and backward 12 times a step (the
+    quantized products' f32 results feed the attention); the step
+    median, samples/s, peak memory and host share beside phase 18's;
+35. row-sparse gradients at full width: Llama-3-8B's embedding (128256
+    x 4096 f32) with ``sparse_grad=True`` trained through
+    ``gluon.Trainer`` with lazy SGD and lazy Adam on 8 x 1024 ids (with
+    repeats): untouched rows bitwise unchanged in the weight and both
+    moments, touched rows within 1e-5 of the dense formula on the card;
+    step time and the backward's peak memory beside a
+    ``sparse_grad=False`` step; ``sparse.dot`` of an 8192 x 128256 CSR
+    (32 stored a row) with the same matrix against the dense product of
+    the densified CSR, both timed; no kernel of the port runs;
+36. the contrib ops at detection widths (SSD 300 ResNet-34's anchors,
+    targets at batch 32 with 21 classes, detections and ``box_nms`` at
+    ``nms_topk=400``; R-CNN's ``Proposal``/``MultiProposal`` at
+    ``rcnn.py``'s defaults on a 600 x 1000 image, ``ROIAlign`` and
+    ``ROIPooling`` with 300 RoIs on 1024 channels;
+    ``DeformableConvolution`` and ``BilinearResize2D`` at a ResNet-50
+    stage), card against the port on the CPU (exact where the op is,
+    else within 1e-5), each op's card time, and a CUDA graph capture of
+    each: only ``boolean_mask`` and ``edge_id`` refuse, and they must;
+    no kernel of the port runs;
 11. bf16 AMP training (``amp.init`` is process-wide, so phases 11, 13,
     29, 15, 17 and 18 come last, in that order): phase 8's model, batch and AdamW under
     ``amp.init("bfloat16")``, ``amp.init_trainer`` and
@@ -392,7 +429,7 @@ run's steps are measured as they run without it) that replays each
 decode step on its own staged inputs, the replays' device time (CUDA
 events around ``graph.replay()``) and each step's host share beside
 it.  Before
-each of phases 4, 7-19 and 20-32 the kernels' launch counters are set to 0; each phase reads them just after and fails unless its kernels
+each of phases 4, 7-19 and 20-36 the kernels' launch counters are set to 0; each phase reads them just after and fails unless its kernels
 ran the expected number of times.  The second-to-last line is the
 card's name and power limit, the line before it the kernels' JSON
 record, and the line before that every timed row of phase 3 as
@@ -4121,6 +4158,9 @@ def check_resnet_update(dev, flush):
 
 
 BERT_TRAINABLE = 109_188_866         # BERT-base's bucket (K2's n)
+# its Dense layers: 4 attention projections and 2 FFN a layer, the
+# pooler and the classifier
+BERT_DENSE = 12 * 6 + 2
 
 
 def check_bert_update(dev, flush):
@@ -4819,6 +4859,9 @@ UPDATE_STREAMS = {"sgd": 5, "adam": 7, "lars": 7, "lamb": 10}
 # (model, rule) -> the update's device time alone in this run, so phases
 # 30 and 31 print it beside phases 18 and 17's K2 and K1
 UPDATE_MS = {}
+# (model, rule, compute_dtype) -> (step median ms, peak GB) in this run,
+# so phase 34 prints its quantized steps beside phase 18's bf16 one
+STEP_MS = {}
 
 
 def update_device_ms(trainer, reps=10):
@@ -4862,9 +4905,14 @@ def update_device_ms(trainer, reps=10):
         trainer._flat_p, trainer._flat_state, trainer._t = keep
 
 
-def dp_training(dev, card, model, rule=None):
+def dp_training(dev, card, model, rule=None, compute_dtype=None):
     """Phases 17 (``model="resnet"``), 18 (``"bert"``), 30 (``"bert"``,
-    ``rule="lamb"``) and 31 (``"resnet"``, ``rule="lars"``):
+    ``rule="lamb"``), 31 (``"resnet"``, ``rule="lars"``) and 34
+    (``"bert"``, ``compute_dtype="fp8"`` or ``"int8"``: every Dense of
+    the built net switched by ``net.apply``, its products through
+    ``ops.quant_matmul``; their f32 results make the attention after
+    them run K3's f32 kernels, as the reference's f32 flash path; the
+    step beside phase 18's):
     ``bench.py``'s ``_bench_resnet`` and ``_bench_bert`` through the entry
     point they use, ``DataParallelTrainer`` on ``make_mesh({"dp": 1})``,
     bf16 AMP: ``resnet50_v1(s2d_stem=True)``, batch 128 x 3 x 224 x 224
@@ -4922,6 +4970,11 @@ def dp_training(dev, card, model, rule=None):
                                  dropout=0.0, use_flash=True,
                                  use_decoder=False)
             net.initialize()
+            n_dense = []
+            if compute_dtype is not None:
+                net.apply(lambda b: n_dense.append(b) or setattr(
+                    b, "compute_dtype", compute_dtype)
+                    if isinstance(b, gluon.nn.Dense) else None)
 
             def loss_fn(out, label):
                 return ce(out[-1], label)
@@ -4936,14 +4989,20 @@ def dp_training(dev, card, model, rule=None):
                      mx.nd.array(rng.randint(0, 2, size=(BERT_BATCH,)),
                                  dtype="int32"))
             n, unit, classes = BERT_BATCH, "samples", BUSY_CLASSES
-            want = {name: 12 * DP_TIMED for name in (
-                "flash_attention_fwd", "flash_attention_bwd",
-                "flash_attention_fwd_bf16", "flash_attention_bwd_bf16")}
+            k3 = ("flash_attention_fwd", "flash_attention_bwd") + (
+                () if compute_dtype else ("flash_attention_fwd_bf16",
+                                          "flash_attention_bwd_bf16"))
+            want = {name: 12 * DP_TIMED for name in k3}
             if rule == "adam":
                 want["fused_adam_update"] = DP_TIMED
-            label = (f"dp bert{'' if rule == 'adam' else ' ' + rule}, "
-                     f"BERT-base (12 x 768, vocab {BERT_VOCAB}), bf16 amp, "
-                     f"{rule} {hyper}, batch {BERT_BATCH}x{BERT_SEQ}")
+            tag = "" if rule == "adam" else " " + rule
+            if compute_dtype:
+                tag += " " + compute_dtype
+            label = (f"dp bert{tag}, "
+                     f"BERT-base (12 x 768, vocab {BERT_VOCAB}), bf16 amp"
+                     + (f", every Dense ({len(n_dense)}) in {compute_dtype}"
+                        if compute_dtype else "")
+                     + f", {rule} {hyper}, batch {BERT_BATCH}x{BERT_SEQ}")
         losses = [trainer.step(*batch) for _ in range(DP_WARMUP)]
         torch.cuda.synchronize(dev)
         setup_s = time.perf_counter() - t0
@@ -4987,7 +5046,8 @@ def dp_training(dev, card, model, rule=None):
         n_bucket = trainer._flat_p.numel()
         streams = UPDATE_STREAMS[rule]
         update_bound_ms = streams * 4 * n_bucket / H100_BYTES_PER_S * 1e3
-        UPDATE_MS[(model, rule)] = update_ms
+        if compute_dtype is None:
+            UPDATE_MS[(model, rule)] = update_ms
         others = {r: ms for (m, r), ms in UPDATE_MS.items()
                   if m == model and r != rule}
     finally:
@@ -5007,6 +5067,8 @@ def dp_training(dev, card, model, rule=None):
     losses = [float(x.asnumpy()) for x in losses]
     step_ms = statistics.median(step_s) * 1e3
     replay_ms = statistics.median(replay_s) * 1e3
+    STEP_MS[(model, rule, compute_dtype)] = (step_ms, peak_gb)
+    plain = STEP_MS.get((model, rule, None)) if compute_dtype else None
     print(f"{label} through DataParallelTrainer (make_mesh dp=1) on {card}: "
           f"{n_params} params, {n_trainable} in the flat buffer; losses "
           f"{losses}; step median {step_ms:.2f} ms over {DP_TIMED} steps "
@@ -5032,6 +5094,10 @@ def dp_training(dev, card, model, rule=None):
           f"streams at {H100_BYTES_PER_S / 1e12} TB/s)"
           + "".join(f", beside {r}'s {ms:.4f} ms earlier in this run"
                     for r, ms in others.items())
+          + (f"; beside phase 18's bf16 step {plain[0]:.2f} ms "
+             f"({n / plain[0] * 1e3:.1f} {unit}/s, peak {plain[1]:.2f} GB; "
+             f"{step_ms / plain[0]:.3f}x its time) earlier in this run"
+             if plain else "")
           + f"; launches {launches}", flush=True)
     if graph_stats["captures"] != 1 or graphs != 1 or \
             graph_stats["eager_calls"] != 1:
@@ -5047,6 +5113,9 @@ def dp_training(dev, card, model, rule=None):
              f"moved {moved} of {len(stats)}")
     if model == "bert" and n_trainable != BERT_TRAINABLE:
         fail(f"{label}: {n_trainable} trainable parameters")
+    if compute_dtype and len(n_dense) != BERT_DENSE:
+        fail(f"{label}: {len(n_dense)} Dense layers switched, expected "
+             f"{BERT_DENSE}")
     del net, trainer, entry
     gc.collect()
     torch.cuda.empty_cache()
@@ -6880,6 +6949,686 @@ def transformer_training(dev, card):
     return launches
 
 
+# ----------------------------------------------------------------------
+# phases 34-36: quantized training, row-sparse gradients and the contrib
+# ops at full width
+# ----------------------------------------------------------------------
+
+# BERT-base's Dense products at bench.py's batch (64 x 128 tokens):
+# (label, M, K, N) of x (M, K) @ W^T (K, N)
+QUANT_SHAPES = (("ffn_1", 8192, 768, 3072), ("ffn_2", 8192, 3072, 768),
+                ("pooler", 64, 768, 768), ("classifier", 64, 768, 2))
+# cuBLASLt's fp8 GEMM (e4m3) accumulates the tensor cores' partial sums
+# in reduced precision before it promotes them to f32; the e5m2 route
+# (bf16 codes, f32 output) sums exact products in another order than the
+# plain f32 product
+QUANT_FP8_RTOL = 1e-3
+# phase 34c: the narrow BERT in f32, two SGD steps, card against CPU.
+# The card's e4m3 products sit 1.3e-4 of the norm from the CPU's exact
+# f32 sums (phase 34a), and each layer quantizes its input again to e4m3
+# (steps of 1/16 to 1/8 of a value): an activation that close to a
+# rounding boundary takes the neighbouring code, so the losses move by
+# about 1% and the updates by about 0.1 of their norm; a CPU run with
+# that noise put into its products moves as far
+# (tools/port_fp8_accum_noise.py).  SGD, whose update is linear in the
+# gradient: Adam's sign-like first steps turn the same noise into 0.3
+QUANT_NARROW_LOSS_RTOL = 5e-2
+QUANT_NARROW_UPDATE_RTOL = 0.25
+QUANT_NARROW = dict(num_layers=2, units=256, hidden_size=1024, num_heads=4,
+                    vocab_size=2000, max_length=64, dropout=0.0,
+                    use_flash=True, use_decoder=False)
+
+
+def _draws(seed0):
+    """A uniform draw of each operand's shape and salt from a generator
+    seeded by them on the operand's device: the quantized product and its
+    plain version see the same draws."""
+    import torch
+
+    def uniform(x, salt):
+        g = torch.Generator(device=x.device)
+        g.manual_seed(seed0 + salt * 1_000_003 + x.numel())
+        return torch.rand(x.shape, generator=g, device=x.device)
+    return uniform
+
+
+def plain_qmm(a, b, mode, uniform, grad_side=False):
+    """The plain version of one quantized product on the card: the same
+    scales, draws and codes as ``ops.quant_matmul``'s, then the codes
+    widened (int8 to float64, exact for these sums; fp8 to f32) for one
+    product without TF32, and the same rescale."""
+    import torch
+    from mxnet_tpu_torch.ops import quant_matmul as qm
+    if mode == "int8":
+        sa, sb = qm._amax_scale(a, 127.0), qm._amax_scale(b, 127.0)
+        qa = qm._sr_cast_int8(a.float() / sa, uniform(a, 0))
+        qb = qm._sr_cast_int8(b.float() / sb, uniform(b, 1))
+        acc = qa.double() @ qb.double()
+        return acc.float() * (sa * sb)
+    qmax = qm.FP8_GRAD_MAX if grad_side else qm.FP8_MAX
+    fp8 = torch.float8_e5m2 if grad_side else torch.float8_e4m3fn
+    sa, sb = qm._amax_scale(a, qmax), qm._amax_scale(b, qmax)
+    qa = torch.clamp(a.float() / sa, -qmax, qmax).to(fp8)
+    qb = torch.clamp(b.float() / sb, -qmax, qmax).to(fp8)
+    return (qa.float() @ qb.float()) * (sa * sb)
+
+
+def _norm_rel(got, want):
+    import torch
+    den = float(torch.linalg.norm(want.double()))
+    return float(torch.linalg.norm((got - want).double())) / max(den, 1e-30)
+
+
+def quant_ops(dev, card):
+    """Phase 34a: ``ops.quant_matmul`` at BERT-base's Dense shapes at
+    ``bench.py``'s batch (``QUANT_SHAPES``: the FFN's (8192, 768) x (768,
+    3072) and (8192, 3072) x (3072, 768), the pooler (64, 768, 768), the
+    classifier's N = 2), int8 and fp8, the forward and both gradients
+    against ``plain_qmm`` on the card with the same draws: int8 bitwise
+    (int32 accumulation is exact), fp8 within ``QUANT_FP8_RTOL`` of the
+    norm.  Prints each quantized forward's time (quantization included,
+    and the library GEMM alone) beside ``torch.matmul``'s bf16 product at
+    the same shape.  No kernel of the port runs."""
+    import torch
+    from mxnet_tpu_torch import ops
+    from mxnet_tpu_torch.ops import quant_matmul as qm
+    ops.reset_launches()
+    flush = torch.empty(128 * 2 ** 20, dtype=torch.uint8, device=dev)
+    g = torch.Generator(device=dev).manual_seed(34)
+    worst = {"int8": 0.0, "fp8": 0.0}
+    for label, M, K, N in QUANT_SHAPES:
+        a = torch.randn(M, K, device=dev, generator=g)
+        w = torch.randn(N, K, device=dev, generator=g) * K ** -0.5
+        dy = torch.randn(M, N, device=dev, generator=g)
+        b = w.t()
+        for mode in ("int8", "fp8"):
+            uniform = _draws(M * 7 + K * 3 + N + (mode == "fp8"))
+            ta = a.clone().requires_grad_()
+            tb = b.detach().clone().requires_grad_()
+            y = qm.quant_matmul(ta, tb, compute_dtype=mode, uniform=uniform)
+            y.backward(dy)
+            got = (y.detach(), ta.grad, tb.grad)
+            want = (plain_qmm(a, b, mode, uniform),
+                    plain_qmm(dy, b.t(), mode, uniform, grad_side=True),
+                    plain_qmm(a.t(), dy, mode, uniform, grad_side=True))
+            errs = [_norm_rel(x, y_) for x, y_ in zip(got, want)]
+            if mode == "int8":
+                same = [torch.equal(x, y_) for x, y_ in zip(got, want)]
+                if not all(same):
+                    fail(f"phase 34 int8 {label}: not bitwise the plain "
+                         f"version (y, da, db equal: {same}; relative "
+                         f"{errs})")
+            elif max(errs) > QUANT_FP8_RTOL:
+                fail(f"phase 34 fp8 {label}: relative {errs} above "
+                     f"{QUANT_FP8_RTOL}")
+            worst[mode] = max(worst[mode], max(errs))
+            with torch.no_grad():
+                sa, sb = (qm._amax_scale(t, 127.0 if mode == "int8"
+                                         else qm.FP8_MAX) for t in (a, b))
+                if mode == "int8":
+                    qa = qm._sr_cast_int8(a / sa, uniform(a, 0))
+                    qb = qm._sr_cast_int8(b / sb, uniform(b, 1))
+                else:
+                    qa = (a / sa).clamp(-448, 448).to(torch.float8_e4m3fn)
+                    qb = (b / sb).clamp(-448, 448).to(torch.float8_e4m3fn)
+                ab, bb = a.bfloat16(), b.bfloat16()
+                times = interleaved_ms({
+                    "quant": lambda: qm.quant_matmul(
+                        a, b, compute_dtype=mode, uniform=uniform),
+                    "gemm": (lambda: qm._int8_product(qa, qb)) if
+                    mode == "int8" else
+                    (lambda: qm._fp8_product(qa, qb, sa, sb)),
+                    "bf16": lambda: torch.matmul(ab, bb)}, 10, flush)
+            ms = {k: statistics.median(v) for k, v in times.items()}
+            print(f"phase 34 {mode} {label} ({M}, {K}) x ({K}, {N}) on "
+                  f"{card}: forward {ms['quant']:.4f} ms with its "
+                  f"quantization (library GEMM alone {ms['gemm']:.4f} ms) "
+                  f"beside torch.matmul bf16 {ms['bf16']:.4f} ms; y, da, "
+                  f"db relative to the plain version {errs}"
+                  + (" (bitwise)" if mode == "int8" else ""), flush=True)
+    del flush
+    torch.cuda.empty_cache()
+    print(f"phase 34 quantized products: int8 bitwise at every shape, fp8 "
+          f"worst relative {worst['fp8']:.3g} (limit {QUANT_FP8_RTOL})",
+          flush=True)
+    return read_launches("phase 34 products", {})
+
+
+def quant_bert_card_vs_cpu(dev):
+    """Phase 34c: a narrow BERT (``QUANT_NARROW``: 2 layers of 256 units,
+    batch 8 x 64) in f32 with every Dense in fp8 (deterministic on each
+    device), two SGD steps (lr 0.1) through ``gluon.Trainer`` from the
+    same weights on the card and on the CPU: mean losses within
+    ``QUANT_NARROW_LOSS_RTOL``, the updates of all parameters together
+    within ``QUANT_NARROW_UPDATE_RTOL`` of the CPU's in the Frobenius norm
+    (the key projections' bias, zero in exact arithmetic, left out; each
+    parameter's own figure printed).  K1 once a step on the card and K3's
+    f32 forward and backward twice a step (its plain version on the
+    CPU)."""
+    import numpy as np
+    import torch
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import autograd, gluon, ops
+    from mxnet_tpu_torch.convert import block_weights_to_numpy, \
+        load_block_weights
+    from mxnet_tpu_torch.gluon.model_zoo.nlp import get_bert_model
+    rng = np.random.RandomState(340)
+    tokens = rng.randint(0, QUANT_NARROW["vocab_size"], (8, 64))
+    types = rng.randint(0, 2, (8, 64))
+    labels = rng.randint(0, 2, (8,))
+    w0 = None
+    runs = []
+    ops.reset_launches()
+    for ctx in (mx.cpu(), mx.gpu(dev.index or 0)):
+        mx.random.seed(34)
+        net = get_bert_model(**QUANT_NARROW)
+        net.initialize(ctx=ctx)
+        with ctx:
+            net(mx.nd.array(tokens, dtype="int32"),
+                mx.nd.array(types, dtype="int32"))
+        if w0 is None:
+            w0 = block_weights_to_numpy(net)
+        else:
+            load_block_weights(net, w0)
+        ops.reset_launches()      # the shape probe's forward left out
+        net.apply(lambda b: setattr(b, "compute_dtype", "fp8")
+                  if isinstance(b, gluon.nn.Dense) else None)
+        tr = gluon.Trainer(net.collect_params(), "sgd",
+                           {"learning_rate": 0.1})
+        ce = gluon.loss.SoftmaxCrossEntropyLoss()
+        losses = []
+        with ctx:
+            args = (mx.nd.array(tokens, dtype="int32"),
+                    mx.nd.array(types, dtype="int32"))
+            y = mx.nd.array(labels, dtype="int32")
+            for _ in range(2):
+                with autograd.record():
+                    loss = ce(net(*args)[-1], y)
+                loss.backward()
+                tr.step(8)
+                losses.append(loss.asnumpy())
+        runs.append((losses, block_weights_to_numpy(net)))
+    launches = read_launches("phase 34 narrow check", {
+        "fused_sgd_update": 2, "flash_attention_fwd": 4,
+        "flash_attention_bwd": 4})
+    (cl, cw), (gl, gw) = runs
+    loss_err = max(abs(float(g.mean()) / float(c.mean()) - 1)
+                   for g, c in zip(gl, cl))
+    errs, bias, diff, size = {}, 0.0, 0.0, 0.0
+    for k in cw:
+        if k.endswith("proj_key.bias"):
+            bias = max(bias, float(np.abs(gw[k] - w0[k]).max()))
+            continue
+        du = cw[k] - w0[k]
+        d2 = float(np.sum(((gw[k] - w0[k]) - du).astype(np.float64) ** 2))
+        errs[k] = (d2 / max(float(np.sum(du.astype(np.float64) ** 2)),
+                            1e-30)) ** 0.5
+        diff += d2
+        size += float(np.sum(du.astype(np.float64) ** 2))
+    total = (diff / size) ** 0.5
+    worst = max(errs, key=errs.get)
+    print(f"phase 34 narrow BERT fp8 card vs CPU (f32, 2 SGD steps): "
+          f"mean losses card {[float(x.mean()) for x in gl]} CPU "
+          f"{[float(x.mean()) for x in cl]} (relative {loss_err:.3g}, limit "
+          f"{QUANT_NARROW_LOSS_RTOL}); updates over all parameters "
+          f"{total:.3g} of their norm (limit {QUANT_NARROW_UPDATE_RTOL}), "
+          f"the worst parameter {worst} {errs[worst]:.3g}; key biases "
+          f"moved at most {bias:.3g}; launches {launches}", flush=True)
+    if loss_err > QUANT_NARROW_LOSS_RTOL or \
+            total > QUANT_NARROW_UPDATE_RTOL:
+        fail("phase 34: the narrow fp8 BERT on the card left the CPU's")
+    return launches
+
+
+# phase 35: Llama-3-8B's embedding with sparse_grad=True
+SPARSE_VOCAB, SPARSE_DIM, SPARSE_IDS = 128256, 4096, (8, 1024)
+SPARSE_STEPS = 3
+# the touched rows against the dense formula on the card: the gradient's
+# duplicate rows summed in another order (the deduplication's against
+# index_add_'s atomics), and Adam's bias correction in double on the host
+# against f32 on the card
+SPARSE_RTOL = 1e-5
+SPARSE_RULES = (("sgd", {"learning_rate": 0.5}),
+                ("adam", {"learning_rate": 1e-3}))
+# dot(csr, dense): 8192 rows of 32 stored columns against the embedding
+CSR_ROWS, CSR_NNZ = 8192, 32
+CSR_RTOL = 1e-5
+
+
+def _sparse_ids(rng):
+    ids = rng.randint(0, SPARSE_VOCAB, SPARSE_IDS)
+    ids[:, ::4] = rng.randint(0, 64, (SPARSE_IDS[0], SPARSE_IDS[1] // 4))
+    return ids
+
+
+def sparse_full_width(dev, card):
+    """Phase 35: row-sparse gradients at full width.  Llama-3-8B's
+    embedding (128256 x 4096 f32, 2.1 GB) with ``sparse_grad=True``
+    trained through ``gluon.Trainer`` with lazy SGD (momentum 0, lr 0.5)
+    and with lazy Adam (lr 1e-3), ``SPARSE_STEPS`` steps of 8 x 1024 ids
+    from ``RandomState`` (a quarter drawn from 64 ids: repeats) against a
+    random head: rows no batch touched bitwise unchanged in the weight
+    and in both moments; the touched rows within ``SPARSE_RTOL`` of the
+    dense formula applied on the card to the dense gradient (its
+    ``index_add_``) and the state before the step.  Prints the step time
+    and the backward's peak memory beside a ``sparse_grad=False`` step.
+    Then ``sparse.dot`` of an 8192 x 128256 CSR (32 stored a row) with the
+    same matrix against the dense product of the densified CSR (f32, no
+    TF32), with both times.  No kernel of the port runs."""
+    import numpy as np
+    import torch
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import autograd, gluon, ops
+    from mxnet_tpu_torch.gluon import nn
+    from mxnet_tpu_torch.ndarray import sparse as sp
+    gpu = mx.gpu(dev.index or 0)
+    ops.reset_launches()
+    rng = np.random.RandomState(35)
+    g = torch.Generator(device=dev).manual_seed(35)
+    heads = [torch.randn(*SPARSE_IDS, SPARSE_DIM, device=dev, generator=g)
+             for _ in range(SPARSE_STEPS)]
+    batches = [_sparse_ids(rng) for _ in range(SPARSE_STEPS)]
+    results = {}
+    weight = None
+    for rule, args in SPARSE_RULES:
+        for sparse_grad in (True, False):
+            torch.cuda.empty_cache()
+            mx.random.seed(35)
+            net = nn.Embedding(SPARSE_VOCAB, SPARSE_DIM,
+                               sparse_grad=sparse_grad)
+            net.initialize(ctx=gpu)
+            tr = gluon.Trainer(net.collect_params(), rule, dict(args))
+            w = net.weight._var
+            w0 = w.detach().clone() if sparse_grad else None
+            touched = torch.zeros(SPARSE_VOCAB, dtype=torch.bool,
+                                  device=dev)
+            step_ms, bwd_gb, worst = [], [], 0.0
+            for step, (ids, head) in enumerate(zip(batches, heads)):
+                x = mx.nd.array(ids, ctx=gpu, dtype="int32")
+                if sparse_grad:
+                    w_before = w.detach().clone()
+                    st = tr._states.get(0) if tr._states else None
+                    m_before = None if not st or "m" not in st else (
+                        st["m"].clone(), st["v"].clone())
+                torch.cuda.synchronize(dev)
+                t = time.perf_counter()
+                with autograd.record():
+                    loss = (net(x) * mx.nd.NDArray(head)).sum()
+                base = torch.cuda.memory_allocated(dev)
+                torch.cuda.reset_peak_memory_stats(dev)
+                loss.backward()
+                torch.cuda.synchronize(dev)
+                bwd_gb.append((torch.cuda.max_memory_allocated(dev) - base)
+                              / 1e9)
+                tr.step(1)
+                torch.cuda.synchronize(dev)
+                step_ms.append((time.perf_counter() - t) * 1e3)
+                if not sparse_grad:
+                    continue
+                idx = torch.from_numpy(ids.reshape(-1)).to(dev)
+                touched[idx] = True
+                rows = torch.unique(idx)
+                with torch.no_grad():
+                    dense_g = torch.zeros_like(w).index_add_(
+                        0, idx, head.reshape(-1, SPARSE_DIM))
+                    gr = dense_g[rows]
+                    del dense_g
+                    if rule == "sgd":
+                        want = w_before[rows] - args["learning_rate"] * gr
+                    else:
+                        t_ = step + 1
+                        m = torch.zeros_like(gr) if m_before is None \
+                            else m_before[0][rows]
+                        v = torch.zeros_like(gr) if m_before is None \
+                            else m_before[1][rows]
+                        m = 0.9 * m + 0.1 * gr
+                        v = 0.999 * v + 0.001 * gr * gr
+                        lr_t = torch.tensor(
+                            args["learning_rate"], device=dev) * \
+                            torch.sqrt(torch.tensor(
+                                1 - 0.999 ** t_, device=dev)) / \
+                            (1 - 0.9 ** t_)
+                        want = w_before[rows] - lr_t * m / (
+                            torch.sqrt(v) + 1e-8)
+                    err = _norm_rel(w.detach()[rows] - w_before[rows],
+                               want - w_before[rows])
+                    worst = max(worst, err)
+                    keep = ~touched
+                    same = torch.equal(w.detach()[keep], w0[keep])
+                    if rule == "adam":
+                        st = tr._states[0]
+                        same = same and not bool(st["m"][keep].any()) and \
+                            not bool(st["v"][keep].any())
+                if not same:
+                    fail(f"phase 35 {rule}: a row no batch touched moved")
+                if err > SPARSE_RTOL:
+                    fail(f"phase 35 {rule}: touched rows {err:.3g} from the "
+                         f"dense formula (limit {SPARSE_RTOL})")
+            results[(rule, sparse_grad)] = (step_ms, bwd_gb, worst)
+            if rule == "sgd" and not sparse_grad:
+                weight = w.detach()
+            del net, tr, w, w0
+            gc.collect()
+    for rule, _ in SPARSE_RULES:
+        s_ms, s_gb, worst = results[(rule, True)]
+        d_ms, d_gb, _ = results[(rule, False)]
+        print(f"phase 35 embedding {SPARSE_VOCAB} x {SPARSE_DIM} f32, ids "
+              f"{SPARSE_IDS} (repeats), lazy {rule} on {card}: step "
+              f"{statistics.median(s_ms):.2f} ms (steps {[round(x, 2) for x in s_ms]}), "
+              f"backward peak {max(s_gb):.3f} GB; sparse_grad=False "
+              f"{statistics.median(d_ms):.2f} ms (steps "
+              f"{[round(x, 2) for x in d_ms]}), backward peak "
+              f"{max(d_gb):.3f} GB; untouched rows bitwise unchanged, "
+              f"touched rows {worst:.3g} from the dense formula", flush=True)
+    # dot(csr, dense) against the dense product of the densified CSR
+    # distinct columns in each row (one in each of 32 bins of 4008): a
+    # canonical CSR, whose densified product the gather must equal
+    indptr = np.arange(0, CSR_ROWS * CSR_NNZ + 1, CSR_NNZ)
+    span = SPARSE_VOCAB // CSR_NNZ
+    cols = (np.arange(CSR_NNZ) * span + rng.randint(
+        0, span, (CSR_ROWS, CSR_NNZ))).reshape(-1)
+    vals = rng.randn(CSR_ROWS * CSR_NNZ).astype(np.float32)
+    csr = sp.csr_matrix((vals, cols, indptr), shape=(CSR_ROWS, SPARSE_VOCAB),
+                        ctx=gpu)
+    rhs = mx.nd.NDArray(weight)
+    flush = torch.empty(128 * 2 ** 20, dtype=torch.uint8, device=dev)
+    got = sp.dot(csr, rhs).data
+    dense = csr.tostype("default").data
+    want = dense @ weight
+    err = _norm_rel(got, want)
+    times = interleaved_ms({"csr": lambda: sp.dot(csr, rhs),
+                            "dense": lambda: dense @ weight}, 5, flush)
+    print(f"phase 35 dot(csr {CSR_ROWS} x {SPARSE_VOCAB}, {CSR_NNZ} stored "
+          f"a row; dense {SPARSE_VOCAB} x {SPARSE_DIM}) on {card}: gather "
+          f"and segment sum {statistics.median(times['csr']):.3f} ms beside "
+          f"the densified product {statistics.median(times['dense']):.3f} ms "
+          f"(f32, no TF32); relative {err:.3g} (limit {CSR_RTOL})",
+          flush=True)
+    if err > CSR_RTOL:
+        fail(f"phase 35: dot(csr, dense) {err:.3g} from the dense product")
+    del csr, rhs, dense, want, got, flush, weight, heads
+    gc.collect()
+    torch.cuda.empty_cache()
+    return read_launches("phase 35 sparse", {})
+
+
+# phase 36: the contrib ops at detection widths.  SSD 300 (ResNet-34):
+# the maps a 300 x 300 input gives its stage 1 (layer3, 19 x 19), stage 2
+# (10 x 10) and three extras (5, 3, 2), with ssd.py's sizes and ratios
+SSD_MAPS = (19, 10, 5, 3, 2)
+SSD_SIZES = ((0.1, 0.141), (0.2, 0.272), (0.37, 0.447), (0.54, 0.619),
+             (0.71, 0.79))
+SSD_RATIOS = (1, 2, 0.5)
+SSD_BATCH, SSD_CLASSES, SSD_GT = 32, 21, 8
+# R-CNN (rcnn.py's defaults) on a 600 x 1000 image at stride 16, and
+# ResNet-50's C4 features (1024 channels) for the RoI ops
+RCNN_MAP, RCNN_C, RCNN_ROIS = (38, 63), 1024, 300
+RCNN = dict(rpn_pre_nms_top_n=2000, rpn_post_nms_top_n=300, threshold=0.7,
+            scales=(8, 16, 32), ratios=(0.5, 1, 2), feature_stride=16)
+# the RoI ops' CPU check on the first RoIs (each RoI is computed alone)
+RCNN_CPU_ROIS = 24
+# a ResNet-50 stage (conv2's 256 channels at 56 x 56), batch 8; the CPU
+# check on the first image
+STAGE = (8, 256, 56, 56)
+# f32 arithmetic in another order (bilinear blends, the deformable
+# product's sums, the box targets' logs)
+CONTRIB_RTOL = 1e-5
+# MultiBoxTarget's hard negatives rank background confidences from a
+# softmax an ulp apart on the two devices: neighbours at the cut may swap
+CONTRIB_MINING_SAME = 0.9999
+
+
+def contrib_full_width(dev, card):
+    """Phase 36: the contrib ops at detection widths, card against the
+    port on the CPU, each with its card time (``time_ms`` behind
+    ``OPLIB_COVER``, marked where the host's dispatch outlasts it), then
+    a CUDA graph capture of each (replayed and held against its eager
+    output).  SSD 300 with ResNet-34 (``SSD_MAPS``): ``MultiBoxPrior``
+    over its five maps, ``MultiBoxTarget`` at batch 32 with VOC's 21
+    classes, ``MultiBoxDetection`` and ``box_nms`` at ``nms_topk=400``;
+    R-CNN at ``rcnn.py``'s defaults on a 600 x 1000 image (38 x 63 map):
+    ``Proposal`` and ``MultiProposal`` (batch 2), ``ROIAlign`` and
+    ``ROIPooling`` with 300 RoIs at (7, 7) on 1024 channels;
+    ``DeformableConvolution`` and ``BilinearResize2D`` at a ResNet-50
+    stage (``STAGE``).  Exact where the op is (``box_nms``, the
+    detections and proposals from zero deltas, ``ROIPooling``,
+    ``MultiBoxTarget``'s masks), else within ``CONTRIB_RTOL``; the
+    proposals from random deltas are checked finite and inside the
+    image.  Only ``boolean_mask`` and ``edge_id`` may refuse a capture,
+    and they must.  No kernel of the port runs."""
+    import numpy as np
+    import torch
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import MXNetError, ops
+    from mxnet_tpu_torch.ndarray import sparse as sp
+    nd = mx.nd
+    gpu, cpu = mx.gpu(dev.index or 0), mx.cpu()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    rng = np.random.RandomState(36)
+    flush = torch.empty(128 * 2 ** 20, dtype=torch.uint8, device=dev)
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    torch.cuda._sleep(OPLIB_COVER)
+    end.record()
+    end.synchronize()
+    cover_ms = start.elapsed_time(end)
+    lines, refused, bad = [], [], []
+
+    def card_ms(fn):
+        ms = time_ms(fn, 3, flush, OPLIB_COVER)
+        torch.cuda._sleep(OPLIB_COVER)
+        t = time.perf_counter()
+        fn()
+        host = (time.perf_counter() - t) * 1e3
+        torch.cuda.synchronize(dev)
+        if host < cover_ms:
+            return f"{ms:.3f} ms"
+        return f"{ms:.3f} ms (includes dispatch: host {host:.3f} ms)"
+
+    def outs(x):
+        return [o.data for o in (x if isinstance(x, (list, tuple))
+                                 else [x])]
+
+    def compare(label, got, want, exact, same=None):
+        errs = []
+        for k, (a, b) in enumerate(zip(got, want)):
+            a = a.cpu()
+            if a.shape != b.shape:
+                bad.append(f"{label} output {k}: shape {tuple(a.shape)} "
+                           f"against {tuple(b.shape)}")
+                continue
+            if same is not None and k in same:
+                frac = float((a == b).float().mean())
+                errs.append(f"same {frac:.6f}")
+                if frac < same[k]:
+                    bad.append(f"{label} output {k}: {frac} equal")
+            elif exact or not a.is_floating_point():
+                if not torch.equal(a, b):
+                    bad.append(f"{label} output {k}: not exact")
+                errs.append("exact")
+            else:
+                e = _norm_rel(a.float(), b.float())
+                errs.append(f"{e:.3g}")
+                if e > CONTRIB_RTOL:
+                    bad.append(f"{label} output {k}: relative {e:.3g}")
+        return errs
+
+    def captured(label, fn, eager, exact):
+        """Capture ``fn`` (its card call) and replay: None when it
+        refuses, else the replay's outputs held against ``eager``."""
+        stream = torch.cuda.Stream(dev)
+        stream.wait_stream(torch.cuda.current_stream(dev))
+        graph = torch.cuda.CUDAGraph()
+        try:
+            with torch.cuda.stream(stream):
+                fn()
+            torch.cuda.current_stream(dev).wait_stream(stream)
+            with torch.cuda.graph(graph, stream=stream):
+                out = outs(fn())
+        except MXNetError:
+            refused.append(label)
+            torch.cuda.synchronize(dev)
+            return "refused"
+        graph.replay()
+        torch.cuda.synchronize(dev)
+        for a, b in zip(out, eager):
+            if (exact and not torch.equal(a, b)) or (
+                    not exact and _norm_rel(a.float(), b.float()) > 1e-6):
+                bad.append(f"{label}: the replay differs from eager")
+        del graph, out
+        return "captured"
+
+    def run(label, call, card_args, cpu_args, exact=False, same=None,
+            cpu_slice=None):
+        """``call(*args)`` on the card and on the CPU (``cpu_args``, or
+        the card's inputs sliced by ``cpu_slice`` for the CPU check)."""
+        got = outs(call(*card_args))
+        want = outs(call(*cpu_args))
+        if cpu_slice is not None:
+            got = [cpu_slice(g) for g in got]
+        errs = compare(label, got, want, exact, same)
+        ms = card_ms(lambda: call(*card_args))
+        cap = captured(label, lambda: call(*card_args),
+                       outs(call(*card_args)), exact)
+        lines.append(f"{label}: card {ms}, {cap}; card vs CPU {errs}")
+
+    def both(x, dtype=None):
+        x = np.asarray(x, dtype or x.dtype)
+        return nd.array(x, ctx=gpu, dtype=str(x.dtype)), \
+            nd.array(x, ctx=cpu, dtype=str(x.dtype))
+
+    # -- SSD --
+    maps = [both(np.zeros((1, 4, h, h), np.float32)) for h in SSD_MAPS]
+
+    def priors(*feats):
+        return nd.concat(*[nd.contrib.MultiBoxPrior(
+            f, sizes=s, ratios=SSD_RATIOS) for f, s in
+            zip(feats, SSD_SIZES)], dim=1)
+    run("MultiBoxPrior (SSD 300's five maps)", priors,
+        [m[0] for m in maps], [m[1] for m in maps])
+    anchors = priors(*[m[1] for m in maps]).asnumpy()
+    n = anchors.shape[1]
+    xy = rng.rand(SSD_BATCH, SSD_GT, 2) * 0.7
+    wh = rng.rand(SSD_BATCH, SSD_GT, 2) * 0.3 + 0.02
+    label = np.concatenate([rng.randint(0, SSD_CLASSES - 1,
+                                        (SSD_BATCH, SSD_GT, 1)), xy, xy + wh],
+                           -1).astype(np.float32)
+    label[:, SSD_GT - 2:, 0] = -1
+    pred = rng.randn(SSD_BATCH, SSD_CLASSES, n).astype(np.float32)
+    a2, l2, p2 = both(anchors), both(label), both(pred)
+    run(f"MultiBoxTarget (batch {SSD_BATCH}, {n} anchors, {SSD_CLASSES} "
+        "classes)", lambda a, l, p: nd.contrib.MultiBoxTarget(a, l, p),
+        [a2[0], l2[0], p2[0]], [a2[1], l2[1], p2[1]],
+        same={1: 1.0, 2: CONTRIB_MINING_SAME})
+    prob = np.exp(pred - pred.max(1, keepdims=True))
+    prob = (prob / prob.sum(1, keepdims=True)).astype(np.float32)
+    c2, z2 = both(prob), both(np.zeros((SSD_BATCH, n * 4), np.float32))
+    run(f"MultiBoxDetection (batch {SSD_BATCH}, nms_topk 400, zero "
+        "offsets)", lambda c, l, a: nd.contrib.MultiBoxDetection(
+            c, l, a, nms_topk=400), [c2[0], z2[0], a2[0]],
+        [c2[1], z2[1], a2[1]], exact=True)
+    dets = np.concatenate([rng.randint(0, 20, (SSD_BATCH, n, 1)),
+                           rng.rand(SSD_BATCH, n, 1),
+                           np.sort(rng.rand(SSD_BATCH, n, 4), -1)],
+                          -1).astype(np.float32)
+    d2 = both(dets)
+    run(f"box_nms ({SSD_BATCH} x {n} boxes, topk 400, per class)",
+        lambda d: nd.contrib.box_nms(d, overlap_thresh=0.45, topk=400,
+                                     id_index=0), [d2[0]], [d2[1]],
+        exact=True)
+    # -- R-CNN --
+    h, w = RCNN_MAP
+    A = len(RCNN["scales"]) * len(RCNN["ratios"])
+    cls = rng.rand(2, 2 * A, h, w).astype(np.float32)
+    zero = np.zeros((2, 4 * A, h, w), np.float32)
+    deltas = (rng.randn(2, 4 * A, h, w) * 0.2).astype(np.float32)
+    info = np.array([[600, 1000, 1.0], [580, 990, 1.0]], np.float32)
+    cls2, zero2, info2 = both(cls), both(zero), both(info)
+    run("Proposal (600 x 1000, stride 16, 2000 -> 300, zero deltas)",
+        lambda c, b, i: nd.contrib.Proposal(c, b, i, **RCNN),
+        [cls2[0][0:1], zero2[0][0:1], info2[0][0:1]],
+        [cls2[1][0:1], zero2[1][0:1], info2[1][0:1]], exact=True)
+    run("MultiProposal (batch 2, scores out, zero deltas)",
+        lambda c, b, i: nd.contrib.MultiProposal(c, b, i, output_score=True,
+                                                 **RCNN),
+        [cls2[0], zero2[0], info2[0]], [cls2[1], zero2[1], info2[1]],
+        exact=True)
+    dl = nd.array(deltas, ctx=gpu)
+    rois = nd.contrib.MultiProposal(cls2[0], dl, info2[0], **RCNN).data
+    inside = bool(torch.isfinite(rois).all()) and \
+        bool((rois[:, 1:] >= 0).all()) and \
+        bool((rois[:, [1, 3]] <= 999).all()) and \
+        bool((rois[:, [2, 4]] <= 599).all())
+    ms = card_ms(lambda: nd.contrib.MultiProposal(cls2[0], dl, info2[0],
+                                                  **RCNN))
+    lines.append(f"MultiProposal (batch 2, random deltas): card {ms}; "
+                 f"finite and inside the image: {inside}")
+    if not inside:
+        bad.append("MultiProposal: rois outside the image")
+    feat = rng.randn(1, RCNN_C, h, w).astype(np.float32)
+    xy = rng.rand(RCNN_ROIS, 2) * np.array([900, 500])
+    wh = rng.rand(RCNN_ROIS, 2) * np.array([300, 250]) + 8
+    roi = np.concatenate([np.zeros((RCNN_ROIS, 1)), xy, xy + wh], -1) \
+        .astype(np.float32)
+    f2, r2 = both(feat), both(roi)
+    rcpu = nd.array(roi[:RCNN_CPU_ROIS], ctx=cpu)
+    run(f"ROIAlign ({RCNN_ROIS} RoIs, (7, 7), {RCNN_C} x {h} x {w})",
+        lambda f, r: nd.contrib.ROIAlign(f, r, (7, 7), 1 / 16,
+                                         sample_ratio=2),
+        [f2[0], r2[0]], [f2[1], rcpu],
+        cpu_slice=lambda t: t[:RCNN_CPU_ROIS])
+    run(f"ROIPooling ({RCNN_ROIS} RoIs, (7, 7), {RCNN_C} x {h} x {w})",
+        lambda f, r: nd.contrib.ROIPooling(f, r, (7, 7), 1 / 16),
+        [f2[0], r2[0]], [f2[1], rcpu], exact=True,
+        cpu_slice=lambda t: t[:RCNN_CPU_ROIS])
+    # -- a ResNet-50 stage --
+    B, C, H, W = STAGE
+    x = rng.randn(*STAGE).astype(np.float32)
+    off = rng.randn(B, 18, H, W).astype(np.float32)
+    wt = (rng.randn(C, C, 3, 3) * (C * 9) ** -0.5).astype(np.float32)
+    bias = rng.randn(C).astype(np.float32)
+    x2, o2, w2, b2 = both(x), both(off), both(wt), both(bias)
+
+    def dcn(d, o, k, b):
+        return nd.contrib.DeformableConvolution(
+            d, o, k, b, kernel=(3, 3), pad=(1, 1), num_filter=C)
+    run(f"DeformableConvolution ({STAGE}, 3 x 3, {C} filters)", dcn,
+        [x2[0], o2[0], w2[0], b2[0]],
+        [x2[1][0:1], o2[1][0:1], w2[1], b2[1]],
+        cpu_slice=lambda t: t[:1])
+    run(f"BilinearResize2D ({STAGE} -> 112 x 112)",
+        lambda d: nd.contrib.BilinearResize2D(d, height=2 * H, width=2 * W),
+        [x2[0]], [x2[1][0:1]], cpu_slice=lambda t: t[:1])
+    # -- the two that read the host --
+    mask = (rng.rand(B * C) > 0.5).astype(np.float32)
+    flat, m2 = both(x.reshape(B * C, H * W)), both(mask)
+    run("boolean_mask", lambda d, m: nd.contrib.boolean_mask(d, m),
+        [flat[0], m2[0]], [flat[1], m2[1]], exact=True)
+    adj = np.zeros((2000, 2000), np.float32)
+    adj[rng.randint(0, 2000, 20000), rng.randint(0, 2000, 20000)] = 1
+    u, v = rng.randint(0, 2000, 500), rng.randint(0, 2000, 500)
+    csr_gpu = sp.csr_matrix(adj, ctx=gpu)
+    csr_cpu = sp.csr_matrix(adj, ctx=cpu)
+    run("edge_id (2000-node CSR, 500 pairs)",
+        lambda g, a, b: nd.contrib.edge_id(g, a, b), [csr_gpu, u, v],
+        [csr_cpu, u, v], exact=True)
+    del flush
+    torch.cuda.empty_cache()
+    wall = time.perf_counter() - t0
+    for line in lines:
+        print(f"phase 36 {line}", flush=True)
+    print(f"phase 36 contrib ops at detection widths on {card}: {wall:.1f} s "
+          f"of wall time; refused a capture: {refused}", flush=True)
+    if bad:
+        fail(f"phase 36: {bad}")
+    if sorted(refused) != ["boolean_mask", "edge_id (2000-node CSR, 500 "
+                                           "pairs)"]:
+        fail(f"phase 36: the ops that refused a capture were {refused}, "
+             "expected boolean_mask and edge_id alone")
+    return read_launches("phase 36 contrib", {})
+
+
 def main():
     try:
         import torch
@@ -6968,6 +7717,11 @@ def main():
     by_path["dp_bert_lamb_check"] = lamb_dp_vs_gluon(dev)
     by_path["surface_card_vs_cpu"] = surface_card_vs_cpu(dev)
     by_path["oplib_full_width"] = oplib_full_width(dev, card)
+    # phases 34a and 34c (no amp), 35 and 36
+    by_path["quant_ops"] = quant_ops(dev, card)
+    by_path["quant_bert_card_vs_cpu"] = quant_bert_card_vs_cpu(dev)
+    by_path["sparse_embedding"] = sparse_full_width(dev, card)
+    by_path["contrib_ops"] = contrib_full_width(dev, card)
     # phases 11, 13, 15, 17 and 18 last: amp.init() is process-wide
     by_path["training_amp"], _ = train_llama3_8b(
         dev, card, amp_dtype="bfloat16", f32_first_loss=f32_first_loss)
@@ -6979,6 +7733,10 @@ def main():
     # phases 30 and 31: LAMB and LARS in the captured step
     by_path["dp_bert_lamb"] = dp_training(dev, card, "bert", "lamb")
     by_path["dp_resnet_lars"] = dp_training(dev, card, "resnet", "lars")
+    # phase 34b: BERT-base with every Dense quantized, beside phase 18
+    for mode in ("fp8", "int8"):
+        by_path[f"dp_bert_{mode}"] = dp_training(dev, card, "bert",
+                                                 compute_dtype=mode)
 
     kernels = []
     for name, src, tpu in (

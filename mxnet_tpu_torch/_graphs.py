@@ -124,6 +124,16 @@ def scratch_bytes(device):
                if key[0] == device)
 
 
+def _record_stream(t, stream):
+    """``t.record_stream(stream)``, for a sparse gradient (a row-sparse
+    op's) its indices and values."""
+    if t.is_sparse:
+        t._indices().record_stream(stream)
+        t._values().record_stream(stream)
+    else:
+        t.record_stream(stream)
+
+
 class _Instance:
     """One capture of a signature: its forward graph and, while
     recording, its backward graph; the static inputs (outside the pool)
@@ -207,7 +217,7 @@ class _Eager:
                 cur.wait_stream(self.stream)
                 for g in got:
                     if g is not None:
-                        g.record_stream(cur)
+                        _record_stream(g, cur)
             for i, g in zip(self.need, got):
                 grads[i] = g
         self.sig.warm = True

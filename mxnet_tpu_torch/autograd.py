@@ -7,8 +7,12 @@ Counterpart of ``mxnet_tpu/autograd.py``: ``record``/``pause``/
 backward; the flags live in ``_tape``.
 
 A variable (``attach_grad``/``mark_variables``) is a leaf tensor that
-requires grad.  ``grad_req="add"`` is torch's own accumulation into
-``.grad``; ``"write"`` puts a pre-hook on the leaf's ``AccumulateGrad``
+requires grad.  ``stype="row_sparse"`` (``attach_grad``) makes its
+gradient None until a backward writes one; a row-sparse op
+(``Embedding(sparse_grad=True)``) writes a sparse gradient whatever the
+``stype`` (``NDArray.grad``, ``ndarray/sparse.py``).
+``grad_req="add"`` is torch's own accumulation into ``.grad``;
+``"write"`` puts a pre-hook on the leaf's ``AccumulateGrad``
 node that drops the earlier gradient before a backward writes, so within
 one backward the contributions of a variable used twice still sum, a
 second backward replaces the first, and ``grad()`` (which runs no
@@ -94,11 +98,7 @@ def _mark(arr, grad_req="write", stype=None):
     leaves the graph it came from and takes ``grad_req``."""
     if grad_req not in _REQS:
         raise MXNetError(f"invalid grad_req {grad_req!r}")
-    if stype not in (None, "default"):
-        from .base import NotSupportedError
-        raise NotSupportedError(
-            f"attach_grad(stype={stype!r}): sparse gradients arrive with "
-            "the rest of the ops (ROADMAP §1 item 8)")
+    arr._grad_stype = stype
     if arr._grad_hook is not None:
         arr._grad_hook[1].remove()
         arr._grad_hook = None
@@ -175,7 +175,8 @@ def grad(heads, variables, head_grads=None, retain_graph=None,
     if any(g is None for g in grads):
         raise MXNetError("one of the variables does not participate in "
                          "the graph of heads")
-    out = [NDArray(g) for g in grads]
+    from .ndarray.sparse import _from_coo
+    out = [_from_coo(g) if g.is_sparse else NDArray(g) for g in grads]
     return out[0] if single else out
 
 

@@ -8,8 +8,9 @@ Counterpart of ``mxnet_tpu/gluon/nn/basic_layers.py``: ``Sequential``,
 ``Identity``, ``HybridConcatenate`` and ``Concatenate``; and the
 norms of convolutional nets, ``BatchNorm`` (running statistics through
 ``record_aux_update``), ``InstanceNorm`` and ``GroupNorm``.
-``Embedding(sparse_grad=True)`` raises ``NotSupportedError`` naming
-item 8.
+``Embedding(sparse_grad=True)`` gives its weight (``grad_stype=
+"row_sparse"``) a row-sparse gradient; ``Dense(compute_dtype=...)``
+runs its product through ``ops.quant_matmul``.
 """
 from __future__ import annotations
 
@@ -17,7 +18,7 @@ import numpy as _np
 import torch
 import torch.nn.functional as F_
 
-from ...base import MXNetError, NotSupportedError
+from ...base import MXNetError
 from ... import _tape
 from ... import ndarray as nd
 from ... import initializer
@@ -77,11 +78,17 @@ class Dense(HybridBlock):
 
     def __init__(self, units, activation=None, use_bias=True, flatten=True,
                  dtype="float32", weight_initializer=None,
-                 bias_initializer="zeros", in_units=0, **kwargs):
+                 bias_initializer="zeros", in_units=0, compute_dtype=None,
+                 **kwargs):
         super().__init__(**kwargs)
         self._units = units
         self._flatten = flatten
         self._act_type = activation
+        #: ``"int8"``/``"fp8"`` sends the product through
+        #: ``ops.quant_matmul`` (``nd.FullyConnected``'s
+        #: ``compute_dtype``); settable, so ``net.apply`` can switch
+        #: every Dense of a built net
+        self.compute_dtype = compute_dtype
         with self.name_scope():
             self.weight = self.params.get(
                 "weight", shape=(units, in_units), dtype=dtype,
@@ -100,7 +107,8 @@ class Dense(HybridBlock):
 
     def hybrid_forward(self, F, x, weight, bias=None):
         out = F.FullyConnected(x, weight, bias, num_hidden=self._units,
-                               no_bias=bias is None, flatten=self._flatten)
+                               no_bias=bias is None, flatten=self._flatten,
+                               compute_dtype=self.compute_dtype)
         if self._act_type:
             out = F.Activation(out, act_type=self._act_type)
         return out
@@ -310,21 +318,20 @@ class Embedding(HybridBlock):
 
     def __init__(self, input_dim, output_dim, dtype="float32",
                  weight_initializer=None, sparse_grad=False, **kwargs):
-        if sparse_grad:
-            raise NotSupportedError(
-                "Embedding(sparse_grad=True): row-sparse gradients arrive "
-                "with ndarray/sparse.py (ROADMAP §1 item 8)")
         super().__init__(**kwargs)
         self._input_dim = input_dim
         self._output_dim = output_dim
+        self._sparse_grad = sparse_grad
         with self.name_scope():
             self.weight = self.params.get(
                 "weight", shape=(input_dim, output_dim), dtype=dtype,
-                init=weight_initializer)
+                init=weight_initializer,
+                grad_stype="row_sparse" if sparse_grad else "default")
 
     def hybrid_forward(self, F, x, weight):
         return F.Embedding(x, weight, input_dim=self._input_dim,
-                           output_dim=self._output_dim)
+                           output_dim=self._output_dim,
+                           sparse_grad=self._sparse_grad)
 
     def __repr__(self):
         return f"Embedding({self._input_dim} -> {self._output_dim})"

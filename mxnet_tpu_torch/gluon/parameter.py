@@ -18,8 +18,11 @@ place.
 - ``lr_mult`` / ``wd_mult`` scale the optimizer's learning rate and
   weight decay for this parameter (through the Trainer's
   ``param_dict``).
-- Sparse storage (``stype``/``grad_stype`` other than ``"default"``)
-  raises ``NotSupportedError`` naming ROADMAP §1 item 8.
+- ``stype`` (``"default"``, ``"row_sparse"``, ``"csr"``) is recorded, the
+  data stays dense, as in the reference; ``grad_stype="row_sparse"``
+  makes ``grad()`` None until a backward writes a gradient, which a
+  row-sparse op (``Embedding(sparse_grad=True)``) writes as a
+  ``RowSparseNDArray``; ``zero_grad`` drops a sparse gradient.
 """
 from __future__ import annotations
 
@@ -56,11 +59,10 @@ class Parameter:
                  lr_mult=1.0, wd_mult=1.0, init=None,
                  allow_deferred_init=False, differentiable=True,
                  stype="default", grad_stype="default"):
-        if stype != "default" or grad_stype != "default":
-            raise NotSupportedError(
-                f"Parameter {name!r}: sparse storage (stype={stype!r}, "
-                f"grad_stype={grad_stype!r}) arrives with ndarray/sparse.py "
-                "(ROADMAP §1 item 8)")
+        if stype not in ("default", "row_sparse", "csr"):
+            raise MXNetError(f"invalid stype {stype}")
+        self._stype = stype
+        self._grad_stype = grad_stype
         self.name = name
         self.shape = tuple(shape) if shape is not None else None
         self.dtype = dtype
@@ -89,15 +91,15 @@ class Parameter:
             req = "null"
         self._grad_req = req
         if self._nd is not None:
-            self._nd.attach_grad(req)
+            self._nd.attach_grad(req, stype=self._grad_stype)
 
     @property
     def stype(self):
-        return "default"
+        return self._stype
 
     @property
     def grad_stype(self):
-        return "default"
+        return self._grad_stype
 
     # -- initialization -----------------------------------------------------
     def _check_initialized(self):
@@ -151,7 +153,7 @@ class Parameter:
         self._var = nn.Parameter(tensor.detach(), requires_grad=False)
         self._nd = NDArray(self._var)
         self._ctx = Context.from_device(tensor.device)
-        self._nd.attach_grad(self._grad_req)
+        self._nd.attach_grad(self._grad_req, stype=self._grad_stype)
 
     def _finish_deferred_init(self, in_shape=None):
         """Called by layers once the input shape is known."""
@@ -207,7 +209,10 @@ class Parameter:
 
     def zero_grad(self):
         if self._var is not None and self._var.grad is not None:
-            self._var.grad.zero_()
+            if self._var.grad.is_sparse:
+                self._var.grad = None    # the next backward writes O(nnz)
+            else:
+                self._var.grad.zero_()
 
     def set_data(self, data):
         """Write ``data`` into the parameter in place (its dtype and

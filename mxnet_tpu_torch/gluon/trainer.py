@@ -19,6 +19,12 @@ update); ``"write"`` is the Parameter's own hook.  The optimizer's
 ``param_dict`` maps each index to its Parameter, so ``lr_mult`` and
 ``wd_mult`` scale its learning rate and weight decay.
 
+A parameter with a row-sparse gradient (``Embedding(sparse_grad=True)``,
+``grad_stype="row_sparse"``) stays out of the flat buffers and the
+bucket: it takes the per-parameter path, where SGD without momentum and
+Adam update only its rows (the reference's lazy update), while the
+rest of the group still takes the bucket.
+
 The update mirrors the reference's ``_fused_jit_update``: qualification
 first, mutating nothing (a stale gradient raises before any parameter
 moves); then the update counts; then, for sgd, nag, adam and adamw (the
@@ -148,6 +154,7 @@ class Trainer:
             self._optimizer = opt.create(optimizer, **optimizer_params)
         self._states = None       # index -> {leaf: tensor}, built lazily
         self._flat_state = None   # leaf -> flat f32 buffer, or None
+        self._flat_idx = []       # the parameters the state buffers hold
         self._bucket_apply = None
         self._flat_param = None   # the flat f32 buffer of the parameters
         self._scalars = None      # (lr, Adam's t) on the card, for K1/K2
@@ -202,7 +209,7 @@ class Trainer:
         Trainer's order (the layout of the state's flat buffers), and
         make each parameter's ``.data`` its view of it; nothing when they
         are not all float32 on one device (or one appears twice)."""
-        live = [i for i, p in enumerate(self._params) if p.requires_grad]
+        live = self._bucketable()
         ps = [self._params[i] for i in live]
         if not ps or len({id(p) for p in ps}) != len(ps) or not all(
                 p.dtype == torch.float32 and p.device == ps[0].device
@@ -220,6 +227,14 @@ class Trainer:
                 self._in_buffer.append((i, view))
                 off += n
         self._flat_param = buf
+
+    def _bucketable(self):
+        """The trainable parameters the flat buffers may hold: all but the
+        gluon parameters with a row-sparse gradient (``grad_stype``),
+        which take the exact per-parameter path (the lazy update)."""
+        return [i for i, p in enumerate(self._params) if p.requires_grad
+                and not (self._gluon and
+                         self._gluon[i].grad_stype == "row_sparse")]
 
     def _check_param_buffer(self):
         """Raise if a parameter no longer lies in the flat buffer: an
@@ -241,13 +256,18 @@ class Trainer:
         f32 buffer per leaf when every one is f32 on one device, else a
         state of its own per parameter."""
         optimizer = self._optimizer
-        live = [i for i, p in enumerate(self._params) if p.requires_grad]
+        live = self._bucketable()
         self._states = {}
+        for i, p in enumerate(self._params):
+            if p.requires_grad and i not in live:
+                self._states[i] = optimizer.create_state_multi_precision(
+                    i, p.detach())
         if not live:
             return
         ps = [self._params[i] for i in live]
         if all(p.dtype == torch.float32 and p.device == ps[0].device
                for p in ps):
+            self._flat_idx = live
             template = optimizer.create_state(live[0], torch.empty(0))
             total = sum(p.numel() for p in ps)
             self._flat_state = {
@@ -292,24 +312,28 @@ class Trainer:
         # on the values this update uses, as the reference orders them
         for i in idxs:
             optimizer._update_count(i)
-        params = [self._params[i] for i in idxs]
-        auxs = [optimizer.aux(i) for i in idxs]
-        flat = (optimizer.rule in BUCKET_RULES and len(idxs) > 1
-                and len({float(optimizer._get_lr(i)) for i in idxs}) == 1
-                and len({float(optimizer._get_wd(i)) for i in idxs}) == 1
+        # a row-sparse gradient stays out of the bucket: the exact
+        # per-parameter path (the lazy update)
+        sparse = [i for i in idxs if self._params[i].grad.is_sparse]
+        dense = [i for i in idxs if i not in sparse]
+        params = [self._params[i] for i in dense]
+        auxs = [optimizer.aux(i) for i in dense]
+        flat = (optimizer.rule in BUCKET_RULES and len(dense) > 1
+                and len({float(optimizer._get_lr(i)) for i in dense}) == 1
+                and len({float(optimizer._get_wd(i)) for i in dense}) == 1
                 and all(a == auxs[0] for a in auxs)
                 and all(p.dtype == torch.float32
                         and p.grad.dtype == torch.float32
                         and p.device == params[0].device for p in params))
         with torch.no_grad():
             if flat:
-                self._flat_update(idxs)
-            else:
-                for i, p in zip(idxs, params):
-                    optimizer._apply_update_multi_precision(
-                        i, p, p.grad, self._states[i])
-        for p in params:
-            p.grad = None
+                self._flat_update(dense)
+            for i in (sparse if flat else idxs):
+                p = self._params[i]
+                optimizer._apply_update_multi_precision(
+                    i, p, p.grad, self._states[i])
+        for i in idxs:
+            self._params[i].grad = None
 
     def _flat_update(self, idxs):
         """ONE update over the fresh parameters.  When they are the whole
@@ -323,8 +347,7 @@ class Trainer:
                 optimizer.rule, clip_gradient=optimizer.clip_gradient,
                 **optimizer._hyper())
         params = [self._params[i] for i in idxs]
-        whole = self._flat_state is not None and \
-            len(idxs) == len(self._states)
+        whole = self._flat_state is not None and idxs == self._flat_idx
         in_place = whole and self._flat_param is not None and \
             idxs == [i for i, _ in self._in_buffer]
         if whole:

@@ -7,7 +7,7 @@ from .ndarray import (NDArray, apply, array, arange, concatenate, empty,
 from .ops import *  # noqa: F401,F403
 from .ops import concat, stack, later as _later, _REFERENCE_OPS
 from .linalg import *  # noqa: F401,F403
-from . import contrib, linalg, ops, random
+from . import contrib, linalg, ops, random, sparse
 from .random import shuffle
 from .utils import load, load_frombuffer, save
 

@@ -77,7 +77,8 @@ class NDArray:
     last backward's gradient, ``"add"`` sums them, ``"null"`` takes none.
     ``grad`` reads it (zeros before the first backward)."""
 
-    __slots__ = ("_data", "_grad_req", "_grad_hook", "__weakref__")
+    __slots__ = ("_data", "_grad_req", "_grad_hook", "_grad_stype",
+                 "__weakref__")
     __array_priority__ = 1000.0
 
     def __init__(self, data, ctx=None):
@@ -91,6 +92,7 @@ class NDArray:
         self._data = data
         self._grad_req = "null"
         self._grad_hook = None
+        self._grad_stype = None
 
     # -- properties ---------------------------------------------------------
     @property
@@ -135,10 +137,28 @@ class NDArray:
 
     @property
     def grad(self):
+        """The gradient: zeros before the first backward (None for a
+        ``"row_sparse"`` variable); a :class:`~.sparse.RowSparseNDArray`
+        (duplicate rows summed) when a row-sparse op wrote it, except
+        that ``grad_req="add"`` on a default variable sums densely, as
+        the reference's dense buffer does."""
         if self._grad_req == "null":
             return None
         g = self._data.grad
-        return NDArray(torch.zeros_like(self._data) if g is None else g)
+        if g is None:
+            return None if self._grad_stype == "row_sparse" else \
+                NDArray(torch.zeros_like(self._data))
+        if g.is_sparse:
+            from .sparse import _from_coo
+            if self._grad_req == "add" and self._grad_stype != "row_sparse":
+                return NDArray(g.to_dense())
+            rsp = _from_coo(g)
+            # keep the summed pair, so later reads reuse it
+            self._data.grad = torch.sparse_coo_tensor(
+                rsp._indices.long()[None], rsp._values, g.shape,
+                is_coalesced=True, check_invariants=False)
+            return rsp
+        return NDArray(g)
 
     def backward(self, out_grad=None, retain_graph=False, train_mode=True):
         from ..autograd import backward

@@ -696,14 +696,36 @@ def gather_positions(data, positions):
     return apply(fn, [data, _nd(positions, data)])
 
 
+class _SparseEmbedding(torch.autograd.Function):
+    """The gather with a row-sparse weight gradient: a sparse COO tensor
+    of the raw ids (repeats included) and the output gradient's rows,
+    O(nnz) and of a fixed shape (a captured backward carries it out);
+    duplicates are summed when the gradient is read."""
+
+    @staticmethod
+    def forward(ctx, ids, weight):
+        ids = ids.long()
+        ctx.save_for_backward(ids)
+        ctx.shape = tuple(weight.shape)
+        return F.embedding(ids, weight)
+
+    @staticmethod
+    def backward(ctx, dy):
+        ids, = ctx.saved_tensors
+        rows = dy.reshape(-1, dy.shape[-1])
+        return None, torch.sparse_coo_tensor(
+            ids.reshape(1, -1), rows, ctx.shape, is_coalesced=False,
+            check_invariants=False)
+
+
 @_register
 def Embedding(data, weight, input_dim=None, output_dim=None,
               dtype="float32", sparse_grad=False):
-    """Rows of ``weight`` at the (int32) indices ``data``."""
+    """Rows of ``weight`` at the (int32) indices ``data``.
+    ``sparse_grad=True`` gives the weight a row-sparse gradient
+    (``ndarray/sparse.py``): memory and work O(nnz), never O(vocab)."""
     if sparse_grad:
-        raise NotSupportedError(
-            "Embedding(sparse_grad=True): row-sparse gradients arrive with "
-            "the rest of the ops (ROADMAP §1 item 8)")
+        return apply(_SparseEmbedding.apply, [_nd(data), _nd(weight)])
     return apply(lambda i, w: F.embedding(i.long() if i.is_floating_point()
                                           else i, w),
                  [_nd(data), _nd(weight)])
@@ -715,14 +737,24 @@ def Embedding(data, weight, input_dim=None, output_dim=None,
 
 @_register
 def FullyConnected(data, weight, bias=None, num_hidden=None, no_bias=False,
-                   flatten=True):
+                   flatten=True, compute_dtype=None):
     """``data @ weight.T + bias``; ``weight`` is (out, in), MXNet's
-    layout; ``flatten=True`` folds every axis after the first."""
+    layout; ``flatten=True`` folds every axis after the first.
+
+    ``compute_dtype="int8"|"fp8"`` runs the product through
+    ``ops.quant_matmul`` (tag ``"fc"``; an f32 result, then the bias),
+    the seam the reference's ``MXTPU_COMPUTE_DTYPE`` opens for every
+    Dense; None (or an "off" spelling) is the plain ``F.linear``."""
     inputs = [data, weight] + ([] if no_bias or bias is None else [bias])
+    from ..ops.quant_matmul import quant_matmul, resolve_compute_dtype
+    cd = resolve_compute_dtype(compute_dtype)
 
     def fn(d, w, *b):
         x = d.reshape(d.shape[0], -1) if flatten and d.dim() > 2 else d
-        return F.linear(x, w, b[0] if b else None)
+        if cd is None:
+            return F.linear(x, w, b[0] if b else None)
+        y = quant_matmul(x, w.t(), compute_dtype=cd, tag="fc")
+        return y + b[0] if b else y
     return apply(fn, inputs)
 
 

@@ -27,9 +27,11 @@ RMSProp over their rules; AdaGrad, AdaDelta, Ftrl, Signum, SGLD and
 Test over the reference's own chains; the ``ccSGD`` alias; ``Updater``
 and ``get_updater``, whose pickled states are the reference's.  SGLD
 draws its noise from the weight's device generator (``nd.random``): the
-distribution is the reference's, the bits are not.  ``lazy_update``
-takes either value (gradients are dense, and the reference updates a
-dense gradient densely); ``lr_scheduler`` (read at ``num_update``, the
+distribution is the reference's, the bits are not.  A row-sparse
+gradient (``ndarray/sparse.py``) takes SGD's (momentum 0, not NAG) and
+Adam's (not AdamW) lazy update when ``lazy_update`` (the default),
+touching only its rows; every other rule, and a dense gradient, updates
+every row; ``lr_scheduler`` (read at ``num_update``, the
 reference's ``_get_lr``); ``multi_precision`` keeps an f32 master copy
 of each float16 weight (``create_state_multi_precision`` /
 ``update_multi_precision``; other dtypes update as they are, as in the
@@ -42,6 +44,7 @@ reference); the per-parameter multipliers of ``_get_lr``/``_get_wd``:
 """
 from __future__ import annotations
 
+import math
 import pickle
 
 import numpy as _np
@@ -367,13 +370,33 @@ class Optimizer:
 
     def _apply_update(self, index, weight, grad, state):
         """:meth:`update` after the count: the Trainer counts a step's
-        updates before it chooses between the flat bucket and this."""
+        updates before it chooses between the flat bucket and this.  A
+        row-sparse gradient (a ``RowSparseNDArray`` or a torch sparse
+        tensor) takes the lazy update where the optimizer has one (SGD
+        without momentum, Adam), touching only its rows; otherwise it is
+        densified, as in the reference."""
+        from ..ndarray.ndarray import NDArray
+        from ..ndarray.sparse import _rows_of
+        pair = _rows_of(grad)
+        if pair is not None:
+            rows, vals = pair[0].long(), pair[1]
+            if self._lazy(index, weight, rows, vals, state):
+                return
+            grad = vals.new_zeros(weight.shape).index_put_((rows,), vals)
+        elif isinstance(grad, NDArray):
+            grad = grad.data
         new_w, new_s = self._step(index, weight, grad, state,
                                   _f32(self._get_lr(index)),
                                   _f32(self._get_wd(index)))
         weight.copy_(new_w)
         for key, val in state.items():
             val.copy_(new_s[key])
+
+    def _lazy(self, index, weight, rows, values, state):
+        """The lazy update of a row-sparse gradient (``values`` at the
+        unique int64 ``rows``), in place; False where this optimizer has
+        none."""
+        return False
 
     def _step(self, index, w, grad, state, lr, wd):
         """``(new weight, new state)`` of one update from the raw
@@ -493,12 +516,24 @@ class SGD(Optimizer):
     def __init__(self, momentum=0.0, lazy_update=True, **kwargs):
         super().__init__(**kwargs)
         self.momentum = momentum
-        # gradients are dense here, and the reference runs a lazy update
-        # of a dense gradient densely: either value updates every row
+        # a dense gradient updates every row whatever its value
         self.lazy_update = lazy_update
 
     def _hyper(self):
         return {"momentum": self.momentum}
+
+    def _lazy(self, index, weight, rows, values, state):
+        """Reference ``sgd_update``'s row-sparse path: without momentum
+        (and not NAG), only the gradient's rows move."""
+        if not (self.lazy_update and not self.momentum and
+                self.rule == "sgd"):
+            return False
+        lr, wd = self._get_lr(index), self._get_wd(index)
+        g = self._rescale_clip(values)
+        if wd:
+            g = g + _f32(wd) * weight.index_select(0, rows)
+        weight.index_add_(0, rows, -_f32(lr) * g)
+        return True
 
 
 @register
@@ -521,11 +556,33 @@ class Adam(Optimizer):
         self.beta1 = beta1
         self.beta2 = beta2
         self.epsilon = epsilon
-        self.lazy_update = lazy_update  # dense gradients: as SGD's
+        self.lazy_update = lazy_update
 
     def _hyper(self):
         return {"beta1": self.beta1, "beta2": self.beta2,
                 "epsilon": self.epsilon}
+
+    def _lazy(self, index, weight, rows, values, state):
+        """Reference ``adam_update``'s row-sparse path (not AdamW): the
+        moments and the weight move only at the gradient's rows, with the
+        step size's bias correction in double on the host, as there."""
+        if not (self.lazy_update and self.rule == "adam"):
+            return False
+        lr, wd = self._get_lr(index), self._get_wd(index)
+        t = self._index_update_count[index]
+        g = self._rescale_clip(values)
+        if wd:
+            g = g + _f32(wd) * weight.index_select(0, rows)
+        mean, var = state["m"], state["v"]
+        m_r = self.beta1 * mean.index_select(0, rows) + (1 - self.beta1) * g
+        v_r = self.beta2 * var.index_select(0, rows) + \
+            (1 - self.beta2) * torch.square(g)
+        lr_t = lr * math.sqrt(1 - self.beta2 ** t) / (1 - self.beta1 ** t)
+        mean.index_copy_(0, rows, m_r)
+        var.index_copy_(0, rows, v_r)
+        weight.index_add_(0, rows,
+                          -lr_t * m_r / (torch.sqrt(v_r) + self.epsilon))
+        return True
 
     def aux(self, index):
         # the count of updates before this one; apply() increments it

@@ -46,6 +46,10 @@ replays:
   graph registers (``CUDAGraph.register_generator_state``), so replays
   draw fresh masks; on a torch without that method a body that draws
   raises ``NotSupportedError`` at capture;
+- an ``Embedding(sparse_grad=True)``'s row-sparse gradient is made
+  dense in the body (``index_add_`` of its raw rows, a fixed shape a
+  graph holds) and takes the dense update, as in the reference, whose
+  traced step records no tape and so no row-sparse pullback;
 - hybridized blocks inside the body run as plain ops
   (``_tape.inline_scope``, the reference's ``trace_scope``): the step is
   one graph, and no block captures a graph of its own inside it;
@@ -103,6 +107,15 @@ __all__ = ["DataParallelTrainer", "all_reduce_gradients"]
 # the reference's fused rules
 _RULES = ("adam", "adamw", "lamb", "lars", "nag", "rmsprop", "sgd")
 _MULTI = "arrives with the multi-device slice (ROADMAP §1 item 10)"
+
+
+def _dense(g, like):
+    """``g`` dense: a row-sparse (COO) gradient's raw rows summed into
+    zeros by ``index_add_`` (no coalesce, whose shape hangs on the data)."""
+    if not g.is_sparse:
+        return g
+    return torch.zeros_like(like, dtype=g.dtype).index_add_(
+        0, g._indices()[0], g._values())
 
 
 class _Graph:
@@ -309,8 +322,8 @@ class DataParallelTrainer:
             _tape.set_recording(prev[0])
             _tape.set_training(prev[1])
         flat_g = torch.cat([
-            (torch.zeros_like(v) if g is None else g.to(torch.float32))
-            .reshape(-1) for g, v in zip(grads, leaves)])
+            (torch.zeros_like(v) if g is None else _dense(g, v)
+             .to(torch.float32)).reshape(-1) for g, v in zip(grads, leaves)])
         return loss.detach(), flat_g
 
     def _update(self, flat_g):

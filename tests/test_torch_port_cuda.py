@@ -2698,3 +2698,388 @@ def test_host_sync_ops_refuse_a_capture_naming_themselves(card, op):
             call(mt_nd, x)
     torch.cuda.synchronize()
     np.testing.assert_array_equal(call(mt_nd, x).asnumpy(), want)
+
+
+# ----------------------------------------------------------------------
+# quantized training, row-sparse gradients and the contrib ops (the
+# slice of ops/quant_matmul.py's training half, ndarray/sparse.py and
+# ndarray/contrib.py)
+# ----------------------------------------------------------------------
+
+def _fixed_uniform(x, salt):
+    """A draw of ``x``'s shape made on the host from a seed of its shape
+    and salt, the same on the CPU and the card."""
+    g = torch.Generator().manual_seed(salt * 100003 + x.numel())
+    return torch.rand(x.shape, generator=g).to(x.device)
+
+
+@pytest.mark.parametrize("M,K,N", [(8192, 768, 3072), (5, 40, 2),
+                                   (16, 24, 10), (17, 8, 8), (33, 70, 2),
+                                   (64, 768, 768)])
+def test_quant_int8_products_padded_are_exact_on_the_card(card, M, K, N):
+    """The training int8 product (``torch._int_mm``, M, K and N padded
+    with zeros) and the whole quantized forward and both gradients, given
+    the same draws, equal the CPU's bitwise (int32 accumulation)."""
+    from mxnet_tpu_torch.ops import quant_matmul as qm
+    g = torch.Generator().manual_seed(M + K + N)
+    qa = torch.randint(-127, 128, (M, K), generator=g, dtype=torch.int8)
+    qb = torch.randint(-127, 128, (K, N), generator=g, dtype=torch.int8)
+    assert torch.equal(qm._int8_product(qa.to(card), qb.to(card)).cpu(),
+                       qm._int8_product(qa, qb))
+    if M > 1024:
+        return
+    a = torch.randn(M, K, generator=g)
+    b = torch.randn(K, N, generator=g) * 0.1
+    head = torch.randn(M, N, generator=g)
+    outs = []
+    for dev in ("cpu", card):
+        ta = a.to(dev, copy=True).requires_grad_()
+        tb = b.to(dev, copy=True).requires_grad_()
+        y = qm.quant_matmul(ta, tb, compute_dtype="int8",
+                            uniform=_fixed_uniform)
+        (y * head.to(dev)).sum().backward()
+        outs.append([t.detach().cpu() for t in (y, ta.grad, tb.grad)])
+    for got, want in zip(*outs[::-1]):
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("M,K,N", [(8192, 768, 3072), (64, 768, 2),
+                                   (5, 40, 2), (16, 24, 10), (33, 70, 18)])
+@pytest.mark.parametrize("grad_side", [False, True],
+                         ids=["e4m3-scaled-mm", "e5m2-widened"])
+def test_quant_fp8_products_match_their_plain_version(card, M, K, N,
+                                                      grad_side):
+    """fp8 products on the card (e4m3 through ``torch._scaled_mm``, e5m2
+    widened to bf16 through ``torch.mm(out_dtype=float32)``; shapes off
+    16 padded) against the plain version on the same codes: the codes
+    widened to f32, one f32 product without TF32, times the scales.
+    e5m2 within 1e-5 of the norm (exact products summed in f32 in
+    another order); e4m3 within 1e-3: cuBLASLt's fp8 GEMM sums the
+    tensor cores' partial products at reduced precision before it
+    promotes them to f32 (1.3e-4 seen at every shape)."""
+    from mxnet_tpu_torch.ops import quant_matmul as qm
+    g = torch.Generator().manual_seed(M * 3 + K + N)
+    a = torch.randn(M, K, generator=g).to(card)
+    b = torch.randn(K, N, generator=g).to(card) * 0.1
+    qmax = qm.FP8_GRAD_MAX if grad_side else qm.FP8_MAX
+    fp8 = torch.float8_e5m2 if grad_side else torch.float8_e4m3fn
+    sa, sb = qm._amax_scale(a, qmax), qm._amax_scale(b, qmax)
+    qa = torch.clamp(a / sa, -qmax, qmax).to(fp8)
+    qb = torch.clamp(b / sb, -qmax, qmax).to(fp8)
+    got = qm._fp8_product(qa, qb, sa, sb)
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        want = (qa.float() @ qb.float()) * (sa * sb)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    assert got.dtype == torch.float32 and got.shape == (M, N)
+    err = float(torch.linalg.norm(got - want) / torch.linalg.norm(want))
+    assert err <= (1e-5 if grad_side else 1e-3), err
+
+
+def _quant_mlp(ctx, mode):
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.gluon import nn
+    net = nn.HybridSequential()
+    net.add(nn.Dense(64, activation="relu", compute_dtype=mode),
+            nn.Dense(10, compute_dtype=mode))
+    mx.random.seed(5)
+    net.initialize(mx.init.Xavier(), ctx=ctx)
+    return net
+
+
+@pytest.mark.parametrize("mode", ["fp8", "int8"])
+def test_dp_quantized_steps_capture_and_replay(card, mode):
+    """``DataParallelTrainer`` over Dense layers with ``compute_dtype``:
+    one capture, every later step one replay with no host sync; fp8
+    (deterministic) replays equal the eager body on the card; int8's
+    replays draw fresh noise from the registered generator (two replays
+    of one batch from the same weights differ), its loss finite."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import gluon, parallel
+    x = np.random.RandomState(1).rand(32, 48).astype(np.float32)
+    y = np.random.RandomState(2).randint(0, 10, (32,)).astype(np.float32)
+    runs = []
+    for graphs in (True, False):
+        net = _quant_mlp(mx.gpu(0), mode)
+        tr = parallel.DataParallelTrainer(
+            net, gluon.loss.SoftmaxCrossEntropyLoss(), "adam",
+            {"learning_rate": 1e-3},
+            mesh=parallel.make_mesh({"dp": 1}, devices=[card]))
+        tr._use_graphs = graphs
+        runs.append(([float(tr.step(x, y).asnumpy()) for _ in range(5)],
+                     _weights_np(net), tr))
+    (cl, cw, ctr), (el, ew, etr) = runs
+    assert ctr.stats["captures"] == 1 and ctr.graphs_captured() == 1
+    assert np.isfinite(cl).all()
+    if mode == "fp8":
+        np.testing.assert_allclose(cl, el, rtol=1e-5)
+        for k in cw:
+            np.testing.assert_allclose(cw[k], ew[k], rtol=1e-5, atol=1e-6,
+                                       err_msg=k)
+    else:
+        net = _quant_mlp(mx.gpu(0), mode)
+        tr = parallel.DataParallelTrainer(
+            net, gluon.loss.SoftmaxCrossEntropyLoss(), "sgd",
+            {"learning_rate": 0.0},
+            mesh=parallel.make_mesh({"dp": 1}, devices=[card]))
+        losses = [float(tr.step(x, y).asnumpy()) for _ in range(4)]
+        assert tr.stats["captures"] == 1
+        assert losses[2] != losses[3]       # two replays, fresh draws
+
+
+def test_sparse_embedding_in_a_hybridized_block_on_the_card(card):
+    """A hybridized Embedding(sparse_grad=True) + Dense: the captured
+    backward carries the raw (ids, rows) pair out of its graph; after the
+    replay the gradient is a RowSparseNDArray of the batch's rows, equal
+    to the inactive block's, and the lazy Adam leaves untouched rows
+    bitwise unchanged."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import gluon
+    from mxnet_tpu_torch.gluon import nn
+    from mxnet_tpu_torch.ndarray.sparse import RowSparseNDArray
+    nets, trainers = [], []
+    for active in (True, False):
+        net = nn.HybridSequential()
+        net.add(nn.Embedding(1000, 16, sparse_grad=True),
+                nn.Dense(3, flatten=False, in_units=16))
+        mx.random.seed(3)
+        net.initialize(mx.init.Xavier(), ctx=mx.gpu(0))
+        net.hybridize(active=active)
+        nets.append(net)
+        trainers.append(Trainer(net.collect_params(), "adam",
+                                {"learning_rate": 0.1}))
+    w0 = nets[0][0].weight.data().asnumpy()
+    touched = set()
+    for step in range(4):
+        ids = np.random.RandomState(step).randint(0, 1000, (2, 6))
+        touched |= set(ids.ravel().tolist())
+        grads = []
+        for net, tr in zip(nets, trainers):
+            with mt_autograd.record():
+                loss = net(mt_nd.array(ids, ctx=mx.gpu(0))).sum()
+            loss.backward()
+            g = net[0].weight.grad()
+            assert isinstance(g, RowSparseNDArray)
+            np.testing.assert_array_equal(g.indices.asnumpy(),
+                                          np.unique(ids))
+            grads.append(g.values.data.clone())
+            tr.step(1)
+        torch.testing.assert_close(grads[0], grads[1], **CACHED_TOL)
+    assert nets[0]._cached_op.stats["captures"] >= 1
+    w = nets[0][0].weight.data().asnumpy()
+    rest = sorted(set(range(1000)) - touched)
+    np.testing.assert_array_equal(w[rest], w0[rest])
+    np.testing.assert_allclose(w, nets[1][0].weight.data().asnumpy(),
+                               rtol=1e-5, atol=1e-6)
+
+
+def test_dp_sparse_embedding_step_captures_densely_on_the_card(card):
+    """``DataParallelTrainer`` over Embedding(sparse_grad=True) + Dense
+    with Adam: the row-sparse gradient made dense in the captured body
+    (its backward runs on autograd's device thread), one capture, K2
+    once a step; held against the eager body and against the same net
+    with a dense gradient (1e-5, f32, 5 steps)."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import gluon, parallel
+    from mxnet_tpu_torch.gluon import nn
+    from mxnet_tpu_torch.convert import load_block_weights
+
+    def pair(sparse, weights=None):
+        net = nn.HybridSequential()
+        net.add(nn.Embedding(1000, 16, sparse_grad=sparse),
+                nn.Dense(10, in_units=96))
+        mx.random.seed(3)
+        net.initialize(mx.init.Xavier(), ctx=mx.gpu(0))
+        if weights is not None:
+            load_block_weights(net, weights)
+        return net, parallel.DataParallelTrainer(
+            net, gluon.loss.SoftmaxCrossEntropyLoss(), "adam",
+            {"learning_rate": 1e-2},
+            mesh=parallel.make_mesh({"dp": 1}, devices=[card]))
+
+    net, tr = pair(True)
+    w0 = _weights_np(net)
+    enet, etr = pair(True, w0)
+    etr._use_graphs = False
+    dnet, dtr = pair(False, w0)
+    rng = np.random.RandomState(8)
+    ops.reset_launches()
+    losses = []
+    for _ in range(5):
+        ids = rng.randint(0, 1000, (8, 6)).astype(np.float32)
+        y = rng.randint(0, 10, (8,)).astype(np.float32)
+        losses.append([float(t.step(ids, y).asnumpy())
+                       for t in (tr, etr, dtr)])
+    assert tr.stats["captures"] == 1 and tr.graphs_captured() == 1
+    assert ops.launch_counts()["fused_adam_update"] == 15
+    losses = np.array(losses)
+    assert np.isfinite(losses).all()
+    np.testing.assert_allclose(losses[:, 0], losses[:, 1], rtol=1e-5)
+    np.testing.assert_allclose(losses[:, 0], losses[:, 2], rtol=1e-5)
+    got, eager, dense = (_weights_np(n) for n in (net, enet, dnet))
+    for (k, g), e, d in zip(got.items(), eager.values(), dense.values()):
+        np.testing.assert_allclose(g, e, rtol=1e-5, atol=1e-6, err_msg=k)
+        np.testing.assert_allclose(g, d, rtol=1e-5, atol=1e-6, err_msg=k)
+
+
+_CONTRIB_CAPTURED = {
+    "box_nms": (lambda F, d: F.contrib.box_nms(d, overlap_thresh=0.3,
+                                               topk=6, id_index=0),
+                lambda r: [np.concatenate([
+                    r.randint(0, 3, (2, 8, 1)), r.rand(2, 8, 1),
+                    r.rand(2, 8, 2) * 0.5, r.rand(2, 8, 2) * 0.5 + 0.5],
+                    -1).astype(np.float32)], ()),
+    "box_iou": (lambda F, a, b: F.contrib.box_iou(a, b),
+                lambda r: [_randn(r, 5, 4), _randn(r, 3, 4)], (0,)),
+    "box_encode": (lambda F, s, m, a, g: F.contrib.box_encode(s, m, a, g)[0],
+                   lambda r: [r.randint(-1, 2, (2, 5)).astype(np.float32),
+                              r.randint(0, 3, (2, 5)).astype(np.float32),
+                              np.abs(_randn(r, 2, 5, 4)),
+                              np.abs(_randn(r, 2, 3, 4))], ()),
+    "box_decode": (lambda F, d, a: F.contrib.box_decode(d, a),
+                   lambda r: [_randn(r, 2, 5, 4),
+                              np.abs(_randn(r, 2, 5, 4)) + 0.1], (0,)),
+    "bipartite_matching": (
+        lambda F, d: F.contrib.bipartite_matching(d, threshold=0.1)[0],
+        lambda r: [r.rand(2, 4, 5).astype(np.float32)], ()),
+    "ROIAlign": (lambda F, d, roi: F.contrib.ROIAlign(d, roi, (3, 3), 0.5),
+                 lambda r: [_randn(r, 2, 3, 8, 8), np.array(
+                     [[0, 1, 1, 9, 9], [1, 0, 2, 6, 12]], np.float32)],
+                 (0,)),
+    "ROIPooling": (lambda F, d, roi: F.contrib.ROIPooling(d, roi, (2, 3),
+                                                          0.5),
+                   lambda r: [_randn(r, 2, 3, 8, 8), np.array(
+                       [[0, 1, 1, 9, 9], [1, 0, 2, 6, 12]], np.float32)],
+                   (0,)),
+    "MultiBoxPrior": (lambda F, d: F.contrib.MultiBoxPrior(
+        d, sizes=(0.3, 0.5), ratios=(1, 2)),
+        lambda r: [_randn(r, 1, 2, 4, 5)], ()),
+    "MultiBoxTarget": (lambda F, a, l, p: F.contrib.MultiBoxTarget(a, l, p)[2],
+                       lambda r: [np.sort(r.rand(1, 10, 4), -1).astype(
+                           np.float32)[..., [0, 1, 2, 3]],
+                           np.concatenate([r.randint(0, 2, (2, 2, 1)),
+                                           np.sort(r.rand(2, 2, 4), -1)],
+                                          -1).astype(np.float32),
+                           _randn(r, 2, 3, 10)], ()),
+    "MultiBoxDetection": (lambda F, c, l, a: F.contrib.MultiBoxDetection(
+        F.softmax(c, axis=1), l, a, nms_topk=5),
+        lambda r: [_randn(r, 2, 3, 10), _randn(r, 2, 40) * 0.1,
+                   np.sort(r.rand(1, 10, 4), -1).astype(np.float32)], ()),
+    "MultiProposal": (lambda F, c, b, i: F.contrib.MultiProposal(
+        c, b, i, rpn_pre_nms_top_n=30, rpn_post_nms_top_n=8,
+        scales=(2, 4), feature_stride=4, rpn_min_size=2),
+        lambda r: [r.rand(2, 12, 4, 5).astype(np.float32),
+                   _randn(r, 2, 24, 4, 5) * 0.1,
+                   np.array([[16, 20, 1], [15, 18, 1]], np.float32)], ()),
+    "getnnz": (lambda F, x: F.contrib.getnnz(F.relu(x), axis=1),
+               lambda r: [_randn(r, 3, 6)], ()),
+    "quantize": (lambda F, x, lo, hi: F.contrib.quantize(x, lo, hi),
+                 lambda r: [_randn(r, 3, 4), np.array([-1], np.float32),
+                            np.array([1], np.float32)], ()),
+    "arange_like": (lambda F, x: F.contrib.arange_like(x, axis=1) + x,
+                    lambda r: [_randn(r, 3, 4)], (0,)),
+    "fused_gelu": (lambda F, x: F.contrib.fused_gelu(x),
+                   lambda r: [_randn(r, 3, 4)], (0,)),
+    "BilinearResize2D": (lambda F, x: F.contrib.BilinearResize2D(
+        x, height=7, width=3), lambda r: [_randn(r, 2, 3, 5, 6)], (0,)),
+    "AdaptiveAvgPooling2D": (lambda F, x: F.contrib.AdaptiveAvgPooling2D(
+        x, output_size=(2, 3)), lambda r: [_randn(r, 2, 3, 7, 5)], (0,)),
+    "DeformableConvolution": (
+        lambda F, x, o, w: F.contrib.DeformableConvolution(
+            x, o, w, kernel=(3, 3), pad=(1, 1), num_filter=4, no_bias=True),
+        lambda r: [_randn(r, 2, 3, 6, 6), _randn(r, 2, 18, 6, 6),
+                   _randn(r, 4, 3, 3, 3)], (0, 1, 2)),
+    "index_copy": (lambda F, x, i, n: F.contrib.index_copy(x, i, n),
+                   lambda r: [_randn(r, 5, 3), np.array([3, 0], np.float32),
+                              _randn(r, 2, 3)], (0, 2)),
+    "index_array": (lambda F, x: F.contrib.index_array(x),
+                    lambda r: [_randn(r, 2, 3)], ()),
+    "allclose": (lambda F, a, b: F.contrib.allclose(a, b),
+                 lambda r: [_randn(r, 3, 4), _randn(r, 3, 4)], ()),
+    "gradientmultiplier": (lambda F, x: F.contrib.gradientmultiplier(
+        x, scalar=-0.5), lambda r: [_randn(r, 3, 4)], (0,)),
+    "fft+ifft": (lambda F, x: F.contrib.ifft(F.contrib.fft(x)),
+                 lambda r: [_randn(r, 3, 8)], (0,)),
+    "count_sketch": (lambda F, x, h, s: F.contrib.count_sketch(
+        x, h, s, out_dim=4), lambda r: [_randn(r, 3, 6), np.array(
+            [0, 3, 1, 3, 2, 0], np.float32), np.array(
+            [1, -1, -1, 1, 1, -1], np.float32)], (0,)),
+    "quadratic": (lambda F, x: F.contrib.quadratic(x, 0.5, -1.0, 2.0),
+                  lambda r: [_randn(r, 3, 4)], (0,)),
+    "div_sqrt_dim": (lambda F, x: F.contrib.div_sqrt_dim(x),
+                     lambda r: [_randn(r, 3, 4)], (0,)),
+}
+
+
+@pytest.mark.parametrize("op", sorted(_CONTRIB_CAPTURED))
+def test_contrib_ops_capture_in_a_hybridized_block(card, op):
+    """Every contrib op but ``boolean_mask`` and ``edge_id`` captures in
+    a hybridized block and replays: four calls (warm-up, capture, two
+    replays) on fresh inputs give the outputs, and where differentiable
+    the input gradients, of the block unhybridized."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import gluon
+    body, draw, diff = _CONTRIB_CAPTURED[op]
+
+    class Net(gluon.HybridBlock):
+        def hybrid_forward(self, F, *xs):
+            return body(F, *xs)
+
+    nets = []
+    for active in (True, False):
+        net = Net()
+        net.initialize(ctx=mx.gpu(0))
+        net.hybridize(active=active)
+        nets.append(net)
+    for recording in ((False, True) if diff else (False,)):
+        for step in range(4):
+            arrays = draw(np.random.RandomState(step))
+            runs = []
+            for net in nets:
+                xs = [mt_nd.array(a, ctx=mx.gpu(0)) for a in arrays]
+                if not recording:
+                    runs.append((net(*xs).data, []))
+                    continue
+                for i in diff:
+                    xs[i].attach_grad()
+                with mt_autograd.record():
+                    out = net(*xs)
+                head = np.random.RandomState(100 + step).randn(*out.shape)
+                out.backward(mt_nd.array(head, ctx=mx.gpu(0)).astype(
+                    out.dtype))
+                runs.append((out.data, [xs[i].grad.data for i in diff]))
+            (got, got_g), (want, want_g) = runs
+            _assert_same(got, want)
+            for g, w in zip(got_g, want_g):
+                _assert_same(g, w)
+    assert nets[0]._cached_op.stats["captures"] >= 1
+
+
+@pytest.mark.parametrize("op", ["boolean_mask", "edge_id"])
+def test_contrib_host_ops_refuse_a_capture(card, op):
+    """``boolean_mask`` (its output size from the data) and ``edge_id``
+    (host numpy) run eagerly and refuse a CUDA graph capture, naming
+    themselves."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.ndarray import sparse as sp
+    x = mt_nd.array(np.arange(12, dtype=np.float32).reshape(4, 3),
+                    ctx=mx.gpu(0))
+    m = mt_nd.array(np.array([1, 0, 1, 1], np.float32), ctx=mx.gpu(0))
+    adj = sp.csr_matrix(np.eye(4, dtype=np.float32), ctx=mx.gpu(0))
+
+    def call():
+        if op == "boolean_mask":
+            return mt_nd.contrib.boolean_mask(x, m)
+        return mt_nd.contrib.edge_id(adj, np.array([0, 1]),
+                                     np.array([0, 2]))
+    eager = call().asnumpy()
+    assert eager.shape[0] in (3, 2)
+    graph = torch.cuda.CUDAGraph()
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with pytest.raises(MXNetError, match=op):
+        with torch.cuda.graph(graph, stream=stream):
+            call()
+    torch.cuda.synchronize()

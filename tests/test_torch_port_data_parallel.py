@@ -553,7 +553,9 @@ def test_no_environment_knob_is_read(monkeypatch, tmp_path):
                         ("MXTPU_SERVE_REPLICAS", "3"),
                         ("MXTPU_SERVE_DISAGG", "1"),
                         ("MXTPU_FAULT_INJECT", "serving.replica0.step:at=1"),
-                        ("MXTPU_RETRACE_WARN", "0"), ("MXTPU_EAGER", "1")):
+                        ("MXTPU_RETRACE_WARN", "0"), ("MXTPU_EAGER", "1"),
+                        ("MXTPU_COMPUTE_DTYPE", "int8"),
+                        ("MXTPU_QUANT_BF16_ALLOW", "fc,mm")):
         monkeypatch.setenv(name, value)
     with mx.cpu():
         assert parallel.make_mesh().shape == {"dp": 1}
@@ -588,13 +590,28 @@ def test_no_environment_knob_is_read(monkeypatch, tmp_path):
     dense.hybridize()
     dense(mx.nd.ones((1, 3), ctx=mx.cpu()))
     assert dense._active and dense._cached_op._retrace.threshold == 3
+    # no compute dtype and no extra bf16 tag come from the environment:
+    # FullyConnected, Dense and quant_matmul stay the plain product
+    from mxnet_tpu_torch.ops import quant_matmul as qm
+    assert qm.resolve_compute_dtype() is None
+    assert qm.bf16_fallback_tags() == {"head", "logits"}
+    x = torch.randn(4, 3, generator=torch.Generator().manual_seed(0))
+    w = dense.weight.data().data.detach()
+    assert torch.equal(qm.quant_matmul(x, w.t(), tag="fc"), x @ w.t())
+    assert dense.compute_dtype is None
+    assert torch.equal(dense(mx.nd.array(x.numpy(), ctx=mx.cpu())).data,
+                       torch.nn.functional.linear(
+                           x, w, dense.bias.data().data.detach()))
     # and no module of the slice touches os.environ or os.getenv
     for rel in ("parallel/mesh.py", "parallel/data_parallel.py",
                 "parallel/__init__.py", "checkpoint.py",
                 "serving/frontend/router.py", "testing/faults.py",
                 "testing/__init__.py", "serving/scheduler.py",
                 "serving/engine.py", "gluon/block.py", "_graphs.py",
-                "lint/retrace.py", "lint/__init__.py"):
+                "lint/retrace.py", "lint/__init__.py",
+                "ops/quant_matmul.py", "ndarray/ops.py",
+                "ndarray/sparse.py", "ndarray/contrib.py",
+                "gluon/nn/basic_layers.py", "optimizer/optimizer.py"):
         tree = ast.parse((REPO / "mxnet_tpu_torch" / rel).read_text())
         names = {n.attr for n in ast.walk(tree)
                  if isinstance(n, ast.Attribute)}

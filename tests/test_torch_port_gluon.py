@@ -125,10 +125,13 @@ def test_parameter_cast_reset_ctx_and_sparse_refusal():
     assert p.data().dtype == "bfloat16" and p.data().data.requires_grad
     p.reset_ctx(mx.cpu())
     assert p.list_ctx() == [mx.cpu()]
-    with pytest.raises(mx.NotSupportedError, match="item 8"):
-        gluon.Parameter("s", shape=(2,), stype="row_sparse")
-    with pytest.raises(mx.NotSupportedError, match="item 8"):
-        nn.Embedding(4, 2, sparse_grad=True)
+    # sparse storage is ported: the stypes are taken, a typo refused
+    s = gluon.Parameter("s", shape=(2,), stype="row_sparse")
+    assert (s.stype, s.grad_stype) == ("row_sparse", "default")
+    assert nn.Embedding(4, 2, sparse_grad=True).weight.grad_stype == \
+        "row_sparse"
+    with pytest.raises(mx.MXNetError, match="invalid stype"):
+        gluon.Parameter("t", shape=(2,), stype="rowsparse")
     with pytest.raises(mx.NotSupportedError, match="item 11"):
         nn.HybridSequential(prefix="e_").export("x")
     with pytest.raises(mx.NotSupportedError, match="item 11"):

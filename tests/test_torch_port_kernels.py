@@ -370,7 +370,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     files += sorted((REPO / "tools").glob("port_*.py"))
     files.append(REPO / "chip_smoke.py")
     # the training entry point, checkpointing, int8 quantization, the
-    # LLM extras and the CachedOp are covered too
+    # LLM extras, the CachedOp and sparse storage are covered too
     port = REPO / "mxnet_tpu_torch"
     for rel in ("parallel/__init__.py", "parallel/mesh.py",
                 "parallel/data_parallel.py", "checkpoint.py",
@@ -378,6 +378,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                 "ops/quant_matmul.py", "serving/frontend/router.py",
                 "testing/__init__.py", "testing/faults.py",
                 "ops/blocked_cross_entropy.py", "ndarray/contrib.py",
+                "ndarray/sparse.py",
                 "gluon/model_zoo/nlp/__init__.py",
                 "gluon/model_zoo/nlp/llama.py",
                 "gluon/model_zoo/nlp/sampler.py",

@@ -429,10 +429,13 @@ def test_sparse_records_raise_naming_their_item(tmp_path):
     blob = bytearray(v2._fixture_blob())
     blob[28:32] = (1).to_bytes(4, "little")          # stype row_sparse
     path.write_bytes(bytes(blob))
-    with pytest.raises(NotSupportedError, match="item 8"):
+    # a legacy sparse record raises, as in the reference
+    with pytest.raises(mx.MXNetError, match="sparse legacy"):
         mx.nd.load(str(path), ctx=mx.cpu())
+    # a native one (the reference's NDARRAY_V2 stype) loads sparse
     rsp = str(tmp_path / "rsp.nd")
     jmx.nd.save(rsp, {"r": jmx.nd.sparse.row_sparse_array(
         jmx.nd.array(np.eye(3, dtype=np.float32)))})
-    with pytest.raises(NotSupportedError, match="item 8"):
-        mx.nd.load(rsp, ctx=mx.cpu())
+    got = mx.nd.load(rsp, ctx=mx.cpu())["r"]
+    assert got.stype == "row_sparse"
+    np.testing.assert_array_equal(got.asnumpy(), np.eye(3))
