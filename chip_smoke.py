@@ -434,12 +434,30 @@ continued:
     ``DataParallelTrainer`` step under bf16 AMP: two epochs, 16 steps,
     K1 once a step; the batches through the prefetcher, without it and
     on the host bitwise; three prefetched steps' losses against the same
-    batches fed directly; a ``torch.profiler`` trace of two steps showing
-    each batch's H2D copy on the prefetcher's stream overlapping the
+    batches fed directly; a ``torch.profiler`` trace of three steps run
+    from the backlog (the queue full and one batch more copied) showing
+    the next batch's H2D copy on the prefetcher's stream overlapping the
     step's kernels; the fixture's decode digest against the CPU tests'
     host; images/s fed beside phase 17's, the decode rates alone, the
     stages a batch, the wait share, the device's idle share and peak
     memory;
+39. (after phase 38) data parallelism over more than one rank: 39a,
+    NCCL at one rank in this process (``parallel.distributed_init``
+    through a ``file://`` store under the build directory): the bucket
+    collectives over ResNet-50's 25,575,912-element bucket captured in
+    one CUDA graph, bitwise the eager results, and a ``dist_tpu_sync``
+    ``pushpull`` of ResNet-50's gradients in 25 MiB buckets (ms, GB/s);
+    39b, two spawned processes sharing the card over gloo (``chip_smoke.py
+    --dp-rank``; eager steps), phase 16's conv net on the psum path and
+    under ZeRO-1 (one bucket, and a narrower net over three buckets two
+    of which are padded), card against the same dp = 2 steps on the CPU
+    within phase 16's limits, the ranks bitwise equal; 39c, ``bench.py``'s dp
+    configuration at full width (ResNet-50 v1 s2d, 2 ranks x 64 images,
+    bf16 AMP, SGD, ZeRO-1) on the two processes: step, images/s of the
+    two ranks sharing one card (no scaling figure), ``comm_stats``, K1
+    once a step a rank on its shard and its device time against its
+    bound, each process's peak memory, beside phase 17's dp = 1 figures.
+    A rank that fails, finds no card or times out fails the phase;
 18. BERT-base through ``DataParallelTrainer`` at ``bench.py``'s
     ``_bench_bert`` (bf16 AMP, batch 64 x 128 from ``RandomState(0)``,
     Adam lr 1e-4): as phase 17, with one K2 and 12 bf16 K3 forward and
@@ -461,7 +479,8 @@ run's steps are measured as they run without it) that replays each
 decode step on its own staged inputs, the replays' device time (CUDA
 events around ``graph.replay()``) and each step's host share beside
 it.  Before
-each of phases 4, 7-19 and 20-38 the kernels' launch counters are set to 0; each phase reads them just after and fails unless its kernels
+each of phases 4, 7-19 and 20-39 the kernels' launch counters are set to 0
+(in each spawned rank of 39b and 39c, whose counts are summed); each phase reads them just after and fails unless its kernels
 ran the expected number of times.  The second-to-last line is the
 card's name and power limit, the line before it the kernels' JSON
 record, and the line before that every timed row of phase 3 as
@@ -4590,18 +4609,20 @@ DP_GRAPH_RTOL = 1e-5
 DP_CONV_BATCH, DP_BERT_BATCH = 8, 4
 
 
-def _dp_conv_net(nn):
+def _dp_conv_net(nn, width=16, classes=10):
     """Phase 16's small conv net: two 3x3 convs (no bias: each feeds a
-    BatchNorm) with BatchNorm and ReLU, global pooling, a 10-way head."""
+    BatchNorm; the first ``width`` channels wide) with BatchNorm and
+    ReLU, global pooling, a ``classes``-way head."""
     net = nn.HybridSequential(prefix="dpconv_")
     with net.name_scope():
-        net.add(nn.Conv2D(16, 3, padding=1, in_channels=3, use_bias=False),
-                nn.BatchNorm(in_channels=16), nn.Activation("relu"),
-                nn.Conv2D(32, 3, strides=2, padding=1, in_channels=16,
+        net.add(nn.Conv2D(width, 3, padding=1, in_channels=3,
+                          use_bias=False),
+                nn.BatchNorm(in_channels=width), nn.Activation("relu"),
+                nn.Conv2D(32, 3, strides=2, padding=1, in_channels=width,
                           use_bias=False),
                 nn.BatchNorm(in_channels=32), nn.Activation("relu"),
                 nn.GlobalAvgPool2D(), nn.Flatten(),
-                nn.Dense(10, in_units=32))
+                nn.Dense(classes, in_units=32))
     return net
 
 
@@ -4898,18 +4919,19 @@ STEP_MS = {}
 
 def update_device_ms(trainer, reps=10):
     """Device time of the trainer's update alone (``_update``: K1/K2, or
-    the plain rule with its per-parameter norms) over clones of its flat
-    buffers and a random gradient, captured as one CUDA graph whose
+    the plain rule with its per-parameter norms) over clones of the flat
+    buffers it updates (the whole parameter buffer, or under ZeRO-1 the
+    rank's shard) and a random gradient, captured as one CUDA graph whose
     replays are timed with CUDA events (median of ``reps``); the
     trainer's own buffers are put back untouched."""
     import torch
     from mxnet_tpu_torch import ops
-    keep = (trainer._flat_p, trainer._flat_state, trainer._t)
-    trainer._flat_p = keep[0].clone()
+    keep = (trainer._flat_upd, trainer._flat_state, trainer._t)
+    trainer._flat_upd = keep[0].clone()
     trainer._flat_state = {k: v.clone() for k, v in keep[1].items()}
     trainer._t = None if keep[2] is None else keep[2].clone()
     try:
-        g = torch.randn_like(trainer._flat_p) * 1e-3
+        g = torch.randn_like(trainer._flat_upd) * 1e-3
         side = torch.cuda.Stream()
         side.wait_stream(torch.cuda.current_stream())
         with torch.cuda.stream(side):
@@ -4934,7 +4956,7 @@ def update_device_ms(trainer, reps=10):
         del graph
         return statistics.median(times)
     finally:
-        trainer._flat_p, trainer._flat_state, trainer._t = keep
+        trainer._flat_upd, trainer._flat_state, trainer._t = keep
 
 
 def dp_training(dev, card, model, rule=None, compute_dtype=None):
@@ -8005,13 +8027,13 @@ def gluon_loop(dev, card):
 
 REC_FIXTURE = os.path.join(REPO, "tests", "fixtures", "jpeg8")
 REC_RECORDS, REC_BATCH, REC_SIZE, REC_EPOCHS = 1024, 128, 224, 2
-REC_WARMUP, REC_TRACED, REC_PARITY, REC_COMPARE = 2, 2, 3, 3
+REC_WARMUP, REC_TRACED, REC_PARITY, REC_COMPARE = 2, 3, 3, 3
 REC_NORM = dict(mean_r=123.68, mean_g=116.78, mean_b=103.94, std_r=58.4,
                 std_g=57.12, std_b=57.38)
 # the prefetched steps' losses against the direct ones, where the
 # captured step does not repeat bitwise (atomics in cuDNN's backward)
 REC_LOSS_RTOL = 1e-3
-REC_FILL_S = 30.0             # the traced window waits for a full queue
+REC_FILL_S = 30.0             # the traced window waits for the backlog
 # sha256 of the fixture's eight JPEGs decoded in order (H x W x 3 uint8)
 # by libjpeg-turbo 2.1.5 through the port's and the reference's library,
 # and by PIL, on the CPU tests' host
@@ -8097,8 +8119,10 @@ def rec_pipeline(dev, card):
     through ``DataParallelTrainer`` (SGD lr 0.1 momentum 0.9, dp=1) under
     ``amp.init("bfloat16")``, phase 17's configuration; two epochs, 16
     steps, ``trainer.step(batch.data[0], batch.label[0])``, the first two
-    warm-up.  Steps 2-3 are traced with ``torch.profiler`` after the
-    prefetcher's queue has filled; the second epoch is timed whole (from
+    warm-up.  Steps 2-4 are traced with ``torch.profiler`` after the
+    prefetcher's queue has filled and its worker holds one more batch,
+    copied (the backlog the three steps run from while the next batch
+    is decoded and copied); the second epoch is timed whole (from
     its ``reset``, the C++ pool's fill included) and over its steps
     after the first two, with CUDA events on the step's stream.
 
@@ -8258,8 +8282,14 @@ def rec_pipeline(dev, card):
                 pf.reset()
             while True:
                 if step == traced.start:
+                    # the backlog: the queue full and one more batch
+                    # copied in the worker's hands, so the window's three
+                    # steps run from it while the worker decodes and
+                    # copies the next batch (the decode is slower than a
+                    # step: from a bare full queue the next copy can
+                    # land after two steps end)
                     t = time.perf_counter()
-                    while not pf._queue.full() and \
+                    while pf.stats.batches < step + pf._depth + 1 and \
                             time.perf_counter() - t < REC_FILL_S:
                         time.sleep(0.01)
                     fill_s = time.perf_counter() - t
@@ -8406,6 +8436,580 @@ def rec_pipeline(dev, card):
     return launches
 
 
+# ----------------------------------------------------------------------
+# phase 39: data parallelism over more than one rank (ROADMAP §1 item
+# 10a): NCCL at one rank in this process, then two processes sharing
+# the card over gloo
+# ----------------------------------------------------------------------
+
+DP2_CHILD_TIMEOUT = 420        # s a spawned rank may take, builds loaded
+DP2_RESNET_BATCH = 64          # a rank's part of bench.py's batch of 128
+# 39b's many-bucket ZeRO-1 path: a net 15 channels wide with a 7-way head
+# in buckets of at most 600 f32: three (the trainer's parameters in name
+# order: 15+15+32+32+405, 4320 and 7+224 elements), the first and last
+# padded to even lengths
+DP2_BUCKETS_NET = dict(width=15, classes=7)
+DP2_BUCKET_MB = 600 * 4 / 2 ** 20
+DP2_PATHS = ("psum", "zero1", "zero1_buckets")
+KV_TIMED = 10                  # phase 39a's timed pushpulls
+
+
+def dp_nccl_one_rank(dev, card):
+    """Phase 39a: ``parallel.distributed_init`` through a ``file://``
+    store under the build directory, NCCL at one rank in this process.
+    (1) ``zero.all_reduce_mean``, ``reduce_scatter_bucket`` and
+    ``all_gather_bucket`` over ResNet-50's 25,575,912-element f32 bucket
+    captured in one CUDA graph (the communicator made by an eager call
+    first), whose replay must equal the eager results bitwise; (2)
+    ``DataParallelTrainer`` on the one-rank NCCL mesh
+    (``make_mesh({"dp": 1})`` keeps the group), phase 16's conv net
+    from host-made weights, SGD momentum 0.9, 3 steps, the rate halved,
+    a 4th: captured (one capture: the gradient's and loss's
+    ``all_reduce`` and BatchNorm's two statistics ``all_reduce``s a
+    layer, forward and backward, inside the step's graph) against the
+    same body run eagerly on the card, losses and parameters within
+    ``DP_GRAPH_RTOL`` (bitwise printed), K1 once a step each; (3) the
+    counterpart of ``bench.py``'s ``_kvstore_bandwidth``: a
+    ``kv.create("dist_tpu_sync")`` ``pushpull`` of ResNet-50's 161
+    gradients (random, seeded), coalesced into 25 MiB buckets, one
+    ``all_reduce`` each, timed over 10 calls (host clock ending in a
+    synchronize): ms a call and GB/s of gradient bytes.  One rank's
+    ``all_reduce`` moves nothing between cards: these are the
+    collectives' fixed costs on this card, not a bandwidth of a link."""
+    import torch
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import kv, parallel
+    from mxnet_tpu_torch.gluon.model_zoo import vision
+    from mxnet_tpu_torch.ops import _build
+    from mxnet_tpu_torch.parallel import zero
+    store = os.path.join(_build.BUILD_DIR, "phase39a_store")
+    if os.path.exists(store):
+        os.remove(store)
+    if not parallel.distributed_init("file://" + store, 1, 0):
+        fail("dp nccl: distributed_init did not join")
+    try:
+        if torch.distributed.get_backend() != "nccl":
+            fail(f"dp nccl: backend {torch.distributed.get_backend()}")
+        group = torch.distributed.group.WORLD
+        gen = torch.Generator(device=dev).manual_seed(39)
+        src = torch.randn(RESNET_TRAINABLE, device=dev, generator=gen)
+        buf, full = torch.empty_like(src), torch.empty_like(src)
+
+        def body():
+            buf.copy_(src)
+            zero.all_reduce_mean(buf, 1, group)
+            shard = zero.reduce_scatter_bucket(buf, 1, "fp32", group)
+            zero.all_gather_bucket(full, shard * 0.5, group)
+
+        body()
+        torch.cuda.synchronize(dev)
+        eager = (buf.clone(), full.clone())
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        for _ in range(10):
+            body()
+        end.record()
+        end.synchronize()
+        eager_ms = start.elapsed_time(end) / 10
+        buf.zero_()
+        full.zero_()
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=side):
+            body()
+        graph.replay()
+        torch.cuda.synchronize(dev)
+        bitwise = torch.equal(buf, eager[0]) and torch.equal(full, eager[1])
+        start.record()
+        for _ in range(10):
+            graph.replay()
+        end.record()
+        end.synchronize()
+        replay_ms = start.elapsed_time(end) / 10
+        del graph, src, buf, full, eager
+        if not bitwise:
+            fail("dp nccl: the captured collectives differ from eager")
+        trainer_text, launches = _nccl_trainer(dev)
+        with mx.gpu(dev.index or 0):
+            net = vision.resnet50_v1(s2d_stem=True)
+            net.initialize()
+            net(mx.nd.zeros((1, 3, 64, 64)))
+        shapes = [p.shape for _, p in sorted(net.collect_params().items())
+                  if p.grad_req != "null"]
+        del net
+        grads = [mx.nd.NDArray(torch.randn(s, device=dev, generator=gen))
+                 for s in shapes]
+        nbytes = 4 * sum(g.size for g in grads)
+        store_kv = kv.create("dist_tpu_sync")
+        keys = list(range(len(grads)))
+        store_kv.init(keys, [mx.nd.NDArray(torch.zeros_like(g.data))
+                             for g in grads])
+        store_kv.pushpull(keys, grads, out=grads)
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        for _ in range(KV_TIMED):
+            store_kv.pushpull(keys, grads, out=grads)
+        torch.cuda.synchronize(dev)
+        kv_ms = (time.perf_counter() - t0) / KV_TIMED * 1e3
+        n_buckets = len(zero_buckets(grads))
+    finally:
+        parallel.teardown_distributed()
+    print(f"dp nccl one rank (phase 39a, {card}, NCCL "
+          f"{'.'.join(map(str, torch.cuda.nccl.version()))}): all_reduce, "
+          f"reduce_scatter_tensor and all_gather_into_tensor over "
+          f"{RESNET_TRAINABLE} f32 captured in one CUDA graph, replay "
+          f"bitwise the eager results: True; eager {eager_ms:.4f} ms, "
+          f"replay {replay_ms:.4f} ms a round (CUDA events, 10 rounds); "
+          f"{trainer_text}; dist_tpu_sync pushpull of ResNet-50's {len(shapes)} gradients "
+          f"({nbytes} bytes, {n_buckets} buckets of at most 25 MiB) "
+          f"{kv_ms:.3f} ms a call = {nbytes / kv_ms / 1e6:.2f} GB/s "
+          f"(host clock, {KV_TIMED} calls; one rank: no bytes cross a "
+          f"link); launches {launches}", flush=True)
+    if torch.distributed.is_initialized():
+        fail("dp nccl: the process group outlived teardown")
+    return launches
+
+
+def _nccl_trainer(dev):
+    """Phase 39a (2): the trainer on the one-rank NCCL mesh, captured
+    against its eager body.  Returns the text and the launches."""
+    import numpy as np
+    import torch
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import gluon, ops, parallel
+    from mxnet_tpu_torch.convert import (block_weights_to_numpy,
+                                         load_block_weights)
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    rng = np.random.RandomState(39)
+    batches = [(rng.rand(DP_CONV_BATCH, 3, 32, 32).astype(np.float32),
+                rng.randint(0, 10, (DP_CONV_BATCH,)).astype(np.float32))
+               for _ in range(DP_STEPS + 1)]
+    with mx.cpu():
+        net = _dp_conv_net(gluon.nn)
+        mx.random.seed(39)
+        net.initialize(mx.init.Xavier(magnitude=2))
+        net(mx.nd.array(batches[0][0]))
+    w0 = block_weights_to_numpy(net)
+    runs, captures = {}, {}
+    try:
+        torch.cuda.synchronize(dev)
+        ops.reset_launches()
+        for how in ("graph", "eager"):
+            net = _dp_conv_net(gluon.nn)
+            net.initialize(ctx=mx.gpu(dev.index or 0))
+            load_block_weights(net, w0)
+            mesh = parallel.make_mesh({"dp": 1})
+            if mesh.group is None:
+                fail("dp nccl: the one-rank mesh has no group")
+            tr = parallel.DataParallelTrainer(
+                net, gluon.loss.SoftmaxCrossEntropyLoss(), "sgd",
+                {"learning_rate": 0.1, "momentum": 0.9}, mesh=mesh)
+            tr._use_graphs = how == "graph"
+            losses = []
+            for i, batch in enumerate(batches):
+                if i == DP_STEPS:
+                    tr.set_learning_rate(tr.learning_rate / 2)
+                losses.append(float(tr.step(*batch).asnumpy()))
+            runs[how] = (losses, block_weights_to_numpy(net))
+            captures[how] = tr.stats["captures"]
+            del net, tr
+        torch.cuda.synchronize(dev)
+        launches = read_launches("dp nccl trainer", {
+            "fused_sgd_update": 2 * (DP_STEPS + 1)})
+    finally:
+        torch.backends.cudnn.deterministic = prev
+    (lg, wg), (le, we) = runs["graph"], runs["eager"]
+    loss_err = max(abs(a - b) / max(abs(b), 1e-30) for a, b in zip(lg, le))
+    errs = update_errs(w0, wg, we, DP_STEPS + 1)
+    worst = max(errs.items(), key=lambda kv: kv[1])
+    same = lg == le and all(np.array_equal(wg[k], we[k]) for k in wg)
+    if captures != {"graph": 1, "eager": 0}:
+        fail(f"dp nccl trainer: captures {captures}")
+    if loss_err > DP_GRAPH_RTOL or worst[1] > DP_GRAPH_RTOL:
+        fail(f"dp nccl trainer: captured vs eager losses {loss_err:.3e}, "
+             f"update {worst}")
+    return (f"DataParallelTrainer on the one-rank NCCL mesh (phase 16's "
+            f"conv net, its collectives in the captured step): losses "
+            f"captured {lg} eager {le}, max relative loss diff "
+            f"{loss_err:.3e}, worst relative update diff {worst[1]:.3e} at "
+            f"{worst[0]} (limit {DP_GRAPH_RTOL}), bitwise {same}, "
+            f"captures {captures}"), launches
+
+
+def zero_buckets(grads):
+    """The dist store's buckets of ``grads`` (its 25 MiB bound)."""
+    from mxnet_tpu_torch.kvstore.kvstore import (DEFAULT_BIGARRAY_BOUND,
+                                                 _make_buckets)
+    return _make_buckets([g.data.reshape(-1) for g in grads],
+                         DEFAULT_BIGARRAY_BOUND)
+
+
+def _dp_child_main(spec_path, rank):
+    """A spawned rank of phases 39b and 39c (``chip_smoke.py --dp-rank
+    SPEC RANK``): joins the gloo group of ``SPEC`` on ``cuda:0``, runs
+    the job, writes its result as JSON beside the spec."""
+    import numpy as np
+    import torch
+    sys.path.insert(0, REPO)
+    with open(spec_path) as f:
+        spec = json.load(f)
+    rank = int(rank)
+    if not torch.cuda.is_available():
+        fail(f"dp rank {rank}: no CUDA device")
+    from mxnet_tpu_torch import parallel
+    from mxnet_tpu_torch.ops import _build
+    _build.build(["fused_update"])
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    parallel.distributed_init("file://" + spec["store"], 2, rank,
+                              backend="gloo")
+    try:
+        out = {"card_vs_cpu": _dp2_card_vs_cpu_rank,
+               "resnet": _dp2_resnet_rank}[spec["job"]](spec, rank, dev)
+    finally:
+        parallel.teardown_distributed()
+    arrays = out.pop("_arrays", None)
+    if arrays is not None:
+        np.savez(os.path.join(spec["dir"], f"rank{rank}.npz"), **arrays)
+    with open(os.path.join(spec["dir"], f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def _run_dp_children(job, tmp, extra=None):
+    """Start two ranks of ``job`` as processes sharing the card, join
+    them with a timeout, print their output, fail on any exit other than
+    0.  Returns each rank's JSON result."""
+    os.makedirs(tmp, exist_ok=True)
+    for name in os.listdir(tmp):
+        path = os.path.join(tmp, name)
+        if os.path.isfile(path):
+            os.remove(path)
+    spec = dict(extra or {}, job=job, dir=tmp,
+                store=os.path.join(tmp, "store"))
+    path = os.path.join(tmp, "spec.json")
+    with open(path, "w") as f:
+        json.dump(spec, f)
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                               "--dp-rank", path, str(r)],
+                              stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT)
+             for r in range(2)]
+    outs, bad = [], []
+    try:
+        for r, p in enumerate(procs):
+            try:
+                text, _ = p.communicate(timeout=DP2_CHILD_TIMEOUT)
+            except subprocess.TimeoutExpired:
+                p.kill()
+                text, _ = p.communicate()
+                bad.append(f"rank {r} timed out after {DP2_CHILD_TIMEOUT} s")
+            text = text.decode(errors="replace").strip()
+            if text:
+                print(f"[{job} rank {r}] " + text.replace(
+                    "\n", f"\n[{job} rank {r}] ")[-6000:], flush=True)
+            if p.returncode:
+                bad.append(f"rank {r} exited {p.returncode}")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    if bad:
+        fail(f"dp2 {job}: " + "; ".join(bad))
+    for r in range(2):
+        with open(os.path.join(tmp, f"rank{r}.json")) as f:
+            outs.append(json.load(f))
+    return outs
+
+
+def _sum_counts(outs):
+    total = {}
+    for o in outs:
+        for k, v in o["launches"].items():
+            total[k] = total.get(k, 0) + v
+    return total
+
+
+def _dp2_card_vs_cpu_rank(spec, rank, dev):
+    """Phase 39b, one rank: phase 16's conv net from the host-made
+    weights on both paths, on the card (cuDNN deterministic) and on the
+    CPU, each through ``DataParallelTrainer`` on ``make_mesh({"dp": 2})``
+    of the one gloo group, this rank on its half of each batch."""
+    import numpy as np
+    import torch
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import gluon, ops, parallel
+    from mxnet_tpu_torch.convert import (block_weights_to_numpy,
+                                         load_block_weights)
+    torch.backends.cudnn.deterministic = True
+    batches = np.load(spec["batches"])
+    xs, ys = batches["x"], batches["y"]
+    half = xs.shape[1] // 2
+    ce = gluon.loss.SoftmaxCrossEntropyLoss()
+    out, arrays = {"losses": {}, "launches": {}, "buckets": {}}, {}
+    ops.reset_launches()
+    for path in DP2_PATHS:
+        many = path == "zero1_buckets"
+        w0 = dict(np.load(spec["weights_buckets" if many else "weights"]))
+        for where in ("card", "cpu"):
+            ctx = mx.gpu(0) if where == "card" else mx.cpu()
+            net = _dp_conv_net(gluon.nn, **(DP2_BUCKETS_NET if many else {}))
+            net.initialize(ctx=ctx)
+            load_block_weights(net, w0)
+            mesh = parallel.make_mesh(
+                {"dp": 2}, devices=None if where == "card" else
+                [torch.device("cpu")] * 2)
+            tr = parallel.DataParallelTrainer(
+                net, ce, "sgd", {"learning_rate": 0.1, "momentum": 0.9},
+                mesh=mesh, shard_updates=path != "psum",
+                bucket_mb=DP2_BUCKET_MB if many else None)
+            losses = []
+            for i in range(xs.shape[0]):
+                if i == DP_STEPS:
+                    tr.set_learning_rate(tr.learning_rate / 2)
+                sl = slice(rank * half, (rank + 1) * half)
+                y = ys[i][sl] % DP2_BUCKETS_NET["classes"] if many \
+                    else ys[i][sl]
+                losses.append(float(tr.step(xs[i][sl], y).asnumpy()))
+            out["losses"][f"{path}/{where}"] = losses
+            out[f"{path}/{where}/eager"] = not tr._use_graphs
+            if tr._plan is not None:       # ZeRO-1: (padded, filled)
+                out["buckets"][f"{path}/{where}"] = [
+                    (n, sum(tr._plan.sizes[i] for i in idxs))
+                    for n, idxs in zip(tr._plan.lengths, tr._plan.buckets)]
+            for k, v in block_weights_to_numpy(net).items():
+                arrays[f"{path}/{where}/{k}"] = v
+            del net, tr
+    torch.cuda.synchronize(dev)
+    out["launches"] = ops.launch_counts()
+    out["_arrays"] = arrays
+    return out
+
+
+def dp2_card_vs_cpu(dev, card):
+    """Phase 39b: two processes share the card over gloo (each rank's
+    step runs eagerly: gloo's collectives cannot be captured), phase
+    16's conv net (SGD momentum 0.9, lr 0.1, a global batch of 8 x 3 x
+    32 x 32, 3 steps, the rate halved, a 4th), on the psum path, under
+    ZeRO-1 in one 32 MiB bucket, and under ZeRO-1 over at least three
+    buckets at least one of which is padded (``DP2_BUCKETS_NET`` in
+    ``DP2_BUCKET_MB``: the shards' offsets, the padding and their
+    concatenation across buckets); each rank also runs the same dp = 2
+    steps on the CPU in the same gloo group.  Fails unless, on each
+    path, the losses are within phase 16's 1e-4 and each parameter's
+    update within its 1e-3 (``update_errs``) card against CPU, and the
+    two ranks' parameters are bitwise equal on the card and on the
+    CPU.  K1 launches once a step on each rank: on the whole buffer
+    (psum) or on the rank's shard (ZeRO-1)."""
+    import numpy as np
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import gluon
+    from mxnet_tpu_torch.convert import block_weights_to_numpy
+    from mxnet_tpu_torch.ops import _build
+    tmp = os.path.join(_build.BUILD_DIR, "phase39b")
+    os.makedirs(tmp, exist_ok=True)
+    rng = np.random.RandomState(39)
+    with mx.cpu():
+        net = _dp_conv_net(gluon.nn)
+        mx.random.seed(39)
+        net.initialize(mx.init.Xavier(magnitude=2))
+        net(mx.nd.zeros((1, 3, 32, 32)))
+        many = _dp_conv_net(gluon.nn, **DP2_BUCKETS_NET)
+        many.initialize(mx.init.Xavier(magnitude=2))
+        many(mx.nd.zeros((1, 3, 32, 32)))
+    w0s = {"psum": block_weights_to_numpy(net),
+           "zero1_buckets": block_weights_to_numpy(many)}
+    w0s["zero1"] = w0s["psum"]
+    np.savez(os.path.join(tmp, "w0.npz"), **w0s["psum"])
+    np.savez(os.path.join(tmp, "w0b.npz"), **w0s["zero1_buckets"])
+    np.savez(os.path.join(tmp, "batches.npz"),
+             x=rng.rand(DP_STEPS + 1, DP_CONV_BATCH, 3, 32, 32)
+             .astype(np.float32),
+             y=rng.randint(0, 10, (DP_STEPS + 1, DP_CONV_BATCH))
+             .astype(np.float32))
+    t0 = time.perf_counter()
+    outs = _run_dp_children("card_vs_cpu", os.path.join(tmp, "run"), {
+        "weights": os.path.join(tmp, "w0.npz"),
+        "weights_buckets": os.path.join(tmp, "w0b.npz"),
+        "batches": os.path.join(tmp, "batches.npz")})
+    wall = time.perf_counter() - t0
+    arrays = [dict(np.load(os.path.join(tmp, "run", f"rank{r}.npz")))
+              for r in range(2)]
+    lines, bad = [], []
+    for path in DP2_PATHS:
+        w0 = w0s[path]
+        trainable = [k for k in w0 if "running_" not in k]
+        got = {w: {k: arrays[0][f"{path}/{w}/{k}"] for k in trainable}
+               for w in ("card", "cpu")}
+        lc, lp = outs[0]["losses"][f"{path}/card"], \
+            outs[0]["losses"][f"{path}/cpu"]
+        loss_err = max(abs(a - b) / max(abs(b), 1e-30)
+                       for a, b in zip(lc, lp))
+        errs = update_errs({k: w0[k] for k in trainable}, got["card"],
+                           got["cpu"], DP_STEPS + 1)
+        worst = max(errs.items(), key=lambda kv: kv[1])
+        same = {w: all(np.array_equal(arrays[0][f"{path}/{w}/{k}"],
+                                      arrays[1][f"{path}/{w}/{k}"])
+                       for k in w0 if "running_" not in k)
+                for w in ("card", "cpu")}
+        eager = outs[0][f"{path}/card/eager"]
+        if loss_err > TRAIN_LOSS_RTOL or worst[1] > RESNET_UPDATE_RTOL:
+            bad.append(f"{path}: losses {loss_err:.3e}, update {worst}")
+        if not (same["card"] and same["cpu"]):
+            bad.append(f"{path}: ranks differ {same}")
+        if not eager:
+            bad.append(f"{path}: the gloo trainer did not run eagerly")
+        buckets = outs[0]["buckets"].get(f"{path}/card")
+        if buckets != outs[0]["buckets"].get(f"{path}/cpu"):
+            bad.append(f"{path}: the card's buckets {buckets} are not the "
+                       f"CPU's {outs[0]['buckets'].get(path + '/cpu')}")
+        if path == "zero1_buckets" and not (
+                len(buckets) >= 3 and any(n > f for n, f in buckets)):
+            bad.append(f"{path}: buckets (padded, filled) {buckets}: fewer "
+                       f"than three or none padded")
+        lines.append(f"{path}: losses card {lc} cpu {lp}, max relative "
+                     f"loss diff {loss_err:.3e} (limit {TRAIN_LOSS_RTOL}), "
+                     f"worst relative update diff {worst[1]:.3e} at "
+                     f"{worst[0]} (limit {RESNET_UPDATE_RTOL}); ranks "
+                     f"bitwise equal on the card {same['card']} and the "
+                     f"CPU {same['cpu']}" + (
+                         f"; buckets (padded, filled) {buckets}"
+                         if buckets else ""))
+    launches = read_launches("dp2 card vs cpu", {
+        "fused_sgd_update": 2 * len(DP2_PATHS) * (DP_STEPS + 1)},
+        _sum_counts(outs))
+    print(f"dp2 card vs cpu (phase 39b, two processes sharing {card} over "
+          f"gloo, eager steps; each rank also on the CPU): "
+          + " | ".join(lines) + f"; phase wall {wall:.1f} s; launches "
+          f"{launches}", flush=True)
+    if bad:
+        fail("dp2 card vs cpu: " + "; ".join(bad))
+    return launches
+
+
+def _dp2_resnet_rank(spec, rank, dev):
+    """Phase 39c, one rank: ``bench.py``'s dp configuration, this rank's
+    64 of the 128 images."""
+    import numpy as np
+    import torch
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import amp, gluon, ops, parallel
+    from mxnet_tpu_torch.gluon.model_zoo import vision
+    amp.init("bfloat16")
+    try:
+        mx.random.seed(0)
+        net = vision.resnet50_v1(s2d_stem=True)
+        net.initialize()
+        ce = gluon.loss.SoftmaxCrossEntropyLoss()
+        tr = parallel.DataParallelTrainer(
+            net, ce, "sgd", {"learning_rate": RESNET_LR,
+                             "momentum": RESNET_MOMENTUM},
+            mesh=parallel.make_mesh({"dp": 2}), shard_updates=True)
+        mx.random.seed(1 + rank)
+        batch = (mx.nd.random.uniform(shape=(DP2_RESNET_BATCH, 3,
+                                             RESNET_SIZE, RESNET_SIZE)),
+                 mx.nd.zeros((DP2_RESNET_BATCH,)))
+        torch.cuda.reset_peak_memory_stats(dev)
+        losses = [tr.step(*batch) for _ in range(DP_WARMUP)]
+        torch.cuda.synchronize(dev)
+        ops.reset_launches()
+        step_s = []
+        for _ in range(DP_TIMED):
+            t = time.perf_counter()
+            losses.append(tr.step(*batch))
+            torch.cuda.synchronize(dev)
+            step_s.append(time.perf_counter() - t)
+        launches = ops.launch_counts()
+        peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+        step_ms = statistics.median(step_s) * 1e3
+        comm = tr.comm_stats(measure=True, iters=5)
+        update_ms = update_device_ms(tr)
+        shard = tr._flat_upd.numel()
+        bucket = tr._flat_p.numel()
+        params = [p for p in net.collect_params().values()
+                  if p.grad_req != "null"]
+        same = float(sum(float(p.data().data.detach().double().sum())
+                         for p in params))
+    finally:
+        amp._deinit_for_tests()
+    return {"losses": [float(x.asnumpy()) for x in losses],
+            "step_ms": step_ms, "step_min_ms": min(step_s) * 1e3,
+            "step_max_ms": max(step_s) * 1e3, "peak_gb": peak_gb,
+            "comm": comm, "update_ms": update_ms, "shard": shard,
+            "bucket": bucket, "checksum": same, "launches": launches,
+            "eager": not tr._use_graphs}
+
+
+def dp2_resnet(dev, card):
+    """Phase 39c: ``bench.py``'s dp configuration (``_bench_resnet`` with
+    ``MXTPU_BENCH_DP=2``) at full width: ResNet-50 v1 (s2d stem), a
+    global batch of 128 as 2 ranks x 64 (``nd.random.uniform``, seeded a
+    rank; labels zeros), bf16 AMP, SGD lr 0.1 momentum 0.9,
+    ``shard_updates=True`` (ZeRO-1, fp32 wire, 32 MiB buckets), 3
+    warm-up and 20 timed steps, two processes sharing the card over gloo
+    (eager steps; gloo stages each collective through the host).  Prints
+    each rank's step median and the images/s of the two ranks together,
+    marked as two ranks sharing one card (no scaling figure), phase 17's
+    dp = 1 figures beside them, ``comm_stats(measure=True)``, K1's
+    launches (one a step a rank, on the rank's shard) and its device
+    time on the shard (``update_device_ms``) against its bytes bound,
+    and each process's peak memory.  Fails unless K1 ran once a timed
+    step on each rank, the losses are finite and fall, and the two
+    ranks' parameters agree (their sums equal)."""
+    from mxnet_tpu_torch.ops import _build
+    t0 = time.perf_counter()
+    outs = _run_dp_children("resnet", os.path.join(_build.BUILD_DIR,
+                                                   "phase39c"))
+    wall = time.perf_counter() - t0
+    launches = read_launches("dp2 resnet", {
+        "fused_sgd_update": 2 * DP_TIMED}, _sum_counts(outs))
+    bad = []
+    for r, o in enumerate(outs):
+        if not all(x == x and abs(x) < float("inf") for x in o["losses"]):
+            bad.append(f"rank {r}: non-finite loss {o['losses']}")
+        if not o["losses"][-1] < o["losses"][0]:
+            bad.append(f"rank {r}: the loss did not fall {o['losses']}")
+        if not o["eager"]:
+            bad.append(f"rank {r}: the gloo trainer did not run eagerly")
+    if outs[0]["checksum"] != outs[1]["checksum"]:
+        bad.append(f"the ranks' parameters differ: sums "
+                   f"{outs[0]['checksum']} {outs[1]['checksum']}")
+    step_ms = max(o["step_ms"] for o in outs)
+    shard = outs[0]["shard"]
+    bound_ms = UPDATE_STREAMS["sgd"] * 4 * shard / H100_BYTES_PER_S * 1e3
+    dp1 = STEP_MS.get(("resnet", "sgd", None))
+    comm = outs[0]["comm"]
+    print(f"dp2 resnet (phase 39c, bench.py's dp configuration: ResNet-50 "
+          f"v1 s2d, bf16 amp, sgd lr {RESNET_LR} momentum "
+          f"{RESNET_MOMENTUM}, ZeRO-1, 2 ranks x {DP2_RESNET_BATCH} images "
+          f"as two processes SHARING ONE {card} over gloo, eager steps; "
+          f"not a scaling figure): step median rank 0 "
+          f"{outs[0]['step_ms']:.2f} ms (min {outs[0]['step_min_ms']:.2f}, "
+          f"max {outs[0]['step_max_ms']:.2f}), rank 1 "
+          f"{outs[1]['step_ms']:.2f} ms = "
+          f"{2 * DP2_RESNET_BATCH / step_ms * 1e3:.1f} images/s of the two "
+          f"ranks together over {DP_TIMED} steps after {DP_WARMUP} "
+          f"warm-up; losses rank 0 {outs[0]['losses']}; comm {comm}; K1 "
+          f"on the {shard}-element shard of the {outs[0]['bucket']}-element "
+          f"padded bucket (one captured graph of the update, 10 replays) "
+          f"{outs[0]['update_ms']:.4f} / {outs[1]['update_ms']:.4f} ms "
+          f"device time, its bound {bound_ms:.4f} ms (5 f32 streams at "
+          f"{H100_BYTES_PER_S / 1e12} TB/s); peak memory "
+          f"{outs[0]['peak_gb']:.2f} / {outs[1]['peak_gb']:.2f} GB a "
+          f"process"
+          + (f"; phase 17 at dp = 1 on this card earlier in this run: "
+             f"{dp1[0]:.2f} ms = {RESNET_BATCH / dp1[0] * 1e3:.1f} "
+             f"images/s, peak {dp1[1]:.2f} GB" if dp1 else "")
+          + f"; phase wall {wall:.1f} s; launches {launches}", flush=True)
+    if bad:
+        fail("dp2 resnet: " + "; ".join(bad))
+    return launches
+
+
 def main():
     try:
         import torch
@@ -8516,6 +9120,15 @@ def main():
     by_path["dp_resnet"] = dp_training(dev, card, "resnet")
     # phase 38: the .rec-fed pipeline at phase 17's configuration
     by_path["rec_pipeline"] = rec_pipeline(dev, card)
+    # phase 39: data parallelism over more than one rank (after phase
+    # 17, whose dp = 1 figures 39c prints beside its own)
+    gc.collect()
+    torch.cuda.empty_cache()
+    by_path["dp_nccl_one_rank"] = dp_nccl_one_rank(dev, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    by_path["dp2_card_vs_cpu"] = dp2_card_vs_cpu(dev, card)
+    by_path["dp2_resnet_zero1"] = dp2_resnet(dev, card)
     by_path["dp_bert"] = dp_training(dev, card, "bert")
     # phases 30 and 31: LAMB and LARS in the captured step
     by_path["dp_bert_lamb"] = dp_training(dev, card, "bert", "lamb")
@@ -8573,4 +9186,7 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--dp-rank"]:     # a rank of phase 39b or 39c
+        _dp_child_main(*sys.argv[2:4])
+    else:
+        main()

@@ -37,8 +37,11 @@ engine's ``quantize="int8"``); MXNet's Gluon training loop around them:
 ``name``, ``engine``, ``rtc`` and ``npx``; the input pipeline: ``io``
 (the iterators, ``ImageRecordIter``, ``DevicePrefetcher``),
 ``recordio``, ``image`` and the native host runtime of ``src/``
-(``utils.native``, built at first use).  There is no ``mx.np``: the
-reference's is ``jax.numpy`` itself.
+(``utils.native``, built at first use); data parallelism over more than
+one device, one process a device: ``parallel.distributed_init``,
+meshes over the ranks of a process group, ``kv``/``kvstore``, the gluon
+``Trainer``'s kvstore half, ZeRO-1 and the overlap scheduler.  There is
+no ``mx.np``: the reference's is ``jax.numpy`` itself.
 """
 from .base import MXNetError, NotSupportedError
 from .context import (Context, cpu, current_context, gpu, num_gpus,
@@ -62,6 +65,8 @@ from .optimizer import lr_scheduler
 from . import (callback, debug, engine, model, name, npx, operator, rtc,
                runtime, test_utils, util)
 from . import io, recordio, image, utils
+from . import kvstore
+from . import kvstore as kv
 
 __all__ = ["MXNetError", "NotSupportedError", "Context", "cpu", "gpu",
            "current_context", "num_gpus", "resolve_device", "nd", "ndarray",
@@ -69,4 +74,4 @@ __all__ = ["MXNetError", "NotSupportedError", "Context", "cpu", "gpu",
            "amp", "optimizer", "gluon", "serving", "parallel", "checkpoint",
            "contrib", "lr_scheduler", "callback", "debug", "engine", "model",
            "name", "npx", "operator", "rtc", "runtime", "test_utils", "util",
-           "io", "recordio", "image", "utils"]
+           "io", "recordio", "image", "utils", "kvstore", "kv"]

@@ -48,7 +48,8 @@ import torch
 from .base import MXNetError
 
 __all__ = ["is_recording", "is_training", "set_recording", "set_training",
-           "run", "inline_scope", "inlining", "capturing", "check_op"]
+           "run", "inline_scope", "inlining", "capturing", "check_op",
+           "batch_stats_group", "stats_group"]
 
 #: ``debug.set_debug_nans``: None (off), else ``(infs,)``
 FINITE_CHECK = None
@@ -62,6 +63,7 @@ class _State(threading.local):
         self.inline = 0           # > 0 inside inline_scope
         self.op = None            # the registry op running (finite checks)
         self.no_host_read = None  # the Custom op whose body is inlined
+        self.stats_group = None   # the group BatchNorm reduces over
 
 
 _STATE = _State()
@@ -100,6 +102,30 @@ class inline_scope:
     def __exit__(self, *exc):
         _STATE.inline -= 1
         return False
+
+
+class batch_stats_group:
+    """``with batch_stats_group(group):`` makes every BatchNorm in
+    training mode reduce its batch statistics over the ranks of the
+    process group ``group`` (None: its own batch), as the reference's
+    global-view data-parallel step normalizes over the whole batch."""
+
+    def __init__(self, group):
+        self.group = group
+
+    def __enter__(self):
+        self._prev = _STATE.stats_group
+        _STATE.stats_group = self.group
+        return self
+
+    def __exit__(self, *exc):
+        _STATE.stats_group = self._prev
+        return False
+
+
+def stats_group():
+    """The process group BatchNorm reduces its statistics over, or None."""
+    return _STATE.stats_group
 
 
 def capturing():

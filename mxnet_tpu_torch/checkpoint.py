@@ -32,10 +32,16 @@ No environment knobs: ``keep=None`` means 3 (the reference reads
 (``MXTPU_CKPT_ASYNC``), and the writer is waited for without a time
 limit unless ``wait_until_finished`` is given one (``MXTPU_CKPT_TIMEOUT``);
 the manifest's ``steps_per_call`` is 1 (``MXTPU_STEPS_PER_CALL``).
-``reshard_in_place`` and ``reshard_from_checkpoint`` raise
-``NotSupportedError`` naming ROADMAP §1 item 10.  The reference's fault
-injection points and telemetry counters arrive with ``testing/`` and
-``telemetry/`` (item 11).
+
+Under a process group of more than one rank (``parallel.distributed_init``)
+every rank calls ``save`` (a ZeRO-1 trainer gathers its shards then, a
+collective) and rank 0 alone writes; every rank calls ``restore``, which
+waits for rank 0's writer and then for every rank (a barrier) before it
+reads, so each reads what rank 0 wrote.  :func:`reshard_in_place` and
+:func:`reshard_from_checkpoint` move a ``DataParallelTrainer``'s state
+onto another mesh (dp N to N/2 or 1: the per-parameter state is
+dp-independent).  The reference's fault injection points and telemetry
+counters arrive with ``testing/`` and ``telemetry/`` (item 11).
 """
 from __future__ import annotations
 
@@ -51,6 +57,7 @@ import zlib
 import numpy as _np
 import torch
 
+from . import _dist_init
 from .base import MXNetError, NotSupportedError
 from .context import cpu
 from .ndarray.ndarray import NDArray
@@ -396,6 +403,9 @@ class CheckpointManager:
                 if hasattr(iterator, "state_dict") else dict(iterator)
         if extra is not None:
             meta["extra"] = dict(extra)
+        w = _dist_init.world()
+        if w is not None and w["rank"] != 0:
+            return None                 # rank 0 writes what all gathered
 
         def write():
             return self._write(step, groups, meta)
@@ -469,7 +479,14 @@ class CheckpointManager:
         """Restore checkpoint ``step`` (default :meth:`latest`): the
         parameters (in place), then the trainer's state, then the RNG
         state.  Returns the manifest (the cursor under ``"iterator"``),
-        or None when no valid checkpoint exists."""
+        or None when no valid checkpoint exists.  Under a process group
+        every rank calls it: rank 0's write is finished and every rank
+        has arrived before any reads."""
+        w = _dist_init.world()
+        if w is not None and w["size"] > 1:
+            if w["rank"] == 0:
+                self.wait_until_finished()
+            torch.distributed.barrier()
         if step is None:
             step = self.latest()
             if step is None:
@@ -519,18 +536,55 @@ class CheckpointManager:
 
 
 def reshard_in_place(trainer, mesh, params=None, _attempt=0):
-    """Refused: resharding a trainer onto another mesh needs more than
-    one device."""
-    raise NotSupportedError("reshard_in_place moves training state across "
-                            "meshes, which arrives with the multi-device "
-                            "slice (ROADMAP §1 item 10)")
+    """Reshard a running ``DataParallelTrainer`` onto ``mesh`` (or a
+    ``MeshConfig``) without a restart (reference ``reshard_in_place``):
+    its optimizer state in per-parameter space (``state_dict``: every
+    rank of the old mesh joins, for ZeRO-1's gather) and a host copy of
+    ``params`` (a Block) are taken, the trainer is rebuilt for the new
+    mesh and both are put back: bitwise what a fresh process restoring a
+    checkpoint of the same instant would hold.  Returns ``{"source":
+    "peer", "step": None}``."""
+    if not hasattr(trainer, "rebuild"):
+        raise MXNetError(
+            f"reshard_in_place needs a trainer with rebuild(mesh) "
+            f"(parallel.DataParallelTrainer); got {type(trainer).__name__}")
+    state = trainer.state_dict()
+    psnap = None
+    if params is not None:
+        psnap = {name: p.data().asnumpy() for name, p
+                 in params._collect_params_with_prefix().items()
+                 if p._nd is not None}
+    trainer.rebuild(mesh)
+    if psnap is not None:
+        target = params._collect_params_with_prefix()
+        for name, v in psnap.items():
+            target[name].set_data(v)
+    trainer.load_state_dict(state)
+    return {"source": "peer", "step": None}
 
 
 def reshard_from_checkpoint(trainer, mesh, params=None, manager=None):
-    """Refused, as :func:`reshard_in_place`."""
-    raise NotSupportedError("reshard_from_checkpoint moves training state "
-                            "across meshes, which arrives with the "
-                            "multi-device slice (ROADMAP §1 item 10)")
+    """The fallback of an elastic reshard (reference
+    ``reshard_from_checkpoint``): rebuild ``trainer`` for ``mesh`` and
+    restore the newest valid checkpoint of ``manager`` (parameters,
+    state, RNG).  Training rewinds to the returned step.  Returns
+    ``{"source": "checkpoint", "step": <step>, "manifest": ...}``."""
+    if manager is None:
+        raise MXNetError(
+            "elastic reshard: peer transfer failed and no "
+            "CheckpointManager was provided to fall back to")
+    if not hasattr(trainer, "rebuild"):
+        raise MXNetError(
+            f"reshard_from_checkpoint needs a trainer with rebuild(mesh)"
+            f"; got {type(trainer).__name__}")
+    trainer.rebuild(mesh)
+    manifest = manager.restore(params=params, trainer=trainer)
+    if manifest is None:
+        raise MXNetError(
+            "elastic reshard: peer transfer failed and no valid "
+            "checkpoint exists — cannot recover without a restart")
+    return {"source": "checkpoint", "step": int(manifest["step"]),
+            "manifest": manifest}
 
 
 # ---------------------------------------------------------------------------

@@ -43,7 +43,7 @@ K3 takes bfloat16 q and k after RoPE (``amp`` module doc).
 ``generate`` decodes with dense per-layer caches, one step a position,
 over ``decode_weights()``; on CUDA each step is one CUDA graph, captured
 once a signature and replayed (see :class:`_GenerateStep`).  Tensor and
-context parallelism are not ported (ROADMAP §1 item 10).
+context parallelism are not ported (ROADMAP §1 item 10b).
 """
 from __future__ import annotations
 

@@ -152,7 +152,14 @@ class BatchNorm(HybridBlock):
     The layer calls no registered op, as the reference's does not, so
     ``amp``'s lists leave it alone: bf16 activations give a bf16 output,
     while the statistics are reduced in f32 and gamma, beta and the
-    running statistics stay f32 (``cast`` keeps them so)."""
+    running statistics stay f32 (``cast`` keeps them so).
+
+    Inside ``_tape.batch_stats_group(group)`` (``DataParallelTrainer``'s
+    psum path over a process group) the batch statistics are the whole
+    global batch's: the channel sums and the element count, then the
+    squared deviations, each summed over the group's ranks by the
+    autograd ``all_reduce`` of ``torch.distributed.nn``, whose backward
+    sums the gradients back (:func:`_synced_batch_norm`)."""
 
     def __init__(self, axis=1, momentum=0.9, epsilon=1e-5, center=True,
                  scale=True, use_global_stats=False, beta_initializer="zeros",
@@ -203,10 +210,15 @@ class BatchNorm(HybridBlock):
         scale, center = self._scale, self._center
         stats = []
 
+        group = _tape.stats_group() if training else None
+
         def fn(d, g, b, rm, rv):
             d = d.movedim(axis, 1)
             g, b = (g if scale else None), (b if center else None)
-            if training:
+            if group is not None:
+                out, mean, invstd = _synced_batch_norm(d, g, b, eps, group)
+                stats.append((mean.detach(), invstd.detach()))
+            elif training:
                 out, mean, invstd = torch.native_batch_norm(
                     d, g, b, None, None, True, 0.0, eps)
                 stats.append((mean.detach(), invstd.detach()))
@@ -229,6 +241,38 @@ class BatchNorm(HybridBlock):
         return (f"BatchNorm(axis={self._axis}, momentum={self._momentum}, "
                 f"in_channels="
                 f"{self.gamma.shape[0] if self.gamma.shape else None})")
+
+
+def _synced_batch_norm(d, g, b, eps, group):
+    """Batch normalization of ``d`` (channels on axis 1) with the mean
+    and biased variance of the batch over every rank of ``group``,
+    computed in f32 in two passes; returns ``(out, mean, invstd)`` as
+    ``torch.native_batch_norm`` does, ``out`` in ``d``'s dtype.  (Newer
+    torch calls this autograd ``all_reduce`` deprecated for a private
+    successor; the warning is silenced.)"""
+    import warnings
+    from torch.distributed.nn.functional import all_reduce as _all_reduce
+
+    def all_reduce(t, group):
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", FutureWarning)
+            return _all_reduce(t, group=group)
+    x = d.float()
+    dims = [0] + list(range(2, x.dim()))
+    shape = [1, -1] + [1] * (x.dim() - 2)
+    sums = all_reduce(torch.cat([x.sum(dims), x.new_full(
+        (1,), float(x.numel() // x.shape[1]))]), group=group)
+    count = sums[-1]
+    mean = sums[:-1] / count
+    xc = x - mean.view(shape)
+    var = all_reduce((xc * xc).sum(dims), group=group) / count
+    invstd = torch.rsqrt(var + eps)
+    out = xc * invstd.view(shape)
+    if g is not None:
+        out = out * g.float().view(shape)
+    if b is not None:
+        out = out + b.float().view(shape)
+    return out.to(d.dtype), mean, invstd
 
 
 class InstanceNorm(HybridBlock):

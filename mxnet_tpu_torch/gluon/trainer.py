@@ -1,6 +1,7 @@
 """Gluon ``Trainer``: applies an Optimizer over a group of parameters.
 
-Counterpart of ``mxnet_tpu/gluon/trainer.py`` on one card.  ``params``
+Counterpart of ``mxnet_tpu/gluon/trainer.py``, on one card or one card
+a rank of a process group.  ``params``
 is, as in the reference, a ``ParameterDict`` (``net.collect_params()``)
 or a list of gluon ``Parameter``s; or a dict ``name -> nn.Parameter``
 or a list of bare ``torch.nn.Parameter``s.  Dict keys are sorted, as in the reference.
@@ -74,6 +75,28 @@ Parameter keeps its own, by its ``grad_req``).
 ``amp.init_trainer`` replaces ``step`` with its loss-scaled step, as in
 the reference.
 
+The kvstore half (reference ``_init_kvstore``, ``allreduce_grads``).
+At the first ``step``, ``update`` or ``allreduce_grads`` the Trainer
+makes its store (``kvstore``: a name for ``kv.create`` or a store): as
+MXNet's ``_create_kvstore``, a ``local``/``device``/``nccl``/``tpu_sync``
+store in one process is no store at all (one device has nothing to
+reduce), while a ``dist_*``, ``horovod`` or ``byteps`` store, or any
+store under a process group of more than one rank, is made, given
+``compression_params`` (``set_gradient_compression``), and takes every
+trainable parameter under its index (``init``: rank 0's value; every
+rank then pulls it, so all start alike).  ``step`` then sums the
+gradients over the ranks through ``parallel.all_reduce_gradients``
+(``kvstore=``; each gradient once a cycle) before the update, whose
+flat buffer and K1/K2 stay as they are; with more than one worker and
+``overlap_comm`` (the reference's ``MXTPU_OVERLAP_COMM``, on by
+default) a ``parallel.OverlapScheduler`` launches each bucket's sum from
+gradient-ready hooks during the backward.  ``update_on_kvstore=True``
+runs the optimizer on the store instead: the gradients are pushed (the
+store's updater applies them to its copy of each weight) and the
+weights pulled back into the parameters, in place.  ``step``'s
+``batch_size`` is the global batch (MXNet's convention: the gradients
+are summed over the ranks).
+
 The checkpoint protocol (reference ``state_dict``, ``load_state_dict``,
 ``save_states``, ``load_states``): the state goes out in the
 reference's per-parameter shapes (``Optimizer.reference_state``: SGD's
@@ -91,8 +114,9 @@ import pickle
 import torch
 from torch import nn
 
+from .. import _dist_init
 from ..autograd import write_grad_on_backward
-from ..base import MXNetError, NotSupportedError
+from ..base import MXNetError
 from .. import optimizer as opt
 from ..ndarray.ndarray import NDArray
 from ..ops.fused_update import BUCKET_RULES, fused_bucket_rule
@@ -101,14 +125,13 @@ from .parameter import Parameter, ParameterDict
 
 __all__ = ["Trainer"]
 
-_KVSTORES = (None, "device", "local")
 _ABSENT = torch.empty(0)      # an uninitialized gluon Parameter's stand-in
 
 
 class Trainer:
     def __init__(self, params, optimizer, optimizer_params=None,
                  kvstore="device", compression_params=None,
-                 update_on_kvstore=None):
+                 update_on_kvstore=None, overlap_comm=True):
         if isinstance(params, (dict, ParameterDict)):
             names = sorted(params.keys())
             params = [params[k] for k in names]
@@ -125,15 +148,18 @@ class Trainer:
                 raise MXNetError("First argument must be a list or dict of "
                                  "Parameters (all gluon Parameters or all "
                                  f"nn.Parameters), got list of {type(p)}.")
-        refused = {"kvstore": kvstore not in _KVSTORES,
-                   "compression_params": compression_params is not None,
-                   "update_on_kvstore": update_on_kvstore is not None}
-        for what, bad in refused.items():
-            if bad:
-                raise NotSupportedError(
-                    f"{what}: the port trains on one card so far; kvstores, "
-                    "gradient compression and updates on the kvstore arrive "
-                    "with the multi-device slice (ROADMAP §1 item 10)")
+        from ..kvstore import KVStore
+        if not (kvstore is None or kvstore is False or
+                isinstance(kvstore, (str, KVStore))):
+            raise MXNetError(f"kvstore must be a name or a KVStore, got "
+                             f"{type(kvstore)}")
+        self._kvstore_type = kvstore
+        self._compression_params = compression_params
+        self._update_on_kvstore = update_on_kvstore
+        self._overlap_comm = bool(overlap_comm)
+        self._kvstore = None
+        self._kv_initialized = False
+        self._overlap = None
         self._gluon = list(params) if gluon and params else None
         self._params = [] if self._gluon else list(params)
         self._names = names
@@ -176,21 +202,123 @@ class Trainer:
     def set_learning_rate(self, lr):
         self._optimizer.set_learning_rate(lr)
 
+    @property
+    def kvstore(self):
+        """The Trainer's store once made (None for one device)."""
+        return self._kvstore
+
+    def _all_params(self):
+        return self._gluon if self._gluon is not None else self._params
+
+    def _init_kvstore(self):
+        """Make the store (see the module docstring), give it the
+        compression and the trainable parameters, and with more than one
+        worker install the overlap scheduler."""
+        from .. import kvstore as kvs
+        from ..parallel.overlap import OverlapScheduler
+        kind = self._kvstore_type
+        w = _dist_init.world()
+        alone = w is None or w["size"] == 1
+        if kind is None or kind is False or (
+                isinstance(kind, str) and alone and
+                kind.lower() in ("local", "device", "nccl", "tpu_sync")):
+            kv = None
+        elif isinstance(kind, str):
+            kv = kvs.create(kind)
+        else:
+            kv = kind
+        self._kvstore = kv
+        self._kv_initialized = True
+        if kv is None:
+            return
+        if self._compression_params:
+            kv.set_gradient_compression(self._compression_params)
+        keys, values = [], []
+        for i, p in enumerate(self._all_params()):
+            var = p._var if self._gluon is not None else p
+            if var is not None and var.requires_grad:
+                keys.append(i)
+                values.append(p.data() if self._gluon is not None
+                              else NDArray(p.data))
+        if keys:
+            kv.init(keys, values)
+            if kv.num_workers > 1:
+                kv.pull(keys, out=values)
+        if self._update_on_kvstore:
+            kv.set_optimizer(self._optimizer)
+        elif kv.num_workers > 1 and self._overlap_comm:
+            self._overlap = OverlapScheduler(self._all_params(),
+                                             kvstore=kv).install()
+
+    def _all_reduce_grads(self):
+        from ..kvstore import KVStoreLocal
+        if self._overlap is not None:
+            self._overlap.finish()
+        kv = self._kvstore
+        if kv is None or (kv.num_workers <= 1 and
+                          type(kv) is KVStoreLocal):
+            return
+        from ..parallel.data_parallel import all_reduce_gradients
+        all_reduce_gradients(self._all_params(), kvstore=kv)
+
     def step(self, batch_size, ignore_stale_grad=False):
-        """Rescale gradients by ``rescale_grad / batch_size`` and update.
-        On one card there is nothing to all-reduce."""
-        self.update(batch_size, ignore_stale_grad)
+        """Rescale gradients by ``rescale_grad / batch_size``, sum them
+        over the ranks (a store of more than one worker), and update."""
+        if not self._kv_initialized:
+            self._init_kvstore()
+        self._optimizer.rescale_grad = self._scale / batch_size
+        if self._kvstore is not None and self._update_on_kvstore:
+            self._update_on_store(ignore_stale_grad)
+            return
+        self._all_reduce_grads()
+        self._update(ignore_stale_grad)
 
     def allreduce_grads(self):
-        """All-reduce the gradients across devices (reference
-        ``allreduce_grads``): the Trainer's kvstores are all of one
-        device (others raise at construction, ROADMAP §1 item 10), so,
-        as in the reference's local store, there is nothing to do."""
+        """Sum the gradients over the ranks (reference
+        ``allreduce_grads``); nothing to do without a store."""
+        if not self._kv_initialized:
+            self._init_kvstore()
+        self._all_reduce_grads()
 
     def update(self, batch_size, ignore_stale_grad=False):
         """Update only (the reference's step without the all-reduce)."""
+        if not self._kv_initialized:
+            self._init_kvstore()
         self._optimizer.rescale_grad = self._scale / batch_size
+        if self._kvstore is not None and self._update_on_kvstore:
+            self._update_on_store(ignore_stale_grad)
+            return
         self._update(ignore_stale_grad)
+
+    def _update_on_store(self, ignore_stale_grad=False):
+        """``update_on_kvstore``: push every fresh gradient (the store
+        sums it over the ranks and its updater applies the optimizer to
+        its copy of the weight), then pull the weights into the
+        parameters in place."""
+        self._refresh()
+        self._check_param_buffer()
+        idxs = []
+        for i, p in enumerate(self._params):
+            if not p.requires_grad:
+                continue
+            if p.grad is None:
+                if ignore_stale_grad:
+                    continue
+                raise MXNetError(
+                    f"Gradient of Parameter `{self._names[i]}` has not been "
+                    "computed. Call backward first, or set requires_grad "
+                    "to False / use ignore_stale_grad=True.")
+            idxs.append(i)
+        if not idxs:
+            return
+        params = self._all_params()
+        grads = [NDArray(self._params[i].grad) for i in idxs]
+        weights = [params[i].data() if self._gluon is not None
+                   else NDArray(self._params[i].data) for i in idxs]
+        self._kvstore.push(idxs, grads)
+        self._kvstore.pull(idxs, out=weights)
+        for i in idxs:
+            self._params[i].grad = None
 
     def _refresh(self):
         """Read the gluon Parameters' tensors afresh (an uninitialized one

@@ -129,10 +129,15 @@ def _target_device(mesh, sharding):
             return Context.from_device(torch.device(sharding)).torch_device
         raise NotSupportedError(
             "DevicePrefetcher: sharding= takes one device (a Context or a "
-            "torch.device); shardings over several devices arrive with the "
-            "multi-device slice (ROADMAP §1 item 10)")
+            "torch.device); shardings over several devices arrive with "
+            "ROADMAP §1 item 10b")
     if mesh is not None:
-        return mesh.device            # raises for more than one device
+        if mesh.size > 1:
+            raise NotSupportedError(
+                f"DevicePrefetcher over a mesh of {mesh.size} devices "
+                "arrives with ROADMAP §1 item 10b; give it this rank's "
+                "device (sharding=mesh.device)")
+        return mesh.device
     return current_context().torch_device
 
 

@@ -5,8 +5,8 @@
 ``Features()`` reports the port's own substrate under the reference's
 keys: ``CUDA``, ``CUDNN`` and ``NCCL`` from ``torch.cuda`` and
 ``torch.backends``, ``BF16`` from the card, ``TPU``, ``XLA``, ``JAX`` and
-``PALLAS`` false, ``DIST_KVSTORE`` false until ROADMAP §1 item 10 ports
-it, ``NATIVE_IO`` true once the native host runtime of ``src/`` has
+``PALLAS`` false, ``DIST_KVSTORE`` true once this process has joined a
+process group (``parallel.distributed_init``), ``NATIVE_IO`` true once the native host runtime of ``src/`` has
 loaded in this process (``utils.native``, built at first use); the port
 adds ``TORCH`` (ROADMAP §3).
 
@@ -21,6 +21,7 @@ import importlib.util
 
 import torch
 
+from . import _dist_init
 from .base import NotSupportedError
 from .utils import native
 
@@ -73,7 +74,7 @@ def _detect():
         "PALLAS": False,
         "BF16": cuda and torch.cuda.is_bf16_supported(),
         "INT64_TENSOR_SIZE": True,
-        "DIST_KVSTORE": False,
+        "DIST_KVSTORE": _dist_init.is_initialized(),
         "CUDA": cuda,
         "CUDNN": cuda and torch.backends.cudnn.is_available(),
         "NCCL": cuda and dist and torch.distributed.is_nccl_available(),

@@ -351,7 +351,7 @@ class InferenceEngine:
             raise MXNetError(f"quantize={quantize!r}: only int8 weight "
                              "quantization is supported")
         _refuse("mesh", mesh, "the tensor-parallel serving slice "
-                "(ROADMAP §1 item 10)")
+                "(ROADMAP §1 item 10b)")
         if compile_cache is not None:
             raise NotSupportedError(
                 "InferenceEngine(compile_cache=...) has no counterpart in "

@@ -81,8 +81,8 @@ class PagedKVCache:
         if sharding is not None:
             raise NotSupportedError(
                 "PagedKVCache(sharding=...) is not ported yet: sharded "
-                "pools arrive with the multi-device slice (ROADMAP §1 "
-                "item 10)")
+                "pools arrive with tensor-parallel serving (ROADMAP §1 "
+                "item 10b)")
         if block_size < 1 or (block_size & (block_size - 1)):
             raise MXNetError("block_size must be a power of two, got "
                              f"{block_size}")

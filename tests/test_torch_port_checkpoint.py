@@ -459,8 +459,38 @@ def test_preemption_handler_and_run_preemptible(tmp_path):
     assert checkpoint.PreemptionHandler.installed() is None
 
 
-def test_reshard_raises_naming_the_multi_device_item():
-    for fn in (checkpoint.reshard_in_place,
-               checkpoint.reshard_from_checkpoint):
-        with pytest.raises(NotSupportedError, match="item 10"):
-            fn(None, None)
+def test_reshard_raises_naming_the_multi_device_item(tmp_path):
+    """The reshards are ported (dp 4 -> 2 -> 1 across ranks is held in
+    ``test_torch_port_distributed.py``): on one device each rebuilds the
+    trainer onto the new mesh and restores its state bitwise, and each
+    refuses a trainer without ``rebuild`` or a missing manager, as the
+    reference's do."""
+    with pytest.raises(mx.MXNetError, match="rebuild"):
+        checkpoint.reshard_in_place(object(), None)
+    with pytest.raises(mx.MXNetError, match="rebuild"):
+        checkpoint.reshard_from_checkpoint(object(), None, manager=object())
+    with pytest.raises(mx.MXNetError, match="CheckpointManager"):
+        checkpoint.reshard_from_checkpoint(object(), None)
+    net = _port_net(_weights(_jax_net()))
+    tr = _port_dp(net, "adam")
+    tr.step(*_batch(1))
+    before = tr.state_dict()
+    with mx.cpu():
+        got = checkpoint.reshard_in_place(tr, parallel.make_mesh({"dp": 1}),
+                                          params=net)
+    assert got == {"source": "peer", "step": None}
+    after = tr.state_dict()
+    assert sorted(after["arrays"]) == sorted(before["arrays"])
+    for k, v in before["arrays"].items():
+        np.testing.assert_array_equal(after["arrays"][k].asnumpy(),
+                                      v.asnumpy())
+    mgr = checkpoint.CheckpointManager(tmp_path)
+    mgr.save(1, params=net, trainer=tr, sync=True)
+    want = _trainable(net)
+    tr.step(*_batch(2))
+    with mx.cpu():
+        got = checkpoint.reshard_from_checkpoint(
+            tr, parallel.MeshConfig(dp=1), params=net, manager=mgr)
+    assert got["step"] == 1
+    for k, v in want.items():
+        np.testing.assert_array_equal(_trainable(net)[k], v)

@@ -3438,3 +3438,143 @@ def test_dataloader_prefetch_to_device_on_the_card(card):
     assert len(runs[0]) == len(runs[1]) == 3
     for (a, b), (c, d) in zip(*runs):
         assert np.array_equal(a, c) and np.array_equal(b, d)
+
+
+# ----------------------------------------------------------------------
+# data parallelism over more than one rank (ROADMAP §1 item 10a)
+# ----------------------------------------------------------------------
+
+def test_dist_nccl_one_rank_captured_collectives_match_eager(card, tmp_path):
+    """NCCL at one rank: all_reduce, reduce_scatter_tensor and
+    all_gather_into_tensor (zero.reduce_scatter_bucket's and
+    all_gather_bucket's) captured in one CUDA graph replay the eager
+    results bitwise."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import parallel
+    from mxnet_tpu_torch.parallel import zero
+    assert parallel.distributed_init(f"file://{tmp_path}/store", 1, 0)
+    try:
+        assert mx.runtime.Features().is_enabled("DIST_KVSTORE")
+        gen = torch.Generator(device=card).manual_seed(0)
+        src = torch.randn(1 << 20, device=card, generator=gen)
+        buf, full = torch.empty_like(src), torch.empty_like(src)
+        group = torch.distributed.group.WORLD
+
+        def body():
+            buf.copy_(src)
+            zero.all_reduce_mean(buf, 1, group)
+            shard = zero.reduce_scatter_bucket(buf, 1, "fp32", group)
+            zero.all_gather_bucket(full, shard * 0.5, group)
+
+        body()
+        torch.cuda.synchronize()
+        eager = (buf.clone(), full.clone())
+        buf.zero_()
+        full.zero_()
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=side):
+            body()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(buf, eager[0]) and torch.equal(full, eager[1])
+        assert torch.distributed.get_backend(group) == "nccl"
+    finally:
+        parallel.teardown_distributed()
+
+
+def test_dist_nccl_one_rank_trainer_captures_its_collectives(card,
+                                                            tmp_path):
+    """``DataParallelTrainer`` on the one-rank NCCL mesh: its step (the
+    gradient's all_reduce and BatchNorm's statistics all_reduces inside)
+    is captured once and its replays match the same body run eagerly."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import gluon, parallel
+    rng = np.random.RandomState(1)
+    batches = [(rng.rand(4, 3, 16, 16).astype(np.float32),
+                rng.randint(0, 10, (4,)).astype(np.float32))
+               for _ in range(3)]
+
+    def net_of():
+        nn = gluon.nn
+        net = nn.HybridSequential(prefix="ncclnet_")
+        with net.name_scope():
+            net.add(nn.Conv2D(8, 3, padding=1, use_bias=False),
+                    nn.BatchNorm(), nn.Activation("relu"),
+                    nn.GlobalAvgPool2D(), nn.Dense(10))
+        return net
+
+    with mx.cpu():
+        host = net_of()
+        host.initialize(mx.init.Xavier())
+        host(mx.nd.array(batches[0][0]))
+        w0 = block_weights_to_numpy(host)
+    assert parallel.distributed_init(f"file://{tmp_path}/store", 1, 0)
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        got = {}
+        for graphs in (True, False):
+            net = net_of()
+            net.initialize(ctx=mx.gpu(0))
+            load_block_weights(net, w0)
+            mesh = parallel.make_mesh({"dp": 1})
+            assert mesh.group is not None
+            tr = parallel.DataParallelTrainer(
+                net, gluon.loss.SoftmaxCrossEntropyLoss(), "sgd",
+                {"learning_rate": 0.1, "momentum": 0.9}, mesh=mesh)
+            tr._use_graphs = graphs
+            losses = [float(tr.step(*b).asnumpy()) for b in batches]
+            assert tr.stats["captures"] == (1 if graphs else 0)
+            got[graphs] = (losses, block_weights_to_numpy(net))
+        np.testing.assert_allclose(got[True][0], got[False][0], rtol=1e-5)
+        for k, v in got[False][1].items():
+            np.testing.assert_allclose(got[True][1][k], v, rtol=1e-5,
+                                       atol=1e-6)
+    finally:
+        torch.backends.cudnn.deterministic = prev
+        parallel.teardown_distributed()
+
+
+def test_dist_two_ranks_on_one_card_bitwise_and_k1_on_the_shard(card,
+                                                                tmp_path):
+    """Two processes share the card over gloo (eager steps: gloo's
+    collectives cannot be captured): on both paths the ranks'
+    parameters are bitwise equal after every step and finite (and the
+    psum path's BatchNorm statistics); K1 on a
+    rank's ZeRO-1 shard matches its plain version within K1's limits."""
+    import pathlib
+    import sys
+    import mxnet_tpu_torch as mx
+    sys.path.insert(0, str(pathlib.Path(__file__).parent))
+    import torch_dist_worker as worker
+    ops._build.build(["fused_update"])
+    rng = np.random.RandomState(0)
+    with mx.cpu():
+        net = worker.conv_net()
+        net.initialize(mx.init.Xavier())
+        net(mx.nd.array(rng.rand(2, 3, 8, 8).astype(np.float32)))
+        w0 = worker.weights_of(net)
+    data = {}
+    for b in ("0", "1"):
+        data["x" + b] = rng.rand(8, 3, 8, 8).astype(np.float32)
+        data["y" + b] = rng.randint(0, 10, (8,)).astype(np.float32)
+    ranks = worker.run_ranks("card", 2, tmp_path, w0, data)
+    for path in ("psum", "zero1"):
+        # under ZeRO-1 each rank's BatchNorm statistics are its own rows'
+        keys = [k for k in ranks[0] if k.startswith(f"card/{path}/")
+                and not k.endswith(("use_graphs", "k1_err", "k1_scale",
+                                    "k1_shard"))
+                and not (path == "zero1" and "running_" in k)]
+        assert keys
+        for k in keys:
+            assert np.isfinite(ranks[0][k]).all(), k
+            assert np.array_equal(ranks[0][k], ranks[1][k]), k
+        assert not bool(ranks[0][f"card/{path}/use_graphs"])
+    for r in ranks:
+        assert int(r["card/zero1/k1_shard"]) * 2 >= sum(
+            v.size for k, v in w0.items() if "running_" not in k)
+        assert float(r["card/zero1/k1_err"]) <= \
+            1e-7 + 1e-6 * float(r["card/zero1/k1_scale"])
+

@@ -470,24 +470,36 @@ def test_learning_rate_schedule_and_rules():
                 net, ce, rule, {"learning_rate": 1e-3}, mesh=mesh)
             assert np.isfinite(float(other.step(x, y).asnumpy()))
             assert set(other.state_dict()["meta"]["leaves"]) == leaves
-        for probe in (tr.comm_stats, tr.overlap_probe):
-            with pytest.raises(NotSupportedError, match="item 10"):
-                probe()
+        # at dp=1 the comm block is the psum path's (nothing measured) and
+        # the overlap probe measures nothing, as in the reference
+        stats = tr.comm_stats()
+        assert not stats["zero1"] and stats["dp"] == 1
+        assert stats["collective_ms"] is None and stats["backend"] is None
+        assert set(tr.overlap_probe(x, y).values()) == {None}
         grads = [p for p in net.collect_params().values()]
         assert parallel.all_reduce_gradients(grads) is grads
-        with pytest.raises(NotSupportedError, match="item 10"):
-            parallel.all_reduce_gradients(grads, kvstore="device")
+        assert parallel.all_reduce_gradients(
+            grads, kvstore=mx.kv.create("device")) is grads
         assert tr.rebuild(parallel.make_mesh({"dp": 1})) is tr
         tr.step(x, y)
 
 
 def test_constructor_takes_the_reference_arguments():
+    """The reference's arguments in its order and defaults, then the
+    knobs it reads from the environment, as arguments at the values it
+    takes when they are unset (``MXTPU_COMM_BUCKET_MB`` 32,
+    ``MXTPU_COMM_DTYPE`` fp32)."""
     import inspect
     ours = inspect.signature(parallel.DataParallelTrainer.__init__)
     ref = inspect.signature(JTrainer.__init__)
-    assert list(ours.parameters) == list(ref.parameters)
+    names = list(ours.parameters)
+    assert names[:len(ref.parameters)] == list(ref.parameters)
+    assert names[len(ref.parameters):] == ["bucket_mb", "comm_dtype"]
     for name, p in ref.parameters.items():
         assert ours.parameters[name].default == p.default, name
+    assert parallel.zero.bucket_bound_bytes(
+        ours.parameters["bucket_mb"].default) == 32 * 1024 * 1024
+    assert ours.parameters["comm_dtype"].default == "fp32"
 
 
 # ----------------------------------------------------------------------
@@ -495,6 +507,10 @@ def test_constructor_takes_the_reference_arguments():
 # ----------------------------------------------------------------------
 
 def test_meshes_of_one_device_and_more_raise():
+    """One device makes a mesh by itself; more than one needs a process
+    group (``distributed_init``; the ranks' meshes are held in
+    ``test_torch_port_distributed.py``), and tensor and pipeline axes
+    raise naming item 10b."""
     cpu = torch.device("cpu")
     mesh = parallel.make_mesh({"dp": 1}, devices=[cpu])
     assert mesh.shape == {"dp": 1} and mesh.device == cpu
@@ -502,22 +518,24 @@ def test_meshes_of_one_device_and_more_raise():
     with mx.cpu():
         assert parallel.make_mesh().shape == {"dp": 1}
         assert parallel.local_mesh({"dp": 1}).device == cpu
-    with pytest.raises(NotSupportedError, match="item 10"):
+    with pytest.raises(mx.MXNetError, match="distributed_init"):
         parallel.make_mesh({"dp": 2}, devices=[cpu, cpu])
-    with pytest.raises(NotSupportedError, match="item 10"):
+    with pytest.raises(NotSupportedError, match="item 10b"):
         parallel.make_mesh({"dp": 1, "tp": 2}, devices=[cpu, cpu])
     with pytest.raises(mx.MXNetError, match="!= 2 devices"):
         parallel.make_mesh({"dp": 1}, devices=[cpu, cpu])
     for refused in (lambda: parallel.MeshConfig(dp=2, tp=2, pp=2),
                     lambda: parallel.MeshConfig(dp=1, tp=2),
                     lambda: parallel.MeshConfig.from_spec("dp2tp2pp2"),
-                    lambda: parallel.MeshConfig(dp=-1).build([cpu, cpu]),
                     lambda: parallel.MeshConfig().stage_mesh(0)):
-        with pytest.raises(NotSupportedError, match="item 10"):
+        with pytest.raises(NotSupportedError, match="item 10b"):
             refused()
+    with pytest.raises(mx.MXNetError, match="distributed_init"):
+        parallel.MeshConfig(dp=-1).build([cpu, cpu])
     assert parallel.MeshConfig(dp=1).build([cpu]).device == cpu
     assert parallel.MeshConfig(dp=-1).build([cpu]).shape == {"dp": 1}
     assert parallel.MeshConfig().describe() == "dp1"
+    assert parallel.MeshConfig.from_spec("dp2").describe() == "dp2"
     assert parallel.MeshConfig.for_mesh(mesh) == parallel.MeshConfig()
     with parallel.mesh_scope(mesh):
         assert parallel.current_mesh() is mesh
@@ -528,8 +546,10 @@ def test_meshes_of_one_device_and_more_raise():
                 net, gluon.loss.SoftmaxCrossEntropyLoss())
         assert tr.mesh is mesh
     assert parallel.current_mesh() is None
-    with pytest.raises(NotSupportedError, match="item 10"):
-        parallel.distributed_init()
+    # no coordinator: one process, as the reference's
+    with mx.cpu():
+        assert parallel.distributed_init() is False
+    assert not mx.runtime.Features().is_enabled("DIST_KVSTORE")
 
 
 def test_entry_points_raise_without_a_card():
@@ -563,7 +583,22 @@ def test_no_environment_knob_is_read(monkeypatch, tmp_path):
                         ("MXTPU_TEST_SEED", "5"), ("MXNET_TEST_SEED", "5"),
                         ("MXTPU_SYNTHETIC_DATA", "1"),
                         ("MXTPU_PREFETCH_DEPTH", "5"),
-                        ("MXTPU_NO_NATIVE_BUILD", "1")):
+                        ("MXTPU_NO_NATIVE_BUILD", "1"),
+                        ("MXTPU_COMM_BUCKET_MB", "1"),
+                        ("MXTPU_COMM_DTYPE", "int8"),
+                        ("MXTPU_SHARDED_SYNC", "0"),
+                        ("MXTPU_OVERLAP_COMM", "0"),
+                        ("MXTPU_KVSTORE_BIGARRAY_BOUND", "8"),
+                        ("MXTPU_KVSTORE_WIRE", "allgather"),
+                        ("MXTPU_COORDINATOR", "localhost:1234"),
+                        ("MXTPU_NUM_PROCESSES", "2"),
+                        ("MXTPU_PROCESS_ID", "1"),
+                        ("MXTPU_COORD_HEARTBEAT_INTERVAL_S", "1"),
+                        ("MXTPU_COORD_MAX_MISSING_HEARTBEATS", "1"),
+                        ("MXTPU_COORD_INIT_TIMEOUT_S", "1"),
+                        ("DMLC_NUM_WORKER", "2"), ("DMLC_WORKER_ID", "1"),
+                        ("DMLC_PS_ROOT_PORT", "9000"),
+                        ("MXTPU_BENCH_DP", "8")):
         monkeypatch.setenv(name, value)
     with mx.cpu():
         assert parallel.make_mesh().shape == {"dp": 1}
@@ -641,6 +676,20 @@ def test_no_environment_knob_is_read(monkeypatch, tmp_path):
                                    batch_size=1, prefetch_to_device=True)
     assert loader._prefetch_depth == 2
     assert native.available() and native.loaded()
+    # the data-parallel knobs: no process group is joined at import or at
+    # a store's creation, and the wire, bucket bound and paths are the
+    # arguments' defaults
+    assert not mx._dist_init.is_initialized()
+    store = mx.kv.create("dist_sync")
+    assert store.num_workers == 1 and store._wire == "allreduce"
+    assert store._bound == mx.kv.kvstore.DEFAULT_BIGARRAY_BOUND
+    with mx.cpu():
+        dnet = _conv_net(mx)
+        dnet.initialize()
+        dtr = parallel.DataParallelTrainer(
+            dnet, gluon.loss.SoftmaxCrossEntropyLoss(), shard_updates=True)
+    assert dtr._comm_dtype == "fp32"
+    assert dtr._bucket_bytes == 32 * 1024 * 1024
     # util's getenv/setenv are the user's API, and debug sets only cuBLAS's
     # workspace variable
     for rel, allowed in (("util.py", {None}),
@@ -670,7 +719,10 @@ def test_no_environment_knob_is_read(monkeypatch, tmp_path):
                 "ndarray/sparse.py", "ndarray/contrib.py",
                 "gluon/nn/basic_layers.py", "optimizer/optimizer.py",
                 "io/__init__.py", "io/prefetch.py", "recordio.py",
-                "image.py", "utils/native.py", "utils/__init__.py"):
+                "image.py", "utils/native.py", "utils/__init__.py",
+                "_dist_init.py", "parallel/zero.py", "parallel/overlap.py",
+                "kvstore/__init__.py", "kvstore/kvstore.py",
+                "kvstore/horovod.py", "gluon/trainer.py"):
         tree = ast.parse((REPO / "mxnet_tpu_torch" / rel).read_text())
         names = {n.attr for n in ast.walk(tree)
                  if isinstance(n, ast.Attribute)}

@@ -369,6 +369,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     files = sorted((REPO / "mxnet_tpu_torch").rglob("*.py"))
     files += sorted((REPO / "tools").glob("port_*.py"))
     files.append(REPO / "chip_smoke.py")
+    # the multi-rank tests' ranks run on the card too (the card job)
+    files.append(REPO / "tests" / "torch_dist_worker.py")
     # the training entry point, checkpointing, int8 quantization, the
     # LLM extras, the CachedOp, sparse storage, the surface modules and
     # gluon.data are covered too
@@ -397,11 +399,16 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                 "callback.py",
                 # the input pipeline
                 "io/__init__.py", "io/prefetch.py", "recordio.py",
-                "image.py", "utils/__init__.py", "utils/native.py"):
+                "image.py", "utils/__init__.py", "utils/native.py",
+                # data parallelism over more than one rank
+                "_dist_init.py", "parallel/zero.py", "parallel/overlap.py",
+                "kvstore/__init__.py", "kvstore/kvstore.py",
+                "kvstore/horovod.py"):
         assert port / rel in files, rel
     assert REPO / "tools" / "port_serve_loadgen.py" in files
     assert REPO / "tools" / "port_cached_op_pairs.py" in files
     assert REPO / "tools" / "port_make_jpeg_fixture.py" in files
+    assert REPO / "tools" / "port_dist_probe.py" in files
     bad = []
     for path in files:
         for name in _imports(path):

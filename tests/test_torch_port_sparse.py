@@ -3,10 +3,11 @@ sparse ``Embedding``, ``Parameter(grad_stype=)``, the lazy SGD and Adam,
 the Trainer's per-parameter path for them, ``nd.save``/``nd.load``)
 against the JAX package, on the CPU.
 
-The reference's ``tests/test_sparse.py`` cases, but kvstore's
-``row_sparse_pull`` and sparse push (ROADMAP §1 item 10), each run
-through both packages on the same numpy inputs (fixed ``RandomState``
-seeds).  Tolerances:
+The reference's ``tests/test_sparse.py`` cases, kvstore's
+``row_sparse_pull`` and sparse push included (one process, the local
+store; two ranks over the dist store in ``test_torch_port_kvstore.py``),
+each run through both packages on the same numpy inputs (fixed
+``RandomState`` seeds).  Tolerances:
 
 - exact for storage (indices, values, densified views, retained rows,
   pickles and files), for gathered and summed gradient rows (sums of
@@ -602,6 +603,44 @@ def test_nd_save_after_dense_write_saves_fresh_values(tmp_path):
     np.testing.assert_array_equal(out.asnumpy(), dense + 1.0)
     np.testing.assert_array_equal(jmx.nd.load(path)["r"].asnumpy(),
                                   dense + 1.0)
+
+
+def test_kvstore_row_sparse_pull():
+    """Reference ``test_kvstore_row_sparse_pull``: the rows asked for,
+    sorted and unique, exactly."""
+    w = np.random.RandomState(11).rand(20, 4).astype(np.float32)
+    got = {}
+    for pkg in (jmx, mx):
+        with mx.cpu() if pkg is mx else contextlib.nullcontext():
+            kv = pkg.kv.create("local")
+            kv.init("emb", pkg.nd.array(w))
+            out = kv.row_sparse_pull("emb", row_ids=pkg.nd.array([3, 11, 3]))
+        assert out.stype == "row_sparse"
+        got[pkg] = (out.indices.asnumpy(), out.values.asnumpy())
+    np.testing.assert_array_equal(got[mx][0], [3, 11])
+    np.testing.assert_array_equal(got[mx][0], got[jmx][0])
+    np.testing.assert_array_equal(got[mx][1], got[jmx][1])
+
+
+def test_kvstore_sparse_push_accumulates():
+    """Reference ``test_kvstore_sparse_push_accumulates``: a row-sparse
+    push (two copies here, their rows overlapping) replaces the stored
+    value with their row sum; the pull is dense, exactly the reference's."""
+    rng = np.random.RandomState(12)
+    vals = [rng.rand(2, 2).astype(np.float32) for _ in range(2)]
+    rows = [np.array([1, 4]), np.array([4, 7])]
+    got = {}
+    for pkg, mod in ((jmx, jsp), (mx, sp)):
+        with mx.cpu() if pkg is mx else contextlib.nullcontext():
+            kv = pkg.kv.create("local")
+            kv.init("w", pkg.nd.zeros((10, 2)))
+            kv.push("w", [mod.row_sparse_array((v, r), shape=(10, 2))
+                          for v, r in zip(vals, rows)])
+            pulled = pkg.nd.zeros((10, 2))
+            kv.pull("w", out=pulled)
+        got[pkg] = pulled.asnumpy()
+    np.testing.assert_array_equal(got[mx], got[jmx])
+    assert np.abs(got[mx][[0, 2, 3, 5, 6, 8, 9]]).max() == 0
 
 
 def test_sum_duplicate_rows_matches_reference():

@@ -643,9 +643,23 @@ def test_unported_optimizers_and_kvstores_raise():
                             "learning_rate": 0.3})
     assert tr.optimizer.lr_scheduler is sched and sched.base_lr == 0.3
     assert tr.optimizer.multi_precision
-    for kv in ("dist_sync", "nccl", "tpu_sync"):
-        with pytest.raises(NotSupportedError, match="multi-device"):
-            Trainer(p, "sgd", kvstore=kv)
+    # the kvstores are ported: in one process the local and nccl stores
+    # are no store at all (MXNet's _create_kvstore on one device), a dist
+    # store is one worker, and each steps as the plain Trainer does
+    # (test_torch_port_kvstore.py holds two ranks against the reference)
+    plain = None
+    for kv in (None, "local", "device", "nccl", "tpu_sync", "dist_sync",
+               "horovod", mt.kv.create("dist_device_sync")):
+        q = {"w": torch.nn.Parameter(torch.linspace(-1, 1, 3))}
+        tr = Trainer(q, "sgd", {"learning_rate": 0.1}, kvstore=kv)
+        q["w"].grad = torch.ones(3)
+        tr.step(2)
+        assert (tr.kvstore is None) == (kv in (None, "local", "device",
+                                               "nccl", "tpu_sync"))
+        plain = q["w"].detach() if plain is None else plain
+        assert torch.equal(q["w"].detach(), plain), kv
+    with pytest.raises(NotSupportedError, match="item 10b"):
+        Trainer(p, "sgd", kvstore="dist_async").step(1)
     with pytest.raises(MXNetError):
         Trainer([torch.zeros(3)], "sgd")
     tr = Trainer(p, "sgd", {"learning_rate": 0.5}, kvstore="local")
@@ -660,8 +674,8 @@ def test_unported_optimizers_and_kvstores_raise():
     ({}, {"lazy_update": False}, None),
     ({}, {"lazy_update": True, "param_idx2name": {}, "sym": None,
           "param_dict": None}, None),
-    ({"compression_params": {"type": "2bit"}}, {}, "multi-device"),
-    ({"update_on_kvstore": False}, {}, "multi-device"),
+    ({"compression_params": {"type": "2bit"}}, {}, None),
+    ({"update_on_kvstore": False}, {}, None),
     ({}, {"param_idx2name": {0: "w"}}, "training-surface"),
     ({}, {"sym": object()}, "training-surface"),
     ({}, {"param_dict": {0: types.SimpleNamespace(lr_mult=1.0,
@@ -673,9 +687,10 @@ def test_unported_optimizers_and_kvstores_raise():
 def test_reference_arguments_accepted_or_refused_by_name(
         optname, trainer_kw, opt_kw, refused):
     """The reference's Trainer and Optimizer arguments: the no-op defaults
-    (and ``lazy_update``, dense here as in the reference) update like the
-    plain call; anything else raises ``NotSupportedError`` naming its
-    ROADMAP item."""
+    (and ``lazy_update``, dense here as in the reference; compression and
+    ``update_on_kvstore`` on one device, where no store is made, as
+    MXNet's ``_create_kvstore``) update like the plain call; anything
+    else raises ``NotSupportedError`` naming its ROADMAP item."""
     def run(tkw, okw):
         p = {"w": torch.nn.Parameter(torch.linspace(-1, 1, 6))}
         tr = Trainer(p, optname, {"learning_rate": 0.1, **okw}, **tkw)
