@@ -358,6 +358,36 @@ continued:
     ``prefetch_to_device=True``, the numpy-body
     ``Custom`` softmax against ``nd.softmax`` and
     ``test_utils.check_consistency`` over ``[cpu(0), gpu(0)]``;
+40. (after phase 37) the fused RNN layers at AWD-LSTM's WikiText-2
+    geometry (T 70, B 80, input 400): a 3-layer LSTM and GRU of hidden
+    1150 and a bidirectional 2-layer LSTM of hidden 512, hybridized, the
+    third call (a replay of the captured forward and backward) against
+    one CPU call: outputs and states within 1e-4, every gradient within
+    1e-3 of its norm, ``nd.RNN`` over the packed vector on the card;
+    each replayed forward and backward timed beside ``torch.nn.LSTM``/
+    ``GRU`` (cuDNN) on the same weights; no kernel of the port;
+41. ``awd_lstm_lm_1150`` (vocabulary 33,278) hybridized through the
+    Gluon loop at GluonNLP's WikiText-2 recipe (batch 80 x bptt 70, SGD
+    lr 30, ``clip_global_norm`` 0.25): the first step's loss and
+    gradients on the first 8 sequences in predict mode against the CPU,
+    then 10 steps with dropout: step ms, tokens/s, host share, captures,
+    K1 once a step;
+42. one classifier of each family (``alexnet``, ``vgg16_bn``,
+    ``squeezenet1_1``, ``densenet121``, ``inception_v3`` at 299,
+    ``mobilenet1_0``, ``mobilenet_v2_1_0``, ``resnext50_32x4d``,
+    ``se_resnet50``, ``resnest50``) at full width, predict mode at batch
+    2, hybridized, against the CPU; then ``mobilenet_v2_1_0`` trains at
+    224, batch 64, f32 through the Gluon loop (its first step against
+    the CPU on cuDNN's deterministic algorithms): step ms, images/s,
+    host share, peak memory, K1 once a step;
+43. ``ssd_300_resnet34_v1`` at batch 8 x 300 x 300, hybridized: its
+    class and box predictions against the CPU, ``MultiBoxDetection``
+    (``box_nms`` inside) on the card against the CPU's over the same
+    inputs with the tie rule at the NMS threshold, end-to-end matched
+    detections, the inference call's ms and whether it captured, the
+    CUDA launches of one ``box_nms`` call and of its suppression sweep;
+    one training step (``MultiBoxTarget``, softmax cross-entropy plus L1
+    box loss, SGD, K1) against the CPU;
     samples/s (CUDA events, beside ``Speedometer``'s), the wait share in
     ``next(loader)``, device busy against wall, peak memory;
 11. bf16 AMP training (``amp.init`` is process-wide, so phases 11, 13,
@@ -479,7 +509,7 @@ run's steps are measured as they run without it) that replays each
 decode step on its own staged inputs, the replays' device time (CUDA
 events around ``graph.replay()``) and each step's host share beside
 it.  Before
-each of phases 4, 7-19 and 20-39 the kernels' launch counters are set to 0
+each of phases 4, 7-19 and 20-43 the kernels' launch counters are set to 0
 (in each spawned rank of 39b and 39c, whose counts are summed); each phase reads them just after and fails unless its kernels
 ran the expected number of times.  The second-to-last line is the
 card's name and power limit, the line before it the kernels' JSON
@@ -9010,6 +9040,1009 @@ def dp2_resnet(dev, card):
     return launches
 
 
+# ----------------------------------------------------------------------
+# phases 40-43: the recurrent layers, the language models, the vision
+# classifiers and SSD (ROADMAP §1 item 11a), through the CachedOp and
+# the Gluon loop
+# ----------------------------------------------------------------------
+
+# phase 40: AWD-LSTM's WikiText-2 geometry (T = 70, B = 80, input 400)
+RNN_T, RNN_B, RNN_I = 70, 80, 400
+RNN_CASES = (("lstm", 3, 1150, False), ("gru", 3, 1150, False),
+             ("lstm", 2, 512, True))
+RNN_OUT_ATOL = 1e-4     # outputs and final states, values in (-1, 1)
+RNN_GRAD_RTOL = 1e-3    # each gradient's relative difference by norm
+RNN_TIMED = 10
+# phase 41: awd_lstm_lm_1150 at GluonNLP's WikiText-2 recipe
+LM_VOCAB, LM_BATCH, LM_BPTT, LM_CHECK_BATCH = 33278, 80, 70, 8
+LM_LR, LM_CLIP, LM_WD = 30.0, 0.25, 1.2e-6
+LM_WARMUP, LM_TIMED, LM_TRACED = 2, 6, 2
+LM_LOSS_RTOL, LM_GRAD_RTOL = 1e-4, 1e-3
+# phase 42: one classifier a family, predict mode at batch 2
+CLF_CASES = (("alexnet", 224), ("vgg16_bn", 224), ("squeezenet1_1", 224),
+             ("densenet121", 224), ("inception_v3", 299),
+             ("mobilenet1_0", 224), ("mobilenet_v2_1_0", 224),
+             ("resnext50_32x4d", 224), ("se_resnet50", 224),
+             ("resnest50", 224))
+CLF_BATCH = 2
+# x max |logit| (with ``Xavier(magnitude=2)``'s averaged fans the
+# depthwise and squeeze stages shrank random-weight logits to 1e-22-1e-2;
+# the phase draws He's initialization, and the limit is relative)
+CLF_LOGIT_TOL = 1e-4
+# MobileNet v2's gradients on the card against float64 on the CPU, in
+# predict and in training mode.  ReLU6 passes a unit's whole gradient or
+# none of it, so where f32 rounding puts a unit on the other side of 0 or
+# 6 the backward signal moves by about that unit's share of its layer:
+# card against CPU the gradients read 7.45e-3 apart by norm on an H100,
+# the CPU at f32 against float64 2.3e-3 (predict) and 8.8e-3 (training)
+# at batch 4, and 1.6e-6 and 1.1e-5 where float64 takes the f32 run's
+# gates (tools/port_mobilenet_kinks.py).  So the float64 reference
+# passes each ReLU6's gradient where the card's did (``relu6_gates``),
+# and the card is held at phase 16's limits: the loss within
+# TRAIN_LOSS_RTOL, each gradient within RESNET_UPDATE_RTOL of its norm
+# plus MBV2_GRAD_ATOL.  That floor holds the gradients that invariance
+# makes zero or small in training mode, which are rounding noise in
+# f32: the bottlenecks' last betas (out.7, whose shift the next
+# BatchNorm removes) and the expansions' gammas (out.1: ReLU6 is
+# homogeneous below 6, so the next BatchNorm removes their scale but
+# for the units clipped at 6); at batch 4 on the CPU they read 1.44e-5
+# apart, at this phase's batch 64 on an H100 1.84e-5
+# (features.3.out.7.beta)
+MBV2_GRAD_ATOL = 5e-5
+MBV2_CHECK_STEPS = 3
+MBV2_BATCH, MBV2_LR, MBV2_WARMUP, MBV2_TIMED, MBV2_TRACED = 64, 0.1, 2, 8, 2
+# phase 43: ssd_300_resnet34_v1 at batch 8
+SSD_BATCH, SSD_SIZE, SSD_GT = 8, 300, 3
+SSD_RAW_TOL = 1e-4      # x max(1, max |x|): class and box predictions
+SSD_BOX_TOL = 1e-3      # boxes of matched detections, in [0, 1]
+SSD_TIE_IOU = 1e-4      # suppression within this of the threshold: a tie
+SSD_LR, SSD_MOMENTUM = 0.01, 0.9
+# each parameter's one-step update, card against CPU.  ReLU's kink at 0
+# makes the step sensitive to rounding: one ulp more in half of the
+# input's elements moves the CPU's own update by 4.459e-4 all together
+# and by 2.220e-3 at the stage-1 betas behind the zeroed gammas (this
+# phase prints both, from an H100's host), what the card reads against
+# the CPU (4.462e-4, and 2.219e-3 at features.stage1.4.0.body.4.beta).
+# So the phase runs that CPU step too, and holds each parameter's
+# card-against-CPU update within RESNET_UPDATE_RTOL plus SSD_SPREAD_X
+# times what one ulp of input moved it on the CPU (the whole update
+# within RESNET_UPDATE_RTOL)
+SSD_SPREAD_X = 2.0
+SSD_TIMED = 5
+
+
+def _cuda_launches(fn):
+    """The CUDA kernels ``fn()`` launches (``torch.profiler``)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA)
+
+
+def _busy_ms(prof, steps):
+    """Device time a step from a ``torch.profiler`` window."""
+    import torch
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA) / \
+        1e3 / steps
+
+
+def _rnn_run(mx, net, ctx, x, h0, cot):
+    """One recorded forward and backward of a fused layer: the output,
+    the final states and every gradient, as numpy."""
+    from mxnet_tpu_torch import autograd
+    with ctx:
+        xa = mx.nd.array(x)
+        st = [mx.nd.array(h) for h in h0]
+        c = mx.nd.array(cot)
+    for a in [xa] + st:
+        a.attach_grad()
+    with autograd.record():
+        out, new = net(xa, st)
+        loss = (out * c).sum() + sum((s * s).sum() for s in new)
+    loss.backward()
+    grads = {"x": xa.grad.asnumpy()}
+    grads.update({f"state{i}": s.grad.asnumpy() for i, s in enumerate(st)})
+    grads.update({k: p.grad().asnumpy() for k, p in
+                  net._collect_params_with_prefix().items()})
+    return [out.asnumpy()] + [s.asnumpy() for s in new], grads
+
+
+def rnn_full_width(dev, card):
+    """Phase 40: ``gluon.rnn.LSTM`` and ``GRU`` at 3 layers, hidden 1150,
+    input 400, T = 70, B = 80 (AWD-LSTM's WikiText-2 geometry), and a
+    bidirectional 2-layer LSTM of hidden 512, hybridized on the card:
+    weights ``Uniform(1/sqrt(H))`` from ``mx.random.seed(40)`` made on
+    the host, inputs, initial states and the output's cotangent from
+    ``RandomState(40)``; the third call (a replay of the captured forward
+    and backward) against one eager call on the CPU: outputs and final
+    states within ``RNN_OUT_ATOL``, every gradient (input, states, each
+    weight) within ``RNN_GRAD_RTOL`` of its norm.  Then the replayed
+    forward and backward timed by CUDA events over ``RNN_TIMED`` calls
+    beside ``torch.nn.LSTM``/``GRU`` (cuDNN) on the same weights, the
+    library's time for the same shape; ``nd.RNN`` over the packed vector
+    checked against the layer on the card.  No kernel of the port
+    runs."""
+    import numpy as np
+    import torch
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import autograd, ops
+    from mxnet_tpu_torch.convert import (block_weights_to_numpy,
+                                         load_block_weights,
+                                         rnn_packed_vector)
+    t_phase = time.perf_counter()
+    ops.reset_launches()
+    lines, failed = [], []
+    gpu = mx.gpu(dev.index or 0)
+    for mode, layers, hidden, bi in RNN_CASES:
+        ndir = 2 if bi else 1
+        rng = np.random.RandomState(40)
+        x = rng.randn(RNN_T, RNN_B, RNN_I).astype(np.float32)
+        h0 = [(rng.randn(layers * ndir, RNN_B, hidden) * 0.5)
+              .astype(np.float32) for _ in range(2 if mode == "lstm" else 1)]
+        cot = rng.randn(RNN_T, RNN_B, hidden * ndir).astype(np.float32)
+        cls = mx.gluon.rnn.LSTM if mode == "lstm" else mx.gluon.rnn.GRU
+
+        def make():
+            return cls(hidden, layers, bidirectional=bi, input_size=RNN_I,
+                       prefix="r_")
+        host = make()
+        mx.random.seed(40)
+        host.initialize(mx.init.Uniform(1 / np.sqrt(hidden)), ctx=mx.cpu())
+        weights = block_weights_to_numpy(host)
+        want_out, want_g = _rnn_run(mx, host, mx.cpu(), x, h0, cot)
+        net = make()
+        net.initialize(ctx=gpu)
+        load_block_weights(net, weights)
+        net.hybridize()
+        for _ in range(3):
+            got_out, got_g = _rnn_run(mx, net, gpu, x, h0, cot)
+        out_err = max(float(np.abs(g - w).max())
+                      for g, w in zip(got_out, want_out))
+        grad_err = {k: _rel(got_g[k], want_g[k]) for k in want_g}
+        worst = max(grad_err, key=grad_err.get)
+        # the timed replays: forward and backward of the captured graphs
+        with gpu:
+            xa = mx.nd.array(x)
+            st = [mx.nd.array(h) for h in h0]
+            c = mx.nd.array(cot)
+        for a in [xa] + st:
+            a.attach_grad()
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        torch.cuda.synchronize(dev)
+        ev[0].record()
+        for _ in range(RNN_TIMED):
+            with autograd.record():
+                out, new = net(xa, st)
+                loss = (out * c).sum() + sum((s * s).sum() for s in new)
+            loss.backward()
+        ev[1].record()
+        torch.cuda.synchronize(dev)
+        port_ms = ev[0].elapsed_time(ev[1]) / RNN_TIMED
+        stats = dict(net._cached_op.stats)
+        # the library's: torch.nn.LSTM / GRU (cuDNN), the same weights
+        lib = (torch.nn.LSTM if mode == "lstm" else torch.nn.GRU)(
+            RNN_I, hidden, layers, bidirectional=bi).to(dev)
+        with torch.no_grad():
+            for layer in range(layers):
+                for d, tag in enumerate(["l", "r"][:ndir]):
+                    sfx = f"_l{layer}" + ("_reverse" if d else "")
+                    for a, b in (("weight_ih", "i2h_weight"),
+                                 ("weight_hh", "h2h_weight"),
+                                 ("bias_ih", "i2h_bias"),
+                                 ("bias_hh", "h2h_bias")):
+                        getattr(lib, a + sfx).copy_(torch.from_numpy(
+                            weights[f"{tag}{layer}_{b}"]))
+        tx = torch.from_numpy(x).to(dev).requires_grad_()
+        th = [torch.from_numpy(h).to(dev) for h in h0]
+        tc = torch.from_numpy(cot).to(dev)
+
+        def lib_step():
+            out, hn = lib(tx, tuple(th) if mode == "lstm" else th[0])
+            hn = hn if isinstance(hn, tuple) else (hn,)
+            loss = (out * tc).sum() + sum((s * s).sum() for s in hn)
+            loss.backward()
+            return out
+        lib_out = lib_step()
+        lib_err = float((lib_out.detach().cpu() -
+                         torch.from_numpy(want_out[0])).abs().max())
+        torch.cuda.synchronize(dev)
+        ev[0].record()
+        for _ in range(RNN_TIMED):
+            lib_step()
+        ev[1].record()
+        torch.cuda.synchronize(dev)
+        lib_ms = ev[0].elapsed_time(ev[1]) / RNN_TIMED
+        # nd.RNN over the packed vector, on the card
+        vec = mx.nd.array(rnn_packed_vector(host), ctx=gpu)
+        with gpu:
+            rnn_out = mx.nd.RNN(mx.nd.array(x), vec, mx.nd.array(h0[0]),
+                                state_cell=mx.nd.array(h0[1])
+                                if mode == "lstm" else None,
+                                num_layers=layers, mode=mode,
+                                bidirectional=bi)
+        op_err = float(np.abs(rnn_out.asnumpy() - want_out[0]).max())
+        flops = 2 * 3 * RNN_T * RNN_B * sum(
+            (4 if mode == "lstm" else 3) * hidden *
+            ((RNN_I if layer == 0 else hidden * ndir) + hidden) * ndir
+            for layer in range(layers))
+        name = f"{'bi-' if bi else ''}{mode} {layers}x{hidden}"
+        lines.append(
+            f"{name}: outputs/states max diff {out_err:.3e} (limit "
+            f"{RNN_OUT_ATOL}), gradients worst {grad_err[worst]:.3e} at "
+            f"{worst} (limit {RNN_GRAD_RTOL}), nd.RNN on the card "
+            f"{op_err:.3e}; forward+backward {port_ms:.2f} ms a replayed "
+            f"call ({flops / port_ms / 1e9:.1f} TFLOP/s of the products) "
+            f"vs torch.nn.{mode.upper()} (cuDNN) {lib_ms:.2f} ms "
+            f"({port_ms / lib_ms:.2f}x; cuDNN's output vs the CPU "
+            f"{lib_err:.2e}); CachedOp {stats}")
+        if not out_err <= RNN_OUT_ATOL:
+            failed.append(f"{name} outputs {out_err:.3e}")
+        if not grad_err[worst] <= RNN_GRAD_RTOL:
+            failed.append(f"{name} gradient {worst} {grad_err[worst]:.3e}")
+        if not op_err <= RNN_OUT_ATOL:
+            failed.append(f"{name} nd.RNN {op_err:.3e}")
+        if stats["captures"] != 1 or stats["replays"] < 1 + RNN_TIMED:
+            failed.append(f"{name} did not replay its capture: {stats}")
+        del net, lib, host
+        torch.cuda.empty_cache()
+    launches = read_launches("phase 40 rnn", {})
+    print(f"phase 40 fused RNN layers on {card} (f32, T={RNN_T}, "
+          f"B={RNN_B}, input {RNN_I}, hybridized: the third call a replay "
+          f"against one CPU call): " + "; ".join(lines) +
+          f"; launches {launches}; phase "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    if failed:
+        fail("phase 40: " + "; ".join(failed))
+    return launches
+
+
+def _lm_grads(mx, net, ctx, x, y):
+    """One recorded forward and backward of a language model in predict
+    mode (dropout off): the mean loss and every gradient, as numpy."""
+    from mxnet_tpu_torch import autograd, gluon
+    ce = gluon.loss.SoftmaxCrossEntropyLoss()
+    with ctx:
+        xa, ya = mx.nd.array(x), mx.nd.array(y)
+    with autograd.record(train_mode=False):
+        logits, _ = net(xa)
+        loss = ce(logits, ya).mean()
+    loss.backward()
+    return float(loss.asscalar()), {
+        k: p.grad().asnumpy() for k, p in
+        net._collect_params_with_prefix().items()}
+
+
+def lm_training(dev, card):
+    """Phase 41: ``awd_lstm_lm_1150`` (vocabulary 33,278, embedding 400,
+    hidden 1150, three LSTM layers, tied weights, GluonNLP's dropouts)
+    hybridized on the card through the Gluon loop at GluonNLP's
+    WikiText-2 recipe: batch 80 x bptt 70 of token ids from
+    ``RandomState(41)``, ``SoftmaxCrossEntropyLoss`` mean, backward,
+    ``clip_global_norm`` of the gradients to 0.25, ``Trainer("sgd",
+    lr 30, wd 1.2e-6)`` (K1 a step).  Weights ``Xavier()`` from
+    ``mx.random.seed(41)`` on the host.  The check: the first step's
+    loss and every gradient in predict mode (dropout off, whose masks
+    come from each device's generator) on the first 8 sequences of the
+    batch, card (hybridized) against CPU: loss within ``LM_LOSS_RTOL``,
+    gradients within ``LM_GRAD_RTOL`` of their norms.  Then
+    ``LM_WARMUP + LM_TIMED + LM_TRACED`` training steps at batch 80 with
+    dropout: step ms (CUDA events), tokens/s, host share from the
+    traced steps, captures and K1 launches."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import autograd, gluon, ops
+    from mxnet_tpu_torch.convert import (block_weights_to_numpy,
+                                         load_block_weights)
+    from mxnet_tpu_torch.gluon.model_zoo import nlp
+    from mxnet_tpu_torch.gluon.utils import clip_global_norm
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    gpu = mx.gpu(dev.index or 0)
+    rng = np.random.RandomState(41)
+    x = rng.randint(0, LM_VOCAB, (LM_BPTT, LM_BATCH)).astype(np.float32)
+    y = rng.randint(0, LM_VOCAB, (LM_BPTT, LM_BATCH)).astype(np.float32)
+    host = nlp.awd_lstm_lm_1150(vocab_size=LM_VOCAB)
+    mx.random.seed(41)
+    host.initialize(mx.init.Xavier(), ctx=mx.cpu())
+    xs, ys = x[:, :LM_CHECK_BATCH], y[:, :LM_CHECK_BATCH]
+    want_loss, want_g = _lm_grads(mx, host, mx.cpu(), xs, ys)
+    weights = block_weights_to_numpy(host)
+    del host
+    net = nlp.awd_lstm_lm_1150(vocab_size=LM_VOCAB)
+    net.initialize(ctx=gpu)
+    load_block_weights(net, weights)
+    net.hybridize()
+    got_loss, got_g = _lm_grads(mx, net, gpu, xs, ys)
+    loss_err = abs(got_loss - want_loss) / abs(want_loss)
+    grad_err = {k: _rel(got_g[k], want_g[k]) for k in want_g}
+    worst = max(grad_err, key=grad_err.get)
+    del got_g, want_g
+    ce = gluon.loss.SoftmaxCrossEntropyLoss()
+    trainer = gluon.Trainer(net.collect_params(), "sgd",
+                            {"learning_rate": LM_LR, "wd": LM_WD})
+    params = [p for p in net.collect_params().values()
+              if p.grad_req != "null"]
+    with gpu:
+        xa, ya = mx.nd.array(x), mx.nd.array(y)
+    steps = LM_WARMUP + LM_TIMED + LM_TRACED
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    prof = profile(activities=[ProfilerActivity.CUDA])
+    ops.reset_launches()
+    losses, norms, tops = [], [], []
+    for step in range(steps):
+        if step == LM_WARMUP:
+            ev[0].record()
+        if step == LM_WARMUP + LM_TIMED:
+            ev[1].record()
+            torch.cuda.synchronize(dev)
+            tops.append(time.perf_counter())
+            prof.__enter__()
+        with autograd.record():
+            logits, _ = net(xa)
+            loss = ce(logits, ya).mean()
+        loss.backward()
+        norms.append(clip_global_norm([p.grad() for p in params], LM_CLIP))
+        trainer.step(1)
+        losses.append(loss)
+    torch.cuda.synchronize(dev)
+    tops.append(time.perf_counter())
+    prof.__exit__(None, None, None)
+    launches = read_launches("phase 41 awd-lstm",
+                             {"fused_sgd_update": steps})
+    step_ms = ev[0].elapsed_time(ev[1]) / LM_TIMED
+    traced_ms = (tops[1] - tops[0]) * 1e3 / LM_TRACED
+    busy = _busy_ms(prof, LM_TRACED)
+    losses = [float(v.asscalar()) for v in losses]
+    stats = dict(net._cached_op.stats)
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    n_params = sum(p.data().size for p in params)
+    print(f"phase 41 awd_lstm_lm_1150 on {card} (f32, hybridized, vocab "
+          f"{LM_VOCAB}, {n_params} parameters, batch {LM_BATCH} x bptt "
+          f"{LM_BPTT}, sgd lr {LM_LR} wd {LM_WD}, clip_global_norm "
+          f"{LM_CLIP}): check on the first {LM_CHECK_BATCH} sequences in "
+          f"predict mode, loss card {got_loss:.6f} cpu {want_loss:.6f} (rel "
+          f"{loss_err:.2e}, limit {LM_LOSS_RTOL}), gradients worst "
+          f"{grad_err[worst]:.3e} at {worst} (limit {LM_GRAD_RTOL}); "
+          f"{steps} steps with dropout, losses "
+          f"{[round(v, 4) for v in losses]}, norms before the clip "
+          f"{[round(v, 3) for v in norms]}; step {step_ms:.2f} ms (CUDA "
+          f"events over {LM_TIMED} steps), {LM_BATCH * LM_BPTT / step_ms * 1e3:.0f} "
+          f"tokens/s; traced steps {traced_ms:.2f} ms wall, device busy "
+          f"{busy:.2f} ms, host share {1 - busy / step_ms:.4f} of the "
+          f"untraced step; peak memory {peak_gb:.2f} GB; CachedOp {stats}; "
+          f"launches {launches}; phase "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    failed = [what for what, ok in (
+        (f"loss {loss_err:.3e}", loss_err <= LM_LOSS_RTOL),
+        (f"gradient {worst} {grad_err[worst]:.3e}",
+         grad_err[worst] <= LM_GRAD_RTOL),
+        (f"losses {losses}", all(np.isfinite(losses))),
+        (f"captures {stats}", stats["captures"] >= 1 and
+         stats["replays"] >= LM_TIMED + LM_TRACED)) if not ok]
+    if failed:
+        fail("phase 41: " + "; ".join(failed))
+    del net, trainer, xa, ya
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _he_init():
+    """He's normal initialization (``Xavier("gaussian", "in", 2)``): it
+    keeps a layer's variance, so random-weight activations do not vanish
+    through the depthwise stages and no BatchNorm divides by a tiny
+    batch deviation."""
+    import mxnet_tpu_torch as mx
+    return mx.init.Xavier("gaussian", "in", 2)
+
+
+def _host_net(make, x, seed, init=None):
+    """A net made by ``make()`` on the host, ``init`` (default
+    ``Xavier(magnitude=2)``) from ``mx.random.seed(seed)``, its deferred
+    shapes resolved by a predict-mode forward on ``x``; (net, that
+    forward as numpy)."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import autograd
+    net = make()
+    with mx.cpu():
+        mx.random.seed(seed)
+        net.initialize(init or mx.init.Xavier(magnitude=2))
+        with autograd.predict_mode():
+            out = net(mx.nd.array(x))
+    if isinstance(out, (list, tuple)):
+        return net, [o.asnumpy() for o in out]
+    return net, out.asnumpy()
+
+
+def relu6_gates(net):
+    """Hooks on each ReLU6 block of ``net`` (MobileNet's ``_RELU6``) that
+    record, at every forward, which of its inputs pass their gradient
+    (``torch.clamp``'s rule, 0 <= x <= 6): bool tensors on the host, in
+    call order.  Returns the list they append to."""
+    from mxnet_tpu_torch.gluon.model_zoo.vision.mobilenet import _RELU6
+    gates = []
+
+    def hook(block, inputs):
+        t = inputs[0].data
+        gates.append(((t >= 0) & (t <= 6)).cpu())
+
+    def walk(block):
+        if isinstance(block, _RELU6):
+            block.register_forward_pre_hook(hook)
+        for child in block._children.values():
+            walk(child)
+    walk(net)
+    return gates
+
+
+# MobileNet v2's 17 linear bottlenecks' strides (features.3-19)
+MBV2_STRIDES = (1, 2, 1, 2, 1, 1, 2) + (1,) * 6 + (2, 1, 1, 1)
+
+
+def mobilenet_v2_plain(w, x, y, train, gates=None):
+    """MobileNet v2 (any width) written out in plain PyTorch in float64 on
+    the CPU from its weights ``w`` (structural names, numpy): the loss
+    (softmax cross-entropy averaged over the batch) of images ``x``
+    against labels ``y``, and its gradients, BatchNorm on the batch's
+    statistics if ``train``, else on the running ones.  Given ``gates``
+    (``relu6_gates``' record of a run of the same step), each ReLU6
+    passes its gradient where that run's did.  Returns (loss, {name:
+    gradient as numpy}, the units whose own gate differed from
+    ``gates``')."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    dt = torch.float64
+    p = {k: torch.tensor(v, dtype=dt, requires_grad=not k.endswith(
+        ("running_mean", "running_var"))) for k, v in w.items()}
+    flips = [0]
+    gate_iter = iter(gates) if gates is not None else None
+
+    def relu6(h):
+        if gate_iter is None:
+            return h.clamp(0, 6)
+        gate = next(gate_iter)
+        flips[0] += int((gate != ((h >= 0) & (h <= 6))).sum())
+        return torch.where(gate, h, h.detach().clamp(0, 6))
+
+    def conv_bn(h, conv, bn, stride=1, groups=1, act=True):
+        k = p[conv + ".weight"]
+        h = F.conv2d(h, k, stride=stride, padding=k.shape[-1] // 2,
+                     groups=groups)
+        h = F.batch_norm(h, None if train else p[bn + ".running_mean"],
+                         None if train else p[bn + ".running_var"],
+                         p[bn + ".gamma"], p[bn + ".beta"], training=train,
+                         eps=1e-5)
+        return relu6(h) if act else h
+    h = conv_bn(torch.tensor(x, dtype=dt), "features.0", "features.1", 2)
+    for i, stride in enumerate(MBV2_STRIDES):
+        b = f"features.{i + 3}.out."
+        wide = p[b + "0.weight"].shape[0]
+        o = conv_bn(h, b + "0", b + "1")
+        o = conv_bn(o, b + "3", b + "4", stride, wide)
+        o = conv_bn(o, b + "6", b + "7", act=False)
+        h = o + h if stride == 1 and o.shape[1] == h.shape[1] else o
+    h = conv_bn(h, "features.20", "features.21").mean((2, 3), keepdim=True)
+    logits = F.conv2d(h, p["output.0.weight"]).flatten(1)
+    loss = F.cross_entropy(logits, torch.from_numpy(
+        np.asarray(y, np.int64)))
+    loss.backward()
+    return float(loss.detach()), {k: t.grad.numpy() for k, t in p.items()
+                                  if t.grad is not None}, flips[0]
+
+
+def classifiers(dev, card):
+    """Phase 42: one classifier of each family at full width and its
+    published input size, predict mode at batch 2, hybridized on the
+    card (the third call a replay) against the CPU from the same weights
+    (He's normal initialization, ``_he_init``, from ``mx.random.seed(42)``,
+    made on the host):
+    logits within ``CLF_LOGIT_TOL`` x max |logit|.  Then
+    ``mobilenet_v2_1_0`` trains at 224 x 224, batch 64, f32, through the
+    Gluon loop (hybridized, ``SoftmaxCrossEntropyLoss``, ``Trainer
+    ("sgd", lr 0.1, momentum 0.9)``, K1 a step), on cuDNN's
+    deterministic algorithms: its loss and gradients in predict and in
+    training mode, eager on the card, against ``mobilenet_v2_plain`` in
+    float64 on the CPU with each ReLU6 passing its gradient where the
+    card's did (phase 16's limits: ``TRAIN_LOSS_RTOL``, each gradient
+    within ``RESNET_UPDATE_RTOL`` of its norm plus ``MBV2_GRAD_ATOL``),
+    its first
+    ``MBV2_CHECK_STEPS`` training steps captured against the eager
+    block's on the card (phase
+    16's ``DP_GRAPH_RTOL``, losses and each update), then on a fresh net
+    captured under cuDNN's own algorithm choice: step ms, images/s, host
+    share and peak memory."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import autograd, gluon, ops
+    from mxnet_tpu_torch.convert import (block_weights_to_numpy,
+                                         load_block_weights)
+    from mxnet_tpu_torch.gluon.model_zoo import vision
+    t_phase = time.perf_counter()
+    gpu = mx.gpu(dev.index or 0)
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    ops.reset_launches()
+    lines, failed = [], []
+    for name, size in CLF_CASES:
+        t0 = time.perf_counter()
+        x = np.random.RandomState(42).rand(CLF_BATCH, 3, size, size) \
+            .astype(np.float32)
+        host, want = _host_net(lambda: vision.get_model(name), x, 42,
+                               _he_init())
+        weights = block_weights_to_numpy(host)
+        del host
+        net = vision.get_model(name)
+        net.initialize(ctx=gpu)
+        load_block_weights(net, weights)
+        net.hybridize()
+        with gpu, autograd.predict_mode():
+            xa = mx.nd.array(x)
+            for _ in range(3):
+                got = net(xa).asnumpy()
+        scale = float(np.abs(want).max())
+        err = float(np.abs(got - want).max())
+        ok = err <= CLF_LOGIT_TOL * scale
+        stats = dict(net._cached_op.stats)
+        lines.append(f"{name} {size}: {err:.2e} (max |logit| "
+                     f"{scale:.2e}, replays "
+                     f"{stats['replays']}, {time.perf_counter() - t0:.1f} s)")
+        if not ok or stats["replays"] < 1:
+            failed.append(f"{name} logits {err:.3e}, CachedOp {stats}")
+        del net
+        torch.cuda.empty_cache()
+    read_launches("phase 42 classifiers", {})
+    # mobilenet_v2_1_0 through the Gluon loop: its gradients on the card
+    # against float64 on the CPU at the card's ReLU6 gates, its captured
+    # steps against eager ones, then the timed steps
+    rng = np.random.RandomState(42)
+    x = rng.rand(MBV2_BATCH, 3, 224, 224).astype(np.float32)
+    y = rng.randint(0, 1000, MBV2_BATCH).astype(np.int32)
+    host, _ = _host_net(vision.mobilenet_v2_1_0, x[:1], 43, _he_init())
+    w0 = block_weights_to_numpy(host)
+    del host
+    ce = gluon.loss.SoftmaxCrossEntropyLoss()
+
+    def card_net(active):
+        net = vision.mobilenet_v2_1_0()
+        net.initialize(ctx=gpu)
+        load_block_weights(net, w0)
+        net.hybridize(active)
+        return net
+
+    grad_checks = {}
+    for mode in ("predict", "training"):
+        train = mode == "training"
+        net = card_net(False)
+        gates = relu6_gates(net)
+        with gpu:
+            xa, ya = mx.nd.array(x), mx.nd.array(y, dtype="int32")
+        with autograd.record(train_mode=train):
+            loss = ce(net(xa), ya).mean()
+        loss.backward()
+        card_l = float(loss.asscalar())
+        card_g = {k: p.grad().asnumpy() for k, p in
+                  net._collect_params_with_prefix().items()
+                  if p.grad_req != "null"}
+        del net, loss
+        t0 = time.perf_counter()
+        ref_l, ref_g, flips = mobilenet_v2_plain(w0, x, y, train, gates)
+        units = sum(g.numel() for g in gates)
+        del gates
+        diff = {k: float(np.linalg.norm(card_g[k] - g))
+                for k, g in ref_g.items()}
+        norm = {k: float(np.linalg.norm(g)) for k, g in ref_g.items()}
+        share = {k: diff[k] / (RESNET_UPDATE_RTOL * norm[k] +
+                               MBV2_GRAD_ATOL) for k in ref_g}
+        worst = max(share, key=share.get)
+        grad_checks[mode] = {
+            "loss": abs(card_l - ref_l) / abs(ref_l),
+            "card_loss": card_l,
+            "together": float(np.sqrt(sum(d * d for d in diff.values()) /
+                                      sum(n * n for n in norm.values()))),
+            "worst": (worst, diff[worst], norm[worst], share[worst]),
+            "flips": f"{flips} of {units}",
+            "cpu_s": round(time.perf_counter() - t0, 1)}
+        del card_g, ref_g
+        gc.collect()
+    # training mode: MBV2_CHECK_STEPS captured steps (eager warm-up,
+    # capture, replays) against the same steps of the eager block
+    with gpu:
+        xa, ya = mx.nd.array(x), mx.nd.array(y, dtype="int32")
+    pair = []
+    for active in (True, False):
+        net = card_net(active)
+        trainer = gluon.Trainer(net.collect_params(), "sgd",
+                                {"learning_rate": MBV2_LR,
+                                 "momentum": RESNET_MOMENTUM})
+        ls = [float(_resnet_step(net, ce, trainer, xa, ya, MBV2_BATCH)[0]
+                    .mean().asscalar()) for _ in range(MBV2_CHECK_STEPS)]
+        pair.append((ls, block_weights_to_numpy(net), net, trainer))
+    torch.backends.cudnn.deterministic = prev
+    (cap_l, cap_w, _, _), (eag_l, eag_w, _, _) = pair
+    del pair
+    graph_loss = max(abs(a - b) / abs(b) for a, b in zip(cap_l, eag_l))
+    stats_k = [k for k in w0 if k.endswith(("running_mean", "running_var"))]
+    graph_upd = update_errs({k: w0[k] for k in w0 if k not in stats_k},
+                            cap_w, eag_w, MBV2_CHECK_STEPS)
+    graph_worst = max(graph_upd, key=graph_upd.get)
+    bitwise = all(np.array_equal(cap_w[k], eag_w[k]) for k in cap_w)
+    # the timed steps on a net captured under cuDNN's own algorithm
+    # choice (the check's ran on its deterministic ones)
+    gc.collect()
+    torch.cuda.empty_cache()
+    net = card_net(True)
+    trainer = gluon.Trainer(net.collect_params(), "sgd",
+                            {"learning_rate": MBV2_LR,
+                             "momentum": RESNET_MOMENTUM})
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    ops.reset_launches()
+    steps = MBV2_WARMUP + MBV2_TIMED + MBV2_TRACED
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    prof = profile(activities=[ProfilerActivity.CUDA])
+    losses, tops = [], []
+    for step in range(steps):
+        if step == MBV2_WARMUP:
+            ev[0].record()
+        if step == MBV2_WARMUP + MBV2_TIMED:
+            ev[1].record()
+            torch.cuda.synchronize(dev)
+            tops.append(time.perf_counter())
+            prof.__enter__()
+        loss, _ = _resnet_step(net, ce, trainer, xa, ya, MBV2_BATCH)
+        losses.append(loss.mean())
+    torch.cuda.synchronize(dev)
+    tops.append(time.perf_counter())
+    prof.__exit__(None, None, None)
+    launches = read_launches("phase 42 mobilenet_v2 training",
+                             {"fused_sgd_update": steps})
+    step_ms = ev[0].elapsed_time(ev[1]) / MBV2_TIMED
+    busy = _busy_ms(prof, MBV2_TRACED)
+    losses = [float(v.asscalar()) for v in losses]
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    stats = dict(net._cached_op.stats)
+    print(f"phase 42 classifiers on {card} (f32, predict mode, batch "
+          f"{CLF_BATCH}, hybridized, card vs CPU logits, limit "
+          f"{CLF_LOGIT_TOL} x max |logit|): " + "; ".join(lines) +
+          f"; mobilenet_v2_1_0 training (224, batch {MBV2_BATCH}, sgd lr "
+          f"{MBV2_LR} momentum {RESNET_MOMENTUM}): gradients on the card "
+          f"against float64 on the CPU at the card's ReLU6 gates (loss "
+          f"limit {TRAIN_LOSS_RTOL}, each gradient {RESNET_UPDATE_RTOL} of "
+          f"its norm + {MBV2_GRAD_ATOL}): " + "; ".join(
+              f"{m} mode loss {c['card_loss']:.6f} (rel {c['loss']:.2e}), "
+              f"all gradients together {c['together']:.3e}, the worst "
+              f"against its limit {c['worst'][0]} {c['worst'][1]:.3e} of "
+              f"norm {c['worst'][2]:.3e} ({c['worst'][3]:.3f} of its "
+              f"limit), gates the float64 forward set otherwise "
+              f"{c['flips']}, CPU {c['cpu_s']} s"
+              for m, c in grad_checks.items()) +
+          f"; "
+          f"training mode, "
+          f"{MBV2_CHECK_STEPS} captured steps against the eager block's: "
+          f"losses {cap_l} vs {eag_l} (rel {graph_loss:.2e}), updates "
+          f"worst {graph_upd[graph_worst]:.3e} at {graph_worst} (limit "
+          f"{DP_GRAPH_RTOL}), bitwise {bitwise}; {steps} steps, losses "
+          f"{[round(v, 4) for v in losses]}; step {step_ms:.2f} ms (CUDA "
+          f"events over {MBV2_TIMED} steps), "
+          f"{MBV2_BATCH / step_ms * 1e3:.1f} images/s, device busy "
+          f"{busy:.2f} ms a traced step, host share "
+          f"{1 - busy / step_ms:.4f}; peak memory {peak_gb:.2f} GB; "
+          f"CachedOp {stats}; launches {launches}; phase "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    for m, c in grad_checks.items():
+        if not (c["loss"] <= TRAIN_LOSS_RTOL and c["worst"][3] <= 1.0):
+            failed.append(f"mobilenet_v2 {m} mode: loss {c['loss']:.3e}, "
+                          f"{c['worst'][0]} {c['worst'][1]:.3e} of norm "
+                          f"{c['worst'][2]:.3e}")
+    if not (graph_loss <= DP_GRAPH_RTOL and
+            graph_upd[graph_worst] <= DP_GRAPH_RTOL):
+        failed.append(f"mobilenet_v2 captured vs eager: losses "
+                      f"{graph_loss:.3e}, {graph_worst} "
+                      f"{graph_upd[graph_worst]:.3e}")
+    if not all(np.isfinite(losses)):
+        failed.append(f"mobilenet_v2 losses {losses}")
+    if failed:
+        fail("phase 42: " + "; ".join(failed))
+    del net, trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _ssd_labels(rng):
+    """``SSD_GT`` ground-truth rows [class, x0, y0, x1, y1] an image."""
+    import numpy as np
+    lab = np.zeros((SSD_BATCH, SSD_GT, 5), np.float32)
+    for b in range(SSD_BATCH):
+        for g in range(SSD_GT):
+            x0, y0 = rng.uniform(0, 0.6, 2)
+            w, h = rng.uniform(0.15, 0.4, 2)
+            lab[b, g] = [rng.randint(0, 20), x0, y0, min(x0 + w, 1.0),
+                         min(y0 + h, 1.0)]
+    return lab
+
+
+def _ssd_step(mx, net, trainer, xa, la):
+    """One SSD training step: ``MultiBoxTarget``, softmax cross-entropy
+    of the classes (ignored anchors out) and an L1 loss of the box
+    offsets over the matched anchors, SGD."""
+    from mxnet_tpu_torch import autograd, gluon
+    with autograd.record():
+        cls_pred, box_pred, anchor = net(xa)
+        box_t, box_m, cls_t = mx.nd.contrib.MultiBoxTarget(
+            anchor, la, mx.nd.transpose(cls_pred, axes=(0, 2, 1)),
+            negative_mining_ratio=3.0)
+        valid = cls_t >= 0
+        ce = gluon.loss.SoftmaxCrossEntropyLoss()(
+            cls_pred, mx.nd.maximum(cls_t, 0), valid)
+        l1 = gluon.loss.L1Loss()(box_pred.reshape((0, -1)) * box_m, box_t)
+        loss = ce + l1
+    loss.backward()
+    trainer.step(SSD_BATCH)
+    return loss, cls_t
+
+
+def ssd_detection(dev, card):
+    """Phase 43: ``ssd_300_resnet34_v1`` (20 classes, ResNet-34 v1
+    features and three extra stages, 8,732 anchors) at batch 8 x 3 x 300
+    x 300, weights ``Xavier(magnitude=2)`` from ``mx.random.seed(43)``
+    made on the host, each basic block's last BatchNorm gamma zeroed (as
+    phase 14: the block starts as its shortcut), hybridized on the card
+    against the CPU.  Inference: the class and box predictions (training
+    mode's outputs, before decoding) within ``SSD_RAW_TOL``; the
+    detections: ``MultiBoxDetection`` (``box_nms`` at 0.45 over the top
+    400) on the card against the CPU's over the same inputs (the card's
+    predictions, softmax taken once on the host): ids and kept rows equal and
+    scores and boxes within ``SSD_BOX_TOL``, except where a suppression
+    hinges on an IoU within ``SSD_TIE_IOU`` of the threshold (the tie
+    rule); end to end, the CPU's kept detections each matched by one of
+    the card's of the same image and class whose box is within
+    ``SSD_BOX_TOL`` (printed: share matched; the boxes of matched ones
+    held to ``SSD_BOX_TOL``).  The inference call's ms (CUDA events over
+    ``SSD_TIMED`` replays), whether it captured, and the CUDA launches of
+    one ``box_nms`` call (eager, ``torch.profiler``) and of its
+    suppression sweep alone.  Training: one step (``MultiBoxTarget`` with
+    hard negative mining, softmax cross-entropy plus L1 box loss, SGD lr
+    0.01 momentum 0.9, K1) card against CPU: loss within
+    ``TRAIN_LOSS_RTOL``, the whole update within ``RESNET_UPDATE_RTOL``
+    and each parameter's (``update_errs``) within ``RESNET_UPDATE_RTOL``
+    plus ``SSD_SPREAD_X`` times what one ulp more in half of the input's
+    elements moves it on the CPU, on cuDNN's deterministic
+    algorithms."""
+    import numpy as np
+    import torch
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import autograd, gluon, ops
+    from mxnet_tpu_torch.convert import (block_weights_to_numpy,
+                                         load_block_weights)
+    from mxnet_tpu_torch.gluon.model_zoo import vision
+    from mxnet_tpu_torch.ndarray import contrib as ndc
+    t_phase = time.perf_counter()
+    gpu = mx.gpu(dev.index or 0)
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    rng = np.random.RandomState(43)
+    x = rng.rand(SSD_BATCH, 3, SSD_SIZE, SSD_SIZE).astype(np.float32)
+    lab = _ssd_labels(rng)
+    host, _ = _host_net(vision.ssd_300_resnet34_v1, x[:1], 43)
+    w0 = block_weights_to_numpy(host)
+    for k in w0:
+        if k.endswith("body.4.gamma"):
+            w0[k][:] = 0.0
+    load_block_weights(host, w0)
+    with mx.cpu(), autograd.predict_mode():
+        want_det = [a.asnumpy() for a in host(mx.nd.array(x))]
+    with mx.cpu(), autograd.record():
+        want_raw = [a.asnumpy() for a in host(mx.nd.array(x))]
+    net = vision.ssd_300_resnet34_v1()
+    net.initialize(ctx=gpu)
+    load_block_weights(net, w0)
+    net.hybridize()
+    ops.reset_launches()
+    with gpu:
+        xa = mx.nd.array(x)
+    with autograd.predict_mode():
+        for _ in range(3):
+            got_det = [a.asnumpy() for a in net(xa)]
+    with autograd.record():
+        got_raw = [a.asnumpy() for a in net(xa)]
+    raw_err = [_close(g, w, SSD_RAW_TOL) for g, w in zip(got_raw[:2],
+                                                           want_raw[:2])]
+    anchor_err = float(np.abs(got_raw[2] - want_raw[2]).max())
+    # MultiBoxDetection on the card against the CPU's over the same
+    # inputs: the card's predictions, softmax taken once on the host
+    cls_prob = torch.softmax(torch.from_numpy(got_raw[0]), -1) \
+        .permute(0, 2, 1).contiguous().numpy()
+    loc = got_raw[1].reshape(SSD_BATCH, -1)
+    det = {}
+    for ctx in (mx.cpu(), gpu):
+        with ctx:
+            det[ctx is gpu] = ndc.MultiBoxDetection(
+                mx.nd.array(cls_prob), mx.nd.array(loc),
+                mx.nd.array(got_raw[2]), nms_threshold=net.nms_thresh,
+                nms_topk=net.nms_topk).asnumpy()
+    ref = det[False]
+    same, ties = _ssd_rows_agree(det[True], ref, net.nms_thresh)
+    matched, box_err = _ssd_match(np.concatenate(want_det, -1),
+                                  np.concatenate(got_det, -1))
+    # the inference call: captured replays, and box_nms's launches
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    with autograd.predict_mode():
+        torch.cuda.synchronize(dev)
+        ev[0].record()
+        for _ in range(SSD_TIMED):
+            net(xa)
+        ev[1].record()
+        torch.cuda.synchronize(dev)
+    infer_ms = ev[0].elapsed_time(ev[1]) / SSD_TIMED
+    stats = dict(net._cached_op.stats)
+    dets = mx.nd.array(ref, ctx=gpu)
+
+    def nms(k):
+        return lambda: ndc.box_nms(dets, overlap_thresh=net.nms_thresh,
+                                   topk=k, coord_start=2, score_index=1,
+                                   id_index=0)
+    nms_all = _cuda_launches(nms(net.nms_topk))
+    nms_one = _cuda_launches(nms(1))
+    sweep = nms_all - nms_one
+    read_launches("phase 43 ssd inference", {})
+    # one training step, card against CPU, and on the CPU once more from
+    # an input one ulp up in half of its elements
+    x_ulp = x.copy()
+    up = np.random.RandomState(0).rand(*x.shape) < 0.5
+    x_ulp[up] = np.nextafter(x_ulp[up], np.float32(2))
+    runs = []
+    for ctx, model, xs in ((mx.cpu(), host, x), (gpu, net, x),
+                           (mx.cpu(), host, x_ulp)):
+        load_block_weights(model, w0)
+        trainer = gluon.Trainer(model.collect_params(), "sgd",
+                                {"learning_rate": SSD_LR,
+                                 "momentum": SSD_MOMENTUM})
+        with ctx:
+            xin, lin = mx.nd.array(xs), mx.nd.array(lab)
+        if ctx is gpu:
+            ops.reset_launches()
+        loss, cls_t = _ssd_step(mx, model, trainer, xin, lin)
+        runs.append((float(loss.mean().asscalar()), cls_t.asnumpy(),
+                     block_weights_to_numpy(model)))
+    launches = read_launches("phase 43 ssd training",
+                             {"fused_sgd_update": 1})
+    torch.backends.cudnn.deterministic = prev
+    (cpu_l, cpu_t, cpu_w), (card_l, card_t, card_w), (_, _, ulp_w) = runs
+    stats_k = [k for k in w0 if k.endswith(("running_mean", "running_var"))]
+    held = [k for k in w0 if k not in stats_k]
+    upd = update_errs({k: w0[k] for k in held}, card_w, cpu_w, 1)
+    spread = update_errs({k: w0[k] for k in held}, ulp_w, cpu_w, 1)
+    upd_limit = {k: RESNET_UPDATE_RTOL + SSD_SPREAD_X * spread[k]
+                 for k in held}
+    upd_worst = max(upd, key=lambda k: upd[k] / upd_limit[k])
+    spread_worst = max(spread, key=spread.get)
+
+    def whole(got):
+        return float(np.sqrt(sum(
+            np.sum(np.square(got[k] - cpu_w[k])) for k in held) / sum(
+            np.sum(np.square(cpu_w[k] - w0[k])) for k in held)))
+    whole_err, whole_spread = whole(card_w), whole(ulp_w)
+    loss_err = abs(card_l - cpu_l) / abs(cpu_l)
+    targets_differ = int((card_t != cpu_t).sum())
+    print(f"phase 43 ssd_300_resnet34_v1 on {card} (f32, batch "
+          f"{SSD_BATCH} x 3 x {SSD_SIZE} x {SSD_SIZE}, "
+          f"{got_raw[2].shape[1]} anchors, hybridized): class/box "
+          f"predictions max diff {[round(e, 7) for e, _ in raw_err]} (limit "
+          f"{SSD_RAW_TOL} x max(1, |x|)), anchors {anchor_err:.2e}; "
+          f"MultiBoxDetection on the card against the CPU over the same "
+          f"inputs: {same} (ties at the NMS threshold, |IoU - "
+          f"{net.nms_thresh}| <= {SSD_TIE_IOU}: {ties}); end to end, "
+          f"{matched} of the CPU's kept detections matched by the card's, "
+          f"matched boxes max diff {box_err:.2e} (limit {SSD_BOX_TOL}); "
+          f"inference {infer_ms:.2f} ms a call ({SSD_TIMED} replays, CUDA "
+          f"events), CachedOp {stats}; box_nms over the top "
+          f"{net.nms_topk}: {nms_all} CUDA launches a call, {sweep} of "
+          f"them the suppression sweep ({sweep / (net.nms_topk - 1):.2f} a "
+          f"candidate), captured inside the graph; training step: loss "
+          f"card {card_l:.6f} cpu {cpu_l:.6f} (rel {loss_err:.2e}, limit "
+          f"{TRAIN_LOSS_RTOL}), MultiBoxTarget class targets differing "
+          f"{targets_differ}, the whole update {whole_err:.3e} (limit "
+          f"{RESNET_UPDATE_RTOL}), the worst parameter against its limit "
+          f"{upd[upd_worst]:.3e} at {upd_worst} (limit "
+          f"{upd_limit[upd_worst]:.3e}: {RESNET_UPDATE_RTOL} + "
+          f"{SSD_SPREAD_X} x {spread[upd_worst]:.3e}, what one ulp of "
+          f"input moved it on the CPU), the largest of one parameter "
+          f"{max(upd.values()):.3e}; one ulp of input moved the CPU's "
+          f"update by {whole_spread:.3e} all together and by "
+          f"{spread[spread_worst]:.3e} at {spread_worst}; "
+          f"launches {launches}; "
+          f"phase {time.perf_counter() - t_phase:.1f} s", flush=True)
+    failed = [what for what, ok in (
+        (f"predictions {raw_err}", all(ok for _, ok in raw_err)),
+        (f"anchors {anchor_err}", anchor_err <= 1e-6),
+        (f"detections {same}", same == "equal"),
+        (f"matched boxes {box_err}", box_err <= SSD_BOX_TOL),
+        (f"captures {stats}", stats["captures"] >= 1 and
+         stats["replays"] >= SSD_TIMED),
+        (f"loss {loss_err:.3e}", loss_err <= TRAIN_LOSS_RTOL),
+        (f"whole update {whole_err:.3e}", whole_err <= RESNET_UPDATE_RTOL),
+        (f"update {upd_worst} {upd[upd_worst]:.3e}",
+         upd[upd_worst] <= upd_limit[upd_worst])) if not ok]
+    if failed:
+        fail("phase 43: " + "; ".join(failed))
+    del net, host
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _pairwise_iou(a, b):
+    import numpy as np
+    tl = np.maximum(a[:, None, :2], b[None, :, :2])
+    br = np.minimum(a[:, None, 2:], b[None, :, 2:])
+    inter = np.prod(np.clip(br - tl, 0, None), -1)
+    area = lambda z: np.prod(np.clip(z[:, 2:] - z[:, :2], 0, None), -1)
+    return inter / np.maximum(area(a)[:, None] + area(b)[None] - inter,
+                              1e-12)
+
+
+def _ssd_rows_agree(got, want, thresh):
+    """Whether two ``MultiBoxDetection`` outputs over the same inputs
+    agree: ``("equal", ties)`` when every row's id, kept state, score and
+    box agree (scores and boxes within ``SSD_BOX_TOL``), a row whose
+    kept state differs allowed only when its IoU with a higher-ranked
+    kept box of its class lies within ``SSD_TIE_IOU`` of ``thresh`` (a
+    tie; counted); else a description of the first difference."""
+    import numpy as np
+    ties = 0
+    for b in range(got.shape[0]):
+        g, w = got[b], want[b]
+        if not np.array_equal(g[:, 0], w[:, 0]):
+            return f"image {b}: ids differ", ties
+        kept_g, kept_w = g[:, 1] > 0, w[:, 1] > 0
+        for i in np.nonzero(kept_g != kept_w)[0]:
+            iou = _pairwise_iou(w[i:i + 1, 2:], w[:i, 2:])[0]
+            same = (w[:i, 0] == w[i, 0]) & (kept_w[:i] | kept_g[:i])
+            if not (same & (np.abs(iou - thresh) <= SSD_TIE_IOU)).any():
+                return f"image {b} row {i}: kept {kept_g[i]} vs " \
+                       f"{kept_w[i]}", ties
+            ties += 1
+        both = kept_g & kept_w
+        if np.abs(g[both, 1:] - w[both, 1:]).max(initial=0) > SSD_BOX_TOL:
+            return f"image {b}: scores or boxes differ", ties
+    return "equal", ties
+
+
+def _ssd_match(want, got):
+    """Of ``want``'s kept detections, how many ``got`` has (same image
+    and class, box within ``SSD_BOX_TOL``), as "m / n", and the largest
+    box difference of the matched ones."""
+    import numpy as np
+    n = m = 0
+    err = 0.0
+    for b in range(want.shape[0]):
+        wk = want[b][want[b][:, 1] > 0]
+        gk = got[b][got[b][:, 1] > 0]
+        for row in wk:
+            n += 1
+            cand = gk[gk[:, 0] == row[0]]
+            if not len(cand):
+                continue
+            d = np.abs(cand[:, 2:] - row[2:]).max(-1)
+            j = int(np.argmin(d))
+            if d[j] <= SSD_BOX_TOL:
+                m += 1
+                err = max(err, float(d[j]))
+    return f"{m} / {n}", err
+
+
 def main():
     try:
         import torch
@@ -9111,6 +10144,12 @@ def main():
     by_path["contrib_ops"] = contrib_full_width(dev, card)
     # phase 37: the Gluon loop through gluon.data, before amp.init
     by_path["gluon_loop"] = gluon_loop(dev, card)
+    # phases 40-43: the recurrent layers, the language model, the
+    # classifiers and SSD (f32, before amp.init)
+    by_path["rnn_layers"] = rnn_full_width(dev, card)
+    by_path["awd_lstm_lm"] = lm_training(dev, card)
+    by_path["classifiers"] = classifiers(dev, card)
+    by_path["ssd"] = ssd_detection(dev, card)
     # phases 11, 13, 15, 17 and 18 last: amp.init() is process-wide
     by_path["training_amp"], _ = train_llama3_8b(
         dev, card, amp_dtype="bfloat16", f32_first_loss=f32_first_loss)

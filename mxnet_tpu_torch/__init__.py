@@ -40,8 +40,10 @@ engine's ``quantize="int8"``); MXNet's Gluon training loop around them:
 (``utils.native``, built at first use); data parallelism over more than
 one device, one process a device: ``parallel.distributed_init``,
 meshes over the ranks of a process group, ``kv``/``kvstore``, the gluon
-``Trainer``'s kvstore half, ZeRO-1 and the overlap scheduler.  There is
-no ``mx.np``: the reference's is ``jax.numpy`` itself.
+``Trainer``'s kvstore half, ZeRO-1 and the overlap scheduler; the
+recurrent layers (``gluon.rnn``, ``nd.RNN``, the legacy ``rnn``),
+``gluon.contrib`` and the model zoo's classifiers, SSD and language
+models.  There is no ``mx.np``: the reference's is ``jax.numpy`` itself.
 """
 from .base import MXNetError, NotSupportedError
 from .context import (Context, cpu, current_context, gpu, num_gpus,
@@ -67,6 +69,7 @@ from . import (callback, debug, engine, model, name, npx, operator, rtc,
 from . import io, recordio, image, utils
 from . import kvstore
 from . import kvstore as kv
+from . import rnn
 
 __all__ = ["MXNetError", "NotSupportedError", "Context", "cpu", "gpu",
            "current_context", "num_gpus", "resolve_device", "nd", "ndarray",
@@ -74,4 +77,4 @@ __all__ = ["MXNetError", "NotSupportedError", "Context", "cpu", "gpu",
            "amp", "optimizer", "gluon", "serving", "parallel", "checkpoint",
            "contrib", "lr_scheduler", "callback", "debug", "engine", "model",
            "name", "npx", "operator", "rtc", "runtime", "test_utils", "util",
-           "io", "recordio", "image", "utils", "kvstore", "kv"]
+           "io", "recordio", "image", "utils", "kvstore", "kv", "rnn"]

@@ -6,7 +6,11 @@ arrays)`` copies a dict of numpy arrays keyed by the structural names of
 attention.proj_query.weight``, ...; the same names in both packages)
 into the block's parameters, checking each shape and finishing deferred
 parameters with the array's shape on their initialize context;
-``block_weights_to_numpy(block)`` is the reverse.  The file route is
+``block_weights_to_numpy(block)`` is the reverse.  The fused recurrent
+layers (``gluon.rnn.RNN``/``LSTM``/``GRU``) carry their per-layer names
+(``l0_i2h_weight`` ... ``r1_h2h_bias``) the same way, and
+``rnn_packed_vector(layer)`` lays them out as ``nd.RNN``'s packed vector
+(all weights by layer, then direction, then all biases).  The file route is
 ``nd.save``/``load_parameters``: the JAX package's ``save_parameters``
 writes a file the port's ``load_parameters`` reads, and the reverse.
 
@@ -46,6 +50,7 @@ import torch
 from .base import MXNetError
 
 __all__ = ["load_block_weights", "block_weights_to_numpy",
+           "rnn_packed_vector",
            "load_llama_decode_weights", "llama_decode_weights_to_numpy",
            "quantized_state", "load_quantized_state"]
 
@@ -133,6 +138,20 @@ def block_weights_to_numpy(block):
                                               copy=True).numpy()
             for name, p in block._collect_params_with_prefix().items()
             if p._nd is not None}
+
+
+@torch.no_grad()
+def rnn_packed_vector(layer):
+    """A fused recurrent layer's parameters as ``nd.RNN``'s packed 1-D
+    vector (float32 numpy): for each layer and then direction
+    ``W_i2h, W_h2h``, then the biases ``b_i2h, b_h2h`` in the same
+    order."""
+    names = layer._param_list()
+    order = [n for n in names if n.endswith("weight")] + \
+        [n for n in names if n.endswith("bias")]
+    return np.concatenate([
+        layer._reg_params[n].data().data.detach().to(
+            "cpu", torch.float32).reshape(-1).numpy() for n in order])
 
 
 def _quantized_children(block, prefix=""):

@@ -28,7 +28,7 @@ the same call runs the pure function eagerly.  As in the reference:
 - the auxiliary state that ``record_aux_update`` writes is returned by
   the pure function and written back at every call (on the card by the
   forward graph, so every replay advances it);
-- every distinct ``(train, None positions, shapes, dtypes)`` signature
+- every distinct ``(train, argument tree, shapes, dtypes)`` signature
   is recorded with a ``lint.RetraceMonitor``, which warns once past 3.
 
 ``remat=True`` keeps the block's forward under ``torch.utils.checkpoint``
@@ -454,7 +454,7 @@ class CachedOp:
             self._param_objs = [p for _, p in items]
         return self._param_objs
 
-    def _make_pure(self, train, recording, none_pos, key):
+    def _make_pure(self, train, recording, in_tree, key):
         """``pure(param_tensors, input_tensors, quiet)``: the block's
         forward with each parameter bound to the given tensor, in
         ``train`` mode with recording as given, inside the inline scope,
@@ -484,9 +484,7 @@ class CachedOp:
                 with _tape.inline_scope(), _aux_scope() as aux, \
                         torch.set_grad_enabled(recording), \
                         amp.no_cast_cache(), amp.region(dev):
-                    ins = [NDArray(t) for t in input_tensors]
-                    for i in none_pos:
-                        ins.insert(i, None)
+                    ins = _unflatten_inputs(iter(input_tensors), in_tree)
                     out = block._call(*ins)
             finally:
                 for a, t in zip(arrays, owned):
@@ -520,37 +518,29 @@ class CachedOp:
 
     def __call__(self, *args):
         # None arguments (optional masks, lengths) leave the signature
-        # and are put back by position inside the pure function
-        none_pos = tuple(i for i, a in enumerate(args) if a is None)
-        args = tuple(a for a in args if a is not None)
+        # and lists of NDArrays (a recurrent layer's states) are
+        # flattened; the pure function puts both back from ``in_tree``
+        leaves, in_tree = _flatten_inputs(args, self._retrace.name)
         params = self._collect()
         if any(p._nd is None for p in params):
-            full = list(args)
-            for i in none_pos:
-                full.insert(i, None)
-            self._finish_deferred(full)
+            self._finish_deferred(args)
             params = self._collect()
-        for a in args:
-            if not isinstance(a, NDArray):
-                raise MXNetError(
-                    f"hybridized block '{self._retrace.name}' takes NDArrays "
-                    f"(or None), not {type(a).__name__}")
-        tensors = [a.data for a in args]
+        tensors = [a.data for a in leaves]
         train, recording = _tape.is_training(), _tape.is_recording()
         # the reference's signature: one jit cache miss each
         first = self._retrace.record(
-            (train, none_pos,
+            (train, in_tree,
              tuple((tuple(t.shape), str(t.dtype).replace("torch.", ""))
                    for t in tensors)))
         vars_ = [p._var for p in params]
-        key = (train, recording, none_pos, amp._target_dtype,
+        key = (train, recording, in_tree, amp._target_dtype,
                tuple((tuple(t.shape), t.dtype, t.requires_grad)
                      for t in tensors),
                tuple((v.dtype, tuple(v.shape), p._grad_req)
                      for p, v in zip(params, vars_)))
         ptrs = tuple(v.data_ptr() for v in vars_)
         device = tensors[0].device if tensors else vars_[0].device
-        pure = self._make_pure(train, recording, none_pos, key)
+        pure = self._make_pure(train, recording, in_tree, key)
         n = len(vars_)
 
         def run(leaves, eager):
@@ -565,6 +555,43 @@ class CachedOp:
                            device, self.remat)
         return _unflatten_output([NDArray(o) for o in outs],
                                  self._out_tree[key][1])
+
+
+def _flatten_inputs(args, name):
+    """The NDArrays of a hybridized call's arguments, in order, and the
+    arguments' tree: ``None`` for a None, ``"nd"`` for an NDArray,
+    ``(type name, subtree)`` for a list or tuple of them."""
+    leaves, tree = [], []
+    for a in args:
+        if a is None:
+            tree.append(None)
+        elif isinstance(a, NDArray):
+            leaves.append(a)
+            tree.append("nd")
+        elif isinstance(a, (list, tuple)):
+            sub_leaves, sub = _flatten_inputs(a, name)
+            leaves.extend(sub_leaves)
+            tree.append((type(a).__name__, sub))
+        else:
+            raise MXNetError(
+                f"hybridized block '{name}' takes NDArrays (or None, or "
+                f"lists of them), not {type(a).__name__}")
+    return leaves, tuple(tree)
+
+
+def _unflatten_inputs(tensors, tree):
+    """The arguments of ``tree`` (:func:`_flatten_inputs`) over the
+    iterator ``tensors``."""
+    out = []
+    for t in tree:
+        if t is None:
+            out.append(None)
+        elif t == "nd":
+            out.append(NDArray(next(tensors)))
+        else:
+            seq = _unflatten_inputs(tensors, t[1])
+            out.append(tuple(seq) if t[0] == "tuple" else seq)
+    return out
 
 
 class HybridBlock(Block):

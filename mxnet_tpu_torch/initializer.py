@@ -11,8 +11,7 @@ ones, anything else through ``_init_weight``), the registry by name
 in place; the random ones (``Orthogonal`` too, where the reference draws
 from numpy's global generator) draw from the ``nd.random`` generator of
 its device, so their bits differ from the reference's (the
-distributions agree).  ``FusedRNN`` arrives with ``gluon/rnn`` (ROADMAP
-§1 item 11).
+distributions agree).  ``FusedRNN`` fills ``nd.RNN``'s packed vector.
 """
 from __future__ import annotations
 
@@ -27,7 +26,7 @@ from .ndarray import random as _rnd
 
 __all__ = ["Initializer", "Uniform", "Normal", "Constant", "Zero", "One",
            "Xavier", "MSRAPrelu", "Orthogonal", "Bilinear", "LSTMBias",
-           "Load", "Mixed", "register", "create", "InitDesc"]
+           "Load", "Mixed", "FusedRNN", "register", "create", "InitDesc"]
 
 _REGISTRY = {}
 
@@ -279,6 +278,56 @@ class LSTMBias(Initializer):
         _fill(arr, b)
 
     _init_bias = _init_weight
+
+
+@register
+class FusedRNN(Initializer):
+    """The packed fused-RNN parameter vector of ``nd.RNN`` (all weights
+    by layer, then direction; then all biases): each weight matrix from
+    the wrapped initializer ``init``, the biases zeros but the LSTM
+    forget gate's quarter of both, ``forget_bias`` (reference
+    initializer.FusedRNN).  The input size follows from the length."""
+
+    def __init__(self, init, num_hidden, num_layers, mode,
+                 bidirectional=False, forget_bias=1.0):
+        super().__init__()
+        self._init = create(init)
+        self._nh = num_hidden
+        self._nl = num_layers
+        self._mode = mode
+        self._bidir = bidirectional
+        self._forget_bias = forget_bias
+        from .gluon.rnn.rnn_layer import _GATES
+        self._gates = _GATES[mode]
+
+    def _init_weight(self, name, arr):
+        from .ndarray.ndarray import NDArray
+        g, nh, nl = self._gates, self._nh, self._nl
+        dirs = 2 if self._bidir else 1
+        total = int(_np.prod(arr.shape))
+        fixed = nl * dirs * (g * nh * nh) + nl * dirs * 2 * g * nh \
+            + (nl - 1) * dirs * (g * nh * (nh * dirs))
+        rem = total - fixed
+        if rem <= 0 or rem % (dirs * g * nh):
+            raise MXNetError(
+                f"FusedRNN: packed length {total} inconsistent with "
+                f"mode={self._mode} num_hidden={nh} num_layers={nl} "
+                f"bidirectional={self._bidir}")
+        in0 = rem // (dirs * g * nh)
+        dev = arr.data.device
+        parts = []
+        for layer in range(nl):
+            in_sz = in0 if layer == 0 else nh * dirs
+            for _ in range(dirs):
+                for shape in ((g * nh, in_sz), (g * nh, nh)):
+                    chunk = NDArray(torch.zeros(shape, device=dev))
+                    self._init._init_weight(name, chunk)
+                    parts.append(chunk.data.reshape(-1))
+        bias = torch.zeros(g * nh, device=dev)
+        if self._mode == "lstm":
+            bias[nh:2 * nh] = self._forget_bias     # gates i, f, c, o
+        parts += [bias] * (2 * nl * dirs)
+        _fill(arr, torch.cat(parts).view(arr.shape))
 
 
 @register

@@ -1,11 +1,10 @@
 """``mx.nd``: the imperative NDArray API (counterpart of
 ``mxnet_tpu.ndarray``), and the ``F`` that ``HybridBlock.hybrid_forward``
-receives.  A reference op name that is not ported yet (``RNN``) raises
-``NotSupportedError`` naming its ROADMAP §1 item when it is looked up."""
+receives: every op name of the reference's registry."""
 from .ndarray import (NDArray, apply, array, arange, concatenate, empty,
                       eye, from_torch, full, linspace, ones, waitall, zeros)
 from .ops import *  # noqa: F401,F403
-from .ops import concat, stack, later as _later, _REFERENCE_OPS
+from .ops import concat, stack
 from .linalg import *  # noqa: F401,F403
 from . import contrib, linalg, ops, random, sparse
 from .random import shuffle
@@ -22,12 +21,6 @@ def moveaxis(data, source, destination):
     """``data`` with axis ``source`` moved to ``destination``."""
     import torch
     return apply(lambda t: torch.movedim(t, source, destination), [data])
-
-
-def __getattr__(name):
-    if name in _REFERENCE_OPS:
-        raise _later(name)
-    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 
 # The NDArray methods the reference builds from its op registry

@@ -40,9 +40,9 @@ host sync (``unique``, ``histogram``, ``bincount``, ``cond``,
 ``while_loop``) refuses to run inside a CUDA graph capture
 (:func:`host_sync`).
 
-The one op name of the reference's registry (``_REFERENCE_OPS``) not
-ported, ``RNN``, raises ``NotSupportedError`` naming ROADMAP §1 item 11,
-through the ``nd`` namespace's ``__getattr__``.
+The registry also holds ``RNN``, the fused recurrence over a packed
+parameter vector, which runs ``gluon.rnn``'s loop: every op name of the
+reference's registry (``_REFERENCE_OPS``) is registered.
 """
 from __future__ import annotations
 
@@ -54,7 +54,7 @@ import numpy as _np
 import torch
 import torch.nn.functional as F
 
-from ..base import MXNetError, NotSupportedError
+from ..base import MXNetError
 from .. import _tape, amp as _amp
 from ..amp import lists as _lists
 from .ndarray import NDArray, apply, _dtype_of, array, zeros, ones, full, \
@@ -80,8 +80,7 @@ def _amp_modes(low_extra=(), fp32_extra=()):
 _AMP_MODE = _amp_modes()
 _PLAIN = {}           # op name -> the function without its amp wrapper
 
-# every op name of the reference's registry; one the port lacks raises
-# NotSupportedError when looked up (``later``)
+# every op name of the reference's registry (all of them registered here)
 _REFERENCE_OPS = frozenset("""
 Activation BatchNorm BilinearSampler BlockGrad CTCLoss Concat Convolution
 Correlation Crop Deconvolution Dropout ElementWiseSum Embedding Flatten
@@ -260,14 +259,6 @@ def _nd(x, like=None):
         # device: a CUDA graph capture cannot hold a copy from the host
         return full((), float(x), ctx=ctx, dtype="float32")
     return array(x, ctx=ctx)
-
-
-def later(name):
-    """The error for a reference op that is not ported yet: ``RNN``,
-    which runs ``gluon/rnn``'s fused RNN."""
-    return NotSupportedError(
-        f"op {name!r} is not ported yet: it runs gluon/rnn's fused RNN, "
-        "which arrives with ROADMAP §1 item 11")
 
 
 # ===========================================================================
@@ -821,6 +812,22 @@ def _gamma_shape(g, d):
     return g
 
 
+_SQRT_HALF = float(_np.float32(_np.sqrt(0.5)))
+
+
+def _gelu(t):
+    """Exact GELU, ``0.5 x erfc(-x sqrt(1/2))``, as ``jax.nn.gelu(
+    approximate=False)`` writes it.  On the CPU the written form: ATen's
+    CPU GELU kernel evaluates erf by a vectorized polynomial less exact
+    than ``torch.erfc``, which moved a parity test's gradients past
+    1e-5 at some draws (ROADMAP §3, fault q;
+    ``tools/port_gelu_seed_sweep.py``).  On the card ``F.gelu``, one
+    fused kernel a direction."""
+    if t.device.type == "cpu":
+        return 0.5 * t * torch.erfc(t * -_SQRT_HALF)
+    return F.gelu(t, approximate="none")
+
+
 @_register
 def LeakyReLU(data, gamma=None, act_type="leaky", slope=0.25,
               lower_bound=0.125, upper_bound=0.334):
@@ -832,7 +839,7 @@ def LeakyReLU(data, gamma=None, act_type="leaky", slope=0.25,
     if act_type == "selu":
         return apply(F.selu, [data])
     if act_type == "gelu":
-        return apply(lambda t: F.gelu(t, approximate="none"), [data])
+        return apply(_gelu, [data])
     if act_type == "prelu":
         return apply(lambda t, g: torch.where(t >= 0, t,
                                               _gamma_shape(g, t) * t),
@@ -2260,7 +2267,7 @@ fix = _unary("fix", lambda t: torch.trunc(t) if t.is_floating_point()
              else t.clone())
 # torch.round rounds half to even, as jnp.rint does
 rint = _funary("rint", torch.round)
-gelu = _funary("gelu", lambda t: F.gelu(t, approximate="none"))
+gelu = _funary("gelu", _gelu)
 mish = _funary("mish", F.mish)
 relu6 = _funary("relu6", lambda t: torch.clamp(t, 0.0, 6.0))
 selu = _funary("selu", F.selu)
@@ -3337,3 +3344,73 @@ def while_loop(cond_fn, func, loop_vars, max_iterations=None):
     else:
         outs = []
     return outs, lv
+
+
+# ===========================================================================
+# the fused RNN over a packed parameter vector
+# ===========================================================================
+
+@_register
+def RNN(data, parameters, state, state_cell=None, state_size=None,
+        num_layers=1, mode="lstm", bidirectional=False, p=0.0,
+        state_outputs=False, projection_size=None, sequence_length=None,
+        use_sequence_length=False):
+    """Multi-layer (bi)directional RNN over the reference's packed 1-D
+    parameter vector (``src/operator/rnn.cc``): all weights first, for
+    each layer and then direction ``W_i2h`` (G*H, in) and ``W_h2h`` (G*H,
+    H), then all biases in the same order (``b_i2h``, ``b_h2h``).  ``data``
+    (T, B, I); ``state`` (and ``state_cell`` for ``lstm``) (L*dirs, B, H).
+    Returns the output (T, B, H*dirs), and with ``state_outputs`` the
+    final states too.  The recurrence is ``gluon.rnn``'s
+    (``run_fused_rnn``), so a gluon layer's weights packed into this
+    layout give the layer's outputs; dropout ``p`` between layers draws
+    from the ``nd.random`` generator of ``data``'s device."""
+    from ..gluon.rnn.rnn_layer import _GATES, dropout_masks, run_fused_rnn
+    if projection_size is not None or use_sequence_length:
+        raise MXNetError("nd.RNN: projection_size/use_sequence_length "
+                         "are not supported (reference cuDNN-only paths)")
+    gates = _GATES.get(mode)
+    if gates is None:
+        raise MXNetError(f"nd.RNN: unknown mode {mode!r}")
+    if mode == "lstm" and state_cell is None:
+        raise MXNetError("nd.RNN: lstm mode requires state_cell")
+    dirs = 2 if bidirectional else 1
+    T, B, I = data.shape
+    H = int(state_size) if state_size else state.shape[-1]
+    if state.shape[0] != num_layers * dirs:
+        raise MXNetError(
+            f"nd.RNN: state has {state.shape[0]} layer slots, need "
+            f"num_layers*dirs = {num_layers * dirs}")
+    shapes = []
+    for layer in range(num_layers):
+        in_sz = I if layer == 0 else H * dirs
+        shapes += [(gates * H, in_sz), (gates * H, H)] * dirs
+    shapes += [(gates * H,)] * (2 * num_layers * dirs)
+    expected = _builtins.sum(int(_np.prod(s)) for s in shapes)
+    parameters = _nd(parameters, data)
+    if parameters.size != expected:
+        raise MXNetError(
+            f"nd.RNN: packed parameter vector has {parameters.size} values, "
+            f"layout needs {expected} (mode={mode}, num_layers="
+            f"{num_layers}, bidirectional={bidirectional}, I={I}, H={H})")
+    x = data.data
+    masks = dropout_masks(p, num_layers, (T, B, H * dirs), x.device,
+                          x.dtype, _tape.is_training())
+
+    def fn(x, w, *state_arrs):
+        parts, offs = [], 0
+        w = w.reshape(-1)
+        for s in shapes:
+            n = int(_np.prod(s))
+            parts.append(w[offs:offs + n].view(s))
+            offs += n
+        nw = 2 * num_layers * dirs
+        weights = list(zip(parts[0:nw:2], parts[1:nw:2]))
+        biases = list(zip(parts[nw::2], parts[nw + 1::2]))
+        return run_fused_rnn(mode, x, state_arrs, weights, biases,
+                             num_layers, dirs, masks)
+
+    inputs = [data, parameters, state] + \
+        ([state_cell] if mode == "lstm" else [])
+    results = apply(fn, inputs, n_out=len(inputs) - 1)
+    return results if state_outputs else results[0]

@@ -524,7 +524,8 @@ def sched_trained(request):
     update count, and the reference's, 4 steps of ``llama_tiny`` in f32
     (in a fixture: the JAX package compiles for seconds at first)."""
     optname, args, atol = SCHED_CASES[request.param]
-    jnet, pnet = _nets()
+    with seeded(AMP_SEED):
+        jnet, pnet = _nets()
     tokens, labels = _batch()
 
     def schedule(m):

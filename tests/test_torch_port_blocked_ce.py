@@ -42,6 +42,7 @@ from mxnet_tpu_torch.convert import load_block_weights
 from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
 from mxnet_tpu_torch.gluon.model_zoo.nlp.llama import llama_tiny
 from mxnet_tpu_torch.ops import fused_linear_cross_entropy
+from test_torch_port_amp import seeded
 
 TOL = 1e-5
 PARAM_ATOL = 5e-5
@@ -223,12 +224,12 @@ def llama(request):
     """The reference's net, its weights, its fused losses and its
     parameters after one Adam step on their mean."""
     tie = request.param
-    jmx.random.seed(0)
     jnet = jax_llama_tiny(tie_embeddings=tie)
-    jnet.initialize()
     toks, targets = _tokens(1), _tokens(2)
     targets[0, :3] = -100                   # ignored
-    jnet(jmx.nd.array(toks, dtype="int32"))
+    with seeded(0):
+        jnet.initialize()
+        jnet(jmx.nd.array(toks, dtype="int32"))
     w0 = {k: p.data().asnumpy()
           for k, p in jnet._collect_params_with_prefix().items()}
     jt, jy = jmx.nd.array(toks, dtype="int32"), jmx.nd.array(targets)

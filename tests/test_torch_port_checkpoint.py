@@ -39,6 +39,7 @@ from mxnet_tpu.parallel.data_parallel import DataParallelTrainer as JTrainer
 import mxnet_tpu_torch as mx
 from mxnet_tpu_torch import autograd, checkpoint, gluon, parallel
 from mxnet_tpu_torch.base import NotSupportedError
+from test_torch_port_amp import seeded
 
 RTOL = 1e-5
 STATE_ATOL = 1e-6
@@ -81,9 +82,9 @@ def _trainable(net):
 
 
 def _jax_net(weights=None):
-    jmx.random.seed(0)
     net = _net(jmx)
-    net.initialize(jmx.init.Xavier())
+    with seeded(0):
+        net.initialize(jmx.init.Xavier())
     if weights is not None:
         target = net._collect_params_with_prefix()
         for k, v in weights.items():

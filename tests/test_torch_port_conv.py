@@ -28,6 +28,7 @@ from mxnet_tpu import autograd as jautograd, gluon as jgluon
 import mxnet_tpu_torch as mx
 from mxnet_tpu_torch import autograd, gluon
 from mxnet_tpu_torch.convert import block_weights_to_numpy, load_block_weights
+from test_torch_port_amp import seeded
 
 FWD_TOL = 1e-5
 GRAD_TOL = 1e-4
@@ -357,8 +358,9 @@ def test_layers_match_jax(case):
     rng = np.random.RandomState(1)
     x = rng.randn(*shape).astype(np.float32)
     jl = make(jgluon.nn)
-    jl.initialize()
-    jl(jmx.nd.array(x))
+    with seeded(26):
+        jl.initialize()
+        jl(jmx.nd.array(x))
     weights = {k: rng.randn(*p.shape).astype(np.float32) for k, p in
                jl._collect_params_with_prefix().items()}
     for k, p in jl._collect_params_with_prefix().items():
@@ -431,9 +433,9 @@ def bn_trained():
     x = rng.randn(4, 3, 6, 6).astype(np.float32)
     y = rng.randint(0, 3, (4,)).astype(np.int32)
     jnet = _bn_net(jgluon.nn)
-    jmx.random.seed(2)
-    jnet.initialize()
-    jnet(jmx.nd.array(x))
+    with seeded(2):
+        jnet.initialize()
+        jnet(jmx.nd.array(x))
     w0 = {k: p.data().asnumpy() for k, p in
           jnet._collect_params_with_prefix().items()}
     pnet = _bn_net(gluon.nn)

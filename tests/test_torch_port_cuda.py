@@ -21,6 +21,7 @@ into p, the plain version into the dequantized row: f32 rounding only).
 K4's y and dx take the tolerance of their dtype; dgamma and dbeta, f32
 sums over all rows in another order, 1e-3 absolute + 1e-4 relative.
 """
+import os
 import threading
 
 import numpy as np
@@ -3578,3 +3579,272 @@ def test_dist_two_ranks_on_one_card_bitwise_and_k1_on_the_shard(card,
         assert float(r["card/zero1/k1_err"]) <= \
             1e-7 + 1e-6 * float(r["card/zero1/k1_scale"])
 
+
+
+# ----------------------------------------------------------------------
+# the recurrent layers, the language models, the classifiers and SSD
+# (chip_smoke.py phases 40-43 at small sizes): hybridized on the card
+# against the port on the CPU, f32, TF32 off
+# ----------------------------------------------------------------------
+
+@pytest.fixture
+def f32_card(card):
+    prev = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32,
+            torch.backends.cudnn.deterministic)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    yield card
+    (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32,
+     torch.backends.cudnn.deterministic) = prev
+
+
+def _item11_pair(make, x, seed, init=None):
+    """A net made by ``make()`` on the CPU (deferred shapes resolved by a
+    predict-mode forward on ``x``) and one on the card from its weights,
+    hybridized."""
+    import mxnet_tpu_torch as mx
+    host = make()
+    with mx.cpu():
+        mx.random.seed(seed)
+        host.initialize(init or mx.init.Xavier(magnitude=2))
+        with mt_autograd.predict_mode():
+            host(*[mx.nd.array(a) for a in x])
+    weights = block_weights_to_numpy(host)
+    net = make()
+    net.initialize(ctx=mx.gpu(0))
+    load_block_weights(net, weights)
+    net.hybridize()
+    return host, net, weights
+
+
+def _rel_err(a, b):
+    return float(np.linalg.norm(a - b) / max(np.linalg.norm(b), 1e-30))
+
+
+@pytest.mark.parametrize("mode,bi", [("lstm", True), ("gru", False)])
+def test_rnn_layer_replays_match_the_cpu(f32_card, mode, bi):
+    """Phase 40's check: a 2-layer fused layer, hybridized, its third
+    call a replay of the captured forward and backward: outputs and
+    states within 1e-5, every gradient within 1e-4 of its norm."""
+    import mxnet_tpu_torch as mx
+    cls = mx.gluon.rnn.LSTM if mode == "lstm" else mx.gluon.rnn.GRU
+    rng = np.random.RandomState(40)
+    x = rng.randn(6, 3, 5).astype(np.float32)
+    n_dir = 2 if bi else 1
+    h0 = [rng.randn(2 * n_dir, 3, 8).astype(np.float32)
+          for _ in range(2 if mode == "lstm" else 1)]
+    host, net, _ = _item11_pair(
+        lambda: cls(8, 2, bidirectional=bi, input_size=5, prefix="r_"),
+        [x], 40, mx.init.Uniform(0.3))
+
+    def run(blk, ctx):
+        with ctx:
+            xa = mx.nd.array(x)
+            st = [mx.nd.array(h) for h in h0]
+        for a in [xa] + st:
+            a.attach_grad()
+        with mt_autograd.record():
+            out, new = blk(xa, st)
+            loss = (out * out).sum() + sum((s * s).sum() for s in new)
+        loss.backward()
+        return ([out.asnumpy()] + [s.asnumpy() for s in new],
+                [a.grad.asnumpy() for a in [xa] + st] +
+                [p.grad().asnumpy() for _, p in sorted(
+                    blk._collect_params_with_prefix().items())])
+    want = run(host, mx.cpu())
+    for _ in range(3):
+        got = run(net, mx.gpu(0))
+    for g, w in zip(got[0], want[0]):
+        np.testing.assert_allclose(g, w, rtol=1e-5, atol=1e-5)
+    for g, w in zip(got[1], want[1]):
+        assert _rel_err(g, w) <= 1e-4
+    stats = net._cached_op.stats
+    assert stats["captures"] == 1 and stats["replays"] >= 2
+
+
+def test_language_model_card_matches_the_cpu_and_trains_captured(f32_card):
+    """Phase 41's check at vocabulary 50: a predict-mode forward and
+    backward against the CPU (loss 1e-5 relative, gradients 1e-4 of
+    their norms), then three captured training steps with dropout and
+    ``clip_global_norm``: finite losses, K1 once a step."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.gluon.model_zoo import nlp
+    from mxnet_tpu_torch.gluon.utils import clip_global_norm
+    ops._build.build(["fused_update"])
+    rng = np.random.RandomState(41)
+    x = rng.randint(0, 50, (7, 4)).astype(np.float32)
+    y = rng.randint(0, 50, (7, 4)).astype(np.float32)
+    host, net, _ = _item11_pair(
+        lambda: nlp.AWDRNN("lstm", 50, 16, 24, 3, prefix="lm_"), [x], 41)
+    ce = SoftmaxCrossEntropyLoss()
+
+    def grads(blk, ctx):
+        with ctx:
+            xa, ya = mx.nd.array(x), mx.nd.array(y)
+        with mt_autograd.record(train_mode=False):
+            loss = ce(blk(xa)[0], ya).mean()
+        loss.backward()
+        return float(loss.asscalar()), [p.grad().asnumpy() for _, p in
+                                        sorted(blk.collect_params().items())]
+    want_l, want_g = grads(host, mx.cpu())
+    got_l, got_g = grads(net, mx.gpu(0))
+    assert abs(got_l - want_l) <= 1e-5 * abs(want_l)
+    for g, w in zip(got_g, want_g):
+        assert _rel_err(g, w) <= 1e-4
+    tr = Trainer(net.collect_params(), "sgd", {"learning_rate": 1.0})
+    params = [p for p in net.collect_params().values()
+              if p.grad_req != "null"]
+    with mx.gpu(0):
+        xa, ya = mx.nd.array(x), mx.nd.array(y)
+    ops.reset_launches()
+    losses = []
+    for _ in range(3):
+        with mt_autograd.record():
+            loss = ce(net(xa)[0], ya).mean()
+        loss.backward()
+        clip_global_norm([p.grad() for p in params], 0.25)
+        tr.step(1)
+        losses.append(float(loss.asscalar()))
+    assert np.isfinite(losses).all()
+    assert ops.launch_counts()["fused_sgd_update"] == 3
+    assert net._cached_op.stats["captures"] >= 1
+
+
+def _chip_smoke():
+    import importlib.util
+    path = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "chip_smoke.py")
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+# the classifier test's limits, its gradients on the card against
+# float64 at the card's ReLU6 gates, from its readings on an H100: the
+# loss 6.8e-7 relative at worst, gradients 2.4e-5 of their norms
+# (predict mode), and 6.7e-6 absolute for the training mode's out.7
+# betas, zero in exact arithmetic
+CLF_LOSS_RTOL, CLF_GRAD_RTOL, CLF_GRAD_ATOL = 5e-6, 1e-4, 2e-5
+
+
+def test_classifier_card_matches_the_cpu(f32_card):
+    """Phase 42's check on ``mobilenet_v2_0_25`` at 64 x 64, batch 16
+    (He's initialization, as the smoke's ``_he_init``): predict mode
+    replayed against the CPU (1e-4 x max |logit|); the loss and every
+    gradient in predict and in training mode, eager on the card, against
+    ``chip_smoke.mobilenet_v2_plain`` in float64 on the CPU with each
+    ReLU6 passing its gradient where the card's did (the loss within
+    ``CLF_LOSS_RTOL``, each gradient within ``CLF_GRAD_RTOL`` of its norm
+    plus ``CLF_GRAD_ATOL``); three training steps captured against the eager
+    block's on the card (1e-5, phase 16's limit)."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.gluon.model_zoo import vision
+    smoke = _chip_smoke()
+    ops._build.build(["fused_update"])
+    rng = np.random.RandomState(42)
+    x = rng.rand(16, 3, 64, 64).astype(np.float32)
+    y = rng.randint(0, 10, 16).astype(np.int32)
+    he = mx.init.Xavier("gaussian", "in", 2)
+    host, net, w0 = _item11_pair(
+        lambda: vision.mobilenet_v2_0_25(classes=10), [x], 42, he)
+    with mx.cpu(), mt_autograd.predict_mode():
+        want = host(mx.nd.array(x)).asnumpy()
+    with mx.gpu(0), mt_autograd.predict_mode():
+        for _ in range(3):
+            got = net(mx.nd.array(x)).asnumpy()
+    assert np.abs(got - want).max() <= 1e-4 * np.abs(want).max()
+    assert net._cached_op.stats["replays"] >= 1
+    ce = SoftmaxCrossEntropyLoss()
+    for train in (False, True):
+        blk = vision.mobilenet_v2_0_25(classes=10)
+        blk.initialize(ctx=mx.gpu(0))
+        load_block_weights(blk, w0)
+        gates = smoke.relu6_gates(blk)
+        with mx.gpu(0):
+            xa, ya = mx.nd.array(x), mx.nd.array(y, dtype="int32")
+        with mt_autograd.record(train_mode=train):
+            loss = ce(blk(xa), ya).mean()
+        loss.backward()
+        got = {k: p.grad().asnumpy() for k, p in
+               blk._collect_params_with_prefix().items()
+               if p.grad_req != "null"}
+        ref_l, ref, _ = smoke.mobilenet_v2_plain(w0, x, y, train, gates)
+        assert abs(float(loss.asscalar()) - ref_l) <= \
+            CLF_LOSS_RTOL * abs(ref_l)
+        for k in ref:
+            err = np.linalg.norm(got[k] - ref[k])
+            assert err <= CLF_GRAD_RTOL * np.linalg.norm(ref[k]) + \
+                CLF_GRAD_ATOL, (train, k, err, np.linalg.norm(ref[k]))
+    runs = []
+    for active in (True, False):
+        blk = vision.mobilenet_v2_0_25(classes=10)
+        blk.initialize(ctx=mx.gpu(0))
+        load_block_weights(blk, w0)
+        blk.hybridize(active)
+        tr = Trainer(blk.collect_params(), "sgd",
+                     {"learning_rate": 0.1, "momentum": 0.9})
+        with mx.gpu(0):
+            xa, ya = mx.nd.array(x), mx.nd.array(y, dtype="int32")
+        ls = []
+        for _ in range(3):
+            with mt_autograd.record():
+                loss = ce(blk(xa), ya)
+            loss.backward()
+            tr.step(16)
+            ls.append(float(loss.mean().asscalar()))
+        runs.append((ls, block_weights_to_numpy(blk)))
+    (cap_l, cap_w), (eag_l, eag_w) = runs
+    np.testing.assert_allclose(cap_l, eag_l, rtol=1e-5)
+    for k, v in w0.items():
+        du = eag_w[k] - v
+        assert np.linalg.norm((cap_w[k] - v) - du) <= \
+            1e-5 * np.linalg.norm(du) + 3 * np.spacing(
+                np.abs(v).max()) * np.sqrt(v.size), k
+
+
+def test_ssd_card_matches_the_cpu(f32_card):
+    """Phase 43's check on a narrow SSD at 64 x 64: training-mode
+    predictions against the CPU (1e-4), ``MultiBoxDetection`` on the
+    card against the CPU's over the same inputs (ids and kept rows
+    equal, scores and boxes within 1e-5), and a hybridized inference
+    call captured."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.gluon.model_zoo import vision
+    from mxnet_tpu_torch.gluon.model_zoo.vision.ssd import _ResNetFeatures
+    rng = np.random.RandomState(43)
+    x = rng.rand(2, 3, 64, 64).astype(np.float32)
+
+    def make():
+        body = vision.ResNetV1(vision.BasicBlockV1, [1, 1, 1, 1],
+                               [8, 8, 16, 32, 64], classes=10)
+        return vision.SSD(_ResNetFeatures(body, 2, (16, 16)),
+                          [[0.2, 0.27], [0.37, 0.45], [0.54, 0.62],
+                           [0.71, 0.79]], [[1, 2, 0.5]] * 4, [-1.0] * 4,
+                          ("a", "b", "c"), nms_topk=50)
+    host, net, _ = _item11_pair(make, [x], 43)
+    with mx.cpu(), mt_autograd.record():
+        want = [a.asnumpy() for a in host(mx.nd.array(x))]
+    with mx.gpu(0), mt_autograd.record():
+        got = [a.asnumpy() for a in net(mx.nd.array(x))]
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g, w, rtol=1e-4, atol=1e-4)
+    prob = torch.softmax(torch.from_numpy(got[0]), -1).permute(0, 2, 1) \
+        .contiguous().numpy()
+    dets = []
+    for ctx in (mx.cpu(), mx.gpu(0)):
+        with ctx:
+            dets.append(mt_nd.contrib.MultiBoxDetection(
+                mx.nd.array(prob), mx.nd.array(got[1].reshape(2, -1)),
+                mx.nd.array(got[2]), nms_threshold=0.45,
+                nms_topk=50).asnumpy())
+    np.testing.assert_array_equal(dets[1][..., 0], dets[0][..., 0])
+    np.testing.assert_array_equal(dets[1][..., 1] > 0, dets[0][..., 1] > 0)
+    np.testing.assert_allclose(dets[1], dets[0], rtol=1e-5, atol=1e-5)
+    with mx.gpu(0), mt_autograd.predict_mode():
+        for _ in range(3):
+            ids, scores, boxes = net(mx.nd.array(x))
+    assert ids.shape[-1] == scores.shape[-1] == 1 and boxes.shape[-1] == 4
+    assert net._cached_op.stats["captures"] >= 1

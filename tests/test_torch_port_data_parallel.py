@@ -722,7 +722,24 @@ def test_no_environment_knob_is_read(monkeypatch, tmp_path):
                 "image.py", "utils/native.py", "utils/__init__.py",
                 "_dist_init.py", "parallel/zero.py", "parallel/overlap.py",
                 "kvstore/__init__.py", "kvstore/kvstore.py",
-                "kvstore/horovod.py", "gluon/trainer.py"):
+                "kvstore/horovod.py", "gluon/trainer.py",
+                # the recurrent layers, gluon.contrib and the zoo
+                "gluon/rnn/__init__.py", "gluon/rnn/rnn_cell.py",
+                "gluon/rnn/rnn_layer.py", "rnn.py", "initializer.py",
+                "convert.py", "gluon/contrib/__init__.py",
+                "gluon/contrib/nn.py", "gluon/contrib/rnn.py",
+                "gluon/contrib/data/__init__.py",
+                "gluon/model_zoo/nlp/language_model.py",
+                "gluon/model_zoo/vision/__init__.py",
+                "gluon/model_zoo/vision/alexnet.py",
+                "gluon/model_zoo/vision/vgg.py",
+                "gluon/model_zoo/vision/squeezenet.py",
+                "gluon/model_zoo/vision/densenet.py",
+                "gluon/model_zoo/vision/inception.py",
+                "gluon/model_zoo/vision/mobilenet.py",
+                "gluon/model_zoo/vision/resnext.py",
+                "gluon/model_zoo/vision/resnest.py",
+                "gluon/model_zoo/vision/ssd.py"):
         tree = ast.parse((REPO / "mxnet_tpu_torch" / rel).read_text())
         names = {n.attr for n in ast.walk(tree)
                  if isinstance(n, ast.Attribute)}

@@ -7,7 +7,8 @@ Blocks are built with explicit ``prefix=`` in both packages, so the
 process-wide naming counters of either do not matter.  Weights are
 carried from the reference by structural name
 (``convert.load_block_weights``).  Tolerances: layer outputs and
-gradients 1e-5 (f32 products in another order); trained parameters
+gradients 1e-5 (f32 products in another order; the reference's weights
+drawn under ``seeded(LAYER_SEED)``); trained parameters
 1e-6 absolute (one or two SGD steps at lr 0.1); ``Constant``/``Zero``/
 ``One`` bitwise; ``Uniform``/``Normal``/``Xavier`` by their bounds and
 moments (the draws come from another generator); metrics 1e-12 (the
@@ -26,8 +27,13 @@ from mxnet_tpu_torch import autograd as ag, gluon, initializer as init
 from mxnet_tpu_torch import metric
 from mxnet_tpu_torch.convert import load_block_weights
 from mxnet_tpu_torch.gluon import nn
+from test_torch_port_amp import seeded
 
 TOL = 1e-5
+# the reference's layer weights are drawn under this seed of its global
+# key (restored after), not under whatever key earlier tests left;
+# ``tools/port_gelu_seed_sweep.py`` runs the layers over seeds 0-31
+LAYER_SEED = 0
 RNG = np.random.RandomState(0)
 X = RNG.randn(2, 3, 4).astype(np.float32)
 
@@ -220,12 +226,16 @@ def _seq(cls):
     return blk
 
 
-@pytest.mark.parametrize("name", sorted(LAYERS))
-def test_layer_matches_jax(name):
+def layer_case(name, seed=LAYER_SEED):
+    """Both packages' outputs and gradients of layer ``name``, the
+    reference's weights drawn under ``seeded(seed)`` and carried to the
+    port: ``(port, reference)``, each ``(y, x.grad or None, {param:
+    grad})``."""
     make, x = LAYERS[name]
     dtype = "int32" if x.dtype == np.int32 else None
     jblk = make(jgluon.nn)
-    jblk.initialize(init=jinit.Normal(0.5))
+    with seeded(seed):
+        jblk.initialize(init=jinit.Normal(0.5))
     jx = jmx.nd.array(x, dtype=dtype)
     jblk(jx)                                         # deferred shapes
     weights = {k: p.data().asnumpy() for k, p in
@@ -248,7 +258,12 @@ def test_layer_matches_jax(name):
                  blk._collect_params_with_prefix().items()}
         outs.append((y.asnumpy(), None if dtype else xx.grad.asnumpy(),
                      grads))
-    (py, pgx, pg), (jy, jgx, jg) = outs
+    return outs
+
+
+@pytest.mark.parametrize("name", sorted(LAYERS))
+def test_layer_matches_jax(name):
+    (py, pgx, pg), (jy, jgx, jg) = layer_case(name)
     np.testing.assert_allclose(py, jy, rtol=TOL, atol=TOL)
     if pgx is not None:
         np.testing.assert_allclose(pgx, jgx, rtol=TOL, atol=TOL)

@@ -403,7 +403,22 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                 # data parallelism over more than one rank
                 "_dist_init.py", "parallel/zero.py", "parallel/overlap.py",
                 "kvstore/__init__.py", "kvstore/kvstore.py",
-                "kvstore/horovod.py"):
+                "kvstore/horovod.py",
+                # the recurrent layers, gluon.contrib and the zoo
+                "gluon/rnn/__init__.py", "gluon/rnn/rnn_cell.py",
+                "gluon/rnn/rnn_layer.py", "rnn.py",
+                "gluon/contrib/__init__.py", "gluon/contrib/nn.py",
+                "gluon/contrib/rnn.py", "gluon/contrib/data/__init__.py",
+                "gluon/model_zoo/nlp/language_model.py",
+                "gluon/model_zoo/vision/alexnet.py",
+                "gluon/model_zoo/vision/vgg.py",
+                "gluon/model_zoo/vision/squeezenet.py",
+                "gluon/model_zoo/vision/densenet.py",
+                "gluon/model_zoo/vision/inception.py",
+                "gluon/model_zoo/vision/mobilenet.py",
+                "gluon/model_zoo/vision/resnext.py",
+                "gluon/model_zoo/vision/resnest.py",
+                "gluon/model_zoo/vision/ssd.py"):
         assert port / rel in files, rel
     assert REPO / "tools" / "port_serve_loadgen.py" in files
     assert REPO / "tools" / "port_cached_op_pairs.py" in files

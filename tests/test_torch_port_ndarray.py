@@ -25,7 +25,6 @@ import mxnet_tpu as jmx
 from mxnet_tpu.ndarray import utils as jutils
 
 import mxnet_tpu_torch as mx
-from mxnet_tpu_torch import NotSupportedError
 
 import test_ndarray_v2_fixture as v2
 
@@ -305,20 +304,38 @@ def test_entry_points_raise_without_a_card_and_run_on_the_cpu_when_asked():
     assert mx.resolve_device(mx.cpu()) == torch.device("cpu")
     assert mx.gpu(1).torch_device == torch.device("cuda", 1)
     assert mx.Context.from_device(torch.device("cuda", 2)) == mx.gpu(2)
+    # the recurrent layers, the language models and the zoo's classifiers
+    from mxnet_tpu_torch.gluon.model_zoo import nlp, vision
+    lstm = mx.gluon.rnn.LSTM(4, input_size=3)
+    lm = nlp.standard_lstm_lm_200(vocab_size=10)
+    clf = vision.get_model("mobilenet_v2_0_25", classes=3)
+    for net in (lstm, lm, clf):
+        with pytest.raises(mx.MXNetError, match="mx.cpu"):
+            net.initialize()
+        net.initialize(ctx=mx.cpu())
+    with pytest.raises(mx.MXNetError, match="mx.cpu"):
+        lstm.begin_state(2)
+    with mx.cpu():
+        assert lstm(mx.nd.ones((5, 2, 3))).shape == (5, 2, 4)
+        assert lm(mx.nd.ones((5, 2)))[0].shape == (5, 2, 10)
+        assert clf(mx.nd.ones((1, 3, 32, 32))).shape == (1, 3)
+        assert mx.nd.RNN(mx.nd.ones((2, 1, 3)), mx.nd.ones((144,)),
+                         mx.nd.zeros((1, 1, 4)), state_cell=mx.nd.zeros(
+                             (1, 1, 4))).shape == (2, 1, 4)
 
 
 def test_unported_ops_raise_naming_their_item():
-    with pytest.raises(NotSupportedError, match="item 11"):
-        mx.nd.RNN
+    # no reference op waits any longer: RNN is the last one ported
+    assert callable(mx.nd.RNN)
     with pytest.raises(AttributeError):
         mx.nd.no_such_op
     from mxnet_tpu.ndarray import _METHOD_FORWARD_OPS, ops as jops
     from mxnet_tpu.ndarray import linalg as jlinalg
     ported = set(mx.nd.ops._OPS)
     later = mx.nd.ops._REFERENCE_OPS
-    # every reference op name is either ported or known to wait
+    # every reference op name is ported
     assert set(jops.__all__) <= later
-    assert later - ported == {"RNN"}
+    assert later - ported == set()
     assert {"FullyConnected", "LayerNorm", "Embedding", "softmax",
             "gather_positions", "batch_dot", "where", "Convolution",
             "Deconvolution", "Pooling", "BatchNorm", "InstanceNorm",

@@ -389,21 +389,21 @@ def test_get_model_serves_bert_and_the_transformer():
     bert = nlp.get_model("bert_12_768_12", vocab_size=50,
                          use_decoder=False, use_classifier=False)
     assert isinstance(bert, nlp.BERTModel)
-    with pytest.raises(NotSupportedError, match="item 11"):
-        nlp.get_model("standard_lstm_lm_200")
+    # the language models are served too (tests/test_torch_port_language_
+    # model.py holds them against the reference)
+    assert isinstance(nlp.get_model("standard_lstm_lm_200", vocab_size=20),
+                      nlp.StandardRNN)
     with pytest.raises(NotSupportedError, match="pretrained"):
         nlp.get_model("transformer_en_de_512", pretrained=True)
     with pytest.raises(MXNetError):
         nlp.get_model("no_such_model")
-    ref = set(jnlp._MODELS)
-    lm = set(jnlp.language_model.__all__)
-    assert set(nlp._MODELS) == {n for n in ref if n not in lm}
-    assert set(nlp._LATER) == {n for n in ref if n in lm}
+    assert set(nlp._MODELS) == set(jnlp._MODELS)
+    assert not hasattr(nlp, "_LATER")
 
 
 def test_nlp_names_are_the_reference_s_but_the_language_models():
-    lm = set(jnlp.language_model.__all__)
+    # the language models are ported now: every callable name
     want = {n for n in dir(jnlp) if not n.startswith("_")
-            and n not in lm and callable(getattr(jnlp, n))}
+            and callable(getattr(jnlp, n))}
     missing = {n for n in want if not hasattr(nlp, n)}
     assert not missing, missing

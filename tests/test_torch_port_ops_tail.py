@@ -29,7 +29,7 @@ import mxnet_tpu as jmx
 from mxnet_tpu import amp as jamp
 
 import mxnet_tpu_torch as mx
-from mxnet_tpu_torch import MXNetError, NotSupportedError, amp, autograd
+from mxnet_tpu_torch import MXNetError, amp, autograd
 
 EXACT, F32, TRANS, BF16 = "exact", 1e-5, 1e-6, 2.0 ** -8
 
@@ -456,10 +456,10 @@ def test_op_matches_reference(cid):
 def test_every_reference_op_is_ported_but_rnn():
     from mxnet_tpu.ndarray import ops as jops
     ops = mx.nd.ops
-    assert ops._REFERENCE_OPS - set(ops._OPS) == {"RNN"}
+    # RNN too, since gluon.rnn is ported (tests/test_torch_port_rnn.py)
+    assert ops._REFERENCE_OPS - set(ops._OPS) == set()
     assert set(jops.__all__) <= ops._REFERENCE_OPS
-    with pytest.raises(NotSupportedError, match="item 11"):
-        mx.nd.RNN
+    assert mx.nd.RNN is ops._OPS["RNN"]
 
 
 def test_method_surface_and_namespace():

@@ -51,6 +51,7 @@ from mxnet_tpu_torch import MXNetError, autograd, gluon
 from mxnet_tpu_torch.convert import block_weights_to_numpy, load_block_weights
 from mxnet_tpu_torch.gluon import nn
 from mxnet_tpu_torch.gluon.model_zoo.nlp import get_bert_model
+from test_torch_port_amp import seeded
 
 R = importlib.import_module("mxnet_tpu.ops.quant_matmul")
 P = importlib.import_module("mxnet_tpu_torch.ops.quant_matmul")
@@ -299,12 +300,11 @@ def _dense_run(x):
     int8``, and the port's from the same weights switched to int8 by
     ``net.apply`` (built with fp8 on the first), fed the reference's
     draws: (port output, reference output)."""
-    key = jmx.random.get_key_data()
     jnet = jnn.HybridSequential()
     jnet.add(jnn.Dense(7, activation="relu"), jnn.Dense(3))
-    jnet.initialize(jmx.init.Xavier())
-    jnet(jmx.nd.array(x))
-    jmx.random.set_key_data(key)
+    with seeded(26):
+        jnet.initialize(jmx.init.Xavier())
+        jnet(jmx.nd.array(x))
     weights = {k: p.data().asnumpy()
                for k, p in jnet._collect_params_with_prefix().items()}
     with pytest.MonkeyPatch.context() as m:

@@ -422,8 +422,13 @@ def test_get_model_serves_the_resnets_and_names_the_rest():
         net = vision.get_model(name, classes=7)
         assert type(net).__name__ == ("ResNetV2" if "v2" in name.lower()
                                       else "ResNetV1")
+    # the other classifiers are served too (tests/test_torch_port_vision_
+    # zoo.py); what is left raises naming item 11c
     for name in ("vgg16", "mobilenet1.0", "densenet121"):
-        with pytest.raises(mx.NotSupportedError, match="item 11"):
+        assert vision.get_model(name, classes=7) is not None
+    for name in ("yolo3_darknet53", "resnet50_v1b",
+                 "faster_rcnn_resnet50_v1b"):
+        with pytest.raises(mx.NotSupportedError, match="item 11c"):
             vision.get_model(name)
     with pytest.raises(mx.MXNetError, match="not supported"):
         vision.get_model("resnet19_v1")
@@ -431,9 +436,9 @@ def test_get_model_serves_the_resnets_and_names_the_rest():
         vision.get_model("resnet50_v1", pretrained=True)
     with pytest.raises(mx.MXNetError, match="offline"):
         vision.resnet18_v1(pretrained=True)
-    assert sorted(vision._MODELS) == sorted(
-        n for n in jvision.resnet.__all__
-        if n[0].islower() and not n.startswith("get_"))
+    assert set(n for n in jvision.resnet.__all__
+               if n[0].islower() and not n.startswith("get_")) <= \
+        set(vision._MODELS)
     assert vision._LATER == set(jvision._MODELS) - set(vision._MODELS)
 
 

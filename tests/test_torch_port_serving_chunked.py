@@ -38,10 +38,14 @@ from mxnet_tpu_torch.ops.flash_attention import (flash_attention_fwd,
                                                  flash_attention_plain)
 from mxnet_tpu_torch.serving import (ContinuousBatcher, InferenceEngine,
                                      PagedKVCache, PrefixCache, Request)
+from test_torch_port_amp import seeded
 
 ATOL = 1e-4
 FP8_ATOL = 2e-2
 PREFIX_ATOL = 1e-5
+# the reference's weights are drawn under this seed of its global key
+# (restored after), not under whatever key earlier tests left
+SEED_REF = 26
 GEOM = dict(vocab_size=64, hidden_size=32, num_layers=2, num_heads=4,
             num_kv_heads=2, intermediate_size=64, max_seq_len=64)
 # buckets 8, 16 and 32; chunks of 8 tokens
@@ -53,8 +57,9 @@ _CC = {}          # one JAX compile cache for the module
 @pytest.fixture(scope="module")
 def nets():
     jnet = JaxLlama(JaxConfig(**GEOM))
-    jnet.initialize()
-    jnet(mx.nd.array([[1, 2, 3]], dtype="int32"))
+    with seeded(SEED_REF):
+        jnet.initialize()
+        jnet(mx.nd.array([[1, 2, 3]], dtype="int32"))
     jnet.hybridize()
     embed, norm, head, layers = jnet.decode_weights()
     weights = (np.asarray(embed), np.asarray(norm),

@@ -4,11 +4,14 @@
 group ``SPEC`` names (a JSON file: ``store``, ``world``, ``job``,
 ``weights``, ``data``, ``out``, ``tmp``), inside ``with mx.cpu():``
 except for the ``card`` job (its ranks share ``cuda:0``), runs every
-scenario of the job (``distributed``, ``kvstore`` or ``card``) on one
+scenario of the job (``distributed``, ``kvstore``, ``contrib`` or
+``card``) on one
 thread, and writes its results as ``<out>/rank<RANK>.npz`` (name ->
 array).  The test modules ``test_torch_port_distributed.py`` and
 ``test_torch_port_kvstore.py`` start the ranks and hold the results
-against the JAX package; ``test_torch_port_cuda.py`` runs the card job.
+against the JAX package (``test_torch_port_gluon_contrib.py`` the
+``contrib`` job's ``SyncBatchNorm``); ``test_torch_port_cuda.py`` runs
+the card job.
 Imports torch and the port only.
 """
 import json
@@ -411,6 +414,29 @@ def job_kvstore(rank, world, spec, w0, data):
     kv_trainer(rank, world, w0, data)
 
 
+def job_contrib(rank, world, spec, w0, data):
+    """``gluon.contrib.nn.SyncBatchNorm`` on this rank's slice of the
+    batch in training mode: output, the input's and gamma's and beta's
+    gradients of a weighted square loss, and the running statistics."""
+    from mxnet_tpu_torch.gluon.contrib import nn as cnn
+    bn = cnn.SyncBatchNorm(in_channels=w0["gamma"].shape[0], prefix="sbn_")
+    bn.initialize(ctx=mx.cpu())
+    load_block_weights(bn, w0)
+    x = mx.nd.array(part(data["x"], rank, world))
+    c = mx.nd.array(part(data["c"], rank, world))
+    x.attach_grad()
+    with autograd.record():
+        y = bn(x)
+        loss = (y * y * c).sum()
+    loss.backward()
+    put("sync_bn/y", y.asnumpy())
+    put("sync_bn/dx", x.grad.asnumpy())
+    for k, p in bn._collect_params_with_prefix().items():
+        put(f"sync_bn/{k}", p.data().asnumpy())
+        if p.grad_req != "null":
+            put(f"sync_bn/grad/{k}", p.grad().asnumpy())
+
+
 def run_ranks(job, world, tmp, weights, data, timeout=240):
     """Start ``world`` ranks of ``job`` as processes over a ``file://``
     store in ``tmp``, wait for them (each at most ``timeout`` s) and
@@ -503,7 +529,8 @@ def main(spec_path, rank):
         parallel.distributed_init("file://" + spec["store"], world, rank,
                                   backend="gloo")
         {"distributed": job_distributed, "kvstore": job_kvstore,
-         "card": job_card}[spec["job"]](rank, world, spec, w0, data)
+         "card": job_card, "contrib": job_contrib}[spec["job"]](
+            rank, world, spec, w0, data)
         parallel.teardown_distributed()
         put("after/dist_kvstore",
             runtime.Features().is_enabled("DIST_KVSTORE"))
