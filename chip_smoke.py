@@ -358,6 +358,8 @@ continued:
     ``prefetch_to_device=True``, the numpy-body
     ``Custom`` softmax against ``nd.softmax`` and
     ``test_utils.check_consistency`` over ``[cpu(0), gpu(0)]``;
+    samples/s (CUDA events, beside ``Speedometer``'s), the wait share in
+    ``next(loader)``, device busy against wall, peak memory;
 40. (after phase 37) the fused RNN layers at AWD-LSTM's WikiText-2
     geometry (T 70, B 80, input 400): a 3-layer LSTM and GRU of hidden
     1150 and a bidirectional 2-layer LSTM of hidden 512, hybridized, the
@@ -388,8 +390,39 @@ continued:
     CUDA launches of one ``box_nms`` call and of its suppression sweep;
     one training step (``MultiBoxTarget``, softmax cross-entropy plus L1
     box loss, SGD, K1) against the CPU;
-    samples/s (CUDA events, beside ``Speedometer``'s), the wait share in
-    ``next(loader)``, device busy against wall, peak memory;
+44. ``yolo3_darknet53`` (80 classes, COCO anchors) at batch 8 x 416 x
+    416, hybridized: inference captured, its raw maps against the CPU,
+    ``box_nms`` (top 400 of 10,647 boxes) on the card against the CPU's
+    over the same inputs with phase 43's tie rule, end-to-end matched
+    detections (every unmatched row a tie), the call's ms and
+    ``box_nms``'s launches; one training step (a test loss over the
+    three raw maps: sigmoid cross-entropy on objectness and classes, L2
+    on the box channels, against seeded targets; SGD lr 1e-3, momentum
+    0.9, wd 5e-4, K1) against the CPU by phase 43's rule (the loss, all
+    gradients together and the whole update, each gradient and update
+    within 1e-3 plus twice what one ulp of input moved its own; a
+    parameter past that held against float64 at the card's kinks), then
+    timed steps: step ms, images/s, host share, peak memory;
+45. ``faster_rcnn_resnet50_v1b`` (20 classes) at batch 1 x 600 x 800
+    (17,100 anchors, ``pre_nms`` 2000, ``post_nms`` 300), hybridized:
+    whether the inference call captures, its ms, the RPN sweep's CUDA
+    launches and ROIAlign's device ms; the 300 rois against the CPU's
+    under the tie rule, the detections end to end (every unmatched row a
+    tie); one training step
+    (softmax cross-entropy and L1 on the box head, sigmoid
+    cross-entropy and L1 on the RPN, seeded targets; SGD lr 1e-3,
+    momentum 0.9, wd 5e-4, K1) against the CPU, then timed steps;
+46. segmentation over a dilated ResNet-50 v1b (21 classes, crop 480):
+    ``get_fcn``, ``get_psp`` and ``get_deeplab`` in predict mode at batch
+    2, hybridized, against the CPU; FCN with ``aux`` at batch 4 (per-pixel
+    softmax cross-entropy on both outputs, SGD lr 1e-3, momentum 0.9, wd
+    1e-4, K1): one step against the CPU with the heads' Dropouts at rate
+    0, then timed steps at their own rates: step ms, images/s, peak
+    memory and the device time of layer 4's dilated blocks;
+47. ``simple_pose_resnet50_v1b`` (17 joints) at batch 32 x 256 x 192:
+    one Adam step (lr 1e-3, ``L2Loss`` on the heatmaps against seeded
+    targets, K2) against the CPU, then timed steps: step ms, images/s,
+    peak memory; ``heatmap_to_coord`` on the card against the CPU;
 11. bf16 AMP training (``amp.init`` is process-wide, so phases 11, 13,
     29, 15, 17 and 18 come last, in that order): phase 8's model, batch and AdamW under
     ``amp.init("bfloat16")``, ``amp.init_trainer`` and
@@ -509,7 +542,7 @@ run's steps are measured as they run without it) that replays each
 decode step on its own staged inputs, the replays' device time (CUDA
 events around ``graph.replay()``) and each step's host share beside
 it.  Before
-each of phases 4, 7-19 and 20-43 the kernels' launch counters are set to 0
+each of phases 4, 7-19 and 20-47 the kernels' launch counters are set to 0
 (in each spawned rank of 39b and 39c, whose counts are summed); each phase reads them just after and fails unless its kernels
 ran the expected number of times.  The second-to-last line is the
 card's name and power limit, the line before it the kernels' JSON
@@ -9899,12 +9932,9 @@ def ssd_detection(dev, card):
     read_launches("phase 43 ssd inference", {})
     # one training step, card against CPU, and on the CPU once more from
     # an input one ulp up in half of its elements
-    x_ulp = x.copy()
-    up = np.random.RandomState(0).rand(*x.shape) < 0.5
-    x_ulp[up] = np.nextafter(x_ulp[up], np.float32(2))
     runs = []
     for ctx, model, xs in ((mx.cpu(), host, x), (gpu, net, x),
-                           (mx.cpu(), host, x_ulp)):
+                           (mx.cpu(), host, _ulp_half(x))):
         load_block_weights(model, w0)
         trainer = gluon.Trainer(model.collect_params(), "sgd",
                                 {"learning_rate": SSD_LR,
@@ -10020,10 +10050,10 @@ def _ssd_rows_agree(got, want, thresh):
     return "equal", ties
 
 
-def _ssd_match(want, got):
+def _ssd_match(want, got, tol=SSD_BOX_TOL):
     """Of ``want``'s kept detections, how many ``got`` has (same image
-    and class, box within ``SSD_BOX_TOL``), as "m / n", and the largest
-    box difference of the matched ones."""
+    and class, box within ``tol``), as "m / n", and the largest box
+    difference of the matched ones."""
     import numpy as np
     n = m = 0
     err = 0.0
@@ -10037,10 +10067,1126 @@ def _ssd_match(want, got):
                 continue
             d = np.abs(cand[:, 2:] - row[2:]).max(-1)
             j = int(np.argmin(d))
-            if d[j] <= SSD_BOX_TOL:
+            if d[j] <= tol:
                 m += 1
                 err = max(err, float(d[j]))
     return f"{m} / {n}", err
+
+
+def _dets_agree(want, got, tol, thresh, cut):
+    """End to end, the card's detections (``got``: rows [id, score, x0,
+    y0, x1, y1] a box, as ``box_nms`` leaves them) against the CPU's
+    from their own inputs: (the CPU's kept rows the card matched "m /
+    n", the card's kept rows the CPU lacks, how many unmatched rows of
+    either side a tie explains, unexplained rows, the largest box
+    difference of the matched).  A match is the same image and class
+    with a box within ``tol``.  An unmatched row is a tie when its score
+    lies within twice the largest score difference of the matched rows
+    of ``cut`` (the score gate) or of the other side's lowest kept score
+    in its image (the top-k cut), when its IoU with a kept row of its
+    side and class lies within ``SSD_TIE_IOU`` of ``thresh``, or when it
+    overlaps an unmatched row of the other side and its class past
+    ``thresh`` (the two swapped which one was kept)."""
+    import numpy as np
+    lack = {"card": [], "cpu": []}
+    low = {}
+    n = m = 0
+    box_err = score_err = 0.0
+    for b in range(want.shape[0]):
+        kw = want[b][want[b][:, 1] > 0]
+        kg = got[b][got[b][:, 1] > 0]
+        for side, rows, other in (("cpu", kw, kg), ("card", kg, kw)):
+            low[side, b] = rows[:, 1].min(initial=np.inf)
+            for row in rows:
+                cand = other[other[:, 0] == row[0]]
+                d = np.abs(cand[:, 2:] - row[2:]).max(-1) if len(cand) \
+                    else np.array([np.inf])
+                j = int(np.argmin(d))
+                if d[j] <= tol:
+                    box_err = max(box_err, float(d[j]))
+                    score_err = max(score_err, abs(float(cand[j, 1] -
+                                                         row[1])))
+                else:
+                    lack[side].append((b, row, rows))
+        n += len(kw)
+        m += len(kw) - sum(1 for e in lack["cpu"] if e[0] == b)
+    band = 2 * score_err
+    explained, odd = 0, []
+    for side, other in (("cpu", "card"), ("card", "cpu")):
+        for b, row, rows in lack[side]:
+            mates = rows[(rows[:, 0] == row[0]) &
+                         np.any(rows[:, 2:] != row[2:], -1)]
+            near = len(mates) and (np.abs(_pairwise_iou(
+                row[None, 2:], mates[:, 2:])[0] - thresh) <=
+                SSD_TIE_IOU).any()
+            swap = [r for bb, r, _ in lack[other] if bb == b and
+                    r[0] == row[0]]
+            swapped = len(swap) and (_pairwise_iou(
+                row[None, 2:], np.stack(swap)[:, 2:])[0] > thresh).any()
+            if abs(row[1] - cut) <= band or \
+                    abs(row[1] - low[other, b]) <= band or near or swapped:
+                explained += 1
+            else:
+                odd.append(f"{side} image {b} class {int(row[0])} score "
+                           f"{row[1]:.6f}")
+    return f"{m} / {n}", len(lack["card"]), explained, odd, box_err
+
+
+# ----------------------------------------------------------------------
+# phases 44-47: the rest of the zoo (ROADMAP §1 item 11c): YOLOv3,
+# Faster R-CNN, segmentation and simple pose, through the CachedOp and
+# the Gluon Trainer
+# ----------------------------------------------------------------------
+
+# GluonCV's recipes: SGD lr 1e-3, momentum 0.9, wd 5e-4 (YOLOv3, Faster
+# R-CNN) or 1e-4 (segmentation); Adam lr 1e-3 (simple pose)
+ZOO_LR, ZOO_MOMENTUM, ZOO_WD, SEG_WD = 1e-3, 0.9, 5e-4, 1e-4
+ZOO_WARMUP, ZOO_TIMED, ZOO_TRACED = 2, 5, 2
+ZOO_RAW_TOL = 1e-4      # x max(1, max |x|), as SSD_RAW_TOL
+# phase 44: yolo3_darknet53 (80 classes) at 416 x 416, batch 8
+YOLO_BATCH, YOLO_SIZE, YOLO_CLASSES = 8, 416, 80
+# phase 45: faster_rcnn_resnet50_v1b at a 600-pixel short side, the long
+# side fixed at 800 so the shapes stay static, batch 1
+RCNN_H, RCNN_W = 600, 800
+# phase 46: FCN/PSPNet/DeepLabV3 over resnet50_v1b, 21 classes, crop 480
+SEG_SIZE, SEG_PREDICT_BATCH, SEG_BATCH, SEG_CLASSES = 480, 2, 4, 21
+# phase 47: simple_pose_resnet50_v1b, 17 joints, 256 x 192, batch 32
+POSE_H, POSE_W, POSE_BATCH, POSE_JOINTS = 256, 192, 32, 17
+
+
+def _ulp_half(x):
+    """``x`` one ulp up in a fixed half of its elements."""
+    import numpy as np
+    out = x.copy()
+    up = np.random.RandomState(0).rand(*x.shape) < 0.5
+    out[up] = np.nextafter(out[up], np.float32(2))
+    return out
+
+
+def _card_net(make, w0, gpu):
+    """``make()`` on the card with the weights ``w0``, hybridized."""
+    from mxnet_tpu_torch.convert import load_block_weights
+    net = make()
+    net.initialize(ctx=gpu)
+    load_block_weights(net, w0)
+    net.hybridize()
+    return net
+
+
+def _dropout_rate(net, rate):
+    def set_rate(blk):
+        if type(blk).__name__ == "Dropout":
+            blk._rate = rate
+    net.apply(set_rate)
+    return net
+
+
+class _GradsFirst:
+    """A Trainer that keeps the parameters' gradients (host copies) as
+    its step finds them: the step rescales them in place.  With no
+    ``trainer`` it only keeps them."""
+
+    def __init__(self, trainer, model):
+        self.trainer, self.model, self.grads = trainer, model, None
+
+    def step(self, batch):
+        self.grads = {k: p.grad().asnumpy() for k, p in
+                      self.model._collect_params_with_prefix().items()
+                      if p.grad_req != "null"}
+        if self.trainer is not None:
+            self.trainer.step(batch)
+
+
+def _kink_mode(gates=None):
+    """A torch function mode over ReLU and LeakyReLU.  Without ``gates``
+    it records each call's gate (input > 0: where the gradient passes
+    whole) on the host, in call order, in ``.gates``; given such a
+    record of the same forward, each call passes its gradient where the
+    recorded gate did, and ``.flips`` counts the units whose own gate
+    differs (of ``.units``)."""
+    import torch
+    import torch.nn.functional as F
+    from torch.overrides import TorchFunctionMode
+    relus = (torch.relu, F.relu, torch.Tensor.relu)
+
+    class Kinks(TorchFunctionMode):
+        def __init__(self):
+            super().__init__()
+            self.gates = [] if gates is None else gates
+            self.at = self.flips = self.units = 0
+
+        def __torch_function__(self, func, types, args=(), kwargs=None):
+            kwargs = kwargs or {}
+            if func in relus:
+                slope = 0.0
+            elif func is F.leaky_relu:
+                slope = args[1] if len(args) > 1 else \
+                    kwargs.get("negative_slope", 0.01)
+            else:
+                return func(*args, **kwargs)
+            h = args[0]
+            if gates is None:
+                self.gates.append((h > 0).cpu())
+                return func(*args, **kwargs)
+            gate = self.gates[self.at].to(h.device)
+            self.at += 1
+            self.flips += int((gate != (h > 0)).sum())
+            self.units += gate.numel()
+            return torch.where(gate, h, h * slope)
+    return Kinks()
+
+
+def _kink_witness(make, w0, gpu, x, step, replay=None):
+    """Float64 at the card's kinks (phase 42's witness, for any net):
+    ``make()`` from ``w0``, eager on the card, takes ``step``'s forward
+    and backward (no update) with each ReLU's and LeakyReLU's gate
+    recorded; then ``make()`` on the CPU in float64 takes the same with
+    each gate replayed (``_kink_mode``).  ``replay(card_net, cpu_net)``,
+    where given, has the float64 run take any other choice the card's
+    made (Faster R-CNN's proposals).  Returns (the card's gradients,
+    float64's, units whose float64 gate differs, units gated, CPU
+    seconds)."""
+    import numpy as np
+    import torch
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.convert import load_block_weights
+    nets = []
+    for ctx in (gpu, mx.cpu()):
+        net = make()
+        net.initialize(ctx=ctx)
+        load_block_weights(net, w0)
+        nets.append(net)
+    card, host = nets
+    # Block.cast narrows 64-bit types to 32 bits, as MXNet's does
+    for p in host.collect_params().values():
+        p._bind(p.data().data.to(torch.float64))
+    if replay is not None:
+        replay(card, host)
+    card_g = _GradsFirst(None, card)
+    with _kink_mode() as rec:
+        step(card, card_g, gpu, x)
+    t0 = time.perf_counter()
+    wit = _GradsFirst(None, host)
+    with _kink_mode(rec.gates) as again:
+        step(host, wit, mx.cpu(),
+             mx.nd.NDArray(torch.from_numpy(x.astype(np.float64))))
+    if again.at != len(rec.gates):
+        fail(f"float64 witness: {again.at} gated calls, the card's "
+             f"{len(rec.gates)}")
+    return card_g.grads, wit.grads, again.flips, again.units, \
+        time.perf_counter() - t0
+
+
+def _zoo_step_check(label, w0, host, net, gpu, x, make, rule, step, kernel,
+                    replay=None):
+    """One training step from ``w0`` on the CPU (``host``), on the card
+    (``net``) and on the CPU again from ``x`` one ulp up in half of its
+    elements: ``step(model, trainer, ctx, x)`` takes the step with a
+    Trainer of ``rule`` (optimizer, its arguments, the batch) and
+    returns the loss.  Phase 43's rule: the loss within
+    ``TRAIN_LOSS_RTOL`` plus ``SSD_SPREAD_X`` times what the ulp moved
+    it; all the gradients together and the whole update (running
+    statistics left out) within ``RESNET_UPDATE_RTOL`` of their norms
+    plus ``SSD_SPREAD_X`` times what the ulp moved them together; each
+    gradient and each parameter's update within ``RESNET_UPDATE_RTOL``
+    plus ``SSD_SPREAD_X`` times what the ulp moved its own.  One
+    perturbation flips a sample of the units at a ReLU's or LeakyReLU's
+    kink, so a parameter past its own limit is held instead against
+    ``_kink_witness``, float64 at the card's kinks (built by ``make()``;
+    ``replay`` as there): its gradient within ``RESNET_UPDATE_RTOL`` of
+    the witness's norm plus ``MBV2_GRAD_ATOL`` (phase 42's limits), and
+    with SGD its update within ``RESNET_UPDATE_RTOL`` of the plain
+    rule's over the witness's gradient.  Adam's first step moves each
+    element by about lr whatever its gradient, so an element whose
+    gradient is rounding noise moves by 2 lr on the other device (simple
+    pose's ``features.6.1.bn2.gamma``: 0.255 of its update's norm); its
+    updates are held instead against the plain rule
+    (``Optimizer.update`` on the host, float32) over the card's own
+    gradients within ``UPDATE_TOL``.  The card's step launches
+    ``kernel`` once.  Returns (text, failures)."""
+    import numpy as np
+    import torch
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import gluon, ops
+    from mxnet_tpu_torch.convert import (block_weights_to_numpy,
+                                         load_block_weights)
+    name, args, batch = rule
+    runs = []
+    for ctx, model, xs in ((mx.cpu(), host, x), (gpu, net, x),
+                           (mx.cpu(), host, _ulp_half(x))):
+        load_block_weights(model, w0)
+        if ctx is gpu:
+            ops.reset_launches()
+        trainer = _GradsFirst(gluon.Trainer(model.collect_params(), *rule[:2]),
+                              model)
+        loss = float(step(model, trainer, ctx, xs).mean().asscalar())
+        if ctx is gpu:
+            read_launches(label, {kernel: 1})
+        runs.append((loss, block_weights_to_numpy(model), trainer.grads))
+    (cpu_l, cpu_w, cpu_g), (card_l, card_w, card_g), (ulp_l, ulp_w, ulp_g) \
+        = runs
+    held = sorted(cpu_g)
+
+    def rel(a, b, k):
+        d = a[k].astype(np.float64) - b[k]
+        return float(np.linalg.norm(d) / max(
+            float(np.linalg.norm(b[k].astype(np.float64))), 1e-30))
+
+    def together(a, b):
+        return float(np.sqrt(
+            sum(np.sum(np.square(a[k].astype(np.float64) - b[k]))
+                for k in held) /
+            sum(np.sum(np.square(b[k].astype(np.float64))) for k in held)))
+
+    def limit(spread):
+        return RESNET_UPDATE_RTOL + SSD_SPREAD_X * spread
+
+    def worst(err, spread):
+        k = max(held, key=lambda k: err[k] / limit(spread[k]))
+        return (f"{err[k]:.3e} at {k} (limit {limit(spread[k]):.3e}), "
+                f"{sum(err[j] > limit(spread[j]) for j in held)} past "
+                f"their own")
+    g_err = {k: rel(card_g, cpu_g, k) for k in held}
+    g_spread = {k: rel(ulp_g, cpu_g, k) for k in held}
+    g_whole, g_whole_spread = together(card_g, cpu_g), together(ulp_g, cpu_g)
+    past = {k for k in held if g_err[k] > limit(g_spread[k])}
+    base = {k: w0[k] for k in held}
+    du = {k: cpu_w[k] - w0[k] for k in held}
+    whole_err = together({k: card_w[k] - w0[k] for k in held}, du)
+    whole_spread = together({k: ulp_w[k] - w0[k] for k in held}, du)
+    loss_err = abs(card_l - cpu_l) / abs(cpu_l)
+    loss_lim = TRAIN_LOSS_RTOL + SSD_SPREAD_X * abs(ulp_l - cpu_l) / \
+        abs(cpu_l)
+    text = (f"one step card vs CPU: loss card {card_l:.6f} cpu {cpu_l:.6f} "
+            f"(rel {loss_err:.2e}, limit {loss_lim:.2e}: {TRAIN_LOSS_RTOL} + "
+            f"{SSD_SPREAD_X} x what one ulp of input moved the CPU's); the "
+            f"gradients together {g_whole:.3e} (limit "
+            f"{limit(g_whole_spread):.3e}: {RESNET_UPDATE_RTOL} + "
+            f"{SSD_SPREAD_X} x {g_whole_spread:.3e}, what one ulp moved the "
+            f"CPU's), the worst against its own limit "
+            f"{worst(g_err, g_spread)}; the whole update {whole_err:.3e} "
+            f"(limit {limit(whole_spread):.3e})")
+    failed = [what for what, ok in (
+        (f"{label} loss {loss_err:.3e}", loss_err <= loss_lim),
+        (f"{label} gradients together {g_whole:.3e}",
+         g_whole <= limit(g_whole_spread)),
+        (f"{label} whole update {whole_err:.3e}",
+         whole_err <= limit(whole_spread))) if not ok]
+    opt = mx.optimizer.create(name, **args)
+    opt.rescale_grad = 1.0 / batch
+    if name != "adam":
+        upd = update_errs(base, card_w, cpu_w, 1)
+        spread = update_errs(base, ulp_w, cpu_w, 1)
+        past |= {k for k in held if upd[k] > limit(spread[k])}
+        text += (f", the worst parameter against its own limit "
+                 f"{worst(upd, spread)}")
+    else:
+        rule_err, rule_ok = 0.0, True
+        for i, k in enumerate(held):
+            w = torch.from_numpy(w0[k].copy())
+            opt.update(i, w, torch.from_numpy(card_g[k]),
+                       opt.create_state(i, w))
+            err, ok = max_err(torch.from_numpy(card_w[k]), w, UPDATE_TOL)
+            rule_err, rule_ok = max(rule_err, err), rule_ok and ok
+        text += (f"; the card's update against {name}'s plain rule over "
+                 f"its own gradients max |diff| {rule_err:.2e} (limit "
+                 f"{UPDATE_TOL[0]} + {UPDATE_TOL[1]} x |w|)")
+        if not rule_ok:
+            failed.append(f"{label} {name} rule {rule_err:.3e}")
+    if not past:
+        return text + "; no parameter past its own limit", failed
+    eager_g, wit_g, flips, units, cpu_s = _kink_witness(make, w0, gpu, x,
+                                                         step, replay)
+    share = {}
+    for i, k in enumerate(held):
+        if k not in past:
+            continue
+        norm = float(np.linalg.norm(wit_g[k]))
+        share[k] = float(np.linalg.norm(card_g[k] - wit_g[k])) / (
+            RESNET_UPDATE_RTOL * norm + MBV2_GRAD_ATOL)
+        if name != "adam":
+            w = torch.from_numpy(w0[k].astype(np.float64))
+            opt.update(i, w, torch.from_numpy(wit_g[k]),
+                       opt.create_state(i, w))
+            u = update_errs({k: w0[k]}, card_w, {k: w.numpy()}, 1)[k]
+            share[k] = max(share[k], u / RESNET_UPDATE_RTOL)
+    k = max(share, key=share.get)
+    eager = max(rel(eager_g, card_g, j) for j in past)
+    text += (f"; past their own limit, {len(past)} parameter(s) held "
+             f"against float64 at the card's kinks on the CPU ({flips} of "
+             f"{units} gates the float64 forward set otherwise, {cpu_s:.1f} "
+             f"s; gradient within {RESNET_UPDATE_RTOL} of its norm + "
+             f"{MBV2_GRAD_ATOL}" + ("" if name == "adam" else
+                                    f", update within {RESNET_UPDATE_RTOL}")
+             + f"): the worst {share[k]:.3f} of its limit at {k}, the card's "
+             f"step against its eager gates' run {eager:.2e}")
+    if share[k] > 1.0:
+        failed.append(f"{label} {k} against float64 {share[k]:.3f} of its "
+                      f"limit")
+    return text, failed
+
+
+def _zoo_timed(dev, step, label, kernel):
+    """``step()`` (one training step on the card, returning its loss):
+    ``ZOO_WARMUP`` steps, ``ZOO_TIMED`` between CUDA events, then
+    ``ZOO_TRACED`` under ``torch.profiler``, from zeroed launch
+    counters; ``kernel`` once a step.  Returns (step ms, device busy ms a
+    traced step, losses, peak GB, launches)."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from mxnet_tpu_torch import ops
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    ops.reset_launches()
+    n = ZOO_WARMUP + ZOO_TIMED + ZOO_TRACED
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    prof = profile(activities=[ProfilerActivity.CUDA])
+    losses = []
+    for i in range(n):
+        if i == ZOO_WARMUP:
+            ev[0].record()
+        if i == ZOO_WARMUP + ZOO_TIMED:
+            ev[1].record()
+            torch.cuda.synchronize(dev)
+            prof.__enter__()
+        losses.append(step().mean())
+    torch.cuda.synchronize(dev)
+    prof.__exit__(None, None, None)
+    launches = read_launches(label, {kernel: n})
+    losses = [float(v.asscalar()) for v in losses]
+    if not all(np.isfinite(losses)):
+        fail(f"{label}: losses {losses}")
+    return (ev[0].elapsed_time(ev[1]) / ZOO_TIMED, _busy_ms(prof, ZOO_TRACED),
+            losses, torch.cuda.max_memory_allocated(dev) / 1e9, launches)
+
+
+def _timed_line(batch, timed):
+    step_ms, busy, losses, peak, _ = timed
+    return (f"{ZOO_WARMUP + ZOO_TIMED + ZOO_TRACED} steps, losses "
+            f"{[round(v, 4) for v in losses]}; step {step_ms:.2f} ms (CUDA "
+            f"events over {ZOO_TIMED} steps), {batch / step_ms * 1e3:.1f} "
+            f"images/s, device busy {busy:.2f} ms a traced step, host "
+            f"share {1 - busy / step_ms:.4f}; peak memory {peak:.2f} GB")
+
+
+def _replay_ms(dev, fn, reps=ZOO_TIMED):
+    """Device ms of ``fn()`` a call, CUDA events over ``reps`` calls."""
+    import torch
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    torch.cuda.synchronize(dev)
+    ev[0].record()
+    for _ in range(reps):
+        fn()
+    ev[1].record()
+    torch.cuda.synchronize(dev)
+    return ev[0].elapsed_time(ev[1]) / reps
+
+
+def _nms_launches(dets, gpu, thresh, topk):
+    """CUDA launches of one ``box_nms`` call over ``dets`` on the card,
+    and of its suppression sweep alone (the call at ``topk`` less the
+    call at 1)."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.ndarray import contrib as ndc
+    d = mx.nd.array(dets, ctx=gpu)
+
+    def nms(k):
+        return lambda: ndc.box_nms(d, overlap_thresh=thresh, valid_thresh=0.01,
+                                   topk=k, coord_start=2, score_index=1,
+                                   id_index=0)
+    every = _cuda_launches(nms(topk))
+    return every, every - _cuda_launches(nms(1))
+
+
+def _yolo_targets(rng):
+    """Seeded targets of the three raw maps (largest stride first), each
+    (objectness, classes, boxes) as (B, 3, k, H, W): objectness 1 in one
+    cell-anchor of ten, a one-hot class there, boxes N(0, 0.5)."""
+    import numpy as np
+    out = []
+    for stride in (32, 16, 8):
+        h = YOLO_SIZE // stride
+        obj = (rng.rand(YOLO_BATCH, 3, 1, h, h) < 0.1).astype(np.float32)
+        cls = np.zeros((YOLO_BATCH, 3, YOLO_CLASSES, h, h), np.float32)
+        idx = rng.randint(0, YOLO_CLASSES, (YOLO_BATCH, 3, 1, h, h))
+        np.put_along_axis(cls, idx, 1.0, axis=2)
+        out.append((obj, cls * obj,
+                    (rng.randn(YOLO_BATCH, 3, 4, h, h) * 0.5)
+                    .astype(np.float32)))
+    return out
+
+
+def _yolo_loss(mx, preds, targets):
+    """A test loss over YOLOv3's three raw maps (not GluonCV's target
+    assignment, which the reference lacks): sigmoid cross-entropy on the
+    objectness and class channels, L2 on the box channels."""
+    from mxnet_tpu_torch import gluon
+    bce = gluon.loss.SigmoidBinaryCrossEntropyLoss()
+    l2 = gluon.loss.L2Loss()
+    total = None
+    for p, (obj, cls, box) in zip(preds, targets):
+        b, _, h, w = p.shape
+        p = p.reshape((b, 3, 5 + YOLO_CLASSES, h, w))
+        part = bce(mx.nd.slice_axis(p, axis=2, begin=4, end=5), obj) + \
+            bce(mx.nd.slice_axis(p, axis=2, begin=5, end=None), cls) + \
+            l2(mx.nd.slice_axis(p, axis=2, begin=0, end=4), box)
+        total = part if total is None else total + part
+    return total
+
+
+def _sgd_rule(batch, wd=ZOO_WD):
+    """GluonCV's SGD: the Trainer's (optimizer, arguments, batch)."""
+    return "sgd", {"learning_rate": ZOO_LR, "momentum": ZOO_MOMENTUM,
+                   "wd": wd}, batch
+
+
+def yolo_detection(dev, card):
+    """Phase 44: ``yolo3_darknet53`` (80 classes, COCO anchors) at batch
+    8 x 3 x 416 x 416, ``Xavier(magnitude=2)`` from ``mx.random.seed(44)``
+    made on the host (He's initialization grows the raw maps until
+    ``exp`` of the box sizes overflows), hybridized on the card
+    against the CPU.  Inference: three predict-mode calls (the third a
+    replay); the training-mode raw maps within ``ZOO_RAW_TOL``;
+    ``box_nms`` (0.45, top 400 of the 10,647 boxes, each box's best
+    class) on the card against the CPU over the same inputs (the card's
+    decoded boxes and scores) with phase 43's tie rule; end to end, the
+    CPU's kept detections matched by the card's and the card's by the
+    CPU's (boxes within ``SSD_BOX_TOL`` x 416 pixels), every unmatched
+    row a tie (``_dets_agree``); the call's ms and ``box_nms``'s
+    launches.  Training: ``_yolo_loss`` against ``_yolo_targets``, SGD
+    (``ZOO_LR``, ``ZOO_MOMENTUM``, ``ZOO_WD``), one step against the CPU
+    by ``_zoo_step_check`` on cuDNN's deterministic algorithms, then
+    timed steps on a fresh net under cuDNN's own choice."""
+    import numpy as np
+    import torch
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import autograd, gluon, ops
+    from mxnet_tpu_torch.convert import block_weights_to_numpy
+    from mxnet_tpu_torch.gluon.model_zoo import vision
+    from mxnet_tpu_torch.ndarray import contrib as ndc
+    t_phase = time.perf_counter()
+    gpu = mx.gpu(dev.index or 0)
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    rng = np.random.RandomState(44)
+    x = rng.rand(YOLO_BATCH, 3, YOLO_SIZE, YOLO_SIZE).astype(np.float32)
+    targets = _yolo_targets(rng)
+    host, _ = _host_net(vision.yolo3_darknet53, x[:1], 44)
+    w0 = block_weights_to_numpy(host)
+    with mx.cpu(), autograd.predict_mode():
+        want_det = [a.asnumpy() for a in host(mx.nd.array(x))]
+    with mx.cpu(), autograd.record():
+        want_raw = [[a.asnumpy() for a in out]
+                    for out in host(mx.nd.array(x))]
+    net = _card_net(vision.yolo3_darknet53, w0, gpu)
+    ops.reset_launches()
+    with gpu:
+        xa = mx.nd.array(x)
+    with autograd.predict_mode():
+        for _ in range(3):
+            got_det = [a.asnumpy() for a in net(xa)]
+        infer_ms = _replay_ms(dev, lambda: net(xa))
+    stats = dict(net._cached_op.stats)
+    with autograd.record():
+        got_raw = [[a.asnumpy() for a in out] for out in net(xa)]
+    read_launches("phase 44 yolo3 inference", {})
+    raw_err = [_close(g, w, ZOO_RAW_TOL)
+               for g, w in zip(got_raw[0], want_raw[0])]
+    # box_nms over the same inputs: the card's decoded boxes and scores
+    boxes = np.concatenate(got_raw[1], 1)
+    scores = np.concatenate(got_raw[2], 1)
+    dets = np.concatenate([scores.argmax(-1)[..., None].astype(np.float32),
+                           scores.max(-1)[..., None], boxes], -1)
+    nms = {}
+    for ctx in (mx.cpu(), gpu):
+        with ctx:
+            nms[ctx is gpu] = ndc.box_nms(
+                mx.nd.array(dets), overlap_thresh=net.nms_thresh,
+                valid_thresh=0.01, topk=net.nms_topk, coord_start=2,
+                score_index=1, id_index=0).asnumpy()
+    same, ties = _ssd_rows_agree(nms[True], nms[False], net.nms_thresh)
+    matched, extra, det_ties, det_odd, box_err = _dets_agree(
+        np.concatenate(want_det, -1), np.concatenate(got_det, -1),
+        SSD_BOX_TOL * YOLO_SIZE, net.nms_thresh, 0.01)
+    nms_all, sweep = _nms_launches(dets, gpu, net.nms_thresh, net.nms_topk)
+    ce_text, failed = _zoo_step_check(
+        "phase 44 yolo3 step", w0, host, net, gpu, x, vision.yolo3_darknet53,
+        _sgd_rule(YOLO_BATCH),
+        lambda model, tr, ctx, xs: _yolo_step(mx, model, tr, ctx, xs,
+                                              targets), "fused_sgd_update")
+    torch.backends.cudnn.deterministic = prev
+    del net, host
+    gc.collect()
+    torch.cuda.empty_cache()
+    net = _card_net(vision.yolo3_darknet53, w0, gpu)
+    trainer = gluon.Trainer(net.collect_params(), *_sgd_rule(YOLO_BATCH)[:2])
+    with gpu:
+        tg = [[mx.nd.array(a) for a in t] for t in targets]
+    timed = _zoo_timed(
+        dev, lambda: _yolo_step(mx, net, trainer, gpu, xa, tg),
+        "phase 44 yolo3 training", "fused_sgd_update")
+    print(f"phase 44 yolo3_darknet53 on {card} (f32, batch {YOLO_BATCH} x 3 "
+          f"x {YOLO_SIZE} x {YOLO_SIZE}, {boxes.shape[1]} boxes, "
+          f"hybridized): raw maps max diff {[round(e, 7) for e, _ in raw_err]}"
+          f" (limit {ZOO_RAW_TOL} x max(1, |x|)); box_nms on the card "
+          f"against the CPU over the same inputs: {same} (ties at the NMS "
+          f"threshold: {ties}); end to end, {matched} of the CPU's kept "
+          f"detections matched by the card's, {extra} of the card's "
+          f"unmatched, {det_ties} unmatched rows ties, unexplained "
+          f"{det_odd[:4]}, matched boxes max diff "
+          f"{box_err:.2e} px (limit {SSD_BOX_TOL * YOLO_SIZE:.3f}); "
+          f"inference {infer_ms:.2f} ms a call ({ZOO_TIMED} replays, CUDA "
+          f"events), CachedOp {stats}; box_nms over the top "
+          f"{net.nms_topk}: {nms_all} CUDA launches a call, {sweep} of them "
+          f"the suppression sweep, captured inside the graph; training (sgd "
+          f"lr {ZOO_LR} momentum {ZOO_MOMENTUM} wd {ZOO_WD}): {ce_text}; "
+          f"{_timed_line(YOLO_BATCH, timed)}; CachedOp "
+          f"{dict(net._cached_op.stats)}; launches {timed[4]}; phase "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    failed += [what for what, ok in (
+        (f"raw maps {raw_err}", all(ok for _, ok in raw_err)),
+        ("detections not finite", all(np.isfinite(a).all()
+                                      for a in got_det + want_det)),
+        (f"box_nms {same}", same == "equal"),
+        (f"detections unmatched {det_odd[:4]}", not det_odd),
+        (f"matched boxes {box_err}", box_err <= SSD_BOX_TOL * YOLO_SIZE),
+        (f"captures {stats}", stats["captures"] >= 1 and
+         stats["replays"] >= ZOO_TIMED)) if not ok]
+    if failed:
+        fail("phase 44: " + "; ".join(failed))
+    del net, trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    return timed[4]
+
+
+def _yolo_step(mx, model, trainer, ctx, xs, targets):
+    from mxnet_tpu_torch import autograd
+    with ctx:
+        xa = xs if isinstance(xs, mx.nd.NDArray) else mx.nd.array(xs)
+        tg = [[t if isinstance(t, mx.nd.NDArray) else mx.nd.array(t)
+               for t in tri] for tri in targets]
+    with autograd.record():
+        preds, _, _ = model(xa)
+        loss = _yolo_loss(mx, preds, tg)
+    loss.backward()
+    trainer.step(YOLO_BATCH)
+    return loss
+
+
+def _rcnn_targets(rng, na, h, w):
+    """Seeded targets of the RPN's score and offset maps."""
+    import numpy as np
+    return [(rng.rand(1, na, h, w) < 0.3).astype(np.float32),
+            (rng.randn(1, na * 4, h, w) * 0.1).astype(np.float32)]
+
+
+def _rcnn_step(mx, model, trainer, ctx, xs, targets):
+    """A test loss: softmax cross-entropy on the rois' class predictions
+    and L1 on their box predictions, against targets made from each
+    roi's own box (its centre's column of 21, its corners over the
+    image's width), so the loss does not hang on the rois' order, which
+    ties decide; sigmoid cross-entropy on the RPN's scores and L1 on its
+    offsets against the seeded ``targets``; SGD."""
+    from mxnet_tpu_torch import autograd, gluon
+    with ctx:
+        xa = xs if isinstance(xs, mx.nd.NDArray) else mx.nd.array(xs)
+        rpn_t, loc_t = [t if isinstance(t, mx.nd.NDArray) else
+                        mx.nd.array(t) for t in targets]
+    width = xa.shape[3]
+    l1 = gluon.loss.L1Loss()
+    with autograd.record():
+        cls_pred, box_pred, rois, rpn_score, rpn_loc, _ = model(xa)
+        r = rois.detach().reshape((-1, 4))
+        cx = (mx.nd.slice_axis(r, axis=1, begin=0, end=1) +
+              mx.nd.slice_axis(r, axis=1, begin=2, end=3)) / 2
+        cls_t = mx.nd.clip(mx.nd.floor(cx * (21 / width)), 0, 20) \
+            .reshape((-1,))
+        box_t = mx.nd.tile(r / width, reps=(1, 20))
+        loss = gluon.loss.SoftmaxCrossEntropyLoss()(cls_pred, cls_t).mean() \
+            + l1(box_pred, box_t).mean() + \
+            gluon.loss.SigmoidBinaryCrossEntropyLoss()(
+                rpn_score, rpn_t).mean() + l1(rpn_loc, loc_t).mean()
+    loss.backward()
+    trainer.step(1)
+    return loss
+
+
+def _rois_agree(got, got_s, want, want_s, score_tie, cut_score, tol,
+                thresh):
+    """The card's rois (n, 4) against the CPU's, both in the RPN's order
+    with their scores: (rows equal at the same position, rows of either
+    side the other lacks, how many of those a tie explains, unexplained
+    rows).  A row the other side lacks (no box within ``tol``) is a tie
+    when its score lies within ``score_tie`` of the last returned score
+    or of ``cut_score`` (the ``pre_nms``-th), when its IoU with a
+    higher-ranked row of its side lies within ``SSD_TIE_IOU`` of
+    ``thresh``, or when it overlaps another such row past ``thresh`` (a
+    suppression the tie moved)."""
+    import numpy as np
+    from mxnet_tpu_torch.gluon.model_zoo.vision.rcnn import _rpn_iou
+    import torch
+    same = int((np.abs(got - want).max(-1) <= tol).sum())
+
+    def lacking(a, b):
+        d = np.abs(a[:, None, :] - b[None, :, :]).max(-1)
+        return np.nonzero(d.min(1) > tol)[0]
+    miss = {"card": (got, got_s, lacking(got, want)),
+            "cpu": (want, want_s, lacking(want, got))}
+    odd = []
+    explained = 0
+    for side, (rows, sc, idx) in miss.items():
+        iou = _rpn_iou(torch.from_numpy(rows)[None]).numpy()[0]
+        last = sc[sc > -1].min(initial=1.0)
+        for i in idx:
+            near = np.abs(iou[i, :i] - thresh) <= SSD_TIE_IOU
+            moved = (iou[i, idx] > thresh) & (idx != i)
+            if abs(sc[i] - last) <= score_tie or \
+                    abs(sc[i] - cut_score) <= score_tie or near.any() or \
+                    moved.any():
+                explained += 1
+            else:
+                odd.append(f"{side} row {i} score {sc[i]:.7f}")
+    return same, sum(len(v[2]) for v in miss.values()), explained, odd
+
+
+def _replay_proposals(card, host):
+    """Has ``host``'s RPN return the proposals that ``card``'s returned
+    last (in ``host``'s dtype): which boxes a tie kept is the card's
+    choice, as its kinks are (``_kink_witness``)."""
+    import torch
+    import mxnet_tpu_torch as mx
+    kept = {}
+    card_fwd, host_fwd = card.rpn.hybrid_forward, host.rpn.hybrid_forward
+
+    def record(F, *args, **kw):
+        out = card_fwd(F, *args, **kw)
+        kept["rois"] = out[3].asnumpy()
+        return out
+
+    def take(F, *args, **kw):
+        out = list(host_fwd(F, *args, **kw))
+        out[3] = mx.nd.NDArray(torch.from_numpy(kept["rois"]).to(
+            out[3].data))
+        return tuple(out)
+    object.__setattr__(card.rpn, "hybrid_forward", record)
+    object.__setattr__(host.rpn, "hybrid_forward", take)
+
+
+def faster_rcnn(dev, card):
+    """Phase 45: ``faster_rcnn_resnet50_v1b`` (20 classes) at batch 1 x 3
+    x 600 x 800 (C4 at 38 x 50, 17,100 anchors, ``pre_nms`` 2000,
+    ``post_nms`` 300), He's initialization from ``mx.random.seed(45)``
+    made on the host, hybridized on the card against the CPU.
+    Inference: three predict-mode calls, whether the call captured and
+    its ms; the RPN sweep's CUDA launches over 2000 candidates
+    (``contrib._sweep`` alone) and ``ROIAlign``'s device ms at 300 rois
+    on the 1024 x 38 x 50 map.  In training mode the RPN's raw scores, offsets
+    and anchors within ``ZOO_RAW_TOL``; its proposals
+    (``rcnn._rpn_proposals``) on the card against the CPU over the same
+    inputs (the card's raw outputs), and the card's 300 rois against
+    the CPU's, each under ``_rois_agree`` (the score tie band twice the
+    largest sigmoid-score difference card vs CPU, boxes within
+    ``SSD_BOX_TOL`` x 800 pixels); the detections end to end, every
+    unmatched row a tie (``_dets_agree``).
+    Training: ``_rcnn_step``, SGD, one step against the CPU by
+    ``_zoo_step_check`` (``ROIAlign``'s backward adds with atomics on the
+    card, another order of additions, which ``RESNET_UPDATE_RTOL``
+    holds; a float64 witness takes the card's proposals,
+    ``_replay_proposals``), then timed steps."""
+    import numpy as np
+    import torch
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import autograd, gluon, ops
+    from mxnet_tpu_torch.convert import block_weights_to_numpy
+    from mxnet_tpu_torch.gluon.model_zoo import vision
+    from mxnet_tpu_torch.gluon.model_zoo.vision.rcnn import _rpn_proposals
+    from mxnet_tpu_torch.ndarray import contrib as ndc
+    t_phase = time.perf_counter()
+    gpu = mx.gpu(dev.index or 0)
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    rng = np.random.RandomState(45)
+    x = rng.rand(1, 3, RCNN_H, RCNN_W).astype(np.float32)
+    make = vision.faster_rcnn_resnet50_v1b
+    host, _ = _host_net(make, x, 45, _he_init())
+    w0 = block_weights_to_numpy(host)
+    with mx.cpu(), autograd.predict_mode():
+        want_det = [a.asnumpy() for a in host(mx.nd.array(x))]
+    with mx.cpu(), autograd.record():
+        want_raw = [a.asnumpy() for a in host(mx.nd.array(x))]
+    net = _card_net(make, w0, gpu)
+    ops.reset_launches()
+    with gpu:
+        xa = mx.nd.array(x)
+    t0 = time.perf_counter()
+    with autograd.predict_mode():
+        for _ in range(3):
+            got_det = [a.asnumpy() for a in net(xa)]
+        first_s = time.perf_counter() - t0
+        infer_ms = _replay_ms(dev, lambda: net(xa))
+    stats = dict(net._cached_op.stats)
+    with autograd.record():
+        got_raw = [a.asnumpy() for a in net(xa)]
+    read_launches("phase 45 faster_rcnn inference", {})
+    rpn = net.rpn
+    n_roi = got_raw[2].shape[1]
+    raw_err = [_close(got_raw[i], want_raw[i], ZOO_RAW_TOL)
+               for i in (3, 4, 5)]
+
+    def proposals(raw, device):
+        sc, lc, anc = (torch.from_numpy(raw[i]).to(device) for i in (3, 4, 5))
+        r, s = _rpn_proposals(sc, lc, anc, rpn._pre_nms, rpn._post_nms,
+                              rpn._nms_thresh, RCNN_H, RCNN_W)
+        return r[0].cpu().numpy(), s[0].cpu().numpy()
+    card_own, cpu_own = proposals(got_raw, dev), proposals(want_raw, "cpu")
+    cpu_same = proposals(got_raw, "cpu")
+    own_ok = (np.array_equal(card_own[0], got_raw[2][0]) and
+              np.array_equal(cpu_own[0], want_raw[2][0]))
+    sig = [torch.sigmoid(torch.from_numpy(r[3])).numpy().ravel()
+           for r in (got_raw, want_raw)]
+    score_diff = float(np.abs(sig[0] - sig[1]).max())
+    k = min(rpn._pre_nms, sig[1].size)
+    cut = float(np.sort(sig[1])[::-1][k - 1])
+    box_tol = SSD_BOX_TOL * RCNN_W
+    same_in = _rois_agree(*card_own, *cpu_same, 2 * score_diff, cut,
+                          box_tol, rpn._nms_thresh)
+    end_to_end = _rois_agree(*card_own, *cpu_own, 2 * score_diff, cut,
+                             box_tol, rpn._nms_thresh)
+    matched, extra, det_ties, det_odd, box_err = _dets_agree(
+        np.concatenate(want_det, -1), np.concatenate(got_det, -1), box_tol,
+        net._nms_thresh, net._score_thresh)
+    # the RPN sweep alone over pre_nms candidates, and ROIAlign at the
+    # detector's shapes
+    from mxnet_tpu_torch.ndarray.contrib import _sweep
+    kk = rpn._pre_nms
+    ones = torch.ones(1, kk, dtype=torch.bool, device=dev)
+    sup = torch.ones(kk, kk, dtype=torch.bool, device=dev).triu(1)[None]
+    sweep_launches = _cuda_launches(lambda: _sweep(ones, sup, ones))
+    fh, fw = got_raw[3].shape[2:]
+    g = torch.Generator(device=dev).manual_seed(45)
+    feat = mx.nd.NDArray(torch.rand(1, 1024, fh, fw, device=dev,
+                                    generator=g))
+    rois5 = mx.nd.array(np.concatenate(
+        [np.zeros((n_roi, 1), np.float32), got_raw[2][0]], 1), ctx=gpu)
+
+    def roi_align():
+        return ndc.ROIAlign(feat, rois5, pooled_size=(7, 7),
+                            spatial_scale=1.0 / 16, sample_ratio=2)
+    roi_align()
+    roi_ms = _replay_ms(dev, roi_align, 20)
+    targets = _rcnn_targets(rng, *got_raw[3].shape[1:])
+    step_text, failed = _zoo_step_check(
+        "phase 45 faster_rcnn step", w0, host, net, gpu, x, make,
+        _sgd_rule(1),
+        lambda model, tr, ctx, xs: _rcnn_step(mx, model, tr, ctx, xs,
+                                              targets), "fused_sgd_update",
+        replay=_replay_proposals)
+    torch.backends.cudnn.deterministic = prev
+    del net, host
+    gc.collect()
+    torch.cuda.empty_cache()
+    net = _card_net(make, w0, gpu)
+    trainer = gluon.Trainer(net.collect_params(), *_sgd_rule(1)[:2])
+    with gpu:
+        tg = [mx.nd.array(t) for t in targets]
+    timed = _zoo_timed(
+        dev, lambda: _rcnn_step(mx, net, trainer, gpu, xa, tg),
+        "phase 45 faster_rcnn training", "fused_sgd_update")
+
+    def rois_text(r):
+        return (f"{r[0]} of {n_roi} equal at the same position (within "
+                f"{box_tol:.2f} px), {r[1]} rows one side lacks, {r[2]} of "
+                f"them ties, unexplained {r[3][:4]}")
+    print(f"phase 45 faster_rcnn_resnet50_v1b on {card} (f32, batch 1 x 3 x "
+          f"{RCNN_H} x {RCNN_W}, {got_raw[5].shape[1]} anchors, pre_nms "
+          f"{kk}, post_nms {n_roi}, hybridized): inference captured "
+          f"{stats['captures'] >= 1} (CachedOp {stats}; the first three "
+          f"calls {first_s:.1f} s), {infer_ms:.2f} ms a call ({ZOO_TIMED} "
+          f"replays, CUDA events); the RPN sweep over {kk} candidates "
+          f"{sweep_launches} CUDA launches ({sweep_launches / kk:.2f} a "
+          f"candidate), captured inside the graph; ROIAlign {n_roi} rois x "
+          f"1024 x {fh} x {fw} -> 7 x 7 {roi_ms:.3f} ms "
+          f"(CUDA events over 20 calls); RPN scores/offsets/anchors max "
+          f"diff {[round(e, 7) for e, _ in raw_err]} (limit {ZOO_RAW_TOL} x "
+          f"max(1, |x|)), sigmoid scores {score_diff:.2e} apart; proposals "
+          f"over the same inputs: {rois_text(same_in)}; the card's rois "
+          f"against the CPU's: {rois_text(end_to_end)}; end to end, "
+          f"{matched} of the CPU's kept detections matched by the card's, "
+          f"{extra} of the card's unmatched, {det_ties} unmatched rows "
+          f"ties, unexplained {det_odd[:4]}, matched boxes max diff "
+          f"{box_err:.2e} px; training (sgd lr "
+          f"{ZOO_LR} momentum {ZOO_MOMENTUM} wd {ZOO_WD}): {step_text}; "
+          f"{_timed_line(1, timed)}; CachedOp {dict(net._cached_op.stats)}; "
+          f"launches {timed[4]}; phase "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    failed += [what for what, ok in (
+        (f"rpn outputs {raw_err}", all(ok for _, ok in raw_err)),
+        ("detections not finite", all(np.isfinite(a).all()
+                                      for a in got_det + want_det)),
+        ("the net's rois are not _rpn_proposals'", own_ok),
+        (f"same-input rois unexplained {same_in[3][:4]}", not same_in[3]),
+        (f"rois unexplained {end_to_end[3][:4]}", not end_to_end[3]),
+        (f"detections unmatched {det_odd[:4]}", not det_odd),
+        (f"matched boxes {box_err}", box_err <= box_tol),
+        (f"captures {stats}", stats["captures"] >= 1 and
+         stats["replays"] >= ZOO_TIMED)) if not ok]
+    if failed:
+        fail("phase 45: " + "; ".join(failed))
+    del net, trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    return timed[4]
+
+
+def _seg_step(mx, model, trainer, ctx, xs, y):
+    """Per-pixel softmax cross-entropy on FCN's two outputs; SGD."""
+    from mxnet_tpu_torch import autograd, gluon
+    with ctx:
+        xa = xs if isinstance(xs, mx.nd.NDArray) else mx.nd.array(xs)
+        ya = y if isinstance(y, mx.nd.NDArray) else \
+            mx.nd.array(y, dtype="int32")
+    ce = gluon.loss.SoftmaxCrossEntropyLoss(axis=1)
+    with autograd.record():
+        out, aux = model(xa)
+        loss = ce(out, ya) + ce(aux, ya)
+    loss.backward()
+    trainer.step(SEG_BATCH)
+    return loss
+
+
+def _seg_host(make, x, seed):
+    """``make()`` on the host (He's initialization from
+    ``mx.random.seed(seed)``), the parts its predict-mode forward does not
+    read resolved too (the backbone's classifier and the auxiliary
+    head); its weights."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import autograd
+    from mxnet_tpu_torch.convert import block_weights_to_numpy
+    host, _ = _host_net(make, x[:1], seed, _he_init())
+    with mx.cpu(), autograd.predict_mode():
+        xa = mx.nd.array(x[:1])
+        mx.random.seed(seed)
+        host.base(xa)
+        host.auxlayer(host.base.extract(xa)[0])
+    return host, block_weights_to_numpy(host)
+
+
+def segmentation(dev, card):
+    """Phase 46: ``get_fcn``, ``get_psp`` and ``get_deeplab`` (ResNet-50
+    v1b dilated to output stride 8, 21 classes) at crop 480, He's
+    initialization from ``mx.random.seed(46)`` made on the host: predict
+    mode at batch 2, hybridized (the third call a replay), against the
+    CPU within ``ZOO_RAW_TOL`` x max |x|.  FCN with ``aux`` at batch 4:
+    ``_seg_step`` (SGD lr 1e-3, momentum 0.9, wd 1e-4, K1), one step
+    against the CPU by ``_zoo_step_check`` with the heads' Dropouts at
+    rate 0 (their masks are each device's own draws), then timed steps
+    on a fresh net with the Dropouts at their rates; the device time of
+    layer 4 (three bottlenecks at dilation 2 and 4, 60 x 60 x 2048)
+    forward and backward, timed alone at the step's shapes."""
+    import numpy as np
+    import torch
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import autograd, gluon, ops
+    from mxnet_tpu_torch.gluon.model_zoo import vision
+    t_phase = time.perf_counter()
+    gpu = mx.gpu(dev.index or 0)
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    rng = np.random.RandomState(46)
+    x = rng.rand(SEG_BATCH, 3, SEG_SIZE, SEG_SIZE).astype(np.float32)
+    y = rng.randint(0, SEG_CLASSES, (SEG_BATCH, SEG_SIZE, SEG_SIZE)) \
+        .astype(np.int32)
+    lines, failed = [], []
+    ops.reset_launches()
+    with gpu:
+        xp = mx.nd.array(x[:SEG_PREDICT_BATCH])
+    for name, make in (("fcn", vision.get_fcn), ("psp", vision.get_psp),
+                       ("deeplab", vision.get_deeplab)):
+        t0 = time.perf_counter()
+        host, w0 = _seg_host(make, x, 46)
+        with mx.cpu():
+            want = host.predict(mx.nd.array(x[:SEG_PREDICT_BATCH])).asnumpy()
+        net = _card_net(make, w0, gpu)
+        for _ in range(3):
+            got = net.predict(xp).asnumpy()
+        ms = _replay_ms(dev, lambda: net.predict(xp))
+        err, ok = _close(got, want, ZOO_RAW_TOL)
+        stats = dict(net._cached_op.stats)
+        lines.append(f"{name} {err:.2e} (max |x| "
+                     f"{float(np.abs(want).max()):.2e}; {ms:.2f} ms a call; "
+                     f"replays {stats['replays']}; "
+                     f"{time.perf_counter() - t0:.1f} s)")
+        if not ok or stats["replays"] < 1:
+            failed.append(f"{name} predict {err:.3e}, CachedOp {stats}")
+        if name == "fcn":
+            fcn_host, fcn_w0 = host, w0
+        del net, host
+        gc.collect()
+        torch.cuda.empty_cache()
+    read_launches("phase 46 segmentation predict", {})
+    net = _dropout_rate(_card_net(vision.get_fcn, fcn_w0, gpu), 0.0)
+    # hybridized as the card's: the backbone's classifier, which FCN does
+    # not read, takes a zero gradient there and steps with the rest
+    _dropout_rate(fcn_host, 0.0).hybridize()
+    step_text, step_failed = _zoo_step_check(
+        "phase 46 fcn step", fcn_w0, fcn_host, net, gpu, x,
+        lambda: _dropout_rate(vision.get_fcn(), 0.0),
+        _sgd_rule(SEG_BATCH, SEG_WD),
+        lambda model, tr, ctx, xs: _seg_step(mx, model, tr, ctx, xs, y),
+        "fused_sgd_update")
+    failed += step_failed
+    torch.backends.cudnn.deterministic = prev
+    del net, fcn_host
+    gc.collect()
+    torch.cuda.empty_cache()
+    net = _card_net(vision.get_fcn, fcn_w0, gpu)
+    trainer = gluon.Trainer(net.collect_params(),
+                            *_sgd_rule(SEG_BATCH, SEG_WD)[:2])
+    with gpu:
+        xa, ya = mx.nd.array(x), mx.nd.array(y, dtype="int32")
+    timed = _zoo_timed(
+        dev, lambda: _seg_step(mx, net, trainer, gpu, xa, ya),
+        "phase 46 fcn training", "fused_sgd_update")
+    # layer 4 alone at the step's shapes, forward and backward
+    layer4 = net.base.layer4
+    with gpu:
+        x4 = mx.nd.array(rng.rand(SEG_BATCH, 1024, SEG_SIZE // 8,
+                                  SEG_SIZE // 8).astype(np.float32))
+    x4.attach_grad()
+
+    def l4():
+        with autograd.record():
+            out = layer4(x4)
+        out.backward()
+    l4()
+    l4()
+    l4_ms = _replay_ms(dev, l4)
+    print(f"phase 46 segmentation on {card} (f32, resnet50_v1b dilated, "
+          f"{SEG_CLASSES} classes, crop {SEG_SIZE}): predict mode at batch "
+          f"{SEG_PREDICT_BATCH}, hybridized, card vs CPU (limit "
+          f"{ZOO_RAW_TOL} x max |x|): " + "; ".join(lines) +
+          f"; FCN with aux at batch {SEG_BATCH} (sgd lr {ZOO_LR} momentum "
+          f"{ZOO_MOMENTUM} wd {SEG_WD}, heads' Dropouts at rate 0 for the "
+          f"check): {step_text}; {_timed_line(SEG_BATCH, timed)}; layer 4 "
+          f"(three dilated bottlenecks, {SEG_BATCH} x 2048 x "
+          f"{SEG_SIZE // 8} x {SEG_SIZE // 8}) forward and backward alone "
+          f"{l4_ms:.2f} ms ({ZOO_TIMED} calls, CUDA events, "
+          f"{l4_ms / timed[0]:.3f} of the step); CachedOp "
+          f"{dict(net._cached_op.stats)}; launches {timed[4]}; phase "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    if failed:
+        fail("phase 46: " + "; ".join(failed))
+    del net, trainer, layer4
+    gc.collect()
+    torch.cuda.empty_cache()
+    return timed[4]
+
+
+def _pose_step(mx, model, trainer, ctx, xs, target):
+    """``L2Loss`` on the heatmaps; Adam."""
+    from mxnet_tpu_torch import autograd, gluon
+    with ctx:
+        xa = xs if isinstance(xs, mx.nd.NDArray) else mx.nd.array(xs)
+        ta = target if isinstance(target, mx.nd.NDArray) else \
+            mx.nd.array(target)
+    with autograd.record():
+        loss = gluon.loss.L2Loss()(model(xa), ta)
+    loss.backward()
+    trainer.step(POSE_BATCH)
+    return loss
+
+
+def simple_pose(dev, card):
+    """Phase 47: ``simple_pose_resnet50_v1b`` (17 joints) at batch 32 x 3
+    x 256 x 192, He's initialization from ``mx.random.seed(47)`` made on
+    the host, hybridized: ``_pose_step`` (Adam lr 1e-3, K2) one step
+    against the CPU by ``_zoo_step_check``, then timed steps;
+    ``heatmap_to_coord`` on the card against the CPU over the card's
+    heatmaps (coordinates and maxima exactly equal: both take the first
+    maximum), and over each device's own (coordinates equal except where
+    the CPU's heatmap ties its maximum within ``ZOO_RAW_TOL`` x max
+    |x|)."""
+    import numpy as np
+    import torch
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import autograd, gluon
+    from mxnet_tpu_torch.convert import block_weights_to_numpy
+    from mxnet_tpu_torch.gluon.model_zoo import vision
+    t_phase = time.perf_counter()
+    gpu = mx.gpu(dev.index or 0)
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    rng = np.random.RandomState(47)
+    x = rng.rand(POSE_BATCH, 3, POSE_H, POSE_W).astype(np.float32)
+    target = rng.rand(POSE_BATCH, POSE_JOINTS, POSE_H // 4,
+                      POSE_W // 4).astype(np.float32)
+    make = vision.simple_pose_resnet50_v1b
+    host, _ = _host_net(make, x[:1], 47, _he_init())
+    w0 = block_weights_to_numpy(host)
+    with mx.cpu(), autograd.predict_mode():
+        want_hm = host(mx.nd.array(x)).asnumpy()
+    net = _card_net(make, w0, gpu)
+    with gpu, autograd.predict_mode():
+        xa = mx.nd.array(x)
+        for _ in range(3):
+            got_hm = net(xa)
+    hm_err, hm_ok = _close(got_hm.asnumpy(), want_hm, ZOO_RAW_TOL)
+    card_c, card_s = (a.asnumpy() for a in vision.heatmap_to_coord(got_hm))
+    with mx.cpu():
+        same_c, same_s = (a.asnumpy() for a in vision.heatmap_to_coord(
+            mx.nd.array(got_hm.asnumpy())))
+        own_c, _ = (a.asnumpy() for a in vision.heatmap_to_coord(
+            mx.nd.array(want_hm)))
+    same_ok = np.array_equal(card_c, same_c) and np.array_equal(card_s,
+                                                                same_s)
+    # over each device's own heatmaps: a differing joint must be a tie
+    # of the CPU's maximum
+    flat = want_hm.reshape(POSE_BATCH, POSE_JOINTS, -1)
+    w = POSE_W // 4
+    diff = np.nonzero((card_c != own_c).any(-1))
+    at = (card_c[..., 1] * w + card_c[..., 0]).astype(np.int64)
+    gap = flat.max(-1) - np.take_along_axis(flat, at[..., None], -1)[..., 0]
+    tie_tol = ZOO_RAW_TOL * float(np.abs(want_hm).max())
+    own_ok = bool((gap[diff] <= tie_tol).all())
+    rule = ("adam", {"learning_rate": ZOO_LR}, POSE_BATCH)
+    step_text, failed = _zoo_step_check(
+        "phase 47 simple_pose step", w0, host, net, gpu, x, make, rule,
+        lambda model, tr, ctx, xs: _pose_step(mx, model, tr, ctx, xs,
+                                              target), "fused_adam_update")
+    torch.backends.cudnn.deterministic = prev
+    del net, host
+    gc.collect()
+    torch.cuda.empty_cache()
+    net = _card_net(make, w0, gpu)
+    trainer = gluon.Trainer(net.collect_params(), *rule[:2])
+    with gpu:
+        ta = mx.nd.array(target)
+    timed = _zoo_timed(
+        dev, lambda: _pose_step(mx, net, trainer, gpu, xa, ta),
+        "phase 47 simple_pose training", "fused_adam_update")
+    print(f"phase 47 simple_pose_resnet50_v1b on {card} (f32, batch "
+          f"{POSE_BATCH} x 3 x {POSE_H} x {POSE_W}, {POSE_JOINTS} joints, "
+          f"hybridized): predict-mode heatmaps card vs CPU {hm_err:.2e} "
+          f"(limit {ZOO_RAW_TOL} x max(1, |x|)); heatmap_to_coord on the "
+          f"card against the CPU over the card's heatmaps: equal "
+          f"{same_ok}; over each device's own: {len(diff[0])} of "
+          f"{POSE_BATCH * POSE_JOINTS} joints differ, each a tie of the "
+          f"CPU's maximum within {tie_tol:.2e}: {own_ok}; training (adam lr "
+          f"{ZOO_LR}): {step_text}; {_timed_line(POSE_BATCH, timed)}; "
+          f"CachedOp {dict(net._cached_op.stats)}; launches {timed[4]}; "
+          f"phase {time.perf_counter() - t_phase:.1f} s", flush=True)
+    failed += [what for what, ok in (
+        (f"heatmaps {hm_err}", hm_ok),
+        ("heatmap_to_coord over the same heatmaps", same_ok),
+        ("heatmap_to_coord over each device's own", own_ok)) if not ok]
+    if failed:
+        fail("phase 47: " + "; ".join(failed))
+    del net, trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    return timed[4]
 
 
 def main():
@@ -10150,6 +11296,12 @@ def main():
     by_path["awd_lstm_lm"] = lm_training(dev, card)
     by_path["classifiers"] = classifiers(dev, card)
     by_path["ssd"] = ssd_detection(dev, card)
+    # phases 44-47: YOLOv3, Faster R-CNN, segmentation and simple pose
+    # (f32, before amp.init)
+    by_path["yolo3"] = yolo_detection(dev, card)
+    by_path["faster_rcnn"] = faster_rcnn(dev, card)
+    by_path["segmentation"] = segmentation(dev, card)
+    by_path["simple_pose"] = simple_pose(dev, card)
     # phases 11, 13, 15, 17 and 18 last: amp.init() is process-wide
     by_path["training_amp"], _ = train_llama3_8b(
         dev, card, amp_dtype="bfloat16", f32_first_loss=f32_first_loss)

@@ -19,7 +19,10 @@ invalidates the capture, so the two take turns.
 ``torch.autograd.Function`` over (parameters, inputs) whose backward
 returns the gradient of every parameter and input that takes one, so
 ``AccumulateGrad``, ``grad_req`` and the Trainer's hooks see what an
-eager forward would give them:
+eager forward would give them; one that the forward does not read takes
+a zero gradient, as the reference's ``jax.vjp`` of the block's program
+gives it (a segmentation backbone's unread classifier steps with the
+rest; ROADMAP §3):
 
 - on the CPU every call runs the block's pure function eagerly, with
   autograd inside, and the backward is ``torch.autograd.grad`` over it;
@@ -293,6 +296,8 @@ class _Function(torch.autograd.Function):
     def forward(ctx, call, *tensors):
         outs = call.forward(ctx, tensors)
         ctx.call = call
+        ctx.like = [(t.shape, t.dtype, t.device) if t.requires_grad
+                    else None for t in tensors]
         ctx.set_materialize_grads(False)
         frozen = [o for o, d in zip(outs, call.diff) if not d]
         if frozen:
@@ -307,7 +312,11 @@ class _Function(torch.autograd.Function):
                 "hybridized block: its captured backward is not "
                 "differentiable again; hybridize(active=False) the block "
                 "(ROADMAP §3)")
-        return (None,) + tuple(ctx.call.backward(ctx, gouts))
+        grads = ctx.call.backward(ctx, gouts)
+        return (None,) + tuple(
+            torch.zeros(t[0], dtype=t[1], device=t[2])
+            if g is None and t is not None else g
+            for g, t in zip(grads, ctx.like))
 
 
 class GraphedCalls:

@@ -22,35 +22,31 @@ from .inception import *  # noqa: F401,F403
 from .resnext import *  # noqa: F401,F403
 from .resnest import *  # noqa: F401,F403
 from .ssd import *  # noqa: F401,F403
+from .yolo import *  # noqa: F401,F403
+from .segmentation import *  # noqa: F401,F403
+from .rcnn import *  # noqa: F401,F403
+from .pose import *  # noqa: F401,F403
 from ....base import MXNetError, NotSupportedError
 
 _MODULES = ("resnet", "alexnet", "vgg", "squeezenet", "mobilenet",
-            "densenet", "inception", "resnext", "resnest", "ssd")
+            "densenet", "inception", "resnext", "resnest", "ssd", "yolo",
+            "segmentation", "rcnn", "pose")
+_NON_MODELS = {"heatmap_to_coord"}    # exported utilities, not factories
 _MODELS = {}
 __all__ = ["get_model"]
 for _m in _MODULES:
     _mod = importlib.import_module(f"{__name__}.{_m}")
     __all__ += list(_mod.__all__)
     _MODELS.update({name: getattr(_mod, name) for name in _mod.__all__
-                    if name[0].islower() and not name.startswith("get_")})
+                    if name[0].islower() and not name.startswith("get_")
+                    and name not in _NON_MODELS})
 del _m, _mod
-
-# the rest of the reference's zoo (mxnet_tpu/gluon/model_zoo/vision)
-_LATER = frozenset("""
-darknet53 faster_rcnn_resnet50_v1b resnet101_v1b resnet18_v1b
-resnet34_v1b resnet50_v1b simple_pose_resnet18_v1b simple_pose_resnet50_v1b
-yolo3_darknet53
-""".split())
 
 
 def get_model(name, pretrained=False, root=None, ctx=None, **kwargs):
     """The zoo's model ``name`` (reference ``get_model``; dots and dashes
     in names read as underscores, as there)."""
     name = name.lower().replace("-", "_").replace(".", "_")
-    if name in _LATER:
-        raise NotSupportedError(
-            f"model {name!r} is not ported yet: YOLO, R-CNN, segmentation, "
-            "the v1b backbones and pose arrive with ROADMAP §1 item 11c")
     if name not in _MODELS:
         raise MXNetError(f"Model {name} is not supported. Available: "
                          f"{sorted(_MODELS)}")

@@ -3848,3 +3848,203 @@ def test_ssd_card_matches_the_cpu(f32_card):
             ids, scores, boxes = net(mx.nd.array(x))
     assert ids.shape[-1] == scores.shape[-1] == 1 and boxes.shape[-1] == 4
     assert net._cached_op.stats["captures"] >= 1
+
+
+# ----------------------------------------------------------------------
+# the rest of the zoo (chip_smoke.py phases 44-47), narrow or small
+# ----------------------------------------------------------------------
+
+def _sgd_step(mx, net, x, loss_fn, batch, rule="sgd"):
+    """One step of the Gluon loop on ``net`` at ``x`` (numpy) in the
+    current context: the loss and the parameters after."""
+    from mxnet_tpu_torch import gluon
+    args = {"learning_rate": 1e-3} if rule == "adam" else \
+        {"learning_rate": 1e-3, "momentum": 0.9, "wd": 5e-4}
+    tr = gluon.Trainer(net.collect_params(), rule, args)
+    with mt_autograd.record():
+        loss = loss_fn(net(mx.nd.array(x)))
+    loss.backward()
+    tr.step(batch)
+    return float(loss.mean().asscalar()), block_weights_to_numpy(net)
+
+
+def _step_matches(mx, host, net, w0, x, loss_fn, batch, rule, kernel):
+    """One step from ``w0`` on the CPU, on the card (``kernel`` launched
+    once) and on the CPU again from ``x`` one ulp up in half of its
+    elements: the loss within 1e-4 relative, and each parameter's
+    update within 1e-2 of the CPU's update norm plus 1e-5 plus twice what
+    the ulp moved it on the CPU (phase 43's rule: at these batches the
+    BatchNorms normalize a few values a channel and rounding puts units
+    across the ReLUs' kinks)."""
+    runs = []
+    for ctx, model, xs in ((mx.cpu(), host, x), (mx.gpu(0), net, x),
+                           (mx.cpu(), host, _chip_smoke()._ulp_half(x))):
+        load_block_weights(model, w0)
+        before = kernel.launches
+        with ctx:
+            runs.append(_sgd_step(mx, model, xs, loss_fn, batch, rule))
+        assert kernel.launches == before + (model is net)
+    (cpu_l, cpu_w), (card_l, card_w), (_, ulp_w) = runs
+    assert abs(card_l - cpu_l) <= 1e-4 * abs(cpu_l)
+    for k in w0:
+        if k.endswith(("running_mean", "running_var")):
+            continue
+        err = np.linalg.norm(card_w[k] - cpu_w[k])
+        upd = np.linalg.norm(cpu_w[k] - w0[k])
+        moved = np.linalg.norm(ulp_w[k] - cpu_w[k])
+        assert err <= 1e-2 * upd + 1e-5 + 2 * moved, (k, err, upd, moved)
+
+
+def test_yolo3_card_matches_the_cpu(f32_card):
+    """Phase 44's check on ``yolo3_darknet53(classes=20)`` at 64 x 64:
+    training-mode maps against the CPU (1e-4 plus twice the one-ulp
+    spread), detections after
+    ``box_nms`` (kept rows and ids equal, scores and boxes within 1e-3
+    of the image), the inference call captured, and one SGD step (K1)."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.gluon.model_zoo import vision
+    ops._build.build(["fused_update"])
+    x = np.random.RandomState(44).rand(2, 3, 64, 64).astype(np.float32)
+    host, net, w0 = _item11_pair(lambda: vision.yolo3_darknet53(classes=20),
+                                 [x], 44)
+    with mx.cpu(), mt_autograd.predict_mode():
+        want = [a.asnumpy() for a in host(mx.nd.array(x))]
+    with mx.gpu(0), mt_autograd.predict_mode():
+        for _ in range(3):
+            got = [a.asnumpy() for a in net(mx.nd.array(x))]
+    assert net._cached_op.stats["captures"] >= 1
+    kept = want[1][..., 0] > 0
+    np.testing.assert_array_equal(got[1][..., 0] > 0, kept)
+    np.testing.assert_array_equal(got[0][kept], want[0][kept])
+    np.testing.assert_allclose(got[2][kept], want[2][kept], atol=6.4e-2)
+    # training mode at batch 2: the last stage normalizes 8 values a
+    # channel, so the maps are held within 1e-4 plus twice what one ulp
+    # of input moves the CPU's own
+    maps = []
+    for ctx, model, xs in ((mx.cpu(), host, x), (mx.gpu(0), net, x),
+                           (mx.cpu(), host, _chip_smoke()._ulp_half(x))):
+        with ctx, mt_autograd.train_mode():
+            maps.append([a.asnumpy() for a in model(mx.nd.array(xs))[0]])
+    for w, g, u in zip(*maps):
+        assert np.all(np.abs(g - w) <= 1e-4 + 1e-4 * np.abs(w) +
+                      2 * np.abs(u - w).max())
+
+    def loss_fn(out):
+        return sum(((p - 0.5) ** 2).mean() for p in out[0])
+    _step_matches(mx, host, net, w0, x, loss_fn, 2, "sgd", fused_sgd_update)
+
+
+def test_faster_rcnn_card_matches_the_cpu(f32_card):
+    """Phase 45's check on a Faster R-CNN over a one-block-a-stage
+    ``ResNetV1b`` of basic blocks at 64 x 96: the RPN's proposals on the
+    card equal the CPU's over the same raw outputs, in order; the
+    inference call captured; one SGD step (K1) through ``ROIAlign``."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.gluon.model_zoo import vision
+    from mxnet_tpu_torch.gluon.model_zoo.vision.rcnn import _rpn_proposals
+    ops._build.build(["fused_update"])
+    x = np.random.RandomState(45).rand(1, 3, 64, 96).astype(np.float32)
+
+    def make():
+        base = vision.segmentation.ResNetV1b(
+            [1, 1, 1, 1], dilated=False,
+            block=vision.segmentation.BasicBlockV1b)
+        return vision.rcnn.FasterRCNN(("a", "b", "c"), backbone=base)
+    host, net, w0 = _item11_pair(make, [x], 45)
+    with mx.gpu(0), mt_autograd.record():
+        raw = [a.asnumpy() for a in net(mx.nd.array(x))]
+    props = []
+    for dev in ("cuda", "cpu"):
+        r, s = _rpn_proposals(*(torch.from_numpy(raw[i]).to(dev)
+                                for i in (3, 4, 5)), 2000, 300, 0.7, 64, 96)
+        props.append((r.cpu().numpy(), s.cpu().numpy()))
+    np.testing.assert_array_equal(props[0][1] == -1, props[1][1] == -1)
+    np.testing.assert_allclose(props[0][0], props[1][0], atol=1e-4)
+    np.testing.assert_allclose(props[0][1], props[1][1], atol=1e-6)
+    np.testing.assert_allclose(props[0][0], raw[2], atol=1e-4)
+    with mx.gpu(0), mt_autograd.predict_mode():
+        for _ in range(3):
+            ids, scores, boxes = net(mx.nd.array(x))
+    assert net._cached_op.stats["captures"] >= 1
+    assert np.isfinite(boxes.asnumpy()).all()
+
+    def loss_fn(out):
+        return (out[0] ** 2).mean() + out[1].abs().mean() + \
+            (out[3] ** 2).mean() + out[4].abs().mean()
+    _step_matches(mx, host, net, w0, x, loss_fn, 1, "sgd", fused_sgd_update)
+
+
+def test_segmentation_card_matches_the_cpu(f32_card):
+    """Phase 46's check on ``get_fcn``/``get_psp``/``get_deeplab`` (5
+    classes) at 32 x 32: ``predict`` captured on the card against the
+    CPU (1e-4 x max |x|); FCN with ``aux`` and its Dropouts at rate 0:
+    one SGD step (K1) against the CPU, the backbone's unread classifier
+    stepping by its weight decay alone on both."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.gluon.model_zoo import vision
+    ops._build.build(["fused_update"])
+    x = np.random.RandomState(46).rand(2, 3, 32, 32).astype(np.float32)
+    y = np.random.RandomState(47).randint(0, 5, (2, 32, 32))
+    for make in (vision.get_psp, vision.get_deeplab, vision.get_fcn):
+        host = make(nclass=5)
+        with mx.cpu():
+            mx.random.seed(46)
+            host.initialize(mx.init.Xavier(magnitude=2))
+            with mt_autograd.predict_mode():
+                xa = mx.nd.array(x)
+                host(xa)
+                host.base(xa)
+                host.auxlayer(host.base.extract(xa)[0])
+            want = host.predict(xa).asnumpy()
+        w0 = block_weights_to_numpy(host)
+        net = make(nclass=5)
+        net.initialize(ctx=mx.gpu(0))
+        load_block_weights(net, w0)
+        net.hybridize()
+        with mx.gpu(0):
+            for _ in range(3):
+                got = net.predict(mx.nd.array(x)).asnumpy()
+        assert np.abs(got - want).max() <= 1e-4 * np.abs(want).max()
+        assert net._cached_op.stats["replays"] >= 1
+    for blk in (host, net):
+        blk.apply(lambda b: setattr(b, "_rate", 0.0)
+                  if type(b).__name__ == "Dropout" else None)
+    host.hybridize()
+    ce = SoftmaxCrossEntropyLoss(axis=1)
+
+    def loss_fn(out):
+        label = mx.nd.array(y, dtype="int32", ctx=out[0].context)
+        return ce(out[0], label) + ce(out[1], label)
+    _step_matches(mx, host, net, w0, x, loss_fn, 2, "sgd", fused_sgd_update)
+
+
+def test_simple_pose_card_matches_the_cpu(f32_card):
+    """Phase 47's check on ``simple_pose_resnet18_v1b`` at 64 x 64: the
+    heatmaps captured on the card against the CPU (1e-4 x max |x|),
+    ``heatmap_to_coord`` on the card equal to the CPU's over the same
+    heatmaps, and one Adam step (K2) against the CPU."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.gluon.model_zoo import vision
+    ops._build.build(["fused_update"])
+    x = np.random.RandomState(47).rand(2, 3, 64, 64).astype(np.float32)
+    target = np.random.RandomState(48).rand(2, 17, 16, 16).astype(np.float32)
+    host, net, w0 = _item11_pair(vision.simple_pose_resnet18_v1b, [x], 47)
+    with mx.cpu(), mt_autograd.predict_mode():
+        want = host(mx.nd.array(x)).asnumpy()
+    with mx.gpu(0), mt_autograd.predict_mode():
+        for _ in range(3):
+            hm = net(mx.nd.array(x))
+    assert np.abs(hm.asnumpy() - want).max() <= 1e-4 * np.abs(want).max()
+    assert net._cached_op.stats["replays"] >= 1
+    card = [a.asnumpy() for a in vision.heatmap_to_coord(hm)]
+    with mx.cpu():
+        cpu = [a.asnumpy() for a in vision.heatmap_to_coord(
+            mx.nd.array(hm.asnumpy()))]
+    for g, w in zip(card, cpu):
+        np.testing.assert_array_equal(g, w)
+
+    def loss_fn(out):
+        from mxnet_tpu_torch.gluon.loss import L2Loss
+        return L2Loss()(out, mx.nd.array(target, ctx=out.context))
+    _step_matches(mx, host, net, w0, x, loss_fn, 2, "adam",
+                  fused_adam_update)

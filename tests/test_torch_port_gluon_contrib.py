@@ -2,7 +2,7 @@
 ``nn`` (``SyncBatchNorm`` alone and over two gloo ranks, ``Identity``,
 ``Concurrent``, ``HybridConcurrent``), ``rnn`` (``VariationalDropoutCell``,
 ``Conv2DLSTMCell``) and ``data`` (``IntervalSampler``); ``estimator``
-raises naming ROADMAP §1 item 11c.
+raises naming ROADMAP §1 item 11b.
 
 The reference's weights are drawn under ``seeded(SEED)`` and carried by
 structural name.  Tolerances, with their reasons:
@@ -264,7 +264,7 @@ def test_contrib_namespace_and_estimator_refusal():
     assert set(c.nn.__all__) == set(jcontrib.nn.__all__)
     assert set(c.rnn.__all__) == set(jcontrib.rnn.__all__)
     assert set(c.data.__all__) == set(jcontrib.data.__all__)
-    with pytest.raises(NotSupportedError, match="item 11c"):
+    with pytest.raises(NotSupportedError, match="item 11b"):
         c.estimator
     with pytest.raises(AttributeError):
         c.no_such_module

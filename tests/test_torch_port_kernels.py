@@ -418,7 +418,12 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                 "gluon/model_zoo/vision/mobilenet.py",
                 "gluon/model_zoo/vision/resnext.py",
                 "gluon/model_zoo/vision/resnest.py",
-                "gluon/model_zoo/vision/ssd.py"):
+                "gluon/model_zoo/vision/ssd.py",
+                # the rest of the zoo
+                "gluon/model_zoo/vision/segmentation.py",
+                "gluon/model_zoo/vision/pose.py",
+                "gluon/model_zoo/vision/yolo.py",
+                "gluon/model_zoo/vision/rcnn.py"):
         assert port / rel in files, rel
     assert REPO / "tools" / "port_serve_loadgen.py" in files
     assert REPO / "tools" / "port_cached_op_pairs.py" in files

@@ -423,13 +423,14 @@ def test_get_model_serves_the_resnets_and_names_the_rest():
         assert type(net).__name__ == ("ResNetV2" if "v2" in name.lower()
                                       else "ResNetV1")
     # the other classifiers are served too (tests/test_torch_port_vision_
-    # zoo.py); what is left raises naming item 11c
+    # zoo.py), and the rest of the zoo (tests/test_torch_port_detection_
+    # zoo.py, tests/test_torch_port_segmentation_zoo.py)
     for name in ("vgg16", "mobilenet1.0", "densenet121"):
         assert vision.get_model(name, classes=7) is not None
-    for name in ("yolo3_darknet53", "resnet50_v1b",
-                 "faster_rcnn_resnet50_v1b"):
-        with pytest.raises(mx.NotSupportedError, match="item 11c"):
-            vision.get_model(name)
+    for name, cls in (("yolo3_darknet53", "YOLOV3"),
+                      ("resnet50_v1b", "ResNetV1b"),
+                      ("faster_rcnn_resnet50_v1b", "FasterRCNN")):
+        assert type(vision.get_model(name)).__name__ == cls
     with pytest.raises(mx.MXNetError, match="not supported"):
         vision.get_model("resnet19_v1")
     with pytest.raises(mx.NotSupportedError, match="pretrained"):
@@ -439,7 +440,7 @@ def test_get_model_serves_the_resnets_and_names_the_rest():
     assert set(n for n in jvision.resnet.__all__
                if n[0].islower() and not n.startswith("get_")) <= \
         set(vision._MODELS)
-    assert vision._LATER == set(jvision._MODELS) - set(vision._MODELS)
+    assert set(jvision._MODELS) == set(vision._MODELS)
 
 
 
